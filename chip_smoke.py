@@ -12,17 +12,24 @@ result. Phases, each fatal on failure:
      kernels from ``scso_tpu_torch/csrc`` and print the build seconds.
   2. Each kernel against its plain PyTorch version on the card, in
      float32 and float64, at the main-path and narrow shapes (K1, K2),
-     at block-boundary shapes, and at odd n for K3; two runs of a kernel
-     must give bitwise-equal outputs. Times (CUDA events, median of 20)
-     of each kernel beside its plain version at the main-path shape.
-  3. The main path at full width: sparse logistic regression
-     196608×10000 (padded to 10112), seed 7, float32 on the card,
-     solved by the no-knob ProxGGNSCORE(solver='cg', cg_maxiter=100)
-     with the pseudo-Huber l1 smoother — a presolve chain fixes x*, then
-     a timed chain from x0 must reach the 1e-6 objective gap with every
-     kernel's launch counter > 0.
+     at block-boundary shapes, at n above K1's shared-memory form, at
+     odd n for K3, and for K5 at the multinomial bench shape, at
+     boundary shapes (both of its forms) and at k = 1, 17 and 128; two
+     runs of a kernel must give bitwise-equal outputs. Times (CUDA events, median of 20) of each kernel beside
+     its plain version at its path's full-width shape.
+  3. The sparse-logistic path at full width: 196608×10000 (padded to
+     10112), seed 7, float32 on the card, solved by the no-knob
+     ProxGGNSCORE(solver='cg', cg_maxiter=100) with the pseudo-Huber l1
+     smoother — a presolve chain fixes x*, then a timed chain from x0
+     must reach the 1e-6 objective gap with K1, K2 and K3 launched.
   4. Cross-checks: the same timed chain with kernels='torch' must agree
      on the final objective, and a small float64 solve through the
+     kernels must match the plain path on the CPU.
+  5. The multinomial path at full width (the JAX bench's
+     family_multinomial(big=True)): 196608×1024×16, seed 11, float32,
+     λ = 1e-3, the same method and protocol — K5 and K3 launched, K1
+     and K2 not; the kernels='torch' chain must agree on the final
+     objective, and a small float64 multinomial solve through the
      kernels must match the plain path on the CPU.
 
 The last two lines of standard output are one JSON object with each
@@ -53,6 +60,15 @@ BOUNDARY_SHAPES = [(37, 128), (947, 384), (2249, 1920), (131, 128),
                    (660, 256), (3465, 2432), (999, 1001), (64, 130)]
 K3_NS = [7, 129, 1000, 8192, 8320, 9001, 16384, 23456, 131072]
 K3_REGS = ["l1", "l2", "indbox", "none"]
+WIDE_SHAPES = [(4099, 40000, "float32"), (2049, 20000, "float64")]
+MGLM_SHAPE = (196608, 1024, 16)
+# tests/test_multioutput.py's kernel and odd shapes, the widest p of
+# K5's one-read form (k <= 16, p <= 1024) and the first past it (its
+# two-pass form), then k = 1, 17 and 128 at odd m and p
+MGLM_SHAPES = [(512, 128, 8), (700, 256, 4), (130, 128, 3), (16, 1, 2),
+               (33, 5, 7), (8, 12, 2), (64, 4, 11), (3001, 1024, 16),
+               (3001, 1025, 9), (1031, 77, 1), (1031, 77, 17),
+               (1031, 77, 128)]
 TOL = {"float32": (2e-5, 3e-5), "float64": (1e-12, 1e-12)}
 E2E_RTOL = 5e-6       # final objective, kernels vs plain, float32
 SMALL_RTOL = 1e-9     # small float64 solve, card kernels vs CPU plain
@@ -64,7 +80,11 @@ KERNELS = {
                       "scso_tpu/ops/pallas/glm_prep.py:239"),
     "score_update": ("scso_tpu_torch/csrc/score_update.cu",
                      "scso_tpu/ops/pallas/score_update.py:108"),
+    "mglm_matvec": ("scso_tpu_torch/csrc/mglm_matvec.cu",
+                    "scso_tpu/ops/pallas/mglm_matvec.py:152"),
 }
+LOGISTIC_KERNELS = ("normal_matvec", "glm_prep_pair", "score_update")
+MGLM_KERNELS = ("mglm_matvec", "score_update")
 
 
 def fail(msg: str):
@@ -206,6 +226,53 @@ def score_update_case(n, reg, dtype, gen, timed=False):
     return err, times
 
 
+def wide_matvec_case(m, n, dtype, gen):
+    """K1 above its shared-memory form's n limit."""
+    import torch
+
+    from scso_tpu_torch.ops.cuda.matvec import (
+        normal_matvec, normal_matvec_torch)
+
+    dev, dn = "cuda", str(dtype).replace("torch.", "")
+    A = torch.randn((m, n), generator=gen, device=dev, dtype=dtype) * 0.1
+    w = torch.rand((m,), generator=gen, device=dev, dtype=dtype) / m
+    v = torch.randn((n,), generator=gen, device=dev, dtype=dtype)
+    tag = f"normal_matvec wide ({m}x{n} {dn})"
+    got = normal_matvec(A, w, v)
+    same_bits(tag, [got], [normal_matvec(A, w, v)])
+    return compare(tag, got, normal_matvec_torch(A, w, v), dn)
+
+
+def mglm_case(m, p, k, dtype, gen, timed=False):
+    """K5 against its plain version. Returns (max err, (kernel ms, plain
+    ms) or None)."""
+    import torch
+
+    from scso_tpu_torch.models.losses import multinom_mglm
+    from scso_tpu_torch.ops.cuda.mglm_matvec import (
+        mglm_matvec, mglm_matvec_torch)
+
+    dev, dn = "cuda", str(dtype).replace("torch.", "")
+    A = torch.randn((m, p), generator=gen, device=dev, dtype=dtype)
+    labels = torch.randint(0, k, (m,), generator=gen, device=dev)
+    y = torch.nn.functional.one_hot(labels, k).to(dtype)
+    Z = A @ (torch.randn((p, k), generator=gen, device=dev, dtype=dtype)
+             * 0.3)
+    V = torch.randn((p, k), generator=gen, device=dev, dtype=dtype)
+    spec = multinom_mglm(k)
+    tag = f"mglm_matvec ({m}x{p}x{k} {dn})"
+    got = mglm_matvec(A, y, Z, V, spec)
+    same_bits(tag, [got], [mglm_matvec(A, y, Z, V, spec)])
+    err = compare(tag, got, mglm_matvec_torch(A, y, Z, V, spec), dn)
+    times = None
+    if timed:
+        times = (time_ms(lambda: mglm_matvec(A, y, Z, V, spec)),
+                 time_ms(lambda: mglm_matvec_torch(A, y, Z, V, spec)))
+    del A
+    torch.cuda.empty_cache()
+    return err, times
+
+
 def phase_kernels():
     import torch
 
@@ -237,6 +304,22 @@ def phase_kernels():
             errs["score_update"] = err
         log(f"  K3 {len(K3_NS)}×{len(K3_REGS)} cases + n={main[1]} "
             f"{dtype}: ok")
+        dn = str(dtype).replace("torch.", "")
+        for (m, n, wdn) in WIDE_SHAPES:
+            if wdn == dn:
+                log(f"  K1 wide {m}x{n} {dn}: max abs err "
+                    f"{wide_matvec_case(m, n, dtype, gen):.3e}")
+        for (m, p, k) in [MGLM_SHAPE] + MGLM_SHAPES:
+            timed = dtype == torch.float32 and (m, p, k) == MGLM_SHAPE
+            t0 = time.perf_counter()
+            err, t = mglm_case(m, p, k, dtype, gen, timed=timed)
+            if (m, p, k) == MGLM_SHAPE:
+                log(f"  K5 {m}x{p}x{k} {dn}: max abs err {err:.3e} "
+                    f"({time.perf_counter() - t0:.1f} s)")
+            if timed:
+                times["mglm_matvec"] = t
+                errs["mglm_matvec"] = err
+        log(f"  K5 {len(MGLM_SHAPES)} boundary shapes {dn}: ok")
     for k, (ms, plain) in times.items():
         log(f"  time at the main-path shape, {k}: kernel {ms:.4f} ms, "
             f"plain {plain:.4f} ms (CUDA events, median of 20)")
@@ -346,8 +429,9 @@ def phase_main_path():
     if not kern["gap"] <= GAP * 1.05:
         fail(f"the kernel path missed the {GAP:g} gap: {kern['gap']:.3e}")
     for k, c in launches.items():
-        if c <= 0:
-            fail(f"kernel {k} was not launched on the main path")
+        if (c > 0) != (k in LOGISTIC_KERNELS):
+            fail(f"kernel {k} was launched {c} times on the sparse-logistic "
+                 "path")
 
     plain_method = dataclasses.replace(method, kernels="torch")
     solve_chunk(plain_method, prob_t)  # warm-up
@@ -387,6 +471,96 @@ def phase_small_f64():
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the multinomial path
+# ---------------------------------------------------------------------------
+
+
+def build_mglm_problem(m, p, k, device, dtype, seed=11, lam=1e-3):
+    import numpy as np
+
+    import scso_tpu_torch as st
+    from scso_tpu_torch.models import losses, synthetic
+
+    A, Y, x0, _ = synthetic.make_multinomial_data(m, p, k, seed=seed,
+                                                  dtype=np.float32)
+    return st.Problem(A, Y, x0, losses.multinom_f, lam,
+                      grad_fx=losses.multinom_grad,
+                      mglm=losses.multinom_mglm(k), dtype=dtype,
+                      device=device)
+
+
+def phase_multinomial():
+    import dataclasses
+
+    import torch
+
+    import scso_tpu_torch as st
+    from scso_tpu_torch._src.struct import replace
+    from scso_tpu_torch.ops.cuda import counters
+
+    t0 = time.perf_counter()
+    prob = build_mglm_problem(*MGLM_SHAPE, "cuda", torch.float32)
+    torch.cuda.synchronize()
+    log(f"  data {'x'.join(map(str, MGLM_SHAPE))} made and moved in "
+        f"{time.perf_counter() - t0:.1f} s")
+    method = st.ProxGGNSCORE(solver="cg", cg_maxiter=100)
+    t0 = time.perf_counter()
+    best, x_opt, pre_epochs = presolve(method, prob)
+    log(f"  presolve: obj* {best:.9e} after {pre_epochs} epochs "
+        f"({time.perf_counter() - t0:.1f} s)")
+    prob_t = replace(prob, x_star=x_opt)
+    solve_chunk(method, prob_t)  # warm-up
+
+    counters.reset()
+    kern = timed_chain(method, prob_t, best)
+    launches = counters.snapshot()
+    log(f"  timed solve, kernels: {kern['seconds']:.4f} s, "
+        f"{kern['epochs']} epochs, {kern['cg_iters']} CG iterations, "
+        f"gap {kern['gap']:.3e}, launches {launches}")
+    if not kern["gap"] <= GAP * 1.05:
+        fail(f"the multinomial kernel path missed the {GAP:g} gap: "
+             f"{kern['gap']:.3e}")
+    for k, c in launches.items():
+        if (c > 0) != (k in MGLM_KERNELS):
+            fail(f"kernel {k} was launched {c} times on the multinomial "
+                 "path")
+
+    plain_method = dataclasses.replace(method, kernels="torch")
+    solve_chunk(plain_method, prob_t)  # warm-up
+    plain = timed_chain(plain_method, prob_t, best)
+    log(f"  timed solve, kernels='torch': {plain['seconds']:.4f} s, "
+        f"{plain['epochs']} epochs, {plain['cg_iters']} CG iterations, "
+        f"gap {plain['gap']:.3e}")
+    rel = abs(kern["obj"] - plain["obj"]) / abs(plain["obj"])
+    if not rel <= E2E_RTOL:
+        fail(f"multinomial final objectives differ: kernels "
+             f"{kern['obj']:.9e}, torch {plain['obj']:.9e} (rel {rel:.2e} "
+             f"> {E2E_RTOL:g})")
+    log(f"  final objective: kernels {kern['obj']:.9e}, torch "
+        f"{plain['obj']:.9e}, rel diff {rel:.2e} (tolerance {E2E_RTOL:g})")
+
+    # small float64 solve: card kernels against the CPU plain path
+    small = (256, 32, 4)
+    method64 = st.ProxGGNSCORE(solver="cg", greedy_alpha=False)
+    s_gpu = solve_chunk(method64, build_mglm_problem(
+        *small, "cuda", torch.float64, lam=1e-2))
+    s_cpu = solve_chunk(method64, build_mglm_problem(
+        *small, "cpu", torch.float64, lam=1e-2))
+    if (s_gpu.epochs != s_cpu.epochs
+            or s_gpu.x.shape != (small[1] * small[2],)):
+        fail(f"small f64 multinomial solve: epochs {s_gpu.epochs} vs "
+             f"{s_cpu.epochs}, x shape {tuple(s_gpu.x.shape)}")
+    rel64 = float(((s_gpu.obj - s_cpu.obj).abs() / s_cpu.obj.abs()).max())
+    if not bool(torch.isfinite(s_gpu.x).all()) or not rel64 <= SMALL_RTOL:
+        fail(f"small f64 multinomial solve: objective histories differ "
+             f"by {rel64:.2e}")
+    log(f"  small f64 multinomial {'x'.join(map(str, small))}: "
+        f"{s_gpu.epochs} epochs, card kernels vs CPU plain max rel "
+        f"objective diff {rel64:.2e} (tolerance {SMALL_RTOL:g})")
+    return kern, plain, launches
+
+
+# ---------------------------------------------------------------------------
 
 
 def main():
@@ -420,9 +594,13 @@ def main():
     log("phase 2: kernels against their plain versions")
     errs, times = phase_kernels()
 
-    log("phase 3/4: main path at full width, and cross-checks")
+    log("phase 3/4: sparse-logistic path at full width, and cross-checks")
     kern, plain, launches = phase_main_path()
     phase_small_f64()
+
+    log("phase 5: multinomial path at full width, and cross-checks")
+    mkern, mplain, mlaunches = phase_multinomial()
+    launches = {k: launches[k] + mlaunches[k] for k in launches}
 
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "scso_tpu"
@@ -432,6 +610,8 @@ def main():
 
     log("main path: " + json.dumps({"card": card, "kernels": kern,
                                     "torch": plain}))
+    log("multinomial path: " + json.dumps({"card": card, "kernels": mkern,
+                                           "torch": mplain}))
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": errs[k],

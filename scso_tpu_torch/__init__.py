@@ -6,10 +6,11 @@ of the ported path replaced by a CUDA kernel written for Hopper
 (``csrc/``, built by ``ops/cuda/build.py`` on first use). The JAX
 package ``scso_tpu`` stays the reference; module names mirror it.
 
-This first slice is the main path: sparse logistic regression with 0/1
-labels solved by ``ProxGGNSCORE(solver='cg')`` with the pseudo-Huber
-l1 smoother, on full batches, through the epoch-fused cache. What the
-slice leaves out raises NotImplementedError naming its ROADMAP item.
+Two paths are ported, both solved by ``ProxGGNSCORE(solver='cg')`` with
+the pseudo-Huber l1 smoother, on full batches, through the epoch-fused
+cache: sparse logistic regression with 0/1 labels (``GLMSpec``), and
+multinomial softmax regression (``MOGLMSpec``, ``mglm=``). What the
+port leaves out raises NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from scso_tpu_torch.ops.linalg import cg_solve
 from scso_tpu_torch.ops.prox import prox_l1, prox_l2, prox_indbox, prox_step
 from scso_tpu_torch.ops.regularizers import reg_value
 from scso_tpu_torch.ops.smoothers import PHuberSmootherL1L2, get_Mg
-from scso_tpu_torch.problems import GLMSpec, Problem as CompositeProblem
+from scso_tpu_torch.problems import GLMSpec, MOGLMSpec
+from scso_tpu_torch.problems import Problem as CompositeProblem
 from scso_tpu_torch.problems import make_problem
 
 Problem = make_problem
@@ -29,6 +31,7 @@ __all__ = [
     "Problem",
     "CompositeProblem",
     "GLMSpec",
+    "MOGLMSpec",
     "make_problem",
     "ProxGGNSCORE",
     "iterate",

@@ -21,14 +21,14 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, NamedTuple, Optional
+from typing import Any, NamedTuple, Optional, Union
 
 import torch
 
 from scso_tpu_torch._src.struct import replace as dc_replace
 from scso_tpu_torch.algorithms.methods import ProxGGNSCORE
 from scso_tpu_torch.algorithms.steps import (
-    GLMCache, epoch_cache_enabled, ggn_step, prime_glm_cache)
+    GLMCache, MOGLMCache, epoch_cache_enabled, ggn_step, prime_glm_cache)
 from scso_tpu_torch.problems import Problem
 
 
@@ -63,7 +63,7 @@ class Carry(NamedTuple):
     k: int
     pri_res: torch.Tensor
     done: bool
-    fcache: GLMCache
+    fcache: Union[GLMCache, MOGLMCache]
 
 
 @dataclasses.dataclass
@@ -150,8 +150,8 @@ def solve(method, prob: Problem, reg_name: str, sm, opts: Options,
     if not epoch_cache_enabled(method, prob, reg_name, True):
         raise NotImplementedError(
             "only the epoch-cached GGN-CG path is ported (ProxGGNSCORE "
-            "with solver='cg', ss_type=1 and a GLM spec with loss_sample); "
-            "the rest is ROADMAP A7")
+            "with solver='cg', ss_type=1 and a GLM or mglm spec with "
+            "loss_sample); the rest is ROADMAP A7, A9")
     sync = (torch.cuda.synchronize if prob.device.type == "cuda"
             else lambda: None)
     t0 = time.perf_counter()

@@ -1,23 +1,29 @@
-"""The GGN-CG SCORE step on the epoch-cache path — the main-path slice.
+"""The GGN-CG SCORE step on the epoch-cache path.
 
-Port of the parts of `scso_tpu.algorithms.steps` that the main path
-runs: prox-GGN with matrix-free CG on a GLM spec, ss_type=1, the
-epoch-fused cache (`GLMCache`), tightening-only CG forcing, and the
-SCORE-damped prox tail with optional greedy damping. One epoch:
+Port of the parts of `scso_tpu.algorithms.steps` that the ported paths
+run: prox-GGN with matrix-free CG, ss_type=1, the epoch-fused cache,
+tightening-only CG forcing, and the SCORE-damped prox tail with optional
+greedy damping — for a scalar GLM spec (`GLMCache`, the sparse-logistic
+path) and for a multi-output spec (`MOGLMCache`, the multinomial path).
+One epoch:
 
-  1. the cached RHS, weights and Jacobi diagonal (`_ggn_cg_from_cache`);
-  2. warm-started Jacobi-preconditioned CG, one K1 launch per iteration;
+  1. the cached RHS and Jacobi diagonal (`_cg_from_cache`);
+  2. warm-started Jacobi-preconditioned CG, one K1 launch (GLM) or one
+     K5 launch (mglm) per iteration;
   3. the damped candidate (K3, `_damped_prox_update`);
   4. the undamped trial candidate;
-  5. one K2 pass that prices both candidates and builds the next
-     epoch's cache (`_greedy_update_cached`) — or, with greedy off, the
-     same kernel at (x⁺, x⁺) re-primes it (`_damped_update_cached`).
+  5. one pass that prices both candidates and builds the next epoch's
+     cache — K2 for a GLM (`_greedy_update_cached`), three matrix
+     products for an mglm (`_greedy_update_cached_mo`) — or, with
+     greedy off, the priming pass at x⁺ (`_damped_update_cached`).
 
 ``method.kernels`` ('cuda' or 'torch', resolved by `iterate`) picks the
-CUDA kernels or their plain versions for steps 2, 3 and 5. Newton and
-L-BFGS steps, the uncached GGN paths, the dense solves, step-size modes
-2 and 3, multi-output GLMs and the low-precision CG copy are not ported
-yet (ROADMAP A7, A9, A10).
+CUDA kernels or their plain versions. The mglm prep stays
+`torch.matmul`: the JAX package runs it as plain XLA matmuls, not as a
+Pallas kernel. Newton and L-BFGS steps, the uncached GGN paths
+(`_ggn_cg_direction`, `_mo_glm_system`), the dense solves, step-size
+modes 2 and 3 and the low-precision CG copy are not ported yet
+(ROADMAP A7, A9, A10).
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ from scso_tpu_torch.algorithms.methods import ProxGGNSCORE
 from scso_tpu_torch.ops.cuda.glm_prep import (
     glm_prep_pair, glm_prep_pair_torch, glm_prep_torch)
 from scso_tpu_torch.ops.cuda.matvec import normal_matvec, normal_matvec_torch
+from scso_tpu_torch.ops.cuda.mglm_matvec import (
+    mglm_matvec, mglm_matvec_torch)
 from scso_tpu_torch.ops.cuda.score_update import (
     score_update, score_update_torch)
 from scso_tpu_torch.ops.linalg import cg_solve
@@ -51,6 +59,17 @@ class GLMCache(NamedTuple):
     loss: torch.Tensor    # ()   f(x)
 
 
+class MOGLMCache(NamedTuple):
+    """Multi-output analogue of :class:`GLMCache`: Z = A·W replaces the
+    weight vector (the per-sample curvature actions of the CG matvec
+    derive from Z). All fields are at the CURRENT iterate."""
+
+    Z: torch.Tensor         # (m, k) linear predictor at x
+    grad_vec: torch.Tensor  # (n,) vec(Aᵀ·gres(y, Z)) — data gradient
+    hd_raw: torch.Tensor    # (n,) data Jacobi diagonal (qdiag_w-weighted)
+    loss: torch.Tensor      # ()   data loss f(x), normalized
+
+
 class StepOut(NamedTuple):
     x_new: torch.Tensor
     pri_res_norm: torch.Tensor
@@ -58,7 +77,7 @@ class StepOut(NamedTuple):
     d: torch.Tensor        # raw (undamped) direction — CG warm start seed
     cg_iters: int
     bnorm: torch.Tensor    # forcing s_ref (first outer step length)
-    fcache: GLMCache       # the cache at x_new
+    fcache: GLMCache       # the cache at x_new (MOGLMCache for mglm)
 
 
 # solver='auto' switches to CG once the materialized Jacobian would
@@ -69,9 +88,13 @@ _DENSE_GGN_MAX_ELEMS = 1 << 24
 def _resolve_ggn_solver(method, prob: Problem, As, x) -> str:
     """'auto' → 'cg' when the m·n Jacobian exceeds the dense budget and a
     GLM spec gives the matrix-free pieces, else 'auto' (the dense
-    branches, not ported yet)."""
+    branches, not ported yet). An mglm problem has no dense pieces in
+    the port (no out_fn/loss_fn), so it always resolves to 'cg', as the
+    JAX package resolves it without them."""
     if method.solver != "auto":
         return method.solver
+    if prob.mglm is not None:
+        return "cg"
     m, n = As.shape[0], x.shape[-1]
     if m * n > _DENSE_GGN_MAX_ELEMS and prob.glm is not None:
         warnings.warn(
@@ -125,7 +148,7 @@ def _damped_prox_update(method, prob: Problem, reg_name, sm, x, d,
 
 def use_greedy(method, n=None, prob=None) -> bool:
     """Resolve greedy_alpha None = AUTO: on for ss_type=1 AND n >= 4096
-    AND (when ``prob`` is given) a GLM ``loss_z`` to price the trial.
+    AND (when ``prob`` is given) a glm/mglm ``loss_z`` to price the trial.
 
     The n >= 4096 rule changes the trajectory, so it is kept as the JAX
     package has it, for parity. It was measured there on a TPU v5e
@@ -135,8 +158,9 @@ def use_greedy(method, n=None, prob=None) -> bool:
     if g is None:
         if method.ss_type != 1:
             return False
-        if prob is not None and (prob.glm is None
-                                 or prob.glm.loss_z is None):
+        if prob is not None and not any(
+                spec is not None and spec.loss_z is not None
+                for spec in (prob.glm, prob.mglm)):
             return False
         return n is None or n >= 4096
     return bool(g)
@@ -197,17 +221,22 @@ def _loss_scale(g, m_total):
 def epoch_cache_enabled(method, prob: Problem, reg_name: str,
                         full_batch: bool) -> bool:
     """Predicate for the epoch-fused cache path: ProxGGNSCORE on the CG
-    solver with ss_type=1, a GLM spec with loss_z, loss_sample and the
-    stable ggn_rw/ggn_w forms, full-batch data. The uncached path is not
-    ported yet (ROADMAP A7), so a solve that fails this raises."""
+    solver with ss_type=1, full-batch data, and either an mglm spec with
+    loss_z and loss_sample (taking precedence, as in the JAX package) or
+    a GLM spec with loss_z, loss_sample and the stable ggn_rw/ggn_w
+    forms. The uncached paths are not ported yet (ROADMAP A7, A9), so a
+    solve that fails this raises."""
     if not isinstance(method, ProxGGNSCORE) or method.ss_type != 1:
         return False
     if method.epoch_cache is False:
         return False
     if prob.A.ndim != 2:
         return False
-    g = prob.glm
-    if (g is None or g.loss_z is None or g.loss_sample is None
+    mo, g = prob.mglm, prob.glm
+    if mo is not None:
+        if mo.loss_z is None or mo.loss_sample is None:
+            return False
+    elif (g is None or g.loss_z is None or g.loss_sample is None
             or g.ggn_rw is None or g.ggn_w is None):
         return False
     if not full_batch:
@@ -215,12 +244,65 @@ def epoch_cache_enabled(method, prob: Problem, reg_name: str,
     return _resolve_ggn_solver(method, prob, prob.A, prob.x0) == "cg"
 
 
-def prime_glm_cache(method, prob: Problem, x, As=None, ys=None) -> GLMCache:
-    """Build the epoch cache at iterate x: the K2 kernel with both
-    candidates = x (one pass over A), or the plain single-candidate
-    prep."""
+def _mo_shapes(g, x):
+    """(k, p) for x = vec(W), W of shape (p, k)."""
+    k = int(g.n_out)
+    pf = x.shape[-1] // k if k > 0 else 0
+    if k <= 0 or pf * k != x.shape[-1]:
+        raise ValueError(
+            f"mglm: n = {x.shape[-1]} incompatible with n_out = {k} (n must "
+            "be divisible by a positive n_out; build the spec per k, e.g. "
+            "losses.multinom_mglm(k))")
+    return k, pf
+
+
+def _jacobi_mo(Q, As):
+    """Σᵢ Qᵢc·Aᵢⱼ² as (p, c) — the einsum "ic,ij,ij->jc" with one
+    A-sized temporary (A²)."""
+    return torch.square(As).T @ Q
+
+
+def _moglm_pair_prep(As, ys, g, x_t, x_d):
+    """Dual-candidate mglm prep: both candidates' Z, data gradient,
+    Jacobi diagonal and loss from three A-reads (the per-candidate
+    products batch into (m×p)·(p×2k) matmuls). Returns two
+    (Z, grad_vec, hd_raw, loss) tuples, losses normalized."""
+    k, pf = _mo_shapes(g, x_t)
+    m = As.shape[0]
+    W2 = torch.cat([x_t.reshape(pf, k), x_d.reshape(pf, k)], dim=1)
+    Z2 = As @ W2                                     # read 1
+    Zt, Zd = Z2[:, :k].contiguous(), Z2[:, k:].contiguous()
+    R2 = torch.cat([g.gres(ys, Zt), g.gres(ys, Zd)], dim=1)
+    G2 = As.T @ R2                                   # read 2
+    Q2 = torch.cat([g.qdiag_w(ys, Zt), g.qdiag_w(ys, Zd)], dim=1)
+    H2 = _jacobi_mo(Q2, As)                          # read 3
+    scale = (1.0 / m) if g.sample_normalized else 1.0
+    lt = torch.sum(g.loss_sample(ys, Zt)) * scale
+    ld = torch.sum(g.loss_sample(ys, Zd)) * scale
+    return ((Zt, G2[:, :k].reshape(-1), H2[:, :k].reshape(-1), lt),
+            (Zd, G2[:, k:].reshape(-1), H2[:, k:].reshape(-1), ld))
+
+
+def _prime_moglm(prob: Problem, x, As, ys) -> MOGLMCache:
+    g = prob.mglm
+    k, pf = _mo_shapes(g, x)
+    Z = As @ x.reshape(pf, k)
+    grad_vec = (As.T @ g.gres(ys, Z)).reshape(-1)
+    hd = _jacobi_mo(g.qdiag_w(ys, Z), As).reshape(-1)
+    scale = (1.0 / As.shape[0]) if g.sample_normalized else 1.0
+    loss = torch.sum(g.loss_sample(ys, Z)) * scale
+    return MOGLMCache(Z=Z, grad_vec=grad_vec, hd_raw=hd, loss=loss)
+
+
+def prime_glm_cache(method, prob: Problem, x, As=None, ys=None):
+    """Build the epoch cache at iterate x: for an mglm problem the three
+    matrix products of `_prime_moglm` (MOGLMCache); for a GLM the K2
+    kernel with both candidates = x (one pass over A), or the plain
+    single-candidate prep (GLMCache)."""
     As = prob.A if As is None else As
     ys = prob.y if ys is None else ys
+    if prob.mglm is not None:
+        return _prime_moglm(prob, x, As, ys)
     g = prob.glm
     scale = _loss_scale(g, As.shape[0])
     if method.kernels == "cuda":
@@ -249,6 +331,74 @@ def _ggn_cg_from_cache(method, prob: Problem, As, x, gr, Hr_diag, lam,
     return res.x, res.iters, bnorm
 
 
+def _mo_curv_matvec(method, As, ys, Z, g, lhr, pf, k):
+    """The mglm curvature matvec v ↦ vec(Aᵀ·quad(y, Z, A·V)) + λHr∘v from
+    the cached Z — one K5 launch, or its plain version."""
+    mv = mglm_matvec if method.kernels == "cuda" else mglm_matvec_torch
+    return lambda v: mv(As, ys, Z, v.reshape(pf, k), g).reshape(-1) + lhr * v
+
+
+def _mo_cg_from_cache(method, prob: Problem, As, ys, x, gr, Hr_diag, lam,
+                      cache: MOGLMCache, d_prev, it, bnorm_prev, x_prev):
+    """Multi-output GGN-CG direction from the carried MOGLMCache: no
+    prep pass over A; each CG matvec applies the per-sample curvature
+    action from the cached Z (one K5 launch per iteration)."""
+    g = prob.mglm
+    k, pf = _mo_shapes(g, x)
+    lhr = lam * Hr_diag
+    b = -(cache.grad_vec + lam * gr)
+    diag = torch.clamp_min(cache.hd_raw + lhr, torch.finfo(x.dtype).tiny)
+    mv = _mo_curv_matvec(method, As, ys, cache.Z, g, lhr, pf, k)
+    xp = x if x_prev is None else x_prev
+    tol, bnorm = _forcing_tol(method, b, x, xp, bnorm_prev, it,
+                              endgame=True)
+    res = cg_solve(mv, b, d_prev, tol=tol, maxiter=method.cg_maxiter,
+                   M_inv=lambda v: v / diag)
+    return res.x, res.iters, bnorm
+
+
+def _cg_from_cache(method, prob: Problem, As, ys, x, gr, Hr_diag, lam,
+                   cache, d_prev, it, bnorm_prev, x_prev):
+    """Dispatch the cached CG direction by problem kind (mglm first)."""
+    if prob.mglm is not None:
+        return _mo_cg_from_cache(method, prob, As, ys, x, gr, Hr_diag,
+                                 lam, cache, d_prev, it, bnorm_prev,
+                                 x_prev)
+    return _ggn_cg_from_cache(method, prob, As, x, gr, Hr_diag, lam,
+                              cache, d_prev, it, bnorm_prev, x_prev)
+
+
+def _trial_point(method, prob: Problem, reg_name, x, d, step_size, lam,
+                 Hr_diag):
+    """The greedy trial: the UNDAMPED prox step (or x + d without prox)."""
+    if method.use_prox:
+        return prox_step(reg_name, x + d, 1.0 / Hr_diag, lam, step_size,
+                         lb=prob.lb, ub=prob.ub)
+    return x + d
+
+
+def _greedy_update_cached_mo(method, prob: Problem, reg_name, sm, As, ys,
+                             x, d, step_size, lam, lgr, Hr_diag,
+                             cache: MOGLMCache):
+    """Multi-output analogue of `_greedy_update_cached`: the same greedy
+    semantics; the dual-candidate prep is `_moglm_pair_prep`."""
+    x_damped, pri_d, dx_d = _damped_prox_update(
+        method, prob, reg_name, sm, x, d, step_size, lam, lgr, Hr_diag)
+    x_trial = _trial_point(method, prob, reg_name, x, d, step_size, lam,
+                           Hr_diag)
+    ct, cd = _moglm_pair_prep(As, ys, prob.mglm, x_trial, x_damped)
+    F_t = ct[3] + prob.reg(reg_name, x_trial)
+    F_x = cache.loss + prob.reg(reg_name, x)
+    accept = F_t < F_x
+    sel = lambda a, b: torch.where(accept, a, b)
+    x_new = sel(x_trial, x_damped)
+    pri = sel(torch.linalg.vector_norm(x_trial - x), pri_d)
+    dx = sel(d, dx_d)
+    fc = MOGLMCache(Z=sel(ct[0], cd[0]), grad_vec=sel(ct[1], cd[1]),
+                    hd_raw=sel(ct[2], cd[2]), loss=sel(ct[3], cd[3]))
+    return x_new, pri, dx, fc
+
+
 def _greedy_update_cached(method, prob: Problem, reg_name, sm, As, ys,
                           x, d, step_size, lam, lgr, Hr_diag,
                           cache: GLMCache):
@@ -259,11 +409,8 @@ def _greedy_update_cached(method, prob: Problem, reg_name, sm, As, ys,
     the new cache. A NaN trial loss fails the strict test."""
     x_damped, pri_d, dx_d = _damped_prox_update(
         method, prob, reg_name, sm, x, d, step_size, lam, lgr, Hr_diag)
-    if method.use_prox:
-        x_trial = prox_step(reg_name, x + d, 1.0 / Hr_diag, lam, step_size,
-                            lb=prob.lb, ub=prob.ub)
-    else:
-        x_trial = x + d
+    x_trial = _trial_point(method, prob, reg_name, x, d, step_size, lam,
+                           Hr_diag)
     g = prob.glm
     pair = glm_prep_pair if method.kernels == "cuda" else glm_prep_pair_torch
     pp = pair(As, ys, x_trial, x_damped, g)
@@ -295,10 +442,15 @@ def _damped_update_cached(method, prob: Problem, reg_name, sm, As, ys,
 def _cached_update(method, prob: Problem, reg_name, sm, As, ys, x, d,
                    step_size, lam, lgr, Hr_diag, cache):
     """Post-direction update: greedy dual-candidate when greedy damping
-    is resolved on, else the damped step + a re-prime."""
+    is resolved on (the mglm form for an mglm problem), else the damped
+    step + a re-prime."""
     n_eff = prob.n_true if prob.n_true is not None else x.shape[-1]
-    update = (_greedy_update_cached if use_greedy(method, n_eff, prob)
-              else _damped_update_cached)
+    if not use_greedy(method, n_eff, prob):
+        update = _damped_update_cached
+    elif prob.mglm is not None:
+        update = _greedy_update_cached_mo
+    else:
+        update = _greedy_update_cached
     return update(method, prob, reg_name, sm, As, ys, x, d, step_size,
                   lam, lgr, Hr_diag, cache)
 
@@ -317,9 +469,10 @@ def ggn_step(method: ProxGGNSCORE, prob: Problem, reg_name: str, sm,
     if _resolve_ggn_solver(method, prob, As, x) != "cg" or fcache is None:
         raise NotImplementedError(
             "only the epoch-cached GGN-CG step is ported; the uncached "
-            "and dense GGN paths are not ported yet (ROADMAP A7)")
-    d, cg_iters, bnorm = _ggn_cg_from_cache(
-        method, prob, As, x, gr, Hr_diag, lam, fcache, d_prev, it,
+            "and dense GGN paths (and the uncached multi-output "
+            "_mo_glm_system) are not ported yet (ROADMAP A7, A9)")
+    d, cg_iters, bnorm = _cg_from_cache(
+        method, prob, As, ys, x, gr, Hr_diag, lam, fcache, d_prev, it,
         bnorm_prev, x_prev)
     ss = _resolve_step_size(method, prob, x)
     x_new, pri, dx, fc_new = _cached_update(

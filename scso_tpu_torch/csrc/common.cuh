@@ -36,7 +36,82 @@ __device__ __forceinline__ double block_sum(double v, double* red) {
   return s;
 }
 
-__device__ __forceinline__ int64_t imin(int64_t a, int64_t b) {
+// xor-butterfly warp max (every lane ends with the same value).
+template <typename T>
+__device__ __forceinline__ T warp_max(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmax(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Sum / max over aligned groups of G lanes (G a power of two <= 32);
+// every lane of a group ends with the same bits. Requires a full warp.
+template <int G, typename T>
+__device__ __forceinline__ T group_sum(T v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+template <int G, typename T>
+__device__ __forceinline__ T group_max(T v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) v = fmax(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Warp reduce-scatter of N values (N a power of two): each halving step
+// swaps half of the live values with the partner lane and adds, so a
+// warp sums N values with N - 1 shuffles instead of 5·N. Afterwards
+// lane l holds in v[0..max(N/32, 1)) the warp sums of the values with
+// index rs_index<N>(l, e); for N < 32 the lanes of each aligned group
+// of 32/N hold the same bits. Every sum is taken in a fixed order.
+template <int LIVE, int O>
+struct ReduceScatter {
+  template <typename T, int N>
+  static __device__ __forceinline__ void run(T (&v)[N], int lane) {
+    if constexpr (LIVE >= 2) {
+      constexpr int H = LIVE / 2;
+      const bool hi = (lane & O) != 0;
+#pragma unroll
+      for (int i = 0; i < H; ++i) {
+        const T send = hi ? v[i] : v[i + H];
+        const T keep = hi ? v[i + H] : v[i];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+      }
+      if constexpr (O > 1) ReduceScatter<H, O / 2>::run(v, lane);
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
+      if constexpr (O > 1) ReduceScatter<1, O / 2>::run(v, lane);
+    }
+  }
+};
+
+template <int N, typename T>
+__device__ __forceinline__ void warp_reduce_scatter(T (&v)[N], int lane) {
+  static_assert(N > 0 && (N & (N - 1)) == 0, "N must be a power of two");
+  ReduceScatter<N, 16>::run(v, lane);
+}
+
+// Index held in v[e] by ``lane`` after warp_reduce_scatter<N>.
+template <int N>
+__device__ __forceinline__ int rs_index(int lane, int e) {
+  if constexpr (N >= 32) return lane * (N / 32) + e;
+  else return lane / (32 / N);
+}
+
+// out[j] = Σ_b partials[b·n + j] in double, b in order: the fixed-order
+// cross-block sum that keeps a kernel's result bitwise reproducible.
+template <typename T>
+__global__ void sum_partials(const T* __restrict__ partials,
+                             T* __restrict__ out, int64_t n, int64_t nblk) {
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  double s = 0.0;
+  for (int64_t b = 0; b < nblk; ++b) s += static_cast<double>(partials[b * n + j]);
+  out[j] = static_cast<T>(s);
+}
+
+__host__ __device__ __forceinline__ int64_t imin(int64_t a, int64_t b) {
   return a < b ? a : b;
 }
 

@@ -26,6 +26,14 @@
 // Each block writes its accumulator as a row of ``partials``; a second
 // kernel sums the rows in a fixed order (in double), so the result is
 // bitwise the same from run to run — no float atomics.
+//
+// Wide form (WIDE, for n above the shared-memory limit the wrapper
+// states): the same walk, with v read from global memory through the
+// read-only path (it stays in L2) and each block accumulating straight
+// into its own row of ``partials`` — every thread touches only its own
+// chunks, so there is no race and the final sum is unchanged. It moves
+// the accumulator through L2 on every row pair, so it is slower; it
+// exists so that any n is solved on the card.
 // HBM traffic: one read of A, plus partials (n_blocks·n·sizeof(T)
 // written and read). Accumulation is in T (f32 for f32 A, f64 for f64
 // A), as on the TPU.
@@ -36,7 +44,7 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kRows = 2;  // rows per phase-A/phase-B step
 
-template <typename T, bool VEC>
+template <typename T, bool VEC, bool WIDE>
 __global__ void __launch_bounds__(kThreads)
 normal_matvec_partial(const T* __restrict__ A, const T* __restrict__ w,
                       const T* __restrict__ v, T* __restrict__ partials,
@@ -44,20 +52,22 @@ normal_matvec_partial(const T* __restrict__ A, const T* __restrict__ w,
   using C = scso::Chunk<T, VEC>;
   using V = typename C::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* v_s = reinterpret_cast<T*>(smem_raw);
-  T* acc_s = v_s + n;
   __shared__ T red_s[kRows][kThreads / 32];
   __shared__ T u_s[kRows];
+  T* dst = partials + static_cast<int64_t>(blockIdx.x) * n;
+  // v and the accumulator: shared memory, or (WIDE) global memory
+  T* v_s = reinterpret_cast<T*>(smem_raw);
+  T* acc_s = WIDE ? dst : v_s + n;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   for (int64_t j = tid; j < n; j += kThreads) {
-    v_s[j] = v[j];
+    if (!WIDE) v_s[j] = v[j];
     acc_s[j] = T(0);
   }
   __syncthreads();
   const int64_t nc = n / C::E;  // chunks per row (VEC: n % E == 0)
-  const V* v_c = reinterpret_cast<const V*>(v_s);
+  const V* v_c = reinterpret_cast<const V*>(WIDE ? v : v_s);
   V* acc_c = reinterpret_cast<V*>(acc_s);
 
   const int64_t row_begin = static_cast<int64_t>(blockIdx.x) * rows_per_block;
@@ -71,7 +81,7 @@ normal_matvec_partial(const T* __restrict__ A, const T* __restrict__ w,
     for (int r = 0; r < kRows; ++r) t[r] = T(0);
 #pragma unroll 2
     for (int64_t q = tid; q < nc; q += kThreads) {
-      const V vq = v_c[q];
+      const V vq = WIDE ? __ldg(v_c + q) : v_c[q];
 #pragma unroll
       for (int r = 0; r < kRows; ++r)
         if (r < nr) t[r] += C::dot(a0[r * nc + q], vq);
@@ -102,51 +112,51 @@ normal_matvec_partial(const T* __restrict__ A, const T* __restrict__ w,
       acc_c[q] = acc;
     }
   }
-  __syncthreads();  // chunk ownership differs from the element loop below
-  T* dst = partials + static_cast<int64_t>(blockIdx.x) * n;
-  for (int64_t j = tid; j < n; j += kThreads) dst[j] = acc_s[j];
+  if (!WIDE) {
+    __syncthreads();  // chunk ownership differs from the element loop below
+    for (int64_t j = tid; j < n; j += kThreads) dst[j] = acc_s[j];
+  }
 }
 
-template <typename T>
-__global__ void sum_partials(const T* __restrict__ partials,
-                             T* __restrict__ out, int64_t n, int64_t nblk) {
-  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  double s = 0.0;
-  for (int64_t b = 0; b < nblk; ++b) s += static_cast<double>(partials[b * n + j]);
-  out[j] = static_cast<T>(s);
-}
-
-template <typename T, bool VEC>
+template <typename T, bool VEC, bool WIDE>
 cudaError_t launch_partial(const T* A, const T* w, const T* v, T* partials,
                            int64_t m, int64_t n, int64_t nblk,
                            cudaStream_t s) {
-  const size_t smem = 2 * static_cast<size_t>(n) * sizeof(T);
-  cudaError_t err = scso::allow_smem(normal_matvec_partial<T, VEC>, smem);
+  const size_t smem = WIDE ? 0 : 2 * static_cast<size_t>(n) * sizeof(T);
+  cudaError_t err =
+      scso::allow_smem(normal_matvec_partial<T, VEC, WIDE>, smem);
   if (err != cudaSuccess) return err;
-  normal_matvec_partial<T, VEC><<<static_cast<unsigned>(nblk), kThreads, smem, s>>>(
-      A, w, v, partials, m, n, (m + nblk - 1) / nblk);
+  normal_matvec_partial<T, VEC, WIDE>
+      <<<static_cast<unsigned>(nblk), kThreads, smem, s>>>(
+          A, w, v, partials, m, n, (m + nblk - 1) / nblk);
   return cudaGetLastError();
+}
+
+template <typename T, bool WIDE>
+cudaError_t launch_form(const T* A, const T* w, const T* v, T* partials,
+                        int64_t m, int64_t n, int64_t nblk, cudaStream_t s) {
+  // 16-byte chunks need every row 16-byte aligned
+  constexpr int E = 16 / sizeof(T);
+  const bool vec = n % E == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0 &&
+                   (!WIDE || reinterpret_cast<uintptr_t>(v) % 16 == 0);
+  return vec ? launch_partial<T, true, WIDE>(A, w, v, partials, m, n, nblk, s)
+             : launch_partial<T, false, WIDE>(A, w, v, partials, m, n, nblk, s);
 }
 
 template <typename T>
 int launch(const void* A, const void* w, const void* v, void* partials,
-           void* out, int64_t m, int64_t n, int64_t nblk, void* stream) {
+           void* out, int64_t m, int64_t n, int64_t nblk, int64_t wide,
+           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const T* a = static_cast<const T*>(A);
-  // 16-byte chunks need every row 16-byte aligned
-  constexpr int E = 16 / sizeof(T);
-  const bool vec = n % E == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0;
-  cudaError_t err = vec
-      ? launch_partial<T, true>(a, static_cast<const T*>(w),
-                                static_cast<const T*>(v),
-                                static_cast<T*>(partials), m, n, nblk, s)
-      : launch_partial<T, false>(a, static_cast<const T*>(w),
-                                 static_cast<const T*>(v),
-                                 static_cast<T*>(partials), m, n, nblk, s);
+  const T* w_ = static_cast<const T*>(w);
+  const T* v_ = static_cast<const T*>(v);
+  T* p_ = static_cast<T*>(partials);
+  cudaError_t err = wide ? launch_form<T, true>(a, w_, v_, p_, m, n, nblk, s)
+                         : launch_form<T, false>(a, w_, v_, p_, m, n, nblk, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  sum_partials<T><<<static_cast<unsigned>((n + 255) / 256), 256, 0, s>>>(
-      static_cast<const T*>(partials), static_cast<T*>(out), n, nblk);
+  scso::sum_partials<T><<<static_cast<unsigned>((n + 255) / 256), 256, 0, s>>>(
+      p_, static_cast<T*>(out), n, nblk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -155,13 +165,15 @@ int launch(const void* A, const void* w, const void* v, void* partials,
 extern "C" int scso_normal_matvec_f32(const void* A, const void* w,
                                       const void* v, void* partials,
                                       void* out, int64_t m, int64_t n,
-                                      int64_t nblk, void* stream) {
-  return launch<float>(A, w, v, partials, out, m, n, nblk, stream);
+                                      int64_t nblk, int64_t wide,
+                                      void* stream) {
+  return launch<float>(A, w, v, partials, out, m, n, nblk, wide, stream);
 }
 
 extern "C" int scso_normal_matvec_f64(const void* A, const void* w,
                                       const void* v, void* partials,
                                       void* out, int64_t m, int64_t n,
-                                      int64_t nblk, void* stream) {
-  return launch<double>(A, w, v, partials, out, m, n, nblk, stream);
+                                      int64_t nblk, int64_t wide,
+                                      void* stream) {
+  return launch<double>(A, w, v, partials, out, m, n, nblk, wide, stream);
 }

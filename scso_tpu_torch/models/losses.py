@@ -1,10 +1,15 @@
-"""Logistic regression with 0/1 labels — the main-path model family.
+"""The ported model families.
 
-Port of the logistic01 part of `scso_tpu.models.losses`:
-    f(A, y, x) = (1/m)·Σ [softplus(Ax) − y⊙(Ax)]
-with closed-form derivatives and its :data:`LOGISTIC01_GLM` spec. The
-other families (±1 logistic, least squares, Poisson, multinomial, QP,
-Rosenbrock) are not ported yet (ROADMAP A7, A9, B2).
+Port of two parts of `scso_tpu.models.losses`:
+  * logistic regression with 0/1 labels (the sparse-logistic path),
+    f(A, y, x) = (1/m)·Σ [softplus(Ax) − y⊙(Ax)], and its
+    :data:`LOGISTIC01_GLM` spec;
+  * multinomial (softmax) regression over the logits split Z = A·W,
+    W = x.reshape(p, k), f = (1/m)·Σᵢ [logsumexp(Zᵢ) − yᵢ·Zᵢ], and its
+    :data:`MULTINOM_MGLM` spec (per-k: :func:`multinom_mglm`).
+The other families (±1 logistic, least squares, Poisson, the
+probability-split multinomial, QP, Rosenbrock) are not ported yet
+(ROADMAP A7, B2).
 
 ``softplus`` here is ``logaddexp(z, 0)``, the form `jax.nn.softplus`
 uses. `torch.nn.functional.softplus` switches to the identity above
@@ -15,7 +20,8 @@ from __future__ import annotations
 
 import torch
 
-from scso_tpu_torch.problems import GLMSpec
+from scso_tpu_torch._src.struct import replace
+from scso_tpu_torch.problems import GLMSpec, MOGLMSpec
 
 
 def softplus(z):
@@ -74,3 +80,52 @@ LOGISTIC01_GLM = GLMSpec(
     loss_sample=lambda y, z: softplus(z) - y * z,
     kind="logistic01",
 )
+
+
+def multinom_f(A, y, x):
+    """Softmax cross-entropy in x, in the logsumexp form."""
+    z = A @ x.reshape(A.shape[1], -1)
+    return (torch.sum(torch.logsumexp(z, dim=-1)) - torch.sum(y * z)
+            ) / A.shape[0]
+
+
+def multinom_grad(A, y, x):
+    """∇_x f = vec(Aᵀ(ŷ − y))/m."""
+    p = torch.softmax(A @ x.reshape(A.shape[1], -1), dim=-1)
+    return ((A.T @ (p - y)) / A.shape[0]).reshape(-1)
+
+
+def _softmax_quad(y, Z, U):
+    """Per-sample softmax curvature action Qᵢuᵢ = (diag(pᵢ) − pᵢpᵢᵀ)uᵢ/m,
+    applied rowwise without forming the k×k blocks."""
+    P = torch.softmax(Z, dim=-1)
+    PU = P * U
+    return (PU - P * torch.sum(PU, dim=-1, keepdim=True)) / Z.shape[0]
+
+
+def _softmax_qdiag(y, Z):
+    P = torch.softmax(Z, dim=-1)
+    return P * (1.0 - P) / Z.shape[0]
+
+
+#: Multinomial softmax regression over the logits split Z = A·W. f is
+#: convex in Z and Z is linear in x, so AᵀQA is the exact Hessian and
+#: ProxGGNSCORE(solver='cg') on this spec is Newton-CG. ``n_out`` is a
+#: placeholder: build the spec per k with :func:`multinom_mglm`.
+MULTINOM_MGLM = MOGLMSpec(
+    n_out=0,
+    gres=lambda y, Z: (torch.softmax(Z, dim=-1) - y) / Z.shape[0],
+    quad=_softmax_quad,
+    qdiag_w=_softmax_qdiag,
+    loss_z=lambda y, Z: (torch.sum(torch.logsumexp(Z, dim=-1))
+                         - torch.sum(y * Z)) / Z.shape[0],
+    loss_sample=lambda y, Z: (torch.logsumexp(Z, dim=-1)
+                              - torch.sum(y * Z, dim=-1)),
+    kind="multinomial",
+)
+
+
+def multinom_mglm(k: int) -> MOGLMSpec:
+    """The multinomial spec for k classes (n_out fixes the
+    x.reshape(n_features, k) layout)."""
+    return replace(MULTINOM_MGLM, n_out=int(k))

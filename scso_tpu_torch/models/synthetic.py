@@ -1,9 +1,9 @@
 """Synthetic problem generators (numpy only).
 
-A copy of `scso_tpu.models.synthetic.make_sparse_logreg_data` that does
-not import the JAX package: the same seed gives bit-identical arrays.
-The native (OpenMP) generator and the group-lasso generator are not
-ported yet (ROADMAP A12, A8).
+Copies of `scso_tpu.models.synthetic.make_sparse_logreg_data` and
+`make_multinomial_data` that do not import the JAX package: the same
+seed gives bit-identical arrays. The native (OpenMP) generator and the
+group-lasso generator are not ported yet (ROADMAP A12, A8).
 """
 
 from __future__ import annotations
@@ -37,3 +37,20 @@ def make_sparse_logreg_data(m: int, n: int, density: float = 0.01,
     y = np.where(rng.random(m) < p, 1.0, lo).astype(dtype)
     x0 = rng.standard_normal(n).astype(dtype)
     return A, y, x0, x_true
+
+
+def make_multinomial_data(m: int, p: int, k: int, seed: int = 1234,
+                          dtype=np.float32, scale: float = 1.0):
+    """Dense-design softmax regression data; labels by the Gumbel-max
+    trick (an exact sample from softmax(A·W_true)).
+
+    Returns (A, Y_onehot, x0, x_true) with x_true = vec(W_true) — shapes
+    (m, p), (m, k), (p·k,), (p·k,).
+    """
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((m, p)).astype(dtype)
+    W = (scale * rng.standard_normal((p, k))).astype(dtype)
+    labels = np.argmax(A @ W + rng.gumbel(size=(m, k)), axis=-1)
+    Y = np.eye(k, dtype=dtype)[labels]
+    x0 = (0.01 * rng.standard_normal(p * k)).astype(dtype)
+    return A, Y, x0, W.reshape(-1).astype(dtype)

@@ -31,8 +31,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _p, _i64, _f64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
 #: C entry points → argtypes; every function returns cudaGetLastError()
 SIGNATURES = {
-    # A, w, v, partials, out, m, n, n_blocks, stream
-    "scso_normal_matvec": [_p] * 5 + [_i64] * 3 + [_p],
+    # A, w, v, partials, out, m, n, n_blocks, wide, stream
+    "scso_normal_matvec": [_p] * 5 + [_i64] * 4 + [_p],
+    # A, Z, V (transposed for the two-pass form), qu (two-pass scratch),
+    # partials, out, m, p, k, n_blocks, fused, stream
+    "scso_mglm_matvec": [_p] * 6 + [_i64] * 5 + [_p],
     # A, y, x_t, x_d, w_t, w_d, rw, b_t, b_d, hd_t, hd_d, loss_t, loss_d,
     # col_partials, loss_partials, m, n, row_blocks, chunks, stream
     "scso_glm_prep_pair": [_p] * 15 + [_i64] * 4 + [_p],

@@ -13,6 +13,7 @@ KERNEL_LAUNCHES: dict = {
     "normal_matvec": 0,
     "glm_prep_pair": 0,
     "score_update": 0,
+    "mglm_matvec": 0,
 }
 
 

@@ -7,9 +7,11 @@ PyTorch version of the same function.
 
 The TPU shape gates (`supports_fused_normal_matvec`, `_MIN_N_BYTES`)
 came from VMEM and T(8,128) tiling and are not carried over: the kernel
-takes any m ≥ 0 and any n up to :func:`max_n` (v and the per-block
-accumulator live in shared memory). The sharded form (K1s) and the
-bfloat16-A variant are not ported yet (ROADMAP B4, A10).
+takes any m ≥ 0 and any n. Up to :func:`max_n` v and the per-block
+accumulator live in shared memory; above it the kernel's wide form keeps
+them in global memory (where the JAX package takes its XLA form
+instead). The sharded form (K1s) and the bfloat16-A variant are not
+ported yet (ROADMAP B4, A10).
 """
 
 from __future__ import annotations
@@ -34,8 +36,8 @@ def normal_matvec_torch(A, w, v):
 
 
 def max_n(dtype) -> int:
-    """Largest n the kernel takes: v plus one accumulator in shared
-    memory (28672 in float32, 14336 in float64)."""
+    """Largest n of the shared-memory form: v plus one accumulator in
+    shared memory (28672 in float32, 14336 in float64)."""
     return _SMEM_BYTES // (2 * torch.empty((), dtype=dtype).element_size())
 
 
@@ -50,16 +52,14 @@ def normal_matvec(A, w, v):
     if w.shape != (m,) or v.shape != (n,):
         raise ValueError(f"normal_matvec: shapes A {tuple(A.shape)}, "
                          f"w {tuple(w.shape)}, v {tuple(v.shape)}")
-    if n > max_n(A.dtype):
-        raise ValueError(f"normal_matvec: n = {n} exceeds the kernel's "
-                         f"limit {max_n(A.dtype)} for {A.dtype}")
     out = torch.empty((n,), dtype=A.dtype, device=A.device)
     if m == 0 or n == 0:
         return out.zero_()
+    wide = n > max_n(A.dtype)
     # as many resident blocks as fit on each SM: one wave, each block
     # owning a contiguous row range (measured on the H100: a second,
     # partial wave of blocks costs more than the extra occupancy buys)
-    smem = 2 * n * A.element_size()
+    smem = 0 if wide else 2 * n * A.element_size()
     per_sm = max(1, min(2048 // _THREADS,
                         _SM_SMEM_BYTES // (smem + _SM_BLOCK_OVERHEAD)))
     sms = launch.sm_count(A.device.index or 0)
@@ -68,7 +68,7 @@ def normal_matvec(A, w, v):
     with torch.cuda.device(A.device):
         rc = launch.entry("scso_normal_matvec", A.dtype)(
             A.data_ptr(), w.data_ptr(), v.data_ptr(), partials.data_ptr(),
-            out.data_ptr(), m, n, nblk, launch.stream(A.device))
+            out.data_ptr(), m, n, nblk, int(wide), launch.stream(A.device))
     build.check(rc, "normal_matvec")
     counters.bump("normal_matvec")
     return out

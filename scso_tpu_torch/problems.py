@@ -49,6 +49,35 @@ class GLMSpec:
 
 
 @frozen_dataclass
+class MOGLMSpec:
+    """Multi-output GLM structure: everything derived from Z = A·W with
+    W = x.reshape(n_features, n_out) — vector model outputs such as
+    multinomial (softmax) regression with k classes per sample. Each CG
+    matvec applies the per-sample k×k curvature actions matrix-free.
+
+    Fields (Z is (m, k); all rowwise):
+      n_out:   k — outputs per sample.
+      gres:    (y, Z) -> (m, k) residual dL/dZ (∇f = vec(Aᵀ·gres)).
+      quad:    (y, Z, U) -> (m, k) curvature action Q(Z)[U].
+      qdiag_w: (y, Z) -> (m, k) diagonal of the per-sample curvature
+               blocks (Jacobi weights: diag(AᵀQA) ≈ Σᵢ wᵢ·Aᵢⱼ²).
+      loss_z:  (y, Z) -> f, same scale as Problem.f.
+      loss_sample: (y, Z) -> (m,) per-sample loss, unnormalized.
+    ``sample_normalized``: gres/quad/qdiag_w divide by Z.shape[0].
+    ``kind`` names the family, so a CUDA kernel specialised on it can be
+    chosen (the TPU kernel traces ``quad`` instead)."""
+
+    n_out: int
+    gres: Callable
+    quad: Callable
+    qdiag_w: Callable
+    loss_z: Optional[Callable] = None
+    loss_sample: Optional[Callable] = None
+    sample_normalized: bool = True
+    kind: Optional[str] = None
+
+
+@frozen_dataclass
 class Problem:
     """Composite convex problem over a data matrix: f(A, y, x) + λ·g(x).
 
@@ -68,6 +97,8 @@ class Problem:
     lb: Optional[torch.Tensor] = None
     ub: Optional[torch.Tensor] = None
     glm: Optional[GLMSpec] = None
+    mglm: Optional[MOGLMSpec] = None
+    grad_fx: Optional[Callable] = None
     n_true: Optional[int] = None
 
     def f_val(self, As, ys, x):
@@ -87,8 +118,8 @@ def _resolve_bounds(C_set, dtype, device):
 
 
 def make_problem(*args, L=None, sol=None, C_set=None, glm=None,
-                 dtype=None, device=None, pad_features=False,
-                 **unported) -> Problem:
+                 mglm=None, grad_fx=None, dtype=None, device=None,
+                 pad_features=False, **unported) -> Problem:
     """Build a data :class:`Problem`: ``make_problem(A, y, x0, f, lam)``.
 
     Arrays may be numpy arrays or tensors; they are converted to
@@ -96,7 +127,8 @@ def make_problem(*args, L=None, sol=None, C_set=None, glm=None,
     (default: the CPU). ``pad_features=True`` zero-pads the feature axis
     to a multiple of 128 on the host before the transfer — the padded
     coordinates stay exactly 0 for l1/l2/no-prox solves, and
-    ``Solution.x`` is sliced back to ``n_true``.
+    ``Solution.x`` is sliced back to ``n_true``. ``grad_fx`` is stored
+    (the cached GGN-CG path does not call it); ``mglm`` cannot be padded.
     """
     if unported:
         raise NotImplementedError(
@@ -123,6 +155,11 @@ def make_problem(*args, L=None, sol=None, C_set=None, glm=None,
                     "pad_features cannot be combined with box bounds "
                     "(C_set): the indbox prox clamps the padded "
                     "coordinates into [lb, ub]")
+            if mglm is not None:
+                raise ValueError(
+                    "pad_features cannot be combined with mglm: padding "
+                    "appends to the flat x while the multi-output model "
+                    "reads x.reshape(n_features, n_out)")
             n_true = n
 
             def zpad(v):
@@ -160,6 +197,8 @@ def make_problem(*args, L=None, sol=None, C_set=None, glm=None,
         lb=lb,
         ub=ub,
         glm=glm,
+        mglm=mglm,
+        grad_fx=grad_fx,
         n_true=n_true,
     )
 

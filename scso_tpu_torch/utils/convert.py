@@ -1,7 +1,8 @@
 """Carry arrays from the JAX package (given as numpy) into the port.
 
 With these a test hands the port the exact (padded) problem and the
-primed epoch cache that `scso_tpu` built, and compares one step.
+primed epoch cache (GLMCache or MOGLMCache) that `scso_tpu` built, and
+compares one step.
 """
 
 from __future__ import annotations
@@ -9,22 +10,29 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from scso_tpu_torch.algorithms.steps import GLMCache
+from scso_tpu_torch.algorithms.steps import GLMCache, MOGLMCache
 from scso_tpu_torch.models import losses
 from scso_tpu_torch.problems import Problem
 
-_GLMS = {"logistic01": (losses.LOGISTIC01_GLM, losses.logistic01_f)}
+_GLMS = {"logistic01": (losses.LOGISTIC01_GLM, losses.logistic01_f),
+         "multinomial": (None, losses.multinom_f)}
 
 
 def problem_from_numpy(A, y, x0, lam, *, x_star=None, L=None, n_true=None,
-                       glm="logistic01", dtype=torch.float64,
+                       glm="logistic01", n_out=None, dtype=torch.float64,
                        device="cpu") -> Problem:
     """A :class:`Problem` over arrays that are already as the JAX
     Problem holds them (padded, when ``n_true`` is given — no padding is
-    applied here)."""
+    applied here). ``glm='multinomial'`` builds the multi-output problem
+    with ``mglm=multinom_mglm(n_out)``."""
     if glm not in _GLMS:
         raise ValueError(f"unknown GLM {glm!r}; known: {sorted(_GLMS)}")
     spec, f = _GLMS[glm]
+    mglm = None
+    if glm == "multinomial":
+        if n_out is None:
+            raise ValueError("glm='multinomial' needs n_out (classes)")
+        mglm = losses.multinom_mglm(n_out)
     device = torch.device(device)
     to = lambda v: torch.tensor(np.asarray(v), dtype=dtype, device=device)
     x0 = to(x0)
@@ -32,7 +40,8 @@ def problem_from_numpy(A, y, x0, lam, *, x_star=None, L=None, n_true=None,
         x0=x0, lam=to(lam), A=to(A), y=to(y),
         x_star=to(x_star) if x_star is not None else torch.zeros_like(x0),
         f=f, dtype=dtype, device=device,
-        L=None if L is None else to(L), glm=spec, n_true=n_true)
+        L=None if L is None else to(L), glm=spec, mglm=mglm,
+        n_true=n_true)
 
 
 def glm_cache_from_numpy(w, b_raw, hd_raw, loss, *, dtype=torch.float64,
@@ -42,3 +51,12 @@ def glm_cache_from_numpy(w, b_raw, hd_raw, loss, *, dtype=torch.float64,
     return GLMCache(w=to(w), b_raw=to(b_raw), hd_raw=to(hd_raw),
                     loss=to(loss).reshape(()))
 
+
+
+def moglm_cache_from_numpy(Z, grad_vec, hd_raw, loss, *,
+                           dtype=torch.float64,
+                           device="cpu") -> MOGLMCache:
+    """A :class:`MOGLMCache` from the JAX package's MOGLMCache fields."""
+    to = lambda v: torch.tensor(np.asarray(v), dtype=dtype, device=device)
+    return MOGLMCache(Z=to(Z), grad_vec=to(grad_vec), hd_raw=to(hd_raw),
+                      loss=to(loss).reshape(()))

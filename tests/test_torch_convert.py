@@ -91,7 +91,8 @@ def test_package_imports_without_jax():
     code = ("import sys; before = set(sys.modules); import scso_tpu_torch; "
             "from scso_tpu_torch.algorithms import iterate, steps; "
             "from scso_tpu_torch.ops.cuda import build, glm_prep, matvec, "
-            "score_update; from scso_tpu_torch.utils import convert; "
+            "mglm_matvec, score_update; "
+            "from scso_tpu_torch.utils import convert; "
             "bad = [m for m in set(sys.modules) - before if "
             "m.split('.')[0] in ('jax', 'jaxlib', 'scso_tpu')]; "
             "assert not bad, bad")
@@ -105,7 +106,7 @@ def test_kernel_sources_are_listed_for_the_build():
 
     names = {p.name for p in build.sources()}
     assert {"matvec.cu", "glm_prep.cu", "score_update.cu",
-            "common.cuh"} <= names
+            "mglm_matvec.cu", "common.cuh"} <= names
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     text = "".join(p.read_text() for p in build.sources())
     for base in build.SIGNATURES:

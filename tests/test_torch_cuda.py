@@ -11,7 +11,8 @@ jax):
 
 Tolerances: float32 rtol 2e-5, atol 3e-5·max(1, max|ref|) (the f32
 bounds of tests/test_pallas.py); float64 1e-12 of each; the small
-solve's objective history 1e-9 relative.
+solves' objective histories 1e-9 relative. TF32 is off for the plain
+versions' matrix products.
 """
 
 import numpy as np
@@ -25,6 +26,7 @@ from scso_tpu_torch.models.losses import LOGISTIC01_GLM
 from scso_tpu_torch.ops.cuda import counters
 from scso_tpu_torch.ops.cuda.glm_prep import glm_prep_pair, glm_prep_pair_torch
 from scso_tpu_torch.ops.cuda.matvec import normal_matvec, normal_matvec_torch
+from scso_tpu_torch.ops.cuda.mglm_matvec import mglm_matvec, mglm_matvec_torch
 from scso_tpu_torch.ops.cuda.score_update import (
     score_update, score_update_torch)
 
@@ -37,6 +39,7 @@ TOL = {torch.float32: (2e-5, 3e-5), torch.float64: (1e-12, 1e-12)}
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -64,7 +67,84 @@ def test_data_kernels_match_plain(dev, dtype, m, n):
     again = glm_prep_pair(A, y, v * 0.1, v * 0.2, LOGISTIC01_GLM)
     assert all(torch.equal(g, a) for g, a in zip(got, again))
     assert counters.snapshot() == {"normal_matvec": 1, "glm_prep_pair": 2,
-                                   "score_update": 0}
+                                   "score_update": 0, "mglm_matvec": 0}
+
+
+@pytest.mark.parametrize("dtype,m,n", [(torch.float32, 4099, 40000),
+                                       (torch.float64, 2049, 20000)])
+def test_normal_matvec_wide_n(dev, dtype, m, n):
+    # above the shared-memory form's limit (28672 f32, 14336 f64)
+    gen = torch.Generator(device=dev).manual_seed(n)
+    A = torch.randn((m, n), generator=gen, device=dev, dtype=dtype) * 0.1
+    w = torch.rand((m,), generator=gen, device=dev, dtype=dtype)
+    v = torch.randn((n,), generator=gen, device=dev, dtype=dtype)
+    got = normal_matvec(A, w, v)
+    assert torch.equal(got, normal_matvec(A, w, v))
+    _check(got, normal_matvec_torch(A, w, v), dtype)
+
+
+def _mglm_inputs(dev, dtype, m, p, k):
+    gen = torch.Generator(device=dev).manual_seed(m * 131 + p * 7 + k)
+    A = torch.randn((m, p), generator=gen, device=dev, dtype=dtype)
+    labels = torch.randint(0, k, (m,), generator=gen, device=dev)
+    y = torch.nn.functional.one_hot(labels, k).to(dtype)
+    W = torch.randn((p, k), generator=gen, device=dev, dtype=dtype) * 0.3
+    V = torch.randn((p, k), generator=gen, device=dev, dtype=dtype)
+    return A, y, A @ W, V
+
+
+# boundary shapes, the widest p of the one-read form (k <= 16, p <= 1024)
+# and the first past it, then k across both forms
+MGLM_SHAPES = ([(512, 128, 8), (700, 256, 4), (130, 128, 3), (16, 1, 2),
+                (33, 5, 7), (8, 12, 2), (64, 4, 11), (300, 1024, 16),
+                (300, 1025, 9), (300, 1025, 2)]
+               + [(1031, 77, k) for k in (1, 2, 3, 7, 16, 17, 64, 128)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,p,k", MGLM_SHAPES)
+def test_mglm_matvec_matches_plain(dev, dtype, m, p, k):
+    A, y, Z, V = _mglm_inputs(dev, dtype, m, p, k)
+    spec = losses.multinom_mglm(k)
+    want = mglm_matvec_torch(A, y, Z, V, spec)
+    counters.reset()
+    got = mglm_matvec(A, y, Z, V, spec)
+    assert tuple(got.shape) == (p, k)
+    _check(got, want, dtype)
+    assert torch.equal(got, mglm_matvec(A, y, Z, V, spec))
+    assert counters.snapshot()["mglm_matvec"] == 2
+
+
+def test_mglm_matvec_rejects_what_the_kernel_does_not_take(dev):
+    A, y, Z, V = _mglm_inputs(dev, torch.float32, 64, 8, 3)
+    with pytest.raises(ValueError, match="A9"):
+        mglm_matvec(A, y, Z, V, replace(losses.multinom_mglm(3),
+                                        kind="poisson"))
+    A, y, Z, V = _mglm_inputs(dev, torch.float32, 16, 4, 129)
+    with pytest.raises(ValueError, match="128"):
+        mglm_matvec(A, y, Z, V, losses.multinom_mglm(129))
+
+
+def test_small_mglm_solve_matches_cpu(dev):
+    A, Y, x0, _ = synthetic.make_multinomial_data(256, 32, 4, seed=11,
+                                                  dtype=np.float64)
+    mk = lambda device: st.Problem(A, Y, x0, losses.multinom_f, 1e-2,
+                                   mglm=losses.multinom_mglm(4),
+                                   dtype=torch.float64, device=device)
+    kw = dict(x_tol=1e-12, f_tol=1e-10, max_epoch=40, verbose=0,
+              stats_every=4, alpha=1.0)
+    method = st.ProxGGNSCORE(solver="cg", greedy_alpha=False)
+    counters.reset()
+    s_gpu = st.iterate(method, mk(dev), "l1", st.PHuberSmootherL1L2(1.0),
+                       **kw)
+    got = counters.snapshot()
+    assert got["mglm_matvec"] > 0 and got["score_update"] > 0
+    assert got["normal_matvec"] == got["glm_prep_pair"] == 0
+    s_cpu = st.iterate(method, mk("cpu"), "l1", st.PHuberSmootherL1L2(1.0),
+                       **kw)
+    assert s_gpu.epochs == s_cpu.epochs
+    np.testing.assert_allclose(s_gpu.obj.numpy(), s_cpu.obj.numpy(),
+                               rtol=1e-9)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -114,7 +194,10 @@ def test_small_solve_matches_cpu(dev):
     counters.reset()
     s_gpu = st.iterate(method, mk(dev), "l1", st.PHuberSmootherL1L2(1.0),
                        **kw)
-    assert min(counters.snapshot().values()) > 0
+    got = counters.snapshot()
+    assert min(got[k] for k in ("normal_matvec", "glm_prep_pair",
+                                "score_update")) > 0
+    assert got["mglm_matvec"] == 0
     s_cpu = st.iterate(method, mk("cpu"), "l1", st.PHuberSmootherL1L2(1.0),
                        **kw)
     assert s_gpu.epochs == s_cpu.epochs
