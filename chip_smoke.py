@@ -11,12 +11,15 @@ result. Phases, each fatal on failure:
   1. The card (name and power limit from nvidia-smi); build the CUDA
      kernels from ``scso_tpu_torch/csrc`` and print the build seconds.
   2. Each kernel against its plain PyTorch version on the card, in
-     float32 and float64, at the main-path and narrow shapes (K1, K2),
-     at block-boundary shapes, at n above K1's shared-memory form, at
-     odd n for K3, and for K5 at the multinomial bench shape, at
-     boundary shapes (both of its forms) and at k = 1, 17 and 128; two
-     runs of a kernel must give bitwise-equal outputs. Times (CUDA events, median of 20) of each kernel beside
-     its plain version at its path's full-width shape.
+     float32 and float64, at the main-path and narrow shapes (K1, K2,
+     K2s), at block-boundary shapes, at n above K1's shared-memory form,
+     at odd n for K3, for K5 at the multinomial bench shape, at boundary
+     shapes (both of its forms) and at k = 1, 17 and 128, and for K4 at
+     the L-BFGS path's shape and at other n and m with empty, partial,
+     full and wrapped memories and a slot with yᵀs = 0; two runs of a
+     kernel must give bitwise-equal outputs. Times (CUDA events, median
+     of 20) of each kernel beside its plain version at its path's
+     full-width shape.
   3. The sparse-logistic path at full width: 196608×10000 (padded to
      10112), seed 7, float32 on the card, solved by the no-knob
      ProxGGNSCORE(solver='cg', cg_maxiter=100) with the pseudo-Huber l1
@@ -31,6 +34,18 @@ result. Phases, each fatal on failure:
      and K2 not; the kernels='torch' chain must agree on the final
      objective, and a small float64 multinomial solve through the
      kernels must match the plain path on the CPU.
+  6. The L-BFGS path (ProxLQNSCORE(m=10), the default method, with the
+     closed-form gradient) on phase 3's data, from x0 for a fixed 300
+     epochs, with kernels and with kernels='torch': K4 and K3 launched
+     and no other kernel, the two objective histories within 1e-5
+     relative, the gap to phase 3's anchor printed; a small float64
+     L-BFGS solve through the kernels must match the CPU plain path.
+  7. The uncached GGN-CG path (ProxGGNSCORE(solver='cg', cg_maxiter=100,
+     epoch_cache=False)) on phase 3's data under phase 3's protocol to
+     the 1e-6 gap: K2s, K1 and K3 launched, K2, K4 and K5 not; the
+     kernels='torch' chain must agree on the final objective, and a
+     small float64 uncached solve through the kernels must match the
+     CPU plain path.
 
 The last two lines of standard output are one JSON object with each
 kernel's numbers, then ``{"ok": true, "device": {...}}``.
@@ -72,19 +87,30 @@ MGLM_SHAPES = [(512, 128, 8), (700, 256, 4), (130, 128, 3), (16, 1, 2),
 TOL = {"float32": (2e-5, 3e-5), "float64": (1e-12, 1e-12)}
 E2E_RTOL = 5e-6       # final objective, kernels vs plain, float32
 SMALL_RTOL = 1e-9     # small float64 solve, card kernels vs CPU plain
+LBFGS_EPOCHS = 300
+LBFGS_RTOL = 1e-5     # L-BFGS objective histories, kernels vs plain, f32
+# K4 cases: (n, m, pairs pushed); the first is the L-BFGS path's shape
+TWO_LOOP_CASES = [(10112, 10, 10), (10112, 10, 0), (361, 5, 3),
+                  (777, 9, 18), (100000, 10, 13), (64, 1, 4)]
 
 KERNELS = {
     "normal_matvec": ("scso_tpu_torch/csrc/matvec.cu",
                       "scso_tpu/ops/pallas/matvec.py:118"),
     "glm_prep_pair": ("scso_tpu_torch/csrc/glm_prep.cu",
                       "scso_tpu/ops/pallas/glm_prep.py:239"),
+    "glm_prep": ("scso_tpu_torch/csrc/glm_prep.cu",
+                 "scso_tpu/ops/pallas/glm_prep.py:84"),
     "score_update": ("scso_tpu_torch/csrc/score_update.cu",
                      "scso_tpu/ops/pallas/score_update.py:108"),
     "mglm_matvec": ("scso_tpu_torch/csrc/mglm_matvec.cu",
                     "scso_tpu/ops/pallas/mglm_matvec.py:152"),
+    "two_loop": ("scso_tpu_torch/csrc/two_loop.cu",
+                 "scso_tpu/ops/pallas/two_loop.py:69"),
 }
 LOGISTIC_KERNELS = ("normal_matvec", "glm_prep_pair", "score_update")
 MGLM_KERNELS = ("mglm_matvec", "score_update")
+LBFGS_KERNELS = ("two_loop", "score_update")
+UNCACHED_KERNELS = ("glm_prep", "normal_matvec", "score_update")
 
 
 def fail(msg: str):
@@ -150,7 +176,7 @@ def data_kernel_case(m, n, dtype, gen, timed=False):
 
     from scso_tpu_torch.models.losses import LOGISTIC01_GLM
     from scso_tpu_torch.ops.cuda.glm_prep import (
-        glm_prep_pair, glm_prep_pair_torch)
+        glm_prep, glm_prep_pair, glm_prep_pair_torch, glm_prep_torch)
     from scso_tpu_torch.ops.cuda.matvec import (
         normal_matvec, normal_matvec_torch)
 
@@ -180,6 +206,14 @@ def data_kernel_case(m, n, dtype, gen, timed=False):
         compare(f"glm_prep_pair.{f} {tag}", g, r, dn)
         for f, g, r in zip(pp._fields, pp, ref))
     del pp, ref
+
+    k2s = glm_prep(A, y, xt, LOGISTIC01_GLM)
+    same_bits(f"glm_prep {tag}", k2s, glm_prep(A, y, xt, LOGISTIC01_GLM))
+    ref = glm_prep_torch(A, y, xt, LOGISTIC01_GLM)[:3]
+    res["glm_prep"] = max(
+        compare(f"glm_prep.{f} {tag}", g, r, dn)
+        for f, g, r in zip(("w", "b", "hd"), k2s, ref))
+    del k2s, ref
     times = {}
     if timed:
         times["normal_matvec"] = (
@@ -189,6 +223,9 @@ def data_kernel_case(m, n, dtype, gen, timed=False):
             time_ms(lambda: glm_prep_pair(A, y, xt, xd, LOGISTIC01_GLM)),
             time_ms(lambda: glm_prep_pair_torch(A, y, xt, xd,
                                                 LOGISTIC01_GLM)))
+        times["glm_prep"] = (
+            time_ms(lambda: glm_prep(A, y, xt, LOGISTIC01_GLM)),
+            time_ms(lambda: glm_prep_torch(A, y, xt, LOGISTIC01_GLM)))
     del A
     torch.cuda.empty_cache()
     return res, times
@@ -223,6 +260,42 @@ def score_update_case(n, reg, dtype, gen, timed=False):
     if timed:
         times = (time_ms(lambda: score_update(*args)),
                  time_ms(lambda: score_update_torch(*args)))
+    return err, times
+
+
+def two_loop_case(n, m, pushes, dtype, gen, timed=False):
+    """K4 against its plain version on a memory of ``pushes``
+    SPD-quadratic pairs (γ = B·δ); with two or more, one valid slot gets
+    an s and a y of disjoint support, so yᵀs = 0 exactly."""
+    import torch
+
+    from scso_tpu_torch.ops import lbfgs_core
+    from scso_tpu_torch.ops.cuda.two_loop import two_loop, two_loop_torch
+
+    dev, dn = "cuda", str(dtype).replace("torch.", "")
+    bdiag = torch.rand((n,), generator=gen, device=dev, dtype=dtype) * 4 + 0.5
+    mem = lbfgs_core.init_memory(n, m, dtype, dev)
+    for _ in range(pushes):
+        delta = torch.randn((n,), generator=gen, device=dev,
+                            dtype=dtype) * 0.1
+        mem = lbfgs_core.update_memory(mem, delta, bdiag * delta)
+    if pushes >= 2:
+        slot = (int(mem.pos) - 2) % m
+        S, Y = mem.S.clone(), mem.Y.clone()
+        S[slot, n // 2:] = 0
+        Y[slot, : n // 2] = 0
+        mem = mem._replace(S=S, Y=Y)
+    g = torch.randn((n,), generator=gen, device=dev, dtype=dtype)
+    tag = f"two_loop (n={n} m={m} pairs={pushes} {dn})"
+    got = two_loop(mem, g)
+    same_bits(tag, [got], [two_loop(mem, g)])
+    err = compare(tag, got, two_loop_torch(mem, g), dn)
+    if pushes == 0 and not torch.equal(got, -g):
+        fail(f"{tag}: an empty memory must give -g exactly")
+    times = None
+    if timed:
+        times = (time_ms(lambda: two_loop(mem, g)),
+                 time_ms(lambda: two_loop_torch(mem, g)))
     return err, times
 
 
@@ -286,9 +359,10 @@ def phase_kernels():
             timed = dtype == torch.float32 and (m, n) == main
             t0 = time.perf_counter()
             res, t = data_kernel_case(m, n, dtype, gen, timed=timed)
-            log(f"  K1/K2 {m}x{n} {dtype}: max abs err "
+            log(f"  K1/K2/K2s {m}x{n} {dtype}: max abs err "
                 f"K1 {res['normal_matvec']:.3e} "
                 f"K2 {res['glm_prep_pair']:.3e} "
+                f"K2s {res['glm_prep']:.3e} "
                 f"({time.perf_counter() - t0:.1f} s)")
             if timed:
                 times.update(t)
@@ -320,6 +394,15 @@ def phase_kernels():
                 times["mglm_matvec"] = t
                 errs["mglm_matvec"] = err
         log(f"  K5 {len(MGLM_SHAPES)} boundary shapes {dn}: ok")
+        for i, (n, m, pushes) in enumerate(TWO_LOOP_CASES):
+            timed = dtype == torch.float32 and i == 0
+            err, t = two_loop_case(n, m, pushes, dtype, gen, timed=timed)
+            if i == 0:
+                log(f"  K4 n={n} m={m} {dn}: max abs err {err:.3e}")
+            if timed:
+                times["two_loop"] = t
+                errs["two_loop"] = err
+        log(f"  K4 {len(TWO_LOOP_CASES)} memories {dn}: ok")
     for k, (ms, plain) in times.items():
         log(f"  time at the main-path shape, {k}: kernel {ms:.4f} ms, "
             f"plain {plain:.4f} ms (CUDA events, median of 20)")
@@ -341,6 +424,7 @@ def build_problem(M, N, device, dtype, sol=None):
         M, N, density=0.05, n_active=64, seed=SEED, dtype=np.float32,
         label01=True)
     return st.Problem(A, y, x0, losses.logistic01_f, 0.01,
+                      grad_fx=losses.logistic01_grad,
                       glm=losses.LOGISTIC01_GLM, sol=sol, dtype=dtype,
                       device=device, pad_features=True)
 
@@ -428,10 +512,7 @@ def phase_main_path():
         f"gap {kern['gap']:.3e}, launches {launches}")
     if not kern["gap"] <= GAP * 1.05:
         fail(f"the kernel path missed the {GAP:g} gap: {kern['gap']:.3e}")
-    for k, c in launches.items():
-        if (c > 0) != (k in LOGISTIC_KERNELS):
-            fail(f"kernel {k} was launched {c} times on the sparse-logistic "
-                 "path")
+    check_launches(launches, LOGISTIC_KERNELS, "sparse-logistic")
 
     plain_method = dataclasses.replace(method, kernels="torch")
     solve_chunk(plain_method, prob_t)  # warm-up
@@ -445,29 +526,34 @@ def phase_main_path():
              f"{plain['obj']:.9e} (rel {rel:.2e} > {E2E_RTOL:g})")
     log(f"  final objective: kernels {kern['obj']:.9e}, torch "
         f"{plain['obj']:.9e}, rel diff {rel:.2e} (tolerance {E2E_RTOL:g})")
-    return kern, plain, launches
+    return kern, plain, launches, prob_t, best
 
 
-def phase_small_f64():
+def phase_small_f64(method, what, solve=None):
     """A small float64 solve through the kernels on the card against the
     plain path on the CPU: the objective histories must agree."""
     import torch
 
-    import scso_tpu_torch as st
-
     M, N = 512, 200
-    method = st.ProxGGNSCORE(solver="cg", greedy_alpha=False)
-    s_gpu = solve_chunk(method, build_problem(M, N, "cuda", torch.float64))
-    s_cpu = solve_chunk(method, build_problem(M, N, "cpu", torch.float64))
+    solve = solve or solve_chunk
+    s_gpu = solve(method, build_problem(M, N, "cuda", torch.float64))
+    s_cpu = solve(method, build_problem(M, N, "cpu", torch.float64))
     if s_gpu.epochs != s_cpu.epochs or s_gpu.x.shape != (N,):
-        fail(f"small f64 solve: epochs {s_gpu.epochs} vs {s_cpu.epochs}, "
-             f"x shape {tuple(s_gpu.x.shape)}")
+        fail(f"small f64 {what} solve: epochs {s_gpu.epochs} vs "
+             f"{s_cpu.epochs}, x shape {tuple(s_gpu.x.shape)}")
     rel = float(((s_gpu.obj - s_cpu.obj).abs() / s_cpu.obj.abs()).max())
     if not bool(torch.isfinite(s_gpu.x).all()) or not rel <= SMALL_RTOL:
-        fail(f"small f64 solve: objective histories differ by {rel:.2e}")
-    log(f"  small f64 {M}x{N}: {s_gpu.epochs} epochs, card kernels vs "
-        f"CPU plain max rel objective diff {rel:.2e} "
+        fail(f"small f64 {what} solve: objective histories differ by "
+             f"{rel:.2e}")
+    log(f"  small f64 {what} {M}x{N}: {s_gpu.epochs} epochs, card kernels "
+        f"vs CPU plain max rel objective diff {rel:.2e} "
         f"(tolerance {SMALL_RTOL:g})")
+
+
+def check_launches(launches, expected, what):
+    for k, c in launches.items():
+        if (c > 0) != (k in expected):
+            fail(f"kernel {k} was launched {c} times on the {what} path")
 
 
 # ---------------------------------------------------------------------------
@@ -520,10 +606,7 @@ def phase_multinomial():
     if not kern["gap"] <= GAP * 1.05:
         fail(f"the multinomial kernel path missed the {GAP:g} gap: "
              f"{kern['gap']:.3e}")
-    for k, c in launches.items():
-        if (c > 0) != (k in MGLM_KERNELS):
-            fail(f"kernel {k} was launched {c} times on the multinomial "
-                 "path")
+    check_launches(launches, MGLM_KERNELS, "multinomial")
 
     plain_method = dataclasses.replace(method, kernels="torch")
     solve_chunk(plain_method, prob_t)  # warm-up
@@ -561,6 +644,103 @@ def phase_multinomial():
 
 
 # ---------------------------------------------------------------------------
+# phases 6 and 7: the L-BFGS and the uncached GGN-CG paths
+# ---------------------------------------------------------------------------
+
+
+def solve_lbfgs(method, prob, max_epoch=LBFGS_EPOCHS):
+    """A fixed number of L-BFGS epochs from x0 (x_tol = f_tol = 0: no
+    stopping test fires), stats every 4 epochs."""
+    import scso_tpu_torch as st
+
+    return st.iterate(method, prob, "l1", st.PHuberSmootherL1L2(1.0),
+                      x_tol=0.0, f_tol=0.0, max_epoch=max_epoch, verbose=0,
+                      stats_every=4)
+
+
+def phase_lbfgs(prob_t):
+    import dataclasses
+
+    import torch
+
+    import scso_tpu_torch as st
+    from scso_tpu_torch.ops.cuda import counters
+
+    method = st.ProxLQNSCORE(m=10)
+    solve_lbfgs(method, prob_t, max_epoch=8)  # warm-up
+    runs = {}
+    for mode in ("cuda", "torch"):
+        m_ = dataclasses.replace(method, kernels=mode)
+        counters.reset()
+        t0 = time.perf_counter()
+        s = solve_lbfgs(m_, prob_t)
+        seconds = time.perf_counter() - t0
+        launches = counters.snapshot()
+        if s.epochs != LBFGS_EPOCHS or not bool(torch.isfinite(s.obj).all()):
+            fail(f"L-BFGS ({mode}): {s.epochs} epochs, finite objective "
+                 f"{bool(torch.isfinite(s.obj).all())}")
+        runs[mode] = (s, dict(seconds=seconds, epochs=s.epochs,
+                              ms_per_epoch=1e3 * seconds / s.epochs,
+                              gap=float(s.objrel[-1]),
+                              obj=float(s.obj[-1])), launches)
+        log(f"  L-BFGS {LBFGS_EPOCHS} epochs, kernels={mode!r}: "
+            f"{seconds:.4f} s ({1e3 * seconds / s.epochs:.3f} ms an "
+            f"epoch), obj {float(s.obj[0]):.6e} at x0 → "
+            f"{float(s.obj[-1]):.9e}, gap to the anchor "
+            f"{float(s.objrel[-1]):.3e}, launches {launches}")
+    (s_k, kern, launches), (s_p, plain, _) = runs["cuda"], runs["torch"]
+    check_launches(launches, LBFGS_KERNELS, "L-BFGS")
+    rel = float(((s_k.obj - s_p.obj).abs() / s_p.obj.abs()).max())
+    if not rel <= LBFGS_RTOL:
+        fail(f"L-BFGS objective histories differ by {rel:.2e} "
+             f"(> {LBFGS_RTOL:g})")
+    log(f"  L-BFGS objective histories, kernels vs torch: max rel diff "
+        f"{rel:.2e} (tolerance {LBFGS_RTOL:g})")
+    phase_small_f64(st.ProxLQNSCORE(), "L-BFGS",
+                    lambda m_, p: solve_lbfgs(m_, p, max_epoch=40))
+    return kern, plain, launches
+
+
+def phase_uncached(prob_t, best):
+    import dataclasses
+
+    import scso_tpu_torch as st
+    from scso_tpu_torch.ops.cuda import counters
+
+    method = st.ProxGGNSCORE(solver="cg", cg_maxiter=100, epoch_cache=False)
+    warm = lambda m_: st.iterate(m_, prob_t, "l1", st.PHuberSmootherL1L2(1.0),
+                                 x_tol=1e-12, f_tol=GAP, max_epoch=4,
+                                 verbose=0, stats_every=4, alpha=1.0)
+    warm(method)
+    counters.reset()
+    kern = timed_chain(method, prob_t, best)
+    launches = counters.snapshot()
+    log(f"  timed solve, kernels: {kern['seconds']:.4f} s, "
+        f"{kern['epochs']} epochs, {kern['cg_iters']} CG iterations, "
+        f"gap {kern['gap']:.3e}, launches {launches}")
+    if not kern["gap"] <= GAP * 1.05:
+        fail(f"the uncached kernel path missed the {GAP:g} gap: "
+             f"{kern['gap']:.3e}")
+    check_launches(launches, UNCACHED_KERNELS, "uncached GGN-CG")
+
+    plain_method = dataclasses.replace(method, kernels="torch")
+    warm(plain_method)
+    plain = timed_chain(plain_method, prob_t, best)
+    log(f"  timed solve, kernels='torch': {plain['seconds']:.4f} s, "
+        f"{plain['epochs']} epochs, {plain['cg_iters']} CG iterations, "
+        f"gap {plain['gap']:.3e}")
+    rel = abs(kern["obj"] - plain["obj"]) / abs(plain["obj"])
+    if not rel <= E2E_RTOL:
+        fail(f"uncached final objectives differ: kernels {kern['obj']:.9e}, "
+             f"torch {plain['obj']:.9e} (rel {rel:.2e} > {E2E_RTOL:g})")
+    log(f"  final objective: kernels {kern['obj']:.9e}, torch "
+        f"{plain['obj']:.9e}, rel diff {rel:.2e} (tolerance {E2E_RTOL:g})")
+    phase_small_f64(st.ProxGGNSCORE(solver="cg", greedy_alpha=False,
+                                    epoch_cache=False), "uncached GGN-CG")
+    return kern, plain, launches
+
+
+# ---------------------------------------------------------------------------
 
 
 def main():
@@ -575,6 +755,7 @@ def main():
              "the GPU and does not run on the CPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    import scso_tpu_torch as st
     from scso_tpu_torch.ops.cuda import build
 
     log("phase 1: card and build")
@@ -595,12 +776,20 @@ def main():
     errs, times = phase_kernels()
 
     log("phase 3/4: sparse-logistic path at full width, and cross-checks")
-    kern, plain, launches = phase_main_path()
-    phase_small_f64()
+    kern, plain, launches, prob_t, best = phase_main_path()
+    phase_small_f64(st.ProxGGNSCORE(solver="cg", greedy_alpha=False),
+                    "GGN-CG")
 
     log("phase 5: multinomial path at full width, and cross-checks")
     mkern, mplain, mlaunches = phase_multinomial()
-    launches = {k: launches[k] + mlaunches[k] for k in launches}
+
+    log("phase 6: L-BFGS path at full width, and cross-checks")
+    lkern, lplain, llaunches = phase_lbfgs(prob_t)
+
+    log("phase 7: uncached GGN-CG path at full width, and cross-checks")
+    ukern, uplain, ulaunches = phase_uncached(prob_t, best)
+    launches = {k: launches[k] + mlaunches[k] + llaunches[k] + ulaunches[k]
+                for k in launches}
 
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "scso_tpu"
@@ -612,6 +801,11 @@ def main():
                                     "torch": plain}))
     log("multinomial path: " + json.dumps({"card": card, "kernels": mkern,
                                            "torch": mplain}))
+    log("L-BFGS path: " + json.dumps({"card": card, "kernels": lkern,
+                                      "torch": lplain}))
+    log("uncached GGN-CG path: " + json.dumps({"card": card,
+                                               "kernels": ukern,
+                                               "torch": uplain}))
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": errs[k],

@@ -6,17 +6,20 @@ of the ported path replaced by a CUDA kernel written for Hopper
 (``csrc/``, built by ``ops/cuda/build.py`` on first use). The JAX
 package ``scso_tpu`` stays the reference; module names mirror it.
 
-Two paths are ported, both solved by ``ProxGGNSCORE(solver='cg')`` with
-the pseudo-Huber l1 smoother, on full batches, through the epoch-fused
-cache: sparse logistic regression with 0/1 labels (``GLMSpec``), and
-multinomial softmax regression (``MOGLMSpec``, ``mglm=``). What the
-port leaves out raises NotImplementedError naming its ROADMAP item.
+Ported, on full batches with the pseudo-Huber l1 smoother:
+``ProxGGNSCORE(solver='cg')`` through the epoch-fused cache and off it
+(step-size modes 1, 2 and 3, ``epoch_cache=False``), and
+``ProxLQNSCORE`` (L-BFGS, the default method of ``iterate``), on sparse
+logistic regression with 0/1 labels (``GLMSpec``), multinomial softmax
+regression (``MOGLMSpec``, ``mglm=``), or any data f with ``grad_fx``
+or autograd. What the port leaves out raises NotImplementedError naming
+its ROADMAP item.
 """
 
 from __future__ import annotations
 
 from scso_tpu_torch.algorithms.iterate import Options, Solution, iterate, solve
-from scso_tpu_torch.algorithms.methods import ProxGGNSCORE
+from scso_tpu_torch.algorithms.methods import ProxGGNSCORE, ProxLQNSCORE
 from scso_tpu_torch.ops.linalg import cg_solve
 from scso_tpu_torch.ops.prox import prox_l1, prox_l2, prox_indbox, prox_step
 from scso_tpu_torch.ops.regularizers import reg_value
@@ -34,6 +37,7 @@ __all__ = [
     "MOGLMSpec",
     "make_problem",
     "ProxGGNSCORE",
+    "ProxLQNSCORE",
     "iterate",
     "solve",
     "Options",

@@ -1,20 +1,25 @@
 """The solve loop: epochs, histories and the Solution record.
 
-Port of the full-batch path of `scso_tpu.algorithms.iterate`. The JAX
+Port of the full-batch path of `scso_tpu.algorithms.iterate`, for
+ProxGGNSCORE (cached or uncached) and ProxLQNSCORE — the default method
+when ``method`` is None. The JAX
 solve is one jitted `lax.while_loop` on the device; here it is an
 eager Python loop. Its host reads are the stopping test (one per epoch)
 and the CG residual test (one per CG iteration); the history records
 stay on the device until the solve ends. The structure is the JAX
 package's: with ``stats_every = K > 1`` a TWO-LEVEL loop takes one
 stats record per round of K epochs, and with the epoch cache the f_tol
-test between records uses the exact per-epoch gap (``gap_now``).
+test between records uses the exact per-epoch gap (``gap_now``; off the
+cache, the round's gap). Off the cache a stats record costs one f(x)
+pass over A; full-batch L-BFGS carries ∇q(x⁺) from one epoch to the
+next, so an epoch costs one gradient.
 
 Stopping is the reference's triple test: ‖x⁺−x‖ < x_tol·max(‖x‖, 1),
 relative objective gap ≤ f_tol, or primal residual < x_tol. Records are
 taken at x_0 … plus a final record at the terminating iterate.
 
 Not ported yet: mini-batches, the timed (python-loop) mode, metrics,
-test data, resume, and the Newton/L-BFGS methods (ROADMAP A7, A12).
+test data, resume, and the Newton method (ROADMAP A7, A12).
 """
 
 from __future__ import annotations
@@ -26,9 +31,11 @@ from typing import Any, NamedTuple, Optional, Union
 import torch
 
 from scso_tpu_torch._src.struct import replace as dc_replace
-from scso_tpu_torch.algorithms.methods import ProxGGNSCORE
+from scso_tpu_torch.algorithms.methods import ProxGGNSCORE, ProxLQNSCORE
 from scso_tpu_torch.algorithms.steps import (
-    GLMCache, MOGLMCache, epoch_cache_enabled, ggn_step, prime_glm_cache)
+    GLMCache, MOGLMCache, _cw, _lam_scalar, epoch_cache_enabled, ggn_step,
+    lbfgs_step, prime_glm_cache)
+from scso_tpu_torch.ops.lbfgs_core import LBFGSMemory, init_memory
 from scso_tpu_torch.problems import Problem
 
 
@@ -56,6 +63,8 @@ class Carry(NamedTuple):
 
     x: torch.Tensor
     x_prev: torch.Tensor
+    gq: torch.Tensor          # ∇q at x (L-BFGS; zeros otherwise)
+    gq_prev: torch.Tensor     # ∇q at x_prev
     d_prev: torch.Tensor      # previous raw direction — CG warm start
     cg_total: int             # cumulative CG iterations
     bnorm_prev: torch.Tensor  # forcing s_ref (NaN until set)
@@ -63,7 +72,8 @@ class Carry(NamedTuple):
     k: int
     pri_res: torch.Tensor
     done: bool
-    fcache: Union[GLMCache, MOGLMCache]
+    mem: LBFGSMemory          # L-BFGS memory (size 1, unused, for GGN)
+    fcache: Optional[Union[GLMCache, MOGLMCache]]  # None off the cache
 
 
 @dataclasses.dataclass
@@ -92,9 +102,13 @@ class Solution:
                 f"rel={rel:.3e}, n={self.x.shape[-1]})")
 
 
-def _stats(prob: Problem, reg_name: str, x, obj_star, x_tol, f_tol, fval):
+def _stats(prob: Problem, reg_name: str, x, obj_star, x_tol, f_tol,
+           fval=None):
     """One record: (fval, obj, rel, objrel, raw_frel), all 0-d tensors.
-    ``fval`` is the cached data loss (no data pass)."""
+    ``fval`` is the cached data loss when the epoch cache carries one;
+    None evaluates f(x), one pass over A."""
+    if fval is None:
+        fval = prob.f_val(prob.A, prob.y, x)
     obj = fval + prob.reg(reg_name, x)
     x_star = prob.x_star
     rel = torch.clamp_min(
@@ -131,6 +145,8 @@ def _auto_lp(method, prob: Problem):
     thresholds were measured on a TPU v5e, and the bfloat16 copy of A
     waits for measurements on the H100 (ROADMAP A10); an explicit
     request raises."""
+    if not isinstance(method, ProxGGNSCORE):
+        return method, prob
     if method.cg_lp_tol > 0 or method.auto_lp:
         raise NotImplementedError(
             "precision-adaptive CG on a low-precision copy of A is not "
@@ -141,17 +157,12 @@ def _auto_lp(method, prob: Problem):
 def solve(method, prob: Problem, reg_name: str, sm, opts: Options,
           alpha=None) -> Solution:
     """Run one solve; returns a :class:`Solution`."""
-    if not isinstance(method, ProxGGNSCORE):
+    if not isinstance(method, (ProxGGNSCORE, ProxLQNSCORE)):
         raise NotImplementedError(
             f"{type(method).__name__} is not ported yet (ROADMAP A7)")
     prob = _effective_L(prob, alpha)
     method = _resolve_kernels(method, prob)
     method, prob = _auto_lp(method, prob)
-    if not epoch_cache_enabled(method, prob, reg_name, True):
-        raise NotImplementedError(
-            "only the epoch-cached GGN-CG path is ported (ProxGGNSCORE "
-            "with solver='cg', ss_type=1 and a GLM or mglm spec with "
-            "loss_sample); the rest is ROADMAP A7, A9")
     sync = (torch.cuda.synchronize if prob.device.type == "cuda"
             else lambda: None)
     t0 = time.perf_counter()
@@ -164,19 +175,29 @@ def solve(method, prob: Problem, reg_name: str, sm, opts: Options,
 
 def _solve_impl(method, prob: Problem, reg_name: str, sm, opts: Options):
     dt, dev = prob.dtype, prob.device
+    A, y = prob.A, prob.y
     scalar = lambda v: torch.tensor(v, dtype=dt, device=dev)
     x_tol, f_tol = opts.x_tol, opts.f_tol
     max_epoch = opts.max_epoch
-    # obj_star through the SAME evaluation path as the cached fval: the
-    # kernel-accumulated loss and a separate reduction differ by a few
-    # ulp-sums, and a mixed-path gap would inherit that offset as a floor
-    obj_star = (prime_glm_cache(method, prob, prob.x_star).loss
-                + prob.reg(reg_name, prob.x_star))
+    is_lbfgs = isinstance(method, ProxLQNSCORE)
+    use_fcache = epoch_cache_enabled(method, prob, reg_name, True)
+    if use_fcache:
+        # obj_star through the SAME evaluation path as the cached fval:
+        # the kernel-accumulated loss and a separate reduction differ by
+        # a few ulp-sums, and a mixed-path gap would inherit that offset
+        # as a floor
+        obj_star = (prime_glm_cache(method, prob, prob.x_star).loss
+                    + prob.reg(reg_name, prob.x_star))
+    else:
+        obj_star = prob.obj(reg_name, prob.x_star)
+    lam = _lam_scalar(prob.lam)
+    cw = _cw(prob, reg_name)
     records = []
 
     def with_stats(c: Carry):
         fval, obj, rel, objrel, raw_frel = _stats(
-            prob, reg_name, c.x, obj_star, x_tol, f_tol, c.fcache.loss)
+            prob, reg_name, c.x, obj_star, x_tol, f_tol,
+            c.fcache.loss if use_fcache else None)
         records.append((fval, obj, rel, objrel, c.pri_res))
         if opts.verbose > 1:
             _, label = method.display()
@@ -188,36 +209,53 @@ def _solve_impl(method, prob: Problem, reg_name: str, sm, opts: Options):
         return raw_frel
 
     def step_epoch(c: Carry, raw_frel) -> Carry:
-        out = ggn_step(method, prob, reg_name, sm, prob.A, prob.y, c.x,
-                       c.x_prev, c.k + 1, d_prev=c.d_prev,
-                       bnorm_prev=c.bnorm_prev, fcache=c.fcache)
+        it = c.k + 1  # 1-based like the reference epoch_t
+        if is_lbfgs:
+            out = lbfgs_step(method, prob, reg_name, sm, A, y, c.x,
+                             c.x_prev, c.gq_prev, it, c.mem, gq_cached=c.gq)
+        else:
+            out = ggn_step(method, prob, reg_name, sm, A, y, c.x, c.x_prev,
+                           it, d_prev=c.d_prev, bnorm_prev=c.bnorm_prev,
+                           fcache=c.fcache, gq_prev=c.gq_prev, mem=c.mem)
         x, x_prev, pri = out.x_new, c.x, out.pri_res_norm
         conv = ((torch.linalg.vector_norm(x - x_prev)
                  < x_tol * torch.clamp_min(
                      torch.linalg.vector_norm(x_prev), 1.0))
                 | (raw_frel <= f_tol) | (pri < x_tol))
-        return Carry(x=x, x_prev=x_prev, d_prev=out.d,
-                     cg_total=c.cg_total + out.cg_iters,
+        return Carry(x=x, x_prev=x_prev, gq=out.gq_new, gq_prev=out.gq,
+                     d_prev=out.d, cg_total=c.cg_total + out.cg_iters,
                      bnorm_prev=out.bnorm, frel=raw_frel, k=c.k + 1,
-                     pri_res=pri, done=bool(conv), fcache=out.fcache)
+                     pri_res=pri, done=bool(conv), mem=out.mem,
+                     fcache=out.fcache)
 
     def gap_now(c: Carry):
-        """Exact per-epoch gap from the cached loss (O(n))."""
+        """The per-epoch gap between stats rounds: exact from the cached
+        loss (O(n)); off the cache the round's gap (a fresh one would
+        cost a pass over A)."""
+        if not use_fcache:
+            return c.frel
         obj_now = c.fcache.loss + prob.reg(reg_name, c.x)
         return torch.abs(obj_now - obj_star) / torch.abs(obj_star)
 
-    carry = Carry(x=prob.x0, x_prev=prob.x0,
-                  d_prev=torch.zeros_like(prob.x0), cg_total=0,
+    x0 = prob.x0
+    # full-batch L-BFGS carries ∇q(x⁺) into the next epoch
+    gq0 = (prob.grad_f(A, y, x0) + lam * sm.grad(x0, cw) if is_lbfgs
+           else torch.zeros_like(x0))
+    carry = Carry(x=x0, x_prev=x0, gq=gq0, gq_prev=torch.zeros_like(x0),
+                  d_prev=torch.zeros_like(x0), cg_total=0,
                   bnorm_prev=scalar(float("nan")), frel=scalar(float("inf")),
                   k=0, pri_res=scalar(float("nan")), done=False,
-                  fcache=prime_glm_cache(method, prob, prob.x0))
+                  mem=init_memory(x0.shape[-1], method.m if is_lbfgs else 1,
+                                  dt, dev),
+                  fcache=(prime_glm_cache(method, prob, x0) if use_fcache
+                          else None))
     live = lambda c: not c.done and c.k < max_epoch
     if opts.stats_every <= 1:
         while live(carry):
             carry = step_epoch(carry, with_stats(carry))
     else:
         # stats once per round, then stats_every plain steps, each with
-        # the exact gap; a finished solve skips the rest of its round
+        # gap_now; a finished solve skips the rest of its round
         while live(carry):
             carry = carry._replace(frel=with_stats(carry))
             for _ in range(opts.stats_every):
@@ -248,14 +286,14 @@ def iterate(method, model: Problem, reg_name: str, h_mu, *, alpha=None,
             max_epoch=1000, x_tol=1e-10, f_tol=1e-10, verbose=1,
             stats_every=1, mode="fused", **unported) -> Solution:
     """Run a SCORE solve — the JAX package's ``iterate`` entry point for
-    the full-batch, cached GGN-CG path."""
+    full-batch ProxGGNSCORE and ProxLQNSCORE solves. ``method=None``
+    runs ProxLQNSCORE(), the reference's intended default."""
     if unported or mode != "fused":
         names = sorted(unported) + ([] if mode == "fused" else ["mode"])
         raise NotImplementedError(
             f"iterate options {names} are not ported yet (ROADMAP A7, A12)")
     if method is None:
-        raise NotImplementedError(
-            "the default method ProxLQNSCORE is not ported yet (ROADMAP A7)")
+        method = ProxLQNSCORE()
     opts = Options(max_epoch=max_epoch, x_tol=x_tol, f_tol=f_tol,
                    stats_every=stats_every, verbose=verbose)
     if verbose > 0 and method.ss_type == 1 and model.L is None \

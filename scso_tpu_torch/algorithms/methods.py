@@ -1,6 +1,7 @@
 """Method configuration objects (frozen, hashable).
 
-Port of `scso_tpu.algorithms.methods.ProxGGNSCORE`. Field meanings and
+Port of `scso_tpu.algorithms.methods.ProxGGNSCORE` and `ProxLQNSCORE`
+(the default method of `iterate`). Field meanings and
 defaults are the JAX package's; see its docstrings for the measurements
 behind them. ``kernels`` differs:
   * 'auto'  — resolved by `iterate` to 'cuda' for problems whose data
@@ -8,7 +9,7 @@ behind them. ``kernels`` differs:
   * 'cuda'  — the hand-written CUDA kernels (ops/cuda/) at every shape;
     a tensor or GLM spec they do not take raises;
   * 'torch' — the plain PyTorch versions on any device.
-ProxNSCORE and ProxLQNSCORE are not ported yet (ROADMAP A7).
+ProxNSCORE is not ported yet (ROADMAP A7, with K2's newton flavour B2).
 """
 
 from __future__ import annotations
@@ -41,9 +42,19 @@ class ProxGGNSCORE:
     #: yet (ROADMAP A10); only the defaults are accepted
     cg_lp_tol: float = 0.0
     auto_lp: Optional[bool] = None
+    #: the static Jacobi preconditioner and subsampled curvature — not
+    #: ported yet (ROADMAP A7); only the defaults are accepted
+    static_precond: bool = False
+    curvature_rows: int = 0
     #: epoch-fused greedy path; None = AUTO (on when its requirements
     #: hold, steps.epoch_cache_enabled)
     epoch_cache: Optional[bool] = None
+    #: single-candidate prep kernel K2s on the uncached GLM path: z, RHS
+    #: pullback and Jacobi diagonal without the (m,)-sized plain
+    #: intermediates. None = AUTO: on whenever kernels='cuda' (the JAX
+    #: package's n >= 8192 gate was measured on a TPU v5e and is not
+    #: carried over); False takes z = A·x and the plain weights.
+    use_fused_prep: Optional[bool] = None
     kernels: str = "auto"
     name: str = "prox-ggnscore"
     label: str = "Prox-GGN-SCORE"
@@ -57,4 +68,32 @@ class ProxGGNSCORE:
     def display(self):
         if not self.use_prox:
             return "ggnscore", "GGN-SCORE"
+        return self.name, self.label
+
+
+@dataclasses.dataclass(frozen=True)
+class ProxLQNSCORE:
+    """Proximal L-BFGS with self-concordant regularization; ``m`` is the
+    L-BFGS memory (the reference's default 10). The two-loop recursion
+    runs as the K4 kernel under kernels='cuda' (m ≤ 64 there)."""
+
+    ss_type: int = 1
+    use_prox: bool = True
+    m: int = 10
+    #: greedy SCORE damping — the L-BFGS direction is not Newton-quality,
+    #: so it stays OFF by default (each rejected trial costs data passes)
+    greedy_alpha: bool = False
+    kernels: str = "auto"
+    name: str = "prox-lbfgsscore"
+    label: str = "Prox-LBFGS-SCORE"
+
+    def __post_init__(self):
+        if self.kernels not in _KERNEL_MODES:
+            raise ValueError(
+                f"kernels must be one of {_KERNEL_MODES}, got "
+                f"{self.kernels!r}")
+
+    def display(self):
+        if not self.use_prox:
+            return "lbfgsscore", "LBFGS-SCORE"
         return self.name, self.label

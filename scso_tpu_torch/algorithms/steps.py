@@ -1,11 +1,12 @@
-"""The GGN-CG SCORE step on the epoch-cache path.
+"""The SCORE steps: GGN-CG (cached and uncached) and L-BFGS.
 
-Port of the parts of `scso_tpu.algorithms.steps` that the ported paths
-run: prox-GGN with matrix-free CG, ss_type=1, the epoch-fused cache,
-tightening-only CG forcing, and the SCORE-damped prox tail with optional
-greedy damping — for a scalar GLM spec (`GLMCache`, the sparse-logistic
-path) and for a multi-output spec (`MOGLMCache`, the multinomial path).
-One epoch:
+Port of `scso_tpu.algorithms.steps` for the ported paths: prox-GGN with
+matrix-free CG and prox-L-BFGS, with the three step-size modes, the
+SCORE-damped prox tail and optional greedy damping, for a scalar GLM
+spec (`GLMCache`, sparse logistic) and a multi-output spec
+(`MOGLMCache`, multinomial).
+
+One epoch of the epoch-cache GGN-CG path (ss_type 1, full batch):
 
   1. the cached RHS and Jacobi diagonal (`_cg_from_cache`);
   2. warm-started Jacobi-preconditioned CG, one K1 launch (GLM) or one
@@ -17,13 +18,21 @@ One epoch:
      products for an mglm (`_greedy_update_cached_mo`) — or, with
      greedy off, the priming pass at x⁺ (`_damped_update_cached`).
 
+The uncached GGN-CG path (`_ggn_cg_direction`: ss_type 2 or 3,
+``epoch_cache=False``, or a spec without ``loss_sample``) preps each
+epoch afresh — K2s for a GLM under 'cuda', else z = A·x and the spec's
+weights (`_weighted_system`), or Z = A·W for an mglm (`_mo_glm_system`)
+— then runs CG and the damped (or greedy, `_greedy_prox_update`) tail.
+An L-BFGS epoch (`lbfgs_step`) is the two-loop direction (K4), the step
+size, the damped tail (K3) and one gradient at x⁺.
+
 ``method.kernels`` ('cuda' or 'torch', resolved by `iterate`) picks the
-CUDA kernels or their plain versions. The mglm prep stays
-`torch.matmul`: the JAX package runs it as plain XLA matmuls, not as a
-Pallas kernel. Newton and L-BFGS steps, the uncached GGN paths
-(`_ggn_cg_direction`, `_mo_glm_system`), the dense solves, step-size
-modes 2 and 3 and the low-precision CG copy are not ported yet
-(ROADMAP A7, A9, A10).
+CUDA kernels or their plain versions. Gradients and the mglm prep stay
+`torch.matmul`: the JAX package runs them as plain XLA matmuls, not as
+Pallas kernels. Newton steps (with K2's newton flavour), the dense GGN
+solves, subsampled curvature, the static preconditioner, the generic
+jvp/vjp GGN branch and the low-precision CG copy are not ported yet
+(ROADMAP A7, B2, A10).
 """
 
 from __future__ import annotations
@@ -33,15 +42,18 @@ from typing import NamedTuple
 
 import torch
 
-from scso_tpu_torch.algorithms.methods import ProxGGNSCORE
+from scso_tpu_torch.algorithms.methods import ProxGGNSCORE, ProxLQNSCORE
 from scso_tpu_torch.ops.cuda.glm_prep import (
-    glm_prep_pair, glm_prep_pair_torch, glm_prep_torch)
+    glm_prep, glm_prep_pair, glm_prep_pair_torch, glm_prep_torch)
 from scso_tpu_torch.ops.cuda.matvec import normal_matvec, normal_matvec_torch
 from scso_tpu_torch.ops.cuda.mglm_matvec import (
     mglm_matvec, mglm_matvec_torch)
 from scso_tpu_torch.ops.cuda.score_update import (
     score_update, score_update_torch)
-from scso_tpu_torch.ops.linalg import cg_solve
+from scso_tpu_torch.ops.cuda.two_loop import two_loop, two_loop_torch
+from scso_tpu_torch.ops.lbfgs_core import LBFGSMemory, update_memory
+from scso_tpu_torch.ops.linalg import (
+    armijo_linesearch, cg_solve, inv_bb_step)
 from scso_tpu_torch.ops.prox import prox_step
 from scso_tpu_torch.ops.smoothers import get_Mg
 from scso_tpu_torch.problems import Problem
@@ -74,10 +86,14 @@ class StepOut(NamedTuple):
     x_new: torch.Tensor
     pri_res_norm: torch.Tensor
     dx: torch.Tensor
+    gq: torch.Tensor       # ∇q at x (composite gradient), for BB caching
+    gq_new: torch.Tensor   # ∇q at x_new (L-BFGS only; zeros otherwise)
+    mem: LBFGSMemory       # L-BFGS memory (passed through by ggn_step)
     d: torch.Tensor        # raw (undamped) direction — CG warm start seed
-    cg_iters: int
+    cg_iters: int          # CG iterations spent (0 for L-BFGS)
     bnorm: torch.Tensor    # forcing s_ref (first outer step length)
-    fcache: GLMCache       # the cache at x_new (MOGLMCache for mglm)
+    fcache: GLMCache = None  # the cache at x_new (MOGLMCache for mglm);
+    #                          None off the epoch-cache path
 
 
 # solver='auto' switches to CG once the materialized Jacobian would
@@ -120,15 +136,42 @@ def _cw(prob: Problem, reg_name: str):
     return None
 
 
-def _resolve_step_size(method, prob: Problem, x):
-    """ss_type=1: min(1/L, 1) when L is set, else 0.5."""
-    if method.ss_type != 1:
-        raise NotImplementedError(
-            "step-size modes 2 (inverse BB) and 3 (Armijo) are not ported "
-            "yet (ROADMAP A7)")
-    if prob.L is not None:
-        return torch.clamp_max(1.0 / prob.L, 1.0)
-    return torch.tensor(0.5, dtype=x.dtype, device=x.device)
+def _resolve_step_size(method, prob: Problem, sm, reg_name, As, ys,
+                       x, x_prev, gq, gq_prev, d, it: int, cw):
+    """The three step-size schemes, in the reference's branch order.
+
+    GGN:     ss1 & L set → min(1/L, 1); ss1 & L unset → 0.5;
+             ss2 → 1 at iteration 1, else inverse BB; ss3 → Armijo.
+    L-BFGS:  ss1 & L set → min(1/L, 1); ss2 OR L unset → BB (so ss1 and
+             ss3 without L take BB too); ss3 → Armijo."""
+    dt = x.dtype
+    sst = method.ss_type
+    if sst not in (1, 2, 3):
+        raise ValueError("Please, choose ss_type in [1, 2, 3].")
+    L = prob.L
+    lam = _lam_scalar(prob.lam)
+
+    def bb():
+        if it == 1:
+            return torch.ones((), dtype=dt, device=x.device)
+        return inv_bb_step(x, x_prev, gq, gq_prev)
+
+    def linesearch():
+        obj = lambda v: prob.f_val(As, ys, v) + prob.reg(reg_name, v)
+        grad_q = lambda v: prob.grad_f(As, ys, v) + lam * sm.grad(v, cw)
+        return armijo_linesearch(x, d, obj, grad_q)
+
+    if sst == 1 and L is not None:
+        return torch.clamp_max(1.0 / L, 1.0)
+    if isinstance(method, ProxLQNSCORE):
+        if sst == 2 or L is None:
+            return bb()
+        return linesearch()  # sst == 3
+    if sst == 1:
+        return torch.tensor(0.5, dtype=dt, device=x.device)
+    if sst == 2:
+        return bb()
+    return linesearch()  # sst == 3
 
 
 def _damped_prox_update(method, prob: Problem, reg_name, sm, x, d,
@@ -144,6 +187,49 @@ def _damped_prox_update(method, prob: Problem, reg_name, sm, x, d,
     out = update(x, d, lgr, Hr_diag, lam, step_size, Mg, reg_name,
                  use_prox=method.use_prox, lb=prob.lb, ub=prob.ub)
     return out.x_new, out.pri, out.safe * d
+
+
+def _trial_point(method, prob: Problem, reg_name, x, d, step_size, lam,
+                 Hr_diag):
+    """The greedy trial: the UNDAMPED prox step (or x + d without prox)."""
+    if method.use_prox:
+        return prox_step(reg_name, x + d, 1.0 / Hr_diag, lam, step_size,
+                         lb=prob.lb, ub=prob.ub)
+    return x + d
+
+
+def _greedy_prox_update(method, prob: Problem, reg_name, sm, As, ys,
+                        x, d, step_size, lam, lgr, Hr_diag, z=None):
+    """Greedy SCORE damping off the epoch cache: trial the UNDAMPED prox
+    step and accept it iff F = f + g strictly decreases, else take the
+    SCORE-damped step. F(x) reuses the step's linear predictor ``z``
+    when the GLM path formed one; otherwise each of F(x) and F(x_trial)
+    costs one matrix product over A (two for f_val without a loss_z).
+    A NaN trial objective fails the strict test."""
+    x_damped, pri_d, dx_d = _damped_prox_update(
+        method, prob, reg_name, sm, x, d, step_size, lam, lgr, Hr_diag)
+    x_trial = _trial_point(method, prob, reg_name, x, d, step_size, lam,
+                           Hr_diag)
+    data_2d = As.ndim == 2
+    if data_2d and prob.glm is not None and prob.glm.loss_z is not None:
+        z_x = As @ x if z is None else z
+        F_x = prob.glm.loss_z(ys, z_x) + prob.reg(reg_name, x)
+        F_t = prob.glm.loss_z(ys, As @ x_trial) + prob.reg(reg_name, x_trial)
+    elif (data_2d and prob.mglm is not None
+          and prob.mglm.loss_z is not None):
+        k = int(prob.mglm.n_out)
+        Zf = lambda v: As @ v.reshape(v.shape[-1] // k, k)
+        F_x = prob.mglm.loss_z(ys, Zf(x)) + prob.reg(reg_name, x)
+        F_t = prob.mglm.loss_z(ys, Zf(x_trial)) + prob.reg(reg_name,
+                                                           x_trial)
+    else:
+        F_x = prob.f_val(As, ys, x) + prob.reg(reg_name, x)
+        F_t = prob.f_val(As, ys, x_trial) + prob.reg(reg_name, x_trial)
+    accept = F_t < F_x
+    x_new = torch.where(accept, x_trial, x_damped)
+    pri = torch.where(accept, torch.linalg.vector_norm(x_trial - x), pri_d)
+    dx = torch.where(accept, d, dx_d)
+    return x_new, pri, dx
 
 
 def use_greedy(method, n=None, prob=None) -> bool:
@@ -164,6 +250,18 @@ def use_greedy(method, n=None, prob=None) -> bool:
             return False
         return n is None or n >= 4096
     return bool(g)
+
+
+def _apply_update(method, prob: Problem, reg_name, sm, As, ys, x, d,
+                  step_size, lam, lgr, Hr_diag, z=None):
+    """The damped-prox tail off the epoch cache; the greedy variant when
+    greedy damping resolves on."""
+    n_eff = prob.n_true if prob.n_true is not None else x.shape[-1]
+    if use_greedy(method, n_eff, prob):
+        return _greedy_prox_update(method, prob, reg_name, sm, As, ys,
+                                   x, d, step_size, lam, lgr, Hr_diag, z)
+    return _damped_prox_update(method, prob, reg_name, sm, x, d,
+                               step_size, lam, lgr, Hr_diag)
 
 
 def _cg_tol(method, dtype) -> float:
@@ -224,8 +322,8 @@ def epoch_cache_enabled(method, prob: Problem, reg_name: str,
     solver with ss_type=1, full-batch data, and either an mglm spec with
     loss_z and loss_sample (taking precedence, as in the JAX package) or
     a GLM spec with loss_z, loss_sample and the stable ggn_rw/ggn_w
-    forms. The uncached paths are not ported yet (ROADMAP A7, A9), so a
-    solve that fails this raises."""
+    forms, and no row-subsampled curvature. A GGN solve that fails this
+    takes the uncached path (`_ggn_cg_direction`)."""
     if not isinstance(method, ProxGGNSCORE) or method.ss_type != 1:
         return False
     if method.epoch_cache is False:
@@ -240,6 +338,8 @@ def epoch_cache_enabled(method, prob: Problem, reg_name: str,
             or g.ggn_rw is None or g.ggn_w is None):
         return False
     if not full_batch:
+        return False
+    if 0 < method.curvature_rows < prob.A.shape[0]:
         return False
     return _resolve_ggn_solver(method, prob, prob.A, prob.x0) == "cg"
 
@@ -368,15 +468,6 @@ def _cg_from_cache(method, prob: Problem, As, ys, x, gr, Hr_diag, lam,
                               cache, d_prev, it, bnorm_prev, x_prev)
 
 
-def _trial_point(method, prob: Problem, reg_name, x, d, step_size, lam,
-                 Hr_diag):
-    """The greedy trial: the UNDAMPED prox step (or x + d without prox)."""
-    if method.use_prox:
-        return prox_step(reg_name, x + d, 1.0 / Hr_diag, lam, step_size,
-                         lb=prob.lb, ub=prob.ub)
-    return x + d
-
-
 def _greedy_update_cached_mo(method, prob: Problem, reg_name, sm, As, ys,
                              x, d, step_size, lam, lgr, Hr_diag,
                              cache: MOGLMCache):
@@ -455,27 +546,191 @@ def _cached_update(method, prob: Problem, reg_name, sm, As, ys, x, d,
                   lam, lgr, Hr_diag, cache)
 
 
+def _weighted_system(method, As, x, w, lhr, hd_raw=None):
+    """(matvec, preconditioner) from GLM weights w:
+    mv(v) = Aᵀ(w∘(Av)) + λHr∘v (one K1 launch under 'cuda'), Jacobi
+    M⁻¹ = 1/(Σᵢ wᵢAᵢⱼ² + λHr). ``hd_raw`` is Σᵢ wᵢAᵢⱼ² when the prep
+    already has it (K2s); otherwise the plain diagonal builds one A-sized
+    temporary. The static preconditioner and the row-sharded matvec are
+    not ported yet (ROADMAP A7, A11)."""
+    if method.static_precond:
+        raise NotImplementedError(
+            "static_precond (the static Jacobi preconditioner) is not "
+            "ported yet (ROADMAP A7)")
+    tiny = torch.finfo(x.dtype).tiny
+    matvec = normal_matvec if method.kernels == "cuda" else normal_matvec_torch
+    if hd_raw is None:
+        hd_raw = torch.einsum("i,ij,ij->j", w, As, As)
+    hdiag = hd_raw + lhr
+    return (lambda v: matvec(As, w, v) + lhr * v,
+            lambda v: v / torch.clamp_min(hdiag, tiny))
+
+
+def _ggn_weights(g, ys, z):
+    """(ρ, w) of the GGN system at z: the spec's stable ggn_rw/ggn_w when
+    given, else σ'·res and σ'²·qdiag."""
+    if g.ggn_rw is not None:
+        rw = g.ggn_rw(ys, z)
+    else:
+        rw = g.dlink(z) * g.res(ys, g.link(z))
+    if g.ggn_w is not None:
+        w = g.ggn_w(ys, z)
+    else:
+        sp = g.dlink(z)
+        w = sp * sp * g.qdiag(ys, g.link(z))
+    return rw, w
+
+
+def _mo_glm_system(method, prob: Problem, As, ys, x, lhr):
+    """(Z, grad_vec, matvec, preconditioner) for a multi-output GLM off
+    the epoch cache: Z = A·W once (W = x.reshape(p, k)),
+    ∇f = vec(Aᵀ·gres(y, Z)), each matvec the per-sample curvature action
+    vec(Aᵀ·quad(y, Z, A·V)) + λHr∘v (one K5 launch under 'cuda'), Jacobi
+    diagonal Σᵢ qdiag_wᵢ·Aᵢⱼ² + λHr."""
+    g = prob.mglm
+    k, pf = _mo_shapes(g, x)
+    Z = As @ x.reshape(pf, k)
+    grad_vec = (As.T @ g.gres(ys, Z)).reshape(-1)
+    mv = _mo_curv_matvec(method, As, ys, Z, g, lhr, pf, k)
+    hdiag = _jacobi_mo(g.qdiag_w(ys, Z), As).reshape(-1) + lhr
+    tiny = torch.finfo(x.dtype).tiny
+    return Z, grad_vec, mv, lambda v: v / torch.clamp_min(hdiag, tiny)
+
+
+def _ggn_cg_direction(method, prob: Problem, As, ys, x, gr, Hr_diag, lam,
+                      d_prev=None, it=None, bnorm_prev=None, x_prev=None):
+    """Matrix-free GGN-CG direction off the epoch cache: solve
+    (JᵀQJ + λ·diag(Hr)) d = −(Jᵀr + λ·gr) by warm-started Jacobi-
+    preconditioned CG, every piece prepared afresh at x.
+
+    A GLM preps in one call to K2s (`glm_prep`) under 'cuda' unless
+    ``use_fused_prep`` is False — at every shape: the JAX package's AUTO
+    gate n ≥ 8192 was measured on a TPU v5e — and otherwise forms
+    z = A·x and the spec's weights (`_weighted_system`). An mglm goes
+    through `_mo_glm_system`. Returns (d, cg_iters, bnorm, z), z the
+    linear predictor when one was formed (the greedy trial reuses it),
+    else None."""
+    if method.cg_lp_tol > 0:
+        raise NotImplementedError(
+            "precision-adaptive CG on a low-precision copy of A is not "
+            "ported yet (ROADMAP A10)")
+    z_cache = None
+    lhr = lam * Hr_diag
+    if prob.mglm is not None and As.ndim == 2:
+        _, grad_vec, mv, M_inv = _mo_glm_system(method, prob, As, ys, x,
+                                                lhr)
+        b = -(grad_vec + lam * gr)
+    elif prob.glm is not None and As.ndim == 2:
+        if 0 < method.curvature_rows < As.shape[0]:
+            raise NotImplementedError(
+                "subsampled curvature (curvature_rows) is not ported yet "
+                "(ROADMAP A7)")
+        if method.kernels == "cuda" and method.use_fused_prep is not False:
+            w, b_raw, hd_raw = glm_prep(As, ys, x, prob.glm)
+        else:
+            z_cache = As @ x
+            rw, w = _ggn_weights(prob.glm, ys, z_cache)
+            b_raw, hd_raw = As.T @ rw, None
+        b = -(b_raw + lam * gr)
+        mv, M_inv = _weighted_system(method, As, x, w, lhr, hd_raw)
+    else:
+        raise NotImplementedError(
+            "the generic GGN-CG branch (jvp/vjp of out_fn, no GLM spec) is "
+            "not ported yet (ROADMAP A7)")
+    xp = x if x_prev is None else x_prev
+    tol, bnorm = _forcing_tol(method, b, x, xp, bnorm_prev, it,
+                              endgame=True)
+    res = cg_solve(mv, b, d_prev, tol=tol, maxiter=method.cg_maxiter,
+                   M_inv=M_inv)
+    return res.x, res.iters, bnorm, z_cache
+
+
 def ggn_step(method: ProxGGNSCORE, prob: Problem, reg_name: str, sm,
              As, ys, x, x_prev, it: int, d_prev=None, bnorm_prev=None,
-             fcache: GLMCache = None) -> StepOut:
-    """One generalized Gauss-Newton step with self-concordant damping on
-    the epoch-cache path: cached prep → CG → the update pass that is
-    also the next epoch's prep."""
+             fcache: GLMCache = None, gq_prev=None,
+             mem: LBFGSMemory = None) -> StepOut:
+    """One generalized Gauss-Newton step with self-concordant damping.
+
+    With ``fcache`` (primed by the driver when `epoch_cache_enabled`)
+    the step runs the epoch-fused path: cached prep → CG → the update
+    pass that is also the next epoch's prep. Without it, the uncached
+    path: `_ggn_cg_direction`, the step size (ss_type 2 prices the
+    composite gradient at x and x_prev, two gradients), and the damped
+    or greedy tail. ``gq``/``gq_new`` come back as zeros and ``mem``
+    unchanged, as in the JAX package."""
     lam = _lam_scalar(prob.lam)
     cw = _cw(prob, reg_name)
     gr = sm.grad(x, cw)
     lgr = lam * gr
     Hr_diag = sm.hess_diag(x, cw)
-    if _resolve_ggn_solver(method, prob, As, x) != "cg" or fcache is None:
+    zeros = torch.zeros_like(x)
+    if _resolve_ggn_solver(method, prob, As, x) != "cg":
         raise NotImplementedError(
-            "only the epoch-cached GGN-CG step is ported; the uncached "
-            "and dense GGN paths (and the uncached multi-output "
-            "_mo_glm_system) are not ported yet (ROADMAP A7, A9)")
-    d, cg_iters, bnorm = _cg_from_cache(
-        method, prob, As, ys, x, gr, Hr_diag, lam, fcache, d_prev, it,
-        bnorm_prev, x_prev)
-    ss = _resolve_step_size(method, prob, x)
-    x_new, pri, dx, fc_new = _cached_update(
-        method, prob, reg_name, sm, As, ys, x, d, ss, lam, lgr, Hr_diag,
-        fcache)
-    return StepOut(x_new, pri, dx, d, cg_iters, bnorm, fc_new)
+            "the dense GGN solves (dense_dual/dense_primal, and 'auto' "
+            "below the dense budget) are not ported yet (ROADMAP A7)")
+    if fcache is not None:
+        d, cg_iters, bnorm = _cg_from_cache(
+            method, prob, As, ys, x, gr, Hr_diag, lam, fcache, d_prev, it,
+            bnorm_prev, x_prev)
+        ss = _resolve_step_size(method, prob, sm, reg_name, As, ys, x,
+                                x_prev, zeros, gq_prev, d, it, cw)
+        x_new, pri, dx, fc_new = _cached_update(
+            method, prob, reg_name, sm, As, ys, x, d, ss, lam, lgr,
+            Hr_diag, fcache)
+        return StepOut(x_new, pri, dx, zeros, zeros, mem, d, cg_iters,
+                       bnorm, fc_new)
+    d, cg_iters, bnorm, z_cache = _ggn_cg_direction(
+        method, prob, As, ys, x, gr, Hr_diag, lam, d_prev, it=it,
+        bnorm_prev=bnorm_prev, x_prev=x_prev)
+    # the composite gradients only for BB (ss2): GGN never forms ∇f
+    # otherwise
+    if method.ss_type == 2:
+        gq = prob.grad_f(As, ys, x) + lgr
+        gqp = prob.grad_f(As, ys, x_prev) + lam * sm.grad(x_prev, cw)
+    else:
+        gq, gqp = zeros, gq_prev
+    ss = _resolve_step_size(method, prob, sm, reg_name, As, ys, x, x_prev,
+                            gq, gqp, d, it, cw)
+    x_new, pri, dx = _apply_update(method, prob, reg_name, sm, As, ys, x,
+                                   d, ss, lam, lgr, Hr_diag, z=z_cache)
+    return StepOut(x_new, pri, dx, gq, zeros, mem, d, cg_iters, bnorm)
+
+
+def lbfgs_step(method: ProxLQNSCORE, prob: Problem, reg_name: str, sm,
+               As, ys, x, x_prev, gq_prev, it: int, mem: LBFGSMemory,
+               gq_cached=None) -> StepOut:
+    """L-BFGS step with self-concordant damping.
+
+    The direction is the two-loop recursion (K4 under 'cuda') on the
+    composite gradient ∇q = ∇f + λ·∇g_s; with an empty memory it is
+    −H0·∇q = −∇q, the reference's first-iteration branch. The full-batch
+    driver carries ∇q(x_new) forward as ``gq_cached``, so an epoch costs
+    one gradient (two matrix products over A); None recomputes it."""
+    lam = _lam_scalar(prob.lam)
+    cw = _cw(prob, reg_name)
+    gr = sm.grad(x, cw)
+    lgr = lam * gr
+    Hr_diag = sm.hess_diag(x, cw)
+    gq = (gq_cached if gq_cached is not None
+          else prob.grad_f(As, ys, x) + lgr)
+    direction = two_loop if method.kernels == "cuda" else two_loop_torch
+    d = direction(mem, gq)
+    ss = _resolve_step_size(method, prob, sm, reg_name, As, ys, x, x_prev,
+                            gq, gq_prev, d, it, cw)
+    x_new, pri, dx = _apply_update(method, prob, reg_name, sm, As, ys, x,
+                                   d, ss, lam, lgr, Hr_diag)
+    # the curvature pair from the NEW composite gradient
+    gq_new = prob.grad_f(As, ys, x_new) + lam * sm.grad(x_new, cw)
+    mem = update_memory(mem, x_new - x, gq_new - gq)
+    return StepOut(x_new, pri, dx, gq, gq_new, mem, d, 0,
+                   torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def make_step_fn(method):
+    """The step function of a method config."""
+    if isinstance(method, ProxGGNSCORE):
+        return ggn_step
+    if isinstance(method, ProxLQNSCORE):
+        return lbfgs_step
+    raise NotImplementedError(
+        f"{type(method).__name__} is not ported yet (ROADMAP A7)")

@@ -39,6 +39,10 @@ SIGNATURES = {
     # A, y, x_t, x_d, w_t, w_d, rw, b_t, b_d, hd_t, hd_d, loss_t, loss_d,
     # col_partials, loss_partials, m, n, row_blocks, chunks, stream
     "scso_glm_prep_pair": [_p] * 15 + [_i64] * 4 + [_p],
+    # A, y, x, w, rw, b, hd, col_partials, m, n, row_blocks, chunks, stream
+    "scso_glm_prep": [_p] * 8 + [_i64] * 4 + [_p],
+    # S, Y, g, pos, count, H0, out, m, n, stream
+    "scso_two_loop": [_p] * 7 + [_i64] * 2 + [_p],
     # x, d, lgr, hr, lb, ub, lam, ss, Mg, reg, x_new, stats, n, stream
     "scso_score_update": [_p] * 8 + [_f64, _i64, _p, _p, _i64, _p],
 }

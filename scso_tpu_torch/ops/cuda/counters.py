@@ -11,9 +11,11 @@ from __future__ import annotations
 
 KERNEL_LAUNCHES: dict = {
     "normal_matvec": 0,
+    "glm_prep": 0,
     "glm_prep_pair": 0,
     "score_update": 0,
     "mglm_matvec": 0,
+    "two_loop": 0,
 }
 
 

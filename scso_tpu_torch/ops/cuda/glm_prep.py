@@ -1,18 +1,22 @@
-"""K2: the dual-candidate GLM epoch prep.
+"""K2 and K2s: the GLM epoch prep.
 
-Port of `scso_tpu/ops/pallas/glm_prep.py` (`_fused_glm_prep_pair`): for
-two candidate iterates (the greedy trial x_t and the SCORE-damped x_d)
-it gives each candidate's CG matvec weights, RHS pullback, Jacobi
-diagonal and loss sum — the greedy accept test, the next epoch's CG
-prep and the stats objective in one call. The CUDA kernel is
-``csrc/glm_prep.cu``, specialised on the logistic01 GLM in the ggn
-flavour (the TPU kernel traces arbitrary Python callables, which CUDA
-cannot); :func:`glm_prep_pair_torch` is the plain version, and
-:func:`glm_prep_torch` its single-candidate form.
+Port of `scso_tpu/ops/pallas/glm_prep.py`:
+  * K2 (`_fused_glm_prep_pair`, :func:`glm_prep_pair`): for two
+    candidate iterates (the greedy trial x_t and the SCORE-damped x_d)
+    each candidate's CG matvec weights, RHS pullback, Jacobi diagonal
+    and loss sum — the greedy accept test, the next epoch's CG prep and
+    the stats objective in one call (the epoch-cache path);
+  * K2s (`_fused_glm_prep`, :func:`glm_prep`): the same at one x, with
+    no loss — the prep of the uncached GGN-CG path.
+Both kernels are ``csrc/glm_prep.cu``, specialised on the logistic01 GLM
+in the ggn flavour (the TPU kernels trace arbitrary Python callables,
+which CUDA cannot); :func:`glm_prep_torch` and
+:func:`glm_prep_pair_torch` are the plain versions.
 
-The TPU's n ≥ 8192 gate (`steps._use_pair_kernel`) is not carried over:
-the kernel takes any m and n. The single-candidate kernel K2s and the
-newton/least-squares/Poisson kinds are not ported yet (ROADMAP B5, B2).
+The TPU's n ≥ 8192 gates (`steps._use_pair_kernel`, the AUTO
+`use_fused_prep`) are not carried over: the kernels take any m and n.
+The newton flavour and the least-squares/Poisson kinds are not ported
+yet (ROADMAP B2).
 """
 
 from __future__ import annotations
@@ -62,36 +66,78 @@ def glm_prep_pair_torch(A, y, x_t, x_d, glm) -> PairPrep:
     return PairPrep(wt, wd, bt, bd, ht, hd, lt, ld)
 
 
+def _check_kind(name, glm):
+    if glm is None or glm.kind not in KERNEL_KINDS or not glm.sample_normalized:
+        raise ValueError(
+            f"{name}: the CUDA kernel covers GLM kinds {KERNEL_KINDS}; got "
+            f"{getattr(glm, 'kind', None)!r} (ROADMAP B2)")
+
+
+def _grid(A):
+    """(row_blocks, chunks) for the two passes over A: the rows pass runs
+    one warp per row, 8 warps per block, up to 8 blocks per SM; the
+    columns pass 256 threads per block, each on one 16-byte chunk of
+    columns (the kernel's vector width), with enough row chunks for ~8
+    blocks per SM."""
+    m, n = A.shape
+    sms = launch.sm_count(A.device.index or 0)
+    row_blocks = max(1, min(8 * sms, -(-m // 8)))
+    vec = 16 // A.element_size()
+    col_tiles = -(-(n // vec if n % vec == 0 else n) // 256)
+    chunks = max(1, min(-(-8 * sms // col_tiles), -(-m // 256)))
+    return row_blocks, chunks
+
+
+def _check_shapes(name, A, y, *xs):
+    m, n = A.shape
+    if y.shape != (m,) or any(x.shape != (n,) for x in xs):
+        raise ValueError(
+            f"{name}: shapes A {tuple(A.shape)}, y {tuple(y.shape)}, x "
+            f"{[tuple(x.shape) for x in xs]}")
+    if m == 0:
+        raise ValueError(f"{name}: A has no rows")
+
+
+def glm_prep(A, y, x, glm):
+    """Single-candidate prep (w, Aᵀρ, Σᵢ wᵢAᵢⱼ²) at x — the K2s kernel
+    for CUDA tensors, the plain version for CPU tensors. For a CUDA
+    tensor a spec kind the kernel does not cover raises."""
+    if launch.on_cpu(A, "glm_prep"):
+        return glm_prep_torch(A, y, x, glm)[:3]
+    _check_kind("glm_prep", glm)
+    launch.check_operands("glm_prep", A.dtype, A.device, A=A, y=y, x=x)
+    _check_shapes("glm_prep", A, y, x)
+    m, n = A.shape
+    dev, dt = A.device, A.dtype
+    row_blocks, chunks = _grid(A)
+    empty = lambda *shape, dtype=dt: torch.empty(shape, dtype=dtype,
+                                                 device=dev)
+    w, rw, b, hd = empty(m), empty(m), empty(n), empty(n)
+    col_partials = empty(chunks, 2, n, dtype=torch.float64)
+    with torch.cuda.device(dev):
+        rc = launch.entry("scso_glm_prep", dt)(
+            A.data_ptr(), y.data_ptr(), x.data_ptr(), w.data_ptr(),
+            rw.data_ptr(), b.data_ptr(), hd.data_ptr(),
+            col_partials.data_ptr(), m, n, row_blocks, chunks,
+            launch.stream(dev))
+    build.check(rc, "glm_prep")
+    counters.bump("glm_prep")
+    return w, b, hd
+
+
 def glm_prep_pair(A, y, x_t, x_d, glm) -> PairPrep:
     """Dual-candidate prep — the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors. For a CUDA tensor a spec kind the kernel
     does not cover raises."""
     if launch.on_cpu(A, "glm_prep_pair"):
         return glm_prep_pair_torch(A, y, x_t, x_d, glm)
-    if glm is None or glm.kind not in KERNEL_KINDS or not glm.sample_normalized:
-        raise ValueError(
-            f"glm_prep_pair: the CUDA kernel covers GLM kinds "
-            f"{KERNEL_KINDS}; got {getattr(glm, 'kind', None)!r} "
-            "(ROADMAP B2)")
-    m, n = A.shape
+    _check_kind("glm_prep_pair", glm)
     launch.check_operands("glm_prep_pair", A.dtype, A.device, A=A, y=y,
                           x_t=x_t, x_d=x_d)
-    if y.shape != (m,) or x_t.shape != (n,) or x_d.shape != (n,):
-        raise ValueError(
-            f"glm_prep_pair: shapes A {tuple(A.shape)}, y {tuple(y.shape)}, "
-            f"x_t {tuple(x_t.shape)}, x_d {tuple(x_d.shape)}")
-    if m == 0:
-        raise ValueError("glm_prep_pair: A has no rows")
+    _check_shapes("glm_prep_pair", A, y, x_t, x_d)
+    m, n = A.shape
     dev, dt = A.device, A.dtype
-    # rows pass: one warp per row, 8 warps per block, up to 8 blocks per
-    # SM; columns pass: 256 threads per block, each on one 16-byte chunk
-    # of columns (the kernel's vector width), enough row chunks for ~8
-    # blocks per SM
-    sms = launch.sm_count(dev.index or 0)
-    row_blocks = max(1, min(8 * sms, -(-m // 8)))
-    vec = 16 // A.element_size()
-    col_tiles = -(-(n // vec if n % vec == 0 else n) // 256)
-    chunks = max(1, min(-(-8 * sms // col_tiles), -(-m // 256)))
+    row_blocks, chunks = _grid(A)
     empty = lambda *shape, dtype=dt: torch.empty(shape, dtype=dtype,
                                                  device=dev)
     w_t, w_d = empty(m), empty(m)

@@ -1,12 +1,12 @@
-"""Matrix-free linear algebra: preconditioned conjugate gradients.
+"""Matrix-free linear algebra and the step-size rules.
 
-Port of `scso_tpu.ops.linalg.cg_solve`. The JAX version is a
-`lax.while_loop` that never leaves the device; here the loop is an eager
-Python loop, and its residual test reads one scalar back to the host on
-every iteration (one synchronisation per CG iteration). Everything else
-stays on the device: the step scalars are 0-d tensors. The inverse
-Barzilai–Borwein step and the Armijo line search (step-size modes 2 and
-3) are not ported yet (ROADMAP A7).
+Port of `scso_tpu.ops.linalg`: preconditioned conjugate gradients, the
+inverse Barzilai–Borwein step and the Armijo line search. The JAX CG is
+a `lax.while_loop` that never leaves the device; here the loop is an
+eager Python loop, and its residual test reads one scalar back to the
+host on every iteration (one synchronisation per CG iteration). The
+Armijo loop likewise reads its sufficient-decrease test once per trial.
+Everything else stays on the device: the step scalars are 0-d tensors.
 """
 
 from __future__ import annotations
@@ -77,3 +77,31 @@ def cg_solve(
         rz = rz_new
         k += 1
     return CGResult(x=x, iters=k, res_norm_sq=torch.dot(r, r))
+
+
+def inv_bb_step(x, x_prev, grad_x, grad_x_prev):
+    """Inverse Barzilai–Borwein step L_est = (γ·γ)/(δ·γ), δ = x − x_prev,
+    γ = ∇(x) − ∇(x_prev); δ·γ = 0 divides by 1 instead. The reference
+    uses L_est directly as the step size."""
+    delta = x - x_prev
+    gamma = grad_x - grad_x_prev
+    denom = torch.dot(delta, gamma)
+    return torch.dot(gamma, gamma) / torch.where(
+        denom == 0, torch.ones_like(denom), denom)
+
+
+def armijo_linesearch(x, d, f: Callable, grad_f: Callable, *, rho=0.5,
+                      c=1e-4, max_backtracks: int = 60):
+    """Backtracking Armijo line search: the largest α = ρᵏ (k ≤
+    max_backtracks) with f(x + α·d) ≤ f(x) + c·α·∇f(x)·d. An eager loop,
+    one host read per trial; capped at 60 halvings as in the JAX
+    package."""
+    fx = f(x)
+    slope = torch.dot(grad_f(x), d)
+    alpha = torch.ones((), dtype=x.dtype, device=x.device)
+    k = 0
+    while k < max_backtracks and bool(
+            f(x + alpha * d) > fx + c * alpha * slope):
+        alpha = rho * alpha
+        k += 1
+    return alpha

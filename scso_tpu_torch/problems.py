@@ -3,9 +3,10 @@
 Port of `scso_tpu.problems`. A :class:`Problem` is a frozen dataclass of
 tensors that all live on one ``device`` in one ``dtype``; both are
 explicit fields, because PyTorch has no global x64 switch (the CPU tests
-pass ``torch.float64``). The generic ``f(x)`` flavour, AD fallbacks,
-group structure, test data and the dense GGN hooks are not ported yet
-(ROADMAP A7, A8).
+pass ``torch.float64``). ∇f is the user's ``grad_fx``, else autograd
+through ``f`` (``torch.func.grad``). The generic ``f(x)`` flavour, the
+Hessian fallbacks, group structure, test data and the dense GGN hooks
+are not ported yet (ROADMAP A7, A8).
 """
 
 from __future__ import annotations
@@ -105,8 +106,21 @@ class Problem:
         """f at x on the given batch."""
         return self.f(As, ys, x)
 
+    def grad_f(self, As, ys, x):
+        """∇f — the user's ``grad_fx``, else ``torch.func.grad`` through
+        ``f``."""
+        if self.grad_fx is not None:
+            return self.grad_fx(As, ys, x)
+        return torch.func.grad(lambda v: self.f_val(As, ys, v))(x)
+
     def reg(self, reg_name: str, x):
         return reg_value(reg_name, x, lam=self.lam, lb=self.lb, ub=self.ub)
+
+    def obj(self, reg_name: str, x, As=None, ys=None):
+        """f(x) + λ·g(x), on the full data by default."""
+        As = self.A if As is None else As
+        ys = self.y if ys is None else ys
+        return self.f_val(As, ys, x) + self.reg(reg_name, x)
 
 
 def _resolve_bounds(C_set, dtype, device):
@@ -127,8 +141,9 @@ def make_problem(*args, L=None, sol=None, C_set=None, glm=None,
     (default: the CPU). ``pad_features=True`` zero-pads the feature axis
     to a multiple of 128 on the host before the transfer — the padded
     coordinates stay exactly 0 for l1/l2/no-prox solves, and
-    ``Solution.x`` is sliced back to ``n_true``. ``grad_fx`` is stored
-    (the cached GGN-CG path does not call it); ``mglm`` cannot be padded.
+    ``Solution.x`` is sliced back to ``n_true``. ``grad_fx(A, y, x)`` is
+    ∇f (L-BFGS, and the BB and Armijo step sizes; autograd through ``f``
+    when absent); ``mglm`` cannot be padded.
     """
     if unported:
         raise NotImplementedError(

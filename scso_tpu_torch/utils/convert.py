@@ -1,8 +1,8 @@
 """Carry arrays from the JAX package (given as numpy) into the port.
 
-With these a test hands the port the exact (padded) problem and the
-primed epoch cache (GLMCache or MOGLMCache) that `scso_tpu` built, and
-compares one step.
+With these a test hands the port the exact (padded) problem, the primed
+epoch cache (GLMCache or MOGLMCache) or the L-BFGS memory that
+`scso_tpu` built, and compares one step.
 """
 
 from __future__ import annotations
@@ -12,22 +12,25 @@ import torch
 
 from scso_tpu_torch.algorithms.steps import GLMCache, MOGLMCache
 from scso_tpu_torch.models import losses
+from scso_tpu_torch.ops.lbfgs_core import LBFGSMemory
 from scso_tpu_torch.problems import Problem
 
-_GLMS = {"logistic01": (losses.LOGISTIC01_GLM, losses.logistic01_f),
-         "multinomial": (None, losses.multinom_f)}
+_GLMS = {"logistic01": (losses.LOGISTIC01_GLM, losses.logistic01_f,
+                        losses.logistic01_grad),
+         "multinomial": (None, losses.multinom_f, losses.multinom_grad)}
 
 
 def problem_from_numpy(A, y, x0, lam, *, x_star=None, L=None, n_true=None,
-                       glm="logistic01", n_out=None, dtype=torch.float64,
-                       device="cpu") -> Problem:
+                       glm="logistic01", n_out=None, grad_fx=False,
+                       dtype=torch.float64, device="cpu") -> Problem:
     """A :class:`Problem` over arrays that are already as the JAX
     Problem holds them (padded, when ``n_true`` is given — no padding is
     applied here). ``glm='multinomial'`` builds the multi-output problem
-    with ``mglm=multinom_mglm(n_out)``."""
+    with ``mglm=multinom_mglm(n_out)``. ``grad_fx=True`` passes the
+    family's closed-form gradient (else ∇f is autograd through f)."""
     if glm not in _GLMS:
         raise ValueError(f"unknown GLM {glm!r}; known: {sorted(_GLMS)}")
-    spec, f = _GLMS[glm]
+    spec, f, grad = _GLMS[glm]
     mglm = None
     if glm == "multinomial":
         if n_out is None:
@@ -41,7 +44,7 @@ def problem_from_numpy(A, y, x0, lam, *, x_star=None, L=None, n_true=None,
         x_star=to(x_star) if x_star is not None else torch.zeros_like(x0),
         f=f, dtype=dtype, device=device,
         L=None if L is None else to(L), glm=spec, mglm=mglm,
-        n_true=n_true)
+        grad_fx=grad if grad_fx else None, n_true=n_true)
 
 
 def glm_cache_from_numpy(w, b_raw, hd_raw, loss, *, dtype=torch.float64,
@@ -52,7 +55,6 @@ def glm_cache_from_numpy(w, b_raw, hd_raw, loss, *, dtype=torch.float64,
                     loss=to(loss).reshape(()))
 
 
-
 def moglm_cache_from_numpy(Z, grad_vec, hd_raw, loss, *,
                            dtype=torch.float64,
                            device="cpu") -> MOGLMCache:
@@ -60,3 +62,14 @@ def moglm_cache_from_numpy(Z, grad_vec, hd_raw, loss, *,
     to = lambda v: torch.tensor(np.asarray(v), dtype=dtype, device=device)
     return MOGLMCache(Z=to(Z), grad_vec=to(grad_vec), hd_raw=to(hd_raw),
                       loss=to(loss).reshape(()))
+
+
+def lbfgs_memory_from_numpy(S, Y, pos, count, H0, *, dtype=torch.float64,
+                            device="cpu") -> LBFGSMemory:
+    """An :class:`LBFGSMemory` from the JAX package's LBFGSMemory fields
+    (pos and count as 0-d int32 tensors)."""
+    to = lambda v: torch.tensor(np.asarray(v), dtype=dtype, device=device)
+    i32 = lambda v: torch.tensor(int(np.asarray(v)), dtype=torch.int32,
+                                 device=device)
+    return LBFGSMemory(S=to(S), Y=to(Y), pos=i32(pos), count=i32(count),
+                       H0=to(H0).reshape(()))

@@ -11,7 +11,8 @@ jax):
 
 Tolerances: float32 rtol 2e-5, atol 3e-5·max(1, max|ref|) (the f32
 bounds of tests/test_pallas.py); float64 1e-12 of each; the small
-solves' objective histories 1e-9 relative. TF32 is off for the plain
+solves' objective histories 1e-9 relative. Every kernel's rerun is
+bitwise equal. TF32 is off for the plain
 versions' matrix products.
 """
 
@@ -23,12 +24,15 @@ import scso_tpu_torch as st
 from scso_tpu_torch._src.struct import replace
 from scso_tpu_torch.models import losses, synthetic
 from scso_tpu_torch.models.losses import LOGISTIC01_GLM
+from scso_tpu_torch.ops import lbfgs_core
 from scso_tpu_torch.ops.cuda import counters
-from scso_tpu_torch.ops.cuda.glm_prep import glm_prep_pair, glm_prep_pair_torch
+from scso_tpu_torch.ops.cuda.glm_prep import (
+    glm_prep, glm_prep_pair, glm_prep_pair_torch, glm_prep_torch)
 from scso_tpu_torch.ops.cuda.matvec import normal_matvec, normal_matvec_torch
 from scso_tpu_torch.ops.cuda.mglm_matvec import mglm_matvec, mglm_matvec_torch
 from scso_tpu_torch.ops.cuda.score_update import (
     score_update, score_update_torch)
+from scso_tpu_torch.ops.cuda.two_loop import two_loop, two_loop_torch
 
 pytestmark = pytest.mark.cuda
 
@@ -66,8 +70,9 @@ def test_data_kernels_match_plain(dev, dtype, m, n):
         _check(g, w_, dtype)
     again = glm_prep_pair(A, y, v * 0.1, v * 0.2, LOGISTIC01_GLM)
     assert all(torch.equal(g, a) for g, a in zip(got, again))
-    assert counters.snapshot() == {"normal_matvec": 1, "glm_prep_pair": 2,
-                                   "score_update": 0, "mglm_matvec": 0}
+    assert counters.snapshot() == {"normal_matvec": 1, "glm_prep": 0,
+                                   "glm_prep_pair": 2, "score_update": 0,
+                                   "mglm_matvec": 0, "two_loop": 0}
 
 
 @pytest.mark.parametrize("dtype,m,n", [(torch.float32, 4099, 40000),
@@ -166,6 +171,62 @@ def test_score_update_matches_plain(dev, dtype, n, reg):
         _check(g, w_, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,n", [(660, 256), (3465, 2432), (4099, 10112),
+                                 (947, 384), (999, 1001)])
+def test_glm_prep_matches_plain(dev, dtype, m, n):
+    gen = torch.Generator(device=dev).manual_seed(m + n)
+    A = torch.randn((m, n), generator=gen, device=dev, dtype=dtype) * 0.1
+    y = (torch.rand((m,), generator=gen, device=dev) < 0.5).to(dtype)
+    x = torch.randn((n,), generator=gen, device=dev, dtype=dtype) * 0.3
+    counters.reset()
+    got = glm_prep(A, y, x, LOGISTIC01_GLM)
+    for g, w_ in zip(got, glm_prep_torch(A, y, x, LOGISTIC01_GLM)[:3]):
+        _check(g, w_, dtype)
+    again = glm_prep(A, y, x, LOGISTIC01_GLM)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    assert counters.snapshot()["glm_prep"] == 2
+    assert counters.snapshot()["glm_prep_pair"] == 0
+
+
+def _lbfgs_memory(dev, dtype, n, m, pushes, seed):
+    """A memory from ``pushes`` SPD-quadratic pairs (γ = B·δ), pushed by
+    the plain update; with pushes ≥ 2 one valid slot gets an s and a y
+    of disjoint support, so yᵀs = 0 exactly (ρ = 0 there)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bdiag = torch.rand((n,), generator=gen, device=dev, dtype=dtype) * 4 + 0.5
+    mem = lbfgs_core.init_memory(n, m, dtype, dev)
+    for _ in range(pushes):
+        delta = torch.randn((n,), generator=gen, device=dev,
+                            dtype=dtype) * 0.1
+        mem = lbfgs_core.update_memory(mem, delta, bdiag * delta)
+    if pushes >= 2:
+        slot = (int(mem.pos) - 2) % m
+        S, Y = mem.S.clone(), mem.Y.clone()
+        S[slot, n // 2:] = 0
+        Y[slot, : n // 2] = 0
+        mem = mem._replace(S=S, Y=Y)
+    g = torch.randn((n,), generator=gen, device=dev, dtype=dtype)
+    return mem, g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [64, 361, 777, 2784, 10112, 16500, 100000])
+@pytest.mark.parametrize("m", [1, 5, 10])
+def test_two_loop_matches_plain(dev, dtype, n, m):
+    # empty, partial, full and wrapped memories
+    for pushes in sorted({0, max(1, m // 2), m, m + 3}):
+        mem, g = _lbfgs_memory(dev, dtype, n, m, pushes, n * 31 + m + pushes)
+        assert int(mem.count) == min(pushes, m)
+        counters.reset()
+        got = two_loop(mem, g)
+        assert torch.equal(got, two_loop(mem, g))
+        assert counters.snapshot()["two_loop"] == 2
+        _check(got, two_loop_torch(mem, g), dtype)
+        if pushes == 0:
+            assert torch.equal(got, -g)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     A = torch.zeros((4, 8), device=dev)
     with pytest.raises(ValueError):
@@ -178,6 +239,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         glm_prep_pair(A, torch.zeros(4, device=dev), torch.zeros(8, device=dev),
                       torch.zeros(8, device=dev),
                       replace(LOGISTIC01_GLM, kind="poisson"))
+    with pytest.raises(ValueError, match="B2"):
+        glm_prep(A, torch.zeros(4, device=dev), torch.zeros(8, device=dev),
+                 replace(LOGISTIC01_GLM, kind="poisson"))
+    g = torch.zeros(8, device=dev)
+    with pytest.raises(ValueError, match="64"):
+        two_loop(lbfgs_core.init_memory(8, 65, torch.float32, dev), g)
+    mem = lbfgs_core.init_memory(8, 4, torch.float32, dev)
+    with pytest.raises(ValueError, match="int32"):
+        two_loop(mem._replace(pos=mem.pos.long()), g)
 
 
 def test_small_solve_matches_cpu(dev):
@@ -202,5 +272,35 @@ def test_small_solve_matches_cpu(dev):
                        **kw)
     assert s_gpu.epochs == s_cpu.epochs
     assert tuple(s_gpu.x.shape) == (200,)
+    np.testing.assert_allclose(s_gpu.obj.numpy(), s_cpu.obj.numpy(),
+                               rtol=1e-9)
+
+
+def _small_logreg(device):
+    A, y, x0, _ = synthetic.make_sparse_logreg_data(
+        512, 200, density=0.05, n_active=8, seed=7, dtype=np.float64,
+        label01=True)
+    return st.Problem(A, y, x0, losses.logistic01_f, 0.01,
+                      grad_fx=losses.logistic01_grad,
+                      glm=losses.LOGISTIC01_GLM, dtype=torch.float64,
+                      device=device, pad_features=True)
+
+
+@pytest.mark.parametrize("method,kernels", [
+    (st.ProxLQNSCORE(), ("two_loop", "score_update")),
+    (st.ProxGGNSCORE(solver="cg", epoch_cache=False, greedy_alpha=False),
+     ("glm_prep", "normal_matvec", "score_update")),
+])
+def test_small_lbfgs_and_uncached_solves_match_cpu(dev, method, kernels):
+    kw = dict(x_tol=1e-12, f_tol=1e-10, max_epoch=40, verbose=0,
+              stats_every=4, alpha=1.0)
+    counters.reset()
+    s_gpu = st.iterate(method, _small_logreg(dev), "l1",
+                       st.PHuberSmootherL1L2(1.0), **kw)
+    got = counters.snapshot()
+    assert all((got[k] > 0) == (k in kernels) for k in got), got
+    s_cpu = st.iterate(method, _small_logreg("cpu"), "l1",
+                       st.PHuberSmootherL1L2(1.0), **kw)
+    assert s_gpu.epochs == s_cpu.epochs
     np.testing.assert_allclose(s_gpu.obj.numpy(), s_cpu.obj.numpy(),
                                rtol=1e-9)

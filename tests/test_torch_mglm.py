@@ -247,7 +247,8 @@ def test_validation_raises():
 
 @pytest.mark.parametrize("method,match", [
     (st.ProxGGNSCORE(solver="cg", auto_lp=True), "A10"),
-    (st.ProxGGNSCORE(solver="cg", epoch_cache=False), "A9"),
+    (st.ProxGGNSCORE(solver="cg", epoch_cache=False, cg_lp_tol=1e-3),
+     "A10"),
 ])
 def test_unported_parts_raise(method, match):
     _, pt = _problems(64, 8, 3)

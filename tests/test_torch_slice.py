@@ -145,7 +145,7 @@ def test_kernel_resolution():
 
 
 @pytest.mark.parametrize("method,kw", [
-    (st.ProxGGNSCORE(solver="cg", ss_type=2), {}),
+    (st.ProxGGNSCORE(solver="cg"), {"resume_state": None}),
     (st.ProxGGNSCORE(solver="dense_dual"), {}),
     (st.ProxGGNSCORE(solver="cg", auto_lp=True), {}),
     (st.ProxGGNSCORE(solver="cg"), {"batch_size": 16}),
