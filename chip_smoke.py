@@ -11,15 +11,17 @@ result. Phases, each fatal on failure:
   1. The card (name and power limit from nvidia-smi); build the CUDA
      kernels from ``scso_tpu_torch/csrc`` and print the build seconds.
   2. Each kernel against its plain PyTorch version on the card, in
-     float32 and float64, at the main-path and narrow shapes (K1, K2,
-     K2s), at block-boundary shapes, at n above K1's shared-memory form,
+     float32 and float64, at the main-path and narrow shapes (K1, K2
+     also normalized by another row count, K2s, and K1s under a one-rank NCCL group: bitwise K1, and its
+     overlapped form with 2 and 3 column chunks against the plain
+     version), at block-boundary shapes, at n above K1's shared-memory form,
      at odd n for K3, for K5 at the multinomial bench shape, at boundary
      shapes (both of its forms) and at k = 1, 17 and 128, and for K4 at
      the L-BFGS path's shape and at other n and m with empty, partial,
      full and wrapped memories and a slot with yᵀs = 0; two runs of a
      kernel must give bitwise-equal outputs. Times (CUDA events, median
      of 20) of each kernel beside its plain version at its path's
-     full-width shape.
+     full-width shape, and of one 40 KB NCCL all-reduce.
   3. The sparse-logistic path at full width: 196608×10000 (padded to
      10112), seed 7, float32 on the card, solved by the no-knob
      ProxGGNSCORE(solver='cg', cg_maxiter=100) with the pseudo-Huber l1
@@ -46,9 +48,27 @@ result. Phases, each fatal on failure:
      kernels='torch' chain must agree on the final objective, and a
      small float64 uncached solve through the kernels must match the
      CPU plain path.
+  8. The row-sharded cached GGN-CG path. (a) `shard_problem` of phase
+     3's problem over the one-rank NCCL mesh under phase 3's protocol:
+     the same epochs, CG iterations and final objective, bitwise, with
+     K1s, K1, K2 and K3 launched as often as K1, K2 and K3 in phase 3.
+     (b) Two ranks on the one card over gloo (NCCL refuses two ranks on
+     one card): the parent writes 2×32768×10000 rows (seed 7) with
+     `save_problem_data` to a temporary directory, two worker processes
+     of this script load their rows with `load_problem_rows_sharded`
+     and solve to the 1e-6 gap with comm_overlap_chunks 1 and 2; each
+     final objective within E2E_RTOL of the parent's unsharded chain,
+     x bitwise equal on both ranks, and a small float64 two-rank solve
+     matching the CPU's plain unsharded solve to 1e-9. Its seconds are
+     not a scaling number.
 
 The last two lines of standard output are one JSON object with each
-kernel's numbers, then ``{"ok": true, "device": {...}}``.
+kernel's numbers, then ``{"ok": true, "device": {...}}``. Each kernel's
+``bound_ms`` is the larger of the bytes it must move (each input read
+once, each output written once) over 3.35 TB/s and its multiply-adds
+over A (or the vectors) at 67 TFLOP/s, the H100 SXM data sheet's HBM
+and FP32 rates, at the shape it was timed; ``library_ms`` is null: no
+single PyTorch call computes any of these functions.
 Tolerances (stated with each comparison below): float32 rtol 2e-5 and
 atol 3e-5·max|ref|; float64 rtol 1e-12 and atol 1e-12·max|ref|.
 """
@@ -57,10 +77,14 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -92,10 +116,15 @@ LBFGS_RTOL = 1e-5     # L-BFGS objective histories, kernels vs plain, f32
 # K4 cases: (n, m, pairs pushed); the first is the L-BFGS path's shape
 TWO_LOOP_CASES = [(10112, 10, 10), (10112, 10, 0), (361, 5, 3),
                   (777, 9, 18), (100000, 10, 13), (64, 1, 4)]
+TWO_RANK_ROWS = 32768  # rows of each rank in phase 8(b)
+HBM_BYTES_S = 3.35e12  # H100 SXM data sheet: HBM3 rate
+FP32_FLOP_S = 67e12    # H100 SXM data sheet: FP32 outside the tensor cores
 
 KERNELS = {
     "normal_matvec": ("scso_tpu_torch/csrc/matvec.cu",
                       "scso_tpu/ops/pallas/matvec.py:118"),
+    "normal_matvec_sharded": ("scso_tpu_torch/ops/cuda/matvec.py",
+                              "scso_tpu/ops/pallas/matvec.py:196"),
     "glm_prep_pair": ("scso_tpu_torch/csrc/glm_prep.cu",
                       "scso_tpu/ops/pallas/glm_prep.py:239"),
     "glm_prep": ("scso_tpu_torch/csrc/glm_prep.cu",
@@ -111,10 +140,13 @@ LOGISTIC_KERNELS = ("normal_matvec", "glm_prep_pair", "score_update")
 MGLM_KERNELS = ("mglm_matvec", "score_update")
 LBFGS_KERNELS = ("two_loop", "score_update")
 UNCACHED_KERNELS = ("glm_prep", "normal_matvec", "score_update")
+SHARDED_KERNELS = ("normal_matvec_sharded", "normal_matvec", "glm_prep_pair",
+                   "score_update")
 
 
 def fail(msg: str):
-    print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
+    print(f"{os.path.basename(sys.argv[0])} FAILED: {msg}", file=sys.stderr,
+          flush=True)
     sys.exit(1)
 
 
@@ -170,15 +202,17 @@ def time_ms(fn, reps=20):
     return statistics.median(times)
 
 
-def data_kernel_case(m, n, dtype, gen, timed=False):
-    """K1 and K2 against their plain versions on random data (m, n)."""
+def data_kernel_case(m, n, dtype, gen, mesh, timed=False):
+    """K1, K1s (on the one-rank ``mesh``), K2 and K2s against their
+    plain versions on random data (m, n)."""
     import torch
 
     from scso_tpu_torch.models.losses import LOGISTIC01_GLM
     from scso_tpu_torch.ops.cuda.glm_prep import (
         glm_prep, glm_prep_pair, glm_prep_pair_torch, glm_prep_torch)
     from scso_tpu_torch.ops.cuda.matvec import (
-        normal_matvec, normal_matvec_torch)
+        normal_matvec, normal_matvec_sharded, normal_matvec_sharded_torch,
+        normal_matvec_torch)
 
     dev = "cuda"
     dn = str(dtype).replace("torch.", "")
@@ -196,7 +230,17 @@ def data_kernel_case(m, n, dtype, gen, timed=False):
     same_bits(f"normal_matvec {tag}", [k1], [normal_matvec(A, w, v)])
     res["normal_matvec"] = compare(f"normal_matvec {tag}", k1,
                                    normal_matvec_torch(A, w, v), dn)
-    del k1
+    # K1s: one rank's all-reduce is a copy, so bitwise K1; its
+    # overlapped form against K1s's plain version
+    if not torch.equal(normal_matvec_sharded(A, w, v, mesh), k1):
+        fail(f"normal_matvec_sharded {tag}: not bitwise K1 on one rank")
+    plain = normal_matvec_sharded_torch(A, w, v, mesh)
+    res["normal_matvec_sharded"] = max(
+        [compare(f"normal_matvec_sharded {tag}", k1, plain, dn)]
+        + [compare(f"normal_matvec_sharded overlap {c} {tag}",
+                   normal_matvec_sharded(A, w, v, mesh, overlap_chunks=c),
+                   plain, dn) for c in (2, 3)])
+    del k1, plain
 
     pp = glm_prep_pair(A, y, xt, xd, LOGISTIC01_GLM)
     same_bits(f"glm_prep_pair {tag}", pp,
@@ -205,6 +249,15 @@ def data_kernel_case(m, n, dtype, gen, timed=False):
     res["glm_prep_pair"] = max(
         compare(f"glm_prep_pair.{f} {tag}", g, r, dn)
         for f, g, r in zip(pp._fields, pp, ref))
+    del pp, ref
+    # normalized by the rows of all ranks, as on one rank of four
+    m_norm = 4 * m + 3
+    pp = glm_prep_pair(A, y, xt, xd, LOGISTIC01_GLM, m_norm)
+    ref = glm_prep_pair_torch(A, y, xt, xd, LOGISTIC01_GLM, m_norm)
+    res["glm_prep_pair"] = max(
+        [res["glm_prep_pair"]]
+        + [compare(f"glm_prep_pair.{f} m_norm={m_norm} {tag}", g, r, dn)
+           for f, g, r in zip(pp._fields, pp, ref)])
     del pp, ref
 
     k2s = glm_prep(A, y, xt, LOGISTIC01_GLM)
@@ -219,6 +272,9 @@ def data_kernel_case(m, n, dtype, gen, timed=False):
         times["normal_matvec"] = (
             time_ms(lambda: normal_matvec(A, w, v)),
             time_ms(lambda: normal_matvec_torch(A, w, v)))
+        times["normal_matvec_sharded"] = (
+            time_ms(lambda: normal_matvec_sharded(A, w, v, mesh)),
+            time_ms(lambda: normal_matvec_sharded_torch(A, w, v, mesh)))
         times["glm_prep_pair"] = (
             time_ms(lambda: glm_prep_pair(A, y, xt, xd, LOGISTIC01_GLM)),
             time_ms(lambda: glm_prep_pair_torch(A, y, xt, xd,
@@ -346,8 +402,39 @@ def mglm_case(m, p, k, dtype, gen, timed=False):
     return err, times
 
 
-def phase_kernels():
+def work_bounds(main, mglm_shape, lbfgs_case):
+    """(bytes, flops) each kernel must move and do at its timed shape,
+    float32: each input read once and each output written once; the
+    multiply-adds over A (or, for K3 and K4, over the vectors). K1s is
+    K1 plus one all-reduce of n values (read and written once on one
+    rank)."""
+    m, n = main
+    mm, p, k = mglm_shape
+    n4, mem = lbfgs_case[0], lbfgs_case[1]
+    f = 4
+    k1 = (f * (m * n + m + 2 * n), 4 * m * n)
+    return {
+        "normal_matvec": k1,
+        "normal_matvec_sharded": (k1[0] + 2 * f * n, k1[1]),
+        "glm_prep_pair": (f * (m * n + 3 * m + 6 * n + 2), 14 * m * n),
+        "glm_prep": (f * (m * n + 2 * m + 3 * n), 7 * m * n),
+        "score_update": (f * 5 * n, 20 * n),
+        "mglm_matvec": (f * (mm * p + 2 * mm * k + 2 * p * k),
+                        4 * mm * p * k),
+        "two_loop": (f * (2 * mem * n4 + 2 * n4), 8 * mem * n4),
+    }
+
+
+def bound(bytes_, flops):
+    """(bound_ms, bound_by) on the data sheet's H100 SXM peaks."""
+    t_bytes, t_ops = bytes_ / HBM_BYTES_S, flops / FP32_FLOP_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_kernels(mesh):
     import torch
+    import torch.distributed as dist
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -358,9 +445,10 @@ def phase_kernels():
         for (m, n) in [main, NARROW_SHAPE] + BOUNDARY_SHAPES:
             timed = dtype == torch.float32 and (m, n) == main
             t0 = time.perf_counter()
-            res, t = data_kernel_case(m, n, dtype, gen, timed=timed)
-            log(f"  K1/K2/K2s {m}x{n} {dtype}: max abs err "
+            res, t = data_kernel_case(m, n, dtype, gen, mesh, timed=timed)
+            log(f"  K1/K1s/K2/K2s {m}x{n} {dtype}: max abs err "
                 f"K1 {res['normal_matvec']:.3e} "
+                f"K1s {res['normal_matvec_sharded']:.3e} "
                 f"K2 {res['glm_prep_pair']:.3e} "
                 f"K2s {res['glm_prep']:.3e} "
                 f"({time.perf_counter() - t0:.1f} s)")
@@ -406,7 +494,11 @@ def phase_kernels():
     for k, (ms, plain) in times.items():
         log(f"  time at the main-path shape, {k}: kernel {ms:.4f} ms, "
             f"plain {plain:.4f} ms (CUDA events, median of 20)")
-    return errs, times
+    buf = torch.ones(main[1], device="cuda")
+    ar_ms = time_ms(lambda: dist.all_reduce(buf, group=mesh.group))
+    log(f"  one all-reduce of {buf.numel() * 4} bytes over the one-rank "
+        f"NCCL group: {ar_ms:.4f} ms (CUDA events, median of 20)")
+    return errs, times, work_bounds(main, MGLM_SHAPE, TWO_LOOP_CASES[0])
 
 
 # ---------------------------------------------------------------------------
@@ -456,8 +548,9 @@ def presolve(method, prob):
     return best, x_opt, epochs
 
 
-def timed_chain(method, prob, best):
-    """Fresh solves from x0 against x*, chained until the gap fires."""
+def timed_chain(method, prob, best, keep_x=False):
+    """Fresh solves from x0 against x*, chained until the gap fires.
+    ``keep_x`` adds the final iterate (a tensor) as ``x``."""
     from scso_tpu_torch._src.struct import replace
 
     t_solve, epochs, cg_total, cur, prev_gap = 0.0, 0, 0, prob, float("inf")
@@ -477,8 +570,11 @@ def timed_chain(method, prob, best):
         cur = replace(cur, x0=s.state.x)
     if gap > GAP and signed_min <= GAP:
         gap = GAP  # reached below the anchor
-    return dict(seconds=t_solve, epochs=epochs, cg_iters=cg_total,
-                gap=gap, obj=float(s.obj[-1]))
+    out = dict(seconds=t_solve, epochs=epochs, cg_iters=cg_total, gap=gap,
+               obj=float(s.obj[-1]))
+    if keep_x:
+        out["x"] = s.x
+    return out
 
 
 def phase_main_path():
@@ -741,6 +837,246 @@ def phase_uncached(prob_t, best):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the row-sharded cached GGN-CG path
+# ---------------------------------------------------------------------------
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_sharded_one_rank(mesh, prob_t, best, kern, launches3):
+    """8(a): phase 3's chain on the problem sharded over one rank."""
+    import scso_tpu_torch as st
+    from scso_tpu_torch.ops.cuda import counters
+    from scso_tpu_torch.parallel import shard_problem
+
+    method = st.ProxGGNSCORE(solver="cg", cg_maxiter=100)
+    sp = shard_problem(prob_t, mesh)
+    solve_chunk(method, sp)  # warm-up
+    counters.reset()
+    sh = timed_chain(method, sp, best)
+    launches = counters.snapshot()
+    log(f"  timed solve, one rank (NCCL): {sh['seconds']:.4f} s, "
+        f"{sh['epochs']} epochs, {sh['cg_iters']} CG iterations, gap "
+        f"{sh['gap']:.3e}, launches {launches}; phase 3 unsharded: "
+        f"{kern['seconds']:.4f} s")
+    for key in ("epochs", "cg_iters", "obj"):
+        if sh[key] != kern[key]:
+            fail(f"one-rank sharded {key} {sh[key]!r} != phase 3's "
+                 f"{kern[key]!r}")
+    check_launches(launches, SHARDED_KERNELS, "one-rank sharded")
+    want = dict(launches3, normal_matvec_sharded=launches3["normal_matvec"])
+    if launches != want:
+        fail(f"one-rank sharded launches {launches} != {want}")
+    log(f"  final objective {sh['obj']:.9e}, epochs and CG iterations: "
+        "bitwise phase 3's")
+    return sh, launches
+
+
+def build_two_rank_problem(device):
+    import numpy as np
+    import torch
+
+    import scso_tpu_torch as st
+    from scso_tpu_torch.models import losses, synthetic
+
+    A, y, x0, _ = synthetic.make_sparse_logreg_data(
+        2 * TWO_RANK_ROWS, MAIN_SHAPE[1], density=0.05, n_active=64,
+        seed=SEED, dtype=np.float32, label01=True)
+    prob = st.Problem(A, y, x0, losses.logistic01_f, 0.01,
+                      grad_fx=losses.logistic01_grad,
+                      glm=losses.LOGISTIC01_GLM, dtype=torch.float32,
+                      device=device, pad_features=True)
+    return prob, (A, y, x0)
+
+
+def rank_worker(port, rank, workdir):
+    """One of phase 8(b)'s two ranks (``--rank-worker``): load this
+    rank's rows from ``workdir``, solve to the gap with
+    comm_overlap_chunks 1 and 2, then the small float64 solve; save."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import scso_tpu_torch as st
+    from scso_tpu_torch.models import losses
+    from scso_tpu_torch.ops.cuda import counters
+    from scso_tpu_torch.parallel import (
+        distributed_init, load_problem_rows_sharded, make_mesh,
+        shard_problem)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = int(rank)
+    if distributed_init("gloo", init_method=f"tcp://localhost:{port}",
+                        world_size=2, rank=rank) != 2:
+        fail(f"rank {rank}: the two-rank gloo group did not form")
+    mesh = make_mesh()
+    with open(os.path.join(workdir, "anchor.json")) as fh:
+        best = json.load(fh)["best"]
+    prob = load_problem_rows_sharded(
+        os.path.join(workdir, "data"), np.load(os.path.join(workdir,
+                                                            "x0.npy")),
+        losses.logistic01_f, 0.01, mesh, device="cuda",
+        grad_fx=losses.logistic01_grad, glm=losses.LOGISTIC01_GLM,
+        sol=np.load(os.path.join(workdir, "xstar.npy")), pad_features=True)
+    out = {}
+    for chunks in (1, 2):
+        method = st.ProxGGNSCORE(solver="cg", cg_maxiter=100,
+                                 comm_overlap_chunks=chunks)
+        solve_chunk(method, prob)  # warm-up
+        counters.reset()
+        r = timed_chain(method, prob, best, keep_x=True)
+        r["launches"] = counters.snapshot()
+        out[f"x{chunks}"] = r.pop("x").cpu().numpy()
+        out[f"chain{chunks}"] = json.dumps(r)
+    s = solve_chunk(st.ProxGGNSCORE(solver="cg", greedy_alpha=False),
+                    shard_problem(build_problem(512, 200, "cuda",
+                                                torch.float64), mesh))
+    out["small_obj"] = s.obj.numpy()
+    np.savez(os.path.join(workdir, f"rank{rank}.npz"), **out)
+    dist.destroy_process_group()
+
+
+def wait_all(procs, timeout):
+    """Wait for every process; the first to fail, or the timeout, ends
+    the others (a rank left alone would wait at its next collective)."""
+    deadline = time.monotonic() + timeout
+    while any(p.poll() is None for p in procs):
+        if (time.monotonic() > deadline
+                or any(p.poll() not in (None, 0) for p in procs)):
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            return
+        time.sleep(0.2)
+
+
+def phase_sharded_two_ranks():
+    """8(b): two worker ranks on the one card over gloo against the
+    parent's unsharded chain on the same data."""
+    import numpy as np
+    import torch
+
+    import scso_tpu_torch as st
+    from scso_tpu_torch._src.struct import replace
+    from scso_tpu_torch.parallel import save_problem_data
+
+    workdir = tempfile.mkdtemp(prefix="scso_chip_smoke_")
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        prob, (A, y, x0) = build_two_rank_problem("cuda")
+        save_problem_data(os.path.join(workdir, "data"), A, y)
+        np.save(os.path.join(workdir, "x0.npy"), x0)
+        del A, y
+        log(f"  data 2x{TWO_RANK_ROWS}x{MAIN_SHAPE[1]} made and written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        method = st.ProxGGNSCORE(solver="cg", cg_maxiter=100)
+        best, x_opt, _ = presolve(method, prob)
+        prob_t = replace(prob, x_star=x_opt)
+        solve_chunk(method, prob_t)  # warm-up
+        ref = timed_chain(method, prob_t, best)
+        del prob, prob_t
+        torch.cuda.empty_cache()
+        np.save(os.path.join(workdir, "xstar.npy"),
+                x_opt[:MAIN_SHAPE[1]].cpu().numpy())
+        with open(os.path.join(workdir, "anchor.json"), "w") as fh:
+            json.dump({"best": best}, fh)
+        log(f"  unsharded chain, kernels: {ref['seconds']:.4f} s, "
+            f"{ref['epochs']} epochs, {ref['cg_iters']} CG iterations, "
+            f"obj {ref['obj']:.9e}")
+        port = free_port()
+        t0 = time.perf_counter()
+        logs = [open(os.path.join(workdir, f"rank{r}.log"), "w+")
+                for r in range(2)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank-worker",
+             str(port), str(r), workdir], stdout=logs[r],
+            stderr=subprocess.STDOUT) for r in range(2)]
+        wait_all(procs, timeout=400)
+        for r, (p, fh) in enumerate(zip(procs, logs)):
+            fh.seek(0)
+            if p.returncode != 0:
+                fail(f"phase 8(b) rank {r} exited {p.returncode}:\n"
+                     f"{fh.read()[-4000:]}")
+            fh.close()
+        log(f"  two ranks done in {time.perf_counter() - t0:.1f} s "
+            "(start-up, loading and solves)")
+        ranks = [dict(np.load(os.path.join(workdir, f"rank{r}.npz")))
+                 for r in range(2)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(workdir, ignore_errors=True)
+    res = {"unsharded": ref}
+    for chunks in (1, 2):
+        got = json.loads(str(ranks[0][f"chain{chunks}"]))
+        if not np.array_equal(ranks[0][f"x{chunks}"], ranks[1][f"x{chunks}"]):
+            fail(f"two ranks (comm_overlap_chunks={chunks}) hold different "
+                 "x")
+        rel = abs(got["obj"] - ref["obj"]) / abs(ref["obj"])
+        if not (rel <= E2E_RTOL and got["gap"] <= GAP * 1.05):
+            fail(f"two ranks (comm_overlap_chunks={chunks}): obj "
+                 f"{got['obj']:.9e} vs unsharded {ref['obj']:.9e} (rel "
+                 f"{rel:.2e}), gap {got['gap']:.3e}")
+        lc = got["launches"]
+        # the overlapped form's local products are matrix products: it
+        # launches neither K1 nor K1s
+        check_launches(lc, SHARDED_KERNELS if chunks == 1 else tuple(
+            k for k in SHARDED_KERNELS
+            if k not in ("normal_matvec", "normal_matvec_sharded")),
+            f"two-rank (comm_overlap_chunks={chunks})")
+        if chunks == 1 and lc["normal_matvec_sharded"] != lc["normal_matvec"]:
+            fail(f"two-rank: K1s launched {lc['normal_matvec_sharded']} "
+                 f"times but K1 {lc['normal_matvec']}")
+        log(f"  gloo, two ranks on one card, comm_overlap_chunks={chunks}: "
+            f"{got['seconds']:.4f} s, {got['epochs']} epochs, "
+            f"{got['cg_iters']} CG iterations, obj {got['obj']:.9e} (rel "
+            f"diff to unsharded {rel:.2e}, tolerance {E2E_RTOL:g}), x "
+            f"bitwise equal on both ranks, launches on rank 0 {lc}")
+        res[f"two_ranks_overlap{chunks}"] = got
+    s_cpu = solve_chunk(st.ProxGGNSCORE(solver="cg", greedy_alpha=False),
+                        build_problem(512, 200, "cpu", torch.float64))
+    small = [r["small_obj"] for r in ranks]
+    want = s_cpu.obj.numpy()
+    if not (np.array_equal(small[0], small[1])
+            and small[0].shape == want.shape):
+        fail("small f64 two-rank solve: the ranks' histories differ or "
+             "its epochs differ from the CPU's")
+    rel64 = float(np.max(np.abs(small[0] - want) / np.abs(want)))
+    if not rel64 <= SMALL_RTOL:
+        fail(f"small f64 two-rank solve: histories differ by {rel64:.2e}")
+    log(f"  small f64 two-rank 512x200: card vs CPU plain unsharded max rel "
+        f"objective diff {rel64:.2e} (tolerance {SMALL_RTOL:g})")
+    return res
+
+
+def one_rank_nccl():
+    """A one-rank NCCL group in this process (a TCP store on
+    localhost) and its mesh."""
+    import torch.distributed as dist
+
+    from scso_tpu_torch.parallel import distributed_init, make_mesh
+
+    # a failed init warns and returns 1 too: read the group itself
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        size = distributed_init(init_method=f"tcp://localhost:{free_port()}",
+                                world_size=1, rank=0)
+    if not (size == 1 and dist.is_initialized()
+            and dist.get_backend() == "nccl"):
+        fail("the one-rank NCCL group did not form: "
+             + "; ".join(str(w.message) for w in caught))
+    return make_mesh()
+
+
+# ---------------------------------------------------------------------------
 
 
 def main():
@@ -755,6 +1091,10 @@ def main():
              "the GPU and does not run on the CPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--rank-worker"]:
+        return rank_worker(*sys.argv[2:])
+    import torch.distributed as dist
+
     import scso_tpu_torch as st
     from scso_tpu_torch.ops.cuda import build
 
@@ -772,8 +1112,9 @@ def main():
     log(f"  kernels built in {res.seconds:.2f} s -> {res.path} "
         "(nvcc's report: build.log beside it)")
 
+    mesh = one_rank_nccl()
     log("phase 2: kernels against their plain versions")
-    errs, times = phase_kernels()
+    errs, times, work = phase_kernels(mesh)
 
     log("phase 3/4: sparse-logistic path at full width, and cross-checks")
     kern, plain, launches, prob_t, best = phase_main_path()
@@ -788,8 +1129,18 @@ def main():
 
     log("phase 7: uncached GGN-CG path at full width, and cross-checks")
     ukern, uplain, ulaunches = phase_uncached(prob_t, best)
+
+    log("phase 8: the row-sharded cached GGN-CG path")
+    log(" (a) one rank over NCCL, full width")
+    skern, slaunches = phase_sharded_one_rank(mesh, prob_t, best, kern,
+                                              launches)
+    del prob_t
+    torch.cuda.empty_cache()
+    log(" (b) two ranks on the one card over gloo")
+    two = phase_sharded_two_ranks()
+    dist.destroy_process_group()
     launches = {k: launches[k] + mlaunches[k] + llaunches[k] + ulaunches[k]
-                for k in launches}
+                + slaunches[k] for k in launches}
 
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "scso_tpu"
@@ -806,11 +1157,17 @@ def main():
     log("uncached GGN-CG path: " + json.dumps({"card": card,
                                                "kernels": ukern,
                                                "torch": uplain}))
-    print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[k], "max_abs_err": errs[k],
-         "ms": times[k][0], "plain_ms": times[k][1]}
-        for k, (src, rep) in KERNELS.items()]}))
+    log("sharded path: " + json.dumps({"card": card, "one_rank": skern,
+                                       **two}))
+    rows = []
+    for k, (src, rep) in KERNELS.items():
+        bound_ms, bound_by = bound(*work[k])
+        rows.append({"name": k, "route": "cuda", "source": src,
+                     "replaces": rep, "launches": launches[k],
+                     "max_abs_err": errs[k], "ms": times[k][0],
+                     "plain_ms": times[k][1], "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None})
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

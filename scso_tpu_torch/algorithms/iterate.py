@@ -18,6 +18,12 @@ Stopping is the reference's triple test: ‖x⁺−x‖ < x_tol·max(‖x‖, 1)
 relative objective gap ≤ f_tol, or primal residual < x_tol. Records are
 taken at x_0 … plus a final record at the terminating iterate.
 
+A row-sharded problem (`parallel.shard_problem`) is solved SPMD, one
+process per rank, on the cached GGN-CG path: ``obj_star`` and every
+stats record come from the all-reduced cache, and every host decision
+reads replicated values, so all ranks take the same CG iterations and
+epochs. Everything else raises on it before the first collective.
+
 Not ported yet: mini-batches, the timed (python-loop) mode, metrics,
 test data, resume, and the Newton method (ROADMAP A7, A12).
 """
@@ -106,8 +112,13 @@ def _stats(prob: Problem, reg_name: str, x, obj_star, x_tol, f_tol,
            fval=None):
     """One record: (fval, obj, rel, objrel, raw_frel), all 0-d tensors.
     ``fval`` is the cached data loss when the epoch cache carries one;
-    None evaluates f(x), one pass over A."""
+    None evaluates f(x), one pass over A (never on a row shard, where it
+    would be this rank's f alone)."""
     if fval is None:
+        if prob.mesh is not None:
+            raise NotImplementedError(
+                "f(x) on a row-sharded problem off the epoch cache is not "
+                "ported yet (ROADMAP A11)")
         fval = prob.f_val(prob.A, prob.y, x)
     obj = fval + prob.reg(reg_name, x)
     x_star = prob.x_star
@@ -130,6 +141,26 @@ def _resolve_kernels(method, prob: Problem):
             f"kernels='cuda' needs the problem's data on a CUDA device; it "
             f"is on {prob.A.device} (use kernels='torch' or 'auto')")
     return method
+
+
+def _check_sharded(method, prob: Problem, reg_name: str):
+    """A row-sharded problem runs the cached GGN-CG path only. Anything
+    else raises here, before the first collective: ranks that parted at
+    a collective would wait for each other forever."""
+    if prob.mesh is None:
+        return
+    what = None
+    if not isinstance(method, ProxGGNSCORE):
+        what = type(method).__name__
+    elif prob.mglm is not None:
+        what = "a multi-output (mglm) problem"
+    elif not epoch_cache_enabled(method, prob, reg_name, True):
+        what = ("the uncached GGN-CG path (ss_type 2 or 3, "
+                "epoch_cache=False, or a spec without loss_sample)")
+    if what is not None:
+        raise NotImplementedError(
+            f"{what} on a row-sharded problem is not ported yet: only "
+            "the cached GGN-CG path runs sharded (ROADMAP A11)")
 
 
 def _effective_L(prob: Problem, alpha):
@@ -163,6 +194,7 @@ def solve(method, prob: Problem, reg_name: str, sm, opts: Options,
     prob = _effective_L(prob, alpha)
     method = _resolve_kernels(method, prob)
     method, prob = _auto_lp(method, prob)
+    _check_sharded(method, prob, reg_name)
     sync = (torch.cuda.synchronize if prob.device.type == "cuda"
             else lambda: None)
     t0 = time.perf_counter()

@@ -55,6 +55,14 @@ class ProxGGNSCORE:
     #: package's n >= 8192 gate was measured on a TPU v5e and is not
     #: carried over); False takes z = A·x and the plain weights.
     use_fused_prep: Optional[bool] = None
+    #: row-sharded problems: > 1 splits the CG matvec's second
+    #: contraction into that many column chunks whose all_reduces
+    #: overlap the next chunk's product (ops/cuda/matvec.py, K1s); 1 =
+    #: K1 on the shard plus one all_reduce. Kept for parity with the JAX
+    #: package: the overlapped form bypasses the hand-written K1 (both
+    #: contractions are matrix products) and on four NVLink-joined H100s
+    #: it was measured slower than 1 (PERF.md, chip_sharded.py)
+    comm_overlap_chunks: int = 1
     kernels: str = "auto"
     name: str = "prox-ggnscore"
     label: str = "Prox-GGN-SCORE"

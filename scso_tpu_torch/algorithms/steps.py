@@ -18,6 +18,13 @@ One epoch of the epoch-cache GGN-CG path (ss_type 1, full batch):
      products for an mglm (`_greedy_update_cached_mo`) — or, with
      greedy off, the priming pass at x⁺ (`_damped_update_cached`).
 
+On a row-sharded problem (`parallel.shard_problem`: A and y hold this
+rank's rows, every n-vector is replicated) the cached path runs
+rank-locally: CG's matvec is K1s (K1 plus an all_reduce), the prep is
+K2 on the shard normalized by ``prob.m_total`` plus one packed
+all_reduce of its sums, and K3 runs on the replicated vectors. Every
+other path raises on a sharded problem (`iterate.solve`, ROADMAP A11).
+
 The uncached GGN-CG path (`_ggn_cg_direction`: ss_type 2 or 3,
 ``epoch_cache=False``, or a spec without ``loss_sample``) preps each
 epoch afresh — K2s for a GLM under 'cuda', else z = A·x and the spec's
@@ -37,6 +44,7 @@ jvp/vjp GGN branch and the low-precision CG copy are not ported yet
 
 from __future__ import annotations
 
+import functools
 import warnings
 from typing import NamedTuple
 
@@ -45,7 +53,9 @@ import torch
 from scso_tpu_torch.algorithms.methods import ProxGGNSCORE, ProxLQNSCORE
 from scso_tpu_torch.ops.cuda.glm_prep import (
     glm_prep, glm_prep_pair, glm_prep_pair_torch, glm_prep_torch)
-from scso_tpu_torch.ops.cuda.matvec import normal_matvec, normal_matvec_torch
+from scso_tpu_torch.ops.cuda.matvec import (
+    normal_matvec, normal_matvec_sharded, normal_matvec_sharded_torch,
+    normal_matvec_torch)
 from scso_tpu_torch.ops.cuda.mglm_matvec import (
     mglm_matvec, mglm_matvec_torch)
 from scso_tpu_torch.ops.cuda.score_update import (
@@ -56,6 +66,7 @@ from scso_tpu_torch.ops.linalg import (
     armijo_linesearch, cg_solve, inv_bb_step)
 from scso_tpu_torch.ops.prox import prox_step
 from scso_tpu_torch.ops.smoothers import get_Mg
+from scso_tpu_torch.parallel.sharding import all_reduce_sum
 from scso_tpu_torch.problems import Problem
 
 
@@ -101,17 +112,19 @@ class StepOut(NamedTuple):
 _DENSE_GGN_MAX_ELEMS = 1 << 24
 
 
-def _resolve_ggn_solver(method, prob: Problem, As, x) -> str:
+def _resolve_ggn_solver(method, prob: Problem, x) -> str:
     """'auto' → 'cg' when the m·n Jacobian exceeds the dense budget and a
     GLM spec gives the matrix-free pieces, else 'auto' (the dense
     branches, not ported yet). An mglm problem has no dense pieces in
     the port (no out_fn/loss_fn), so it always resolves to 'cg', as the
-    JAX package resolves it without them."""
+    JAX package resolves it without them. A row shard counts all ranks'
+    rows, as the JAX package's sharded A keeps its global shape."""
     if method.solver != "auto":
         return method.solver
     if prob.mglm is not None:
         return "cg"
-    m, n = As.shape[0], x.shape[-1]
+    m = prob.m_total
+    n = x.shape[-1]
     if m * n > _DENSE_GGN_MAX_ELEMS and prob.glm is not None:
         warnings.warn(
             f"ProxGGNSCORE(solver='auto'): J would be {m}x{n} "
@@ -322,8 +335,10 @@ def epoch_cache_enabled(method, prob: Problem, reg_name: str,
     solver with ss_type=1, full-batch data, and either an mglm spec with
     loss_z and loss_sample (taking precedence, as in the JAX package) or
     a GLM spec with loss_z, loss_sample and the stable ggn_rw/ggn_w
-    forms, and no row-subsampled curvature. A GGN solve that fails this
-    takes the uncached path (`_ggn_cg_direction`)."""
+    forms, and no row-subsampled curvature (``curvature_rows`` does
+    nothing on a row-sharded problem, as in the JAX package). A GGN
+    solve that fails this takes the uncached path
+    (`_ggn_cg_direction`)."""
     if not isinstance(method, ProxGGNSCORE) or method.ss_type != 1:
         return False
     if method.epoch_cache is False:
@@ -339,9 +354,11 @@ def epoch_cache_enabled(method, prob: Problem, reg_name: str,
         return False
     if not full_batch:
         return False
-    if 0 < method.curvature_rows < prob.A.shape[0]:
+    # curvature_rows subsamples rows only on an unsharded problem, as in
+    # the JAX package: on a row shard it is a no-op and the cache stays
+    if prob.mesh is None and 0 < method.curvature_rows < prob.m_total:
         return False
-    return _resolve_ggn_solver(method, prob, prob.A, prob.x0) == "cg"
+    return _resolve_ggn_solver(method, prob, prob.x0) == "cg"
 
 
 def _mo_shapes(g, x):
@@ -398,30 +415,49 @@ def prime_glm_cache(method, prob: Problem, x, As=None, ys=None):
     """Build the epoch cache at iterate x: for an mglm problem the three
     matrix products of `_prime_moglm` (MOGLMCache); for a GLM the K2
     kernel with both candidates = x (one pass over A), or the plain
-    single-candidate prep (GLMCache)."""
+    single-candidate prep (GLMCache), normalized by ``prob.m_total``.
+
+    On a row-sharded problem K2 runs on this rank's rows and one packed
+    all_reduce sums (b, hd, loss) over the ranks; w stays per-row and
+    local. The JAX package takes its plain GSPMD-partitioned prep there
+    instead (its `_use_pair_kernel`), only because a pallas_call cannot
+    be GSPMD-partitioned; the sums are the same, and on the H100 the
+    plain prep costs 105 ms an epoch against K2's 5.4 ms at 196608×10112
+    float32 (PERF.md)."""
     As = prob.A if As is None else As
     ys = prob.y if ys is None else ys
     if prob.mglm is not None:
         return _prime_moglm(prob, x, As, ys)
     g = prob.glm
-    scale = _loss_scale(g, As.shape[0])
     if method.kernels == "cuda":
-        pp = glm_prep_pair(As, ys, x, x, g)
-        return GLMCache(pp.w_t, pp.b_t, pp.hd_t, pp.loss_t * scale)
-    w, b, hd, loss = glm_prep_torch(As, ys, x, g)
-    return GLMCache(w, b, hd, loss * scale)
+        pp = glm_prep_pair(As, ys, x, x, g, prob.m_total)
+        w, b, hd, loss = pp.w_t, pp.b_t, pp.hd_t, pp.loss_t
+    else:
+        w, b, hd, loss = glm_prep_torch(As, ys, x, g, prob.m_total)
+    if prob.mesh is not None:
+        b, hd, loss = all_reduce_sum(prob.mesh, b, hd, loss)
+    return GLMCache(w, b, hd, loss * _loss_scale(g, prob.m_total))
 
 
 def _ggn_cg_from_cache(method, prob: Problem, As, x, gr, Hr_diag, lam,
                        cache: GLMCache, d_prev, it, bnorm_prev, x_prev):
     """GGN-CG direction with no prep pass over A: RHS, matvec weights and
     Jacobi diagonal come from the cache; only the smoother terms
-    (λ·gr, λ·Hr) are fresh. Each CG iteration is one K1 launch."""
+    (λ·gr, λ·Hr) are fresh. Each CG iteration is one K1 launch, or on a
+    row-sharded problem one K1s call (K1 on the shard plus an
+    all_reduce; ``method.comm_overlap_chunks`` picks its schedule)."""
     lhr = lam * Hr_diag
     b = -(cache.b_raw + lam * gr)
     diag = torch.clamp_min(cache.hd_raw + lhr, torch.finfo(x.dtype).tiny)
     w = cache.w
-    matvec = normal_matvec if method.kernels == "cuda" else normal_matvec_torch
+    cuda = method.kernels == "cuda"
+    if prob.mesh is None:
+        matvec = normal_matvec if cuda else normal_matvec_torch
+    else:
+        matvec = functools.partial(
+            normal_matvec_sharded if cuda else normal_matvec_sharded_torch,
+            mesh=prob.mesh, data_axis=prob.data_axis,
+            overlap_chunks=method.comm_overlap_chunks)
     xp = x if x_prev is None else x_prev
     tol, bnorm = _forcing_tol(method, b, x, xp, bnorm_prev, it,
                               endgame=True)
@@ -490,6 +526,10 @@ def _greedy_update_cached_mo(method, prob: Problem, reg_name, sm, As, ys,
     return x_new, pri, dx, fc
 
 
+# the pair prep's sums over rows (w stays per-row)
+_SUMMED = ("b_t", "b_d", "hd_t", "hd_d", "loss_t", "loss_d")
+
+
 def _greedy_update_cached(method, prob: Problem, reg_name, sm, As, ys,
                           x, d, step_size, lam, lgr, Hr_diag,
                           cache: GLMCache):
@@ -497,15 +537,21 @@ def _greedy_update_cached(method, prob: Problem, reg_name, sm, As, ys,
     UNDAMPED prox step and accept it iff the true composite objective
     strictly decreases, else take the SCORE-damped step. One K2 call
     prices both candidates and builds both caches; the winner's becomes
-    the new cache. A NaN trial loss fails the strict test."""
+    the new cache. A NaN trial loss fails the strict test. On a
+    row-sharded problem K2 runs on this rank's rows and one packed
+    all_reduce sums both candidates' (b, hd, loss) over the ranks (see
+    `prime_glm_cache`), so the accept test reads replicated losses."""
     x_damped, pri_d, dx_d = _damped_prox_update(
         method, prob, reg_name, sm, x, d, step_size, lam, lgr, Hr_diag)
     x_trial = _trial_point(method, prob, reg_name, x, d, step_size, lam,
                            Hr_diag)
     g = prob.glm
     pair = glm_prep_pair if method.kernels == "cuda" else glm_prep_pair_torch
-    pp = pair(As, ys, x_trial, x_damped, g)
-    scale = _loss_scale(g, As.shape[0])
+    pp = pair(As, ys, x_trial, x_damped, g, prob.m_total)
+    if prob.mesh is not None:
+        pp = pp._replace(**dict(zip(_SUMMED, all_reduce_sum(
+            prob.mesh, *(getattr(pp, f) for f in _SUMMED)))))
+    scale = _loss_scale(g, prob.m_total)
     loss_t = pp.loss_t * scale
     loss_d = pp.loss_d * scale
     F_t = loss_t + prob.reg(reg_name, x_trial)
@@ -664,7 +710,7 @@ def ggn_step(method: ProxGGNSCORE, prob: Problem, reg_name: str, sm,
     lgr = lam * gr
     Hr_diag = sm.hess_diag(x, cw)
     zeros = torch.zeros_like(x)
-    if _resolve_ggn_solver(method, prob, As, x) != "cg":
+    if _resolve_ggn_solver(method, prob, x) != "cg":
         raise NotImplementedError(
             "the dense GGN solves (dense_dual/dense_primal, and 'auto' "
             "below the dense budget) are not ported yet (ROADMAP A7)")

@@ -6,13 +6,17 @@
 // SCORE-damped x_d; K2s: NC = 1, the current iterate) it gives, per
 // candidate c:
 //   z     = A x_c
-//   w     = (y σ(−z)² + (1−y) σ(z)²) / m        CG matvec weights (m,)
-//   b     = Aᵀ ρ,  ρ = (σ(z) − y) / m            RHS pullback      (n,)
+//   w     = (y σ(−z)² + (1−y) σ(z)²) / m_norm   CG matvec weights (m,)
+//   b     = Aᵀ ρ,  ρ = (σ(z) − y) / m_norm       RHS pullback      (n,)
 //   hd    = Σ_i w_i A_ij²                        Jacobi diagonal   (n,)
 //   loss  = Σ_{i<m} softplus(z_i) − y_i z_i      unnormalized, K2 only
 // The TPU kernels trace arbitrary Python ρ/ω/ℓ into their bodies; CUDA
 // cannot, so this source is specialised on the spec kind (logistic01,
-// with the 1/m normalization folded in). Rows are never padded: the
+// with the 1/m normalization folded in). m_norm is the normalizing
+// count, apart from the m rows read: all rows of all ranks when A is
+// one rank's row shard (the TPU kernels rescale from the tile's count
+// to the true m instead, steps._glm_kernel_fns; dividing by m_norm
+// directly keeps the unsharded bits). Rows are never padded: the
 // kernels mask the ragged edges themselves, so the loss covers the true
 // rows only. K2s has no loss output, as its TPU kernel has none.
 //
@@ -73,7 +77,7 @@ template <typename T, bool VEC, int NC>
 __global__ void __launch_bounds__(kThreads)
 glm_rows(const T* __restrict__ A, const T* __restrict__ y, Prep<T, NC> p,
          T* __restrict__ rw, double* __restrict__ loss_partials, int64_t m,
-         int64_t n) {
+         int64_t n, int64_t m_norm) {
   using C = scso::Chunk<T, VEC>;
   using V = typename C::type;
   constexpr bool kLoss = NC == 2;
@@ -84,7 +88,7 @@ glm_rows(const T* __restrict__ A, const T* __restrict__ y, Prep<T, NC> p,
   const V* xc[NC];
 #pragma unroll
   for (int c = 0; c < NC; ++c) xc[c] = reinterpret_cast<const V*>(p.x[c]);
-  const T mT = static_cast<T>(m);
+  const T mT = static_cast<T>(m_norm);
   double loss[NC];
 #pragma unroll
   for (int c = 0; c < NC; ++c) loss[c] = 0.0;
@@ -232,10 +236,10 @@ glm_finalize(const double* __restrict__ col_partials,
 template <typename T, bool VEC, int NC>
 cudaError_t launch_passes(const T* A, const T* y, const Prep<T, NC>& p,
                           T* rw, double* col_partials, double* loss_partials,
-                          int64_t m, int64_t n, int64_t row_blocks,
-                          int64_t chunks, cudaStream_t s) {
+                          int64_t m, int64_t n, int64_t m_norm,
+                          int64_t row_blocks, int64_t chunks, cudaStream_t s) {
   glm_rows<T, VEC, NC><<<static_cast<unsigned>(row_blocks), kThreads, 0, s>>>(
-      A, y, p, rw, loss_partials, m, n);
+      A, y, p, rw, loss_partials, m, n, m_norm);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int64_t nc = n / scso::Chunk<T, VEC>::E;
@@ -249,7 +253,7 @@ cudaError_t launch_passes(const T* A, const T* y, const Prep<T, NC>& p,
 template <typename T, int NC>
 int launch(const void* A, const void* y, const Prep<T, NC>& p, void* rw,
            void* col_partials, void* loss_partials, int64_t m, int64_t n,
-           int64_t row_blocks, int64_t chunks, void* stream) {
+           int64_t m_norm, int64_t row_blocks, int64_t chunks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto aligned = [](const void* ptr) {
     return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
@@ -262,7 +266,8 @@ int launch(const void* A, const void* y, const Prep<T, NC>& p, void* rw,
   cudaError_t err = pass(
       static_cast<const T*>(A), static_cast<const T*>(y), p,
       static_cast<T*>(rw), static_cast<double*>(col_partials),
-      static_cast<double*>(loss_partials), m, n, row_blocks, chunks, s);
+      static_cast<double*>(loss_partials), m, n, m_norm, row_blocks, chunks,
+      s);
   if (err != cudaSuccess) return static_cast<int>(err);
   glm_finalize<T, NC><<<static_cast<unsigned>((n + kThreads - 1) / kThreads),
                         kThreads, 0, s>>>(
@@ -279,8 +284,8 @@ int launch(const void* A, const void* y, const Prep<T, NC>& p, void* rw,
                       const void* xd, void* wt, void* wd, void* rw,         \
                       void* bt, void* bd, void* ht, void* hd, void* lt,     \
                       void* ld, void* col_partials, void* loss_partials,    \
-                      int64_t m, int64_t n, int64_t row_blocks,             \
-                      int64_t chunks, void* stream) {                       \
+                      int64_t m, int64_t n, int64_t m_norm,                 \
+                      int64_t row_blocks, int64_t chunks, void* stream) {   \
     const Prep<T, 2> p{                                                     \
         {static_cast<const T*>(xt), static_cast<const T*>(xd)},             \
         {static_cast<T*>(wt), static_cast<T*>(wd)},                         \
@@ -288,19 +293,19 @@ int launch(const void* A, const void* y, const Prep<T, NC>& p, void* rw,
         {static_cast<T*>(ht), static_cast<T*>(hd)},                         \
         {static_cast<T*>(lt), static_cast<T*>(ld)}};                        \
     return launch<T, 2>(A, y, p, rw, col_partials, loss_partials, m, n,     \
-                        row_blocks, chunks, stream);                        \
+                        m_norm, row_blocks, chunks, stream);                \
   }
 
 // K2s: one candidate, no loss.
 #define SCSO_GLM_PREP_ENTRY(NAME, T)                                        \
   extern "C" int NAME(const void* A, const void* y, const void* x, void* w, \
                       void* rw, void* b, void* hd, void* col_partials,      \
-                      int64_t m, int64_t n, int64_t row_blocks,             \
-                      int64_t chunks, void* stream) {                       \
+                      int64_t m, int64_t n, int64_t m_norm,                 \
+                      int64_t row_blocks, int64_t chunks, void* stream) {   \
     const Prep<T, 1> p{{static_cast<const T*>(x)}, {static_cast<T*>(w)},    \
                        {static_cast<T*>(b)}, {static_cast<T*>(hd)},         \
                        {nullptr}};                                          \
-    return launch<T, 1>(A, y, p, rw, col_partials, nullptr, m, n,           \
+    return launch<T, 1>(A, y, p, rw, col_partials, nullptr, m, n, m_norm,   \
                         row_blocks, chunks, stream);                        \
   }
 

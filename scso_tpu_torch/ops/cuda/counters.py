@@ -11,6 +11,7 @@ from __future__ import annotations
 
 KERNEL_LAUNCHES: dict = {
     "normal_matvec": 0,
+    "normal_matvec_sharded": 0,
     "glm_prep": 0,
     "glm_prep_pair": 0,
     "score_update": 0,

@@ -13,6 +13,13 @@ in the ggn flavour (the TPU kernels trace arbitrary Python callables,
 which CUDA cannot); :func:`glm_prep_torch` and
 :func:`glm_prep_pair_torch` are the plain versions.
 
+Every entry takes ``m_norm``, the count of the 1/m normalization,
+apart from the rows of A it reads: on a row shard it is the row count
+of all ranks (`Problem.m_total`), and the shard's sums add up over the
+ranks to the unsharded ones. The kernels divide by it directly; the
+plain versions rescale the spec's own 1/len(z) forms by len(z)/m_norm,
+the JAX package's rule (`steps._glm_kernel_fns`). None means A's rows.
+
 The TPU's n ≥ 8192 gates (`steps._use_pair_kernel`, the AUTO
 `use_fused_prep`) are not carried over: the kernels take any m and n.
 The newton flavour and the least-squares/Poisson kinds are not ported
@@ -45,24 +52,35 @@ class PairPrep(NamedTuple):
     loss_d: torch.Tensor  # ()
 
 
-def glm_prep_torch(A, y, x, glm):
+def _norm_fix(glm, m, m_norm):
+    """Rescale a sample-normalized spec's 1/len(z) form to 1/m_norm
+    (the JAX package's `_norm_fix`); the identity when m_norm is m."""
+    if m_norm is None or m_norm == m or not glm.sample_normalized:
+        return lambda v: v
+    return lambda v: v * (m / m_norm)
+
+
+def glm_prep_torch(A, y, x, glm, m_norm=None):
     """Plain single-candidate prep: (w, Aᵀρ, Σᵢ wᵢAᵢⱼ², Σᵢ ℓᵢ) at x, with
-    ρ, w, ℓ = the spec's ggn_rw, ggn_w, loss_sample.
+    ρ, w, ℓ = the spec's ggn_rw, ggn_w, loss_sample, normalized by
+    ``m_norm``.
 
     ``Σᵢ wᵢAᵢⱼ²`` materialises an A-sized temporary (w·A, then the
     contraction with A): about 8 GB at the full 196608×10112 float32
     width. The CUDA kernel needs none."""
     z = A @ x
-    w = glm.ggn_w(y, z)
-    return (w, A.T @ glm.ggn_rw(y, z), torch.einsum("i,ij,ij->j", w, A, A),
+    fix = _norm_fix(glm, A.shape[0], m_norm)
+    w = fix(glm.ggn_w(y, z))
+    return (w, A.T @ fix(glm.ggn_rw(y, z)),
+            torch.einsum("i,ij,ij->j", w, A, A),
             torch.sum(glm.loss_sample(y, z)))
 
 
-def glm_prep_pair_torch(A, y, x_t, x_d, glm) -> PairPrep:
+def glm_prep_pair_torch(A, y, x_t, x_d, glm, m_norm=None) -> PairPrep:
     """Plain dual-candidate prep: :func:`glm_prep_torch` at each
     candidate (same A-sized temporary, twice)."""
-    wt, bt, ht, lt = glm_prep_torch(A, y, x_t, glm)
-    wd, bd, hd, ld = glm_prep_torch(A, y, x_d, glm)
+    wt, bt, ht, lt = glm_prep_torch(A, y, x_t, glm, m_norm)
+    wd, bd, hd, ld = glm_prep_torch(A, y, x_d, glm, m_norm)
     return PairPrep(wt, wd, bt, bd, ht, hd, lt, ld)
 
 
@@ -88,7 +106,9 @@ def _grid(A):
     return row_blocks, chunks
 
 
-def _check_shapes(name, A, y, *xs):
+def _check_shapes(name, A, y, m_norm, *xs):
+    """Raises on mismatched shapes; returns m_norm (A's rows for
+    None)."""
     m, n = A.shape
     if y.shape != (m,) or any(x.shape != (n,) for x in xs):
         raise ValueError(
@@ -96,17 +116,21 @@ def _check_shapes(name, A, y, *xs):
             f"{[tuple(x.shape) for x in xs]}")
     if m == 0:
         raise ValueError(f"{name}: A has no rows")
+    m_norm = m if m_norm is None else int(m_norm)
+    if m_norm <= 0:
+        raise ValueError(f"{name}: m_norm must be positive, got {m_norm}")
+    return m_norm
 
 
-def glm_prep(A, y, x, glm):
+def glm_prep(A, y, x, glm, m_norm=None):
     """Single-candidate prep (w, Aᵀρ, Σᵢ wᵢAᵢⱼ²) at x — the K2s kernel
     for CUDA tensors, the plain version for CPU tensors. For a CUDA
     tensor a spec kind the kernel does not cover raises."""
     if launch.on_cpu(A, "glm_prep"):
-        return glm_prep_torch(A, y, x, glm)[:3]
+        return glm_prep_torch(A, y, x, glm, m_norm)[:3]
     _check_kind("glm_prep", glm)
     launch.check_operands("glm_prep", A.dtype, A.device, A=A, y=y, x=x)
-    _check_shapes("glm_prep", A, y, x)
+    m_norm = _check_shapes("glm_prep", A, y, m_norm, x)
     m, n = A.shape
     dev, dt = A.device, A.dtype
     row_blocks, chunks = _grid(A)
@@ -118,23 +142,23 @@ def glm_prep(A, y, x, glm):
         rc = launch.entry("scso_glm_prep", dt)(
             A.data_ptr(), y.data_ptr(), x.data_ptr(), w.data_ptr(),
             rw.data_ptr(), b.data_ptr(), hd.data_ptr(),
-            col_partials.data_ptr(), m, n, row_blocks, chunks,
+            col_partials.data_ptr(), m, n, m_norm, row_blocks, chunks,
             launch.stream(dev))
     build.check(rc, "glm_prep")
     counters.bump("glm_prep")
     return w, b, hd
 
 
-def glm_prep_pair(A, y, x_t, x_d, glm) -> PairPrep:
+def glm_prep_pair(A, y, x_t, x_d, glm, m_norm=None) -> PairPrep:
     """Dual-candidate prep — the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors. For a CUDA tensor a spec kind the kernel
     does not cover raises."""
     if launch.on_cpu(A, "glm_prep_pair"):
-        return glm_prep_pair_torch(A, y, x_t, x_d, glm)
+        return glm_prep_pair_torch(A, y, x_t, x_d, glm, m_norm)
     _check_kind("glm_prep_pair", glm)
     launch.check_operands("glm_prep_pair", A.dtype, A.device, A=A, y=y,
                           x_t=x_t, x_d=x_d)
-    _check_shapes("glm_prep_pair", A, y, x_t, x_d)
+    m_norm = _check_shapes("glm_prep_pair", A, y, m_norm, x_t, x_d)
     m, n = A.shape
     dev, dt = A.device, A.dtype
     row_blocks, chunks = _grid(A)
@@ -153,7 +177,7 @@ def glm_prep_pair(A, y, x_t, x_d, glm) -> PairPrep:
             b_t.data_ptr(), b_d.data_ptr(), hd_t.data_ptr(),
             hd_d.data_ptr(), loss_t.data_ptr(), loss_d.data_ptr(),
             col_partials.data_ptr(), loss_partials.data_ptr(),
-            m, n, row_blocks, chunks, launch.stream(dev))
+            m, n, m_norm, row_blocks, chunks, launch.stream(dev))
     build.check(rc, "glm_prep_pair")
     counters.bump("glm_prep_pair")
     return PairPrep(w_t, w_d, b_t, b_d, hd_t, hd_d, loss_t, loss_d)

@@ -1,22 +1,30 @@
-"""K1: the fused normal-equation matvec v ↦ Aᵀ(w ∘ (A v)).
+"""K1 and K1s: the fused normal-equation matvec v ↦ Aᵀ(w ∘ (A v)).
 
-Port of `scso_tpu/ops/pallas/matvec.py` (`_fused_normal_matvec`), the op
-of every CG iteration. The CUDA kernel is ``csrc/matvec.cu`` (its
-source note gives the design); :func:`normal_matvec_torch` is the plain
+Port of `scso_tpu/ops/pallas/matvec.py`: `_fused_normal_matvec` (K1),
+the op of every CG iteration, and `fused_normal_matvec_sharded` (K1s),
+its row-sharded form. The CUDA kernel is ``csrc/matvec.cu`` (its source
+note gives the design); :func:`normal_matvec_torch` is the plain
 PyTorch version of the same function.
+
+K1s has no kernel body of its own on the TPU either: there it is K1 in
+a `shard_map` plus XLA's `psum`. Here :func:`normal_matvec_sharded` is
+K1 on this rank's rows plus one ``torch.distributed.all_reduce`` of the
+(n,) result over the mesh's group (NCCL on the card): what bounds it is
+K1's read of the shard, plus one all-reduce of n values. With one rank
+that all-reduce is a copy, so K1s is K1 bit for bit.
 
 The TPU shape gates (`supports_fused_normal_matvec`, `_MIN_N_BYTES`)
 came from VMEM and T(8,128) tiling and are not carried over: the kernel
 takes any m ≥ 0 and any n. Up to :func:`max_n` v and the per-block
 accumulator live in shared memory; above it the kernel's wide form keeps
 them in global memory (where the JAX package takes its XLA form
-instead). The sharded form (K1s) and the bfloat16-A variant are not
-ported yet (ROADMAP B4, A10).
+instead). The bfloat16-A variant is not ported yet (ROADMAP A10).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from scso_tpu_torch.ops.cuda import build, counters, launch
 
@@ -71,4 +79,67 @@ def normal_matvec(A, w, v):
             out.data_ptr(), m, n, nblk, int(wide), launch.stream(A.device))
     build.check(rc, "normal_matvec")
     counters.bump("normal_matvec")
+    return out
+
+
+def _sharded(matvec, A, w, v, mesh, overlap_chunks):
+    """The K1s schedule over ``mesh.group``. ``overlap_chunks <= 1``:
+    ``matvec`` on the local rows, then one all_reduce. Otherwise the
+    JAX package's overlapped form: u = w∘(A·v) once (a matrix product,
+    as there), then Aᵀu in c = min(overlap_chunks, max(1, n // 128))
+    column chunks, each chunk's all_reduce issued as soon as its product
+    is done (async), so chunk i's collective overlaps chunk i+1's
+    product; every handle is waited on before the concatenation, which
+    orders the reads after the collectives on the compute stream. The
+    local shard is then read twice: it pays only where the collective
+    dominates."""
+    if overlap_chunks <= 1:
+        out = matvec(A, w, v)
+        dist.all_reduce(out, group=mesh.group)
+        return out
+    n = A.shape[1]
+    c = min(overlap_chunks, max(1, n // 128))
+    h = -(-n // c)
+    u = w * (A @ v)
+    outs, works = [], []
+    for i in range(c):
+        part = A[:, i * h:(i + 1) * h].T @ u
+        works.append(dist.all_reduce(part, group=mesh.group, async_op=True))
+        outs.append(part)
+    for work in works:
+        work.wait()
+    return torch.cat(outs)
+
+
+def _check_axis(mesh, data_axis):
+    if data_axis not in mesh.axis_names:
+        raise ValueError(f"normal_matvec_sharded: axis {data_axis!r} is not "
+                         f"in the mesh's {mesh.axis_names}")
+
+
+def normal_matvec_sharded_torch(A, w, v, mesh, data_axis="data",
+                                overlap_chunks=1):
+    """Plain K1s: the same schedule with :func:`normal_matvec_torch`,
+    on any device (the solver's 'torch' path)."""
+    _check_axis(mesh, data_axis)
+    return _sharded(normal_matvec_torch, A, w, v, mesh, overlap_chunks)
+
+
+def normal_matvec_sharded(A, w, v, mesh, data_axis="data",
+                          overlap_chunks=1):
+    """Row-sharded Aᵀ(w∘(Av)) summed over ``mesh[data_axis]``: A (m/S,
+    n) and w (m/S,) this rank's rows, v (n,) and the result replicated.
+    K1 (counted as ``normal_matvec``) plus the all_reduce for CUDA
+    tensors, counted once a call as ``normal_matvec_sharded``; the plain
+    version for CPU tensors. Never falls back for a CUDA tensor. The
+    overlapped form (``overlap_chunks > 1``) launches no K1: its
+    contractions are matrix products, as in the JAX package, and it
+    counts nothing."""
+    if launch.on_cpu(A, "normal_matvec_sharded"):
+        return normal_matvec_sharded_torch(A, w, v, mesh, data_axis,
+                                           overlap_chunks)
+    _check_axis(mesh, data_axis)
+    out = _sharded(normal_matvec, A, w, v, mesh, overlap_chunks)
+    if overlap_chunks <= 1:
+        counters.bump("normal_matvec_sharded")
     return out

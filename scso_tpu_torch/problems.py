@@ -3,7 +3,8 @@
 Port of `scso_tpu.problems`. A :class:`Problem` is a frozen dataclass of
 tensors that all live on one ``device`` in one ``dtype``; both are
 explicit fields, because PyTorch has no global x64 switch (the CPU tests
-pass ``torch.float64``). ∇f is the user's ``grad_fx``, else autograd
+pass ``torch.float64`` and ``device='cpu'``; the device defaults to the
+card). ∇f is the user's ``grad_fx``, else autograd
 through ``f`` (``torch.func.grad``). The generic ``f(x)`` flavour, the
 Hessian fallbacks, group structure, test data and the dense GGN hooks
 are not ported yet (ROADMAP A7, A8).
@@ -11,7 +12,7 @@ are not ported yet (ROADMAP A7, A8).
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -84,7 +85,13 @@ class Problem:
 
     ``x_star`` is the ground truth used for relative-error reporting
     (zeros by default, as in the JAX package). ``n_true`` is set by
-    ``make_problem(pad_features=True)``: the unpadded feature count."""
+    ``make_problem(pad_features=True)``: the unpadded feature count.
+
+    ``mesh`` and ``data_axis`` are set by `parallel.shard_problem` (and
+    `parallel.load_problem_rows_sharded`): A and y then hold this rank's
+    rows only, and ``m_total`` is the row count of all ranks together —
+    the m of every 1/m loss normalization. Unsharded, ``m_total`` is
+    A's row count."""
 
     x0: torch.Tensor
     lam: torch.Tensor
@@ -101,6 +108,13 @@ class Problem:
     mglm: Optional[MOGLMSpec] = None
     grad_fx: Optional[Callable] = None
     n_true: Optional[int] = None
+    mesh: Optional[Any] = None
+    data_axis: str = "data"
+    m_total: Optional[int] = None
+
+    def __post_init__(self):
+        if self.m_total is None and self.A is not None:
+            object.__setattr__(self, "m_total", int(self.A.shape[0]))
 
     def f_val(self, As, ys, x):
         """f at x on the given batch."""
@@ -123,6 +137,19 @@ class Problem:
         return self.f_val(As, ys, x) + self.reg(reg_name, x)
 
 
+def resolve_device(device=None) -> torch.device:
+    """``device`` as given, else the card. Without a CUDA device a
+    missing ``device`` raises: the port never moves to the CPU unless
+    the caller asks for it."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: scso_tpu_torch puts data on the card unless "
+            "told otherwise; pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
+
+
 def _resolve_bounds(C_set, dtype, device):
     """``[lb, ub]`` (scalars or length-n arrays) → (lb, ub) tensors."""
     if C_set is None:
@@ -138,7 +165,8 @@ def make_problem(*args, L=None, sol=None, C_set=None, glm=None,
 
     Arrays may be numpy arrays or tensors; they are converted to
     ``dtype`` (default: x0's floating type, else float32) on ``device``
-    (default: the CPU). ``pad_features=True`` zero-pads the feature axis
+    (default: the card; without one, pass ``device='cpu'`` — a missing
+    device raises there). ``pad_features=True`` zero-pads the feature axis
     to a multiple of 128 on the host before the transfer — the padded
     coordinates stay exactly 0 for l1/l2/no-prox solves, and
     ``Solution.x`` is sliced back to ``n_true``. ``grad_fx(A, y, x)`` is
@@ -154,7 +182,7 @@ def make_problem(*args, L=None, sol=None, C_set=None, glm=None,
             "only the data flavour make_problem(A, y, x0, f, lam) is "
             "ported (ROADMAP A7)")
     A, y, x0, f, lam = args
-    device = torch.device("cpu" if device is None else device)
+    device = resolve_device(device)
     if dtype is None:
         dtype = torch.as_tensor(x0).dtype
         if not dtype.is_floating_point:

@@ -2,7 +2,8 @@
 
 Each kernel is held against its plain PyTorch version on the same CUDA
 tensors, and a small float64 solve through the kernels against the
-plain path on the CPU. Without a CUDA device every test here skips.
+plain path on the CPU. K1s runs under a one-rank NCCL group, where it
+must be K1 bit for bit. Without a CUDA device every test here skips.
 This file imports neither jax nor scso_tpu, so it also runs on a GPU
 machine without them — there, skip tests/conftest.py (which configures
 jax):
@@ -16,9 +17,12 @@ bitwise equal. TF32 is off for the plain
 versions' matrix products.
 """
 
+import socket
+
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import scso_tpu_torch as st
 from scso_tpu_torch._src.struct import replace
@@ -28,11 +32,14 @@ from scso_tpu_torch.ops import lbfgs_core
 from scso_tpu_torch.ops.cuda import counters
 from scso_tpu_torch.ops.cuda.glm_prep import (
     glm_prep, glm_prep_pair, glm_prep_pair_torch, glm_prep_torch)
-from scso_tpu_torch.ops.cuda.matvec import normal_matvec, normal_matvec_torch
+from scso_tpu_torch.ops.cuda.matvec import (
+    normal_matvec, normal_matvec_sharded, normal_matvec_sharded_torch,
+    normal_matvec_torch)
 from scso_tpu_torch.ops.cuda.mglm_matvec import mglm_matvec, mglm_matvec_torch
 from scso_tpu_torch.ops.cuda.score_update import (
     score_update, score_update_torch)
 from scso_tpu_torch.ops.cuda.two_loop import two_loop, two_loop_torch
+from scso_tpu_torch.parallel import distributed_init, make_mesh, shard_problem
 
 pytestmark = pytest.mark.cuda
 
@@ -70,9 +77,11 @@ def test_data_kernels_match_plain(dev, dtype, m, n):
         _check(g, w_, dtype)
     again = glm_prep_pair(A, y, v * 0.1, v * 0.2, LOGISTIC01_GLM)
     assert all(torch.equal(g, a) for g, a in zip(got, again))
-    assert counters.snapshot() == {"normal_matvec": 1, "glm_prep": 0,
-                                   "glm_prep_pair": 2, "score_update": 0,
-                                   "mglm_matvec": 0, "two_loop": 0}
+    assert counters.snapshot() == {"normal_matvec": 1,
+                                   "normal_matvec_sharded": 0,
+                                   "glm_prep": 0, "glm_prep_pair": 2,
+                                   "score_update": 0, "mglm_matvec": 0,
+                                   "two_loop": 0}
 
 
 @pytest.mark.parametrize("dtype,m,n", [(torch.float32, 4099, 40000),
@@ -303,4 +312,86 @@ def test_small_lbfgs_and_uncached_solves_match_cpu(dev, method, kernels):
                        st.PHuberSmootherL1L2(1.0), **kw)
     assert s_gpu.epochs == s_cpu.epochs
     np.testing.assert_allclose(s_gpu.obj.numpy(), s_cpu.obj.numpy(),
+                               rtol=1e-9)
+
+
+@pytest.fixture
+def nccl_mesh(dev):
+    """A one-rank NCCL group on the card (a TCP store on localhost)."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    assert distributed_init(init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0) == 1
+    assert dist.is_initialized() and dist.get_backend() == "nccl"
+    yield make_mesh()
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,n", [(37, 128), (947, 384), (3465, 2432),
+                                 (999, 1001), (64, 130)])
+def test_sharded_matvec_on_one_rank(nccl_mesh, dtype, m, n):
+    gen = torch.Generator(device="cuda").manual_seed(m * n)
+    A = torch.randn((m, n), generator=gen, device="cuda", dtype=dtype) * 0.1
+    w = torch.rand((m,), generator=gen, device="cuda", dtype=dtype)
+    v = torch.randn((n,), generator=gen, device="cuda", dtype=dtype)
+    counters.reset()
+    got = normal_matvec_sharded(A, w, v, nccl_mesh)
+    # one rank: the all_reduce is a copy, so K1s is K1 bit for bit
+    assert torch.equal(got, normal_matvec(A, w, v))
+    assert counters.snapshot()["normal_matvec_sharded"] == 1
+    assert counters.snapshot()["normal_matvec"] == 2
+    plain = normal_matvec_sharded_torch(A, w, v, nccl_mesh)
+    for chunks in (2, 3):
+        over = normal_matvec_sharded(A, w, v, nccl_mesh,
+                                     overlap_chunks=chunks)
+        _check(over, plain, dtype)
+        assert torch.equal(over, normal_matvec_sharded_torch(
+            A, w, v, nccl_mesh, overlap_chunks=chunks))
+    # the overlapped form launches no K1 and counts nothing
+    assert counters.snapshot()["normal_matvec_sharded"] == 1
+    assert counters.snapshot()["normal_matvec"] == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,n", [(660, 256), (999, 1001)])
+def test_prep_kernels_normalize_by_m_norm(dev, dtype, m, n):
+    gen = torch.Generator(device=dev).manual_seed(m + 7 * n)
+    A = torch.randn((m, n), generator=gen, device=dev, dtype=dtype) * 0.1
+    y = (torch.rand((m,), generator=gen, device=dev) < 0.5).to(dtype)
+    xt = torch.randn((n,), generator=gen, device=dev, dtype=dtype) * 0.3
+    xd = torch.randn((n,), generator=gen, device=dev, dtype=dtype) * 0.3
+    m_norm = 4 * m + 3  # as on one rank of four
+    got = glm_prep_pair(A, y, xt, xd, LOGISTIC01_GLM, m_norm)
+    want = glm_prep_pair_torch(A, y, xt, xd, LOGISTIC01_GLM, m_norm)
+    for g, w_ in zip(got, want):
+        _check(g, w_, dtype)
+    for g, w_ in zip(glm_prep(A, y, xt, LOGISTIC01_GLM, m_norm),
+                     glm_prep_torch(A, y, xt, LOGISTIC01_GLM, m_norm)[:3]):
+        _check(g, w_, dtype)
+    # m_norm = m is the unsharded kernel, bit for bit
+    assert all(torch.equal(g, w_) for g, w_ in zip(
+        glm_prep_pair(A, y, xt, xd, LOGISTIC01_GLM, m),
+        glm_prep_pair(A, y, xt, xd, LOGISTIC01_GLM)))
+
+
+def test_small_sharded_solve_on_one_rank(nccl_mesh):
+    kw = dict(x_tol=1e-12, f_tol=1e-10, max_epoch=40, verbose=0,
+              stats_every=4, alpha=1.0)
+    method = st.ProxGGNSCORE(solver="cg", greedy_alpha=False)
+    s_gpu = st.iterate(method, _small_logreg("cuda"), "l1",
+                       st.PHuberSmootherL1L2(1.0), **kw)
+    counters.reset()
+    s_sh = st.iterate(method, shard_problem(_small_logreg("cuda"),
+                                            nccl_mesh), "l1",
+                      st.PHuberSmootherL1L2(1.0), **kw)
+    got = counters.snapshot()
+    assert got["normal_matvec_sharded"] == got["normal_matvec"] > 0
+    assert got["glm_prep_pair"] > 0 and got["glm_prep"] == 0
+    assert s_sh.epochs == s_gpu.epochs
+    assert torch.equal(s_sh.obj, s_gpu.obj) and torch.equal(s_sh.x, s_gpu.x)
+    s_cpu = st.iterate(method, _small_logreg("cpu"), "l1",
+                       st.PHuberSmootherL1L2(1.0), **kw)
+    np.testing.assert_allclose(s_sh.obj.numpy(), s_cpu.obj.numpy(),
                                rtol=1e-9)

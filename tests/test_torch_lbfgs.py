@@ -95,7 +95,8 @@ def test_two_loop_matches_jax_and_pallas(n, m, pushes, quadratic):
     for got, want in zip(mt, mj):  # H0's dot products: summation order
         _close(got, want, rtol=1e-13, atol=1e-15)
     # the memory the JAX package filled, carried over
-    mc = lbfgs_memory_from_numpy(*(np.asarray(f) for f in mj))
+    mc = lbfgs_memory_from_numpy(*(np.asarray(f) for f in mj),
+                                 device="cpu")
     for got, want in zip(mc, mj):
         _close(got, want, rtol=0, atol=0)
     assert mt.pos.dtype == mt.count.dtype == mc.pos.dtype == torch.int32
@@ -163,7 +164,7 @@ def _logreg(m, n, pad, seed=7, grad=True):
     pt = st.Problem(A, y, x0, losses.logistic01_f, 0.01,
                     grad_fx=losses.logistic01_grad if grad else None,
                     glm=losses.LOGISTIC01_GLM, dtype=torch.float64,
-                    pad_features=pad)
+                    pad_features=pad, device="cpu")
     return pj, pt
 
 
@@ -187,8 +188,9 @@ def test_one_step_from_a_jax_filled_memory():
 
     pt = problem_from_numpy(np.asarray(pj.A), np.asarray(pj.y),
                             np.asarray(pj.x0), np.asarray(pj.lam),
-                            grad_fx=True)
-    mt = lbfgs_memory_from_numpy(*(np.asarray(f) for f in mem))
+                            grad_fx=True, device="cpu")
+    mt = lbfgs_memory_from_numpy(*(np.asarray(f) for f in mem),
+                                 device="cpu")
     out = steps.lbfgs_step(st.ProxLQNSCORE(m=5, kernels="torch"), pt, "l1",
                            st.PHuberSmootherL1L2(1.0), pt.A, pt.y, _t(x),
                            _t(x_prev), _t(gq_prev), 4, mt, gq_cached=_t(gq))
@@ -218,7 +220,7 @@ def _f_reg_j(A, y, x):
 @pytest.mark.parametrize("reg_name", ["l1", "l2"])
 def test_lbfgs_oracle(reg_name):
     pt = st.Problem(A_LOG, Y_LOG, X0_LOG, _f_reg_t, 1.0,
-                    dtype=torch.float64)
+                    dtype=torch.float64, device="cpu")
     assert pt.grad_fx is None  # ∇f by autograd through f
     s = st.iterate(st.ProxLQNSCORE(), pt, reg_name,
                    st.PHuberSmootherL1L2(1.0), verbose=0)

@@ -65,7 +65,8 @@ def _problems(m=M, p=P, k=K, seed=11):
                       mglm=jlosses.multinom_mglm(k), dtype=np.float64)
     pt = st.Problem(A, y, x0, losses.multinom_f, LAM,
                     grad_fx=losses.multinom_grad,
-                    mglm=losses.multinom_mglm(k), dtype=torch.float64)
+                    mglm=losses.multinom_mglm(k), dtype=torch.float64,
+                    device="cpu")
     return pj, pt
 
 
@@ -170,8 +171,9 @@ def test_one_step_from_the_jax_primed_cache(greedy):
 
     pt = problem_from_numpy(np.asarray(pj.A), np.asarray(pj.y),
                             np.asarray(x0), np.asarray(pj.lam),
-                            glm="multinomial", n_out=K)
-    ct = moglm_cache_from_numpy(*(np.asarray(f) for f in cache))
+                            glm="multinomial", n_out=K, device="cpu")
+    ct = moglm_cache_from_numpy(*(np.asarray(f) for f in cache),
+                                device="cpu")
     mt = st.ProxGGNSCORE(solver="cg", greedy_alpha=greedy, kernels="torch")
     xt = pt.x0
     out = steps.ggn_step(mt, pt, "l1", st.PHuberSmootherL1L2(1.0), pt.A,
@@ -213,8 +215,7 @@ def test_cache_predicate_solver_and_greedy_rule():
     _, pt = _problems(64, 8, 3)
     on = st.ProxGGNSCORE(solver="cg")
     assert steps.epoch_cache_enabled(on, pt, "l1", True)
-    assert steps._resolve_ggn_solver(st.ProxGGNSCORE(), pt, pt.A,
-                                     pt.x0) == "cg"
+    assert steps._resolve_ggn_solver(st.ProxGGNSCORE(), pt, pt.x0) == "cg"
     assert not steps.epoch_cache_enabled(
         on, replace(pt, mglm=replace(pt.mglm, loss_sample=None)), "l1",
         True)
@@ -231,7 +232,7 @@ def test_validation_raises():
     with pytest.raises(ValueError, match="mglm"):
         st.Problem(A, y, x0, losses.multinom_f, LAM,
                    mglm=losses.multinom_mglm(3), dtype=torch.float64,
-                   pad_features=True)
+                   pad_features=True, device="cpu")
     pj, pt = _problems(24, 6, 3)
     # n = 18 is not divisible by 5 (both packages raise), and the
     # n_out = 0 placeholder
@@ -242,7 +243,8 @@ def test_validation_raises():
             steps.prime_glm_cache(st.ProxGGNSCORE(solver="cg"),
                                   replace(pt, mglm=spec_bad), pt.x0)
     with pytest.raises(ValueError, match="n_out"):
-        problem_from_numpy(A, y, x0, LAM, glm="multinomial")
+        problem_from_numpy(A, y, x0, LAM, glm="multinomial",
+                           device="cpu")
 
 
 @pytest.mark.parametrize("method,match", [

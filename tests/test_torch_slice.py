@@ -47,7 +47,7 @@ def _problems(m, n, pad, seed=7):
                       pad_features=pad)
     pt = st.Problem(A, y, x0, losses.logistic01_f, 0.01,
                     glm=losses.LOGISTIC01_GLM, dtype=torch.float64,
-                    pad_features=pad)
+                    pad_features=pad, device="cpu")
     return pj, pt
 
 
@@ -100,8 +100,10 @@ def test_one_step_from_the_jax_primed_cache(greedy):
         fcache=cache)
 
     pt = problem_from_numpy(np.asarray(pj.A), np.asarray(pj.y),
-                            np.asarray(x0), np.asarray(pj.lam))
-    ct = glm_cache_from_numpy(*(np.asarray(f) for f in cache))
+                            np.asarray(x0), np.asarray(pj.lam),
+                            device="cpu")
+    ct = glm_cache_from_numpy(*(np.asarray(f) for f in cache),
+                              device="cpu")
     mt = st.ProxGGNSCORE(solver="cg", greedy_alpha=greedy, kernels="torch")
     xt = pt.x0
     out = steps.ggn_step(mt, pt, "l1", st.PHuberSmootherL1L2(1.0), pt.A,

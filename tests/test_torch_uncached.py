@@ -86,7 +86,7 @@ def _logreg(m, n, pad=False, seed=7):
     pt = st.Problem(A, y, x0, losses.logistic01_f, 0.01,
                     grad_fx=losses.logistic01_grad,
                     glm=losses.LOGISTIC01_GLM, dtype=torch.float64,
-                    pad_features=pad)
+                    pad_features=pad, device="cpu")
     return pj, pt
 
 
@@ -107,7 +107,8 @@ def test_one_uncached_step_matches(kernels, jkernels, greedy):
     assert jcounters.KERNEL_HITS["fused_glm_prep"] == (jkernels == "pallas")
 
     pt = problem_from_numpy(np.asarray(pj.A), np.asarray(pj.y),
-                            np.asarray(x0), np.asarray(pj.lam), grad_fx=True)
+                            np.asarray(x0), np.asarray(pj.lam), grad_fx=True,
+                            device="cpu")
     mt = st.ProxGGNSCORE(solver="cg", cg_tol=1e-12, kernels=kernels,
                          greedy_alpha=greedy, epoch_cache=False)
     xt = pt.x0
@@ -160,7 +161,8 @@ def test_uncached_multinomial_trajectory_matches():
                       mglm=jlosses.multinom_mglm(4), dtype=np.float64)
     pt = st.Problem(A, y, x0, losses.multinom_f, 1e-2,
                     grad_fx=losses.multinom_grad,
-                    mglm=losses.multinom_mglm(4), dtype=torch.float64)
+                    mglm=losses.multinom_mglm(4), dtype=torch.float64,
+                    device="cpu")
     sj, s = _solve(pj, pt, epoch_cache=False, greedy_alpha=False)
     assert s.epochs == sj.epochs
     assert s.cg_info == sj.cg_info
