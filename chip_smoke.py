@@ -18,10 +18,13 @@ result. Phases, each fatal on failure:
      at odd n for K3, for K5 at the multinomial bench shape, at boundary
      shapes (both of its forms) and at k = 1, 17 and 128, and for K4 at
      the L-BFGS path's shape and at other n and m with empty, partial,
-     full and wrapped memories and a slot with yᵀs = 0; two runs of a
-     kernel must give bitwise-equal outputs. Times (CUDA events, median
-     of 20) of each kernel beside its plain version at its path's
-     full-width shape, and of one 40 KB NCCL all-reduce.
+     full and wrapped memories and a slot with yᵀs = 0, and for K2 and
+     K2s on both sides of their one-pass form's n limit and at fewer
+     rows than blocks; two runs of a kernel must give bitwise-equal
+     outputs. Times (CUDA events, median of 20) of each kernel beside
+     its plain version at its path's full-width shape, with the rate
+     over A's bytes of those that stream A (K1, K1s, K2 and K2s also at
+     524288×1024), and of one 40 KB NCCL all-reduce.
   3. The sparse-logistic path at full width: 196608×10000 (padded to
      10112), seed 7, float32 on the card, solved by the no-knob
      ProxGGNSCORE(solver='cg', cg_maxiter=100) with the pseudo-Huber l1
@@ -61,6 +64,10 @@ result. Phases, each fatal on failure:
      x bitwise equal on both ranks, and a small float64 two-rank solve
      matching the CPU's plain unsharded solve to 1e-9. Its seconds are
      not a scaling number.
+  9. Phase 3's chain at the JAX bench's secondary shape, 524288×1024
+     (seed 7, f32; where the JAX package's plain f32 tile sums stalled
+     at a 1.7e-6 gap): it must reach the 1e-6 gap with K1, K2 and K3,
+     and agree with its kernels='torch' chain on the final objective.
 
 The last two lines of standard output are one JSON object with each
 kernel's numbers, then ``{"ok": true, "device": {...}}``. Each kernel's
@@ -97,6 +104,12 @@ NARROW_SHAPE = (524288, 1024)
 # 16-byte aligned: the kernels' one-value-per-load path)
 BOUNDARY_SHAPES = [(37, 128), (947, 384), (2249, 1920), (131, 128),
                    (660, 256), (3465, 2432), (999, 1001), (64, 130)]
+# K2/K2s form boundaries (csrc/glm_prep.cu): the last n of the one-pass
+# form and the first past it — K2 14336 f32 / 7168 f64, K2s 28672 f32 /
+# 14336 f64 — and fewer rows than blocks (m = 1, 5), in both dtypes
+PREP_SHAPES = [(1, 256), (5, 1001), (1031, 14336), (1031, 14340),
+               (517, 7168), (517, 7170), (301, 28672), (301, 28676),
+               (517, 14336), (517, 14338)]
 K3_NS = [7, 129, 1000, 8192, 8320, 9001, 16384, 23456, 131072]
 K3_REGS = ["l1", "l2", "indbox", "none"]
 WIDE_SHAPES = [(4099, 40000, "float32"), (2049, 20000, "float64")]
@@ -242,31 +255,7 @@ def data_kernel_case(m, n, dtype, gen, mesh, timed=False):
                    plain, dn) for c in (2, 3)])
     del k1, plain
 
-    pp = glm_prep_pair(A, y, xt, xd, LOGISTIC01_GLM)
-    same_bits(f"glm_prep_pair {tag}", pp,
-              glm_prep_pair(A, y, xt, xd, LOGISTIC01_GLM))
-    ref = glm_prep_pair_torch(A, y, xt, xd, LOGISTIC01_GLM)
-    res["glm_prep_pair"] = max(
-        compare(f"glm_prep_pair.{f} {tag}", g, r, dn)
-        for f, g, r in zip(pp._fields, pp, ref))
-    del pp, ref
-    # normalized by the rows of all ranks, as on one rank of four
-    m_norm = 4 * m + 3
-    pp = glm_prep_pair(A, y, xt, xd, LOGISTIC01_GLM, m_norm)
-    ref = glm_prep_pair_torch(A, y, xt, xd, LOGISTIC01_GLM, m_norm)
-    res["glm_prep_pair"] = max(
-        [res["glm_prep_pair"]]
-        + [compare(f"glm_prep_pair.{f} m_norm={m_norm} {tag}", g, r, dn)
-           for f, g, r in zip(pp._fields, pp, ref)])
-    del pp, ref
-
-    k2s = glm_prep(A, y, xt, LOGISTIC01_GLM)
-    same_bits(f"glm_prep {tag}", k2s, glm_prep(A, y, xt, LOGISTIC01_GLM))
-    ref = glm_prep_torch(A, y, xt, LOGISTIC01_GLM)[:3]
-    res["glm_prep"] = max(
-        compare(f"glm_prep.{f} {tag}", g, r, dn)
-        for f, g, r in zip(("w", "b", "hd"), k2s, ref))
-    del k2s, ref
+    res.update(prep_checks(A, y, xt, xd, tag, dn))
     times = {}
     if timed:
         times["normal_matvec"] = (
@@ -285,6 +274,56 @@ def data_kernel_case(m, n, dtype, gen, mesh, timed=False):
     del A
     torch.cuda.empty_cache()
     return res, times
+
+
+def prep_checks(A, y, xt, xd, tag, dn):
+    """K2 and K2s against their plain versions, normalized by A's rows
+    and by another count (as on one rank of four), each with a bitwise
+    rerun: {kernel: max abs err}."""
+    from scso_tpu_torch.models.losses import LOGISTIC01_GLM
+    from scso_tpu_torch.ops.cuda.glm_prep import (
+        glm_prep, glm_prep_pair, glm_prep_pair_torch, glm_prep_torch)
+
+    res = {"glm_prep_pair": 0.0, "glm_prep": 0.0}
+    for m_norm in (None, 4 * A.shape[0] + 3):
+        what = f"m_norm={m_norm} {tag}" if m_norm else tag
+        pp = glm_prep_pair(A, y, xt, xd, LOGISTIC01_GLM, m_norm)
+        same_bits(f"glm_prep_pair {what}", pp,
+                  glm_prep_pair(A, y, xt, xd, LOGISTIC01_GLM, m_norm))
+        ref = glm_prep_pair_torch(A, y, xt, xd, LOGISTIC01_GLM, m_norm)
+        res["glm_prep_pair"] = max(
+            [res["glm_prep_pair"]]
+            + [compare(f"glm_prep_pair.{f} {what}", g, r, dn)
+               for f, g, r in zip(pp._fields, pp, ref)])
+        del pp, ref
+        k2s = glm_prep(A, y, xt, LOGISTIC01_GLM, m_norm)
+        same_bits(f"glm_prep {what}", k2s,
+                  glm_prep(A, y, xt, LOGISTIC01_GLM, m_norm))
+        ref = glm_prep_torch(A, y, xt, LOGISTIC01_GLM, m_norm)[:3]
+        res["glm_prep"] = max(
+            [res["glm_prep"]]
+            + [compare(f"glm_prep.{f} {what}", g, r, dn)
+               for f, g, r in zip(("w", "b", "hd"), k2s, ref)])
+        del k2s, ref
+    return res
+
+
+def prep_case(m, n, dtype, gen):
+    """K2 and K2s alone at one of PREP_SHAPES."""
+    import torch
+
+    from scso_tpu_torch.ops.cuda.glm_prep import max_n
+
+    dev, dn = "cuda", str(dtype).replace("torch.", "")
+    A = torch.randn((m, n), generator=gen, device=dev, dtype=dtype) * 0.1
+    y = (torch.rand((m,), generator=gen, device=dev) < 0.5).to(dtype)
+    xt = torch.randn((n,), generator=gen, device=dev, dtype=dtype) * 0.1
+    xd = torch.randn((n,), generator=gen, device=dev, dtype=dtype) * 0.1
+    forms = "/".join("one-pass" if n <= max_n(dtype, c) else "wide"
+                     for c in (2, 1))
+    res = prep_checks(A, y, xt, xd, f"({m}x{n} {dn})", dn)
+    log(f"  K2/K2s {m}x{n} {dn} ({forms}): max abs err "
+        f"K2 {res['glm_prep_pair']:.3e} K2s {res['glm_prep']:.3e}")
 
 
 def score_update_case(n, reg, dtype, gen, timed=False):
@@ -440,10 +479,10 @@ def phase_kernels(mesh):
     gen.manual_seed(SEED)
     main = (MAIN_SHAPE[0], MAIN_SHAPE[1] + (-MAIN_SHAPE[1]) % 128)
     errs = {k: 0.0 for k in KERNELS}
-    times = {}
+    times, narrow_times = {}, {}
     for dtype in (torch.float32, torch.float64):
         for (m, n) in [main, NARROW_SHAPE] + BOUNDARY_SHAPES:
-            timed = dtype == torch.float32 and (m, n) == main
+            timed = dtype == torch.float32 and (m, n) in (main, NARROW_SHAPE)
             t0 = time.perf_counter()
             res, t = data_kernel_case(m, n, dtype, gen, mesh, timed=timed)
             log(f"  K1/K1s/K2/K2s {m}x{n} {dtype}: max abs err "
@@ -452,9 +491,13 @@ def phase_kernels(mesh):
                 f"K2 {res['glm_prep_pair']:.3e} "
                 f"K2s {res['glm_prep']:.3e} "
                 f"({time.perf_counter() - t0:.1f} s)")
-            if timed:
+            if timed and (m, n) == main:
                 times.update(t)
                 errs.update(res)
+            elif timed:
+                narrow_times = t
+        for (m, n) in PREP_SHAPES:
+            prep_case(m, n, dtype, gen)
         for n in K3_NS:
             for reg in K3_REGS:
                 score_update_case(n, reg, dtype, gen)
@@ -491,9 +534,21 @@ def phase_kernels(mesh):
                 times["two_loop"] = t
                 errs["two_loop"] = err
         log(f"  K4 {len(TWO_LOOP_CASES)} memories {dn}: ok")
+    # the kernels that stream A: their achieved rate over A's bytes
+    a_bytes = dict.fromkeys(("normal_matvec", "normal_matvec_sharded",
+                             "glm_prep_pair", "glm_prep"),
+                            4 * main[0] * main[1])
+    a_bytes["mglm_matvec"] = 4 * MGLM_SHAPE[0] * MGLM_SHAPE[1]
     for k, (ms, plain) in times.items():
-        log(f"  time at the main-path shape, {k}: kernel {ms:.4f} ms, "
-            f"plain {plain:.4f} ms (CUDA events, median of 20)")
+        rate = (f", {a_bytes[k] / ms / 1e6:.1f} GB/s of A" if k in a_bytes
+                else "")
+        log(f"  time at the main-path shape, {k}: kernel {ms:.4f} ms"
+            f"{rate}, plain {plain:.4f} ms (CUDA events, median of 20)")
+    narrow_bytes = 4 * NARROW_SHAPE[0] * NARROW_SHAPE[1]
+    for k, (ms, plain) in narrow_times.items():
+        log(f"  time at {NARROW_SHAPE[0]}x{NARROW_SHAPE[1]}, {k}: kernel "
+            f"{ms:.4f} ms, {narrow_bytes / ms / 1e6:.1f} GB/s of A, plain "
+            f"{plain:.4f} ms (CUDA events, median of 20)")
     buf = torch.ones(main[1], device="cuda")
     ar_ms = time_ms(lambda: dist.all_reduce(buf, group=mesh.group))
     log(f"  one all-reduce of {buf.numel() * 4} bytes over the one-rank "
@@ -577,7 +632,10 @@ def timed_chain(method, prob, best, keep_x=False):
     return out
 
 
-def phase_main_path():
+def phase_main_path(shape=MAIN_SHAPE):
+    """The cached GGN-CG chain at ``shape`` (phase 3; phase 9 at the
+    JAX bench's secondary shape), then the same chain with
+    kernels='torch'."""
     import dataclasses
 
     import torch
@@ -587,9 +645,9 @@ def phase_main_path():
     from scso_tpu_torch.ops.cuda import counters
 
     t0 = time.perf_counter()
-    prob = build_problem(*MAIN_SHAPE, "cuda", torch.float32)
+    prob = build_problem(*shape, "cuda", torch.float32)
     torch.cuda.synchronize()
-    log(f"  data {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} padded to "
+    log(f"  data {shape[0]}x{shape[1]} padded to "
         f"{tuple(prob.A.shape)}, made and moved in "
         f"{time.perf_counter() - t0:.1f} s")
     method = st.ProxGGNSCORE(solver="cg", cg_maxiter=100)
@@ -1139,8 +1197,12 @@ def main():
     log(" (b) two ranks on the one card over gloo")
     two = phase_sharded_two_ranks()
     dist.destroy_process_group()
+
+    log(f"phase 9: the cached GGN-CG path at {NARROW_SHAPE[0]}x"
+        f"{NARROW_SHAPE[1]} (the JAX bench's secondary shape)")
+    nkern, nplain, nlaunches, _, _ = phase_main_path(NARROW_SHAPE)
     launches = {k: launches[k] + mlaunches[k] + llaunches[k] + ulaunches[k]
-                + slaunches[k] for k in launches}
+                + slaunches[k] + nlaunches[k] for k in launches}
 
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "scso_tpu"
@@ -1159,6 +1221,9 @@ def main():
                                                "torch": uplain}))
     log("sharded path: " + json.dumps({"card": card, "one_rank": skern,
                                        **two}))
+    log("secondary cached path: " + json.dumps({"card": card,
+                                                "kernels": nkern,
+                                                "torch": nplain}))
     rows = []
     for k, (src, rep) in KERNELS.items():
         bound_ms, bound_by = bound(*work[k])

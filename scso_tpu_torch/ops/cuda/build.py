@@ -40,12 +40,12 @@ SIGNATURES = {
     # partials, out, m, p, k, n_blocks, fused, stream
     "scso_mglm_matvec": [_p] * 6 + [_i64] * 5 + [_p],
     # A, y, x_t, x_d, w_t, w_d, rw, b_t, b_d, hd_t, hd_d, loss_t, loss_d,
-    # col_partials, loss_partials, m, n, m_norm, row_blocks, chunks,
-    # stream
-    "scso_glm_prep_pair": [_p] * 15 + [_i64] * 5 + [_p],
-    # A, y, x, w, rw, b, hd, col_partials, m, n, m_norm, row_blocks,
-    # chunks, stream
-    "scso_glm_prep": [_p] * 8 + [_i64] * 5 + [_p],
+    # partials, loss_partials, m, n, m_norm, then the PrepGrid (blocks,
+    # rows_per_block, smem_bytes, threads, chunks_per_thread,
+    # row_blocks), stream
+    "scso_glm_prep_pair": [_p] * 15 + [_i64] * 9 + [_p],
+    # A, y, x, w, rw, b, hd, partials, m, n, m_norm, the PrepGrid, stream
+    "scso_glm_prep": [_p] * 8 + [_i64] * 9 + [_p],
     # S, Y, g, pos, count, H0, out, m, n, stream
     "scso_two_loop": [_p] * 7 + [_i64] * 2 + [_p],
     # x, d, lgr, hr, lb, ub, lam, ss, Mg, reg, x_new, stats, n, stream

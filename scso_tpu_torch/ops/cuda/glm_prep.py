@@ -13,6 +13,21 @@ in the ggn flavour (the TPU kernels trace arbitrary Python callables,
 which CUDA cannot); :func:`glm_prep_torch` and
 :func:`glm_prep_pair_torch` are the plain versions.
 
+What bounds both on the H100 is the bytes of A. Up to :func:`max_n`
+(K2: n = 14336 in float32, 7168 in float64; K2s: 28672 and 14336) the
+kernel's one-pass form reads A once, as the TPU kernels do: each block
+(one an SM at the main shape) walks its rows a few at a time (two at
+the main shape, eight at narrow n), each thread owning fixed 16-byte
+column chunks, its slice of the candidates in registers, the 2·NC (n,)
+accumulators in shared memory; the next row group is prefetched into L2
+while the current one, held in registers, feeds both the row dots and
+the column sums. Blocks sum in T, the sum over blocks is in double and
+in a fixed order. Above max_n the accumulators do not fit a block, and
+the wide form takes two passes over A (a rows pass and a columns pass).
+:func:`prep_grid` picks the form and its geometry from the shapes
+alone; ``csrc/glm_prep.cu``'s head note gives the design and its
+register and shared-memory budget.
+
 Every entry takes ``m_norm``, the count of the 1/m normalization,
 apart from the rows of A it reads: on a row shard it is the row count
 of all ranks (`Problem.m_total`), and the shard's sums add up over the
@@ -35,6 +50,25 @@ import torch
 from scso_tpu_torch.ops.cuda import build, counters, launch
 
 KERNEL_KINDS = ("logistic01",)
+
+# dynamic shared memory a block may use: Hopper's 227 KB less headroom
+# for the kernel's static buffers (as K1's, ops/cuda/matvec.py)
+_SMEM_BYTES = 224 * 1024
+_SM_SMEM_BYTES = 228 * 1024     # shared memory of one SM
+_SM_BLOCK_OVERHEAD = 2 * 1024   # per block: reserved + static buffers
+_SM_REGS = 65536                # registers of one SM
+_MAX_REGS = 128           # a thread's most under __launch_bounds__(512, 1)
+_MAX_THREADS = 512        # kMaxThreads in csrc/glm_prep.cu
+_WIDE_THREADS = 256       # kThreads in csrc/glm_prep.cu
+# the one-pass kernel's instantiated chunks-a-thread buckets, by
+# candidate count (dispatch_onepass in csrc/glm_prep.cu), and its rows a
+# step for a bucket (rows_a_step)
+_CHUNKS_PER_THREAD = {2: (1, 2, 3, 4, 5, 6, 7),
+                      1: (1, 2, 3, 4, 5, 6, 7, 8, 10, 12, 14)}
+
+
+def _rows_a_step(q):
+    return 8 if q == 1 else 4 if q == 2 else 2
 
 
 class PairPrep(NamedTuple):
@@ -91,19 +125,80 @@ def _check_kind(name, glm):
             f"{getattr(glm, 'kind', None)!r} (ROADMAP B2)")
 
 
-def _grid(A):
-    """(row_blocks, chunks) for the two passes over A: the rows pass runs
-    one warp per row, 8 warps per block, up to 8 blocks per SM; the
-    columns pass 256 threads per block, each on one 16-byte chunk of
-    columns (the kernel's vector width), with enough row chunks for ~8
-    blocks per SM."""
-    m, n = A.shape
-    sms = launch.sm_count(A.device.index or 0)
+class PrepGrid(NamedTuple):
+    """Launch geometry of one K2/K2s call (see :func:`prep_grid`); the
+    fields after ``form`` are the C entries' arguments, in order."""
+
+    form: str               # "one_pass" (A read once) or "wide" (twice)
+    blocks: int             # one-pass: blocks; wide: row chunks (partials)
+    rows_per_block: int     # rows of each block (one-pass) or chunk (wide)
+    smem_bytes: int         # dynamic shared memory a block (wide: 0)
+    threads: int            # threads a block
+    chunks_per_thread: int  # 16-byte column chunks a thread (wide: 0)
+    row_blocks: int         # blocks with a loss partial (wide: rows pass)
+
+
+def max_n(dtype, candidates) -> int:
+    """Largest n of the one-pass form: 2·candidates (n,) accumulators in
+    one block's shared memory, in 16-byte chunks (K2: 14336 in float32,
+    7168 in float64; K2s: 28672 and 14336)."""
+    e = 16 // dtype.itemsize
+    return e * (_SMEM_BYTES // (2 * candidates * 16))
+
+
+def prep_grid(m, n, dtype, candidates, sms) -> PrepGrid:
+    """The form and launch geometry for A (m, n) of ``dtype`` and
+    ``candidates`` (2: K2, 1: K2s) on a card with ``sms`` SMs, from the
+    shapes alone.
+
+    One-pass form (n <= :func:`max_n`): one wave of blocks, each owning
+    a contiguous row range, every row in exactly one block (m = 1 gives
+    one block). A thread owns ``chunks_per_thread`` 16-byte column
+    chunks, the fewest of the kernel's buckets that need at most 512
+    threads; its slice of the candidates and the current row group sit
+    in registers. As many blocks share an SM as its registers (at the
+    128 a thread the kernel may use), threads and shared memory hold:
+    one at 512 threads, so at the main shape. Wide form (n above it):
+    the two-pass geometry — a rows pass of up to 8 blocks an SM, one
+    warp a row, and enough row chunks for the columns pass to give
+    about 8 blocks an SM."""
+    e = 16 // dtype.itemsize
+    if n <= max_n(dtype, candidates):
+        nc = -(-n // e)
+        q = next(q for q in _CHUNKS_PER_THREAD[candidates]
+                 if -(-nc // q) <= _MAX_THREADS)
+        threads = max(32, 32 * -(-nc // (32 * q)))
+        smem = 2 * candidates * nc * 16
+        per_sm = max(1, min(2048 // threads,
+                            _SM_REGS // (_MAX_REGS * threads),
+                            _SM_SMEM_BYTES // (smem + _SM_BLOCK_OVERHEAD)))
+        blocks = max(1, min(per_sm * sms, -(-m // _rows_a_step(q))))
+        rows = -(-m // blocks)
+        blocks = -(-m // rows)
+        return PrepGrid("one_pass", blocks, rows, smem, threads, q, blocks)
     row_blocks = max(1, min(8 * sms, -(-m // 8)))
-    vec = 16 // A.element_size()
-    col_tiles = -(-(n // vec if n % vec == 0 else n) // 256)
+    col_tiles = -(-(n // e if n % e == 0 else n) // _WIDE_THREADS)
     chunks = max(1, min(-(-8 * sms // col_tiles), -(-m // 256)))
-    return row_blocks, chunks
+    return PrepGrid("wide", chunks, -(-m // chunks), 0, _WIDE_THREADS, 0,
+                    row_blocks)
+
+
+def _scratch(grid, candidates, m, n, dtype, device):
+    """One allocation for a call's scratch (the host's cost of a call is
+    part of each epoch's): the buffer, then the pointers to its partials,
+    loss partials and wide ρ. Partials are (blocks, 2·candidates, n), in
+    ``dtype`` one-pass and in double wide; loss partials (row_blocks, 2)
+    double; ρ (candidates, m) in ``dtype``, wide only (0 otherwise)."""
+    wide = grid.form == "wide"
+    part_item = 8 if wide else dtype.itemsize
+    sizes = [grid.blocks * 2 * candidates * n * part_item,
+             grid.row_blocks * 2 * 8,
+             candidates * m * dtype.itemsize if wide else 0]
+    sizes = [-(-b // 256) * 256 for b in sizes]   # each part 256-B aligned
+    base = torch.empty(sum(sizes), dtype=torch.uint8, device=device)
+    ptr = base.data_ptr()
+    return (base, ptr, ptr + sizes[0],
+            (ptr + sizes[0] + sizes[1]) if wide else 0)
 
 
 def _check_shapes(name, A, y, m_norm, *xs):
@@ -133,17 +228,16 @@ def glm_prep(A, y, x, glm, m_norm=None):
     m_norm = _check_shapes("glm_prep", A, y, m_norm, x)
     m, n = A.shape
     dev, dt = A.device, A.dtype
-    row_blocks, chunks = _grid(A)
-    empty = lambda *shape, dtype=dt: torch.empty(shape, dtype=dtype,
-                                                 device=dev)
-    w, rw, b, hd = empty(m), empty(m), empty(n), empty(n)
-    col_partials = empty(chunks, 2, n, dtype=torch.float64)
+    grid = prep_grid(m, n, dt, 1, launch.sm_count(dev.index or 0))
+    w, b, hd = torch.empty(m + 2 * n, dtype=dt, device=dev).split([m, n, n])
+    # ``buf`` holds the scratch the pointers address until the launch
+    buf, partials, _, rw = _scratch(grid, 1, m, n, dt, dev)
     with torch.cuda.device(dev):
         rc = launch.entry("scso_glm_prep", dt)(
-            A.data_ptr(), y.data_ptr(), x.data_ptr(), w.data_ptr(),
-            rw.data_ptr(), b.data_ptr(), hd.data_ptr(),
-            col_partials.data_ptr(), m, n, m_norm, row_blocks, chunks,
-            launch.stream(dev))
+            A.data_ptr(), y.data_ptr(), x.data_ptr(), w.data_ptr(), rw,
+            b.data_ptr(), hd.data_ptr(), partials, m, n, m_norm,
+            *grid[1:], launch.stream(dev))
+    del buf
     build.check(rc, "glm_prep")
     counters.bump("glm_prep")
     return w, b, hd
@@ -161,23 +255,20 @@ def glm_prep_pair(A, y, x_t, x_d, glm, m_norm=None) -> PairPrep:
     m_norm = _check_shapes("glm_prep_pair", A, y, m_norm, x_t, x_d)
     m, n = A.shape
     dev, dt = A.device, A.dtype
-    row_blocks, chunks = _grid(A)
-    empty = lambda *shape, dtype=dt: torch.empty(shape, dtype=dtype,
-                                                 device=dev)
-    w_t, w_d = empty(m), empty(m)
-    rw = empty(2, m)
-    b_t, b_d, hd_t, hd_d = empty(n), empty(n), empty(n), empty(n)
-    loss_t, loss_d = empty(), empty()
-    col_partials = empty(chunks, 4, n, dtype=torch.float64)
-    loss_partials = empty(row_blocks, 2, dtype=torch.float64)
+    grid = prep_grid(m, n, dt, 2, launch.sm_count(dev.index or 0))
+    out = torch.empty(2 * m + 4 * n + 2, dtype=dt, device=dev)
+    w_t, w_d, b_t, b_d, hd_t, hd_d = out[:-2].split([m, m, n, n, n, n])
+    loss_t, loss_d = out[-2], out[-1]
+    # ``buf`` holds the scratch the pointers address until the launch
+    buf, partials, loss_partials, rw = _scratch(grid, 2, m, n, dt, dev)
     with torch.cuda.device(dev):
         rc = launch.entry("scso_glm_prep_pair", dt)(
             A.data_ptr(), y.data_ptr(), x_t.data_ptr(), x_d.data_ptr(),
-            w_t.data_ptr(), w_d.data_ptr(), rw.data_ptr(),
-            b_t.data_ptr(), b_d.data_ptr(), hd_t.data_ptr(),
-            hd_d.data_ptr(), loss_t.data_ptr(), loss_d.data_ptr(),
-            col_partials.data_ptr(), loss_partials.data_ptr(),
-            m, n, m_norm, row_blocks, chunks, launch.stream(dev))
+            w_t.data_ptr(), w_d.data_ptr(), rw, b_t.data_ptr(),
+            b_d.data_ptr(), hd_t.data_ptr(), hd_d.data_ptr(),
+            loss_t.data_ptr(), loss_d.data_ptr(), partials, loss_partials,
+            m, n, m_norm, *grid[1:], launch.stream(dev))
+    del buf
     build.check(rc, "glm_prep_pair")
     counters.bump("glm_prep_pair")
     return PairPrep(w_t, w_d, b_t, b_d, hd_t, hd_d, loss_t, loss_d)

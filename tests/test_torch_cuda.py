@@ -60,9 +60,20 @@ def _check(got, want, dtype):
     torch.testing.assert_close(got, want, rtol=rtol, atol=atol * scale)
 
 
+# K2's one-pass form holds n <= 14336 in float32 and 7168 in float64
+# (max_n); the first n past each limit runs the wide form. m = 1 and 5
+# give fewer rows than blocks; odd m leaves a block a ragged row pair.
+K2_SHAPES = [(37, 128), (947, 384), (3465, 2432), (999, 1001), (1, 256),
+             (5, 1001), (1031, 14336), (1031, 14340), (517, 7168),
+             (517, 7170)]
+# K2s's: n <= 28672 in float32 and 14336 in float64
+K2S_SHAPES = [(660, 256), (3465, 2432), (4099, 10112), (947, 384),
+              (999, 1001), (1, 128), (5, 1001), (301, 28672), (301, 28676),
+              (517, 14336), (517, 14338)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("m,n", [(37, 128), (947, 384), (3465, 2432),
-                                 (999, 1001)])
+@pytest.mark.parametrize("m,n", K2_SHAPES)
 def test_data_kernels_match_plain(dev, dtype, m, n):
     gen = torch.Generator(device=dev).manual_seed(m)
     A = torch.randn((m, n), generator=gen, device=dev, dtype=dtype) * 0.1
@@ -181,8 +192,7 @@ def test_score_update_matches_plain(dev, dtype, n, reg):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("m,n", [(660, 256), (3465, 2432), (4099, 10112),
-                                 (947, 384), (999, 1001)])
+@pytest.mark.parametrize("m,n", K2S_SHAPES)
 def test_glm_prep_matches_plain(dev, dtype, m, n):
     gen = torch.Generator(device=dev).manual_seed(m + n)
     A = torch.randn((m, n), generator=gen, device=dev, dtype=dtype) * 0.1
@@ -355,7 +365,8 @@ def test_sharded_matvec_on_one_rank(nccl_mesh, dtype, m, n):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("m,n", [(660, 256), (999, 1001)])
+@pytest.mark.parametrize("m,n", [(660, 256), (999, 1001), (5, 1001),
+                                 (517, 7170), (301, 14340)])
 def test_prep_kernels_normalize_by_m_norm(dev, dtype, m, n):
     gen = torch.Generator(device=dev).manual_seed(m + 7 * n)
     A = torch.randn((m, n), generator=gen, device=dev, dtype=dtype) * 0.1
@@ -367,9 +378,14 @@ def test_prep_kernels_normalize_by_m_norm(dev, dtype, m, n):
     want = glm_prep_pair_torch(A, y, xt, xd, LOGISTIC01_GLM, m_norm)
     for g, w_ in zip(got, want):
         _check(g, w_, dtype)
-    for g, w_ in zip(glm_prep(A, y, xt, LOGISTIC01_GLM, m_norm),
+    assert all(torch.equal(g, a) for g, a in zip(
+        got, glm_prep_pair(A, y, xt, xd, LOGISTIC01_GLM, m_norm)))
+    single = glm_prep(A, y, xt, LOGISTIC01_GLM, m_norm)
+    for g, w_ in zip(single,
                      glm_prep_torch(A, y, xt, LOGISTIC01_GLM, m_norm)[:3]):
         _check(g, w_, dtype)
+    assert all(torch.equal(g, a) for g, a in zip(
+        single, glm_prep(A, y, xt, LOGISTIC01_GLM, m_norm)))
     # m_norm = m is the unsharded kernel, bit for bit
     assert all(torch.equal(g, w_) for g, w_ in zip(
         glm_prep_pair(A, y, xt, xd, LOGISTIC01_GLM, m),

@@ -26,7 +26,7 @@ from scso_tpu.ops.smoothers import phuber_grad, phuber_hess
 from scso_tpu_torch.models.losses import LOGISTIC01_GLM
 from scso_tpu_torch.ops.cuda import counters
 from scso_tpu_torch.ops.cuda.glm_prep import (
-    PairPrep, glm_prep_pair, glm_prep_pair_torch)
+    PairPrep, glm_prep_pair, glm_prep_pair_torch, max_n, prep_grid)
 from scso_tpu_torch.ops.cuda.matvec import normal_matvec, normal_matvec_torch
 from scso_tpu_torch.ops.cuda.score_update import (
     score_update, score_update_torch)
@@ -104,6 +104,77 @@ class TestGLMPrepPair:
         want = glm_prep_pair_torch(_t(A), _t(y), x, x, LOGISTIC01_GLM)
         for g, w_ in zip(got, want):
             assert torch.equal(g, w_)
+
+
+class TestPrepGrid:
+    """K2/K2s's form and launch geometry, from the shapes alone (no
+    card): csrc/glm_prep.cu's one-pass form holds 2·candidates (n,)
+    accumulators in 224 KB of shared memory."""
+
+    SMEM = 224 * 1024
+    # (candidates, dtype, the last n of the one-pass form)
+    LIMITS = [(2, torch.float32, 14336), (2, torch.float64, 7168),
+              (1, torch.float32, 28672), (1, torch.float64, 14336)]
+    BUCKETS = {2: range(1, 8), 1: (1, 2, 3, 4, 5, 6, 7, 8, 10, 12, 14)}
+
+    @pytest.mark.parametrize("candidates,dtype,limit", LIMITS)
+    def test_wide_form_starts_just_past_the_limit(self, candidates, dtype,
+                                                  limit):
+        assert max_n(dtype, candidates) == limit
+        e = 16 // dtype.itemsize
+        for n in (limit - e, limit - 1, limit):
+            assert prep_grid(1031, n, dtype, candidates, 132).form == \
+                "one_pass"
+        for n in (limit + 1, limit + e, 2 * limit):
+            assert prep_grid(1031, n, dtype, candidates, 132).form == "wide"
+
+    @pytest.mark.parametrize("candidates", [1, 2])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    @pytest.mark.parametrize("m,n,sms", [
+        (1, 256, 132), (5, 1001, 132), (7, 128, 132), (1000, 10112, 132),
+        (196608, 10112, 132), (524288, 1024, 132), (999, 1001, 114),
+        (3, 64, 1), (65536, 7170, 132), (4099, 28676, 132)])
+    def test_rows_and_columns_covered_once(self, candidates, dtype, m, n,
+                                           sms):
+        g = prep_grid(m, n, dtype, candidates, sms)
+        # every row in exactly one block (or, wide, one row chunk), none
+        # empty
+        assert g.blocks * g.rows_per_block >= m
+        assert (g.blocks - 1) * g.rows_per_block < m
+        assert 0 <= g.smem_bytes <= self.SMEM
+        if g.form == "wide":
+            assert n > max_n(dtype, candidates)
+            assert g.smem_bytes == 0 and g.chunks_per_thread == 0
+            assert 1 <= g.row_blocks <= 8 * sms
+            return
+        e = 16 // dtype.itemsize
+        nc = -(-n // e)
+        assert g.row_blocks == g.blocks
+        assert g.smem_bytes == 2 * candidates * nc * 16
+        # one wave: every block resident at once, at the 128 registers a
+        # thread the kernel may use, 2048 threads and 228 KB an SM
+        per_sm = -(-g.blocks // sms)
+        assert per_sm * g.threads * 128 <= 65536
+        assert per_sm * g.threads <= 2048
+        assert per_sm * (g.smem_bytes + 2048) <= 228 * 1024
+        assert g.chunks_per_thread in self.BUCKETS[candidates]
+        assert g.threads % 32 == 0 and 32 <= g.threads <= 512
+        # every 16-byte column chunk owned by one thread
+        assert g.threads * g.chunks_per_thread >= nc
+        assert (g.threads - 32) * g.chunks_per_thread < nc
+
+    def test_one_row_is_one_block(self):
+        for candidates in (1, 2):
+            g = prep_grid(1, 10112, torch.float32, candidates, 132)
+            assert (g.form, g.blocks, g.rows_per_block) == ("one_pass", 1, 1)
+
+    def test_main_shape_runs_the_one_pass_form(self):
+        # 196608×10112 float32 on a 132-SM H100: one 512-thread block an
+        # SM, 5 chunks a thread, K2's accumulators 161,792 B
+        g = prep_grid(196608, 10112, torch.float32, 2, 132)
+        assert g == ("one_pass", 132, 1490, 161792, 512, 5, 132)
+        assert prep_grid(196608, 10112, torch.float32, 1, 132).smem_bytes \
+            == 80896
 
 
 class TestScoreUpdate:
