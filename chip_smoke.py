@@ -15,16 +15,23 @@ result. Phases, each fatal on failure:
      also normalized by another row count, K2s, and K1s under a one-rank NCCL group: bitwise K1, and its
      overlapped form with 2 and 3 column chunks against the plain
      version), at block-boundary shapes, at n above K1's shared-memory form,
-     at odd n for K3, for K5 at the multinomial bench shape, at boundary
-     shapes (both of its forms) and at k = 1, 17 and 128, and for K4 at
-     the L-BFGS path's shape and at other n and m with empty, partial,
-     full and wrapped memories and a slot with yᵀs = 0, and for K2 and
-     K2s on both sides of their one-pass form's n limit and at fewer
-     rows than blocks; two runs of a kernel must give bitwise-equal
-     outputs. Times (CUDA events, median of 20) of each kernel beside
-     its plain version at its path's full-width shape, with the rate
-     over A's bytes of those that stream A (K1, K1s, K2 and K2s also at
-     524288×1024), and of one 40 KB NCCL all-reduce.
+     at odd n for K3 and at n = 2²⁴ + 1 (its multi-block form), for K5
+     at the multinomial bench shape (where its limit must also reject
+     a one-TF32-product version of either contraction, emulated in
+     PyTorch), at boundary shapes (both of its forms and both sides of
+     each limit) and at k = 1, 17, 128, 129 and 200, and for K4 at the
+     L-BFGS path's shape and at other n and m (up to 4100 slots) with
+     empty, partial, full and wrapped memories and a slot with yᵀs = 0,
+     and for K2 and K2s on both sides of their one-pass form's n limit
+     and at fewer rows than blocks; the split forms of K2, K2s (a
+     least-squares and a kind=None logistic spec) and K5 (a squared-loss
+     and a kind=None multinomial spec) at a few shapes; two runs of a
+     kernel must give bitwise-equal outputs. Times (CUDA events around
+     runs of back-to-back calls, the median of 5 runs' per-call time)
+     of each kernel beside its plain version at its path's full-width
+     shape, with the rate over A's bytes of those that stream A (K1,
+     K1s, K2 and K2s also at 524288×1024, K2 also in its split form),
+     and of one 40 KB NCCL all-reduce.
   3. The sparse-logistic path at full width: 196608×10000 (padded to
      10112), seed 7, float32 on the card, solved by the no-knob
      ProxGGNSCORE(solver='cg', cg_maxiter=100) with the pseudo-Huber l1
@@ -37,14 +44,17 @@ result. Phases, each fatal on failure:
      family_multinomial(big=True)): 196608×1024×16, seed 11, float32,
      λ = 1e-3, the same method and protocol — K5 and K3 launched, K1
      and K2 not; the kernels='torch' chain must agree on the final
-     objective, and a small float64 multinomial solve through the
-     kernels must match the plain path on the CPU.
+     objective, K5's form and time at that shape are printed beside its
+     plain version's and its two-pass and split forms', and a small
+     float64 multinomial solve through the kernels must match the plain
+     path on the CPU.
   6. The L-BFGS path (ProxLQNSCORE(m=10), the default method, with the
      closed-form gradient) on phase 3's data, from x0 for a fixed 300
      epochs, with kernels and with kernels='torch': K4 and K3 launched
      and no other kernel, the two objective histories within 1e-5
-     relative, the gap to phase 3's anchor printed; a small float64
-     L-BFGS solve through the kernels must match the CPU plain path.
+     relative, the gap to phase 3's anchor printed; small float64
+     L-BFGS solves (m = 10 and 100) through the kernels must match the
+     CPU plain path.
   7. The uncached GGN-CG path (ProxGGNSCORE(solver='cg', cg_maxiter=100,
      epoch_cache=False)) on phase 3's data under phase 3's protocol to
      the 1e-6 gap: K2s, K1 and K3 launched, K2, K4 and K5 not; the
@@ -68,6 +78,10 @@ result. Phases, each fatal on failure:
      (seed 7, f32; where the JAX package's plain f32 tile sums stalled
      at a 1.7e-6 gap): it must reach the 1e-6 gap with K1, K2 and K3,
      and agree with its kernels='torch' chain on the final objective.
+ 10. Phase 3's problem with kind=None in its GLM spec (a user-built
+     GLMSpec) under kernels='auto', phase 3's protocol: K1, K2 (in its
+     split form) and K3 launched; the chain reaches the gap and agrees
+     with its kernels='torch' chain.
 
 The last two lines of standard output are one JSON object with each
 kernel's numbers, then ``{"ok": true, "device": {...}}``. Each kernel's
@@ -77,7 +91,10 @@ over A (or the vectors) at 67 TFLOP/s, the H100 SXM data sheet's HBM
 and FP32 rates, at the shape it was timed; ``library_ms`` is null: no
 single PyTorch call computes any of these functions.
 Tolerances (stated with each comparison below): float32 rtol 2e-5 and
-atol 3e-5·max|ref|; float64 rtol 1e-12 and atol 1e-12·max|ref|.
+atol 3e-5·max(1, max|ref|); K5 in float32 atol TOL["k5"]·max|ref|
+alone, with no floor of 1, so that it holds the tensor-core form's
+split TF32 to float32 accuracy; float64 rtol 1e-12 and atol
+1e-12·max(1, max|ref|).
 """
 
 from __future__ import annotations
@@ -110,25 +127,42 @@ BOUNDARY_SHAPES = [(37, 128), (947, 384), (2249, 1920), (131, 128),
 PREP_SHAPES = [(1, 256), (5, 1001), (1031, 14336), (1031, 14340),
                (517, 7168), (517, 7170), (301, 28672), (301, 28676),
                (517, 14336), (517, 14338)]
-K3_NS = [7, 129, 1000, 8192, 8320, 9001, 16384, 23456, 131072]
+# the last n is K3's first past its one-block form (2²⁴)
+K3_NS = [7, 129, 1000, 8192, 8320, 9001, 16384, 23456, 131072,
+         (1 << 24) + 1]
 K3_REGS = ["l1", "l2", "indbox", "none"]
 WIDE_SHAPES = [(4099, 40000, "float32"), (2049, 20000, "float64")]
 MGLM_SHAPE = (196608, 1024, 16)
 # tests/test_multioutput.py's kernel and odd shapes, the widest p of
-# K5's one-read form (k <= 16, p <= 1024) and the first past it (its
-# two-pass form), then k = 1, 17 and 128 at odd m and p
+# K5's tensor-core form (f32, k <= 16, p <= 1024) and the first past it
+# (its two-pass form), then k = 1, 17 and 128 at odd m and p; the
+# tensor-core form on both sides of its k and p limits, of its paddings
+# (p 128/256/512, k 8) and with rows that are not 16-byte aligned
+# (p % 4 != 0); k = 129 and 200
 MGLM_SHAPES = [(512, 128, 8), (700, 256, 4), (130, 128, 3), (16, 1, 2),
                (33, 5, 7), (8, 12, 2), (64, 4, 11), (3001, 1024, 16),
                (3001, 1025, 9), (1031, 77, 1), (1031, 77, 17),
-               (1031, 77, 128)]
-TOL = {"float32": (2e-5, 3e-5), "float64": (1e-12, 1e-12)}
+               (1031, 77, 128), (3001, 1024, 17), (1031, 1020, 16),
+               (1031, 1022, 16), (999, 132, 9), (999, 256, 8),
+               (999, 260, 16), (999, 512, 5), (999, 516, 12),
+               (1031, 77, 129), (1031, 77, 200)]
+TOL = {"float32": (2e-5, 3e-5), "float64": (1e-12, 1e-12),
+       "k5": (0.0, 3e-5)}  # K5 in float32: over max|ref|, no floor
+# K2/K2s's split form (specs the kernels do not compute themselves) and
+# K5's (m, p, k)
+PREP_SPLIT_SHAPES = [(5, 1001), (1031, 14340), (301, 28676)]
+MGLM_SPLIT_SHAPES = [(1031, 77, 3), (3001, 1024, 16), (517, 100, 200)]
 E2E_RTOL = 5e-6       # final objective, kernels vs plain, float32
 SMALL_RTOL = 1e-9     # small float64 solve, card kernels vs CPU plain
 LBFGS_EPOCHS = 300
 LBFGS_RTOL = 1e-5     # L-BFGS objective histories, kernels vs plain, f32
-# K4 cases: (n, m, pairs pushed); the first is the L-BFGS path's shape
+# K4 cases: (n, m, pairs pushed); the first is the L-BFGS path's shape;
+# memories past 64 slots (α and ρ in shared memory), and one past its
+# 32 KB budget (the wrapper's scratch)
 TWO_LOOP_CASES = [(10112, 10, 10), (10112, 10, 0), (361, 5, 3),
-                  (777, 9, 18), (100000, 10, 13), (64, 1, 4)]
+                  (777, 9, 18), (100000, 10, 13), (64, 1, 4),
+                  (777, 65, 70), (361, 100, 103), (2000, 200, 130),
+                  (64, 4100, 4103)]
 TWO_RANK_ROWS = 32768  # rows of each rank in phase 8(b)
 HBM_BYTES_S = 3.35e12  # H100 SXM data sheet: HBM3 rate
 FP32_FLOP_S = 67e12    # H100 SXM data sheet: FP32 outside the tensor cores
@@ -172,20 +206,30 @@ def log(msg: str):
 # ---------------------------------------------------------------------------
 
 
-def compare(name, got, want, dtype_name):
-    """Max abs error; fails past rtol + atol·max|ref| (per dtype)."""
+def limit_of(want, tol):
+    """(rtol, atol) of TOL[tol] against the reference ``want``: atol is
+    TOL's factor times max|ref|, floored at 1 except for K5's."""
+    rtol, atol_rel = TOL[tol]
+    top = float(want.abs().max()) if want.numel() else 1.0
+    return rtol, atol_rel * (top if tol == "k5" else max(1.0, top))
+
+
+def compare(name, got, want, tol, check=True):
+    """Max abs error; fails past rtol·|ref| + atol (``limit_of``), or,
+    with ``check`` False, returns whether it is past it."""
     import torch
 
-    rtol, atol_rel = TOL[dtype_name]
+    rtol, atol = limit_of(want, tol)
     got, want = got.double(), want.double()
-    scale = max(1.0, float(want.abs().max())) if want.numel() else 1.0
     err = (got - want).abs()
-    bound = rtol * want.abs() + atol_rel * scale
+    past = bool((err > rtol * want.abs() + atol).any())
+    if not check:
+        return past
     if not bool(torch.isfinite(got).all()):
         fail(f"{name}: non-finite kernel output")
-    if bool((err > bound).any()):
+    if past:
         fail(f"{name}: max abs err {float(err.max()):.3e} exceeds "
-             f"rtol {rtol:g} + atol {atol_rel:g}·{scale:.3e}")
+             f"rtol {rtol:g} + atol {atol:.3e} ({tol})")
     return float(err.max()) if err.numel() else 0.0
 
 
@@ -197,21 +241,29 @@ def same_bits(name, a, b):
             fail(f"{name}: rerun output {i} differs bitwise")
 
 
-def time_ms(fn, reps=20):
-    """Median of ``reps`` CUDA-event timings of one call, after a warm-up."""
+def time_ms(fn, reps=5, run_ms=20.0):
+    """ms a call: the median over ``reps`` runs of back-to-back calls
+    between two CUDA events, after a warm-up; a run holds as many calls
+    (1 to 50) as fill about ``run_ms``."""
     import torch
 
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     fn()
     torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    calls = max(1, min(50, int(run_ms / max(start.elapsed_time(end), 1e-3))))
     times = []
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -220,6 +272,7 @@ def data_kernel_case(m, n, dtype, gen, mesh, timed=False):
     plain versions on random data (m, n)."""
     import torch
 
+    from scso_tpu_torch._src.struct import replace
     from scso_tpu_torch.models.losses import LOGISTIC01_GLM
     from scso_tpu_torch.ops.cuda.glm_prep import (
         glm_prep, glm_prep_pair, glm_prep_pair_torch, glm_prep_torch)
@@ -271,35 +324,72 @@ def data_kernel_case(m, n, dtype, gen, mesh, timed=False):
         times["glm_prep"] = (
             time_ms(lambda: glm_prep(A, y, xt, LOGISTIC01_GLM)),
             time_ms(lambda: glm_prep_torch(A, y, xt, LOGISTIC01_GLM)))
+        # the split form (phase 10's spec): the same plain version
+        split = replace(LOGISTIC01_GLM, kind=None)
+        times["glm_prep_pair, split form"] = (
+            time_ms(lambda: glm_prep_pair(A, y, xt, xd, split)),
+            times["glm_prep_pair"][1])
     del A
     torch.cuda.empty_cache()
     return res, times
 
 
-def prep_checks(A, y, xt, xd, tag, dn):
-    """K2 and K2s against their plain versions, normalized by A's rows
-    and by another count (as on one rank of four), each with a bitwise
-    rerun: {kernel: max abs err}."""
+def least_squares_glm():
+    """A GLM spec the prep kernels do not compute themselves (their
+    split form): squared loss, identity link, no ggn_rw/ggn_w."""
+    import torch
+
+    import scso_tpu_torch as st
+
+    return st.GLMSpec(
+        link=lambda z: z, dlink=torch.ones_like,
+        res=lambda y, yh: (yh - y) / y.shape[0],
+        qdiag=lambda y, yh: torch.ones_like(yh) / y.shape[0],
+        hvp_w=lambda y, z: torch.ones_like(z) / y.shape[0],
+        gres=lambda y, z: (z - y) / y.shape[0],
+        loss_z=lambda y, z: 0.5 * torch.mean((z - y) ** 2),
+        loss_sample=lambda y, z: 0.5 * (z - y) ** 2, kind="least_squares")
+
+
+def squared_moglm(k):
+    """An MOGLM spec K5 does not compute itself (its split form)."""
+    import torch
+
+    import scso_tpu_torch as st
+
+    return st.MOGLMSpec(
+        n_out=k, gres=lambda y, Z: (Z - y) / Z.shape[0],
+        quad=lambda y, Z, U: U / Z.shape[0],
+        qdiag_w=lambda y, Z: torch.ones_like(Z) / Z.shape[0],
+        loss_z=lambda y, Z: 0.5 * torch.sum((Z - y) ** 2) / Z.shape[0],
+        loss_sample=lambda y, Z: 0.5 * torch.sum((Z - y) ** 2, dim=-1))
+
+
+def prep_checks(A, y, xt, xd, tag, dn, glm=None):
+    """K2 and K2s against their plain versions on ``glm`` (the
+    logistic01 spec by default), normalized by A's rows and by another
+    count (as on one rank of four), each with a bitwise rerun: {kernel:
+    max abs err}."""
     from scso_tpu_torch.models.losses import LOGISTIC01_GLM
     from scso_tpu_torch.ops.cuda.glm_prep import (
         glm_prep, glm_prep_pair, glm_prep_pair_torch, glm_prep_torch)
 
+    glm = glm or LOGISTIC01_GLM
     res = {"glm_prep_pair": 0.0, "glm_prep": 0.0}
     for m_norm in (None, 4 * A.shape[0] + 3):
         what = f"m_norm={m_norm} {tag}" if m_norm else tag
-        pp = glm_prep_pair(A, y, xt, xd, LOGISTIC01_GLM, m_norm)
+        pp = glm_prep_pair(A, y, xt, xd, glm, m_norm)
         same_bits(f"glm_prep_pair {what}", pp,
-                  glm_prep_pair(A, y, xt, xd, LOGISTIC01_GLM, m_norm))
-        ref = glm_prep_pair_torch(A, y, xt, xd, LOGISTIC01_GLM, m_norm)
+                  glm_prep_pair(A, y, xt, xd, glm, m_norm))
+        ref = glm_prep_pair_torch(A, y, xt, xd, glm, m_norm)
         res["glm_prep_pair"] = max(
             [res["glm_prep_pair"]]
             + [compare(f"glm_prep_pair.{f} {what}", g, r, dn)
                for f, g, r in zip(pp._fields, pp, ref)])
         del pp, ref
-        k2s = glm_prep(A, y, xt, LOGISTIC01_GLM, m_norm)
-        same_bits(f"glm_prep {what}", k2s,
-                  glm_prep(A, y, xt, LOGISTIC01_GLM, m_norm))
-        ref = glm_prep_torch(A, y, xt, LOGISTIC01_GLM, m_norm)[:3]
+        k2s = glm_prep(A, y, xt, glm, m_norm)
+        same_bits(f"glm_prep {what}", k2s, glm_prep(A, y, xt, glm, m_norm))
+        ref = glm_prep_torch(A, y, xt, glm, m_norm)[:3]
         res["glm_prep"] = max(
             [res["glm_prep"]]
             + [compare(f"glm_prep.{f} {what}", g, r, dn)
@@ -324,6 +414,17 @@ def prep_case(m, n, dtype, gen):
     res = prep_checks(A, y, xt, xd, f"({m}x{n} {dn})", dn)
     log(f"  K2/K2s {m}x{n} {dn} ({forms}): max abs err "
         f"K2 {res['glm_prep_pair']:.3e} K2s {res['glm_prep']:.3e}")
+    if (m, n) in PREP_SPLIT_SHAPES:
+        from scso_tpu_torch._src.struct import replace
+        from scso_tpu_torch.models.losses import LOGISTIC01_GLM
+
+        for name, glm in (("least squares", least_squares_glm()),
+                          ("kind=None", replace(LOGISTIC01_GLM, kind=None))):
+            res = prep_checks(A, y, xt, xd, f"split, {name} ({m}x{n} {dn})",
+                              dn, glm)
+            log(f"  K2/K2s split form, {name} spec, {m}x{n} {dn}: max abs "
+                f"err K2 {res['glm_prep_pair']:.3e} K2s "
+                f"{res['glm_prep']:.3e}")
 
 
 def score_update_case(n, reg, dtype, gen, timed=False):
@@ -411,6 +512,45 @@ def wide_matvec_case(m, n, dtype, gen):
     return compare(tag, got, normal_matvec_torch(A, w, v), dn)
 
 
+def mglm_inputs(m, p, k, dtype, gen):
+    import torch
+
+    dev = "cuda"
+    A = torch.randn((m, p), generator=gen, device=dev, dtype=dtype)
+    labels = torch.randint(0, k, (m,), generator=gen, device=dev)
+    y = torch.nn.functional.one_hot(labels, k).to(dtype)
+    Z = A @ (torch.randn((p, k), generator=gen, device=dev, dtype=dtype)
+             * 0.3)
+    V = torch.randn((p, k), generator=gen, device=dev, dtype=dtype)
+    return A, y, Z, V
+
+
+def tf32(x):
+    """x as one TF32 operand of the tensor cores: its 13 low mantissa
+    bits cleared."""
+    import torch
+
+    return (x.view(torch.int32) & -8192).view(torch.float32)
+
+
+def one_tf32_product_rejected(A, y, Z, V, spec, want):
+    """K5 with one TF32 product in either contraction (where split TF32
+    takes three), emulated in float32 PyTorch: fails unless TOL["k5"]
+    rejects both. Returns their max abs errors."""
+    variants = {
+        "A·V": A.T @ spec.quad(y, Z, tf32(A) @ tf32(V)),
+        "Aᵀ·QU": tf32(A).T @ tf32(spec.quad(y, Z, A @ V)),
+    }
+    errs = {}
+    for what, got in variants.items():
+        errs[what] = float((got.double() - want.double()).abs().max())
+        if not compare(what, got, want, "k5", check=False):
+            fail(f"K5's limit passes one TF32 product in {what} (max abs "
+                 f"err {errs[what]:.3e}): it cannot tell split TF32 from "
+                 "one TF32 product")
+    return errs
+
+
 def mglm_case(m, p, k, dtype, gen, timed=False):
     """K5 against its plain version. Returns (max err, (kernel ms, plain
     ms) or None)."""
@@ -420,25 +560,48 @@ def mglm_case(m, p, k, dtype, gen, timed=False):
     from scso_tpu_torch.ops.cuda.mglm_matvec import (
         mglm_matvec, mglm_matvec_torch)
 
-    dev, dn = "cuda", str(dtype).replace("torch.", "")
-    A = torch.randn((m, p), generator=gen, device=dev, dtype=dtype)
-    labels = torch.randint(0, k, (m,), generator=gen, device=dev)
-    y = torch.nn.functional.one_hot(labels, k).to(dtype)
-    Z = A @ (torch.randn((p, k), generator=gen, device=dev, dtype=dtype)
-             * 0.3)
-    V = torch.randn((p, k), generator=gen, device=dev, dtype=dtype)
+    dn = str(dtype).replace("torch.", "")
+    A, y, Z, V = mglm_inputs(m, p, k, dtype, gen)
     spec = multinom_mglm(k)
     tag = f"mglm_matvec ({m}x{p}x{k} {dn})"
     got = mglm_matvec(A, y, Z, V, spec)
     same_bits(tag, [got], [mglm_matvec(A, y, Z, V, spec)])
-    err = compare(tag, got, mglm_matvec_torch(A, y, Z, V, spec), dn)
+    want = mglm_matvec_torch(A, y, Z, V, spec)
+    tol = "k5" if dtype == torch.float32 else dn
+    err = compare(tag, got, want, tol)
     times = None
     if timed:
+        rtol, atol = limit_of(want, tol)
+        one = one_tf32_product_rejected(A, y, Z, V, spec, want)
+        log(f"  K5 {m}x{p}x{k} {dn}: max abs err {err:.3e}, max|ref| "
+            f"{float(want.abs().max()):.3e}, limit {atol:.3e}; one TF32 "
+            "product (emulated): " + ", ".join(
+                f"in {w} {e:.3e}" for w, e in one.items()) + " (rejected)")
         times = (time_ms(lambda: mglm_matvec(A, y, Z, V, spec)),
                  time_ms(lambda: mglm_matvec_torch(A, y, Z, V, spec)))
     del A
     torch.cuda.empty_cache()
     return err, times
+
+
+def mglm_split_case(m, p, k, dtype, gen):
+    """K5's split form (specs it does not compute itself) against the
+    plain version, with a bitwise rerun."""
+    from scso_tpu_torch._src.struct import replace
+    from scso_tpu_torch.models.losses import multinom_mglm
+    from scso_tpu_torch.ops.cuda.mglm_matvec import (
+        mglm_matvec, mglm_matvec_torch)
+
+    dn = str(dtype).replace("torch.", "")
+    A, y, Z, V = mglm_inputs(m, p, k, dtype, gen)
+    errs = []
+    for spec in (squared_moglm(k), replace(multinom_mglm(k), kind=None)):
+        tag = f"mglm_matvec split form, kind {spec.kind} ({m}x{p}x{k} {dn})"
+        got = mglm_matvec(A, y, Z, V, spec)
+        same_bits(tag, [got], [mglm_matvec(A, y, Z, V, spec)])
+        errs.append(compare(tag, got, mglm_matvec_torch(A, y, Z, V, spec),
+                            dn))
+    return max(errs)
 
 
 def work_bounds(main, mglm_shape, lbfgs_case):
@@ -525,6 +688,9 @@ def phase_kernels(mesh):
                 times["mglm_matvec"] = t
                 errs["mglm_matvec"] = err
         log(f"  K5 {len(MGLM_SHAPES)} boundary shapes {dn}: ok")
+        for (m, p, k) in MGLM_SPLIT_SHAPES:
+            log(f"  K5 split form {m}x{p}x{k} {dn}: max abs err "
+                f"{mglm_split_case(m, p, k, dtype, gen):.3e}")
         for i, (n, m, pushes) in enumerate(TWO_LOOP_CASES):
             timed = dtype == torch.float32 and i == 0
             err, t = two_loop_case(n, m, pushes, dtype, gen, timed=timed)
@@ -536,23 +702,24 @@ def phase_kernels(mesh):
         log(f"  K4 {len(TWO_LOOP_CASES)} memories {dn}: ok")
     # the kernels that stream A: their achieved rate over A's bytes
     a_bytes = dict.fromkeys(("normal_matvec", "normal_matvec_sharded",
-                             "glm_prep_pair", "glm_prep"),
+                             "glm_prep_pair", "glm_prep",
+                             "glm_prep_pair, split form"),
                             4 * main[0] * main[1])
     a_bytes["mglm_matvec"] = 4 * MGLM_SHAPE[0] * MGLM_SHAPE[1]
     for k, (ms, plain) in times.items():
         rate = (f", {a_bytes[k] / ms / 1e6:.1f} GB/s of A" if k in a_bytes
                 else "")
         log(f"  time at the main-path shape, {k}: kernel {ms:.4f} ms"
-            f"{rate}, plain {plain:.4f} ms (CUDA events, median of 20)")
+            f"{rate}, plain {plain:.4f} ms (CUDA events, runs of calls)")
     narrow_bytes = 4 * NARROW_SHAPE[0] * NARROW_SHAPE[1]
     for k, (ms, plain) in narrow_times.items():
         log(f"  time at {NARROW_SHAPE[0]}x{NARROW_SHAPE[1]}, {k}: kernel "
             f"{ms:.4f} ms, {narrow_bytes / ms / 1e6:.1f} GB/s of A, plain "
-            f"{plain:.4f} ms (CUDA events, median of 20)")
+            f"{plain:.4f} ms (CUDA events, runs of calls)")
     buf = torch.ones(main[1], device="cuda")
     ar_ms = time_ms(lambda: dist.all_reduce(buf, group=mesh.group))
     log(f"  one all-reduce of {buf.numel() * 4} bytes over the one-rank "
-        f"NCCL group: {ar_ms:.4f} ms (CUDA events, median of 20)")
+        f"NCCL group: {ar_ms:.4f} ms (CUDA events, runs of calls)")
     return errs, times, work_bounds(main, MGLM_SHAPE, TWO_LOOP_CASES[0])
 
 
@@ -729,6 +896,40 @@ def build_mglm_problem(m, p, k, device, dtype, seed=11, lam=1e-3):
                       device=device)
 
 
+def mglm_form_and_time(prob, x):
+    """K5's form (`mglm_grid`) and time at the multinomial bench shape, on
+    the chain's A and Z = A·W at x, beside its plain version's and those
+    of its two-pass and split forms (the geometry `mglm_grid` gives them
+    at this shape; the split form with the spec's own quad)."""
+    import torch
+
+    from scso_tpu_torch.ops.cuda import launch
+    from scso_tpu_torch.ops.cuda.mglm_matvec import (
+        _launch, mglm_grid, mglm_matvec, mglm_matvec_torch)
+
+    A, y, spec = prob.A, prob.y, prob.mglm
+    (m, p), k = A.shape, spec.n_out
+    Z = A @ x.reshape(p, k)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    V = torch.randn((p, k), generator=gen, device="cuda", dtype=A.dtype)
+    grid = mglm_grid(m, p, k, A.dtype, launch.sm_count(0))
+    ms = time_ms(lambda: mglm_matvec(A, y, Z, V, spec))
+    plain = time_ms(lambda: mglm_matvec_torch(A, y, Z, V, spec))
+    log(f"  K5 at {m}x{p}x{k}: {grid.form} form ({grid.blocks} blocks of "
+        f"{grid.threads} threads, {grid.rows_per_block} rows a block, "
+        f"{grid.smem_bytes} B of shared memory), {ms:.4f} ms, plain "
+        f"{plain:.4f} ms (CUDA events, runs of calls)")
+    # the other forms at this shape, in the same call
+    grids = {"two_pass": mglm_grid(m, p, k, torch.float64, launch.sm_count(0)),
+             "split": mglm_grid(m, p, k, A.dtype, launch.sm_count(0), False)}
+    forms = {f: time_ms(lambda g=g: _launch(A, y, Z, V, spec, g))
+             for f, g in grids.items()}
+    log("  K5's other forms at that shape: " + ", ".join(
+        f"{f} {t:.4f} ms" for f, t in forms.items()))
+    return dict(form=grid.form, ms=ms, plain_ms=plain,
+                **{f"{f}_ms": t for f, t in forms.items()})
+
+
 def phase_multinomial():
     import dataclasses
 
@@ -775,6 +976,7 @@ def phase_multinomial():
              f"> {E2E_RTOL:g})")
     log(f"  final objective: kernels {kern['obj']:.9e}, torch "
         f"{plain['obj']:.9e}, rel diff {rel:.2e} (tolerance {E2E_RTOL:g})")
+    kern["k5"] = mglm_form_and_time(prob_t, x_opt)
 
     # small float64 solve: card kernels against the CPU plain path
     small = (256, 32, 4)
@@ -850,8 +1052,9 @@ def phase_lbfgs(prob_t):
              f"(> {LBFGS_RTOL:g})")
     log(f"  L-BFGS objective histories, kernels vs torch: max rel diff "
         f"{rel:.2e} (tolerance {LBFGS_RTOL:g})")
-    phase_small_f64(st.ProxLQNSCORE(), "L-BFGS",
-                    lambda m_, p: solve_lbfgs(m_, p, max_epoch=40))
+    for mem in (10, 100):  # 100: past the old 64-slot limit of K4
+        phase_small_f64(st.ProxLQNSCORE(m=mem), f"L-BFGS m={mem}",
+                        lambda m_, p: solve_lbfgs(m_, p, max_epoch=40))
     return kern, plain, launches
 
 
@@ -891,6 +1094,51 @@ def phase_uncached(prob_t, best):
         f"{plain['obj']:.9e}, rel diff {rel:.2e} (tolerance {E2E_RTOL:g})")
     phase_small_f64(st.ProxGGNSCORE(solver="cg", greedy_alpha=False,
                                     epoch_cache=False), "uncached GGN-CG")
+    return kern, plain, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 10: a GLM spec whose forms the prep kernels do not compute
+# ---------------------------------------------------------------------------
+
+
+def phase_kind_none(best, x_star):
+    """Phase 3's problem with ``kind=None`` in its GLM spec (as a user
+    builds a GLMSpec) under kernels='auto', anchored at phase 3's x*:
+    K1, K2 (its split form) and K3 launch; the chain must reach the gap
+    and agree with its kernels='torch' chain."""
+    import dataclasses
+
+    import torch
+
+    import scso_tpu_torch as st
+    from scso_tpu_torch._src.struct import replace
+    from scso_tpu_torch.ops.cuda import counters
+
+    prob = build_problem(*MAIN_SHAPE, "cuda", torch.float32)
+    prob_t = replace(prob, glm=replace(prob.glm, kind=None), x_star=x_star)
+    del prob
+    method = st.ProxGGNSCORE(solver="cg", cg_maxiter=100)
+    solve_chunk(method, prob_t)  # warm-up
+    counters.reset()
+    kern = timed_chain(method, prob_t, best)
+    launches = counters.snapshot()
+    log(f"  timed solve, kernels='auto': {kern['seconds']:.4f} s, "
+        f"{kern['epochs']} epochs, {kern['cg_iters']} CG iterations, gap "
+        f"{kern['gap']:.3e}, launches {launches}")
+    if not kern["gap"] <= GAP * 1.05:
+        fail(f"the kind=None chain missed the {GAP:g} gap: {kern['gap']:.3e}")
+    check_launches(launches, LOGISTIC_KERNELS, "kind=None logistic")
+    plain_method = dataclasses.replace(method, kernels="torch")
+    solve_chunk(plain_method, prob_t)  # warm-up
+    plain = timed_chain(plain_method, prob_t, best)
+    rel = abs(kern["obj"] - plain["obj"]) / abs(plain["obj"])
+    log(f"  timed solve, kernels='torch': {plain['seconds']:.4f} s, "
+        f"{plain['epochs']} epochs, {plain['cg_iters']} CG iterations; final "
+        f"objective rel diff {rel:.2e} (tolerance {E2E_RTOL:g})")
+    if not rel <= E2E_RTOL:
+        fail(f"kind=None final objectives differ: auto {kern['obj']:.9e}, "
+             f"torch {plain['obj']:.9e} (rel {rel:.2e} > {E2E_RTOL:g})")
     return kern, plain, launches
 
 
@@ -1192,6 +1440,7 @@ def main():
     log(" (a) one rank over NCCL, full width")
     skern, slaunches = phase_sharded_one_rank(mesh, prob_t, best, kern,
                                               launches)
+    x_star = prob_t.x_star
     del prob_t
     torch.cuda.empty_cache()
     log(" (b) two ranks on the one card over gloo")
@@ -1201,8 +1450,13 @@ def main():
     log(f"phase 9: the cached GGN-CG path at {NARROW_SHAPE[0]}x"
         f"{NARROW_SHAPE[1]} (the JAX bench's secondary shape)")
     nkern, nplain, nlaunches, _, _ = phase_main_path(NARROW_SHAPE)
+
+    log("phase 10: phase 3's problem with kind=None in its GLM spec, "
+        "under kernels='auto'")
+    kkern, kplain, klaunches = phase_kind_none(best, x_star)
     launches = {k: launches[k] + mlaunches[k] + llaunches[k] + ulaunches[k]
-                + slaunches[k] + nlaunches[k] for k in launches}
+                + slaunches[k] + nlaunches[k] + klaunches[k]
+                for k in launches}
 
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "scso_tpu"
@@ -1224,6 +1478,8 @@ def main():
     log("secondary cached path: " + json.dumps({"card": card,
                                                 "kernels": nkern,
                                                 "torch": nplain}))
+    log("kind=None path: " + json.dumps({"card": card, "auto": kkern,
+                                         "torch": kplain}))
     rows = []
     for k, (src, rep) in KERNELS.items():
         bound_ms, bound_by = bound(*work[k])

@@ -6,8 +6,8 @@ defaults are the JAX package's; see its docstrings for the measurements
 behind them. ``kernels`` differs:
   * 'auto'  — resolved by `iterate` to 'cuda' for problems whose data
     lies on a CUDA device and to 'torch' otherwise;
-  * 'cuda'  — the hand-written CUDA kernels (ops/cuda/) at every shape;
-    a tensor or GLM spec they do not take raises;
+  * 'cuda'  — the hand-written CUDA kernels (ops/cuda/) at every shape,
+    for any GLM or MOGLM spec; a tensor they do not take raises;
   * 'torch' — the plain PyTorch versions on any device.
 ProxNSCORE is not ported yet (ROADMAP A7, with K2's newton flavour B2).
 """
@@ -83,7 +83,7 @@ class ProxGGNSCORE:
 class ProxLQNSCORE:
     """Proximal L-BFGS with self-concordant regularization; ``m`` is the
     L-BFGS memory (the reference's default 10). The two-loop recursion
-    runs as the K4 kernel under kernels='cuda' (m ≤ 64 there)."""
+    runs as the K4 kernel on the card, for any m."""
 
     ss_type: int = 1
     use_prox: bool = True

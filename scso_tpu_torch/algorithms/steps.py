@@ -34,9 +34,11 @@ An L-BFGS epoch (`lbfgs_step`) is the two-loop direction (K4), the step
 size, the damped tail (K3) and one gradient at x⁺.
 
 ``method.kernels`` ('cuda' or 'torch', resolved by `iterate`) picks the
-CUDA kernels or their plain versions. Gradients and the mglm prep stay
-`torch.matmul`: the JAX package runs them as plain XLA matmuls, not as
-Pallas kernels. Newton steps (with K2's newton flavour), the dense GGN
+CUDA kernels or their plain versions, for any spec: K2, K2s and K5
+compute the logistic01 and multinomial specs in the kernel and any
+other between their passes over A (their split form). Gradients and
+the mglm prep stay `torch.matmul`: the JAX package runs them as plain
+XLA matmuls, not as Pallas kernels. Newton steps (with K2's newton flavour), the dense GGN
 solves, subsampled curvature, the static preconditioner, the generic
 jvp/vjp GGN branch and the low-precision CG copy are not ported yet
 (ROADMAP A7, B2, A10).
@@ -52,7 +54,7 @@ import torch
 
 from scso_tpu_torch.algorithms.methods import ProxGGNSCORE, ProxLQNSCORE
 from scso_tpu_torch.ops.cuda.glm_prep import (
-    glm_prep, glm_prep_pair, glm_prep_pair_torch, glm_prep_torch)
+    ggn_weights, glm_prep, glm_prep_pair, glm_prep_pair_torch, glm_prep_torch)
 from scso_tpu_torch.ops.cuda.matvec import (
     normal_matvec, normal_matvec_sharded, normal_matvec_sharded_torch,
     normal_matvec_torch)
@@ -334,8 +336,9 @@ def epoch_cache_enabled(method, prob: Problem, reg_name: str,
     """Predicate for the epoch-fused cache path: ProxGGNSCORE on the CG
     solver with ss_type=1, full-batch data, and either an mglm spec with
     loss_z and loss_sample (taking precedence, as in the JAX package) or
-    a GLM spec with loss_z, loss_sample and the stable ggn_rw/ggn_w
-    forms, and no row-subsampled curvature (``curvature_rows`` does
+    a GLM spec with loss_z and loss_sample (the GGN forms fall back to
+    dlink, res and qdiag without ggn_rw/ggn_w, `glm_prep.ggn_weights`),
+    and no row-subsampled curvature (``curvature_rows`` does
     nothing on a row-sharded problem, as in the JAX package). A GGN
     solve that fails this takes the uncached path
     (`_ggn_cg_direction`)."""
@@ -349,8 +352,7 @@ def epoch_cache_enabled(method, prob: Problem, reg_name: str,
     if mo is not None:
         if mo.loss_z is None or mo.loss_sample is None:
             return False
-    elif (g is None or g.loss_z is None or g.loss_sample is None
-            or g.ggn_rw is None or g.ggn_w is None):
+    elif g is None or g.loss_z is None or g.loss_sample is None:
         return False
     if not full_batch:
         return False
@@ -612,21 +614,6 @@ def _weighted_system(method, As, x, w, lhr, hd_raw=None):
             lambda v: v / torch.clamp_min(hdiag, tiny))
 
 
-def _ggn_weights(g, ys, z):
-    """(ρ, w) of the GGN system at z: the spec's stable ggn_rw/ggn_w when
-    given, else σ'·res and σ'²·qdiag."""
-    if g.ggn_rw is not None:
-        rw = g.ggn_rw(ys, z)
-    else:
-        rw = g.dlink(z) * g.res(ys, g.link(z))
-    if g.ggn_w is not None:
-        w = g.ggn_w(ys, z)
-    else:
-        sp = g.dlink(z)
-        w = sp * sp * g.qdiag(ys, g.link(z))
-    return rw, w
-
-
 def _mo_glm_system(method, prob: Problem, As, ys, x, lhr):
     """(Z, grad_vec, matvec, preconditioner) for a multi-output GLM off
     the epoch cache: Z = A·W once (W = x.reshape(p, k)),
@@ -675,7 +662,7 @@ def _ggn_cg_direction(method, prob: Problem, As, ys, x, gr, Hr_diag, lam,
             w, b_raw, hd_raw = glm_prep(As, ys, x, prob.glm)
         else:
             z_cache = As @ x
-            rw, w = _ggn_weights(prob.glm, ys, z_cache)
+            rw, w = ggn_weights(prob.glm, ys, z_cache)
             b_raw, hd_raw = As.T @ rw, None
         b = -(b_raw + lam * gr)
         mv, M_inv = _weighted_system(method, As, x, w, lhr, hd_raw)

@@ -11,8 +11,9 @@
 //   hd    = Σ_i w_i A_ij²                        Jacobi diagonal   (n,)
 //   loss  = Σ_{i<m} softplus(z_i) − y_i z_i      unnormalized, K2 only
 // The TPU kernels trace arbitrary Python ρ/ω/ℓ into their bodies; CUDA
-// cannot, so this source is specialised on the spec kind (logistic01,
-// with the 1/m normalization folded in). m_norm is the normalizing
+// cannot, so the one-pass and wide forms are specialised on the spec kind
+// (logistic01, with the 1/m normalization folded in), and any other spec
+// runs the split form (below). m_norm is the normalizing
 // count, apart from the m rows read: all rows of all ranks when A is
 // one rank's row shard (the TPU kernels rescale from the tile's count
 // to the true m instead, steps._glm_kernel_fns; dividing by m_norm
@@ -72,6 +73,13 @@
 // (row chunk), each thread one 16-byte chunk of columns over the
 // chunk's rows, accumulating b and hd in double registers, one partial
 // per row chunk. It reads A twice, and exists so that any n runs.
+//
+// Split form (any GLM spec other than logistic01, any n): the wide form
+// in two calls, the spec's own ρ and w computed by the wrapper in
+// PyTorch between them: phase 1 is glm_rows writing z_c = A·x_c alone
+// (into the ρ scratch), phase 2 glm_cols and glm_finalize from the ρ and
+// w the wrapper wrote (the loss sums are the wrapper's too). Like the
+// wide form it reads A twice.
 //
 // glm_finalize sums the block or chunk partials (and K2's loss
 // partials) in a fixed order, in double. No float atomics anywhere:
@@ -311,14 +319,15 @@ glm_onepass(const T* __restrict__ A, const T* __restrict__ y, Prep<T, NC> p,
 // wide form
 // ---------------------------------------------------------------------------
 
-template <typename T, bool VEC, int NC>
+// SPEC: the logistic01 ρ, w and loss of each row; else z alone, into rw
+template <typename T, bool VEC, int NC, bool SPEC>
 __global__ void __launch_bounds__(kThreads)
 glm_rows(const T* __restrict__ A, const T* __restrict__ y, Prep<T, NC> p,
          T* __restrict__ rw, double* __restrict__ loss_partials, int64_t m,
          int64_t n, int64_t m_norm) {
   using C = scso::Chunk<T, VEC>;
   using V = typename C::type;
-  constexpr bool kLoss = NC == 2;
+  constexpr bool kLoss = SPEC && NC == 2;
   __shared__ double red[NC][kThreads / 32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   constexpr int nwarps = kThreads / 32;
@@ -346,11 +355,15 @@ glm_rows(const T* __restrict__ A, const T* __restrict__ y, Prep<T, NC> p,
 #pragma unroll
     for (int c = 0; c < NC; ++c) z[c] = scso::warp_sum(z[c]);
     if (lane == 0) {
-      const T yi = y[i];
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
-        logistic01(z[c], yi, mT, rw + c * m + i, p.w[c] + i);
-        if constexpr (kLoss) loss[c] += logistic01_loss(z[c], yi);
+        if constexpr (SPEC) {
+          const T yi = y[i];
+          logistic01(z[c], yi, mT, rw + c * m + i, p.w[c] + i);
+          if constexpr (kLoss) loss[c] += logistic01_loss(z[c], yi);
+        } else {
+          rw[c * m + i] = z[c];
+        }
       }
     }
   }
@@ -546,15 +559,23 @@ cudaError_t dispatch_onepass(const T* A, const T* y, const Prep<T, NC>& p,
   return cudaErrorInvalidValue;
 }
 
+// phase 0: the whole wide form; 1: its rows pass with z alone (split
+// form); 2: its columns pass (split form)
 template <typename T, bool VEC, int NC>
 cudaError_t launch_wide(const T* A, const T* y, const Prep<T, NC>& p, T* rw,
                         double* col_partials, double* loss_partials,
                         int64_t m, int64_t n, int64_t m_norm, const Grid& g,
-                        cudaStream_t s) {
-  glm_rows<T, VEC, NC><<<static_cast<unsigned>(g.row_blocks), kThreads, 0,
-                         s>>>(A, y, p, rw, loss_partials, m, n, m_norm);
+                        int64_t phase, cudaStream_t s) {
+  const unsigned rb = static_cast<unsigned>(g.row_blocks);
+  if (phase == 0)
+    glm_rows<T, VEC, NC, true><<<rb, kThreads, 0, s>>>(A, y, p, rw,
+                                                       loss_partials, m, n,
+                                                       m_norm);
+  if (phase == 1)
+    glm_rows<T, VEC, NC, false><<<rb, kThreads, 0, s>>>(A, y, p, rw, nullptr,
+                                                        m, n, m_norm);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || phase == 1) return err;
   const int64_t nc = n / scso::Chunk<T, VEC>::E;
   const int64_t col_tiles = (nc + kThreads - 1) / kThreads;
   glm_cols<T, VEC, NC><<<dim3(static_cast<unsigned>(col_tiles),
@@ -563,10 +584,12 @@ cudaError_t launch_wide(const T* A, const T* y, const Prep<T, NC>& p, T* rw,
   return cudaGetLastError();
 }
 
+// phase 0: the whole prep (logistic01; one-pass form where g.q > 0,
+// else wide); 1 and 2: the split form's two calls (g is a wide grid)
 template <typename T, int NC>
 int launch(const void* A, const void* y, const Prep<T, NC>& p, void* rw,
            void* partials, void* loss_partials, int64_t m, int64_t n,
-           int64_t m_norm, const Grid& g, void* stream) {
+           int64_t m_norm, const Grid& g, int64_t phase, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto aligned = [](const void* ptr) {
     return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
@@ -579,15 +602,17 @@ int launch(const void* A, const void* y, const Prep<T, NC>& p, void* rw,
   const T* y_ = static_cast<const T*>(y);
   double* lp = static_cast<double*>(loss_partials);
   cudaError_t err;
-  if (g.q > 0) {
+  if (phase < 0 || phase > 2 || (phase > 0 && g.q > 0)) {
+    err = cudaErrorInvalidValue;
+  } else if (g.q > 0) {
     err = dispatch_onepass<T, NC>(a, y_, p, static_cast<T*>(partials), lp, m,
                                   n, m_norm, g, vec, s);
   } else {
     auto wide = vec ? &launch_wide<T, true, NC> : &launch_wide<T, false, NC>;
     err = wide(a, y_, p, static_cast<T*>(rw), static_cast<double*>(partials),
-               lp, m, n, m_norm, g, s);
+               lp, m, n, m_norm, g, phase, s);
   }
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess || phase == 1) return static_cast<int>(err);
   const unsigned fin =
       static_cast<unsigned>((2 * NC * n + kFinThreads - 1) / kFinThreads);
   if (g.q > 0) {
@@ -596,7 +621,7 @@ int launch(const void* A, const void* y, const Prep<T, NC>& p, void* rw,
   } else {
     glm_finalize<T, double, NC><<<fin, kFinThreads, 0, s>>>(
         static_cast<const double*>(partials), lp, p, n, g.blocks,
-        g.row_blocks);
+        phase == 0 ? g.row_blocks : 0);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -604,9 +629,11 @@ int launch(const void* A, const void* y, const Prep<T, NC>& p, void* rw,
 }  // namespace
 
 // K2: both candidates, with their loss sums. ``rw`` (2, m) is the wide
-// form's scratch for ρ (unused by the one-pass form); ``partials`` are
-// (blocks, 4, n) in T (one-pass) or double (wide); ``loss_partials``
-// (row_blocks, 2) double.
+// form's scratch for ρ (unused by the one-pass form; the split form's z,
+// then its ρ); ``partials`` are (blocks, 4, n) in T (one-pass) or double
+// (wide, split); ``loss_partials`` (row_blocks, 2) double; ``phase`` 0
+// for the one-pass and wide forms, 1 and 2 for the split form's calls
+// (its loss sums, written as 0 here, are the wrapper's).
 #define SCSO_GLM_PAIR_ENTRY(NAME, T)                                        \
   extern "C" int NAME(const void* A, const void* y, const void* xt,         \
                       const void* xd, void* wt, void* wd, void* rw,         \
@@ -615,7 +642,7 @@ int launch(const void* A, const void* y, const Prep<T, NC>& p, void* rw,
                       int64_t m, int64_t n, int64_t m_norm, int64_t blocks, \
                       int64_t rows_per_block, int64_t smem,                 \
                       int64_t threads, int64_t q, int64_t row_blocks,       \
-                      void* stream) {                                       \
+                      int64_t phase, void* stream) {                        \
     const Prep<T, 2> p{                                                     \
         {static_cast<const T*>(xt), static_cast<const T*>(xd)},             \
         {static_cast<T*>(wt), static_cast<T*>(wd)},                         \
@@ -625,25 +652,26 @@ int launch(const void* A, const void* y, const Prep<T, NC>& p, void* rw,
     return launch<T, 2>(A, y, p, rw, partials, loss_partials, m, n, m_norm, \
                         Grid{blocks, rows_per_block, smem, threads, q,      \
                              row_blocks},                                   \
-                        stream);                                            \
+                        phase, stream);                                     \
   }
 
-// K2s: one candidate, no loss. ``rw`` (m,) is the wide form's scratch;
-// ``partials`` (blocks, 2, n) in T (one-pass) or double (wide).
+// K2s: one candidate, no loss. ``rw`` (m,) is the wide form's scratch
+// (the split form's z, then its ρ); ``partials`` (blocks, 2, n) in T
+// (one-pass) or double (wide, split); ``phase`` as K2's.
 #define SCSO_GLM_PREP_ENTRY(NAME, T)                                        \
   extern "C" int NAME(const void* A, const void* y, const void* x, void* w, \
                       void* rw, void* b, void* hd, void* partials,          \
                       int64_t m, int64_t n, int64_t m_norm, int64_t blocks, \
                       int64_t rows_per_block, int64_t smem,                 \
                       int64_t threads, int64_t q, int64_t row_blocks,       \
-                      void* stream) {                                       \
+                      int64_t phase, void* stream) {                        \
     const Prep<T, 1> p{{static_cast<const T*>(x)}, {static_cast<T*>(w)},    \
                        {static_cast<T*>(b)}, {static_cast<T*>(hd)},         \
                        {nullptr}};                                          \
     return launch<T, 1>(A, y, p, rw, partials, nullptr, m, n, m_norm,       \
                         Grid{blocks, rows_per_block, smem, threads, q,      \
                              row_blocks},                                   \
-                        stream);                                            \
+                        phase, stream);                                     \
   }
 
 SCSO_GLM_PAIR_ENTRY(scso_glm_prep_pair_f32, float)

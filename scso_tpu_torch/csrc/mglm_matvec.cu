@@ -1,48 +1,65 @@
-// K5: fused multi-output GGN matvec  out = Aᵀ·quad(Z, A·V), multinomial.
+// K5: fused multi-output GGN matvec  out = Aᵀ·quad(Z, A·V).
 //
 // Replaces the TPU kernel scso_tpu/ops/pallas/mglm_matvec.py:152
 // (_fused_mglm_matvec), which keeps a row tile of A in VMEM for both
 // contractions and traces the spec's Python `quad` into its body. CUDA
-// cannot trace Python, so this kernel is specialised on the multinomial
-// spec (MOGLMSpec.kind == 'multinomial'), with 1/m folded in:
+// cannot trace Python, so the one-read forms below are specialised on
+// the multinomial spec (MOGLMSpec.kind == 'multinomial'), with 1/m
+// folded in:
 //   P_i  = softmax(Z_i)                      (max-subtracted, over k)
 //   U_i  = A_i · V                           (k values)
 //   QU_i = (P_i∘U_i − P_i·Σ_c P_ic U_ic) / m
 //   out  = Σ_i A_iᵀ · QU_i                   (p × k)
-// It runs once per CG iteration on the multinomial path.
+// and any other spec runs the split form: the two passes over A here,
+// the spec's own quad in PyTorch between them (the wrapper). It runs
+// once per CG iteration on the multinomial path.
 //
 // What bounds it on the H100: at 196608×1024×16 f32 a call reads 0.81 GB
 // of A (0.24 ms at the data sheet's 3.35 TB/s) and does 4·m·p·k = 12.9
-// GFLOP (0.19 ms at 67 TFLOP/s FP32): the two data-sheet floors are
-// close, and the per-row reduction of U across the block adds its own
-// instructions on top of the FMAs. Measured it takes ~0.82 ms: with ~168
-// registers a thread only 8 warps fit on an SM, too few to hide the
-// latency of the reduction's shuffle chains and the barrier (16 warps
-// with fewer registers measured slower; PERF.md). FP32 FMAs on the CUDA
-// cores — no TF32 tensor cores, which keep about three digits.
+// GFLOP, 0.19 ms at 67 TFLOP/s on the CUDA cores: as FP32 FMAs the two
+// floors are close, and a CUDA-core form, whose cross-warp reduction of
+// U and softmax (repeated by every warp) sat on top of the FMAs at 8
+// warps an SM, took ~0.86 ms (PERF.md).
 //
-// Fused form (k <= 16, p <= 1024; one read of A). 256 threads a block,
-// one block per SM (the accumulators take most of the registers); each
-// block owns a contiguous row range. Thread t owns the columns
-// j = t + q·256 (q < JPT): it keeps its JPT × KB accumulators in
-// registers for the whole range, and V transposed in shared memory
-// (KB × 256·JPT values: 64 KB at the bench shape in f32, 128 KB in f64)
-// is read without bank conflicts. Rows go in batches of RB:
-//   1. the batch's A values of the thread's columns go into registers
-//      (the next batch's are loaded before this one is used, to hide
-//      the latency of device memory) — A is read exactly once;
-//   2. partial U over the thread's columns; a warp reduce-scatter writes
-//      each warp's sums to a double-buffered shared array — one barrier
-//      per batch;
-//   3. every warp sums the 8 warps' partials in a fixed order and applies
-//      the softmax curvature to the batch itself (groups of lanes per
-//      row, k <= KB), so no warp waits on another for QU;
-//   4. acc[j][c] += A_ij · QU_ic from the same registers as step 1.
-// Two-pass form (any other k <= 128 and p; reads A twice): a row kernel
-// (one warp per row, classes in chunks of 16, V given transposed by the
-// wrapper) writes QU (m × k) to a scratch buffer, then a column kernel
+// Tensor-core form (f32, k <= 16, p <= 1024; the wrapper's mglm_grid
+// picks it). Both contractions run on the tensor cores as mma.sync
+// m16n8k8 TF32 with f32 accumulators, in split TF32: each operand x =
+// hi + lo with hi the TF32 part of x and lo = x − hi, and a product is
+// hi·hi + hi·lo + lo·hi (the lo·lo term is below f32's last bit), so
+// float32 accuracy holds where one TF32 product would keep about three
+// digits. 3 × 12.9 GFLOP at 495 TFLOP/s is ~0.08 ms, so the form is
+// bound by A's bytes. One block of 16 warps an SM (8 at p <= 128) owns a
+// contiguous row range and walks it in tiles of 16 rows:
+//   * warp w owns columns [w·16·MT, (w+1)·16·MT) of A in both
+//     contractions, so it copies just those columns of each tile to
+//     shared memory by cp.async (16-byte copies where A's rows are
+//     16-byte aligned, else 4-byte ones), two stages (the next tile
+//     loads while this one is used; 64 KB a stage at p = 1024), and
+//     waits for and frees a stage by itself: no block barrier guards
+//     the stages. Each 16-byte chunk sits at a swizzled slot, so the
+//     fragment loads of both contractions are free of bank conflicts.
+//     A is read from device memory once, and the tile serves both
+//     contractions;
+//   * V sits in shared memory in the warps' fragment order (64 KB). Its
+//     split is redone at every tile: split V (hi and lo, 128 KB) and two
+//     stages do not fit the 227 KB, nor its fragments the 128 registers
+//     a thread of a 512-thread block may hold;
+//   * U_b = A_b·V: each warp's partial over its columns goes to shared
+//     memory, and after a barrier a group of k lanes a row adds the
+//     warps' partials in a fixed order and evaluates the softmax
+//     curvature once a row, writing QU in fragment order;
+//   * after a second barrier, acc += A_bᵀ·QU_b from the same tile: the
+//     (p × k) accumulators stay in registers, spread over the warps by
+//     column, for the whole row range.
+// Two-pass form (f64, which only serves the small float64 solves, and
+// any k > 16 or p > 1024; reads A twice): a row kernel (one warp per
+// row, classes in chunks of 16, V given transposed by the wrapper)
+// writes U and then QU (m × k) to a scratch buffer, then a column kernel
 // (thread per column, 16 classes, a row chunk per block) forms Aᵀ·QU.
-// Both forms write per-block (p × k) partials that sum_partials adds in
+// Split form (any spec other than the multinomial, any k, p and type):
+// the row kernel writes U alone, the wrapper applies the spec's quad to
+// it, and the column kernel forms Aᵀ·QU.
+// Every form writes per-block (p × k) partials that sum_partials adds in
 // a fixed order in double: no float atomics, bitwise-equal reruns.
 #include <math_constants.h>
 
@@ -50,12 +67,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // fused form
-constexpr int kWarps = kThreads / 32;
 constexpr int kRowWarps = 8;   // two-pass row kernel: warps per block
 constexpr int kColThreads = 256;
 constexpr int kKC = 16;        // two-pass: classes per chunk
-constexpr int kMaxK = 128;
 
 template <typename T> __device__ __forceinline__ T neg_inf();
 template <> __device__ __forceinline__ float neg_inf<float>() {
@@ -66,199 +80,346 @@ template <> __device__ __forceinline__ double neg_inf<double>() {
 }
 
 // ---------------------------------------------------------------------------
-// fused form
+// tensor-core form (f32)
 // ---------------------------------------------------------------------------
 
-template <typename T, int JPT, int RB>
-__device__ __forceinline__ void load_rows(T (&a)[RB][JPT],
-                                          const T* __restrict__ A,
+namespace tc {
+
+constexpr int kRows = 16;  // rows of a tile (the m of one mma)
+
+// x = hi + lo: hi is x with the 13 mantissa bits below TF32's cleared
+// (a TF32 value), lo = x − hi exactly; the tensor core reads lo's top
+// TF32 bits. Rounding both with cvt.rna.tf32 instead was slower at the
+// bench shape, for the same error.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c += a·b on one m16n8k8 TF32 tile (f32 accumulators)
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// split TF32: the two small terms first, then hi·hi (lo·lo is below
+// f32's last bit)
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float b0,
+                                     float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split(b0, bh0, bl0);
+  split(b1, bh1, bl1);
+  mma(c, al, bh0, bh1);
+  mma(c, ah, bl0, bl1);
+  mma(c, ah, bh0, bh1);
+}
+
+// The 16-byte chunk q of row r sits at chunk q ^ swz(r & 7). Both
+// contractions' fragment loads then hit 32 distinct banks: the first
+// reads rows g = 0..7 at one chunk pair (swz is a permutation of 0..7),
+// the second rows t4 = 0..3 (or 4..7) at chunks {q, q+1}, q even
+// (swz(r) >> 1 is a permutation of 0..3 on each half).
+__device__ __forceinline__ int swz(int r) {
+  return ((r & 3) << 1) | ((r >> 2) & 1);
+}
+
+template <int PP>
+__device__ __forceinline__ int a_off(int r, int j) {
+  return r * PP + ((((j >> 2) ^ swz(r & 7))) << 2) + (j & 3);
+}
+
+__device__ __forceinline__ void cp16(float* dst, const float* src,
+                                     bool pred) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = pred ? 16 : 0;  // 0: fill the chunk with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(n));
+}
+
+// one float, for rows that are not 16-byte aligned
+__device__ __forceinline__ void cp4(float* dst, const float* src, bool pred) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = pred ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_wait_all_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// rows [r0, r0 + 16) of the warp's 16·MT columns from wc on, into a
+// stage (zeros past r_end and past p): each warp copies the columns it
+// alone reads, so a stage is waited for and reused warp by warp. ``vec``
+// (A's rows 16-byte aligned, so p % 4 == 0): 16-byte copies, else one
+// float a copy, to the same slots.
+template <int PP, int MT>
+__device__ __forceinline__ void load_cols(float* stage,
+                                          const float* __restrict__ A,
                                           int64_t r0, int64_t r_end, int p,
-                                          int tid) {
-#pragma unroll
-  for (int r = 0; r < RB; ++r) {
-#pragma unroll
-    for (int q = 0; q < JPT; ++q) {
-      const int j = tid + q * kThreads;
+                                          int wc, int lane, bool vec) {
+  if (vec) {
+    constexpr int QW = 4 * MT;  // 16-byte chunks of a row of the warp's
+    for (int e = lane; e < kRows * QW; e += 32) {
+      const int r = e / QW, q = (wc >> 2) + e - r * QW;
       const int64_t i = r0 + r;
-      a[r][q] = (i < r_end && j < p) ? __ldcs(A + i * p + j) : T(0);
+      const bool pred = i < r_end && q * 4 < p;
+      cp16(stage + r * PP + ((q ^ swz(r & 7)) << 2),
+           pred ? A + i * p + q * 4 : A, pred);
+    }
+  } else {
+    constexpr int CW = 16 * MT;  // columns of the warp
+    for (int e = lane; e < kRows * CW; e += 32) {
+      const int r = e / CW, j = wc + e - r * CW;
+      const int64_t i = r0 + r;
+      const bool pred = i < r_end && j < p;
+      cp4(stage + a_off<PP>(r, j), pred ? A + i * p + j : A, pred);
     }
   }
 }
 
-template <typename T, int KB, int JPT, int RB>
-__global__ void __launch_bounds__(kThreads, 1)
-mglm_fused(const T* __restrict__ A, const T* __restrict__ Z,
-           const T* __restrict__ V, T* __restrict__ partials, int64_t m,
-           int p, int k, int64_t rows_per_block) {
-  constexpr int PW = kThreads * JPT;  // columns covered by the block
-  constexpr int N = RB * KB;          // U values per row batch
-  constexpr int NL = N >= 32 ? N / 32 : 1;  // values per lane (quad)
-  constexpr int G = KB / NL;          // lanes holding one row (quad)
-  using VT = typename scso::Chunk<T, true>::type;
-  constexpr int E = scso::Chunk<T, true>::E;
+// W warps, each owning 16·MT columns; NT n8 tiles of classes. Shared
+// memory (floats): two stages of kRows × PP; V in fragment order
+// [PP/8 k-steps][NT][32 lanes][2]; the warps' partial U
+// [W][kRows][8·NT]; QU in fragment order [2][NT][32][2].
+template <int W, int MT, int NT>
+constexpr size_t smem_bytes() {
+  constexpr int PP = W * MT * 16;
+  return sizeof(float) * (2 * kRows * PP + PP * NT * 8 +
+                          W * kRows * 8 * NT + 2 * NT * 32 * 2);
+}
+
+template <int W, int MT, int NT>
+__global__ void __launch_bounds__(W * 32, 1)
+mglm_tc(const float* __restrict__ A, const float* __restrict__ Z,
+        const float* __restrict__ V, float* __restrict__ partials,
+        int64_t m, int p, int k, int64_t rows_per_block, bool vec) {
+  constexpr int PP = W * MT * 16;  // columns of a stage: p padded
+  constexpr int KS = 2 * MT;       // k8 steps over a warp's columns
+  constexpr int KB = 8 * NT;       // classes, padded
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* vt = reinterpret_cast<T*>(smem_raw);  // [KB][PW], zero-padded
-  __shared__ T red[2][kWarps][N];          // double-buffered partial U
-  __shared__ __align__(16) T qu_w[kWarps][N];  // each warp's copy of QU
+  float* stages = reinterpret_cast<float*>(smem_raw);
+  float* vf = stages + 2 * kRows * PP;
+  float* red = vf + PP * NT * 8;
+  float* qf = red + W * kRows * KB;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int e = tid; e < KB * PW; e += kThreads) {
-    const int c = e / PW, j = e - c * PW;
-    vt[e] = (c < k && j < p) ? V[static_cast<int64_t>(j) * k + c] : T(0);
-  }
-  __syncthreads();
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wc = warp * MT * 16;  // the warp's first column
 
-  T acc[JPT][KB];
+  // V (p × k), the B operand of the first contraction (k-step rows j,
+  // columns c), into the warp's fragment order once a call
 #pragma unroll
-  for (int q = 0; q < JPT; ++q)
+  for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
-    for (int c = 0; c < KB; ++c) acc[q][c] = T(0);
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = wc + ks * 8 + t4 + 4 * h, c = nt * 8 + g;
+        vf[(((warp * KS + ks) * NT + nt) * 32 + lane) * 2 + h] =
+            (j < p && c < k) ? V[static_cast<int64_t>(j) * k + c] : 0.f;
+      }
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
 
   const int64_t r_begin = static_cast<int64_t>(blockIdx.x) * rows_per_block;
   const int64_t r_end = scso::imin(m, r_begin + rows_per_block);
-  T a[RB][JPT], an[RB][JPT];
-  load_rows<T, JPT, RB>(a, A, r_begin, r_end, p, tid);
-  int buf = 0;
-  for (int64_t r0 = r_begin; r0 < r_end; r0 += RB, buf ^= 1) {
-    load_rows<T, JPT, RB>(an, A, r0 + RB, r_end, p, tid);
-    // partial U over this thread's columns, then the block sum
-    T u[N];
+  const int64_t tiles = (r_end - r_begin + kRows - 1) / kRows;
+  load_cols<PP, MT>(stages, A, r_begin, r_end, p, wc, lane, vec);
+  cp_commit();
+  if (tiles > 1)
+    load_cols<PP, MT>(stages + kRows * PP, A, r_begin + kRows, r_end, p, wc,
+                      lane, vec);
+  cp_commit();
+
+  // the softmax: thread (sr, sc) for row sr and class sc, KB lanes a row
+  const int sr = tid / KB, sc = tid % KB;
+  const bool soft = tid < kRows * KB;  // warp-uniform
+
+  for (int64_t t = 0; t < tiles; ++t) {
+    const int64_t r0 = r_begin + t * kRows;
+    const float* as = stages + (t & 1) * kRows * PP;
+    const bool live = soft && sc < k && r0 + sr < r_end;
+    const float z = live ? Z[(r0 + sr) * k + sc] : neg_inf<float>();
+    cp_wait_all_but_one();  // this thread's copies of tile t
+    __syncwarp();           // the warp's: all it reads of the tile
+
+    // U_b = A_b·V over the warp's columns; two accumulator sets halve
+    // the dependent chain
+    float u[2][NT][4];
 #pragma unroll
-    for (int e = 0; e < N; ++e) u[e] = T(0);
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-    for (int q = 0; q < JPT; ++q) {
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int c = 0; c < KB; ++c) {
-        const T vv = vt[c * PW + tid + q * kThreads];
+        for (int e = 0; e < 4; ++e) u[h][nt][e] = 0.f;
 #pragma unroll
-        for (int r = 0; r < RB; ++r) u[r * KB + c] += a[r][q] * vv;
+    for (int ks = 0; ks < KS; ++ks) {
+      const int jb = wc + ks * 8;
+      uint32_t ah[4], al[4];
+      split(as[a_off<PP>(g, jb + t4)], ah[0], al[0]);
+      split(as[a_off<PP>(g + 8, jb + t4)], ah[1], al[1]);
+      split(as[a_off<PP>(g, jb + t4 + 4)], ah[2], al[2]);
+      split(as[a_off<PP>(g + 8, jb + t4 + 4)], ah[3], al[3]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float2 v = *reinterpret_cast<const float2*>(
+            &vf[(((warp * KS + ks) * NT + nt) * 32 + lane) * 2]);
+        mma3(u[ks & 1][nt], ah, al, v.x, v.y);
       }
     }
-    scso::warp_reduce_scatter<N>(u, lane);
-    if (N >= 32 || (lane & (32 / N - 1)) == 0) {
 #pragma unroll
-      for (int e = 0; e < NL; ++e)
-        red[buf][warp][scso::rs_index<N>(lane, e)] = u[e];
-    }
-    // one barrier per batch: red is double-buffered, and a warp writes
-    // red[buf] again only after every warp passed the next barrier
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        red[(warp * kRows + g + 8 * (e >> 1)) * KB + nt * 8 + 2 * t4 +
+            (e & 1)] = u[0][nt][e] + u[1][nt][e];
     __syncthreads();
-    // every warp applies the softmax curvature to the whole batch: lane
-    // l holds values l·NL + e (row (l·NL) / KB), G lanes a row
-    {
-      T s[NL], z[NL];
-      T zmax = neg_inf<T>();
-      bool live[NL];
-      const int r = (lane * NL) / KB;
-      const int64_t i = r0 + r;
+
+    // the softmax curvature, once a row, into QU's fragments
+    if (soft) {
+      float s = 0.f;
 #pragma unroll
-      for (int e = 0; e < NL; ++e) {
-        const int idx = lane * NL + e, c = idx - r * KB;
-        live[e] = idx < N && c < k && i < r_end;
-        s[e] = T(0);
-        if (idx < N) {
+      for (int w = 0; w < W; ++w) s += red[(w * kRows + sr) * KB + sc];
+      const float zmax = scso::group_max<KB>(z);
+      const float ez = live ? scso::dexp(z - zmax) : 0.f;
+      const float den = scso::group_sum<KB>(ez);
+      const float P = live ? ez / den : 0.f;
+      const float pu = P * s;
+      const float spu = scso::group_sum<KB>(pu);
+      const float q = live ? (pu - P * spu) / static_cast<float>(m) : 0.f;
+      // B fragment of k-step sr / 8: b0 (row t4), b1 (row t4 + 4), col g
+      const int rr = sr & 7;
+      qf[(((sr >> 3) * NT + (sc >> 3)) * 32 + (sc & 7) * 4 + (rr & 3)) * 2 +
+         (rr >> 2)] = q;
+    }
+    __syncthreads();
+
+    // acc += A_bᵀ·QU_b: the warp's columns are the m of the mma
 #pragma unroll
-          for (int w = 0; w < kWarps; ++w) s[e] += red[buf][w][idx];
-        }
-        z[e] = live[e] ? Z[i * k + c] : neg_inf<T>();
-        zmax = fmax(zmax, z[e]);
-      }
-      zmax = scso::group_max<G>(zmax);
-      T ez[NL], den = T(0);
+    for (int k2 = 0; k2 < 2; ++k2) {
+      float2 qv[NT];
 #pragma unroll
-      for (int e = 0; e < NL; ++e) {
-        ez[e] = live[e] ? scso::dexp(z[e] - zmax) : T(0);
-        den += ez[e];
-      }
-      den = scso::group_sum<G>(den);
-      T P[NL], pu[NL], spu = T(0);
+      for (int nt = 0; nt < NT; ++nt)
+        qv[nt] = *reinterpret_cast<const float2*>(
+            &qf[((k2 * NT + nt) * 32 + lane) * 2]);
+      const int rr = k2 * 8 + t4;
 #pragma unroll
-      for (int e = 0; e < NL; ++e) {
-        P[e] = live[e] ? ez[e] / den : T(0);
-        pu[e] = P[e] * s[e];
-        spu += pu[e];
-      }
-      spu = scso::group_sum<G>(spu);
+      for (int mt = 0; mt < MT; ++mt) {
+        const int j0 = wc + mt * 16;
+        uint32_t ah[4], al[4];
+        split(as[a_off<PP>(rr, j0 + g)], ah[0], al[0]);
+        split(as[a_off<PP>(rr, j0 + g + 8)], ah[1], al[1]);
+        split(as[a_off<PP>(rr + 4, j0 + g)], ah[2], al[2]);
+        split(as[a_off<PP>(rr + 4, j0 + g + 8)], ah[3], al[3]);
 #pragma unroll
-      for (int e = 0; e < NL; ++e) {
-        const int idx = lane * NL + e;
-        if (idx < N)
-          qu_w[warp][idx] =
-              live[e] ? (pu[e] - P[e] * spu) / static_cast<T>(m) : T(0);
+        for (int nt = 0; nt < NT; ++nt)
+          mma3(acc[mt][nt], ah, al, qv[nt].x, qv[nt].y);
       }
     }
-    __syncwarp();
-    // acc += A_iᵀ · QU_i from the registers of the first contraction
-#pragma unroll
-    for (int r = 0; r < RB; ++r) {
-#pragma unroll
-      for (int c0 = 0; c0 < KB; c0 += E) {
-        const VT qv = *reinterpret_cast<const VT*>(&qu_w[warp][r * KB + c0]);
-        const T* qs = reinterpret_cast<const T*>(&qv);
-#pragma unroll
-        for (int ce = 0; ce < E; ++ce) {
-#pragma unroll
-          for (int q = 0; q < JPT; ++q) acc[q][c0 + ce] += a[r][q] * qs[ce];
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < RB; ++r)
-#pragma unroll
-      for (int q = 0; q < JPT; ++q) a[r][q] = an[r][q];
+    __syncwarp();  // the warp's columns of the stage are free
+    if (t + 2 < tiles)
+      load_cols<PP, MT>(stages + (t & 1) * kRows * PP, A, r0 + 2 * kRows,
+                        r_end, p, wc, lane, vec);
+    cp_commit();  // possibly empty: keeps the wait's count
   }
 
-  T* dst = partials + static_cast<int64_t>(blockIdx.x) * p * k;
+  float* dst = partials + static_cast<int64_t>(blockIdx.x) * p * k;
 #pragma unroll
-  for (int q = 0; q < JPT; ++q) {
-    const int j = tid + q * kThreads;
-    if (j < p) {
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int c = 0; c < KB; ++c)
-        if (c < k) dst[static_cast<int64_t>(j) * k + c] = acc[q][c];
-    }
-  }
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = wc + mt * 16 + g + 8 * (e >> 1);
+        const int c = nt * 8 + 2 * t4 + (e & 1);
+        if (j < p && c < k)
+          dst[static_cast<int64_t>(j) * k + c] = acc[mt][nt][e];
+      }
 }
 
-template <typename T, int KB, int JPT>
-cudaError_t launch_fused(const T* A, const T* Z, const T* V, T* partials,
-                         int64_t m, int p, int k, int64_t nblk,
-                         cudaStream_t s) {
-  constexpr int RB = sizeof(T) == 4 ? 4 : 2;  // f64: registers
-  const size_t smem = static_cast<size_t>(KB) * kThreads * JPT * sizeof(T);
-  auto kernel = mglm_fused<T, KB, JPT, RB>;
+template <int W, int MT, int NT>
+cudaError_t launch_wmt(const float* A, const float* Z, const float* V,
+                       float* partials, int64_t m, int p, int k,
+                       int64_t nblk, int64_t rows_per_block, bool vec,
+                       cudaStream_t s) {
+  constexpr size_t smem = smem_bytes<W, MT, NT>();
+  auto kernel = mglm_tc<W, MT, NT>;
   cudaError_t err = scso::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<static_cast<unsigned>(nblk), kThreads, smem, s>>>(
-      A, Z, V, partials, m, p, k, (m + nblk - 1) / nblk);
+  kernel<<<static_cast<unsigned>(nblk), W * 32, smem, s>>>(
+      A, Z, V, partials, m, p, k, rows_per_block, vec);
   return cudaGetLastError();
 }
 
-template <typename T, int KB>
-cudaError_t fused_by_width(const T* A, const T* Z, const T* V, T* partials,
-                           int64_t m, int p, int k, int64_t nblk,
-                           cudaStream_t s) {
-  const int jpt = (p + kThreads - 1) / kThreads;
-  if (jpt <= 1) return launch_fused<T, KB, 1>(A, Z, V, partials, m, p, k, nblk, s);
-  if (jpt <= 2) return launch_fused<T, KB, 2>(A, Z, V, partials, m, p, k, nblk, s);
-  return launch_fused<T, KB, 4>(A, Z, V, partials, m, p, k, nblk, s);
+// p padded to 128 (8 warps of 16 columns), 256 (16 warps of 16), 512
+// (16 of 32) or 1024 (16 of 64); the wrapper's tc_geometry
+template <int NT>
+cudaError_t launch_nt(const float* A, const float* Z, const float* V,
+                      float* partials, int64_t m, int p, int k, int64_t nblk,
+                      int64_t rows, bool vec, cudaStream_t s) {
+  if (p <= 128)
+    return launch_wmt<8, 1, NT>(A, Z, V, partials, m, p, k, nblk, rows, vec,
+                                s);
+  if (p <= 256)
+    return launch_wmt<16, 1, NT>(A, Z, V, partials, m, p, k, nblk, rows, vec,
+                                 s);
+  if (p <= 512)
+    return launch_wmt<16, 2, NT>(A, Z, V, partials, m, p, k, nblk, rows, vec,
+                                 s);
+  return launch_wmt<16, 4, NT>(A, Z, V, partials, m, p, k, nblk, rows, vec,
+                               s);
 }
+
+// k <= 16, p <= 1024 (the wrapper's mglm_grid)
+cudaError_t launch(const float* A, const float* Z, const float* V,
+                   float* partials, int64_t m, int p, int k, int64_t nblk,
+                   int64_t rows_per_block, cudaStream_t s) {
+  if (k > 16 || p > 1024) return cudaErrorInvalidValue;
+  const bool vec = p % 4 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0;
+  return k <= 8 ? launch_nt<1>(A, Z, V, partials, m, p, k, nblk,
+                               rows_per_block, vec, s)
+                : launch_nt<2>(A, Z, V, partials, m, p, k, nblk,
+                               rows_per_block, vec, s);
+}
+
+}  // namespace tc
 
 // ---------------------------------------------------------------------------
 // two-pass form
 // ---------------------------------------------------------------------------
 
-// Vt is V transposed (k × p), so a warp's loads of it are coalesced.
-template <typename T>
+// Vt is V transposed (k × p), so a warp's loads of it are coalesced. One
+// warp a row, for any k: U_i goes to qu in chunks of kKC classes, then
+// (SOFTMAX; the split form stops at U) the softmax curvature runs over
+// the row's classes in passes that each hold one value a lane (a max,
+// the denominator, Σ P∘U, then QU over U in place), so no array is sized
+// by k.
+template <typename T, bool SOFTMAX>
 __global__ void __launch_bounds__(kRowWarps * 32)
 mglm_rows(const T* __restrict__ A, const T* __restrict__ Z,
           const T* __restrict__ Vt, T* __restrict__ qu, int64_t m, int p,
           int k) {
-  __shared__ T u_s[kRowWarps][kMaxK];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * kRowWarps + warp; i < m;
        i += static_cast<int64_t>(gridDim.x) * kRowWarps) {
     const T* a_row = A + i * p;
+    const T* z_row = Z + i * k;
+    T* q_row = qu + i * k;
     for (int c0 = 0; c0 < k; c0 += kKC) {
       T u[kKC];
 #pragma unroll
@@ -272,42 +433,26 @@ mglm_rows(const T* __restrict__ A, const T* __restrict__ Z,
       }
       scso::warp_reduce_scatter<kKC>(u, lane);
       const int c = c0 + scso::rs_index<kKC>(lane, 0);
-      if ((lane & (32 / kKC - 1)) == 0 && c < k) u_s[warp][c] = u[0];
+      if ((lane & (32 / kKC - 1)) == 0 && c < k) q_row[c] = u[0];
+    }
+    if constexpr (!SOFTMAX) continue;
+    __syncwarp();  // U_i in qu, visible to the whole warp
+    // softmax curvature over the row: lane takes classes lane + 32·t
+    T zmax = neg_inf<T>();
+    for (int c = lane; c < k; c += 32) zmax = fmax(zmax, z_row[c]);
+    zmax = scso::warp_max(zmax);
+    T den = T(0);
+    for (int c = lane; c < k; c += 32) den += scso::dexp(z_row[c] - zmax);
+    den = scso::warp_sum(den);
+    T spu = T(0);
+    for (int c = lane; c < k; c += 32)
+      spu += scso::dexp(z_row[c] - zmax) / den * q_row[c];
+    spu = scso::warp_sum(spu);
+    for (int c = lane; c < k; c += 32) {
+      const T P = scso::dexp(z_row[c] - zmax) / den;
+      q_row[c] = (P * q_row[c] - P * spu) / static_cast<T>(m);
     }
     __syncwarp();
-    // softmax curvature over the row: lane owns classes lane + 32·t
-    constexpr int S = kMaxK / 32;
-    T z[S];
-    T zmax = neg_inf<T>();
-#pragma unroll
-    for (int t = 0; t < S; ++t) {
-      const int c = lane + 32 * t;
-      z[t] = c < k ? Z[i * k + c] : neg_inf<T>();
-      zmax = fmax(zmax, z[t]);
-    }
-    zmax = scso::warp_max(zmax);
-    T e[S], den = T(0);
-#pragma unroll
-    for (int t = 0; t < S; ++t) {
-      e[t] = lane + 32 * t < k ? scso::dexp(z[t] - zmax) : T(0);
-      den += e[t];
-    }
-    den = scso::warp_sum(den);
-    T P[S], pu[S], spu = T(0);
-#pragma unroll
-    for (int t = 0; t < S; ++t) {
-      const int c = lane + 32 * t;
-      P[t] = e[t] / den;
-      pu[t] = c < k ? P[t] * u_s[warp][c] : T(0);
-      spu += pu[t];
-    }
-    spu = scso::warp_sum(spu);
-#pragma unroll
-    for (int t = 0; t < S; ++t) {
-      const int c = lane + 32 * t;
-      if (c < k) qu[i * k + c] = (pu[t] - P[t] * spu) / static_cast<T>(m);
-    }
-    __syncwarp();  // u_s is rewritten for the warp's next row
   }
 }
 
@@ -338,40 +483,53 @@ mglm_cols(const T* __restrict__ A, const T* __restrict__ qu,
     if (c0 + cc < k) dst[cc] = acc[cc];
 }
 
-template <typename T>
-cudaError_t launch_two_pass(const T* A, const T* Z, const T* Vt, T* qu,
-                            T* partials, int64_t m, int p, int k,
-                            int64_t nblk, cudaStream_t s) {
+template <typename T, bool SOFTMAX>
+cudaError_t launch_rows(const T* A, const T* Z, const T* Vt, T* qu, int64_t m,
+                        int p, int k, cudaStream_t s) {
   const int64_t row_blocks =
       scso::imin((m + kRowWarps - 1) / kRowWarps, int64_t(1) << 16);
-  mglm_rows<T><<<static_cast<unsigned>(row_blocks), kRowWarps * 32, 0, s>>>(
-      A, Z, Vt, qu, m, p, k);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p + kColThreads - 1) / kColThreads, (k + kKC - 1) / kKC,
-                  static_cast<unsigned>(nblk));
-  mglm_cols<T><<<grid, kColThreads, 0, s>>>(A, qu, partials, m, p, k,
-                                            (m + nblk - 1) / nblk);
+  mglm_rows<T, SOFTMAX><<<static_cast<unsigned>(row_blocks), kRowWarps * 32,
+                          0, s>>>(A, Z, Vt, qu, m, p, k);
   return cudaGetLastError();
 }
 
 template <typename T>
+cudaError_t launch_cols(const T* A, const T* qu, T* partials, int64_t m,
+                        int p, int k, int64_t nblk, int64_t rows_per_chunk,
+                        cudaStream_t s) {
+  const dim3 grid((p + kColThreads - 1) / kColThreads, (k + kKC - 1) / kKC,
+                  static_cast<unsigned>(nblk));
+  mglm_cols<T><<<grid, kColThreads, 0, s>>>(A, qu, partials, m, p, k,
+                                            rows_per_chunk);
+  return cudaGetLastError();
+}
+
+// form: 0 two-pass, 1 tensor-core (f32 only); the split form's passes:
+// 2 U = A·V into qu (no sum), 3 out = Aᵀ·qu
+template <typename T>
 int launch(const void* A, const void* Z, const void* V, void* qu,
            void* partials, void* out, int64_t m, int64_t p, int64_t k,
-           int64_t nblk, int64_t fused, void* stream) {
+           int64_t nblk, int64_t rows_per_block, int64_t form,
+           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const T* a = static_cast<const T*>(A);
   const T* z = static_cast<const T*>(Z);
   const T* v = static_cast<const T*>(V);
+  T* q = static_cast<T*>(qu);
   T* part = static_cast<T*>(partials);
   const int pi = static_cast<int>(p), ki = static_cast<int>(k);
-  cudaError_t err;
-  if (fused) {
-    err = k <= 8 ? fused_by_width<T, 8>(a, z, v, part, m, pi, ki, nblk, s)
-                 : fused_by_width<T, 16>(a, z, v, part, m, pi, ki, nblk, s);
-  } else {
-    err = launch_two_pass<T>(a, z, v, static_cast<T*>(qu), part, m, pi, ki,
-                             nblk, s);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (form == 1) {
+    if constexpr (sizeof(T) == 4)
+      err = tc::launch(a, z, v, part, m, pi, ki, nblk, rows_per_block, s);
+  } else if (form == 2) {
+    return static_cast<int>(launch_rows<T, false>(a, z, v, q, m, pi, ki, s));
+  } else if (form == 3) {
+    err = launch_cols<T>(a, q, part, m, pi, ki, nblk, rows_per_block, s);
+  } else if (form == 0) {
+    err = launch_rows<T, true>(a, z, v, q, m, pi, ki, s);
+    if (err == cudaSuccess)
+      err = launch_cols<T>(a, q, part, m, pi, ki, nblk, rows_per_block, s);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t n = p * k;
@@ -382,20 +540,15 @@ int launch(const void* A, const void* Z, const void* V, void* qu,
 
 }  // namespace
 
-extern "C" int scso_mglm_matvec_f32(const void* A, const void* Z,
-                                    const void* V, void* qu, void* partials,
-                                    void* out, int64_t m, int64_t p,
-                                    int64_t k, int64_t nblk, int64_t fused,
-                                    void* stream) {
-  return launch<float>(A, Z, V, qu, partials, out, m, p, k, nblk, fused,
-                       stream);
-}
+#define SCSO_MGLM_ENTRY(NAME, T)                                           \
+  extern "C" int NAME(const void* A, const void* Z, const void* V,        \
+                      void* qu, void* partials, void* out, int64_t m,     \
+                      int64_t p, int64_t k, int64_t nblk,                 \
+                      int64_t rows_per_block, int64_t form,               \
+                      void* stream) {                                     \
+    return launch<T>(A, Z, V, qu, partials, out, m, p, k, nblk,           \
+                     rows_per_block, form, stream);                       \
+  }
 
-extern "C" int scso_mglm_matvec_f64(const void* A, const void* Z,
-                                    const void* V, void* qu, void* partials,
-                                    void* out, int64_t m, int64_t p,
-                                    int64_t k, int64_t nblk, int64_t fused,
-                                    void* stream) {
-  return launch<double>(A, Z, V, qu, partials, out, m, p, k, nblk, fused,
-                        stream);
-}
+SCSO_MGLM_ENTRY(scso_mglm_matvec_f32, float)
+SCSO_MGLM_ENTRY(scso_mglm_matvec_f64, double)

@@ -12,6 +12,14 @@
 // 1024 threads therefore loops over all of n — no grid-wide
 // synchronisation, one launch — with two fixed-order block reductions
 // (in double), so the result is bitwise the same from run to run.
+// Past the wrapper's one-block limit (n > 2²⁴) the bytes dominate and
+// one SM would take milliseconds, so a multi-block form takes over,
+// still in a fixed order: (1) each block writes its slice's partial of
+// Σ lgr²/hr; (2) every block adds all those partials in the same order
+// (so every block forms the same η, α and safe), applies the prox to
+// its slice and writes its partial of ‖x⁺ − x‖²; (3) one block adds
+// those in order. The one-block form stays below the limit, so every
+// chain of the smaller problems keeps its bits.
 // λ and ss are read from device memory and pri, safe, η are written
 // there, so the caller never waits for the device.
 #include "common.cuh"
@@ -21,6 +29,59 @@ namespace {
 constexpr int kThreads = 1024;
 
 enum Reg : int64_t { kL1 = 0, kL2 = 1, kIndBox = 2, kNone = 3 };
+
+// lgr²/hr → 0 where lgr = 0, even at hr = 0
+template <typename T>
+__device__ __forceinline__ double eta_term(T g, T h) {
+  return g == T(0) ? 0.0 : static_cast<double>(g * g / h);
+}
+
+template <typename T>
+__device__ __forceinline__ T prox_one(T xs, T h, T lam, T ss, int64_t reg,
+                                      const T* __restrict__ lb,
+                                      const T* __restrict__ ub, int64_t i) {
+  if (reg == kL1) {
+    const T t = ss * lam * h;
+    const T mag = (xs < T(0) ? -xs : xs) - t;
+    const T sgn = static_cast<T>((xs > T(0)) - (xs < T(0)));
+    return sgn * (mag > T(0) ? mag : T(0));
+  }
+  if (reg == kL2) {
+    const T t = ss * lam * h;
+    const T xs2 = xs * xs;
+    const T scale = xs2 == T(0) ? T(0) : T(1) - t / xs2;
+    return xs * (scale > T(0) ? scale : T(0));
+  }
+  if (reg == kIndBox) {
+    const T lo = xs > lb[i] ? xs : lb[i];
+    return lo < ub[i] ? lo : ub[i];
+  }
+  return xs;
+}
+
+// The prox over [i0, i1) with safe; returns the thread's Σ (x⁺ − x)².
+template <typename T>
+__device__ __forceinline__ double apply(
+    const T* __restrict__ x, const T* __restrict__ d,
+    const T* __restrict__ hr, const T* __restrict__ lb,
+    const T* __restrict__ ub, T lam, T ss, T safe, int64_t reg,
+    T* __restrict__ x_new, int64_t i0, int64_t i1) {
+  double pri2 = 0.0;
+  for (int64_t i = i0 + threadIdx.x; i < i1; i += kThreads) {
+    const T xi = x[i];
+    const T xn = prox_one(xi + safe * d[i], hr[i], lam, ss, reg, lb, ub, i);
+    x_new[i] = xn;
+    const double dx = static_cast<double>(xn - xi);
+    pri2 += dx * dx;
+  }
+  return pri2;
+}
+
+template <typename T>
+__device__ __forceinline__ T safe_step(T eta, T ss, double Mg) {
+  const T alpha = ss / (T(1) + static_cast<T>(Mg) * eta);
+  return alpha < T(1) ? alpha : T(1);
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -32,42 +93,13 @@ score_update(const T* __restrict__ x, const T* __restrict__ d,
              T* __restrict__ stats, int64_t n) {
   __shared__ double red[32];
   double acc = 0.0;
-  for (int64_t i = threadIdx.x; i < n; i += kThreads) {
-    const T g = lgr[i];
-    // lgr²/hr → 0 where lgr = 0, even at hr = 0
-    acc += g == T(0) ? 0.0 : static_cast<double>(g * g / hr[i]);
-  }
+  for (int64_t i = threadIdx.x; i < n; i += kThreads)
+    acc += eta_term(lgr[i], hr[i]);
   const T eta = static_cast<T>(sqrt(scso::block_sum(acc, red)));
   const T lam = *lam_p, ss = *ss_p;
-  const T alpha = ss / (T(1) + static_cast<T>(Mg) * eta);
-  const T safe = alpha < T(1) ? alpha : T(1);
-
-  double pri2 = 0.0;
-  for (int64_t i = threadIdx.x; i < n; i += kThreads) {
-    const T xi = x[i];
-    const T xs = xi + safe * d[i];
-    T xn;
-    if (reg == kL1) {
-      const T t = ss * lam * hr[i];
-      const T mag = (xs < T(0) ? -xs : xs) - t;
-      const T sgn = static_cast<T>((xs > T(0)) - (xs < T(0)));
-      xn = sgn * (mag > T(0) ? mag : T(0));
-    } else if (reg == kL2) {
-      const T t = ss * lam * hr[i];
-      const T xs2 = xs * xs;
-      const T scale = xs2 == T(0) ? T(0) : T(1) - t / xs2;
-      xn = xs * (scale > T(0) ? scale : T(0));
-    } else if (reg == kIndBox) {
-      const T lo = xs > lb[i] ? xs : lb[i];
-      xn = lo < ub[i] ? lo : ub[i];
-    } else {
-      xn = xs;
-    }
-    x_new[i] = xn;
-    const double dx = static_cast<double>(xn - xi);
-    pri2 += dx * dx;
-  }
-  const double pri = sqrt(scso::block_sum(pri2, red));
+  const T safe = safe_step(eta, ss, Mg);
+  const double pri = sqrt(scso::block_sum(
+      apply(x, d, hr, lb, ub, lam, ss, safe, reg, x_new, 0, n), red));
   if (threadIdx.x == 0) {
     stats[0] = static_cast<T>(pri);
     stats[1] = safe;
@@ -75,41 +107,116 @@ score_update(const T* __restrict__ x, const T* __restrict__ d,
   }
 }
 
+// multi-block form: block b owns [b·chunk, min(n, (b+1)·chunk))
 template <typename T>
-int launch(const void* x, const void* d, const void* lgr, const void* hr,
-           const void* lb, const void* ub, const void* lam, const void* ss,
-           double Mg, int64_t reg, void* x_new, void* stats, int64_t n,
+__global__ void __launch_bounds__(kThreads)
+score_eta_partials(const T* __restrict__ lgr, const T* __restrict__ hr,
+                   double* __restrict__ eta_part, int64_t n, int64_t chunk) {
+  __shared__ double red[32];
+  const int64_t i0 = static_cast<int64_t>(blockIdx.x) * chunk;
+  const int64_t i1 = scso::imin(n, i0 + chunk);
+  double acc = 0.0;
+  for (int64_t i = i0 + threadIdx.x; i < i1; i += kThreads)
+    acc += eta_term(lgr[i], hr[i]);
+  acc = scso::block_sum(acc, red);
+  if (threadIdx.x == 0) eta_part[blockIdx.x] = acc;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+score_apply(const T* __restrict__ x, const T* __restrict__ d,
+            const T* __restrict__ hr, const T* __restrict__ lb,
+            const T* __restrict__ ub, const T* __restrict__ lam_p,
+            const T* __restrict__ ss_p, double Mg, int64_t reg,
+            const double* __restrict__ eta_part,
+            double* __restrict__ pri_part, T* __restrict__ x_new,
+            T* __restrict__ stats, int64_t n, int64_t chunk) {
+  __shared__ double red[32];
+  // every block adds the same partials in the same order
+  double acc = 0.0;
+  for (int64_t b = threadIdx.x; b < gridDim.x; b += kThreads)
+    acc += eta_part[b];
+  const T eta = static_cast<T>(sqrt(scso::block_sum(acc, red)));
+  const T lam = *lam_p, ss = *ss_p;
+  const T safe = safe_step(eta, ss, Mg);
+  const int64_t i0 = static_cast<int64_t>(blockIdx.x) * chunk;
+  const double pri2 = scso::block_sum(
+      apply(x, d, hr, lb, ub, lam, ss, safe, reg, x_new, i0,
+            scso::imin(n, i0 + chunk)), red);
+  if (threadIdx.x == 0) {
+    pri_part[blockIdx.x] = pri2;
+    if (blockIdx.x == 0) {
+      stats[1] = safe;
+      stats[2] = eta;
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+score_pri(const double* __restrict__ pri_part, T* __restrict__ stats,
+          int64_t nblk) {
+  __shared__ double red[32];
+  double acc = 0.0;
+  for (int64_t b = threadIdx.x; b < nblk; b += kThreads) acc += pri_part[b];
+  const double pri = sqrt(scso::block_sum(acc, red));
+  if (threadIdx.x == 0) stats[0] = static_cast<T>(pri);
+}
+
+template <typename T>
+int launch(const void* x_, const void* d_, const void* lgr_, const void* hr_,
+           const void* lb_, const void* ub_, const void* lam_,
+           const void* ss_, double Mg, int64_t reg, void* x_new_,
+           void* stats_, void* partials, int64_t n, int64_t nblk,
            void* stream) {
-  score_update<T><<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(d),
-      static_cast<const T*>(lgr), static_cast<const T*>(hr),
-      static_cast<const T*>(lb), static_cast<const T*>(ub),
-      static_cast<const T*>(lam), static_cast<const T*>(ss), Mg, reg,
-      static_cast<T*>(x_new), static_cast<T*>(stats), n);
+  auto s = static_cast<cudaStream_t>(stream);
+  const T* x = static_cast<const T*>(x_);
+  const T* d = static_cast<const T*>(d_);
+  const T* lgr = static_cast<const T*>(lgr_);
+  const T* hr = static_cast<const T*>(hr_);
+  const T* lb = static_cast<const T*>(lb_);
+  const T* ub = static_cast<const T*>(ub_);
+  const T* lam = static_cast<const T*>(lam_);
+  const T* ss = static_cast<const T*>(ss_);
+  T* x_new = static_cast<T*>(x_new_);
+  T* stats = static_cast<T*>(stats_);
+  if (nblk == 0) {
+    score_update<T><<<1, kThreads, 0, s>>>(x, d, lgr, hr, lb, ub, lam, ss,
+                                           Mg, reg, x_new, stats, n);
+    return static_cast<int>(cudaGetLastError());
+  }
+  double* eta_part = static_cast<double*>(partials);
+  double* pri_part = eta_part + nblk;
+  const int64_t chunk = (n + nblk - 1) / nblk;
+  const unsigned grid = static_cast<unsigned>(nblk);
+  score_eta_partials<T><<<grid, kThreads, 0, s>>>(lgr, hr, eta_part, n,
+                                                  chunk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  score_apply<T><<<grid, kThreads, 0, s>>>(x, d, hr, lb, ub, lam, ss, Mg,
+                                           reg, eta_part, pri_part, x_new,
+                                           stats, n, chunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  score_pri<T><<<1, kThreads, 0, s>>>(pri_part, stats, nblk);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int scso_score_update_f32(const void* x, const void* d,
-                                     const void* lgr, const void* hr,
-                                     const void* lb, const void* ub,
-                                     const void* lam, const void* ss,
-                                     double Mg, int64_t reg, void* x_new,
-                                     void* stats, int64_t n, void* stream) {
-  return launch<float>(x, d, lgr, hr, lb, ub, lam, ss, Mg, reg, x_new,
-                       stats, n, stream);
-}
+#define SCSO_SCORE_UPDATE_ENTRY(NAME, T)                                     \
+  extern "C" int NAME(const void* x, const void* d, const void* lgr,        \
+                      const void* hr, const void* lb, const void* ub,       \
+                      const void* lam, const void* ss, double Mg,           \
+                      int64_t reg, void* x_new, void* stats,                \
+                      void* partials, int64_t n, int64_t nblk,              \
+                      void* stream) {                                       \
+    return launch<T>(x, d, lgr, hr, lb, ub, lam, ss, Mg, reg, x_new, stats, \
+                     partials, n, nblk, stream);                            \
+  }
 
-extern "C" int scso_score_update_f64(const void* x, const void* d,
-                                     const void* lgr, const void* hr,
-                                     const void* lb, const void* ub,
-                                     const void* lam, const void* ss,
-                                     double Mg, int64_t reg, void* x_new,
-                                     void* stats, int64_t n, void* stream) {
-  return launch<double>(x, d, lgr, hr, lb, ub, lam, ss, Mg, reg, x_new,
-                        stats, n, stream);
-}
+SCSO_SCORE_UPDATE_ENTRY(scso_score_update_f32, float)
+SCSO_SCORE_UPDATE_ENTRY(scso_score_update_f64, double)
 
 // Message for a CUDA error code returned by any entry point above.
 extern "C" const char* scso_cuda_error_string(int code) {

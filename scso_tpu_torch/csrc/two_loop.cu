@@ -24,14 +24,18 @@
 // float atomics are needed. Thread t owns elements t, t + 1024, … of q
 // and r: each axpy touches only the thread's own elements, so q and r
 // live in the output buffer with no barrier between an axpy and the next
-// dot. α and ρ stay in shared memory, the kernel's own storage (the TPU
-// kernel's SMEM scratch). Arithmetic outside the reductions is in T.
+// dot. α and ρ (2·m values) stay in dynamic shared memory sized by m,
+// the kernel's own storage (the TPU kernel's SMEM scratch), up to the
+// wrapper's 32 KB budget (m ≤ 4096 in f32, 2048 in f64), well inside
+// the 48 KB a launch gets without opting in; past that the wrapper passes a device scratch of 2·m values for them,
+// so any memory size runs. Thread 0 writes each pair and the barrier of
+// the next reduction orders the reads, in shared or device memory
+// alike. Arithmetic outside the reductions is in T.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 1024;
-constexpr int kMaxMem = 64;   // largest memory m the wrapper passes
 
 // Two block-wide sums with one pair of barriers; ``red`` holds 64.
 __device__ __forceinline__ void block_sum2(double& a, double& b,
@@ -60,9 +64,12 @@ __global__ void __launch_bounds__(kThreads)
 two_loop(const T* __restrict__ S, const T* __restrict__ Y,
          const T* __restrict__ g, const int* __restrict__ pos_p,
          const int* __restrict__ count_p, const T* __restrict__ h0_p,
-         T* __restrict__ out, int64_t m, int64_t n) {
+         T* scratch, T* __restrict__ out, int64_t m, int64_t n) {
   __shared__ double red[64];
-  __shared__ T alpha_s[kMaxMem], rho_s[kMaxMem];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // α then ρ, one slot each per memory pair
+  T* alpha_s = scratch != nullptr ? scratch : reinterpret_cast<T*>(smem_raw);
+  T* rho_s = alpha_s + m;
   const int64_t pos = *pos_p;
   int64_t count = *count_p;
   count = count < 0 ? 0 : (count > m ? m : count);
@@ -112,14 +119,16 @@ two_loop(const T* __restrict__ S, const T* __restrict__ Y,
 
 template <typename T>
 int launch(const void* S, const void* Y, const void* g, const void* pos,
-           const void* count, const void* h0, void* out, int64_t m,
-           int64_t n, void* stream) {
-  if (m < 1 || m > kMaxMem) return static_cast<int>(cudaErrorInvalidValue);
-  two_loop<T><<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+           const void* count, const void* h0, void* scratch, void* out,
+           int64_t m, int64_t n, void* stream) {
+  if (m < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = scratch != nullptr ? 0 : 2 * m * sizeof(T);
+  if (smem > 32 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  two_loop<T><<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(S), static_cast<const T*>(Y),
       static_cast<const T*>(g), static_cast<const int*>(pos),
       static_cast<const int*>(count), static_cast<const T*>(h0),
-      static_cast<T*>(out), m, n);
+      static_cast<T*>(scratch), static_cast<T*>(out), m, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -128,8 +137,10 @@ int launch(const void* S, const void* Y, const void* g, const void* pos,
 #define SCSO_TWO_LOOP_ENTRY(NAME, T)                                       \
   extern "C" int NAME(const void* S, const void* Y, const void* g,        \
                       const void* pos, const void* count, const void* h0, \
-                      void* out, int64_t m, int64_t n, void* stream) {    \
-    return launch<T>(S, Y, g, pos, count, h0, out, m, n, stream);         \
+                      void* scratch, void* out, int64_t m, int64_t n,     \
+                      void* stream) {                                     \
+    return launch<T>(S, Y, g, pos, count, h0, scratch, out, m, n,         \
+                     stream);                                             \
   }
 
 SCSO_TWO_LOOP_ENTRY(scso_two_loop_f32, float)

@@ -36,20 +36,25 @@ _p, _i64, _f64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
 SIGNATURES = {
     # A, w, v, partials, out, m, n, n_blocks, wide, stream
     "scso_normal_matvec": [_p] * 5 + [_i64] * 4 + [_p],
-    # A, Z, V (transposed for the two-pass form), qu (two-pass scratch),
-    # partials, out, m, p, k, n_blocks, fused, stream
-    "scso_mglm_matvec": [_p] * 6 + [_i64] * 5 + [_p],
+    # A, Z, V (transposed for the two-pass and split forms), qu (their
+    # scratch), partials, out, m, p, k, n_blocks, rows_per_block, form (0
+    # two-pass, 1 tensor-core, 2 and 3 the split form's passes), stream
+    "scso_mglm_matvec": [_p] * 6 + [_i64] * 6 + [_p],
     # A, y, x_t, x_d, w_t, w_d, rw, b_t, b_d, hd_t, hd_d, loss_t, loss_d,
     # partials, loss_partials, m, n, m_norm, then the PrepGrid (blocks,
     # rows_per_block, smem_bytes, threads, chunks_per_thread,
-    # row_blocks), stream
-    "scso_glm_prep_pair": [_p] * 15 + [_i64] * 9 + [_p],
-    # A, y, x, w, rw, b, hd, partials, m, n, m_norm, the PrepGrid, stream
-    "scso_glm_prep": [_p] * 8 + [_i64] * 9 + [_p],
-    # S, Y, g, pos, count, H0, out, m, n, stream
-    "scso_two_loop": [_p] * 7 + [_i64] * 2 + [_p],
-    # x, d, lgr, hr, lb, ub, lam, ss, Mg, reg, x_new, stats, n, stream
-    "scso_score_update": [_p] * 8 + [_f64, _i64, _p, _p, _i64, _p],
+    # row_blocks), phase (0, or the split form's 1 and 2), stream
+    "scso_glm_prep_pair": [_p] * 15 + [_i64] * 10 + [_p],
+    # A, y, x, w, rw, b, hd, partials, m, n, m_norm, the PrepGrid, phase,
+    # stream
+    "scso_glm_prep": [_p] * 8 + [_i64] * 10 + [_p],
+    # S, Y, g, pos, count, H0, scratch (None: α/ρ in shared memory),
+    # out, m, n, stream
+    "scso_two_loop": [_p] * 8 + [_i64] * 2 + [_p],
+    # x, d, lgr, hr, lb, ub, lam, ss, Mg, reg, x_new, stats, partials
+    # (multi-block form), n, n_blocks (0: one block), stream
+    "scso_score_update": [_p] * 8 + [_f64, _i64, _p, _p, _p, _i64, _i64,
+                                     _p],
 }
 
 

@@ -8,10 +8,14 @@ Port of `scso_tpu/ops/pallas/glm_prep.py`:
     the stats objective in one call (the epoch-cache path);
   * K2s (`_fused_glm_prep`, :func:`glm_prep`): the same at one x, with
     no loss — the prep of the uncached GGN-CG path.
-Both kernels are ``csrc/glm_prep.cu``, specialised on the logistic01 GLM
-in the ggn flavour (the TPU kernels trace arbitrary Python callables,
-which CUDA cannot); :func:`glm_prep_torch` and
-:func:`glm_prep_pair_torch` are the plain versions.
+Both kernels are ``csrc/glm_prep.cu``, in the ggn flavour;
+:func:`glm_prep_torch` and :func:`glm_prep_pair_torch` are the plain
+versions. The TPU kernels trace a spec's Python callables into their
+bodies, which CUDA cannot: the one-pass and wide forms below compute the
+logistic01 GLM in the kernel (:func:`covers`), and any other GLM spec
+runs the split form: the wide form's two passes over A as two calls,
+the spec's own ρ, w and loss computed in PyTorch on the (m,) vector z
+between them.
 
 What bounds both on the H100 is the bytes of A. Up to :func:`max_n`
 (K2: n = 14336 in float32, 7168 in float64; K2s: 28672 and 14336) the
@@ -25,8 +29,8 @@ the column sums. Blocks sum in T, the sum over blocks is in double and
 in a fixed order. Above max_n the accumulators do not fit a block, and
 the wide form takes two passes over A (a rows pass and a columns pass).
 :func:`prep_grid` picks the form and its geometry from the shapes
-alone; ``csrc/glm_prep.cu``'s head note gives the design and its
-register and shared-memory budget.
+and the spec's kind alone; ``csrc/glm_prep.cu``'s head note gives the
+design and its register and shared-memory budget.
 
 Every entry takes ``m_norm``, the count of the 1/m normalization,
 apart from the rows of A it reads: on a row shard it is the row count
@@ -36,9 +40,8 @@ plain versions rescale the spec's own 1/len(z) forms by len(z)/m_norm,
 the JAX package's rule (`steps._glm_kernel_fns`). None means A's rows.
 
 The TPU's n ≥ 8192 gates (`steps._use_pair_kernel`, the AUTO
-`use_fused_prep`) are not carried over: the kernels take any m and n.
-The newton flavour and the least-squares/Poisson kinds are not ported
-yet (ROADMAP B2).
+`use_fused_prep`) are not carried over: the kernels take any m, n and
+spec. The newton flavour is not ported yet (ROADMAP B2).
 """
 
 from __future__ import annotations
@@ -94,19 +97,41 @@ def _norm_fix(glm, m, m_norm):
     return lambda v: v * (m / m_norm)
 
 
+def ggn_weights(glm, y, z):
+    """(ρ, w) of the GGN system at z: the spec's stable ggn_rw/ggn_w when
+    given, else σ'·res and σ'²·qdiag (the JAX package's
+    `steps._glm_kernel_fns`, ggn flavour)."""
+    if glm.ggn_rw is not None:
+        rw = glm.ggn_rw(y, z)
+    else:
+        rw = glm.dlink(z) * glm.res(y, glm.link(z))
+    if glm.ggn_w is not None:
+        w = glm.ggn_w(y, z)
+    else:
+        sp = glm.dlink(z)
+        w = sp * sp * glm.qdiag(y, glm.link(z))
+    return rw, w
+
+
+def _weights(glm, y, z, m_norm):
+    """(ρ, w) at z, normalized by ``m_norm``: the plain versions' and
+    the split form's."""
+    fix = _norm_fix(glm, z.shape[0], m_norm)
+    rw, w = ggn_weights(glm, y, z)
+    return fix(rw), fix(w)
+
+
 def glm_prep_torch(A, y, x, glm, m_norm=None):
     """Plain single-candidate prep: (w, Aᵀρ, Σᵢ wᵢAᵢⱼ², Σᵢ ℓᵢ) at x, with
-    ρ, w, ℓ = the spec's ggn_rw, ggn_w, loss_sample, normalized by
-    ``m_norm``.
+    ρ, w from :func:`ggn_weights` and ℓ the spec's loss_sample,
+    normalized by ``m_norm``.
 
     ``Σᵢ wᵢAᵢⱼ²`` materialises an A-sized temporary (w·A, then the
     contraction with A): about 8 GB at the full 196608×10112 float32
     width. The CUDA kernel needs none."""
     z = A @ x
-    fix = _norm_fix(glm, A.shape[0], m_norm)
-    w = fix(glm.ggn_w(y, z))
-    return (w, A.T @ fix(glm.ggn_rw(y, z)),
-            torch.einsum("i,ij,ij->j", w, A, A),
+    rw, w = _weights(glm, y, z, m_norm)
+    return (w, A.T @ rw, torch.einsum("i,ij,ij->j", w, A, A),
             torch.sum(glm.loss_sample(y, z)))
 
 
@@ -118,21 +143,21 @@ def glm_prep_pair_torch(A, y, x_t, x_d, glm, m_norm=None) -> PairPrep:
     return PairPrep(wt, wd, bt, bd, ht, hd, lt, ld)
 
 
-def _check_kind(name, glm):
-    if glm is None or glm.kind not in KERNEL_KINDS or not glm.sample_normalized:
-        raise ValueError(
-            f"{name}: the CUDA kernel covers GLM kinds {KERNEL_KINDS}; got "
-            f"{getattr(glm, 'kind', None)!r} (ROADMAP B2)")
+def covers(glm) -> bool:
+    """True for a GLM spec whose forms the kernels compute themselves
+    (the one-pass and wide forms): a kind in :data:`KERNEL_KINDS`,
+    normalized by 1/m. Any other spec takes the split form."""
+    return glm.kind in KERNEL_KINDS and glm.sample_normalized
 
 
 class PrepGrid(NamedTuple):
     """Launch geometry of one K2/K2s call (see :func:`prep_grid`); the
     fields after ``form`` are the C entries' arguments, in order."""
 
-    form: str               # "one_pass" (A read once) or "wide" (twice)
-    blocks: int             # one-pass: blocks; wide: row chunks (partials)
-    rows_per_block: int     # rows of each block (one-pass) or chunk (wide)
-    smem_bytes: int         # dynamic shared memory a block (wide: 0)
+    form: str               # "one_pass" (A read once), "wide" or "split"
+    blocks: int             # one-pass: blocks; else row chunks (partials)
+    rows_per_block: int     # rows of each block (one-pass) or chunk
+    smem_bytes: int         # dynamic shared memory a block (else 0)
     threads: int            # threads a block
     chunks_per_thread: int  # 16-byte column chunks a thread (wide: 0)
     row_blocks: int         # blocks with a loss partial (wide: rows pass)
@@ -146,10 +171,10 @@ def max_n(dtype, candidates) -> int:
     return e * (_SMEM_BYTES // (2 * candidates * 16))
 
 
-def prep_grid(m, n, dtype, candidates, sms) -> PrepGrid:
+def prep_grid(m, n, dtype, candidates, sms, covered=True) -> PrepGrid:
     """The form and launch geometry for A (m, n) of ``dtype`` and
     ``candidates`` (2: K2, 1: K2s) on a card with ``sms`` SMs, from the
-    shapes alone.
+    shapes and ``covered`` (:func:`covers` of the spec) alone.
 
     One-pass form (n <= :func:`max_n`): one wave of blocks, each owning
     a contiguous row range, every row in exactly one block (m = 1 gives
@@ -161,9 +186,10 @@ def prep_grid(m, n, dtype, candidates, sms) -> PrepGrid:
     one at 512 threads, so at the main shape. Wide form (n above it):
     the two-pass geometry — a rows pass of up to 8 blocks an SM, one
     warp a row, and enough row chunks for the columns pass to give
-    about 8 blocks an SM."""
+    about 8 blocks an SM. Split form (a spec not covered, any n): the
+    wide geometry."""
     e = 16 // dtype.itemsize
-    if n <= max_n(dtype, candidates):
+    if covered and n <= max_n(dtype, candidates):
         nc = -(-n // e)
         q = next(q for q in _CHUNKS_PER_THREAD[candidates]
                  if -(-nc // q) <= _MAX_THREADS)
@@ -179,26 +205,29 @@ def prep_grid(m, n, dtype, candidates, sms) -> PrepGrid:
     row_blocks = max(1, min(8 * sms, -(-m // 8)))
     col_tiles = -(-(n // e if n % e == 0 else n) // _WIDE_THREADS)
     chunks = max(1, min(-(-8 * sms // col_tiles), -(-m // 256)))
-    return PrepGrid("wide", chunks, -(-m // chunks), 0, _WIDE_THREADS, 0,
-                    row_blocks)
+    return PrepGrid("wide" if covered else "split", chunks, -(-m // chunks), 0,
+                    _WIDE_THREADS, 0, row_blocks)
 
 
 def _scratch(grid, candidates, m, n, dtype, device):
     """One allocation for a call's scratch (the host's cost of a call is
-    part of each epoch's): the buffer, then the pointers to its partials,
-    loss partials and wide ρ. Partials are (blocks, 2·candidates, n), in
-    ``dtype`` one-pass and in double wide; loss partials (row_blocks, 2)
-    double; ρ (candidates, m) in ``dtype``, wide only (0 otherwise)."""
-    wide = grid.form == "wide"
-    part_item = 8 if wide else dtype.itemsize
+    part of each epoch's): the buffer, then the pointers to its partials
+    and loss partials, then ρ. Partials are (blocks, 2·candidates, n), in
+    ``dtype`` one-pass and in double otherwise; loss partials
+    (row_blocks, 2) double; ρ (candidates, m) in ``dtype``, a view of the
+    buffer, wide and split only (None otherwise)."""
+    two_pass = grid.form != "one_pass"
+    part_item = 8 if two_pass else dtype.itemsize
     sizes = [grid.blocks * 2 * candidates * n * part_item,
-             grid.row_blocks * 2 * 8,
-             candidates * m * dtype.itemsize if wide else 0]
+             grid.row_blocks * 2 * 8]
     sizes = [-(-b // 256) * 256 for b in sizes]   # each part 256-B aligned
-    base = torch.empty(sum(sizes), dtype=torch.uint8, device=device)
+    rw_at = sum(sizes)
+    base = torch.empty(rw_at + (candidates * m * dtype.itemsize if two_pass
+                                else 0), dtype=torch.uint8, device=device)
     ptr = base.data_ptr()
-    return (base, ptr, ptr + sizes[0],
-            (ptr + sizes[0] + sizes[1]) if wide else 0)
+    rw = (base[rw_at:].view(dtype).view(candidates, m) if two_pass
+          else None)
+    return base, ptr, ptr + sizes[0], rw
 
 
 def _check_shapes(name, A, y, m_norm, *xs):
@@ -217,58 +246,82 @@ def _check_shapes(name, A, y, m_norm, *xs):
     return m_norm
 
 
+def _launcher(name, dev, dt, *args):
+    """Launch entry ``name`` on ``args`` with a phase (0: the one-pass
+    or wide form; 1, 2: the split form's two calls)."""
+    def run(phase):
+        with torch.cuda.device(dev):
+            rc = launch.entry(name, dt)(*args, phase, launch.stream(dev))
+        build.check(rc, name[len("scso_"):])
+    return run
+
+
 def glm_prep(A, y, x, glm, m_norm=None):
     """Single-candidate prep (w, Aᵀρ, Σᵢ wᵢAᵢⱼ²) at x — the K2s kernel
-    for CUDA tensors, the plain version for CPU tensors. For a CUDA
-    tensor a spec kind the kernel does not cover raises."""
+    for CUDA tensors (its split form for a spec that :func:`covers`
+    refuses), the plain version for CPU tensors."""
     if launch.on_cpu(A, "glm_prep"):
         return glm_prep_torch(A, y, x, glm, m_norm)[:3]
-    _check_kind("glm_prep", glm)
     launch.check_operands("glm_prep", A.dtype, A.device, A=A, y=y, x=x)
     m_norm = _check_shapes("glm_prep", A, y, m_norm, x)
     m, n = A.shape
     dev, dt = A.device, A.dtype
-    grid = prep_grid(m, n, dt, 1, launch.sm_count(dev.index or 0))
+    grid = prep_grid(m, n, dt, 1, launch.sm_count(dev.index or 0),
+                     covers(glm))
     w, b, hd = torch.empty(m + 2 * n, dtype=dt, device=dev).split([m, n, n])
-    # ``buf`` holds the scratch the pointers address until the launch
+    # ``buf`` holds the scratch the pointers address until the launches
     buf, partials, _, rw = _scratch(grid, 1, m, n, dt, dev)
-    with torch.cuda.device(dev):
-        rc = launch.entry("scso_glm_prep", dt)(
-            A.data_ptr(), y.data_ptr(), x.data_ptr(), w.data_ptr(), rw,
-            b.data_ptr(), hd.data_ptr(), partials, m, n, m_norm,
-            *grid[1:], launch.stream(dev))
+    run = _launcher("scso_glm_prep", dev, dt, A.data_ptr(), y.data_ptr(),
+                    x.data_ptr(), w.data_ptr(),
+                    None if rw is None else rw.data_ptr(), b.data_ptr(),
+                    hd.data_ptr(), partials, m, n, m_norm, *grid[1:])
+    if grid.form == "split":
+        run(1)  # z into rw
+        rho, w_ = _weights(glm, y, rw[0], m_norm)
+        rw[0].copy_(rho)
+        w.copy_(w_)
+        run(2)
+    else:
+        run(0)
     del buf
-    build.check(rc, "glm_prep")
     counters.bump("glm_prep")
     return w, b, hd
 
 
 def glm_prep_pair(A, y, x_t, x_d, glm, m_norm=None) -> PairPrep:
-    """Dual-candidate prep — the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. For a CUDA tensor a spec kind the kernel
-    does not cover raises."""
+    """Dual-candidate prep — the K2 kernel for CUDA tensors (its split
+    form for a spec that :func:`covers` refuses), the plain version for
+    CPU tensors."""
     if launch.on_cpu(A, "glm_prep_pair"):
         return glm_prep_pair_torch(A, y, x_t, x_d, glm, m_norm)
-    _check_kind("glm_prep_pair", glm)
     launch.check_operands("glm_prep_pair", A.dtype, A.device, A=A, y=y,
                           x_t=x_t, x_d=x_d)
     m_norm = _check_shapes("glm_prep_pair", A, y, m_norm, x_t, x_d)
     m, n = A.shape
     dev, dt = A.device, A.dtype
-    grid = prep_grid(m, n, dt, 2, launch.sm_count(dev.index or 0))
+    grid = prep_grid(m, n, dt, 2, launch.sm_count(dev.index or 0),
+                     covers(glm))
     out = torch.empty(2 * m + 4 * n + 2, dtype=dt, device=dev)
     w_t, w_d, b_t, b_d, hd_t, hd_d = out[:-2].split([m, m, n, n, n, n])
     loss_t, loss_d = out[-2], out[-1]
-    # ``buf`` holds the scratch the pointers address until the launch
+    # ``buf`` holds the scratch the pointers address until the launches
     buf, partials, loss_partials, rw = _scratch(grid, 2, m, n, dt, dev)
-    with torch.cuda.device(dev):
-        rc = launch.entry("scso_glm_prep_pair", dt)(
-            A.data_ptr(), y.data_ptr(), x_t.data_ptr(), x_d.data_ptr(),
-            w_t.data_ptr(), w_d.data_ptr(), rw, b_t.data_ptr(),
-            b_d.data_ptr(), hd_t.data_ptr(), hd_d.data_ptr(),
-            loss_t.data_ptr(), loss_d.data_ptr(), partials, loss_partials,
-            m, n, m_norm, *grid[1:], launch.stream(dev))
+    run = _launcher("scso_glm_prep_pair", dev, dt, A.data_ptr(), y.data_ptr(),
+                    x_t.data_ptr(), x_d.data_ptr(), w_t.data_ptr(),
+                    w_d.data_ptr(), None if rw is None else rw.data_ptr(),
+                    b_t.data_ptr(), b_d.data_ptr(), hd_t.data_ptr(),
+                    hd_d.data_ptr(), loss_t.data_ptr(), loss_d.data_ptr(),
+                    partials, loss_partials, m, n, m_norm, *grid[1:])
+    if grid.form == "split":
+        run(1)  # z_t, z_d into rw
+        loss_t, loss_d = (torch.sum(glm.loss_sample(y, z)) for z in rw)
+        for z, w in zip(rw, (w_t, w_d)):
+            rho, w_ = _weights(glm, y, z, m_norm)
+            z.copy_(rho)
+            w.copy_(w_)
+        run(2)
+    else:
+        run(0)
     del buf
-    build.check(rc, "glm_prep_pair")
     counters.bump("glm_prep_pair")
     return PairPrep(w_t, w_d, b_t, b_d, hd_t, hd_d, loss_t, loss_d)

@@ -2,31 +2,104 @@
 
 Port of `scso_tpu/ops/pallas/mglm_matvec.py` (`_fused_mglm_matvec`), the
 op of every CG iteration on the multi-output (mglm) path. The CUDA
-kernel is ``csrc/mglm_matvec.cu`` (its source note gives the design),
-specialised on the multinomial spec (``MOGLMSpec.kind ==
-'multinomial'``), since CUDA cannot trace the spec's Python ``quad`` as
-the TPU kernel does; :func:`mglm_matvec_torch` is the plain PyTorch
-version of the same function.
+kernel is ``csrc/mglm_matvec.cu`` (its source note gives the design);
+:func:`mglm_matvec_torch` is the plain PyTorch version of the same
+function. The TPU kernel traces the spec's Python ``quad`` into its
+body, which CUDA cannot: the tensor-core and two-pass forms compute the
+multinomial curvature in the kernel (:func:`covers`), and any other
+spec runs the split form: U = A·V and Aᵀ·QU as the kernel's two passes
+over A, the spec's own ``quad`` in PyTorch between them.
 
 The TPU layout gates (`supports_fused_mglm_matvec`,
 `_pick_block_rows_mglm`, the lane/sublane split, `_KP`) came from VMEM
-and T(8,128) tiling and are not carried over: the kernel takes any m and
-p and 1 ≤ k ≤ 128. It reads A once for k ≤ 16 and p ≤ 1024 (the fused
-form) and twice otherwise (the two-pass form).
+and T(8,128) tiling and are not carried over: the kernel takes any m, p
+and k. :func:`mglm_grid` picks its form from the shapes and the spec:
+the tensor-core form (float32, k ≤ :data:`TC_MAX_K`, p ≤
+:data:`TC_MAX_P`) reads A once, the two-pass form (float64 and larger k
+or p) and the split form read it twice.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from scso_tpu_torch.ops.cuda import build, counters, launch
 
 KERNEL_KINDS = ("multinomial",)
-MAX_K = 128
-_FUSED_MAX_K = 16
-_FUSED_MAX_P = 1024     # 256 threads × 4 columns each (csrc)
-_COL_THREADS = 256      # kColThreads in csrc/mglm_matvec.cu
+#: the tensor-core form's limits: its (p × k) accumulators in the
+#: registers of 16 warps, two 16-row stages of A and V in shared memory
+#: (csrc/mglm_matvec.cu, namespace tc)
+TC_MAX_K = 16
+TC_MAX_P = 1024
+_THREADS = 256          # the two-pass and split forms' column kernel
+_TC_ROWS = 16           # rows of a tensor-core tile
 _KC = 16                # kKC in csrc/mglm_matvec.cu
+# the C entry's form codes; "split" is its passes "split_rows" (U = A·V,
+# no sum) and "split_cols" (Aᵀ·QU)
+FORM_CODES = {"two_pass": 0, "tensor": 1, "split_rows": 2, "split_cols": 3}
+
+
+class MglmGrid(NamedTuple):
+    """Launch geometry of one K5 call (see :func:`mglm_grid`)."""
+
+    form: str            # "tensor" (A read once), "two_pass" or "split"
+    blocks: int          # blocks (two-pass, split: row chunks), a partial each
+    rows_per_block: int  # rows of each block (two-pass, split: of each chunk)
+    smem_bytes: int      # dynamic shared memory a block
+    threads: int         # threads a block
+
+
+def tc_geometry(p, k):
+    """(warps, padded p, n8 tiles of classes) of the tensor-core form:
+    p padded to 128 (8 warps of 16 columns), 256, 512 or 1024 (16 warps
+    of 16, 32 or 64 columns); k to 8 or 16."""
+    pp = next(c for c in (128, 256, 512, 1024) if p <= c)
+    return (8 if pp == 128 else 16), pp, (1 if k <= 8 else 2)
+
+
+def tc_smem_bytes(p, k) -> int:
+    """Shared memory of the tensor-core form: two 16-row stages of A, V
+    in fragment order, the warps' partial U and QU's fragments."""
+    w, pp, nt = tc_geometry(p, k)
+    return 4 * (2 * _TC_ROWS * pp + pp * nt * 8 + w * _TC_ROWS * 8 * nt
+                + 2 * nt * 32 * 2)
+
+
+def _two_pass_grid(m, p, k, sms, form) -> MglmGrid:
+    """The two-pass (or split) geometry: enough row chunks for the column
+    pass to give about 8 blocks an SM."""
+    tiles = -(-p // _THREADS) * -(-k // _KC)
+    rows = -(-m // max(1, min(-(-8 * sms // tiles), -(-m // 256), 65535)))
+    return MglmGrid(form, -(-m // rows), rows, 0, _THREADS)
+
+
+def mglm_grid(m, p, k, dtype, sms, covered=True) -> MglmGrid:
+    """The form and launch geometry for A (m, p), k classes, ``dtype``,
+    on a card with ``sms`` SMs, from the shapes and ``covered``
+    (:func:`covers` of the spec) alone.
+
+    Tensor-core form (covered, float32, k <= 16, p <= 1024): one block
+    an SM (A's two stages fill its shared memory), each owning a
+    contiguous row range, every row in exactly one block. Two-pass form
+    (covered, any other k, p or type) and split form (not covered): the
+    two-pass geometry."""
+    if not covered:
+        return _two_pass_grid(m, p, k, sms, "split")
+    if dtype == torch.float32 and k <= TC_MAX_K and p <= TC_MAX_P:
+        rows = -(-m // max(1, min(sms, -(-m // _TC_ROWS))))
+        return MglmGrid("tensor", -(-m // rows), rows, tc_smem_bytes(p, k),
+                        32 * tc_geometry(p, k)[0])
+    return _two_pass_grid(m, p, k, sms, "two_pass")
+
+
+def covers(spec) -> bool:
+    """True for an MOGLM spec whose curvature the kernel computes itself
+    (the tensor-core and two-pass forms): a kind in
+    :data:`KERNEL_KINDS`, normalized by 1/m. Any other spec takes the
+    split form."""
+    return spec.kind in KERNEL_KINDS and spec.sample_normalized
 
 
 def mglm_matvec_torch(A, y, Z, V, spec):
@@ -37,16 +110,10 @@ def mglm_matvec_torch(A, y, Z, V, spec):
 
 def mglm_matvec(A, y, Z, V, spec):
     """Aᵀ·quad(y, Z, A·V) as (p, k) — the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors. For a CUDA tensor a spec kind the
-    kernel does not cover, or k > 128, raises."""
+    in the form :func:`mglm_grid` picks, the plain version for CPU
+    tensors."""
     if launch.on_cpu(A, "mglm_matvec"):
         return mglm_matvec_torch(A, y, Z, V, spec)
-    if (spec is None or spec.kind not in KERNEL_KINDS
-            or not spec.sample_normalized):
-        raise ValueError(
-            f"mglm_matvec: the CUDA kernel covers MOGLM kinds "
-            f"{KERNEL_KINDS}; got {getattr(spec, 'kind', None)!r} "
-            "(ROADMAP A9)")
     m, p = A.shape
     launch.check_operands("mglm_matvec", A.dtype, A.device, A=A, y=y, Z=Z,
                           V=V)
@@ -55,33 +122,41 @@ def mglm_matvec(A, y, Z, V, spec):
         raise ValueError(
             f"mglm_matvec: shapes A {tuple(A.shape)}, y {tuple(y.shape)}, "
             f"Z {tuple(Z.shape)}, V {tuple(V.shape)}")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"mglm_matvec: k = {k}; the kernel takes 1 to "
-                         f"{MAX_K} outputs")
-    if m == 0 or p == 0:
-        raise ValueError("mglm_matvec: A has no rows or no columns")
-    fused = k <= _FUSED_MAX_K and p <= _FUSED_MAX_P
+    if m == 0 or p == 0 or k == 0:
+        raise ValueError("mglm_matvec: A has no rows or no columns, or "
+                         "there are no classes")
+    grid = mglm_grid(m, p, k, A.dtype, launch.sm_count(A.device.index or 0),
+                     covers(spec))
+    return _launch(A, y, Z, V, spec, grid)
+
+
+def _launch(A, y, Z, V, spec, grid):
+    """K5 on checked CUDA operands in ``grid``'s form and geometry (the
+    split form applies ``spec.quad`` between its passes); one count."""
+    (m, p), k = A.shape, V.shape[1]
     dev, dt = A.device, A.dtype
-    sms = launch.sm_count(dev.index or 0)
-    if fused:
-        # one block per SM (the accumulators fill the registers), each
-        # owning a contiguous row range
-        nblk = max(1, min(sms, -(-m // 4)))
-        qu = None
-        vk = V
-    else:
-        # row chunks for the column pass: ~8 blocks per SM in all
-        tiles = -(-p // _COL_THREADS) * -(-k // _KC)
-        nblk = max(1, min(-(-8 * sms // tiles), -(-m // 256), 65535))
-        qu = torch.empty((m, k), dtype=dt, device=dev)
-        vk = V.t().contiguous()  # the row pass reads V transposed
-    partials = torch.empty((nblk, p * k), dtype=dt, device=dev)
+    partials = torch.empty((grid.blocks, p * k), dtype=dt, device=dev)
     out = torch.empty((p, k), dtype=dt, device=dev)
-    with torch.cuda.device(dev):
-        rc = launch.entry("scso_mglm_matvec", dt)(
-            A.data_ptr(), Z.data_ptr(), vk.data_ptr(),
-            None if qu is None else qu.data_ptr(), partials.data_ptr(),
-            out.data_ptr(), m, p, k, nblk, int(fused), launch.stream(dev))
-    build.check(rc, "mglm_matvec")
+
+    def run(form, v, qu):
+        with torch.cuda.device(dev):
+            rc = launch.entry("scso_mglm_matvec", dt)(
+                A.data_ptr(), Z.data_ptr(), v.data_ptr(),
+                None if qu is None else qu.data_ptr(), partials.data_ptr(),
+                out.data_ptr(), m, p, k, grid.blocks, grid.rows_per_block,
+                FORM_CODES[form], launch.stream(dev))
+        build.check(rc, "mglm_matvec")
+
+    if grid.form == "tensor":
+        run("tensor", V, None)
+    else:
+        qu = torch.empty((m, k), dtype=dt, device=dev)
+        vt = V.t().contiguous()  # the row pass reads V transposed
+        if grid.form == "two_pass":
+            run("two_pass", vt, qu)
+        else:
+            run("split_rows", vt, qu)  # U = A·V into qu
+            qu = spec.quad(y, Z, qu).to(dt).contiguous()
+            run("split_cols", vt, qu)
     counters.bump("mglm_matvec")
     return out

@@ -8,8 +8,10 @@ tail of every epoch:
     x⁺    = prox(x + safe·d; t = ss·λ·hr)   for 'l1', 'l2', 'indbox', 'none'
     pri   = ‖x⁺ − x‖
 
-The CUDA kernel is ``csrc/score_update.cu``; :func:`score_update_torch`
-is the plain version, and the one the solver's 'torch' path runs. λ and
+The CUDA kernel is ``csrc/score_update.cu``: one block up to
+:data:`ONE_BLOCK_N`, a multi-block form past it (:func:`update_blocks`);
+:func:`score_update_torch` is the plain version, and the one the
+solver's 'torch' path runs. λ and
 ss come in, and pri, safe, η go out, as 0-d tensors on the device, so
 neither version waits for the device.
 """
@@ -23,8 +25,21 @@ import torch
 from scso_tpu_torch.ops.cuda import build, counters, launch
 
 REG_CODES = {"l1": 0, "l2": 1, "indbox": 2, "none": 3}
-#: one block loops over n; past this a multi-block form would pay off
-MAX_N = 1 << 24
+#: one block loops over n up to this; past it the multi-block form runs
+ONE_BLOCK_N = 1 << 24
+#: elements a block of the multi-block form owns, at least
+_BLOCK_ELEMS = 1 << 16
+_MAX_BLOCKS = 1024
+
+
+def update_blocks(n: int) -> int:
+    """Blocks of K3's multi-block form for n values; 0 (the one-block
+    form) up to :data:`ONE_BLOCK_N`. Each block owns a contiguous slice
+    of at least 65536 values; at most 1024 blocks, so the fixed-order
+    sums over the blocks' partials stay one block's loop."""
+    if n <= ONE_BLOCK_N:
+        return 0
+    return min(_MAX_BLOCKS, -(-n // _BLOCK_ELEMS))
 
 
 class ScoreUpdate(NamedTuple):
@@ -84,8 +99,6 @@ def score_update(x, d, lgr, hr, lam, ss, Mg, reg_name: str,
                                   use_prox, lb, ub)
     reg = _reg_kind(reg_name, use_prox)
     (n,) = x.shape
-    if n > MAX_N:
-        raise ValueError(f"score_update: n = {n} exceeds {MAX_N}")
     dev, dt = x.device, x.dtype
     scalar = lambda s: torch.as_tensor(s, dtype=dt, device=dev).reshape(())
     lam, ss = scalar(lam), scalar(ss)
@@ -105,13 +118,17 @@ def score_update(x, d, lgr, hr, lam, ss, Mg, reg_name: str,
                              f"{tuple(t.shape)}, expected ({n},)")
     x_new = torch.empty_like(x)
     stats = torch.empty((3,), dtype=dt, device=dev)
+    nblk = update_blocks(n)
+    # multi-block form: the blocks' partials of Σ lgr²/hr and ‖x⁺ − x‖²
+    partials = (torch.empty((2 * nblk,), dtype=torch.float64, device=dev)
+                if nblk else None)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         rc = launch.entry("scso_score_update", dt)(
             x.data_ptr(), d.data_ptr(), lgr.data_ptr(), hr.data_ptr(),
             ptr(bounds.get("lb")), ptr(bounds.get("ub")), lam.data_ptr(),
             ss.data_ptr(), float(Mg), REG_CODES[reg], x_new.data_ptr(),
-            stats.data_ptr(), n, launch.stream(dev))
+            stats.data_ptr(), ptr(partials), n, nblk, launch.stream(dev))
     build.check(rc, "score_update")
     counters.bump("score_update")
     return ScoreUpdate(x_new, stats[0], stats[1], stats[2])

@@ -11,10 +11,12 @@ jax):
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
 
 Tolerances: float32 rtol 2e-5, atol 3e-5·max(1, max|ref|) (the f32
-bounds of tests/test_pallas.py); float64 1e-12 of each; the small
-solves' objective histories 1e-9 relative. Every kernel's rerun is
-bitwise equal. TF32 is off for the plain
-versions' matrix products.
+bounds of tests/test_pallas.py), for K5 in float32 an atol of
+K5_F32_ATOL·max|ref| alone (no floor of 1: the tensor-core form's
+split TF32 must hold float32 accuracy, and one TF32 product a
+contraction falls outside it); float64 1e-12 of each; the small solves'
+objective histories 1e-9 relative. Every kernel's rerun is bitwise
+equal. TF32 is off for the plain versions' matrix products.
 """
 
 import socket
@@ -35,6 +37,7 @@ from scso_tpu_torch.ops.cuda.glm_prep import (
 from scso_tpu_torch.ops.cuda.matvec import (
     normal_matvec, normal_matvec_sharded, normal_matvec_sharded_torch,
     normal_matvec_torch)
+from scso_tpu_torch.ops.cuda import mglm_matvec as k5
 from scso_tpu_torch.ops.cuda.mglm_matvec import mglm_matvec, mglm_matvec_torch
 from scso_tpu_torch.ops.cuda.score_update import (
     score_update, score_update_torch)
@@ -44,6 +47,8 @@ from scso_tpu_torch.parallel import distributed_init, make_mesh, shard_problem
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: (2e-5, 3e-5), torch.float64: (1e-12, 1e-12)}
+#: K5's float32 limit over max|ref| (chip_smoke.py's TOL["k5"])
+K5_F32_ATOL = 3e-5
 
 
 @pytest.fixture
@@ -58,6 +63,36 @@ def _check(got, want, dtype):
     rtol, atol = TOL[dtype]
     scale = max(1.0, float(want.abs().max()))
     torch.testing.assert_close(got, want, rtol=rtol, atol=atol * scale)
+
+
+def _check_k5(got, want, dtype):
+    if dtype == torch.float64:
+        return _check(got, want, dtype)
+    torch.testing.assert_close(got, want, rtol=0.0, atol=K5_F32_ATOL * float(
+        want.abs().max()))
+
+
+def _least_squares_glm():
+    """A GLM spec the prep kernels do not compute themselves: squared
+    loss, identity link, 1/m normalized, no ggn_rw/ggn_w."""
+    return st.GLMSpec(
+        link=lambda z: z, dlink=torch.ones_like,
+        res=lambda y, yh: (yh - y) / y.shape[0],
+        qdiag=lambda y, yh: torch.ones_like(yh) / y.shape[0],
+        hvp_w=lambda y, z: torch.ones_like(z) / y.shape[0],
+        gres=lambda y, z: (z - y) / y.shape[0],
+        loss_z=lambda y, z: 0.5 * torch.mean((z - y) ** 2),
+        loss_sample=lambda y, z: 0.5 * (z - y) ** 2, kind="least_squares")
+
+
+def _squared_moglm(k):
+    """An MOGLM spec K5 does not compute itself: squared loss on Z."""
+    return st.MOGLMSpec(
+        n_out=k, gres=lambda y, Z: (Z - y) / Z.shape[0],
+        quad=lambda y, Z, U: U / Z.shape[0],
+        qdiag_w=lambda y, Z: torch.ones_like(Z) / Z.shape[0],
+        loss_z=lambda y, Z: 0.5 * torch.sum((Z - y) ** 2) / Z.shape[0],
+        loss_sample=lambda y, Z: 0.5 * torch.sum((Z - y) ** 2, dim=-1))
 
 
 # K2's one-pass form holds n <= 14336 in float32 and 7168 in float64
@@ -118,12 +153,19 @@ def _mglm_inputs(dev, dtype, m, p, k):
     return A, y, A @ W, V
 
 
-# boundary shapes, the widest p of the one-read form (k <= 16, p <= 1024)
-# and the first past it, then k across both forms
+# boundary shapes, the widest p of the tensor-core form (f32, k <= 16,
+# p <= 1024) and the first past it, then k across the forms; the
+# tensor-core form on both sides of its k and p limits, of each of its
+# paddings (p 128/256/512, k 8) and with rows that are not 16-byte
+# aligned (p % 4 != 0), and any k of the two-pass form
 MGLM_SHAPES = ([(512, 128, 8), (700, 256, 4), (130, 128, 3), (16, 1, 2),
                 (33, 5, 7), (8, 12, 2), (64, 4, 11), (300, 1024, 16),
                 (300, 1025, 9), (300, 1025, 2)]
-               + [(1031, 77, k) for k in (1, 2, 3, 7, 16, 17, 64, 128)])
+               + [(1031, 77, k) for k in (1, 2, 3, 7, 16, 17, 64, 128)]
+               + [(3001, 1024, 17), (1031, 1020, 16), (1031, 1022, 16),
+                  (999, 132, 9), (999, 256, 8), (999, 260, 16),
+                  (999, 512, 5), (999, 516, 12), (1, 128, 16),
+                  (1031, 77, 129), (517, 100, 200)])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -135,19 +177,61 @@ def test_mglm_matvec_matches_plain(dev, dtype, m, p, k):
     counters.reset()
     got = mglm_matvec(A, y, Z, V, spec)
     assert tuple(got.shape) == (p, k)
-    _check(got, want, dtype)
+    _check_k5(got, want, dtype)
     assert torch.equal(got, mglm_matvec(A, y, Z, V, spec))
     assert counters.snapshot()["mglm_matvec"] == 2
 
 
+@pytest.mark.parametrize("m,p,k", [(3001, 1024, 16), (999, 132, 9),
+                                   (517, 77, 3)])
+def test_mglm_matvec_forms_agree(dev, m, p, k):
+    # each of K5's forms, against the plain version: the tensor-core
+    # form, then the two-pass and split forms' geometry at these shapes
+    A, y, Z, V = _mglm_inputs(dev, torch.float32, m, p, k)
+    spec = losses.multinom_mglm(k)
+    want = mglm_matvec_torch(A, y, Z, V, spec)
+    grid = k5.mglm_grid(m, p, k, torch.float32, 132)
+    assert grid.form == "tensor"
+    for g in (grid, k5.mglm_grid(m, p, k, torch.float64, 132),
+              k5.mglm_grid(m, p, k, torch.float32, 132, covered=False)):
+        got = k5._launch(A, y, Z, V, spec, g)
+        _check_k5(got, want, torch.float32)
+        assert torch.equal(got, k5._launch(A, y, Z, V, spec, g))
+
+
 def test_mglm_matvec_rejects_what_the_kernel_does_not_take(dev):
     A, y, Z, V = _mglm_inputs(dev, torch.float32, 64, 8, 3)
-    with pytest.raises(ValueError, match="A9"):
-        mglm_matvec(A, y, Z, V, replace(losses.multinom_mglm(3),
-                                        kind="poisson"))
+    spec = losses.multinom_mglm(3)
+    with pytest.raises(ValueError, match="shapes"):
+        mglm_matvec(A, y, Z[:, :2].contiguous(), V, spec)
+    with pytest.raises(ValueError):
+        mglm_matvec(A, y, Z, V.double(), spec)
+    with pytest.raises(ValueError):
+        mglm_matvec(A.half(), y.half(), Z.half(), V.half(), spec)
+    # any kind runs (the split form), and any k (the two-pass form)
+    poisson = replace(spec, kind="poisson")
+    _check(mglm_matvec(A, y, Z, V, poisson),
+           mglm_matvec_torch(A, y, Z, V, poisson), torch.float32)
     A, y, Z, V = _mglm_inputs(dev, torch.float32, 16, 4, 129)
-    with pytest.raises(ValueError, match="128"):
-        mglm_matvec(A, y, Z, V, losses.multinom_mglm(129))
+    spec = losses.multinom_mglm(129)
+    _check_k5(mglm_matvec(A, y, Z, V, spec),
+              mglm_matvec_torch(A, y, Z, V, spec), torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,p,k", [(1031, 77, 3), (3001, 1024, 16),
+                                   (300, 1025, 17), (517, 100, 200)])
+def test_mglm_split_form_matches_plain(dev, dtype, m, p, k):
+    # specs K5 does not compute itself: the kernel's passes over A, the
+    # spec's quad between them
+    A, y, Z, V = _mglm_inputs(dev, dtype, m, p, k)
+    for spec in (_squared_moglm(k), replace(losses.multinom_mglm(k),
+                                            kind=None)):
+        counters.reset()
+        got = mglm_matvec(A, y, Z, V, spec)
+        assert torch.equal(got, mglm_matvec(A, y, Z, V, spec))
+        assert counters.snapshot()["mglm_matvec"] == 2
+        _check(got, mglm_matvec_torch(A, y, Z, V, spec), dtype)
 
 
 def test_small_mglm_solve_matches_cpu(dev):
@@ -246,6 +330,43 @@ def test_two_loop_matches_plain(dev, dtype, n, m):
             assert torch.equal(got, -g)
 
 
+# memories past the old 64-slot limit: α and ρ in shared memory, then
+# (m = 4100 f32, 2100 f64: more than 32 KB) in the wrapper's scratch
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,m", [(777, 65), (361, 100), (2000, 200),
+                                 (64, 2100), (64, 4100)])
+def test_two_loop_takes_any_memory_size(dev, dtype, n, m):
+    for pushes in (m // 2, m + 3):
+        mem, g = _lbfgs_memory(dev, dtype, n, m, pushes, n + m + pushes)
+        counters.reset()
+        got = two_loop(mem, g)
+        assert torch.equal(got, two_loop(mem, g))
+        assert counters.snapshot()["two_loop"] == 2
+        _check(got, two_loop_torch(mem, g), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("reg", ["l1", "l2", "indbox", "none"])
+def test_score_update_past_one_block(dev, dtype, reg):
+    # n = 2²⁴ + 1: K3's multi-block form
+    n = (1 << 24) + 1
+    gen = torch.Generator(device=dev).manual_seed(17)
+    r = lambda: torch.randn((n,), generator=gen, device=dev, dtype=dtype)
+    x, d, lgr = r(), r(), r()
+    lgr[::10] = 0.0
+    hr = torch.rand((n,), generator=gen, device=dev, dtype=dtype) + 1e-3
+    lam = torch.tensor(0.07, dtype=dtype, device=dev)
+    ss = torch.tensor(0.6, dtype=dtype, device=dev)
+    args = (x, d, lgr, hr, lam, ss, 3.0, "l1" if reg == "none" else reg,
+            reg != "none", torch.full_like(x, -0.5), torch.full_like(x, 0.7))
+    counters.reset()
+    got = score_update(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, score_update(*args)))
+    assert counters.snapshot()["score_update"] == 2
+    for g, w_ in zip(got, score_update_torch(*args)):
+        _check(g, w_, dtype)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     A = torch.zeros((4, 8), device=dev)
     with pytest.raises(ValueError):
@@ -254,16 +375,19 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         normal_matvec(A.t(), torch.zeros(8, device=dev),
                       torch.zeros(4, device=dev))
-    with pytest.raises(ValueError, match="B2"):
-        glm_prep_pair(A, torch.zeros(4, device=dev), torch.zeros(8, device=dev),
+    # the preps take any spec kind (the split form), but not mismatched
+    # shapes
+    with pytest.raises(ValueError, match="shapes"):
+        glm_prep_pair(A, torch.zeros(5, device=dev), torch.zeros(8, device=dev),
                       torch.zeros(8, device=dev),
                       replace(LOGISTIC01_GLM, kind="poisson"))
-    with pytest.raises(ValueError, match="B2"):
-        glm_prep(A, torch.zeros(4, device=dev), torch.zeros(8, device=dev),
+    with pytest.raises(ValueError, match="shapes"):
+        glm_prep(A, torch.zeros(4, device=dev), torch.zeros(9, device=dev),
                  replace(LOGISTIC01_GLM, kind="poisson"))
     g = torch.zeros(8, device=dev)
-    with pytest.raises(ValueError, match="64"):
-        two_loop(lbfgs_core.init_memory(8, 65, torch.float32, dev), g)
+    # any memory size runs: an empty one gives −g
+    assert torch.equal(two_loop(lbfgs_core.init_memory(
+        8, 65, torch.float32, dev), g + 1), -(g + 1))
     mem = lbfgs_core.init_memory(8, 4, torch.float32, dev)
     with pytest.raises(ValueError, match="int32"):
         two_loop(mem._replace(pos=mem.pos.long()), g)
@@ -322,6 +446,98 @@ def test_small_lbfgs_and_uncached_solves_match_cpu(dev, method, kernels):
                        st.PHuberSmootherL1L2(1.0), **kw)
     assert s_gpu.epochs == s_cpu.epochs
     np.testing.assert_allclose(s_gpu.obj.numpy(), s_cpu.obj.numpy(),
+                               rtol=1e-9)
+
+
+def test_small_lbfgs_solve_with_a_long_memory_matches_cpu(dev):
+    kw = dict(x_tol=1e-12, f_tol=1e-10, max_epoch=40, verbose=0,
+              stats_every=4)
+    method = st.ProxLQNSCORE(m=100)
+    counters.reset()
+    s_gpu = st.iterate(method, _small_logreg(dev), "l1",
+                       st.PHuberSmootherL1L2(1.0), **kw)
+    assert counters.snapshot()["two_loop"] == s_gpu.epochs
+    s_cpu = st.iterate(method, _small_logreg("cpu"), "l1",
+                       st.PHuberSmootherL1L2(1.0), **kw)
+    assert s_gpu.epochs == s_cpu.epochs
+    np.testing.assert_allclose(s_gpu.obj.numpy(), s_cpu.obj.numpy(),
+                               rtol=1e-9)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,n", [(37, 128), (999, 1001), (5, 1001),
+                                 (1031, 14340), (301, 28676)])
+def test_prep_split_form_matches_plain(dev, dtype, m, n):
+    # specs the preps do not compute themselves: the kernels' passes over
+    # A, the spec's ρ, w and loss between them; normalized by A's rows
+    # and by another count, as on one rank of four
+    gen = torch.Generator(device=dev).manual_seed(m + 3 * n)
+    A = torch.randn((m, n), generator=gen, device=dev, dtype=dtype) * 0.1
+    y = (torch.rand((m,), generator=gen, device=dev) < 0.5).to(dtype)
+    xt = torch.randn((n,), generator=gen, device=dev, dtype=dtype) * 0.3
+    xd = torch.randn((n,), generator=gen, device=dev, dtype=dtype) * 0.3
+    for glm in (_least_squares_glm(), replace(LOGISTIC01_GLM, kind=None)):
+        for m_norm in (None, 4 * m + 3):
+            counters.reset()
+            got = glm_prep_pair(A, y, xt, xd, glm, m_norm)
+            for g, w_ in zip(got, glm_prep_pair_torch(A, y, xt, xd, glm,
+                                                      m_norm)):
+                _check(g, w_, dtype)
+            assert all(torch.equal(g, a) for g, a in zip(
+                got, glm_prep_pair(A, y, xt, xd, glm, m_norm)))
+            single = glm_prep(A, y, xt, glm, m_norm)
+            for g, w_ in zip(single, glm_prep_torch(A, y, xt, glm,
+                                                    m_norm)[:3]):
+                _check(g, w_, dtype)
+            assert all(torch.equal(g, a) for g, a in zip(
+                single, glm_prep(A, y, xt, glm, m_norm)))
+            assert counters.snapshot()["glm_prep_pair"] == 2
+            assert counters.snapshot()["glm_prep"] == 2
+
+
+@pytest.mark.parametrize("kernels", ["auto", "cuda"])
+@pytest.mark.parametrize("epoch_cache", [None, False])
+def test_uncovered_glm_kind_runs_the_split_prep(dev, epoch_cache, kernels):
+    # kind=None: K1, K3 and the prep kernel (its split form) launch; the
+    # solve equals kernels='torch' on the card
+    kw = dict(x_tol=1e-12, f_tol=1e-10, max_epoch=40, verbose=0,
+              stats_every=4, alpha=1.0)
+    spec = replace(LOGISTIC01_GLM, kind=None)
+    mk = lambda: replace(_small_logreg(dev), glm=spec)
+    method = st.ProxGGNSCORE(solver="cg", greedy_alpha=False,
+                             epoch_cache=epoch_cache, kernels=kernels)
+    counters.reset()
+    s_k = st.iterate(method, mk(), "l1", st.PHuberSmootherL1L2(1.0), **kw)
+    got = counters.snapshot()
+    prep = "glm_prep_pair" if epoch_cache is None else "glm_prep"
+    assert got["normal_matvec"] > 0 and got["score_update"] > 0
+    assert got[prep] > 0
+    s_torch = st.iterate(replace(method, kernels="torch"), mk(), "l1",
+                         st.PHuberSmootherL1L2(1.0), **kw)
+    assert s_k.epochs == s_torch.epochs
+    np.testing.assert_allclose(s_k.obj.numpy(), s_torch.obj.numpy(),
+                               rtol=1e-9)
+
+
+@pytest.mark.parametrize("kernels", ["auto", "cuda"])
+def test_uncovered_moglm_kind_runs_the_split_matvec(dev, kernels):
+    A, Y, x0, _ = synthetic.make_multinomial_data(256, 32, 4, seed=11,
+                                                  dtype=np.float64)
+    spec = replace(losses.multinom_mglm(4), kind=None)
+    mk = lambda: st.Problem(A, Y, x0, losses.multinom_f, 1e-2, mglm=spec,
+                            dtype=torch.float64, device=dev)
+    kw = dict(x_tol=1e-12, f_tol=1e-10, max_epoch=40, verbose=0,
+              stats_every=4, alpha=1.0)
+    method = st.ProxGGNSCORE(solver="cg", greedy_alpha=False,
+                             kernels=kernels)
+    counters.reset()
+    s_k = st.iterate(method, mk(), "l1", st.PHuberSmootherL1L2(1.0), **kw)
+    got = counters.snapshot()
+    assert got["mglm_matvec"] > 0 and got["score_update"] > 0
+    s_torch = st.iterate(replace(method, kernels="torch"), mk(), "l1",
+                         st.PHuberSmootherL1L2(1.0), **kw)
+    assert s_k.epochs == s_torch.epochs
+    np.testing.assert_allclose(s_k.obj.numpy(), s_torch.obj.numpy(),
                                rtol=1e-9)
 
 

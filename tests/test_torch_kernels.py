@@ -28,8 +28,10 @@ from scso_tpu_torch.ops.cuda import counters
 from scso_tpu_torch.ops.cuda.glm_prep import (
     PairPrep, glm_prep_pair, glm_prep_pair_torch, max_n, prep_grid)
 from scso_tpu_torch.ops.cuda.matvec import normal_matvec, normal_matvec_torch
+from scso_tpu_torch.ops.cuda.mglm_matvec import (
+    TC_MAX_K, TC_MAX_P, mglm_grid, tc_geometry, tc_smem_bytes)
 from scso_tpu_torch.ops.cuda.score_update import (
-    score_update, score_update_torch)
+    ONE_BLOCK_N, score_update, score_update_torch, update_blocks)
 
 torch.set_num_threads(1)
 
@@ -128,6 +130,18 @@ class TestPrepGrid:
         for n in (limit + 1, limit + e, 2 * limit):
             assert prep_grid(1031, n, dtype, candidates, 132).form == "wide"
 
+    @pytest.mark.parametrize("candidates,dtype,limit", LIMITS)
+    def test_uncovered_specs_take_the_split_form(self, candidates, dtype,
+                                                 limit):
+        # at any n, with the wide form's geometry (the same two passes)
+        for n in (1, 1001, limit, limit + 1, 2 * limit):
+            g = prep_grid(1031, n, dtype, candidates, 132, covered=False)
+            assert g.form == "split"
+            assert g.smem_bytes == g.chunks_per_thread == 0
+            if n > limit:
+                assert g == prep_grid(1031, n, dtype, candidates,
+                                      132)._replace(form="split")
+
     @pytest.mark.parametrize("candidates", [1, 2])
     @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
     @pytest.mark.parametrize("m,n,sms", [
@@ -177,6 +191,74 @@ class TestPrepGrid:
             == 80896
 
 
+class TestMglmGrid:
+    """K5's form and launch geometry, from the shapes alone (no card):
+    csrc/mglm_matvec.cu's tensor-core form takes float32 up to k = 16
+    and p = 1024, at any row alignment, and the two-pass form every
+    other shape and float64; a spec whose curvature the kernel does not
+    compute takes the split form."""
+
+    SMEM = 227 * 1024
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    def test_forms_switch_exactly_at_the_limits(self, dtype):
+        one_read = "tensor" if dtype == torch.float32 else "two_pass"
+        assert (TC_MAX_K, TC_MAX_P) == (16, 1024)
+        for k in (1, 8, 9, 15, 16):
+            for p in (1, 4, 77, 128, 132, 1020, 1022, 1024):
+                assert mglm_grid(3001, p, k, dtype, 132).form == one_read
+        for k, p in ((17, 1024), (16, 1025), (129, 77), (200, 8),
+                     (1, 1028), (17, 4)):
+            assert mglm_grid(3001, p, k, dtype, 132).form == "two_pass"
+
+    def test_float64_never_takes_the_tensor_cores(self):
+        for p, k in ((4, 1), (128, 8), (1024, 16), (1025, 16), (77, 200)):
+            assert mglm_grid(999, p, k, torch.float64, 132).form != "tensor"
+
+    def test_unaligned_float32_rows_take_the_tensor_cores(self):
+        # rows that are not 16-byte aligned (p % 4 != 0, or an offset
+        # view of A): the kernel copies them one float at a time
+        for p in (1, 77, 1022, 1023):
+            g = mglm_grid(999, p, 9, torch.float32, 132)
+            assert g.form == "tensor" and g.smem_bytes == tc_smem_bytes(p, 9)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    @pytest.mark.parametrize("m,p,k,sms", [
+        (1, 4, 1, 132), (5, 8, 3, 132), (16, 1, 2, 132), (130, 128, 3, 132),
+        (3001, 1024, 16, 132), (196608, 1024, 16, 132), (999, 252, 16, 114),
+        (1031, 77, 200, 132), (300, 1025, 9, 132), (7, 512, 5, 1),
+        (65536, 1024, 17, 132)])
+    def test_rows_covered_once_within_the_budget(self, dtype, m, p, k, sms):
+        for covered in (True, False):
+            g = mglm_grid(m, p, k, dtype, sms, covered)
+            # every row in exactly one block (or row chunk), none empty
+            assert g.blocks * g.rows_per_block >= m
+            assert (g.blocks - 1) * g.rows_per_block < m
+            assert 0 <= g.smem_bytes <= self.SMEM
+            assert g.threads % 32 == 0 and g.threads <= 1024
+            if g.form == "tensor":
+                assert g.blocks <= sms  # one block an SM, one wave
+                w, pp, nt = tc_geometry(p, k)
+                assert g.threads == 32 * w and pp >= p and 8 * nt >= k
+                assert pp % (16 * w) == 0  # whole m16 tiles a warp
+                assert g.smem_bytes == tc_smem_bytes(p, k)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    def test_uncovered_specs_take_the_split_form(self, dtype):
+        # at any shape, with the two-pass form's geometry
+        for m, p, k in ((3001, 1024, 16), (999, 77, 9), (1031, 77, 200),
+                        (300, 1025, 2), (1, 1, 1)):
+            g = mglm_grid(m, p, k, dtype, 132, covered=False)
+            assert g == mglm_grid(m, p, k, torch.float64, 132)._replace(
+                form="split")
+
+    def test_bench_shape_runs_the_tensor_cores(self):
+        # 196608×1024×16 float32 on a 132-SM H100: 16 warps, 1,490 rows
+        # a block, two 64 KB stages + 64 KB of V + the U partials
+        g = mglm_grid(196608, 1024, 16, torch.float32, 132)
+        assert g == ("tensor", 132, 1490, 214016, 512)
+
+
 class TestScoreUpdate:
     @pytest.mark.parametrize("n", [1000, 8320])
     @pytest.mark.parametrize("reg", ["l1", "l2", "indbox", "none"])
@@ -211,6 +293,16 @@ class TestScoreUpdate:
                            0.1, 1.0, 2.0, "none", use_prox=False)
         assert bool(torch.isfinite(out.eta))
         assert float(out.eta) == pytest.approx((8 * 0.01) ** 0.5, rel=1e-14)
+
+    def test_multi_block_form_only_past_the_one_block_limit(self):
+        assert ONE_BLOCK_N == 1 << 24
+        assert update_blocks(10112) == update_blocks(ONE_BLOCK_N) == 0
+        nb = update_blocks(ONE_BLOCK_N + 1)
+        assert nb == 257  # slices of 65536, the last one value
+        for n in (ONE_BLOCK_N + 1, 3 * ONE_BLOCK_N, 1 << 40):
+            nb = update_blocks(n)
+            chunk = -(-n // nb)
+            assert 1 <= nb <= 1024 and (nb - 1) * chunk < n <= nb * chunk
 
     def test_rejects_unknown_reg_and_device(self):
         x = torch.ones(4, dtype=torch.float64)
