@@ -1,22 +1,24 @@
 #!/usr/bin/env python3
-"""Profile chip_smoke.py's phase-3 and phase-5 chains on one GPU with
-torch.profiler.
+"""Profile chip_smoke.py's cached chains on one GPU with torch.profiler.
 
     python3 chip_profile.py [--trace PREFIX]
 
 Run from the root of a checkout, on a machine with one NVIDIA H100. For
-each of two chains — phase 3's sparse-logistic problem (196608×10000
-padded to 10112, seed 7, float32) and phase 5's multinomial problem
+each problem — phase 3's sparse logistic (196608×10000 padded to 10112,
+seed 7, float32), phase 9's (524288×1024), and phase 5's multinomial
 (196608×1024×16, seed 11, float32) — it builds the problem, presolves
 for x*, warms up, then profiles one timed chain to the 1e-6 gap (CPU
-and CUDA activities). It prints the card's name and power limit, then
-one JSON line a chain: the chain's host seconds; the device's busy time
-(the union of the intervals of its kernels, copies and sets) and its
-idle share of the profiled window (first to last device activity); and
-the device ms and kernel runs of the port's kernels in that chain, by
-kernel — K1 (its partial sums and their fixed-order sum), K2 (either
-form and its finalize), K3, K5 (any of its forms and its fixed-order
-sum) — and of everything else.
+and CUDA activities): with A in float32 (chip_smoke's F32_CG), and for
+the two logistic problems also with the bfloat16 copy of A
+(auto_lp=True, phase 11's lp chain). It prints the card's name and
+power limit, then one JSON line a chain: the chain's host seconds; the
+device's busy time (the union of the intervals of its kernels, copies
+and sets) and its idle share of the profiled window (first to last
+device activity); and the device ms and kernel runs of the port's
+kernels in that chain, by kernel — K1 on the bf16 copy (its partial
+sums), K1 (its partial sums on A and the fixed-order sums of both), K2
+(either form and its finalize), K3, K5 (any of its forms and its
+fixed-order sum) — and of everything else.
 ``--trace PREFIX`` also writes each chain's Chrome trace to
 PREFIX.<chain>.json. Without a CUDA device it exits non-zero and prints
 no result.
@@ -32,10 +34,11 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# kernel-name fragments of each of the port's kernels, by chain
+# kernel-name fragments of each of the port's kernels, by problem kind
 # (sum_partials is K1's on the logistic path and K5's on the multinomial)
 GROUPS = {
-    "main": {
+    "logistic": {
+        "K1 on the bf16 copy": ("normal_matvec_partial<__nv_bfloat16",),
         "K1 normal_matvec": ("normal_matvec_partial", "sum_partials"),
         "K2 glm_prep_pair": ("glm_onepass", "glm_rows", "glm_cols",
                              "glm_finalize"),
@@ -73,18 +76,29 @@ def busy_us(spans):
     return total
 
 
-def profile_chain(name, prob, card):
-    """Presolve, warm up, then profile one timed chain; print its line."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+def profile_problem(name, prob, card, kind, lp=False):
+    """Presolve, then profile the f32 chain (and with ``lp`` the chain
+    with the bf16 copy) on the anchored problem."""
     import chip_smoke as cs
     import scso_tpu_torch as st
     from scso_tpu_torch._src.struct import replace
 
-    method = st.ProxGGNSCORE(solver="cg", cg_maxiter=100)
-    best, x_opt, _ = cs.presolve(method, prob)
+    f32 = st.ProxGGNSCORE(**cs.F32_CG)
+    best, x_opt, _ = cs.presolve(f32, prob)
     prob_t = replace(prob, x_star=x_opt)
+    profile_chain(name, prob_t, best, f32, card, kind)
+    if lp:
+        profile_chain(f"{name}_lp", prob_t, best, st.ProxGGNSCORE(
+            **dict(cs.F32_CG, auto_lp=True)), card, kind)
+
+
+def profile_chain(name, prob_t, best, method, card, kind):
+    """Warm up, then profile one timed chain; print its line."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+
     cs.solve_chunk(method, prob_t)  # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -103,7 +117,7 @@ def profile_chain(name, prob, card):
         sys.exit(1)
     window = max(e for _, _, e in events) - min(s for _, s, _ in events)
     busy = busy_us([(s, e) for _, s, e in events])
-    groups = GROUPS[name]
+    groups = GROUPS[kind]
     kernels = {k: {"ms": 0.0, "runs": 0} for k in groups}
     kernels["other"] = {"ms": 0.0, "runs": 0}
     for ev, s, e in events:
@@ -135,11 +149,14 @@ def main():
                          text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0].strip()
     print(card, flush=True)
-    profile_chain("main", cs.build_problem(*cs.MAIN_SHAPE, "cuda",
-                                           torch.float32), card)
-    torch.cuda.empty_cache()
-    profile_chain("multinomial", cs.build_mglm_problem(
-        *cs.MGLM_SHAPE, "cuda", torch.float32), card)
+    for name, shape in (("main", cs.MAIN_SHAPE),
+                        ("narrow", cs.NARROW_SHAPE)):
+        profile_problem(name, cs.build_problem(*shape, "cuda",
+                                               torch.float32),
+                        card, "logistic", lp=True)
+        torch.cuda.empty_cache()
+    profile_problem("multinomial", cs.build_mglm_problem(
+        *cs.MGLM_SHAPE, "cuda", torch.float32), card, "multinomial")
 
 
 if __name__ == "__main__":

@@ -61,7 +61,7 @@ def main():
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60).stdout.strip())
     prob = cs.build_problem(*cs.MAIN_SHAPE, dev, torch.float32)
-    method = st.ProxGGNSCORE(solver="cg", cg_maxiter=100)
+    method = st.ProxGGNSCORE(**cs.F32_CG)
     best, x_opt, _ = cs.presolve(method, prob)
     prob_t = replace(prob, x_star=x_opt)
     cs.solve_chunk(method, prob_t)  # warm-up
@@ -73,8 +73,7 @@ def main():
     torch.cuda.empty_cache()
     out = {"world": world, "rows_per_rank": sp.A.shape[0], "unsharded": ref}
     for chunks in (1, 2):
-        m_ = st.ProxGGNSCORE(solver="cg", cg_maxiter=100,
-                             comm_overlap_chunks=chunks)
+        m_ = st.ProxGGNSCORE(**cs.F32_CG, comm_overlap_chunks=chunks)
         cs.solve_chunk(m_, sp)  # warm-up
         counters.reset()
         r = cs.timed_chain(m_, sp, best, keep_x=True)

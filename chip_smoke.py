@@ -11,10 +11,14 @@ result. Phases, each fatal on failure:
   1. The card (name and power limit from nvidia-smi); build the CUDA
      kernels from ``scso_tpu_torch/csrc`` and print the build seconds.
   2. Each kernel against its plain PyTorch version on the card, in
-     float32 and float64, at the main-path and narrow shapes (K1, K2
-     also normalized by another row count, K2s, and K1s under a one-rank NCCL group: bitwise K1, and its
+     float32 and float64, at the main-path and narrow shapes (K1, K1
+     with A's bfloat16 copy and w, v in the working type, K2 also
+     normalized by another row count, K2s, and K1s under a one-rank
+     NCCL group: bitwise K1, with A in bfloat16 too, and its
      overlapped form with 2 and 3 column chunks against the plain
-     version), at block-boundary shapes, at n above K1's shared-memory form,
+     version), at block-boundary shapes (with n % 8 != 0: a bfloat16
+     row that is not 16-byte aligned), at n above K1's shared-memory
+     form (also with A in bfloat16),
      at odd n for K3 and at n = 2²⁴ + 1 (its multi-block form), for K5
      at the multinomial bench shape (where its limit must also reject
      a one-TF32-product version of either contraction, emulated in
@@ -30,13 +34,16 @@ result. Phases, each fatal on failure:
      runs of back-to-back calls, the median of 5 runs' per-call time)
      of each kernel beside its plain version at its path's full-width
      shape, with the rate over A's bytes of those that stream A (K1,
-     K1s, K2 and K2s also at 524288×1024, K2 also in its split form),
-     and of one 40 KB NCCL all-reduce.
+     K1 with A in bfloat16, K1s, K2 and K2s also at 524288×1024 beside
+     their bounds, K2 also in its split form), and of one 40 KB NCCL
+     all-reduce.
   3. The sparse-logistic path at full width: 196608×10000 (padded to
-     10112), seed 7, float32 on the card, solved by the no-knob
-     ProxGGNSCORE(solver='cg', cg_maxiter=100) with the pseudo-Huber l1
-     smoother — a presolve chain fixes x*, then a timed chain from x0
-     must reach the 1e-6 objective gap with K1, K2 and K3 launched.
+     10112), seed 7, float32 on the card, solved by the JAX bench's
+     ProxGGNSCORE(solver='cg', cg_maxiter=100) with A in float32
+     throughout (auto_lp=False, F32_CG; phase 11 runs the bfloat16
+     copy) and the pseudo-Huber l1 smoother — a presolve chain fixes
+     x*, then a timed chain from x0 must reach the 1e-6 objective gap
+     with K1, K2 and K3 launched.
   4. Cross-checks: the same timed chain with kernels='torch' must agree
      on the final objective, and a small float64 solve through the
      kernels must match the plain path on the CPU.
@@ -82,9 +89,23 @@ result. Phases, each fatal on failure:
      GLMSpec) under kernels='auto', phase 3's protocol: K1, K2 (in its
      split form) and K3 launched; the chain reaches the gap and agrees
      with its kernels='torch' chain.
+ 11. Precision-adaptive CG: phase 3's and phase 9's problems (anchored
+     at their x*, no second presolve) and a smaller one (LP_SMALL_SHAPE,
+     presolved here), each solved under phase 3's protocol in turns
+     with A in float32 and with auto_lp=True (a bfloat16 copy of A for
+     the bulk epochs, A for the endgame): f32, lp, lp, f32. Each lp
+     chain must reach the gap with K1 launched on the copy and on A,
+     its final objective within E2E_RTOL of phase 3's (9's) chain; the
+     seconds, epochs and CG iterations of both arms are printed, with
+     whether the copy won and whether AUTO (auto_lp=None) attaches it
+     at that size. Then a small float64 solve with the copy,
+     cg_adaptive=True and cg_lp_tol=1e-2 through the kernels must match
+     the CPU plain path on the same copy.
 
 The last two lines of standard output are one JSON object with each
-kernel's numbers, then ``{"ok": true, "device": {...}}``. Each kernel's
+kernel's numbers, then ``{"ok": true, "device": {...}}`` (K1 with A in
+bfloat16 is its own row, ``normal_matvec_bf16``: its launches are
+phase 11's lp chains'). Each kernel's
 ``bound_ms`` is the larger of the bytes it must move (each input read
 once, each output written once) over 3.35 TB/s and its multiply-adds
 over A (or the vectors) at 67 TFLOP/s, the H100 SXM data sheet's HBM
@@ -164,12 +185,24 @@ TWO_LOOP_CASES = [(10112, 10, 10), (10112, 10, 0), (361, 5, 3),
                   (777, 65, 70), (361, 100, 103), (2000, 200, 130),
                   (64, 4100, 4103)]
 TWO_RANK_ROWS = 32768  # rows of each rank in phase 8(b)
+# the GGN-CG method of phases 3 and 7-10 (and chip_profile.py,
+# chip_sharded.py): the JAX bench's ProxGGNSCORE(solver='cg',
+# cg_maxiter=100) with A in float32 throughout; phase 11 runs it with
+# the bfloat16 copy (auto_lp=True)
+F32_CG = dict(solver="cg", cg_maxiter=100, auto_lp=False)
+# phase 11's third, smaller shape, for AUTO's byte threshold (the bench
+# shapes are the other two)
+LP_SMALL_SHAPE = (32768, 10000)
 HBM_BYTES_S = 3.35e12  # H100 SXM data sheet: HBM3 rate
 FP32_FLOP_S = 67e12    # H100 SXM data sheet: FP32 outside the tensor cores
 
 KERNELS = {
     "normal_matvec": ("scso_tpu_torch/csrc/matvec.cu",
                       "scso_tpu/ops/pallas/matvec.py:118"),
+    # K1's variant for A stored in bfloat16 (the TPU kernel compiles the
+    # same function for a bf16 A)
+    "normal_matvec_bf16": ("scso_tpu_torch/csrc/matvec.cu",
+                           "scso_tpu/ops/pallas/matvec.py:118"),
     "normal_matvec_sharded": ("scso_tpu_torch/ops/cuda/matvec.py",
                               "scso_tpu/ops/pallas/matvec.py:196"),
     "glm_prep_pair": ("scso_tpu_torch/csrc/glm_prep.cu",
@@ -269,7 +302,8 @@ def time_ms(fn, reps=5, run_ms=20.0):
 
 def data_kernel_case(m, n, dtype, gen, mesh, timed=False):
     """K1, K1s (on the one-rank ``mesh``), K2 and K2s against their
-    plain versions on random data (m, n)."""
+    plain versions on random data (m, n); K1 and K1s also with A's
+    bfloat16 copy (w and v in ``dtype``)."""
     import torch
 
     from scso_tpu_torch._src.struct import replace
@@ -307,6 +341,11 @@ def data_kernel_case(m, n, dtype, gen, mesh, timed=False):
                    normal_matvec_sharded(A, w, v, mesh, overlap_chunks=c),
                    plain, dn) for c in (2, 3)])
     del k1, plain
+    # K1 with A in bfloat16: the plain version upcasts the copy to
+    # dtype (an A-sized temporary), so both use the same values of A
+    A_lp = A.to(torch.bfloat16)
+    res["normal_matvec_bf16"] = bf16_matvec_checks(A_lp, w, v, mesh, tag,
+                                                   dn)
 
     res.update(prep_checks(A, y, xt, xd, tag, dn))
     times = {}
@@ -314,6 +353,9 @@ def data_kernel_case(m, n, dtype, gen, mesh, timed=False):
         times["normal_matvec"] = (
             time_ms(lambda: normal_matvec(A, w, v)),
             time_ms(lambda: normal_matvec_torch(A, w, v)))
+        times["normal_matvec_bf16"] = (
+            time_ms(lambda: normal_matvec(A_lp, w, v)),
+            time_ms(lambda: normal_matvec_torch(A_lp, w, v)))
         times["normal_matvec_sharded"] = (
             time_ms(lambda: normal_matvec_sharded(A, w, v, mesh)),
             time_ms(lambda: normal_matvec_sharded_torch(A, w, v, mesh)))
@@ -329,9 +371,29 @@ def data_kernel_case(m, n, dtype, gen, mesh, timed=False):
         times["glm_prep_pair, split form"] = (
             time_ms(lambda: glm_prep_pair(A, y, xt, xd, split)),
             times["glm_prep_pair"][1])
-    del A
+    del A, A_lp
     torch.cuda.empty_cache()
     return res, times
+
+
+def bf16_matvec_checks(A_lp, w, v, mesh, tag, dn):
+    """K1 with a bfloat16 A against its plain version at ``dn``'s
+    tolerance, with a bitwise rerun; K1s on it under the one-rank
+    ``mesh`` bitwise K1. Returns K1's max abs error."""
+    import torch
+
+    from scso_tpu_torch.ops.cuda.matvec import (
+        normal_matvec, normal_matvec_sharded, normal_matvec_torch)
+
+    what = f"normal_matvec, A in bfloat16 {tag}"
+    got = normal_matvec(A_lp, w, v)
+    if got.dtype != v.dtype:
+        fail(f"{what}: result in {got.dtype}, not v's {v.dtype}")
+    same_bits(what, [got], [normal_matvec(A_lp, w, v)])
+    if not torch.equal(normal_matvec_sharded(A_lp, w, v, mesh), got):
+        fail(f"normal_matvec_sharded, A in bfloat16 {tag}: not bitwise K1 "
+             "on one rank")
+    return compare(what, got, normal_matvec_torch(A_lp, w, v), dn)
 
 
 def least_squares_glm():
@@ -509,7 +571,13 @@ def wide_matvec_case(m, n, dtype, gen):
     tag = f"normal_matvec wide ({m}x{n} {dn})"
     got = normal_matvec(A, w, v)
     same_bits(tag, [got], [normal_matvec(A, w, v)])
-    return compare(tag, got, normal_matvec_torch(A, w, v), dn)
+    err = compare(tag, got, normal_matvec_torch(A, w, v), dn)
+    A_lp = A.to(torch.bfloat16)
+    del A
+    got = normal_matvec(A_lp, w, v)
+    tag = f"normal_matvec wide, A in bfloat16 ({m}x{n} {dn})"
+    same_bits(tag, [got], [normal_matvec(A_lp, w, v)])
+    return err, compare(tag, got, normal_matvec_torch(A_lp, w, v), dn)
 
 
 def mglm_inputs(m, p, k, dtype, gen):
@@ -617,6 +685,8 @@ def work_bounds(main, mglm_shape, lbfgs_case):
     k1 = (f * (m * n + m + 2 * n), 4 * m * n)
     return {
         "normal_matvec": k1,
+        # A in bfloat16, w, v and the result in float32
+        "normal_matvec_bf16": (2 * m * n + f * (m + 2 * n), 4 * m * n),
         "normal_matvec_sharded": (k1[0] + 2 * f * n, k1[1]),
         "glm_prep_pair": (f * (m * n + 3 * m + 6 * n + 2), 14 * m * n),
         "glm_prep": (f * (m * n + 2 * m + 3 * n), 7 * m * n),
@@ -650,6 +720,7 @@ def phase_kernels(mesh):
             res, t = data_kernel_case(m, n, dtype, gen, mesh, timed=timed)
             log(f"  K1/K1s/K2/K2s {m}x{n} {dtype}: max abs err "
                 f"K1 {res['normal_matvec']:.3e} "
+                f"K1 with A in bf16 {res['normal_matvec_bf16']:.3e} "
                 f"K1s {res['normal_matvec_sharded']:.3e} "
                 f"K2 {res['glm_prep_pair']:.3e} "
                 f"K2s {res['glm_prep']:.3e} "
@@ -675,8 +746,9 @@ def phase_kernels(mesh):
         dn = str(dtype).replace("torch.", "")
         for (m, n, wdn) in WIDE_SHAPES:
             if wdn == dn:
-                log(f"  K1 wide {m}x{n} {dn}: max abs err "
-                    f"{wide_matvec_case(m, n, dtype, gen):.3e}")
+                err, err_lp = wide_matvec_case(m, n, dtype, gen)
+                log(f"  K1 wide {m}x{n} {dn}: max abs err {err:.3e}, with "
+                    f"A in bf16 {err_lp:.3e}")
         for (m, p, k) in [MGLM_SHAPE] + MGLM_SHAPES:
             timed = dtype == torch.float32 and (m, p, k) == MGLM_SHAPE
             t0 = time.perf_counter()
@@ -706,15 +778,20 @@ def phase_kernels(mesh):
                              "glm_prep_pair, split form"),
                             4 * main[0] * main[1])
     a_bytes["mglm_matvec"] = 4 * MGLM_SHAPE[0] * MGLM_SHAPE[1]
+    a_bytes["normal_matvec_bf16"] = 2 * main[0] * main[1]
     for k, (ms, plain) in times.items():
         rate = (f", {a_bytes[k] / ms / 1e6:.1f} GB/s of A" if k in a_bytes
                 else "")
         log(f"  time at the main-path shape, {k}: kernel {ms:.4f} ms"
             f"{rate}, plain {plain:.4f} ms (CUDA events, runs of calls)")
-    narrow_bytes = 4 * NARROW_SHAPE[0] * NARROW_SHAPE[1]
+    narrow_bounds = work_bounds(NARROW_SHAPE, MGLM_SHAPE, TWO_LOOP_CASES[0])
     for k, (ms, plain) in narrow_times.items():
+        a = NARROW_SHAPE[0] * NARROW_SHAPE[1] * (
+            2 if k == "normal_matvec_bf16" else 4)
+        extra = (f", bound {bound(*narrow_bounds[k])[0]:.4f} ms"
+                 if k in narrow_bounds else "")
         log(f"  time at {NARROW_SHAPE[0]}x{NARROW_SHAPE[1]}, {k}: kernel "
-            f"{ms:.4f} ms, {narrow_bytes / ms / 1e6:.1f} GB/s of A, plain "
+            f"{ms:.4f} ms, {a / ms / 1e6:.1f} GB/s of A{extra}, plain "
             f"{plain:.4f} ms (CUDA events, runs of calls)")
     buf = torch.ones(main[1], device="cuda")
     ar_ms = time_ms(lambda: dist.all_reduce(buf, group=mesh.group))
@@ -817,7 +894,7 @@ def phase_main_path(shape=MAIN_SHAPE):
     log(f"  data {shape[0]}x{shape[1]} padded to "
         f"{tuple(prob.A.shape)}, made and moved in "
         f"{time.perf_counter() - t0:.1f} s")
-    method = st.ProxGGNSCORE(solver="cg", cg_maxiter=100)
+    method = st.ProxGGNSCORE(**F32_CG)
     t0 = time.perf_counter()
     best, x_opt, pre_epochs = presolve(method, prob)
     log(f"  presolve: obj* {best:.9e} after {pre_epochs} epochs "
@@ -1064,7 +1141,7 @@ def phase_uncached(prob_t, best):
     import scso_tpu_torch as st
     from scso_tpu_torch.ops.cuda import counters
 
-    method = st.ProxGGNSCORE(solver="cg", cg_maxiter=100, epoch_cache=False)
+    method = st.ProxGGNSCORE(**F32_CG, epoch_cache=False)
     warm = lambda m_: st.iterate(m_, prob_t, "l1", st.PHuberSmootherL1L2(1.0),
                                  x_tol=1e-12, f_tol=GAP, max_epoch=4,
                                  verbose=0, stats_every=4, alpha=1.0)
@@ -1102,23 +1179,19 @@ def phase_uncached(prob_t, best):
 # ---------------------------------------------------------------------------
 
 
-def phase_kind_none(best, x_star):
-    """Phase 3's problem with ``kind=None`` in its GLM spec (as a user
-    builds a GLMSpec) under kernels='auto', anchored at phase 3's x*:
-    K1, K2 (its split form) and K3 launch; the chain must reach the gap
-    and agree with its kernels='torch' chain."""
+def phase_kind_none(prob3, best):
+    """Phase 3's problem (``prob3``, anchored at its x*) with
+    ``kind=None`` in its GLM spec (as a user builds a GLMSpec) under
+    kernels='auto': K1, K2 (its split form) and K3 launch; the chain
+    must reach the gap and agree with its kernels='torch' chain."""
     import dataclasses
-
-    import torch
 
     import scso_tpu_torch as st
     from scso_tpu_torch._src.struct import replace
     from scso_tpu_torch.ops.cuda import counters
 
-    prob = build_problem(*MAIN_SHAPE, "cuda", torch.float32)
-    prob_t = replace(prob, glm=replace(prob.glm, kind=None), x_star=x_star)
-    del prob
-    method = st.ProxGGNSCORE(solver="cg", cg_maxiter=100)
+    prob_t = replace(prob3, glm=replace(prob3.glm, kind=None))
+    method = st.ProxGGNSCORE(**F32_CG)
     solve_chunk(method, prob_t)  # warm-up
     counters.reset()
     kern = timed_chain(method, prob_t, best)
@@ -1143,6 +1216,138 @@ def phase_kind_none(best, x_star):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the cached chain with the bfloat16 copy of A
+# ---------------------------------------------------------------------------
+
+LP_KERNELS = LOGISTIC_KERNELS + ("normal_matvec_bf16",)
+
+
+def lp_chains(prob_t, best, ref_obj, what):
+    """The cached chain to the gap on ``prob_t`` (anchored at its x*,
+    obj* ``best``) with A in float32 (F32_CG) and with the bfloat16 copy
+    (auto_lp=True, which attaches the copy and sets cg_lp_tol to the CG
+    floor), in turns f32, lp, lp, f32. Each lp chain must launch K1 on
+    the copy (the bulk epochs) and on A (the endgame) and end within
+    E2E_RTOL of ``ref_obj`` (None: of this phase's f32 chains). Also
+    reports whether AUTO (auto_lp=None) attaches the copy to this A.
+    Returns (result dict, the lp chains' launches summed)."""
+    import torch
+
+    import scso_tpu_torch as st
+    from scso_tpu_torch.algorithms.iterate import _auto_lp
+    from scso_tpu_torch.ops.cuda import counters
+
+    f32 = st.ProxGGNSCORE(**F32_CG)
+    lp = st.ProxGGNSCORE(**dict(F32_CG, auto_lp=True))
+    auto_on = _auto_lp(st.ProxGGNSCORE(**dict(F32_CG, auto_lp=None)),
+                       prob_t)[1].A_lp is not None
+    solve_chunk(f32, prob_t)  # warm-up
+    solve_chunk(lp, prob_t)
+    runs = {"f32": [], "lp": []}
+    lp_launches = dict.fromkeys(counters.snapshot(), 0)
+    for arm in ("f32", "lp", "lp", "f32"):
+        counters.reset()
+        r = timed_chain(f32 if arm == "f32" else lp, prob_t, best)
+        r["launches"] = counters.snapshot()
+        runs[arm].append(r)
+        lc = r["launches"]
+        log(f"  {what}, {arm}: {r['seconds']:.4f} s, {r['epochs']} "
+            f"epochs, {r['cg_iters']} CG iterations, gap {r['gap']:.3e}, "
+            f"obj {r['obj']:.9e}, launches {lc}")
+        if not r["gap"] <= GAP * 1.05:
+            fail(f"{what} {arm} chain missed the {GAP:g} gap: {r['gap']:.3e}")
+        if arm == "f32":
+            check_launches(lc, LOGISTIC_KERNELS, f"{what} f32")
+            continue
+        check_launches(lc, LP_KERNELS, f"{what} lp")
+        if not lc["normal_matvec"] > lc["normal_matvec_bf16"]:
+            fail(f"{what} lp chain: K1 never ran on A (the endgame)")
+        for k in lp_launches:
+            lp_launches[k] += lc[k]
+    f32_obj = runs["f32"][0]["obj"]
+    ref = f32_obj if ref_obj is None else ref_obj
+    for r in runs["lp"]:
+        rel = abs(r["obj"] - ref) / abs(ref)
+        if not rel <= E2E_RTOL:
+            fail(f"{what}: lp final objective {r['obj']:.9e} vs "
+                 f"{ref:.9e} (rel {rel:.2e} > {E2E_RTOL:g})")
+    secs = {arm: [r["seconds"] for r in rs] for arm, rs in runs.items()}
+    a_bytes = prob_t.A.numel() * prob_t.A.element_size()
+    won = sum(secs["lp"]) < sum(secs["f32"])
+    lc = runs["lp"][0]["launches"]
+    log(f"  {what}: A {a_bytes} bytes; f32 chains {secs['f32']} s, lp "
+        f"chains {secs['lp']} s: the copy {'won' if won else 'lost'}; lp "
+        f"launches K1 on the copy {lc['normal_matvec_bf16']} (bulk), on A "
+        f"{lc['normal_matvec'] - lc['normal_matvec_bf16']} (endgame); lp "
+        f"final objectives within {E2E_RTOL:g} of {ref:.9e}; AUTO "
+        f"(auto_lp=None) {'attaches' if auto_on else 'does not attach'} "
+        "the copy here")
+    torch.cuda.empty_cache()
+    out = dict(a_bytes=a_bytes, lp_won=won, auto_attaches=auto_on,
+               **{arm: [{k: r[k] for k in ("seconds", "epochs", "cg_iters",
+                                            "obj")} for r in rs]
+                  for arm, rs in runs.items()},
+               lp_bulk_launches=lc["normal_matvec_bf16"],
+               lp_endgame_launches=lc["normal_matvec"]
+               - lc["normal_matvec_bf16"])
+    return out, lp_launches
+
+
+def phase_lp(main3, narrow9):
+    """Phase 11: ``lp_chains`` on phase 3's and phase 9's anchored
+    problems (against their chains' final objectives), and on a smaller
+    problem presolved here; then a small float64 solve with the copy,
+    cg_adaptive=True and cg_lp_tol=1e-2, through the kernels against the
+    CPU plain path on the same copy."""
+    import torch
+
+    import scso_tpu_torch as st
+    from scso_tpu_torch._src.struct import replace
+    from scso_tpu_torch.ops.cuda import counters
+
+    res, launches = {}, None
+    for name, (prob_t, best, ref) in (("main", main3), ("narrow", narrow9)):
+        shape = tuple(prob_t.A.shape)
+        res[name], lc = lp_chains(prob_t, best, ref,
+                                  f"{shape[0]}x{shape[1]}")
+        launches = lc if launches is None else {
+            k: launches[k] + lc[k] for k in launches}
+    prob = build_problem(*LP_SMALL_SHAPE, "cuda", torch.float32)
+    best, x_opt, _ = presolve(st.ProxGGNSCORE(**F32_CG), prob)
+    prob_t = replace(prob, x_star=x_opt)
+    del prob
+    shape = tuple(prob_t.A.shape)
+    res["small"], lc = lp_chains(prob_t, best, None,
+                                 f"{shape[0]}x{shape[1]}")
+    launches = {k: launches[k] + lc[k] for k in launches}
+    del prob_t
+
+    M, N = 512, 200
+    method = st.ProxGGNSCORE(solver="cg", greedy_alpha=False,
+                             cg_adaptive=True, cg_lp_tol=1e-2)
+    cpu = st.with_lp_copy(build_problem(M, N, "cpu", torch.float64))
+    gpu = replace(build_problem(M, N, "cuda", torch.float64),
+                  A_lp=cpu.A_lp.to("cuda"))
+    counters.reset()
+    s_gpu = solve_chunk(method, gpu)
+    lc = counters.snapshot()
+    if not 0 < lc["normal_matvec_bf16"] < lc["normal_matvec"]:
+        fail(f"small f64 lp solve: launches {lc}")
+    s_cpu = solve_chunk(method, cpu)
+    if s_gpu.epochs != s_cpu.epochs or s_gpu.x.shape != (N,):
+        fail(f"small f64 lp solve: epochs {s_gpu.epochs} vs "
+             f"{s_cpu.epochs}, x shape {tuple(s_gpu.x.shape)}")
+    rel = float(((s_gpu.obj - s_cpu.obj).abs() / s_cpu.obj.abs()).max())
+    if not bool(torch.isfinite(s_gpu.x).all()) or not rel <= SMALL_RTOL:
+        fail(f"small f64 lp solve: objective histories differ by {rel:.2e}")
+    log(f"  small f64 lp solve {M}x{N} (cg_adaptive, cg_lp_tol=1e-2): "
+        f"{s_gpu.epochs} epochs, K1 on the copy {lc['normal_matvec_bf16']} "
+        f"of {lc['normal_matvec']} launches, card kernels vs CPU plain max "
+        f"rel objective diff {rel:.2e} (tolerance {SMALL_RTOL:g})")
+    return res, launches
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the row-sharded cached GGN-CG path
 # ---------------------------------------------------------------------------
 
@@ -1159,7 +1364,7 @@ def phase_sharded_one_rank(mesh, prob_t, best, kern, launches3):
     from scso_tpu_torch.ops.cuda import counters
     from scso_tpu_torch.parallel import shard_problem
 
-    method = st.ProxGGNSCORE(solver="cg", cg_maxiter=100)
+    method = st.ProxGGNSCORE(**F32_CG)
     sp = shard_problem(prob_t, mesh)
     solve_chunk(method, sp)  # warm-up
     counters.reset()
@@ -1230,8 +1435,7 @@ def rank_worker(port, rank, workdir):
         sol=np.load(os.path.join(workdir, "xstar.npy")), pad_features=True)
     out = {}
     for chunks in (1, 2):
-        method = st.ProxGGNSCORE(solver="cg", cg_maxiter=100,
-                                 comm_overlap_chunks=chunks)
+        method = st.ProxGGNSCORE(**F32_CG, comm_overlap_chunks=chunks)
         solve_chunk(method, prob)  # warm-up
         counters.reset()
         r = timed_chain(method, prob, best, keep_x=True)
@@ -1281,7 +1485,7 @@ def phase_sharded_two_ranks():
         del A, y
         log(f"  data 2x{TWO_RANK_ROWS}x{MAIN_SHAPE[1]} made and written in "
             f"{time.perf_counter() - t0:.1f} s")
-        method = st.ProxGGNSCORE(solver="cg", cg_maxiter=100)
+        method = st.ProxGGNSCORE(**F32_CG)
         best, x_opt, _ = presolve(method, prob)
         prob_t = replace(prob, x_star=x_opt)
         solve_chunk(method, prob_t)  # warm-up
@@ -1440,8 +1644,6 @@ def main():
     log(" (a) one rank over NCCL, full width")
     skern, slaunches = phase_sharded_one_rank(mesh, prob_t, best, kern,
                                               launches)
-    x_star = prob_t.x_star
-    del prob_t
     torch.cuda.empty_cache()
     log(" (b) two ranks on the one card over gloo")
     two = phase_sharded_two_ranks()
@@ -1449,13 +1651,18 @@ def main():
 
     log(f"phase 9: the cached GGN-CG path at {NARROW_SHAPE[0]}x"
         f"{NARROW_SHAPE[1]} (the JAX bench's secondary shape)")
-    nkern, nplain, nlaunches, _, _ = phase_main_path(NARROW_SHAPE)
+    nkern, nplain, nlaunches, nprob_t, nbest = phase_main_path(NARROW_SHAPE)
 
     log("phase 10: phase 3's problem with kind=None in its GLM spec, "
         "under kernels='auto'")
-    kkern, kplain, klaunches = phase_kind_none(best, x_star)
+    kkern, kplain, klaunches = phase_kind_none(prob_t, best)
+
+    log("phase 11: the cached chain with a bfloat16 copy of A "
+        "(auto_lp=True) against A in float32")
+    lp, lplaunches = phase_lp((prob_t, best, kern["obj"]),
+                              (nprob_t, nbest, nkern["obj"]))
     launches = {k: launches[k] + mlaunches[k] + llaunches[k] + ulaunches[k]
-                + slaunches[k] + nlaunches[k] + klaunches[k]
+                + slaunches[k] + nlaunches[k] + klaunches[k] + lplaunches[k]
                 for k in launches}
 
     leaked = [m for m in sys.modules
@@ -1480,6 +1687,7 @@ def main():
                                                 "torch": nplain}))
     log("kind=None path: " + json.dumps({"card": card, "auto": kkern,
                                          "torch": kplain}))
+    log("lp path: " + json.dumps({"card": card, **lp}))
     rows = []
     for k, (src, rep) in KERNELS.items():
         bound_ms, bound_by = bound(*work[k])

@@ -12,14 +12,17 @@ Ported, on full batches with the pseudo-Huber l1 smoother:
 ``ProxLQNSCORE`` (L-BFGS, the default method of ``iterate``), on sparse
 logistic regression with 0/1 labels (``GLMSpec``), multinomial softmax
 regression (``MOGLMSpec``, ``mglm=``), or any data f with ``grad_fx``
-or autograd. What the port leaves out raises NotImplementedError naming
-its ROADMAP item.
+or autograd. GGN-CG on a GLM spec runs precision-adaptive CG on a
+bfloat16 copy of A (``with_lp_copy`` with ``cg_lp_tol``, or
+``auto_lp``). What the port leaves out raises NotImplementedError
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
 from scso_tpu_torch.algorithms.iterate import Options, Solution, iterate, solve
 from scso_tpu_torch.algorithms.methods import ProxGGNSCORE, ProxLQNSCORE
+from scso_tpu_torch.algorithms.mixed import iterate_mixed, with_lp_copy
 from scso_tpu_torch.ops.linalg import cg_solve
 from scso_tpu_torch.ops.prox import prox_l1, prox_l2, prox_indbox, prox_step
 from scso_tpu_torch.ops.regularizers import reg_value
@@ -42,6 +45,8 @@ __all__ = [
     "solve",
     "Options",
     "Solution",
+    "iterate_mixed",
+    "with_lp_copy",
     "PHuberSmootherL1L2",
     "get_Mg",
     "prox_step",

@@ -38,9 +38,10 @@ import torch
 
 from scso_tpu_torch._src.struct import replace as dc_replace
 from scso_tpu_torch.algorithms.methods import ProxGGNSCORE, ProxLQNSCORE
+from scso_tpu_torch.algorithms.mixed import with_lp_copy
 from scso_tpu_torch.algorithms.steps import (
-    GLMCache, MOGLMCache, _cw, _lam_scalar, epoch_cache_enabled, ggn_step,
-    lbfgs_step, prime_glm_cache)
+    GLMCache, MOGLMCache, _cg_tol, _cw, _lam_scalar, _resolve_ggn_solver,
+    epoch_cache_enabled, ggn_step, lbfgs_step, prime_glm_cache)
 from scso_tpu_torch.ops.lbfgs_core import LBFGSMemory, init_memory
 from scso_tpu_torch.problems import Problem
 
@@ -171,18 +172,59 @@ def _effective_L(prob: Problem, alpha):
     return prob
 
 
-def _auto_lp(method, prob: Problem):
-    """AUTO precision-adaptive CG, resolved OFF. The JAX package's byte
-    thresholds were measured on a TPU v5e, and the bfloat16 copy of A
-    waits for measurements on the H100 (ROADMAP A10); an explicit
-    request raises."""
-    if not isinstance(method, ProxGGNSCORE):
+# AUTO precision-adaptive CG engages from this many bytes of A (of this
+# rank's rows): the smallest A at which the cached chain with the bf16
+# copy beat the chain without it on the H100 (chip_smoke.py phase 11,
+# PERF.md). The JAX package's 2 GiB was measured on a TPU v5e.
+_AUTO_LP_MIN_BYTES = 2 * 1024**3
+
+
+def _auto_lp(method, prob: Problem, reg_name: str = "l1"):
+    """Resolve ProxGGNSCORE.auto_lp: maybe attach a bfloat16 copy of A
+    and set cg_lp_tol to the CG floor (precision-adaptive CG through the
+    bulk epochs, float32 once the endgame tightens past the floor).
+
+    The JAX package's gates, in its order: ProxGGNSCORE; no explicit
+    cg_lp_tol, no cg_adaptive, no curvature_rows; a 2-D data problem
+    without a copy yet; a float32 GLM (the port solves full batches
+    only); the resolved solver 'cg'; a row mesh (the port's only kind of
+    mesh, whose copy ``shard_problem`` shards with A). A multi-output
+    problem takes the copy only on its cached path, whose lp product is
+    not ported: auto_lp=True raises there (ROADMAP A10) and None
+    resolves off. ``auto_lp=None`` then adds the measured-win gates: A
+    on a CUDA device (where the JAX package asks for a TPU), at least
+    ``_AUTO_LP_MIN_BYTES`` of this rank's rows, and 1.55 times A (A, the
+    copy and slack) within 0.85 of the card's memory. True skips those
+    three; False disables."""
+    auto = method.auto_lp if isinstance(method, ProxGGNSCORE) else False
+    if auto is False:
         return method, prob
-    if method.cg_lp_tol > 0 or method.auto_lp:
-        raise NotImplementedError(
-            "precision-adaptive CG on a low-precision copy of A is not "
-            "ported yet (ROADMAP A10)")
-    return method, prob
+    if method.cg_lp_tol != 0.0 or method.cg_adaptive or method.curvature_rows:
+        return method, prob
+    if prob.A is None or prob.A.ndim != 2 or prob.A_lp is not None:
+        return method, prob
+    if prob.mglm is not None:
+        if auto and epoch_cache_enabled(method, prob, reg_name, True):
+            raise NotImplementedError(
+                "precision-adaptive CG on the cached multi-output path (its "
+                "bf16-A product) is not ported yet (ROADMAP A10)")
+        return method, prob
+    if prob.glm is None or prob.x0.dtype != torch.float32:
+        return method, prob
+    if _resolve_ggn_solver(method, prob, prob.x0) != "cg":
+        return method, prob
+    if auto is None:
+        A = prob.A
+        if A.device.type != "cuda":
+            return method, prob
+        nbytes = A.numel() * A.element_size()  # this rank's rows
+        if nbytes < _AUTO_LP_MIN_BYTES:
+            return method, prob
+        _, total = torch.cuda.mem_get_info(A.device)
+        if nbytes * 1.55 > 0.85 * total:
+            return method, prob
+    method = dc_replace(method, cg_lp_tol=_cg_tol(method, prob.x0.dtype))
+    return method, with_lp_copy(prob)
 
 
 def solve(method, prob: Problem, reg_name: str, sm, opts: Options,
@@ -193,7 +235,7 @@ def solve(method, prob: Problem, reg_name: str, sm, opts: Options,
             f"{type(method).__name__} is not ported yet (ROADMAP A7)")
     prob = _effective_L(prob, alpha)
     method = _resolve_kernels(method, prob)
-    method, prob = _auto_lp(method, prob)
+    method, prob = _auto_lp(method, prob, reg_name)
     _check_sharded(method, prob, reg_name)
     sync = (torch.cuda.synchronize if prob.device.type == "cuda"
             else lambda: None)

@@ -38,9 +38,20 @@ CUDA kernels or their plain versions, for any spec: K2, K2s and K5
 compute the logistic01 and multinomial specs in the kernel and any
 other between their passes over A (their split form). Gradients and
 the mglm prep stay `torch.matmul`: the JAX package runs them as plain
-XLA matmuls, not as Pallas kernels. Newton steps (with K2's newton flavour), the dense GGN
-solves, subsampled curvature, the static preconditioner, the generic
-jvp/vjp GGN branch and the low-precision CG copy are not ported yet
+XLA matmuls, not as Pallas kernels.
+
+Precision-adaptive CG (GLM specs, cached, uncached and row-sharded):
+with a low-precision copy of A (`Problem.A_lp`, bfloat16) and
+``method.cg_lp_tol`` > 0, an epoch whose CG forcing tolerance is at
+least ``cg_lp_tol`` runs its CG matvecs on the copy (K1, or K1s, with A
+in bfloat16), the others on A (`_lp_matvec`, `_cg_direction_solve`).
+The RHS, the prep and the greedy pass always read A. The JAX package
+picks the operator with a `lax.cond` on the device; here the choice is
+a host branch on the forcing tolerance, one scalar read an epoch.
+
+Newton steps (with K2's newton flavour), the dense GGN solves,
+subsampled curvature, the static preconditioner, the generic jvp/vjp
+GGN branch and the cached multi-output lp product are not ported yet
 (ROADMAP A7, B2, A10).
 """
 
@@ -112,6 +123,15 @@ class StepOut(NamedTuple):
 # solver='auto' switches to CG once the materialized Jacobian would
 # exceed this many elements (the JAX package's budget)
 _DENSE_GGN_MAX_ELEMS = 1 << 24
+
+_warned: set = set()
+
+
+def _warn_once(key, msg):
+    """Warn once a process for each ``key`` (the JAX package's rule)."""
+    if key not in _warned:
+        _warned.add(key)
+        warnings.warn(msg, stacklevel=3)
 
 
 def _resolve_ggn_solver(method, prob: Problem, x) -> str:
@@ -331,6 +351,86 @@ def _loss_scale(g, m_total):
     return (1.0 / m_total) if g.sample_normalized else 1.0
 
 
+def _lp_tol_refused(method, dtype) -> bool:
+    """True (with a one-shot warning) when cg_lp_tol sits below the
+    reachable CG forcing range for this dtype.
+
+    Under the tightening-only endgame schedule (float32, not
+    cg_adaptive — `_forcing_tol` with endgame=True) the forcing drops
+    below the floor once the outer steps shrink, so cg_lp_tol == floor
+    is exactly "bf16 through the bulk phase, float32 once the endgame
+    tightens": the test ``tol >= cg_lp_tol`` holds at the floor and
+    fails as soon as the schedule tightens. With cg_adaptive (or
+    float64) the tolerance never passes below the floor, and equality
+    would pin the copy through the endgame; a threshold below the floor
+    would too, and CG would chase a residual below the copy's own error
+    and spend cg_maxiter every epoch. Both are refused."""
+    lp_tol = method.cg_lp_tol
+    floor = _cg_tol(method, dtype)
+    endgame_mode = (torch.finfo(dtype).bits <= 32
+                    and not method.cg_adaptive)
+    if lp_tol < floor or (lp_tol == floor and not endgame_mode):
+        _warn_once(
+            ("lp-tol-floor", (lp_tol, floor)),
+            f"cg_lp_tol={lp_tol:g} is <= the CG tolerance floor "
+            f"{floor:g} — the low-precision matvec would stay engaged "
+            "through the convergence endgame and stall CG below the "
+            "copy's own error. Disabled; set cg_lp_tol well above "
+            "cg_tol (e.g. 1e-2).")
+        return True
+    return False
+
+
+def _lp_engaged(method, prob: Problem, As, dtype) -> bool:
+    """Whether precision-adaptive CG acts on this solve: cg_lp_tol > 0,
+    a copy of A's shape (full batch: a batch slice has no matching
+    copy), and a threshold that is not refused."""
+    A_lp = prob.A_lp
+    if method.cg_lp_tol <= 0.0 or A_lp is None or A_lp.shape != As.shape:
+        return False
+    return not _lp_tol_refused(method, dtype)
+
+
+def _glm_matvec(method, prob: Problem):
+    """(A, w, v) ↦ Aᵀ(w∘(A·v)) for the GLM CG operator: K1 under 'cuda'
+    (for A in w's dtype or in bfloat16), K1s on a row-sharded problem
+    (``method.comm_overlap_chunks`` picks its schedule), or their plain
+    versions."""
+    cuda = method.kernels == "cuda"
+    if prob.mesh is None:
+        return normal_matvec if cuda else normal_matvec_torch
+    return functools.partial(
+        normal_matvec_sharded if cuda else normal_matvec_sharded_torch,
+        mesh=prob.mesh, data_axis=prob.data_axis,
+        overlap_chunks=method.comm_overlap_chunks)
+
+
+def _lp_matvec(method, prob: Problem, As, w, lhr):
+    """The low-precision CG operator v ↦ A_lpᵀ(w∘(A_lp·v)) + λHr∘v, or
+    None when precision-adaptive CG does not act (`_lp_engaged`). It
+    runs the same kernel as the full-precision operator, on the copy:
+    K1 (or K1s on a row shard, where ``shard_problem`` took the copy's
+    rows with A's) with A in bfloat16, the result in w's dtype."""
+    if not _lp_engaged(method, prob, As, w.dtype):
+        return None
+    matvec = _glm_matvec(method, prob)
+    A_lp = prob.A_lp
+    return lambda v: matvec(A_lp, w, v) + lhr * v
+
+
+def _cg_direction_solve(method, mv, mv_lp, b, d_prev, tol, M_inv):
+    """Warm-started CG for the direction, on the low-precision operator
+    ``mv_lp`` when it is given and ``tol >= method.cg_lp_tol`` (the bulk
+    epochs), else on ``mv``. The test is a host branch on the very
+    ``tol`` the solve then uses: one scalar read an epoch when the
+    forcing is a device tensor (the float32 endgame schedule and
+    cg_adaptive), none when it is the fixed floor."""
+    if mv_lp is not None and bool(tol >= method.cg_lp_tol):
+        mv = mv_lp
+    return cg_solve(mv, b, d_prev, tol=tol, maxiter=method.cg_maxiter,
+                    M_inv=M_inv)
+
+
 def epoch_cache_enabled(method, prob: Problem, reg_name: str,
                         full_batch: bool) -> bool:
     """Predicate for the epoch-fused cache path: ProxGGNSCORE on the CG
@@ -360,6 +460,9 @@ def epoch_cache_enabled(method, prob: Problem, reg_name: str,
     # the JAX package: on a row shard it is a no-op and the cache stays
     if prob.mesh is None and 0 < method.curvature_rows < prob.m_total:
         return False
+    # a refused cg_lp_tol warns here, once, as in the JAX package
+    if method.cg_lp_tol > 0 and prob.A_lp is not None:
+        _lp_tol_refused(method, prob.x0.dtype)
     return _resolve_ggn_solver(method, prob, prob.x0) == "cg"
 
 
@@ -447,25 +550,21 @@ def _ggn_cg_from_cache(method, prob: Problem, As, x, gr, Hr_diag, lam,
     Jacobi diagonal come from the cache; only the smoother terms
     (λ·gr, λ·Hr) are fresh. Each CG iteration is one K1 launch, or on a
     row-sharded problem one K1s call (K1 on the shard plus an
-    all_reduce; ``method.comm_overlap_chunks`` picks its schedule)."""
+    all_reduce; ``method.comm_overlap_chunks`` picks its schedule) —
+    on the bfloat16 copy of A in the bulk epochs of precision-adaptive
+    CG (`_cg_direction_solve`)."""
     lhr = lam * Hr_diag
     b = -(cache.b_raw + lam * gr)
     diag = torch.clamp_min(cache.hd_raw + lhr, torch.finfo(x.dtype).tiny)
     w = cache.w
-    cuda = method.kernels == "cuda"
-    if prob.mesh is None:
-        matvec = normal_matvec if cuda else normal_matvec_torch
-    else:
-        matvec = functools.partial(
-            normal_matvec_sharded if cuda else normal_matvec_sharded_torch,
-            mesh=prob.mesh, data_axis=prob.data_axis,
-            overlap_chunks=method.comm_overlap_chunks)
+    matvec = _glm_matvec(method, prob)
     xp = x if x_prev is None else x_prev
     tol, bnorm = _forcing_tol(method, b, x, xp, bnorm_prev, it,
                               endgame=True)
-    res = cg_solve(lambda v: matvec(As, w, v) + lhr * v, b, d_prev,
-                   tol=tol, maxiter=method.cg_maxiter,
-                   M_inv=lambda v: v / diag)
+    res = _cg_direction_solve(
+        method, lambda v: matvec(As, w, v) + lhr * v,
+        _lp_matvec(method, prob, As, w, lhr), b, d_prev, tol,
+        lambda v: v / diag)
     return res.x, res.iters, bnorm
 
 
@@ -480,7 +579,13 @@ def _mo_cg_from_cache(method, prob: Problem, As, ys, x, gr, Hr_diag, lam,
                       cache: MOGLMCache, d_prev, it, bnorm_prev, x_prev):
     """Multi-output GGN-CG direction from the carried MOGLMCache: no
     prep pass over A; each CG matvec applies the per-sample curvature
-    action from the cached Z (one K5 launch per iteration)."""
+    action from the cached Z (one K5 launch per iteration). Its
+    low-precision product (the JAX package's `_mo_lp_matvec`) is not
+    ported: a copy that would act raises."""
+    if _lp_engaged(method, prob, As, x.dtype):
+        raise NotImplementedError(
+            "precision-adaptive CG on the cached multi-output path (its "
+            "bf16-A product) is not ported yet (ROADMAP A10)")
     g = prob.mglm
     k, pf = _mo_shapes(g, x)
     lhr = lam * Hr_diag
@@ -639,15 +744,14 @@ def _ggn_cg_direction(method, prob: Problem, As, ys, x, gr, Hr_diag, lam,
     A GLM preps in one call to K2s (`glm_prep`) under 'cuda' unless
     ``use_fused_prep`` is False — at every shape: the JAX package's AUTO
     gate n ≥ 8192 was measured on a TPU v5e — and otherwise forms
-    z = A·x and the spec's weights (`_weighted_system`). An mglm goes
-    through `_mo_glm_system`. Returns (d, cg_iters, bnorm, z), z the
-    linear predictor when one was formed (the greedy trial reuses it),
-    else None."""
-    if method.cg_lp_tol > 0:
-        raise NotImplementedError(
-            "precision-adaptive CG on a low-precision copy of A is not "
-            "ported yet (ROADMAP A10)")
+    z = A·x and the spec's weights (`_weighted_system`); its bulk epochs
+    may run CG on the bfloat16 copy of A (`_cg_direction_solve`). An
+    mglm goes through `_mo_glm_system` and, as in the JAX package, never
+    reads the copy. Returns (d, cg_iters, bnorm, z), z the linear
+    predictor when one was formed (the greedy trial reuses it), else
+    None."""
     z_cache = None
+    mv_lp = None
     lhr = lam * Hr_diag
     if prob.mglm is not None and As.ndim == 2:
         _, grad_vec, mv, M_inv = _mo_glm_system(method, prob, As, ys, x,
@@ -666,6 +770,7 @@ def _ggn_cg_direction(method, prob: Problem, As, ys, x, gr, Hr_diag, lam,
             b_raw, hd_raw = As.T @ rw, None
         b = -(b_raw + lam * gr)
         mv, M_inv = _weighted_system(method, As, x, w, lhr, hd_raw)
+        mv_lp = _lp_matvec(method, prob, As, w, lhr)
     else:
         raise NotImplementedError(
             "the generic GGN-CG branch (jvp/vjp of out_fn, no GLM spec) is "
@@ -673,8 +778,7 @@ def _ggn_cg_direction(method, prob: Problem, As, ys, x, gr, Hr_diag, lam,
     xp = x if x_prev is None else x_prev
     tol, bnorm = _forcing_tol(method, b, x, xp, bnorm_prev, it,
                               endgame=True)
-    res = cg_solve(mv, b, d_prev, tol=tol, maxiter=method.cg_maxiter,
-                   M_inv=M_inv)
+    res = _cg_direction_solve(method, mv, mv_lp, b, d_prev, tol, M_inv)
     return res.x, res.iters, bnorm, z_cache
 
 

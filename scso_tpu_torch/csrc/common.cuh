@@ -114,6 +114,9 @@ __global__ void sum_partials(const T* __restrict__ partials,
 __host__ __device__ __forceinline__ int64_t imin(int64_t a, int64_t b) {
   return a < b ? a : b;
 }
+__host__ __device__ __forceinline__ int64_t imax(int64_t a, int64_t b) {
+  return a > b ? a : b;
+}
 
 __device__ __forceinline__ float dexp(float v) { return expf(v); }
 __device__ __forceinline__ double dexp(double v) { return exp(v); }

@@ -34,8 +34,11 @@ LINK_FLAGS = ("-shared",)
 _p, _i64, _f64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
 #: C entry points → argtypes; every function returns cudaGetLastError()
 SIGNATURES = {
-    # A, w, v, partials, out, m, n, n_blocks, wide, stream
-    "scso_normal_matvec": [_p] * 5 + [_i64] * 4 + [_p],
+    # A, w, v, partials, out, m, n, n_blocks (the most: the rows of
+    # partials), wide, row groups, stream; the _bf16 entries take A in
+    # bfloat16 and the rest in float32 / float64
+    "scso_normal_matvec": [_p] * 5 + [_i64] * 5 + [_p],
+    "scso_normal_matvec_bf16": [_p] * 5 + [_i64] * 5 + [_p],
     # A, Z, V (transposed for the two-pass and split forms), qu (their
     # scratch), partials, out, m, p, k, n_blocks, rows_per_block, form (0
     # two-pass, 1 tensor-core, 2 and 3 the split form's passes), stream

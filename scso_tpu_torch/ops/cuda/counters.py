@@ -11,6 +11,8 @@ from __future__ import annotations
 
 KERNEL_LAUNCHES: dict = {
     "normal_matvec": 0,
+    "normal_matvec_bf16": 0,   # K1 launches on a bfloat16 A (counted
+    #                            in normal_matvec as well)
     "normal_matvec_sharded": 0,
     "glm_prep": 0,
     "glm_prep_pair": 0,

@@ -22,23 +22,28 @@ def on_cpu(t: torch.Tensor, name: str) -> bool:
     return False
 
 
-def check_operands(name: str, dtype, device, **tensors) -> None:
+def check_operands(name: str, dtype, device, narrow=(), **tensors) -> None:
     """Every operand on ``device``, in ``dtype``, contiguous; dtype is
-    float32 or float64. Raises ValueError naming the first offender."""
+    float32 or float64. The operands named in ``narrow`` may instead be
+    bfloat16 (stored narrow, upcast in the kernel: K1's A). Raises
+    ValueError naming the first offender."""
     if dtype not in _SUFFIX:
         raise ValueError(f"{name}: dtype {dtype} not supported "
                          "(float32 or float64)")
     for arg, t in tensors.items():
-        if t.device != device or t.dtype != dtype:
+        ok = (dtype, torch.bfloat16) if arg in narrow else (dtype,)
+        if t.device != device or t.dtype not in ok:
+            want = " or ".join(str(d) for d in ok)
             raise ValueError(
                 f"{name}: {arg} is {t.dtype} on {t.device}, expected "
-                f"{dtype} on {device}")
+                f"{want} on {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
 
 
 def entry(base: str, dtype):
-    """The C entry point ``<base>_f32`` / ``<base>_f64``."""
+    """The C entry point ``<base>_f32`` / ``<base>_f64`` (``dtype`` the
+    compute type)."""
     return getattr(build.load(), f"{base}_{_SUFFIX[dtype]}")
 
 

@@ -153,7 +153,8 @@ def replicate(tree, mesh: Mesh):
 
 def shard_problem(prob: Problem, mesh: Mesh,
                   data_axis: str = "data") -> Problem:
-    """Keep this rank's rows ``[r·m/S, (r+1)·m/S)`` of A and y.
+    """Keep this rank's rows ``[r·m/S, (r+1)·m/S)`` of A and y, and of
+    the low-precision copy ``A_lp`` when the problem has one.
 
     Everything else (x0, λ, bounds, x*) stays as it is, replicated. The
     problem records ``mesh``, ``data_axis`` and ``m_total = m``, the
@@ -178,8 +179,11 @@ def shard_problem(prob: Problem, mesh: Mesh,
             "normalization) explicitly with scso_tpu_torch.parallel.pad_rows")
     lo, hi = mesh.rank * m // size, (mesh.rank + 1) * m // size
     rows = (lambda a: a) if size == 1 else (lambda a: a[lo:hi].clone())
-    return dc_replace(prob, A=rows(prob.A), y=rows(prob.y), mesh=mesh,
-                      data_axis=data_axis, m_total=m)
+    # precision-adaptive CG composes with row sharding: each rank's CG
+    # matvecs read its rows of the copy (K1s with A in bfloat16)
+    A_lp = None if prob.A_lp is None else rows(prob.A_lp)
+    return dc_replace(prob, A=rows(prob.A), y=rows(prob.y), A_lp=A_lp,
+                      mesh=mesh, data_axis=data_axis, m_total=m)
 
 
 def shard_problem_features(prob: Problem, mesh: Mesh,

@@ -91,7 +91,14 @@ class Problem:
     `parallel.load_problem_rows_sharded`): A and y then hold this rank's
     rows only, and ``m_total`` is the row count of all ranks together —
     the m of every 1/m loss normalization. Unsharded, ``m_total`` is
-    A's row count."""
+    A's row count.
+
+    ``A_lp`` is an optional low-precision copy of A (bfloat16, built by
+    `algorithms.mixed.with_lp_copy` or by AUTO, `ProxGGNSCORE.auto_lp`)
+    for precision-adaptive CG: epochs whose CG forcing tolerance is at
+    least ``ProxGGNSCORE.cg_lp_tol`` run their curvature matvecs on it,
+    at half the bytes of A. It has A's (padded) shape and, on a row
+    shard, A's rows; the RHS and the prep always use A."""
 
     x0: torch.Tensor
     lam: torch.Tensor
@@ -111,6 +118,7 @@ class Problem:
     mesh: Optional[Any] = None
     data_axis: str = "data"
     m_total: Optional[int] = None
+    A_lp: Optional[torch.Tensor] = None
 
     def __post_init__(self):
         if self.m_total is None and self.A is not None:

@@ -29,12 +29,20 @@ def _to(dtype, device):
 
 def problem_from_numpy(A, y, x0, lam, *, x_star=None, L=None, n_true=None,
                        glm="logistic01", n_out=None, grad_fx=False,
-                       dtype=torch.float64, device=None) -> Problem:
+                       A_lp=None, dtype=torch.float64,
+                       device=None) -> Problem:
     """A :class:`Problem` over arrays that are already as the JAX
     Problem holds them (padded, when ``n_true`` is given — no padding is
     applied here). ``glm='multinomial'`` builds the multi-output problem
     with ``mglm=multinom_mglm(n_out)``. ``grad_fx=True`` passes the
-    family's closed-form gradient (else ∇f is autograd through f)."""
+    family's closed-form gradient (else ∇f is autograd through f).
+
+    ``A_lp`` is the JAX problem's low-precision copy of A, given as
+    float32 values (``np.asarray(jax_prob.A_lp, np.float32)``); it
+    becomes a bfloat16 tensor with the same bits, so that both packages
+    solve with the same copy. A value that bfloat16 cannot hold exactly
+    raises: rounding A to bfloat16 on each side separately could round
+    differently."""
     if glm not in _GLMS:
         raise ValueError(f"unknown GLM {glm!r}; known: {sorted(_GLMS)}")
     spec, f, grad = _GLMS[glm]
@@ -50,7 +58,19 @@ def problem_from_numpy(A, y, x0, lam, *, x_star=None, L=None, n_true=None,
         x_star=to(x_star) if x_star is not None else torch.zeros_like(x0),
         f=f, dtype=dtype, device=x0.device,
         L=None if L is None else to(L), glm=spec, mglm=mglm,
-        grad_fx=grad if grad_fx else None, n_true=n_true)
+        grad_fx=grad if grad_fx else None, n_true=n_true,
+        A_lp=None if A_lp is None else _bf16_exact(A_lp, x0.device))
+
+
+def _bf16_exact(a, device):
+    """float32 values that bfloat16 holds exactly → a bfloat16 tensor
+    with the same values; raises for any other value."""
+    src = torch.tensor(np.asarray(a, np.float32), device=device)
+    out = src.to(torch.bfloat16)
+    if not torch.equal(out.to(torch.float32), src):
+        raise ValueError("A_lp: values that bfloat16 cannot hold exactly; "
+                         "pass the JAX problem's bfloat16 copy as float32")
+    return out
 
 
 def glm_cache_from_numpy(w, b_raw, hd_raw, loss, *, dtype=torch.float64,

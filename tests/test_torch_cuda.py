@@ -3,7 +3,10 @@
 Each kernel is held against its plain PyTorch version on the same CUDA
 tensors, and a small float64 solve through the kernels against the
 plain path on the CPU. K1s runs under a one-rank NCCL group, where it
-must be K1 bit for bit. Without a CUDA device every test here skips.
+must be K1 bit for bit. K1 with A in bfloat16 (the copy of
+precision-adaptive CG) is held against its plain version (A upcast to
+w's dtype) at the same tolerances as K1. Without a CUDA device every
+test here skips.
 This file imports neither jax nor scso_tpu, so it also runs on a GPU
 machine without them — there, skip tests/conftest.py (which configures
 jax):
@@ -124,6 +127,7 @@ def test_data_kernels_match_plain(dev, dtype, m, n):
     again = glm_prep_pair(A, y, v * 0.1, v * 0.2, LOGISTIC01_GLM)
     assert all(torch.equal(g, a) for g, a in zip(got, again))
     assert counters.snapshot() == {"normal_matvec": 1,
+                                   "normal_matvec_bf16": 0,
                                    "normal_matvec_sharded": 0,
                                    "glm_prep": 0, "glm_prep_pair": 2,
                                    "score_update": 0, "mglm_matvec": 0,
@@ -141,6 +145,68 @@ def test_normal_matvec_wide_n(dev, dtype, m, n):
     got = normal_matvec(A, w, v)
     assert torch.equal(got, normal_matvec(A, w, v))
     _check(got, normal_matvec_torch(A, w, v), dtype)
+
+
+# chip_smoke.py's K1 shapes: block boundaries, rows that are not
+# 16-byte aligned in bfloat16 (n % 8 != 0: one value a load), and n
+# above the shared-memory form (28672 for float32 v, 14336 for float64)
+BF16_SHAPES = [(37, 128), (947, 384), (2249, 1920), (131, 128), (660, 256),
+               (3465, 2432), (999, 1001), (64, 130), (517, 1020)]
+BF16_WIDE = [(torch.float32, 4099, 40000), (torch.float64, 2049, 20000)]
+
+
+def _bf16_inputs(dev, dtype, m, n):
+    gen = torch.Generator(device=dev).manual_seed(m + n)
+    A = (torch.randn((m, n), generator=gen, device=dev) * 0.1).to(
+        torch.bfloat16)
+    w = torch.rand((m,), generator=gen, device=dev, dtype=dtype)
+    v = torch.randn((n,), generator=gen, device=dev, dtype=dtype)
+    return A, w, v
+
+
+@pytest.mark.parametrize("dtype,m,n", [
+    (dt, m, n) for dt in (torch.float32, torch.float64)
+    for (m, n) in BF16_SHAPES] + BF16_WIDE)
+def test_bf16_matvec_matches_plain(dev, dtype, m, n):
+    A, w, v = _bf16_inputs(dev, dtype, m, n)
+    counters.reset()
+    got = normal_matvec(A, w, v)
+    assert got.dtype == dtype
+    assert torch.equal(got, normal_matvec(A, w, v))  # bitwise rerun
+    snap = counters.snapshot()
+    assert snap["normal_matvec"] == snap["normal_matvec_bf16"] == 2
+    _check(got, normal_matvec_torch(A, w, v), dtype)
+
+
+def test_bf16_matvec_rejects_other_mixes(dev):
+    A, w, v = _bf16_inputs(dev, torch.float32, 64, 128)
+    for args in ((A, w.to(torch.bfloat16), v.to(torch.bfloat16)),
+                 (A, w, v.double()),
+                 (A.float(), w, v.to(torch.bfloat16)),
+                 (A.float(), w.double(), v.double()),
+                 (A.t(), v, w)):
+        with pytest.raises(ValueError):
+            normal_matvec(*args)
+
+
+def test_small_lp_solve_matches_cpu(dev):
+    """float64 with the bfloat16 copy, cg_adaptive=True and cg_lp_tol =
+    1e-2 (the JAX package's EW regime): K1 on the copy in the loose
+    epochs, on A in the others; the CPU plain path on the same copy."""
+    kw = dict(x_tol=1e-12, f_tol=1e-10, max_epoch=40, verbose=0,
+              stats_every=4, alpha=1.0)
+    method = st.ProxGGNSCORE(solver="cg", greedy_alpha=False,
+                             cg_adaptive=True, cg_lp_tol=1e-2)
+    cpu = st.with_lp_copy(_small_logreg("cpu"))
+    gpu = replace(_small_logreg(dev), A_lp=cpu.A_lp.to(dev))
+    counters.reset()
+    s_gpu = st.iterate(method, gpu, "l1", st.PHuberSmootherL1L2(1.0), **kw)
+    got = counters.snapshot()
+    assert 0 < got["normal_matvec_bf16"] < got["normal_matvec"]
+    s_cpu = st.iterate(method, cpu, "l1", st.PHuberSmootherL1L2(1.0), **kw)
+    assert s_gpu.epochs == s_cpu.epochs
+    np.testing.assert_allclose(s_gpu.obj.numpy(), s_cpu.obj.numpy(),
+                               rtol=1e-9)
 
 
 def _mglm_inputs(dev, dtype, m, p, k):
@@ -606,6 +672,20 @@ def test_prep_kernels_normalize_by_m_norm(dev, dtype, m, n):
     assert all(torch.equal(g, w_) for g, w_ in zip(
         glm_prep_pair(A, y, xt, xd, LOGISTIC01_GLM, m),
         glm_prep_pair(A, y, xt, xd, LOGISTIC01_GLM)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,n", [(947, 384), (999, 1001), (3465, 2432)])
+def test_bf16_sharded_matvec_on_one_rank(nccl_mesh, dtype, m, n):
+    A, w, v = _bf16_inputs("cuda", dtype, m, n)
+    counters.reset()
+    got = normal_matvec_sharded(A, w, v, nccl_mesh)
+    assert torch.equal(got, normal_matvec(A, w, v))
+    snap = counters.snapshot()
+    assert snap["normal_matvec_sharded"] == 1
+    assert snap["normal_matvec"] == snap["normal_matvec_bf16"] == 2
+    _check(normal_matvec_sharded(A, w, v, nccl_mesh, overlap_chunks=2),
+           normal_matvec_sharded_torch(A, w, v, nccl_mesh), dtype)
 
 
 def test_small_sharded_solve_on_one_rank(nccl_mesh):

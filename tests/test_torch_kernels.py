@@ -27,7 +27,8 @@ from scso_tpu_torch.models.losses import LOGISTIC01_GLM
 from scso_tpu_torch.ops.cuda import counters
 from scso_tpu_torch.ops.cuda.glm_prep import (
     PairPrep, glm_prep_pair, glm_prep_pair_torch, max_n, prep_grid)
-from scso_tpu_torch.ops.cuda.matvec import normal_matvec, normal_matvec_torch
+from scso_tpu_torch.ops.cuda.matvec import (
+    normal_matvec, normal_matvec_torch, row_groups)
 from scso_tpu_torch.ops.cuda.mglm_matvec import (
     TC_MAX_K, TC_MAX_P, mglm_grid, tc_geometry, tc_smem_bytes)
 from scso_tpu_torch.ops.cuda.score_update import (
@@ -66,6 +67,37 @@ class TestNormalMatvec:
         got = normal_matvec(_t(A), w, v)
         assert torch.equal(got, normal_matvec_torch(_t(A), w, v))
         assert counters.snapshot()["normal_matvec"] == 0
+
+
+class TestRowGroups:
+    """K1's row groups, from the width alone (no card): the most groups
+    of the 512 threads (a power of two, at most 16) that each hold a
+    thread for every 16-byte chunk of a row, with v and every group's
+    accumulator in 224 KB of shared memory."""
+
+    # (n, v's itemsize, A in bfloat16, groups): the bench's narrow n in
+    # float32 and bf16, its wide n (one group), and the edges
+    CASES = [(1024, 4, False, 2), (1024, 4, True, 4), (1024, 8, False, 1),
+             (10112, 4, False, 1), (10112, 4, True, 1), (128, 4, False, 16),
+             (128, 4, True, 16), (2048, 4, False, 1), (2040, 4, True, 2),
+             (4096, 4, True, 1), (1001, 4, True, 1), (130, 8, True, 2),
+             (512, 8, False, 2)]
+
+    @pytest.mark.parametrize("n,itemsize,narrow,groups", CASES)
+    def test_groups(self, n, itemsize, narrow, groups):
+        assert row_groups(n, itemsize, narrow) == groups
+
+    @pytest.mark.parametrize("itemsize,narrow", [(4, False), (8, False),
+                                                 (4, True), (8, True)])
+    def test_every_group_has_a_thread_a_chunk_and_fits(self, itemsize,
+                                                       narrow):
+        chunk = 8 if narrow else 16 // itemsize
+        for n in (1, 7, 8, 64, 100, 256, 777, 1024, 3000, 8192, 14336):
+            g = row_groups(n, itemsize, narrow)
+            assert g in (1, 2, 4, 8, 16)
+            nc = n // chunk if n % chunk == 0 else n
+            assert g == 1 or 512 // g >= nc
+            assert (1 + g) * n * itemsize <= 224 * 1024
 
 
 class TestGLMPrepPair:

@@ -12,7 +12,12 @@ Same numpy inputs, float64, through each JAX function and its port:
     history to rtol 1e-9, against scso.iterate(kernels='xla');
   * a greedy solve: the fixed point, final objective to rel 1e-8 (the
     accept test turns last-ulp differences into other trajectories);
-  * the validation that raises.
+  * an uncached solve with a bfloat16 copy of A and cg_lp_tol: the
+    JAX package never reads the copy there, and neither does the port
+    (the same trajectory, to the damped solve's bounds, and bit for bit
+    the port's solve without the copy);
+  * the validation that raises (the cached path's lp product is not
+    ported yet).
 The CUDA kernel itself is held against the plain version on the card by
 tests/test_torch_cuda.py and chip_smoke.py.
 """
@@ -211,6 +216,27 @@ def test_greedy_fixed_point_matches():
     assert float(s.obj[-1]) == pytest.approx(float(sj.obj[-1]), rel=1e-8)
 
 
+def test_uncached_solve_ignores_the_lp_copy_as_jax():
+    pj, pt = _problems()
+    pj = scso.with_lp_copy(pj)
+    pt = replace(pt, A_lp=torch.tensor(np.asarray(pj.A_lp, np.float32)).to(
+        torch.bfloat16))
+    kw = dict(solver="cg", greedy_alpha=False, epoch_cache=False,
+              cg_lp_tol=1e-3)
+    sj = scso.iterate(scso.ProxGGNSCORE(kernels="xla", **kw), pj, "l1",
+                      scso.PHuberSmootherL1L2(1.0), **KW)
+    s = st.iterate(st.ProxGGNSCORE(**kw), pt, "l1",
+                   st.PHuberSmootherL1L2(1.0), **KW)
+    assert s.epochs == sj.epochs
+    assert s.cg_info == sj.cg_info
+    _close(s.obj.numpy(), np.asarray(sj.obj), rtol=1e-9, atol=0)
+    _close(s.x.numpy(), np.asarray(sj.x), rtol=0, atol=1e-9)
+    kw.pop("cg_lp_tol")
+    no_copy = st.iterate(st.ProxGGNSCORE(**kw), replace(pt, A_lp=None), "l1",
+                         st.PHuberSmootherL1L2(1.0), **KW)
+    assert torch.equal(s.x, no_copy.x)
+
+
 def test_cache_predicate_solver_and_greedy_rule():
     _, pt = _problems(64, 8, 3)
     on = st.ProxGGNSCORE(solver="cg")
@@ -249,11 +275,12 @@ def test_validation_raises():
 
 @pytest.mark.parametrize("method,match", [
     (st.ProxGGNSCORE(solver="cg", auto_lp=True), "A10"),
-    (st.ProxGGNSCORE(solver="cg", epoch_cache=False, cg_lp_tol=1e-3),
-     "A10"),
+    (st.ProxGGNSCORE(solver="cg", cg_lp_tol=1e-3), "A10"),
 ])
 def test_unported_parts_raise(method, match):
     _, pt = _problems(64, 8, 3)
+    if method.cg_lp_tol > 0:  # the cached lp product, with a copy
+        pt = st.with_lp_copy(pt)
     with pytest.raises(NotImplementedError, match=match):
         st.iterate(method, pt, "l1", st.PHuberSmootherL1L2(1.0), verbose=0,
                    max_epoch=2)

@@ -22,10 +22,15 @@ numpy problem row-sharded over conftest's 8-device CPU mesh. float64:
     the sums over rows changes the CG counts, and test_parallel.py
     itself holds the JAX sharded solves to each other only at 1e-7;
     comm_overlap_chunks=2 against the plain sharded solve to 1e-9 with
-    equal epochs; tests/_dist_launch.py's data loaded rank by rank with
+    equal epochs; precision-adaptive CG (the JAX package's bfloat16
+    copy of A, each rank holding its rows of it, cg_adaptive=True,
+    cg_lp_tol=1e-2, greedy off) against the JAX sharded solve with the
+    same copy, the trajectory to 1e-10 with equal epochs and CG
+    iterations; tests/_dist_launch.py's data loaded rank by rank with
     `load_problem_rows_sharded` against tests/test_distributed.py's
     single-process solve to 1e-10. Every rank must hold the same x,
     bit for bit;
+  * `shard_problem` taking this rank's rows of the copy with A's;
   * the validation of `shard_problem`, `pad_rows` and `make_mesh`, and
     every combination off the sharded cached path raising before any
     collective.
@@ -43,6 +48,7 @@ import torch
 import torch.distributed as dist
 
 import scso_tpu_torch as st
+from scso_tpu_torch._src.struct import replace
 from scso_tpu_torch.models import losses, synthetic
 from scso_tpu_torch.parallel import (
     distributed_init, load_problem_rows_sharded, make_mesh, pad_rows,
@@ -57,6 +63,9 @@ OVERLAP = (256, 128, 0.1, 8, 13)
 TRAJ_KW = dict(x_tol=1e-12, f_tol=1e-10, max_epoch=40, verbose=0,
                stats_every=4, alpha=1.0)
 OVERLAP_KW = dict(max_epoch=30, verbose=0)
+# precision-adaptive CG on the TRAJ problem (float64: the EW regime)
+LP_METHOD = dict(solver="cg", greedy_alpha=False, cg_adaptive=True,
+                 cg_lp_tol=1e-2)
 # tests/test_distributed.py's solve of tests/_dist_launch.py's data
 DIST_LAM = 0.05
 DIST_KW = dict(max_epoch=25, x_tol=1e-12, f_tol=0.0, verbose=0)
@@ -83,7 +92,11 @@ def _solves(mesh, workdir):
     run = lambda method, prob, kw: st.iterate(
         method, shard_problem(prob, mesh), "l1", sm, **kw)
     traj, over = _port_problem(TRAJ), _port_problem(OVERLAP)
+    # the JAX package's bfloat16 copy of TRAJ's A, saved as float32
+    A_lp = torch.tensor(np.load(os.path.join(workdir, "traj_lp.npy")))
     out = {
+        "lp": run(st.ProxGGNSCORE(**LP_METHOD),
+                  replace(traj, A_lp=A_lp.to(torch.bfloat16)), TRAJ_KW),
         "greedy_off": run(st.ProxGGNSCORE(solver="cg", greedy_alpha=False),
                           traj, TRAJ_KW),
         "greedy_on": run(st.ProxGGNSCORE(solver="cg", greedy_alpha=True),
@@ -180,6 +193,8 @@ def _launch(world, workdir, timeout=120):
 def dist_data():
     with tempfile.TemporaryDirectory() as workdir:
         A, y, x0 = make_data(workdir)
+        np.save(os.path.join(workdir, "traj_lp.npy"),
+                np.asarray(_jax_problem(TRAJ, lp=True).A_lp, np.float32))
         yield workdir, (A, y, x0)
 
 
@@ -193,15 +208,19 @@ def four_ranks(dist_data):
     return _launch(4, dist_data[0])
 
 
-def _jax_solve(spec, greedy, kw, **method_kw):
+def _jax_problem(spec, lp=False):
     A, y, x0 = _data(*spec)
     prob = scso.Problem(A, y, x0, jlosses.logistic01_f, LAM,
                         grad_fx=jlosses.logistic01_grad,
                         glm=jlosses.LOGISTIC01_GLM, dtype=np.float64)
+    return scso.with_lp_copy(prob) if lp else prob
+
+
+def _jax_solve(spec, greedy, kw, lp=False, **method_kw):
     return scso.iterate(
         scso.ProxGGNSCORE(solver="cg", kernels="pallas",
                           greedy_alpha=greedy, **method_kw),
-        jshard_problem(prob, jmake_mesh()), "l1",
+        jshard_problem(_jax_problem(spec, lp), jmake_mesh()), "l1",
         scso.PHuberSmootherL1L2(1.0), **kw)
 
 
@@ -284,6 +303,19 @@ def test_greedy_off_trajectory_matches_jax(request, world):
                                atol=1e-10)
 
 
+def test_lp_copy_trajectory_matches_jax(two_ranks):
+    _same_x_on_every_rank(two_ranks, "lp")
+    method_kw = {k: v for k, v in LP_METHOD.items()
+                 if k not in ("solver", "greedy_alpha")}
+    sj = _jax_solve(TRAJ, False, TRAJ_KW, lp=True, **method_kw)
+    got = two_ranks[0]
+    assert int(got["lp.epochs"]) == sj.epochs
+    assert int(got["lp.cg"]) == sj.cg_info["total_cg_iters"]
+    np.testing.assert_allclose(got["lp.obj"], np.asarray(sj.obj),
+                               rtol=1e-10)
+    np.testing.assert_allclose(got["lp.x"], np.asarray(sj.x), atol=1e-10)
+
+
 def test_greedy_on_fixed_point_matches_jax(two_ranks):
     _same_x_on_every_rank(two_ranks, "greedy_on")
     sj = _jax_solve(TRAJ, True, TRAJ_KW)
@@ -323,6 +355,20 @@ def test_shard_problem_keeps_its_rows(one_rank):
         shard_problem(sp, one_rank)
     with pytest.raises(ValueError, match="axis"):
         shard_problem(prob, one_rank, data_axis="model")
+
+
+def test_shard_problem_takes_the_copys_rows(one_rank):
+    from scso_tpu_torch.parallel.sharding import Mesh
+
+    prob = st.with_lp_copy(_port_problem(TRAJ))
+    assert shard_problem(prob, one_rank).A_lp is prob.A_lp  # no copy
+    second = Mesh(group=one_rank.group, axis_names=("data",), size=2,
+                  rank=1)
+    sp = shard_problem(prob, second)
+    assert sp.A_lp.dtype == torch.bfloat16
+    assert torch.equal(sp.A_lp, prob.A_lp[256:])
+    assert torch.equal(sp.A, prob.A[256:])
+    assert shard_problem(_port_problem(TRAJ), one_rank).A_lp is None
 
 
 def test_shard_problem_refuses_what_it_cannot_split(one_rank):

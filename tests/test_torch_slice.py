@@ -10,7 +10,12 @@ padded 384×200:
   * greedy on: the fixed point, final objective to 1e-8 relative (the
     accept test turns last-ulp differences into different trajectories,
     so greedy runs are compared only at the fixed point);
-  * one step from the JAX-primed cache, carried over by utils/convert.
+  * one step from the JAX-primed cache, carried over by utils/convert;
+  * auto_lp=True on the float32 problems (both packages attach the same
+    bfloat16 copy and run the bulk epochs on it): the objective
+    histories to 1e-6 relative and x to 1e-6 (float32 sums in another
+    order move the CG counts by a few iterations, with or without the
+    copy).
 """
 
 import numpy as np
@@ -86,6 +91,29 @@ def test_x_is_sliced_back_to_n_true():
     assert bool((s.state.x[200:] == 0).all())
 
 
+@pytest.mark.parametrize("m,n,pad", SHAPES)
+def test_auto_lp_solve_matches(m, n, pad):
+    A, y, x0, _ = jsynth.make_sparse_logreg_data(
+        m, n, density=0.05, n_active=8, seed=7, dtype=np.float32,
+        label01=True)
+    pj = scso.Problem(A, y, x0, jlosses.logistic01_f, 0.01,
+                      glm=jlosses.LOGISTIC01_GLM, dtype=np.float32,
+                      pad_features=pad)
+    pt = st.Problem(A, y, x0, losses.logistic01_f, 0.01,
+                    glm=losses.LOGISTIC01_GLM, dtype=torch.float32,
+                    pad_features=pad, device="cpu")
+    sj = scso.iterate(scso.ProxGGNSCORE(solver="cg", kernels="xla",
+                                        auto_lp=True),
+                      pj, "l1", scso.PHuberSmootherL1L2(1.0), **KW)
+    s = st.iterate(st.ProxGGNSCORE(solver="cg", auto_lp=True), pt, "l1",
+                   st.PHuberSmootherL1L2(1.0), **KW)
+    assert s.epochs == sj.epochs
+    assert s.model.A_lp is not None and s.model.A_lp.dtype == torch.bfloat16
+    np.testing.assert_allclose(s.obj.numpy(), np.asarray(sj.obj),
+                               rtol=1e-6)
+    np.testing.assert_allclose(s.x.numpy(), np.asarray(sj.x), atol=1e-6)
+
+
 @pytest.mark.parametrize("greedy", [False, True])
 def test_one_step_from_the_jax_primed_cache(greedy):
     pj, _ = _problems(512, 256, False, seed=3)
@@ -149,7 +177,7 @@ def test_kernel_resolution():
 @pytest.mark.parametrize("method,kw", [
     (st.ProxGGNSCORE(solver="cg"), {"resume_state": None}),
     (st.ProxGGNSCORE(solver="dense_dual"), {}),
-    (st.ProxGGNSCORE(solver="cg", auto_lp=True), {}),
+    (st.ProxGGNSCORE(solver="cg"), {"slice_samples": True}),
     (st.ProxGGNSCORE(solver="cg"), {"batch_size": 16}),
     (st.ProxGGNSCORE(solver="cg"), {"mode": "timed"}),
 ])

@@ -17,7 +17,10 @@ Same numpy inputs, float64, through each JAX function and its port:
     (the accept test turns last-ulp differences into other
     trajectories);
   * an uncached multinomial solve through `_mo_glm_system`, greedy off,
-    to the same bounds.
+    to the same bounds;
+  * uncached solves with the JAX package's bfloat16 copy of A (carried
+    over by utils/convert), cg_adaptive=True and cg_lp_tol=1e-3, ss_type
+    2 and 3: the bulk epochs' CG on the copy, to the same bounds.
 The CUDA kernel itself is held against the plain version on the card by
 tests/test_torch_cuda.py and chip_smoke.py.
 """
@@ -170,10 +173,25 @@ def test_uncached_multinomial_trajectory_matches():
     _close(s.x.numpy(), np.asarray(sj.x), rtol=0, atol=1e-9)
 
 
+@pytest.mark.parametrize("ss_type", [2, 3])
+def test_uncached_lp_copy_trajectory_matches(ss_type):
+    pj, _ = _logreg(512, 256)
+    pj = scso.with_lp_copy(pj)
+    pt = problem_from_numpy(np.asarray(pj.A), np.asarray(pj.y),
+                            np.asarray(pj.x0), np.asarray(pj.lam),
+                            grad_fx=True, device="cpu",
+                            A_lp=np.asarray(pj.A_lp, np.float32))
+    kw = dict(ss_type=ss_type, cg_adaptive=True, cg_lp_tol=1e-3)
+    sj, s = _solve(pj, pt, **kw)
+    assert s.epochs == sj.epochs
+    assert s.cg_info == sj.cg_info
+    _close(s.obj.numpy(), np.asarray(sj.obj), rtol=1e-10, atol=0)
+    _close(s.x.numpy(), np.asarray(sj.x), rtol=0, atol=1e-9)
+
+
 @pytest.mark.parametrize("kw,match", [
     (dict(curvature_rows=64), "A7"),
     (dict(static_precond=True), "A7"),
-    (dict(cg_lp_tol=1e-3), "A10"),
 ])
 def test_unported_uncached_options_raise(kw, match):
     _, pt = _logreg(128, 64)
