@@ -12,14 +12,17 @@ result. Phases, each fatal on failure:
      kernels from ``scso_tpu_torch/csrc`` and print the build seconds.
   2. Each kernel against its plain PyTorch version on the card, in
      float32 and float64, at the main-path and narrow shapes (K1, K1
-     with A's bfloat16 copy and w, v in the working type, K2 also
-     normalized by another row count, K2s, and K1s under a one-rank
+     with A's bfloat16 copy and w, v in the working type, K2 in its ggn
+     and its newton flavour, also normalized by another row count, K2s,
+     and K1s under a one-rank
      NCCL group: bitwise K1, with A in bfloat16 too, and its
      overlapped form with 2 and 3 column chunks against the plain
      version), at block-boundary shapes (with n % 8 != 0: a bfloat16
      row that is not 16-byte aligned), at n above K1's shared-memory
      form (also with A in bfloat16),
-     at odd n for K3 and at n = 2²⁴ + 1 (its multi-block form), for K5
+     at odd n for K3 and at n = 2²⁴ + 1 (its multi-block form), also
+     with NaN and ±inf in d and with a NaN η (non-finite where the plain
+     version's outputs are, equal elsewhere), for K5
      at the multinomial bench shape (where its limit must also reject
      a one-TF32-product version of either contraction, emulated in
      PyTorch), at boundary shapes (both of its forms and both sides of
@@ -34,9 +37,9 @@ result. Phases, each fatal on failure:
      runs of back-to-back calls, the median of 5 runs' per-call time)
      of each kernel beside its plain version at its path's full-width
      shape, with the rate over A's bytes of those that stream A (K1,
-     K1 with A in bfloat16, K1s, K2 and K2s also at 524288×1024 beside
-     their bounds, K2 also in its split form), and of one 40 KB NCCL
-     all-reduce.
+     K1 with A in bfloat16, K1s, K2 in both flavours and K2s also at
+     524288×1024 beside their bounds, K2 also in its split form), and
+     of one 40 KB NCCL all-reduce.
   3. The sparse-logistic path at full width: 196608×10000 (padded to
      10112), seed 7, float32 on the card, solved by the JAX bench's
      ProxGGNSCORE(solver='cg', cg_maxiter=100) with A in float32
@@ -101,11 +104,28 @@ result. Phases, each fatal on failure:
      at that size. Then a small float64 solve with the copy,
      cg_adaptive=True and cg_lp_tol=1e-2 through the kernels must match
      the CPU plain path on the same copy.
+ 12. The Newton-CG path: ProxNSCORE(solver='cg', cg_maxiter=100) on
+     phase 3's problem under phase 3's protocol, with its own presolve
+     anchor, (a) with greedy damping off (NEWTON_GREEDY_OFF: at λ = 0.01
+     the full greedy Newton step diverges on this data, in the JAX
+     package as here, PERF.md), (b) with greedy AUTO (on) at λ =
+     NEWTON_GREEDY_LAM: K1, K2 in its newton flavour (in the kernel, not
+     its split form) and K3 launched, no other kernel; each
+     kernels='torch' chain must agree on the final objective. (c) One
+     60-epoch solve from x0 in phase 3's own configuration (λ = 0.01,
+     greedy AUTO) with each kernels mode: the two must turn non-finite
+     at the same record (or end at the same objective), their records
+     printed. Then small float64 solves
+     through the kernels against the CPU plain path: cached Newton-CG,
+     uncached (ss_type 3), Newton-CG on a multinomial problem (K5), and
+     on the JAX bench's family_logreg_100x50 problem the dense Newton
+     solve (hess_fx) and the dense dual and primal GGN solves.
 
 The last two lines of standard output are one JSON object with each
 kernel's numbers, then ``{"ok": true, "device": {...}}`` (K1 with A in
 bfloat16 is its own row, ``normal_matvec_bf16``: its launches are
-phase 11's lp chains'). Each kernel's
+phase 11's lp chains'; so is K2's newton flavour,
+``glm_prep_pair_newton``, with phase 12's launches). Each kernel's
 ``bound_ms`` is the larger of the bytes it must move (each input read
 once, each output written once) over 3.35 TB/s and its multiply-adds
 over A (or the vectors) at 67 TFLOP/s, the H100 SXM data sheet's HBM
@@ -207,6 +227,10 @@ KERNELS = {
                               "scso_tpu/ops/pallas/matvec.py:196"),
     "glm_prep_pair": ("scso_tpu_torch/csrc/glm_prep.cu",
                       "scso_tpu/ops/pallas/glm_prep.py:239"),
+    # K2 in the newton flavour (ProxNSCORE's epoch cache: the TPU kernel
+    # traces the spec's gres and hvp_w instead)
+    "glm_prep_pair_newton": ("scso_tpu_torch/csrc/glm_prep.cu",
+                             "scso_tpu/ops/pallas/glm_prep.py:239"),
     "glm_prep": ("scso_tpu_torch/csrc/glm_prep.cu",
                  "scso_tpu/ops/pallas/glm_prep.py:84"),
     "score_update": ("scso_tpu_torch/csrc/score_update.cu",
@@ -222,6 +246,15 @@ LBFGS_KERNELS = ("two_loop", "score_update")
 UNCACHED_KERNELS = ("glm_prep", "normal_matvec", "score_update")
 SHARDED_KERNELS = ("normal_matvec_sharded", "normal_matvec", "glm_prep_pair",
                    "score_update")
+NEWTON_KERNELS = ("normal_matvec", "glm_prep_pair_newton", "score_update")
+# phase 12: the Newton-CG method; on phase 3's data at λ = 0.01 the
+# greedy trial's full Newton steps run away to NaN, as the JAX package's
+# do (chain (c) holds both modes to the same records), so chain (a)
+# keeps phase 3's λ with greedy off and chain (b) runs greedy AUTO at
+# the smallest λ probed on the card where it converges
+NEWTON_CG = dict(solver="cg", cg_maxiter=100)
+NEWTON_GREEDY_OFF = dict(NEWTON_CG, greedy_alpha=False)
+NEWTON_GREEDY_LAM = 0.03
 
 
 def fail(msg: str):
@@ -363,6 +396,11 @@ def data_kernel_case(m, n, dtype, gen, mesh, timed=False):
             time_ms(lambda: glm_prep_pair(A, y, xt, xd, LOGISTIC01_GLM)),
             time_ms(lambda: glm_prep_pair_torch(A, y, xt, xd,
                                                 LOGISTIC01_GLM)))
+        times["glm_prep_pair_newton"] = (
+            time_ms(lambda: glm_prep_pair(A, y, xt, xd, LOGISTIC01_GLM,
+                                          flavour="newton")),
+            time_ms(lambda: glm_prep_pair_torch(A, y, xt, xd, LOGISTIC01_GLM,
+                                                flavour="newton")))
         times["glm_prep"] = (
             time_ms(lambda: glm_prep(A, y, xt, LOGISTIC01_GLM)),
             time_ms(lambda: glm_prep_torch(A, y, xt, LOGISTIC01_GLM)))
@@ -428,27 +466,29 @@ def squared_moglm(k):
 
 
 def prep_checks(A, y, xt, xd, tag, dn, glm=None):
-    """K2 and K2s against their plain versions on ``glm`` (the
-    logistic01 spec by default), normalized by A's rows and by another
-    count (as on one rank of four), each with a bitwise rerun: {kernel:
-    max abs err}."""
+    """K2 (in both flavours) and K2s against their plain versions on
+    ``glm`` (the logistic01 spec by default), normalized by A's rows and
+    by another count (as on one rank of four), each with a bitwise
+    rerun: {kernel: max abs err}."""
     from scso_tpu_torch.models.losses import LOGISTIC01_GLM
     from scso_tpu_torch.ops.cuda.glm_prep import (
         glm_prep, glm_prep_pair, glm_prep_pair_torch, glm_prep_torch)
 
     glm = glm or LOGISTIC01_GLM
-    res = {"glm_prep_pair": 0.0, "glm_prep": 0.0}
+    res = {"glm_prep_pair": 0.0, "glm_prep_pair_newton": 0.0,
+           "glm_prep": 0.0}
     for m_norm in (None, 4 * A.shape[0] + 3):
         what = f"m_norm={m_norm} {tag}" if m_norm else tag
-        pp = glm_prep_pair(A, y, xt, xd, glm, m_norm)
-        same_bits(f"glm_prep_pair {what}", pp,
-                  glm_prep_pair(A, y, xt, xd, glm, m_norm))
-        ref = glm_prep_pair_torch(A, y, xt, xd, glm, m_norm)
-        res["glm_prep_pair"] = max(
-            [res["glm_prep_pair"]]
-            + [compare(f"glm_prep_pair.{f} {what}", g, r, dn)
-               for f, g, r in zip(pp._fields, pp, ref)])
-        del pp, ref
+        for fl, key in (("ggn", "glm_prep_pair"),
+                        ("newton", "glm_prep_pair_newton")):
+            pp = glm_prep_pair(A, y, xt, xd, glm, m_norm, fl)
+            same_bits(f"{key} {what}", pp,
+                      glm_prep_pair(A, y, xt, xd, glm, m_norm, fl))
+            ref = glm_prep_pair_torch(A, y, xt, xd, glm, m_norm, fl)
+            res[key] = max([res[key]]
+                           + [compare(f"{key}.{f} {what}", g, r, dn)
+                              for f, g, r in zip(pp._fields, pp, ref)])
+            del pp, ref
         k2s = glm_prep(A, y, xt, glm, m_norm)
         same_bits(f"glm_prep {what}", k2s, glm_prep(A, y, xt, glm, m_norm))
         ref = glm_prep_torch(A, y, xt, glm, m_norm)[:3]
@@ -475,7 +515,8 @@ def prep_case(m, n, dtype, gen):
                      for c in (2, 1))
     res = prep_checks(A, y, xt, xd, f"({m}x{n} {dn})", dn)
     log(f"  K2/K2s {m}x{n} {dn} ({forms}): max abs err "
-        f"K2 {res['glm_prep_pair']:.3e} K2s {res['glm_prep']:.3e}")
+        f"K2 {res['glm_prep_pair']:.3e} K2 newton "
+        f"{res['glm_prep_pair_newton']:.3e} K2s {res['glm_prep']:.3e}")
     if (m, n) in PREP_SPLIT_SHAPES:
         from scso_tpu_torch._src.struct import replace
         from scso_tpu_torch.models.losses import LOGISTIC01_GLM
@@ -485,7 +526,8 @@ def prep_case(m, n, dtype, gen):
             res = prep_checks(A, y, xt, xd, f"split, {name} ({m}x{n} {dn})",
                               dn, glm)
             log(f"  K2/K2s split form, {name} spec, {m}x{n} {dn}: max abs "
-                f"err K2 {res['glm_prep_pair']:.3e} K2s "
+                f"err K2 {res['glm_prep_pair']:.3e} K2 newton "
+                f"{res['glm_prep_pair_newton']:.3e} K2s "
                 f"{res['glm_prep']:.3e}")
 
 
@@ -519,6 +561,42 @@ def score_update_case(n, reg, dtype, gen, timed=False):
         times = (time_ms(lambda: score_update(*args)),
                  time_ms(lambda: score_update_torch(*args)))
     return err, times
+
+
+def score_update_nonfinite_case(n, reg, dtype, gen):
+    """K3 on a runaway step (NaN and ±inf in d), then on a NaN η: its
+    outputs must be non-finite where the plain version's are, with the
+    same values elsewhere (a NaN must not come out as a finite x⁺)."""
+    import torch
+
+    from scso_tpu_torch.ops.cuda.score_update import (
+        score_update, score_update_torch)
+
+    dev = "cuda"
+    dn = str(dtype).replace("torch.", "")
+    r = lambda: torch.randn((n,), generator=gen, device=dev, dtype=dtype)
+    x, d, lgr = r(), r(), r()
+    d[::7], d[1::11], d[2::13] = float("nan"), float("inf"), -float("inf")
+    hr = torch.rand((n,), generator=gen, device=dev, dtype=dtype) + 1e-3
+    lam = torch.tensor(0.07, dtype=dtype, device=dev)
+    ss = torch.tensor(0.6, dtype=dtype, device=dev)
+    lb = torch.full((n,), -0.5, dtype=dtype, device=dev)
+    ub = torch.full((n,), 0.7, dtype=dtype, device=dev)
+    lgr_nan = lgr.clone()
+    lgr_nan[n // 2] = float("nan")
+    for what, g in (("runaway step", lgr), ("NaN η", lgr_nan)):
+        args = (x, d, g, hr, lam, ss, 3.0, "l1" if reg == "none" else reg,
+                reg != "none", lb, ub)
+        tag = f"score_update (n={n} {reg} {dn}, {what})"
+        got, want = score_update(*args), score_update_torch(*args)
+        for f, u, v in zip(got._fields, got, want):
+            fin = torch.isfinite(v)
+            if not (torch.equal(torch.isnan(u), torch.isnan(v))
+                    and torch.equal(u[torch.isinf(v)], v[torch.isinf(v)])):
+                fail(f"{tag}.{f}: non-finite outputs differ from the "
+                     "plain version's")
+            if bool(fin.any()):
+                compare(f"{tag}.{f}", u[fin], v[fin], dn)
 
 
 def two_loop_case(n, m, pushes, dtype, gen, timed=False):
@@ -689,6 +767,8 @@ def work_bounds(main, mglm_shape, lbfgs_case):
         "normal_matvec_bf16": (2 * m * n + f * (m + 2 * n), 4 * m * n),
         "normal_matvec_sharded": (k1[0] + 2 * f * n, k1[1]),
         "glm_prep_pair": (f * (m * n + 3 * m + 6 * n + 2), 14 * m * n),
+        "glm_prep_pair_newton": (f * (m * n + 3 * m + 6 * n + 2),
+                                 14 * m * n),
         "glm_prep": (f * (m * n + 2 * m + 3 * n), 7 * m * n),
         "score_update": (f * 5 * n, 20 * n),
         "mglm_matvec": (f * (mm * p + 2 * mm * k + 2 * p * k),
@@ -723,6 +803,7 @@ def phase_kernels(mesh):
                 f"K1 with A in bf16 {res['normal_matvec_bf16']:.3e} "
                 f"K1s {res['normal_matvec_sharded']:.3e} "
                 f"K2 {res['glm_prep_pair']:.3e} "
+                f"K2 newton {res['glm_prep_pair_newton']:.3e} "
                 f"K2s {res['glm_prep']:.3e} "
                 f"({time.perf_counter() - t0:.1f} s)")
             if timed and (m, n) == main:
@@ -735,6 +816,7 @@ def phase_kernels(mesh):
         for n in K3_NS:
             for reg in K3_REGS:
                 score_update_case(n, reg, dtype, gen)
+                score_update_nonfinite_case(n, reg, dtype, gen)
         # K3 at the main-path width (not in the odd-n list)
         err, t = score_update_case(main[1], "l1", dtype, gen,
                                    timed=dtype == torch.float32)
@@ -774,8 +856,8 @@ def phase_kernels(mesh):
         log(f"  K4 {len(TWO_LOOP_CASES)} memories {dn}: ok")
     # the kernels that stream A: their achieved rate over A's bytes
     a_bytes = dict.fromkeys(("normal_matvec", "normal_matvec_sharded",
-                             "glm_prep_pair", "glm_prep",
-                             "glm_prep_pair, split form"),
+                             "glm_prep_pair", "glm_prep_pair_newton",
+                             "glm_prep", "glm_prep_pair, split form"),
                             4 * main[0] * main[1])
     a_bytes["mglm_matvec"] = 4 * MGLM_SHAPE[0] * MGLM_SHAPE[1]
     a_bytes["normal_matvec_bf16"] = 2 * main[0] * main[1]
@@ -793,6 +875,12 @@ def phase_kernels(mesh):
         log(f"  time at {NARROW_SHAPE[0]}x{NARROW_SHAPE[1]}, {k}: kernel "
             f"{ms:.4f} ms, {a / ms / 1e6:.1f} GB/s of A{extra}, plain "
             f"{plain:.4f} ms (CUDA events, runs of calls)")
+    main_bound = bound(*work_bounds(main, MGLM_SHAPE,
+                                    TWO_LOOP_CASES[0])["glm_prep_pair"])[0]
+    log(f"  K2 at {main[0]}x{main[1]}: newton flavour "
+        f"{times['glm_prep_pair_newton'][0]:.4f} ms, ggn flavour "
+        f"{times['glm_prep_pair'][0]:.4f} ms, bound {main_bound:.4f} ms "
+        "(the same bytes)")
     buf = torch.ones(main[1], device="cuda")
     ar_ms = time_ms(lambda: dist.all_reduce(buf, group=mesh.group))
     log(f"  one all-reduce of {buf.numel() * 4} bytes over the one-rank "
@@ -805,7 +893,7 @@ def phase_kernels(mesh):
 # ---------------------------------------------------------------------------
 
 
-def build_problem(M, N, device, dtype, sol=None):
+def build_problem(M, N, device, dtype, sol=None, lam=0.01):
     import numpy as np
 
     import scso_tpu_torch as st
@@ -814,7 +902,7 @@ def build_problem(M, N, device, dtype, sol=None):
     A, y, x0, _ = synthetic.make_sparse_logreg_data(
         M, N, density=0.05, n_active=64, seed=SEED, dtype=np.float32,
         label01=True)
-    return st.Problem(A, y, x0, losses.logistic01_f, 0.01,
+    return st.Problem(A, y, x0, losses.logistic01_f, lam,
                       grad_fx=losses.logistic01_grad,
                       glm=losses.LOGISTIC01_GLM, sol=sol, dtype=dtype,
                       device=device, pad_features=True)
@@ -927,23 +1015,35 @@ def phase_main_path(shape=MAIN_SHAPE):
     return kern, plain, launches, prob_t, best
 
 
-def phase_small_f64(method, what, solve=None):
+def phase_small_f64(method, what, solve=None, build=None, kernels=None):
     """A small float64 solve through the kernels on the card against the
-    plain path on the CPU: the objective histories must agree."""
+    plain path on the CPU: the objective histories must agree. ``build``
+    (device → problem) defaults to the 512x200 sparse-logistic problem;
+    ``kernels``, when given, are the kernels the card's solve must
+    launch, and it must launch no other."""
     import torch
 
-    M, N = 512, 200
+    from scso_tpu_torch.ops.cuda import counters
+
+    build = build or (lambda dev: build_problem(512, 200, dev,
+                                                torch.float64))
     solve = solve or solve_chunk
-    s_gpu = solve(method, build_problem(M, N, "cuda", torch.float64))
-    s_cpu = solve(method, build_problem(M, N, "cpu", torch.float64))
-    if s_gpu.epochs != s_cpu.epochs or s_gpu.x.shape != (N,):
+    counters.reset()
+    gpu = build("cuda")
+    s_gpu = solve(method, gpu)
+    if kernels is not None:
+        check_launches(counters.snapshot(), kernels, f"small f64 {what}")
+    s_cpu = solve(method, build("cpu"))
+    if s_gpu.epochs != s_cpu.epochs or s_gpu.x.shape != s_cpu.x.shape:
         fail(f"small f64 {what} solve: epochs {s_gpu.epochs} vs "
              f"{s_cpu.epochs}, x shape {tuple(s_gpu.x.shape)}")
     rel = float(((s_gpu.obj - s_cpu.obj).abs() / s_cpu.obj.abs()).max())
-    if not bool(torch.isfinite(s_gpu.x).all()) or not rel <= SMALL_RTOL:
+    if not (bool(torch.isfinite(s_gpu.x).all())
+            and bool(torch.isfinite(s_cpu.obj).all()) and rel <= SMALL_RTOL):
         fail(f"small f64 {what} solve: objective histories differ by "
              f"{rel:.2e}")
-    log(f"  small f64 {what} {M}x{N}: {s_gpu.epochs} epochs, card kernels "
+    shape = "x".join(map(str, gpu.A.shape))
+    log(f"  small f64 {what} {shape}: {s_gpu.epochs} epochs, card kernels "
         f"vs CPU plain max rel objective diff {rel:.2e} "
         f"(tolerance {SMALL_RTOL:g})")
 
@@ -1348,6 +1448,168 @@ def phase_lp(main3, narrow9):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the Newton-CG path
+# ---------------------------------------------------------------------------
+
+
+def build_logreg_100x50(device, dtype=None):
+    """The JAX bench's family_logreg_100x50 problem (bench.py): 100x50
+    sparse logistic, 0/1 labels, seed 1234, λ = 0.1, with its derivative
+    hooks (the dense Newton and GGN solves read hess_fx, out_fn and
+    loss_fn)."""
+    import numpy as np
+    import torch
+
+    import scso_tpu_torch as st
+    from scso_tpu_torch.models import losses, synthetic
+
+    A, y, x0, _ = synthetic.make_sparse_logreg_data(
+        100, 50, density=0.3, n_active=8, seed=1234, dtype=np.float32,
+        label01=True)
+    return st.Problem(
+        A, y, x0, losses.logistic01_f, 0.1, grad_fx=losses.logistic01_grad,
+        hess_fx=losses.logistic01_hess, out_fn=losses.sigmoid_out,
+        grad_fy=losses.logistic_ggn_residual,
+        hess_fy_diag=losses.logistic_ggn_qdiag,
+        loss_fn=losses.logistic_loss_01, hvp_w=losses.logistic01_hvp_w,
+        ggn_w=losses.logistic_ggn_w, glm=losses.LOGISTIC01_GLM,
+        dtype=dtype or torch.float64, device=device)
+
+
+def newton_chains(prob, method, what):
+    """Phase 12's chain on ``prob``: a presolve anchor with ``method``
+    (from x0), then the timed chain with the kernels and with
+    kernels='torch'. Returns (kernels result, torch result, launches)."""
+    import dataclasses
+
+    import torch
+
+    from scso_tpu_torch._src.struct import replace
+    from scso_tpu_torch.ops.cuda import counters
+
+    t0 = time.perf_counter()
+    best, x_opt, pre_epochs = presolve(
+        method, replace(prob, x_star=torch.zeros_like(prob.x0)))
+    log(f"  {what}: presolve obj* {best:.9e} after {pre_epochs} epochs "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if x_opt is None:
+        fail(f"the Newton-CG presolve ({what}) found no finite objective")
+    prob_t = replace(prob, x_star=x_opt)
+    solve_chunk(method, prob_t)  # warm-up
+    counters.reset()
+    kern = timed_chain(method, prob_t, best)
+    launches = counters.snapshot()
+    kern.update(anchor_obj=best, presolve_epochs=pre_epochs)
+    log(f"  {what}, timed solve, kernels: {kern['seconds']:.4f} s, "
+        f"{kern['epochs']} epochs, {kern['cg_iters']} CG iterations, gap "
+        f"{kern['gap']:.3e}, launches {launches}")
+    if not kern["gap"] <= GAP * 1.05:
+        fail(f"the Newton-CG kernel path ({what}) missed the {GAP:g} gap: "
+             f"{kern['gap']:.3e}")
+    check_launches(launches, NEWTON_KERNELS, f"Newton-CG ({what})")
+    plain_method = dataclasses.replace(method, kernels="torch")
+    solve_chunk(plain_method, prob_t)  # warm-up
+    plain = timed_chain(plain_method, prob_t, best)
+    rel = abs(kern["obj"] - plain["obj"]) / abs(plain["obj"])
+    log(f"  {what}, timed solve, kernels='torch': {plain['seconds']:.4f} s, "
+        f"{plain['epochs']} epochs, {plain['cg_iters']} CG iterations; final "
+        f"objective kernels {kern['obj']:.9e}, torch {plain['obj']:.9e}, rel "
+        f"diff {rel:.2e} (tolerance {E2E_RTOL:g})")
+    if not rel <= E2E_RTOL:
+        fail(f"Newton-CG ({what}) final objectives differ: kernels "
+             f"{kern['obj']:.9e}, torch {plain['obj']:.9e} (rel {rel:.2e} > "
+             f"{E2E_RTOL:g})")
+    return kern, plain, launches
+
+
+def phase_newton(prob3, best3):
+    """Phase 12: `newton_chains` on phase 3's problem (``prob3``, whose
+    GGN anchor objective is ``best3``) with greedy off, and at λ =
+    NEWTON_GREEDY_LAM with greedy AUTO; K2's newton flavour must run in
+    the kernel. Then the small float64 Newton and dense GGN solves
+    against the CPU."""
+    import torch
+
+    import scso_tpu_torch as st
+    from scso_tpu_torch._src.struct import replace
+    from scso_tpu_torch.ops.cuda import launch
+    from scso_tpu_torch.ops.cuda.glm_prep import covers, prep_grid
+
+    m, n = prob3.A.shape
+    grid = prep_grid(m, n, prob3.A.dtype, 2, launch.sm_count(0),
+                     covers(prob3.glm))
+    if grid.form != "one_pass":
+        fail(f"K2's newton flavour would run its {grid.form} form at "
+             f"{m}x{n}")
+    log(f"  K2's newton flavour at {m}x{n}: its {grid.form} form")
+    kern, plain, launches = newton_chains(
+        prob3, st.ProxNSCORE(**NEWTON_GREEDY_OFF), "λ = 0.01, greedy off")
+    log(f"  phase 3's GGN anchor {best3:.9e}; Newton's "
+        f"{kern['anchor_obj']:.9e}")
+    lam = torch.tensor(NEWTON_GREEDY_LAM, dtype=prob3.dtype,
+                       device=prob3.device)
+    gkern, gplain, glaunches = newton_chains(
+        replace(prob3, lam=lam), st.ProxNSCORE(**NEWTON_CG),
+        f"λ = {NEWTON_GREEDY_LAM:g}, greedy AUTO")
+    kern["greedy"], plain["greedy"] = gkern, gplain
+    launches = {k: launches[k] + glaunches[k] for k in launches}
+    # (c) phase 3's configuration: the greedy trial's full Newton steps
+    # run away on this data, in the JAX package too. Both modes must
+    # turn non-finite at the same record, or end at the same objective
+    # (the launches are not the path's: they are left out of the counts)
+    hist = {}
+    for mode in ("cuda", "torch"):
+        s = solve_chunk(st.ProxNSCORE(**NEWTON_CG, kernels=mode), prob3)
+        hist[mode] = h = s.obj.double().cpu()
+        bad = (~torch.isfinite(h)).nonzero()
+        (kern if mode == "cuda" else plain)["lam001_greedy"] = dict(
+            epochs=s.epochs, obj=float(h[-1]),
+            first_non_finite=int(bad[0]) if len(bad) else None)
+        log(f"  λ = 0.01, greedy AUTO (phase 3's configuration), "
+            f"kernels={mode!r}: {s.epochs} epochs from x0, records "
+            f"{[float(v) for v in h]}")
+    k_bad = kern["lam001_greedy"]["first_non_finite"]
+    p_bad = plain["lam001_greedy"]["first_non_finite"]
+    if k_bad != p_bad:
+        fail(f"λ = 0.01, greedy AUTO: the first non-finite record is "
+             f"{k_bad} with the kernels, {p_bad} with kernels='torch'")
+    h_k, h_p = hist["cuda"], hist["torch"]
+    if k_bad is None:
+        final = abs(float(h_k[-1] - h_p[-1])) / abs(float(h_p[-1]))
+        if not final <= E2E_RTOL:
+            fail(f"λ = 0.01, greedy AUTO: final objectives differ by "
+                 f"{final:.2e}")
+    r = min(len(h_k), len(h_p))
+    fin = torch.isfinite(h_k[:r]) & torch.isfinite(h_p[:r])
+    rel = float(((h_k[:r] - h_p[:r]).abs() / h_p[:r].abs())[fin].max())
+    log(f"  λ = 0.01, greedy AUTO: first non-finite record {k_bad} in both "
+        f"modes; their finite records differ by at most {rel:.2e} relative")
+    torch.cuda.empty_cache()
+
+    # small float64 solves, card kernels against the CPU plain path (λ =
+    # 0.1 for the logistic problem: at 0.01 damped Newton diverges on it)
+    small = lambda dev: build_problem(512, 200, dev, torch.float64, lam=0.1)
+    phase_small_f64(st.ProxNSCORE(solver="cg", greedy_alpha=False),
+                    "cached Newton-CG", build=small, kernels=NEWTON_KERNELS)
+    phase_small_f64(st.ProxNSCORE(solver="cg", ss_type=3),
+                    "uncached Newton-CG (ss_type 3)", build=small,
+                    kernels=("normal_matvec", "score_update"))
+    phase_small_f64(st.ProxNSCORE(solver="cg", greedy_alpha=False),
+                    "multinomial Newton-CG",
+                    build=lambda dev: build_mglm_problem(
+                        256, 32, 4, dev, torch.float64, lam=1e-2),
+                    kernels=MGLM_KERNELS)
+    for name, meth in (
+            ("dense Newton", st.ProxNSCORE(solver="dense")),
+            ("dense_dual GGN", st.ProxGGNSCORE(solver="dense_dual")),
+            ("dense_primal GGN", st.ProxGGNSCORE(solver="dense_primal"))):
+        phase_small_f64(meth, f"{name}, family_logreg_100x50",
+                        build=build_logreg_100x50,
+                        kernels=("score_update",))
+    return kern, plain, launches
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the row-sharded cached GGN-CG path
 # ---------------------------------------------------------------------------
 
@@ -1661,9 +1923,15 @@ def main():
         "(auto_lp=True) against A in float32")
     lp, lplaunches = phase_lp((prob_t, best, kern["obj"]),
                               (nprob_t, nbest, nkern["obj"]))
+    del nprob_t
+    torch.cuda.empty_cache()
+
+    log("phase 12: the Newton-CG path (ProxNSCORE) at full width, and "
+        "the small Newton and dense GGN solves")
+    ekern, eplain, elaunches = phase_newton(prob_t, best)
     launches = {k: launches[k] + mlaunches[k] + llaunches[k] + ulaunches[k]
                 + slaunches[k] + nlaunches[k] + klaunches[k] + lplaunches[k]
-                for k in launches}
+                + elaunches[k] for k in launches}
 
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "scso_tpu"
@@ -1688,6 +1956,8 @@ def main():
     log("kind=None path: " + json.dumps({"card": card, "auto": kkern,
                                          "torch": kplain}))
     log("lp path: " + json.dumps({"card": card, **lp}))
+    log("Newton-CG path: " + json.dumps({"card": card, "kernels": ekern,
+                                         "torch": eplain}))
     rows = []
     for k, (src, rep) in KERNELS.items():
         bound_ms, bound_by = bound(*work[k])

@@ -7,21 +7,24 @@ of the ported path replaced by a CUDA kernel written for Hopper
 package ``scso_tpu`` stays the reference; module names mirror it.
 
 Ported, on full batches with the pseudo-Huber l1 smoother:
-``ProxGGNSCORE(solver='cg')`` through the epoch-fused cache and off it
-(step-size modes 1, 2 and 3, ``epoch_cache=False``), and
-``ProxLQNSCORE`` (L-BFGS, the default method of ``iterate``), on sparse
-logistic regression with 0/1 labels (``GLMSpec``), multinomial softmax
-regression (``MOGLMSpec``, ``mglm=``), or any data f with ``grad_fx``
-or autograd. GGN-CG on a GLM spec runs precision-adaptive CG on a
-bfloat16 copy of A (``with_lp_copy`` with ``cg_lp_tol``, or
-``auto_lp``). What the port leaves out raises NotImplementedError
+``ProxNSCORE`` (proximal Newton: dense, or Newton-CG through the
+epoch-fused cache and off it), ``ProxGGNSCORE`` (GGN-CG through the
+cache and off it, and the dense dual and primal solves that
+``solver='auto'`` takes on small problems), with step-size modes 1, 2
+and 3, and ``ProxLQNSCORE`` (L-BFGS, the default method of
+``iterate``), on sparse logistic regression with 0/1 labels
+(``GLMSpec``), multinomial softmax regression (``MOGLMSpec``,
+``mglm=``), or any data f with its derivative hooks or autograd.
+GGN-CG on a GLM spec runs precision-adaptive CG on a bfloat16 copy of A
+(``with_lp_copy`` with ``cg_lp_tol``, or ``auto_lp``). What the port leaves out raises NotImplementedError
 naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
 from scso_tpu_torch.algorithms.iterate import Options, Solution, iterate, solve
-from scso_tpu_torch.algorithms.methods import ProxGGNSCORE, ProxLQNSCORE
+from scso_tpu_torch.algorithms.methods import (
+    ProxGGNSCORE, ProxLQNSCORE, ProxNSCORE)
 from scso_tpu_torch.algorithms.mixed import iterate_mixed, with_lp_copy
 from scso_tpu_torch.ops.linalg import cg_solve
 from scso_tpu_torch.ops.prox import prox_l1, prox_l2, prox_indbox, prox_step
@@ -39,6 +42,7 @@ __all__ = [
     "GLMSpec",
     "MOGLMSpec",
     "make_problem",
+    "ProxNSCORE",
     "ProxGGNSCORE",
     "ProxLQNSCORE",
     "iterate",

@@ -1,8 +1,8 @@
 """The solve loop: epochs, histories and the Solution record.
 
 Port of the full-batch path of `scso_tpu.algorithms.iterate`, for
-ProxGGNSCORE (cached or uncached) and ProxLQNSCORE — the default method
-when ``method`` is None. The JAX
+ProxNSCORE and ProxGGNSCORE (cached or uncached) and ProxLQNSCORE — the
+default method when ``method`` is None. The JAX
 solve is one jitted `lax.while_loop` on the device; here it is an
 eager Python loop. Its host reads are the stopping test (one per epoch)
 and the CG residual test (one per CG iteration); the history records
@@ -25,7 +25,7 @@ reads replicated values, so all ranks take the same CG iterations and
 epochs. Everything else raises on it before the first collective.
 
 Not ported yet: mini-batches, the timed (python-loop) mode, metrics,
-test data, resume, and the Newton method (ROADMAP A7, A12).
+test data and resume (ROADMAP A7, A12).
 """
 
 from __future__ import annotations
@@ -37,11 +37,12 @@ from typing import Any, NamedTuple, Optional, Union
 import torch
 
 from scso_tpu_torch._src.struct import replace as dc_replace
-from scso_tpu_torch.algorithms.methods import ProxGGNSCORE, ProxLQNSCORE
+from scso_tpu_torch.algorithms.methods import (
+    ProxGGNSCORE, ProxLQNSCORE, ProxNSCORE)
 from scso_tpu_torch.algorithms.mixed import with_lp_copy
 from scso_tpu_torch.algorithms.steps import (
     GLMCache, MOGLMCache, _cg_tol, _cw, _lam_scalar, _resolve_ggn_solver,
-    epoch_cache_enabled, ggn_step, lbfgs_step, prime_glm_cache)
+    epoch_cache_enabled, lbfgs_step, make_step_fn, prime_glm_cache)
 from scso_tpu_torch.ops.lbfgs_core import LBFGSMemory, init_memory
 from scso_tpu_torch.problems import Problem
 
@@ -146,8 +147,9 @@ def _resolve_kernels(method, prob: Problem):
 
 def _check_sharded(method, prob: Problem, reg_name: str):
     """A row-sharded problem runs the cached GGN-CG path only. Anything
-    else raises here, before the first collective: ranks that parted at
-    a collective would wait for each other forever."""
+    else (ProxNSCORE included) raises here, before the first collective:
+    ranks that parted at a collective would wait for each other
+    forever."""
     if prob.mesh is None:
         return
     what = None
@@ -230,9 +232,8 @@ def _auto_lp(method, prob: Problem, reg_name: str = "l1"):
 def solve(method, prob: Problem, reg_name: str, sm, opts: Options,
           alpha=None) -> Solution:
     """Run one solve; returns a :class:`Solution`."""
-    if not isinstance(method, (ProxGGNSCORE, ProxLQNSCORE)):
-        raise NotImplementedError(
-            f"{type(method).__name__} is not ported yet (ROADMAP A7)")
+    if not isinstance(method, (ProxNSCORE, ProxGGNSCORE, ProxLQNSCORE)):
+        raise TypeError(f"unknown method {method!r}")
     prob = _effective_L(prob, alpha)
     method = _resolve_kernels(method, prob)
     method, prob = _auto_lp(method, prob, reg_name)
@@ -254,6 +255,7 @@ def _solve_impl(method, prob: Problem, reg_name: str, sm, opts: Options):
     x_tol, f_tol = opts.x_tol, opts.f_tol
     max_epoch = opts.max_epoch
     is_lbfgs = isinstance(method, ProxLQNSCORE)
+    step = make_step_fn(method)
     use_fcache = epoch_cache_enabled(method, prob, reg_name, True)
     if use_fcache:
         # obj_star through the SAME evaluation path as the cached fval:
@@ -288,9 +290,9 @@ def _solve_impl(method, prob: Problem, reg_name: str, sm, opts: Options):
             out = lbfgs_step(method, prob, reg_name, sm, A, y, c.x,
                              c.x_prev, c.gq_prev, it, c.mem, gq_cached=c.gq)
         else:
-            out = ggn_step(method, prob, reg_name, sm, A, y, c.x, c.x_prev,
-                           it, d_prev=c.d_prev, bnorm_prev=c.bnorm_prev,
-                           fcache=c.fcache, gq_prev=c.gq_prev, mem=c.mem)
+            out = step(method, prob, reg_name, sm, A, y, c.x, c.x_prev, it,
+                       d_prev=c.d_prev, bnorm_prev=c.bnorm_prev,
+                       fcache=c.fcache, gq_prev=c.gq_prev, mem=c.mem)
         x, x_prev, pri = out.x_new, c.x, out.pri_res_norm
         conv = ((torch.linalg.vector_norm(x - x_prev)
                  < x_tol * torch.clamp_min(
@@ -360,8 +362,9 @@ def iterate(method, model: Problem, reg_name: str, h_mu, *, alpha=None,
             max_epoch=1000, x_tol=1e-10, f_tol=1e-10, verbose=1,
             stats_every=1, mode="fused", **unported) -> Solution:
     """Run a SCORE solve — the JAX package's ``iterate`` entry point for
-    full-batch ProxGGNSCORE and ProxLQNSCORE solves. ``method=None``
-    runs ProxLQNSCORE(), the reference's intended default."""
+    full-batch ProxNSCORE, ProxGGNSCORE and ProxLQNSCORE solves.
+    ``method=None`` runs ProxLQNSCORE(), the reference's intended
+    default."""
     if unported or mode != "fused":
         names = sorted(unported) + ([] if mode == "fused" else ["mode"])
         raise NotImplementedError(

@@ -1,7 +1,7 @@
 """Method configuration objects (frozen, hashable).
 
-Port of `scso_tpu.algorithms.methods.ProxGGNSCORE` and `ProxLQNSCORE`
-(the default method of `iterate`). Field meanings and
+Port of `scso_tpu.algorithms.methods`: `ProxNSCORE`, `ProxGGNSCORE` and
+`ProxLQNSCORE` (the default method of `iterate`). Field meanings and
 defaults are the JAX package's; see its docstrings for the measurements
 behind them. ``kernels`` differs:
   * 'auto'  — resolved by `iterate` to 'cuda' for problems whose data
@@ -9,7 +9,6 @@ behind them. ``kernels`` differs:
   * 'cuda'  — the hand-written CUDA kernels (ops/cuda/) at every shape,
     for any GLM or MOGLM spec; a tensor they do not take raises;
   * 'torch' — the plain PyTorch versions on any device.
-ProxNSCORE is not ported yet (ROADMAP A7, with K2's newton flavour B2).
 """
 
 from __future__ import annotations
@@ -20,12 +19,63 @@ from typing import Optional
 _KERNEL_MODES = ("auto", "cuda", "torch")
 
 
+def _check_kernels(method):
+    if method.kernels not in _KERNEL_MODES:
+        raise ValueError(
+            f"kernels must be one of {_KERNEL_MODES}, got "
+            f"{method.kernels!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ProxNSCORE:
+    """Proximal Newton with self-concordant regularization.
+
+    ``solver``: 'dense' is the reference's direct solve
+    (H + λ·diag(Hr)) \\ ∇q; 'cg' is matrix-free Newton-CG (K1 for the
+    Hessian weights of a GLM, K5 on a multi-output GLM, else
+    forward-over-reverse HVPs); 'auto' is dense up to n = 2048 and CG
+    above (steps._resolve_newton_solver). On the epoch cache K2 runs in
+    its newton flavour (gres and hvp_w, the true Hessian weights)."""
+
+    ss_type: int = 1
+    use_prox: bool = True
+    solver: str = "auto"
+    #: CG forcing floor; 0.0 = AUTO (3e-4 in float32, sqrt(eps) in
+    #: float64) — see steps._cg_tol
+    cg_tol: float = 0.0
+    cg_maxiter: int = 250
+    #: Eisenstat-Walker adaptive CG forcing (opt-in)
+    cg_adaptive: bool = False
+    #: greedy SCORE damping; None = AUTO (on for ss_type=1 and n >= 4096)
+    greedy_alpha: Optional[bool] = None
+    #: row-sharded CG matvec schedule; kept for parity: a sharded Newton
+    #: solve is not ported yet (ROADMAP A11)
+    comm_overlap_chunks: int = 1
+    #: the static Jacobi preconditioner — not ported yet (ROADMAP A7)
+    static_precond: bool = False
+    #: epoch-fused greedy path; None = AUTO (steps.epoch_cache_enabled)
+    epoch_cache: Optional[bool] = None
+    kernels: str = "auto"
+    name: str = "prox-newtonscore"
+    label: str = "Prox-N-SCORE"
+
+    def __post_init__(self):
+        _check_kernels(self)
+
+    def display(self):
+        if not self.use_prox:
+            return "newtonscore", "Newton-SCORE"
+        return self.name, self.label
+
+
 @dataclasses.dataclass(frozen=True)
 class ProxGGNSCORE:
     """Proximal generalized Gauss-Newton with self-concordant
-    regularization. The port runs ``solver='cg'`` (matrix-free GGN-CG on
-    a GLM spec); 'auto' resolves to 'cg' above the dense budget and the
-    dense branches are not ported yet (ROADMAP A7)."""
+    regularization. ``solver``: 'cg' (matrix-free GGN-CG on a GLM or
+    multi-output spec), 'dense_dual' / 'dense_primal' (the reference's
+    dense systems over the materialized Jacobian), or 'auto': the
+    reference's dense branch up to m·n = 2²⁴ elements of J, CG above
+    (steps._resolve_ggn_solver)."""
 
     ss_type: int = 1
     use_prox: bool = True
@@ -80,10 +130,7 @@ class ProxGGNSCORE:
     label: str = "Prox-GGN-SCORE"
 
     def __post_init__(self):
-        if self.kernels not in _KERNEL_MODES:
-            raise ValueError(
-                f"kernels must be one of {_KERNEL_MODES}, got "
-                f"{self.kernels!r}")
+        _check_kernels(self)
 
     def display(self):
         if not self.use_prox:
@@ -108,10 +155,7 @@ class ProxLQNSCORE:
     label: str = "Prox-LBFGS-SCORE"
 
     def __post_init__(self):
-        if self.kernels not in _KERNEL_MODES:
-            raise ValueError(
-                f"kernels must be one of {_KERNEL_MODES}, got "
-                f"{self.kernels!r}")
+        _check_kernels(self)
 
     def display(self):
         if not self.use_prox:

@@ -1,10 +1,12 @@
-"""The SCORE steps: GGN-CG (cached and uncached) and L-BFGS.
+"""The SCORE steps: Newton, GGN (CG, cached and uncached, or dense) and
+L-BFGS.
 
-Port of `scso_tpu.algorithms.steps` for the ported paths: prox-GGN with
-matrix-free CG and prox-L-BFGS, with the three step-size modes, the
+Port of `scso_tpu.algorithms.steps`: prox-Newton (dense or matrix-free
+CG), prox-GGN (matrix-free CG, or the reference's dense dual and primal
+systems) and prox-L-BFGS, with the three step-size modes, the
 SCORE-damped prox tail and optional greedy damping, for a scalar GLM
-spec (`GLMCache`, sparse logistic) and a multi-output spec
-(`MOGLMCache`, multinomial).
+spec (`GLMCache`, sparse logistic), a multi-output spec (`MOGLMCache`,
+multinomial), or a data f with its derivative hooks.
 
 One epoch of the epoch-cache GGN-CG path (ss_type 1, full batch):
 
@@ -33,6 +35,17 @@ weights (`_weighted_system`), or Z = A·W for an mglm (`_mo_glm_system`)
 An L-BFGS epoch (`lbfgs_step`) is the two-loop direction (K4), the step
 size, the damped tail (K3) and one gradient at x⁺.
 
+A Newton epoch (`newton_step`) runs the same cached path with K2 in its
+newton flavour (ρ = gres, w = hvp_w: the true Hessian weights,
+`_cache_flavour`), or off the cache forms ∇q once — z = A·x and Aᵀ·gres
+for a GLM (its CG matvecs K1 on the hvp_w weights), Z = A·W for an mglm
+(K5, whose GGN operator is the Hessian), else ∇f — and solves
+(∇²f + λ·diag(Hr)) d = −∇q by CG (warm-started from −d_prev), or
+densely through ∇²f (the user's hess_fx or autograd) for n up to
+`_DENSE_NEWTON_MAX_N` under solver='auto'. The dense GGN step
+(`_ggn_dense_direction`) solves the reference's dual or primal system
+over the materialized Jacobian (`Problem.ggn_pieces`).
+
 ``method.kernels`` ('cuda' or 'torch', resolved by `iterate`) picks the
 CUDA kernels or their plain versions, for any spec: K2, K2s and K5
 compute the logistic01 and multinomial specs in the kernel and any
@@ -49,10 +62,9 @@ The RHS, the prep and the greedy pass always read A. The JAX package
 picks the operator with a `lax.cond` on the device; here the choice is
 a host branch on the forcing tolerance, one scalar read an epoch.
 
-Newton steps (with K2's newton flavour), the dense GGN solves,
-subsampled curvature, the static preconditioner, the generic jvp/vjp
-GGN branch and the cached multi-output lp product are not ported yet
-(ROADMAP A7, B2, A10).
+Subsampled curvature, the static preconditioner, the generic jvp/vjp
+GGN-CG branch and the cached multi-output lp product are not ported yet
+(ROADMAP A7, A10).
 """
 
 from __future__ import annotations
@@ -63,7 +75,8 @@ from typing import NamedTuple
 
 import torch
 
-from scso_tpu_torch.algorithms.methods import ProxGGNSCORE, ProxLQNSCORE
+from scso_tpu_torch.algorithms.methods import (
+    ProxGGNSCORE, ProxLQNSCORE, ProxNSCORE)
 from scso_tpu_torch.ops.cuda.glm_prep import (
     ggn_weights, glm_prep, glm_prep_pair, glm_prep_pair_torch, glm_prep_torch)
 from scso_tpu_torch.ops.cuda.matvec import (
@@ -120,8 +133,11 @@ class StepOut(NamedTuple):
     #                          None off the epoch-cache path
 
 
-# solver='auto' switches to CG once the materialized Jacobian would
-# exceed this many elements (the JAX package's budget)
+# solver='auto' switches to CG above n = _DENSE_NEWTON_MAX_N (the n×n
+# factorization) and once the materialized Jacobian would exceed
+# _DENSE_GGN_MAX_ELEMS elements: the JAX package's budgets, kept for
+# parity (measured on a TPU, not on the H100)
+_DENSE_NEWTON_MAX_N = 2048
 _DENSE_GGN_MAX_ELEMS = 1 << 24
 
 _warned: set = set()
@@ -134,24 +150,50 @@ def _warn_once(key, msg):
         warnings.warn(msg, stacklevel=3)
 
 
-def _resolve_ggn_solver(method, prob: Problem, x) -> str:
-    """'auto' → 'cg' when the m·n Jacobian exceeds the dense budget and a
-    GLM spec gives the matrix-free pieces, else 'auto' (the dense
-    branches, not ported yet). An mglm problem has no dense pieces in
-    the port (no out_fn/loss_fn), so it always resolves to 'cg', as the
-    JAX package resolves it without them. A row shard counts all ranks'
-    rows, as the JAX package's sharded A keeps its global shape."""
+def _resolve_newton_solver(method, x) -> str:
+    """'auto' → 'dense' (the reference's direct solve) up to n =
+    _DENSE_NEWTON_MAX_N, 'cg' above it (warned once a shape)."""
     if method.solver != "auto":
         return method.solver
-    if prob.mglm is not None:
+    n = x.shape[-1]
+    if n > _DENSE_NEWTON_MAX_N:
+        _warn_once(
+            ("newton-auto-cg", n),
+            f"ProxNSCORE(solver='auto'): n={n} exceeds the dense budget "
+            f"({_DENSE_NEWTON_MAX_N}) — using matrix-free Newton-CG. Pass "
+            "solver='dense' to force the direct solve.")
         return "cg"
+    return "dense"
+
+
+def _resolve_ggn_solver(method, prob: Problem, x) -> str:
+    """'auto' → 'cg' when the (m·k)×n Jacobian exceeds the dense budget
+    and the matrix-free pieces exist (a GLM or mglm spec, or out_fn),
+    else 'auto' (the reference's dense branch). An mglm problem without
+    the dense pieces (jac_yx, grad_fy and hess_fy, or out_fn and
+    loss_fn) resolves to 'cg' at any size, as in the JAX package. A row
+    shard counts all ranks' rows, as the JAX package's sharded A keeps
+    its global shape. Warned once a shape."""
+    if method.solver != "auto":
+        return method.solver
     m = prob.m_total
     n = x.shape[-1]
-    if m * n > _DENSE_GGN_MAX_ELEMS and prob.glm is not None:
-        warnings.warn(
-            f"ProxGGNSCORE(solver='auto'): J would be {m}x{n} "
+    k = prob.mglm.n_out if prob.mglm is not None else 1
+    if prob.mglm is not None:
+        dense_ok = (all(fn is not None
+                        for fn in (prob.jac_yx, prob.grad_fy, prob.hess_fy))
+                    or (prob.out_fn is not None and prob.loss_fn is not None))
+        if not dense_ok:
+            return "cg"
+    matrix_free_ok = (prob.glm is not None or prob.mglm is not None
+                      or prob.out_fn is not None)
+    if m * k * n > _DENSE_GGN_MAX_ELEMS and matrix_free_ok:
+        _warn_once(
+            ("ggn-auto-cg", (m, k, n)),
+            f"ProxGGNSCORE(solver='auto'): J would be {m * k}x{n} "
             f"(> {_DENSE_GGN_MAX_ELEMS} elements) — using matrix-free "
-            "GGN-CG.", stacklevel=3)
+            "GGN-CG. Pass solver='dense_dual'/'dense_primal' to force a "
+            "dense branch.")
         return "cg"
     return "auto"
 
@@ -384,9 +426,11 @@ def _lp_tol_refused(method, dtype) -> bool:
 def _lp_engaged(method, prob: Problem, As, dtype) -> bool:
     """Whether precision-adaptive CG acts on this solve: cg_lp_tol > 0,
     a copy of A's shape (full batch: a batch slice has no matching
-    copy), and a threshold that is not refused."""
+    copy), and a threshold that is not refused. Never for ProxNSCORE,
+    which has no cg_lp_tol: as in the JAX package, its CG runs on A."""
     A_lp = prob.A_lp
-    if method.cg_lp_tol <= 0.0 or A_lp is None or A_lp.shape != As.shape:
+    if (isinstance(method, ProxNSCORE) or method.cg_lp_tol <= 0.0
+            or A_lp is None or A_lp.shape != As.shape):
         return False
     return not _lp_tol_refused(method, dtype)
 
@@ -433,8 +477,9 @@ def _cg_direction_solve(method, mv, mv_lp, b, d_prev, tol, M_inv):
 
 def epoch_cache_enabled(method, prob: Problem, reg_name: str,
                         full_batch: bool) -> bool:
-    """Predicate for the epoch-fused cache path: ProxGGNSCORE on the CG
-    solver with ss_type=1, full-batch data, and either an mglm spec with
+    """Predicate for the epoch-fused cache path: ProxGGNSCORE or
+    ProxNSCORE on the CG solver with ss_type=1, full-batch data, and
+    either an mglm spec with
     loss_z and loss_sample (taking precedence, as in the JAX package) or
     a GLM spec with loss_z and loss_sample (the GGN forms fall back to
     dlink, res and qdiag without ggn_rw/ggn_w, `glm_prep.ggn_weights`),
@@ -442,7 +487,8 @@ def epoch_cache_enabled(method, prob: Problem, reg_name: str,
     nothing on a row-sharded problem, as in the JAX package). A GGN
     solve that fails this takes the uncached path
     (`_ggn_cg_direction`)."""
-    if not isinstance(method, ProxGGNSCORE) or method.ss_type != 1:
+    if (not isinstance(method, (ProxGGNSCORE, ProxNSCORE))
+            or method.ss_type != 1):
         return False
     if method.epoch_cache is False:
         return False
@@ -456,6 +502,9 @@ def epoch_cache_enabled(method, prob: Problem, reg_name: str,
         return False
     if not full_batch:
         return False
+    # ProxNSCORE has neither curvature_rows nor cg_lp_tol
+    if isinstance(method, ProxNSCORE):
+        return _resolve_newton_solver(method, prob.x0) == "cg"
     # curvature_rows subsamples rows only on an unsharded problem, as in
     # the JAX package: on a row shard it is a no-op and the cache stays
     if prob.mesh is None and 0 < method.curvature_rows < prob.m_total:
@@ -464,6 +513,12 @@ def epoch_cache_enabled(method, prob: Problem, reg_name: str,
     if method.cg_lp_tol > 0 and prob.A_lp is not None:
         _lp_tol_refused(method, prob.x0.dtype)
     return _resolve_ggn_solver(method, prob, prob.x0) == "cg"
+
+
+def _cache_flavour(method) -> str:
+    """The K2 flavour of a method's epoch cache: 'newton' (gres and the
+    true Hessian weights hvp_w) for ProxNSCORE, 'ggn' otherwise."""
+    return "newton" if isinstance(method, ProxNSCORE) else "ggn"
 
 
 def _mo_shapes(g, x):
@@ -534,11 +589,12 @@ def prime_glm_cache(method, prob: Problem, x, As=None, ys=None):
     if prob.mglm is not None:
         return _prime_moglm(prob, x, As, ys)
     g = prob.glm
+    flavour = _cache_flavour(method)
     if method.kernels == "cuda":
-        pp = glm_prep_pair(As, ys, x, x, g, prob.m_total)
+        pp = glm_prep_pair(As, ys, x, x, g, prob.m_total, flavour)
         w, b, hd, loss = pp.w_t, pp.b_t, pp.hd_t, pp.loss_t
     else:
-        w, b, hd, loss = glm_prep_torch(As, ys, x, g, prob.m_total)
+        w, b, hd, loss = glm_prep_torch(As, ys, x, g, prob.m_total, flavour)
     if prob.mesh is not None:
         b, hd, loss = all_reduce_sum(prob.mesh, b, hd, loss)
     return GLMCache(w, b, hd, loss * _loss_scale(g, prob.m_total))
@@ -654,7 +710,8 @@ def _greedy_update_cached(method, prob: Problem, reg_name, sm, As, ys,
                            Hr_diag)
     g = prob.glm
     pair = glm_prep_pair if method.kernels == "cuda" else glm_prep_pair_torch
-    pp = pair(As, ys, x_trial, x_damped, g, prob.m_total)
+    pp = pair(As, ys, x_trial, x_damped, g, prob.m_total,
+              _cache_flavour(method))
     if prob.mesh is not None:
         pp = pp._replace(**dict(zip(_SUMMED, all_reduce_sum(
             prob.mesh, *(getattr(pp, f) for f in _SUMMED)))))
@@ -735,6 +792,147 @@ def _mo_glm_system(method, prob: Problem, As, ys, x, lhr):
     return Z, grad_vec, mv, lambda v: v / torch.clamp_min(hdiag, tiny)
 
 
+def _glm_cg_system(method, prob: Problem, As, ys, x, lhr, weight_fn,
+                   hvp_fallback):
+    """(matvec, preconditioner) of a CG system without a spec: from the
+    problem's weight hook w = weight_fn(A, y, x) through
+    `_weighted_system` (K1 under 'cuda'), else the operator
+    hvp_fallback(v) + λHr∘v with the Jacobi diagonal λHr."""
+    if weight_fn is not None and As.ndim == 2:
+        return _weighted_system(method, As, x, weight_fn(As, ys, x), lhr)
+    tiny = torch.finfo(x.dtype).tiny
+    return (lambda v: hvp_fallback(v) + lhr * v,
+            lambda v: v / torch.clamp_min(lhr, tiny))
+
+
+def _cached_step(method, prob: Problem, reg_name, sm, As, ys, x, x_prev,
+                 it, d_prev, bnorm_prev, fcache, gq_prev, mem, lam, gr,
+                 Hr_diag, cw) -> StepOut:
+    """The epoch-fused step of `newton_step` and `ggn_step` (CG solver,
+    ``fcache`` primed in the method's flavour, `_cache_flavour`): CG from
+    the cache, the step size, and the update pass that is also the next
+    epoch's prep. ``gq`` comes back as zeros."""
+    zeros = torch.zeros_like(x)
+    d, cg_iters, bnorm = _cg_from_cache(
+        method, prob, As, ys, x, gr, Hr_diag, lam, fcache, d_prev, it,
+        bnorm_prev, x_prev)
+    ss = _resolve_step_size(method, prob, sm, reg_name, As, ys, x, x_prev,
+                            zeros, gq_prev, d, it, cw)
+    x_new, pri, dx, fc_new = _cached_update(
+        method, prob, reg_name, sm, As, ys, x, d, ss, lam, lam * gr,
+        Hr_diag, fcache)
+    return StepOut(x_new, pri, dx, zeros, zeros, mem, d, cg_iters, bnorm,
+                   fc_new)
+
+
+def newton_step(method: ProxNSCORE, prob: Problem, reg_name: str, sm,
+                As, ys, x, x_prev, it: int, d_prev=None, bnorm_prev=None,
+                fcache: GLMCache = None, gq_prev=None,
+                mem: LBFGSMemory = None) -> StepOut:
+    """One proximal Newton step with self-concordant damping:
+    d = −(∇²f + λ·diag(Hr))⁻¹ (∇f + λ·gr), by the dense solve or by
+    Newton-CG warm-started from −d_prev.
+
+    With ``fcache`` (primed by the driver when `epoch_cache_enabled`,
+    newton flavour) the step is the cached path of `ggn_step`. Off the
+    cache ∇q is formed once: for a GLM (CG) from z = A·x, with the CG
+    matvecs K1 on hvp_w's weights and z reused by the greedy trial; for
+    an mglm (CG) from Z = A·W, with `_mo_glm_system`'s operator (K5),
+    which is the Hessian; else ∇f, with the problem's hvp_w weights or
+    forward-over-reverse HVPs. ``gq`` comes back as ∇q at x."""
+    lam = _lam_scalar(prob.lam)
+    cw = _cw(prob, reg_name)
+    gr = sm.grad(x, cw)
+    lgr = lam * gr
+    Hr_diag = sm.hess_diag(x, cw)
+    zeros = torch.zeros_like(x)
+    solver = _resolve_newton_solver(method, x)
+    if solver == "cg" and fcache is not None:
+        return _cached_step(method, prob, reg_name, sm, As, ys, x, x_prev,
+                            it, d_prev, bnorm_prev, fcache, gq_prev, mem,
+                            lam, gr, Hr_diag, cw)
+
+    lhr = lam * Hr_diag
+    data_2d = As.ndim == 2
+    z_cache = None
+    if solver == "cg" and prob.mglm is not None and data_2d:
+        _, grad_vec, mv, M_inv = _mo_glm_system(method, prob, As, ys, x,
+                                                lhr)
+        gq = grad_vec + lgr
+    elif solver == "cg" and prob.glm is not None and data_2d:
+        z_cache = As @ x
+        gq = As.T @ prob.glm.gres(ys, z_cache) + lgr
+        mv, M_inv = _weighted_system(method, As, x,
+                                     prob.glm.hvp_w(ys, z_cache), lhr)
+    else:
+        gq = prob.grad_f(As, ys, x) + lgr
+        if solver == "cg":
+            mv, M_inv = _glm_cg_system(
+                method, prob, As, ys, x, lhr, prob.hvp_w,
+                lambda v: prob.hvp_f(As, ys, x, v))
+
+    cg_iters = 0
+    bnorm = torch.zeros((), dtype=x.dtype, device=x.device)
+    if solver == "dense":
+        H = prob.hess_f(As, ys, x)
+        d = -torch.linalg.solve(H + lam * torch.diag(Hr_diag), gq)
+    elif solver == "cg":
+        xp = x if x_prev is None else x_prev
+        tol, bnorm = _forcing_tol(method, gq, x, xp, bnorm_prev, it,
+                                  endgame=True)
+        res = cg_solve(mv, gq, None if d_prev is None else -d_prev,
+                       tol=tol, maxiter=method.cg_maxiter, M_inv=M_inv)
+        d = -res.x
+        cg_iters = res.iters
+    else:
+        raise ValueError(f"unknown ProxNSCORE solver {solver!r}")
+
+    # ∇q at x_prev for BB, recomputed (the JAX package's fix of the
+    # reference's Newton BB branch)
+    if method.ss_type == 2:
+        gqp = prob.grad_f(As, ys, x_prev) + lam * sm.grad(x_prev, cw)
+    else:
+        gqp = gq_prev
+    ss = _resolve_step_size(method, prob, sm, reg_name, As, ys, x, x_prev,
+                            gq, gqp, d, it, cw)
+    x_new, pri, dx = _apply_update(method, prob, reg_name, sm, As, ys, x,
+                                   d, ss, lam, lgr, Hr_diag, z=z_cache)
+    return StepOut(x_new, pri, dx, gq, zeros, mem, d, cg_iters, bnorm)
+
+
+def _ggn_dense_direction(solver, prob: Problem, As, ys, x, gr, Hr_diag,
+                         lam):
+    """The reference's dense GGN direction over the materialized J
+    (`Problem.ggn_pieces`), with its dual/primal switch. With
+    Jt = [Jᵀ  λ·gr] (n × (q+1)), r̃ = [residual; 1] and Q̃ = Q padded:
+      dual   (q+1 ≤ n under 'auto', or 'dense_dual'):
+             d = H⁻¹ Jt (I + Q̃ JtᵀH⁻¹Jt)⁻¹ r̃, H = diag(Hr) — with no λ,
+             the reference's quirk, which the JAX package reproduces;
+      primal (else): d = (Jt Q̃ Jtᵀ + λ·diag(Hr))⁻¹ Jt r̃.
+    Returns −d."""
+    n = x.shape[-1]
+    _, J, residual, Q = prob.ggn_pieces(As, ys, x)
+    J2 = J.reshape(-1, n)
+    q = J2.shape[0]
+    dt, dev = x.dtype, x.device
+    Jt = torch.cat([J2.T, (lam * gr)[:, None]], dim=1)
+    rt = torch.cat([residual.reshape(-1), torch.ones(1, dtype=dt,
+                                                     device=dev)])
+    Qp = torch.zeros((q + 1, q + 1), dtype=dt, device=dev)
+    Qp[:q, :q] = torch.as_tensor(Q).reshape(q, q)
+    use_dual = (q + 1 <= n) if solver == "auto" else solver == "dense_dual"
+    if use_dual:
+        hinv = 1.0 / Hr_diag
+        Amat = Qp @ (Jt.T @ (Jt * hinv[:, None]))
+        B = torch.linalg.solve(
+            torch.eye(q + 1, dtype=dt, device=dev) + Amat, rt)
+        d = hinv * (Jt @ B)
+    else:
+        M = (Jt @ Qp) @ Jt.T + lam * torch.diag(Hr_diag)
+        d = torch.linalg.solve(M, Jt @ rt)
+    return -d
+
+
 def _ggn_cg_direction(method, prob: Problem, As, ys, x, gr, Hr_diag, lam,
                       d_prev=None, it=None, bnorm_prev=None, x_prev=None):
     """Matrix-free GGN-CG direction off the epoch cache: solve
@@ -791,7 +989,8 @@ def ggn_step(method: ProxGGNSCORE, prob: Problem, reg_name: str, sm,
     With ``fcache`` (primed by the driver when `epoch_cache_enabled`)
     the step runs the epoch-fused path: cached prep → CG → the update
     pass that is also the next epoch's prep. Without it, the uncached
-    path: `_ggn_cg_direction`, the step size (ss_type 2 prices the
+    path: `_ggn_cg_direction` (or, for the dense solvers,
+    `_ggn_dense_direction`), the step size (ss_type 2 prices the
     composite gradient at x and x_prev, two gradients), and the damped
     or greedy tail. ``gq``/``gq_new`` come back as zeros and ``mem``
     unchanged, as in the JAX package."""
@@ -801,24 +1000,19 @@ def ggn_step(method: ProxGGNSCORE, prob: Problem, reg_name: str, sm,
     lgr = lam * gr
     Hr_diag = sm.hess_diag(x, cw)
     zeros = torch.zeros_like(x)
-    if _resolve_ggn_solver(method, prob, x) != "cg":
-        raise NotImplementedError(
-            "the dense GGN solves (dense_dual/dense_primal, and 'auto' "
-            "below the dense budget) are not ported yet (ROADMAP A7)")
-    if fcache is not None:
-        d, cg_iters, bnorm = _cg_from_cache(
-            method, prob, As, ys, x, gr, Hr_diag, lam, fcache, d_prev, it,
-            bnorm_prev, x_prev)
-        ss = _resolve_step_size(method, prob, sm, reg_name, As, ys, x,
-                                x_prev, zeros, gq_prev, d, it, cw)
-        x_new, pri, dx, fc_new = _cached_update(
-            method, prob, reg_name, sm, As, ys, x, d, ss, lam, lgr,
-            Hr_diag, fcache)
-        return StepOut(x_new, pri, dx, zeros, zeros, mem, d, cg_iters,
-                       bnorm, fc_new)
-    d, cg_iters, bnorm, z_cache = _ggn_cg_direction(
-        method, prob, As, ys, x, gr, Hr_diag, lam, d_prev, it=it,
-        bnorm_prev=bnorm_prev, x_prev=x_prev)
+    solver = _resolve_ggn_solver(method, prob, x)
+    if solver == "cg" and fcache is not None:
+        return _cached_step(method, prob, reg_name, sm, As, ys, x, x_prev,
+                            it, d_prev, bnorm_prev, fcache, gq_prev, mem,
+                            lam, gr, Hr_diag, cw)
+    if solver == "cg":
+        d, cg_iters, bnorm, z_cache = _ggn_cg_direction(
+            method, prob, As, ys, x, gr, Hr_diag, lam, d_prev, it=it,
+            bnorm_prev=bnorm_prev, x_prev=x_prev)
+    else:
+        d = _ggn_dense_direction(solver, prob, As, ys, x, gr, Hr_diag, lam)
+        cg_iters, z_cache = 0, None
+        bnorm = torch.zeros((), dtype=x.dtype, device=x.device)
     # the composite gradients only for BB (ss2): GGN never forms ∇f
     # otherwise
     if method.ss_type == 2:
@@ -865,9 +1059,10 @@ def lbfgs_step(method: ProxLQNSCORE, prob: Problem, reg_name: str, sm,
 
 def make_step_fn(method):
     """The step function of a method config."""
+    if isinstance(method, ProxNSCORE):
+        return newton_step
     if isinstance(method, ProxGGNSCORE):
         return ggn_step
     if isinstance(method, ProxLQNSCORE):
         return lbfgs_step
-    raise NotImplementedError(
-        f"{type(method).__name__} is not ported yet (ROADMAP A7)")
+    raise TypeError(f"unknown method {method!r}")

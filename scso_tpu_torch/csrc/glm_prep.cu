@@ -1,4 +1,4 @@
-// K2 and K2s: GLM epoch prep for the logistic01 GLM (ggn flavour).
+// K2 and K2s: GLM epoch prep for the logistic01 GLM.
 //
 // Replaces two TPU kernels: scso_tpu/ops/pallas/glm_prep.py:239
 // (_fused_glm_prep_pair, K2) and :84 (_fused_glm_prep, K2s). For NC
@@ -6,10 +6,18 @@
 // SCORE-damped x_d; K2s: NC = 1, the current iterate) it gives, per
 // candidate c:
 //   z     = A x_c
-//   w     = (y σ(−z)² + (1−y) σ(z)²) / m_norm   CG matvec weights (m,)
+//   w     = CG matvec weights (m,), by flavour (below)
 //   b     = Aᵀ ρ,  ρ = (σ(z) − y) / m_norm       RHS pullback      (n,)
 //   hd    = Σ_i w_i A_ij²                        Jacobi diagonal   (n,)
 //   loss  = Σ_{i<m} softplus(z_i) − y_i z_i      unnormalized, K2 only
+// The flavour picks w (scso_tpu/algorithms/steps.py:_glm_kernel_fns):
+//   ggn     w = (y σ(−z)² + (1−y) σ(z)²) / m_norm   (ProxGGNSCORE)
+//   newton  w = s (1 − s) / m_norm, s = σ(z)        (ProxNSCORE: the
+//           true Hessian weights, hvp_w; ρ = gres equals the ggn ρ)
+// K2 comes in both flavours, K2s in the ggn flavour alone (the JAX
+// package calls its single-candidate kernel from GGN-CG only). The
+// newton w is s·(1 − s) with s rounded first, as the JAX spec's
+// _sig_dlink computes it: exactly 0 once s rounds to 1 (z ≳ 17 in f32).
 // The TPU kernels trace arbitrary Python ρ/ω/ℓ into their bodies; CUDA
 // cannot, so the one-pass and wide forms are specialised on the spec kind
 // (logistic01, with the 1/m normalization folded in), and any other spec
@@ -22,7 +30,8 @@
 // rows only. K2s has no loss output, as its TPU kernel has none.
 //
 // What bounds it on the H100: the bytes of A (m·n·sizeof(T)); it does
-// 7·NC flops per element of A, far below the card's compute roof. The
+// 7·NC flops per element of A, far below the card's compute roof. Both
+// flavours read A once and move the same bytes. The
 // TPU kernels keep a row tile in VMEM for both contractions and read A
 // once (scso_tpu/ops/pallas/glm_prep.py:181-234); so does the one-pass
 // form here.
@@ -109,12 +118,21 @@ struct Prep {
   T* loss[NC];
 };
 
-template <typename T>
+// What a row's dot becomes: logistic01's ρ and w (and loss) in the ggn
+// or the newton flavour, or z alone (the split form's first pass)
+enum RowOut { kGGN, kNewton, kZ };
+
+template <RowOut F, typename T>
 __device__ __forceinline__ void logistic01(T z, T y, T m, T* rho, T* w) {
+  static_assert(F == kGGN || F == kNewton, "a flavour of the spec");
   const T sp = T(1) / (T(1) + scso::dexp(-z));   // σ(z)
-  const T sn = T(1) / (T(1) + scso::dexp(z));    // σ(−z)
   *rho = (sp - y) / m;
-  *w = (y * (sn * sn) + (T(1) - y) * (sp * sp)) / m;
+  if constexpr (F == kNewton) {
+    *w = (sp * (T(1) - sp)) / m;
+  } else {
+    const T sn = T(1) / (T(1) + scso::dexp(z));  // σ(−z)
+    *w = (y * (sn * sn) + (T(1) - y) * (sp * sp)) / m;
+  }
 }
 
 // softplus(z) − y·z, with softplus(z) = max(z, 0) + log1p(exp(−|z|)),
@@ -152,7 +170,7 @@ __device__ __forceinline__ void load_chunk(const T* __restrict__ row,
   }
 }
 
-template <typename T, bool VEC, int NC, int Q>
+template <typename T, bool VEC, int NC, int Q, RowOut F>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 glm_onepass(const T* __restrict__ A, const T* __restrict__ y, Prep<T, NC> p,
             T* __restrict__ partials, double* __restrict__ loss_partials,
@@ -253,7 +271,7 @@ glm_onepass(const T* __restrict__ A, const T* __restrict__ y, Prep<T, NC> p,
       for (int k = 0; k < nwarps; ++k) z += part[slot][lane][k];
       if (r0 + r < row_end) {
         const T yi = y[r0 + r];
-        logistic01(z, yi, mT, &rho_j, &w_j);
+        logistic01<F>(z, yi, mT, &rho_j, &w_j);
         if (warp == 0) {
           // (a constant index: a dynamic one would put p in local memory)
           (lane % NC == 0 ? p.w[0] : p.w[NC - 1])[r0 + r] = w_j;
@@ -319,15 +337,17 @@ glm_onepass(const T* __restrict__ A, const T* __restrict__ y, Prep<T, NC> p,
 // wide form
 // ---------------------------------------------------------------------------
 
-// SPEC: the logistic01 ρ, w and loss of each row; else z alone, into rw
-template <typename T, bool VEC, int NC, bool SPEC>
+// F: the logistic01 ρ, w and loss of each row in that flavour; kZ: z
+// alone, into rw
+template <typename T, bool VEC, int NC, RowOut F>
 __global__ void __launch_bounds__(kThreads)
 glm_rows(const T* __restrict__ A, const T* __restrict__ y, Prep<T, NC> p,
          T* __restrict__ rw, double* __restrict__ loss_partials, int64_t m,
          int64_t n, int64_t m_norm) {
   using C = scso::Chunk<T, VEC>;
   using V = typename C::type;
-  constexpr bool kLoss = SPEC && NC == 2;
+  constexpr bool kSpec = F != kZ;
+  constexpr bool kLoss = kSpec && NC == 2;
   __shared__ double red[NC][kThreads / 32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   constexpr int nwarps = kThreads / 32;
@@ -357,9 +377,9 @@ glm_rows(const T* __restrict__ A, const T* __restrict__ y, Prep<T, NC> p,
     if (lane == 0) {
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
-        if constexpr (SPEC) {
+        if constexpr (kSpec) {
           const T yi = y[i];
-          logistic01(z[c], yi, mT, rw + c * m + i, p.w[c] + i);
+          logistic01<F>(z[c], yi, mT, rw + c * m + i, p.w[c] + i);
           if constexpr (kLoss) loss[c] += logistic01_loss(z[c], yi);
         } else {
           rw[c * m + i] = z[c];
@@ -517,13 +537,13 @@ struct Grid {
   int64_t blocks, rows_per_block, smem, threads, q, row_blocks;
 };
 
-template <typename T, int NC, int Q>
+template <typename T, int NC, RowOut F, int Q>
 cudaError_t launch_onepass(const T* A, const T* y, const Prep<T, NC>& p,
                            T* partials, double* loss_partials, int64_t m,
                            int64_t n, int64_t m_norm, const Grid& g, bool vec,
                            cudaStream_t s) {
-  auto kernel = vec ? &glm_onepass<T, true, NC, Q>
-                    : &glm_onepass<T, false, NC, Q>;
+  auto kernel = vec ? &glm_onepass<T, true, NC, Q, F>
+                    : &glm_onepass<T, false, NC, Q, F>;
   cudaError_t err = scso::allow_smem(kernel, static_cast<size_t>(g.smem));
   if (err != cudaSuccess) return err;
   kernel<<<static_cast<unsigned>(g.blocks), static_cast<unsigned>(g.threads),
@@ -534,15 +554,15 @@ cudaError_t launch_onepass(const T* A, const T* y, const Prep<T, NC>& p,
 
 // Q buckets: 1–7 chunks a thread for K2, up to 14 for K2s (the wrapper's
 // _CHUNKS_PER_THREAD); any other q is refused.
-template <typename T, int NC>
+template <typename T, int NC, RowOut F>
 cudaError_t dispatch_onepass(const T* A, const T* y, const Prep<T, NC>& p,
                              T* partials, double* loss_partials, int64_t m,
                              int64_t n, int64_t m_norm, const Grid& g,
                              bool vec, cudaStream_t s) {
-#define SCSO_Q(QV)                                                        \
-  case QV:                                                                \
-    return launch_onepass<T, NC, QV>(A, y, p, partials, loss_partials, m, \
-                                     n, m_norm, g, vec, s);
+#define SCSO_Q(QV)                                                       \
+  case QV:                                                               \
+    return launch_onepass<T, NC, F, QV>(A, y, p, partials, loss_partials, \
+                                        m, n, m_norm, g, vec, s);
   switch (g.q) {
     SCSO_Q(1) SCSO_Q(2) SCSO_Q(3) SCSO_Q(4) SCSO_Q(5) SCSO_Q(6) SCSO_Q(7)
     default:
@@ -559,21 +579,21 @@ cudaError_t dispatch_onepass(const T* A, const T* y, const Prep<T, NC>& p,
   return cudaErrorInvalidValue;
 }
 
-// phase 0: the whole wide form; 1: its rows pass with z alone (split
-// form); 2: its columns pass (split form)
-template <typename T, bool VEC, int NC>
+// phase 0: the whole wide form in flavour F; 1: its rows pass with z
+// alone (split form); 2: its columns pass (split form)
+template <typename T, bool VEC, int NC, RowOut F>
 cudaError_t launch_wide(const T* A, const T* y, const Prep<T, NC>& p, T* rw,
                         double* col_partials, double* loss_partials,
                         int64_t m, int64_t n, int64_t m_norm, const Grid& g,
                         int64_t phase, cudaStream_t s) {
   const unsigned rb = static_cast<unsigned>(g.row_blocks);
   if (phase == 0)
-    glm_rows<T, VEC, NC, true><<<rb, kThreads, 0, s>>>(A, y, p, rw,
-                                                       loss_partials, m, n,
-                                                       m_norm);
+    glm_rows<T, VEC, NC, F><<<rb, kThreads, 0, s>>>(A, y, p, rw,
+                                                    loss_partials, m, n,
+                                                    m_norm);
   if (phase == 1)
-    glm_rows<T, VEC, NC, false><<<rb, kThreads, 0, s>>>(A, y, p, rw, nullptr,
-                                                        m, n, m_norm);
+    glm_rows<T, VEC, NC, kZ><<<rb, kThreads, 0, s>>>(A, y, p, rw, nullptr,
+                                                     m, n, m_norm);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || phase == 1) return err;
   const int64_t nc = n / scso::Chunk<T, VEC>::E;
@@ -584,9 +604,10 @@ cudaError_t launch_wide(const T* A, const T* y, const Prep<T, NC>& p, T* rw,
   return cudaGetLastError();
 }
 
-// phase 0: the whole prep (logistic01; one-pass form where g.q > 0,
-// else wide); 1 and 2: the split form's two calls (g is a wide grid)
-template <typename T, int NC>
+// phase 0: the whole prep (logistic01 in flavour F; one-pass form where
+// g.q > 0, else wide); 1 and 2: the split form's two calls (g is a wide
+// grid; F does not enter them)
+template <typename T, int NC, RowOut F>
 int launch(const void* A, const void* y, const Prep<T, NC>& p, void* rw,
            void* partials, void* loss_partials, int64_t m, int64_t n,
            int64_t m_norm, const Grid& g, int64_t phase, void* stream) {
@@ -605,10 +626,11 @@ int launch(const void* A, const void* y, const Prep<T, NC>& p, void* rw,
   if (phase < 0 || phase > 2 || (phase > 0 && g.q > 0)) {
     err = cudaErrorInvalidValue;
   } else if (g.q > 0) {
-    err = dispatch_onepass<T, NC>(a, y_, p, static_cast<T*>(partials), lp, m,
-                                  n, m_norm, g, vec, s);
+    err = dispatch_onepass<T, NC, F>(a, y_, p, static_cast<T*>(partials), lp,
+                                     m, n, m_norm, g, vec, s);
   } else {
-    auto wide = vec ? &launch_wide<T, true, NC> : &launch_wide<T, false, NC>;
+    auto wide = vec ? &launch_wide<T, true, NC, F>
+                    : &launch_wide<T, false, NC, F>;
     err = wide(a, y_, p, static_cast<T*>(rw), static_cast<double*>(partials),
                lp, m, n, m_norm, g, phase, s);
   }
@@ -628,13 +650,14 @@ int launch(const void* A, const void* y, const Prep<T, NC>& p, void* rw,
 
 }  // namespace
 
-// K2: both candidates, with their loss sums. ``rw`` (2, m) is the wide
-// form's scratch for ρ (unused by the one-pass form; the split form's z,
-// then its ρ); ``partials`` are (blocks, 4, n) in T (one-pass) or double
-// (wide, split); ``loss_partials`` (row_blocks, 2) double; ``phase`` 0
-// for the one-pass and wide forms, 1 and 2 for the split form's calls
-// (its loss sums, written as 0 here, are the wrapper's).
-#define SCSO_GLM_PAIR_ENTRY(NAME, T)                                        \
+// K2: both candidates, with their loss sums, in flavour F (the _newton
+// entries: ProxNSCORE's cache). ``rw`` (2, m) is the wide form's scratch
+// for ρ (unused by the one-pass form; the split form's z, then its ρ);
+// ``partials`` are (blocks, 4, n) in T (one-pass) or double (wide,
+// split); ``loss_partials`` (row_blocks, 2) double; ``phase`` 0 for the
+// one-pass and wide forms, 1 and 2 for the split form's calls (its loss
+// sums, written as 0 here, are the wrapper's).
+#define SCSO_GLM_PAIR_ENTRY(NAME, T, F)                                     \
   extern "C" int NAME(const void* A, const void* y, const void* xt,         \
                       const void* xd, void* wt, void* wd, void* rw,         \
                       void* bt, void* bd, void* ht, void* hd, void* lt,     \
@@ -649,10 +672,11 @@ int launch(const void* A, const void* y, const Prep<T, NC>& p, void* rw,
         {static_cast<T*>(bt), static_cast<T*>(bd)},                         \
         {static_cast<T*>(ht), static_cast<T*>(hd)},                         \
         {static_cast<T*>(lt), static_cast<T*>(ld)}};                        \
-    return launch<T, 2>(A, y, p, rw, partials, loss_partials, m, n, m_norm, \
-                        Grid{blocks, rows_per_block, smem, threads, q,      \
-                             row_blocks},                                   \
-                        phase, stream);                                     \
+    return launch<T, 2, F>(A, y, p, rw, partials, loss_partials, m, n,      \
+                           m_norm,                                          \
+                           Grid{blocks, rows_per_block, smem, threads, q,   \
+                                row_blocks},                                \
+                           phase, stream);                                  \
   }
 
 // K2s: one candidate, no loss. ``rw`` (m,) is the wide form's scratch
@@ -668,13 +692,15 @@ int launch(const void* A, const void* y, const Prep<T, NC>& p, void* rw,
     const Prep<T, 1> p{{static_cast<const T*>(x)}, {static_cast<T*>(w)},    \
                        {static_cast<T*>(b)}, {static_cast<T*>(hd)},         \
                        {nullptr}};                                          \
-    return launch<T, 1>(A, y, p, rw, partials, nullptr, m, n, m_norm,       \
-                        Grid{blocks, rows_per_block, smem, threads, q,      \
-                             row_blocks},                                   \
-                        phase, stream);                                     \
+    return launch<T, 1, kGGN>(A, y, p, rw, partials, nullptr, m, n, m_norm, \
+                              Grid{blocks, rows_per_block, smem, threads,   \
+                                   q, row_blocks},                          \
+                              phase, stream);                               \
   }
 
-SCSO_GLM_PAIR_ENTRY(scso_glm_prep_pair_f32, float)
-SCSO_GLM_PAIR_ENTRY(scso_glm_prep_pair_f64, double)
+SCSO_GLM_PAIR_ENTRY(scso_glm_prep_pair_f32, float, kGGN)
+SCSO_GLM_PAIR_ENTRY(scso_glm_prep_pair_f64, double, kGGN)
+SCSO_GLM_PAIR_ENTRY(scso_glm_prep_pair_newton_f32, float, kNewton)
+SCSO_GLM_PAIR_ENTRY(scso_glm_prep_pair_newton_f64, double, kNewton)
 SCSO_GLM_PREP_ENTRY(scso_glm_prep_f32, float)
 SCSO_GLM_PREP_ENTRY(scso_glm_prep_f64, double)

@@ -36,6 +36,19 @@ __device__ __forceinline__ double eta_term(T g, T h) {
   return g == T(0) ? 0.0 : static_cast<double>(g * g / h);
 }
 
+// max and min that return NaN where either operand is NaN, as
+// torch.maximum/minimum, torch.clamp and jnp.maximum/minimum do: a plain
+// `a > b ? a : b` would turn a runaway step's NaN into a finite value
+template <typename T>
+__device__ __forceinline__ T nan_max(T a, T b) {
+  return (a != a || a > b) ? a : b;
+}
+
+template <typename T>
+__device__ __forceinline__ T nan_min(T a, T b) {
+  return (a != a || a < b) ? a : b;
+}
+
 template <typename T>
 __device__ __forceinline__ T prox_one(T xs, T h, T lam, T ss, int64_t reg,
                                       const T* __restrict__ lb,
@@ -44,18 +57,15 @@ __device__ __forceinline__ T prox_one(T xs, T h, T lam, T ss, int64_t reg,
     const T t = ss * lam * h;
     const T mag = (xs < T(0) ? -xs : xs) - t;
     const T sgn = static_cast<T>((xs > T(0)) - (xs < T(0)));
-    return sgn * (mag > T(0) ? mag : T(0));
+    return sgn * nan_max(mag, T(0));
   }
   if (reg == kL2) {
     const T t = ss * lam * h;
     const T xs2 = xs * xs;
-    const T scale = xs2 == T(0) ? T(0) : T(1) - t / xs2;
-    return xs * (scale > T(0) ? scale : T(0));
+    const T scale = xs2 == T(0) ? T(0) : nan_max(T(1) - t / xs2, T(0));
+    return xs * scale;
   }
-  if (reg == kIndBox) {
-    const T lo = xs > lb[i] ? xs : lb[i];
-    return lo < ub[i] ? lo : ub[i];
-  }
+  if (reg == kIndBox) return nan_min(nan_max(xs, lb[i]), ub[i]);
   return xs;
 }
 
@@ -79,8 +89,7 @@ __device__ __forceinline__ double apply(
 
 template <typename T>
 __device__ __forceinline__ T safe_step(T eta, T ss, double Mg) {
-  const T alpha = ss / (T(1) + static_cast<T>(Mg) * eta);
-  return alpha < T(1) ? alpha : T(1);
+  return nan_min(ss / (T(1) + static_cast<T>(Mg) * eta), T(1));
 }
 
 template <typename T>

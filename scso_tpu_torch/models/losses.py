@@ -1,15 +1,18 @@
 """The ported model families.
 
-Port of two parts of `scso_tpu.models.losses`:
+Port of three parts of `scso_tpu.models.losses`:
   * logistic regression with 0/1 labels (the sparse-logistic path),
-    f(A, y, x) = (1/m)·Σ [softplus(Ax) − y⊙(Ax)], and its
+    f(A, y, x) = (1/m)·Σ [softplus(Ax) − y⊙(Ax)], its Hessian and its
     :data:`LOGISTIC01_GLM` spec;
+  * logistic regression with ±1 labels (the reference's oracle fixture),
+    f = (1/m)·Σ softplus(−y⊙(Ax)), with its gradient and Hessian, and
+    the dense GGN hooks the reference writes for it (the 0/1
+    cross-entropy in ŷ, its residual and curvature, J of ŷ = σ(Ax));
   * multinomial (softmax) regression over the logits split Z = A·W,
     W = x.reshape(p, k), f = (1/m)·Σᵢ [logsumexp(Zᵢ) − yᵢ·Zᵢ], and its
     :data:`MULTINOM_MGLM` spec (per-k: :func:`multinom_mglm`).
-The other families (±1 logistic, least squares, Poisson, the
-probability-split multinomial, QP, Rosenbrock) are not ported yet
-(ROADMAP A7, B2).
+The other families (least squares, Poisson, the probability-split
+multinomial, QP, Rosenbrock) are not ported yet (ROADMAP A7, A8).
 
 ``softplus`` here is ``logaddexp(z, 0)``, the form `jax.nn.softplus`
 uses. `torch.nn.functional.softplus` switches to the identity above
@@ -29,6 +32,45 @@ def softplus(z):
     return torch.logaddexp(z, torch.zeros_like(z))
 
 
+def logistic_f(A, y, x):
+    return torch.mean(softplus(-y * (A @ x)))
+
+
+def logistic_grad(A, y, x):
+    s = torch.sigmoid(-y * (A @ x))
+    return A.T @ (-y * s) / A.shape[0]
+
+
+def logistic_hess(A, y, x):
+    s = torch.sigmoid(y * (A @ x))
+    return (A.T * (s * (1.0 - s))) @ A / A.shape[0]
+
+
+def logistic_loss_01(y, yhat):
+    """Cross-entropy in ŷ for 0/1-coded y, −(1/m)·Σ[y log ŷ + (1−y)
+    log(1−ŷ)]: the reference's second f method, which it also feeds ±1
+    labels (reproduced, as in the JAX package)."""
+    m = yhat.shape[0]
+    return -torch.sum(y * torch.log(yhat)
+                      + (1.0 - y) * torch.log(1.0 - yhat)) / m
+
+
+def logistic_ggn_residual(A, y, yhat):
+    """∇_ŷ of :func:`logistic_loss_01` (divides by ŷ and 1−ŷ: it
+    overflows once the link saturates in float32)."""
+    return (-(y / yhat) + (1.0 - y) / (1.0 - yhat)) / yhat.shape[0]
+
+
+def logistic_ggn_qdiag(A, y, yhat):
+    """diag ∇²_ŷ of :func:`logistic_loss_01` (it is exactly diagonal)."""
+    return (y / yhat**2 + (1.0 - y) / (1.0 - yhat) ** 2) / yhat.shape[0]
+
+
+def sigmoid_jac(A, y, yhat, x):
+    """J = ∂ŷ/∂x = diag(ŷ(1−ŷ))·A."""
+    return A * (yhat * (1.0 - yhat))[:, None]
+
+
 def logistic01_f(A, y, x):
     z = A @ x
     return torch.mean(softplus(z) - y * z)
@@ -36,6 +78,11 @@ def logistic01_f(A, y, x):
 
 def logistic01_grad(A, y, x):
     return A.T @ (torch.sigmoid(A @ x) - y) / A.shape[0]
+
+
+def logistic01_hess(A, y, x):
+    s = torch.sigmoid(A @ x)
+    return (A.T * (s * (1.0 - s))) @ A / A.shape[0]
 
 
 def logistic01_hvp_w(A, y, x):

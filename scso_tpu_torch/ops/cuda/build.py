@@ -48,6 +48,8 @@ SIGNATURES = {
     # rows_per_block, smem_bytes, threads, chunks_per_thread,
     # row_blocks), phase (0, or the split form's 1 and 2), stream
     "scso_glm_prep_pair": [_p] * 15 + [_i64] * 10 + [_p],
+    # the same in the newton flavour (ProxNSCORE's epoch cache)
+    "scso_glm_prep_pair_newton": [_p] * 15 + [_i64] * 10 + [_p],
     # A, y, x, w, rw, b, hd, partials, m, n, m_norm, the PrepGrid, phase,
     # stream
     "scso_glm_prep": [_p] * 8 + [_i64] * 10 + [_p],

@@ -15,7 +15,8 @@ KERNEL_LAUNCHES: dict = {
     #                            in normal_matvec as well)
     "normal_matvec_sharded": 0,
     "glm_prep": 0,
-    "glm_prep_pair": 0,
+    "glm_prep_pair": 0,         # K2, ggn flavour
+    "glm_prep_pair_newton": 0,  # K2, newton flavour (ProxNSCORE)
     "score_update": 0,
     "mglm_matvec": 0,
     "two_loop": 0,

@@ -8,14 +8,18 @@ Port of `scso_tpu/ops/pallas/glm_prep.py`:
     the stats objective in one call (the epoch-cache path);
   * K2s (`_fused_glm_prep`, :func:`glm_prep`): the same at one x, with
     no loss — the prep of the uncached GGN-CG path.
-Both kernels are ``csrc/glm_prep.cu``, in the ggn flavour;
-:func:`glm_prep_torch` and :func:`glm_prep_pair_torch` are the plain
-versions. The TPU kernels trace a spec's Python callables into their
-bodies, which CUDA cannot: the one-pass and wide forms below compute the
-logistic01 GLM in the kernel (:func:`covers`), and any other GLM spec
-runs the split form: the wide form's two passes over A as two calls,
-the spec's own ρ, w and loss computed in PyTorch on the (m,) vector z
-between them.
+Both kernels are ``csrc/glm_prep.cu``; :func:`glm_prep_torch` and
+:func:`glm_prep_pair_torch` are the plain versions. The ``flavour``
+picks the weights (the JAX package's `steps._glm_kernel_fns`): 'ggn'
+(ProxGGNSCORE: the spec's GGN forms, :func:`ggn_weights`) or, for K2
+alone, 'newton' (ProxNSCORE's epoch cache: ρ = gres and w = hvp_w, the
+true Hessian weights, :func:`newton_weights`); K2 counts its newton
+launches apart (``glm_prep_pair_newton``). The TPU kernels trace a
+spec's Python callables into their bodies, which CUDA cannot: the
+one-pass and wide forms below compute the logistic01 GLM in the kernel
+(:func:`covers`), and any other GLM spec runs the split form: the wide
+form's two passes over A as two calls, the spec's own ρ, w and loss
+computed in PyTorch on the (m,) vector z between them.
 
 What bounds both on the H100 is the bytes of A. Up to :func:`max_n`
 (K2: n = 14336 in float32, 7168 in float64; K2s: 28672 and 14336) the
@@ -41,7 +45,7 @@ the JAX package's rule (`steps._glm_kernel_fns`). None means A's rows.
 
 The TPU's n ≥ 8192 gates (`steps._use_pair_kernel`, the AUTO
 `use_fused_prep`) are not carried over: the kernels take any m, n and
-spec. The newton flavour is not ported yet (ROADMAP B2).
+spec.
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ import torch
 from scso_tpu_torch.ops.cuda import build, counters, launch
 
 KERNEL_KINDS = ("logistic01",)
+FLAVOURS = ("ggn", "newton")
 
 # dynamic shared memory a block may use: Hopper's 227 KB less headroom
 # for the kernel's static buffers (as K1's, ops/cuda/matvec.py)
@@ -113,40 +118,57 @@ def ggn_weights(glm, y, z):
     return rw, w
 
 
-def _weights(glm, y, z, m_norm):
-    """(ρ, w) at z, normalized by ``m_norm``: the plain versions' and
-    the split form's."""
+def newton_weights(glm, y, z):
+    """(ρ, w) of the Newton system at z: the gradient residual gres and
+    the Hessian weights hvp_w (the JAX package's `steps._glm_kernel_fns`,
+    newton flavour)."""
+    return glm.gres(y, z), glm.hvp_w(y, z)
+
+
+def _check_flavour(flavour):
+    if flavour not in FLAVOURS:
+        raise ValueError(f"unknown GLM prep flavour {flavour!r}; known: "
+                         f"{FLAVOURS}")
+
+
+def _weights(glm, y, z, m_norm, flavour="ggn"):
+    """(ρ, w) at z in ``flavour``, normalized by ``m_norm``: the plain
+    versions' and the split form's."""
     fix = _norm_fix(glm, z.shape[0], m_norm)
-    rw, w = ggn_weights(glm, y, z)
+    _check_flavour(flavour)
+    weights = newton_weights if flavour == "newton" else ggn_weights
+    rw, w = weights(glm, y, z)
     return fix(rw), fix(w)
 
 
-def glm_prep_torch(A, y, x, glm, m_norm=None):
+def glm_prep_torch(A, y, x, glm, m_norm=None, flavour="ggn"):
     """Plain single-candidate prep: (w, Aᵀρ, Σᵢ wᵢAᵢⱼ², Σᵢ ℓᵢ) at x, with
-    ρ, w from :func:`ggn_weights` and ℓ the spec's loss_sample,
-    normalized by ``m_norm``.
+    ρ, w from :func:`ggn_weights` (or :func:`newton_weights`) and ℓ the
+    spec's loss_sample, normalized by ``m_norm``.
 
     ``Σᵢ wᵢAᵢⱼ²`` materialises an A-sized temporary (w·A, then the
     contraction with A): about 8 GB at the full 196608×10112 float32
     width. The CUDA kernel needs none."""
     z = A @ x
-    rw, w = _weights(glm, y, z, m_norm)
+    rw, w = _weights(glm, y, z, m_norm, flavour)
     return (w, A.T @ rw, torch.einsum("i,ij,ij->j", w, A, A),
             torch.sum(glm.loss_sample(y, z)))
 
 
-def glm_prep_pair_torch(A, y, x_t, x_d, glm, m_norm=None) -> PairPrep:
+def glm_prep_pair_torch(A, y, x_t, x_d, glm, m_norm=None,
+                        flavour="ggn") -> PairPrep:
     """Plain dual-candidate prep: :func:`glm_prep_torch` at each
     candidate (same A-sized temporary, twice)."""
-    wt, bt, ht, lt = glm_prep_torch(A, y, x_t, glm, m_norm)
-    wd, bd, hd, ld = glm_prep_torch(A, y, x_d, glm, m_norm)
+    wt, bt, ht, lt = glm_prep_torch(A, y, x_t, glm, m_norm, flavour)
+    wd, bd, hd, ld = glm_prep_torch(A, y, x_d, glm, m_norm, flavour)
     return PairPrep(wt, wd, bt, bd, ht, hd, lt, ld)
 
 
 def covers(glm) -> bool:
-    """True for a GLM spec whose forms the kernels compute themselves
-    (the one-pass and wide forms): a kind in :data:`KERNEL_KINDS`,
-    normalized by 1/m. Any other spec takes the split form."""
+    """True for a GLM spec whose forms the kernels compute themselves,
+    in both flavours (the one-pass and wide forms): a kind in
+    :data:`KERNEL_KINDS` (logistic01), normalized by 1/m. Any other spec
+    takes the split form."""
     return glm.kind in KERNEL_KINDS and glm.sample_normalized
 
 
@@ -288,12 +310,14 @@ def glm_prep(A, y, x, glm, m_norm=None):
     return w, b, hd
 
 
-def glm_prep_pair(A, y, x_t, x_d, glm, m_norm=None) -> PairPrep:
-    """Dual-candidate prep — the K2 kernel for CUDA tensors (its split
-    form for a spec that :func:`covers` refuses), the plain version for
-    CPU tensors."""
+def glm_prep_pair(A, y, x_t, x_d, glm, m_norm=None,
+                  flavour="ggn") -> PairPrep:
+    """Dual-candidate prep in ``flavour`` ('ggn' or 'newton') — the K2
+    kernel for CUDA tensors (its split form for a spec that
+    :func:`covers` refuses), the plain version for CPU tensors."""
+    _check_flavour(flavour)
     if launch.on_cpu(A, "glm_prep_pair"):
-        return glm_prep_pair_torch(A, y, x_t, x_d, glm, m_norm)
+        return glm_prep_pair_torch(A, y, x_t, x_d, glm, m_norm, flavour)
     launch.check_operands("glm_prep_pair", A.dtype, A.device, A=A, y=y,
                           x_t=x_t, x_d=x_d)
     m_norm = _check_shapes("glm_prep_pair", A, y, m_norm, x_t, x_d)
@@ -306,7 +330,9 @@ def glm_prep_pair(A, y, x_t, x_d, glm, m_norm=None) -> PairPrep:
     loss_t, loss_d = out[-2], out[-1]
     # ``buf`` holds the scratch the pointers address until the launches
     buf, partials, loss_partials, rw = _scratch(grid, 2, m, n, dt, dev)
-    run = _launcher("scso_glm_prep_pair", dev, dt, A.data_ptr(), y.data_ptr(),
+    name = ("scso_glm_prep_pair_newton" if flavour == "newton"
+            else "scso_glm_prep_pair")
+    run = _launcher(name, dev, dt, A.data_ptr(), y.data_ptr(),
                     x_t.data_ptr(), x_d.data_ptr(), w_t.data_ptr(),
                     w_d.data_ptr(), None if rw is None else rw.data_ptr(),
                     b_t.data_ptr(), b_d.data_ptr(), hd_t.data_ptr(),
@@ -316,12 +342,13 @@ def glm_prep_pair(A, y, x_t, x_d, glm, m_norm=None) -> PairPrep:
         run(1)  # z_t, z_d into rw
         loss_t, loss_d = (torch.sum(glm.loss_sample(y, z)) for z in rw)
         for z, w in zip(rw, (w_t, w_d)):
-            rho, w_ = _weights(glm, y, z, m_norm)
+            rho, w_ = _weights(glm, y, z, m_norm, flavour)
             z.copy_(rho)
             w.copy_(w_)
         run(2)
     else:
         run(0)
     del buf
-    counters.bump("glm_prep_pair")
+    counters.bump("glm_prep_pair_newton" if flavour == "newton"
+                  else "glm_prep_pair")
     return PairPrep(w_t, w_d, b_t, b_d, hd_t, hd_d, loss_t, loss_d)

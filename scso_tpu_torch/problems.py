@@ -4,9 +4,12 @@ Port of `scso_tpu.problems`. A :class:`Problem` is a frozen dataclass of
 tensors that all live on one ``device`` in one ``dtype``; both are
 explicit fields, because PyTorch has no global x64 switch (the CPU tests
 pass ``torch.float64`` and ``device='cpu'``; the device defaults to the
-card). ∇f is the user's ``grad_fx``, else autograd
-through ``f`` (``torch.func.grad``). The generic ``f(x)`` flavour, the
-Hessian fallbacks, group structure, test data and the dense GGN hooks
+card). ∇f is the user's ``grad_fx``, else autograd through ``f``
+(``torch.func.grad``); ∇²f the user's ``hess_fx``, else
+``torch.func.hessian``; the Hessian-vector product forward-over-reverse.
+The dense GGN step reads (ŷ, J, residual, Q) from the user's ``jac_yx``,
+``grad_fy`` and ``hess_fy``, else from autograd of ``out_fn`` and
+``loss_fn``. The generic ``f(x)`` flavour, group structure and test data
 are not ported yet (ROADMAP A7, A8).
 """
 
@@ -119,6 +122,22 @@ class Problem:
     data_axis: str = "data"
     m_total: Optional[int] = None
     A_lp: Optional[torch.Tensor] = None
+    #: the reference's derivative hooks, as in the JAX package:
+    #: hess_fx(A, y, x) → ∇²f; out_fn(A, x) → ŷ and loss_fn(y, ŷ) → f
+    #: for the dense GGN step's autograd fallback; jac_yx(A, y, ŷ, x),
+    #: grad_fy(A, y, ŷ), hess_fy(A, y, ŷ) and hess_fy_diag(A, y, ŷ) its
+    #: user forms; hvp_w(A, y, x) → w with ∇²f·v = Aᵀ(w∘(A·v)) and
+    #: ggn_w(A, y, x) the GGN analogue (the CG systems of a problem
+    #: without a GLM spec)
+    hess_fx: Optional[Callable] = None
+    out_fn: Optional[Callable] = None
+    loss_fn: Optional[Callable] = None
+    jac_yx: Optional[Callable] = None
+    grad_fy: Optional[Callable] = None
+    hess_fy: Optional[Callable] = None
+    hess_fy_diag: Optional[Callable] = None
+    hvp_w: Optional[Callable] = None
+    ggn_w: Optional[Callable] = None
 
     def __post_init__(self):
         if self.m_total is None and self.A is not None:
@@ -134,6 +153,64 @@ class Problem:
         if self.grad_fx is not None:
             return self.grad_fx(As, ys, x)
         return torch.func.grad(lambda v: self.f_val(As, ys, v))(x)
+
+    def hess_f(self, As, ys, x):
+        """∇²f — the user's ``hess_fx``, else ``torch.func.hessian``
+        through ``f``."""
+        if self.hess_fx is not None:
+            return self.hess_fx(As, ys, x)
+        return torch.func.hessian(lambda v: self.f_val(As, ys, v))(x)
+
+    def hvp_f(self, As, ys, x, v):
+        """∇²f(x)·v without forming ∇²f: forward-over-reverse, the jvp
+        of ∇f."""
+        return torch.func.jvp(lambda u: self.grad_f(As, ys, u), (x,),
+                              (v,))[1]
+
+    def out(self, As, x):
+        if self.out_fn is None:
+            raise ValueError("ProxGGNSCORE requires out_fn on the problem")
+        return self.out_fn(As, x)
+
+    def ggn_pieces(self, As, ys, x):
+        """(ŷ, J, residual, Q) for the dense GGN step: the user's
+        (jac_yx, grad_fy, hess_fy), else autograd of out_fn and
+        loss_fn."""
+        yhat = self.out(As, x)
+        if all(fn is not None
+               for fn in (self.jac_yx, self.grad_fy, self.hess_fy)):
+            return (yhat, self.jac_yx(As, ys, yhat, x),
+                    self.grad_fy(As, ys, yhat), self.hess_fy(As, ys, yhat))
+        if self.loss_fn is None:
+            raise ValueError(
+                "GGN AD fallback requires loss_fn(y, yhat) on the problem "
+                "(the reference's second f method)")
+        loss = lambda yh: self.loss_fn(ys, yh)
+        J = torch.func.jacfwd(lambda v: self.out(As, v))(x)
+        return (yhat, J, torch.func.grad(loss)(yhat),
+                torch.func.hessian(loss)(yhat))
+
+    def ggn_residual_qdiag(self, As, ys, x):
+        """(ŷ, residual, diag Q) for a matrix-free GGN system:
+        ``hess_fy_diag`` when given, else the diagonal of ``hess_fy`` or
+        of the autograd Hessian of loss_fn."""
+        yhat = self.out(As, x)
+        loss = lambda yh: self.loss_fn(ys, yh)
+        if self.grad_fy is not None:
+            residual = self.grad_fy(As, ys, yhat)
+        elif self.loss_fn is not None:
+            residual = torch.func.grad(loss)(yhat)
+        else:
+            raise ValueError("GGN requires grad_fy or loss_fn")
+        if self.hess_fy_diag is not None:
+            q_diag = self.hess_fy_diag(As, ys, yhat)
+        elif self.hess_fy is not None:
+            q_diag = torch.diagonal(self.hess_fy(As, ys, yhat))
+        elif self.loss_fn is not None:
+            q_diag = torch.diagonal(torch.func.hessian(loss)(yhat))
+        else:
+            raise ValueError("GGN requires hess_fy(_diag) or loss_fn")
+        return yhat, residual, q_diag
 
     def reg(self, reg_name: str, x):
         return reg_value(reg_name, x, lam=self.lam, lb=self.lb, ub=self.ub)
@@ -167,8 +244,10 @@ def _resolve_bounds(C_set, dtype, device):
 
 
 def make_problem(*args, L=None, sol=None, C_set=None, glm=None,
-                 mglm=None, grad_fx=None, dtype=None, device=None,
-                 pad_features=False, **unported) -> Problem:
+                 mglm=None, grad_fx=None, hess_fx=None, out_fn=None,
+                 loss_fn=None, jac_yx=None, grad_fy=None, hess_fy=None,
+                 hess_fy_diag=None, hvp_w=None, ggn_w=None, dtype=None,
+                 device=None, pad_features=False, **unported) -> Problem:
     """Build a data :class:`Problem`: ``make_problem(A, y, x0, f, lam)``.
 
     Arrays may be numpy arrays or tensors; they are converted to
@@ -179,7 +258,10 @@ def make_problem(*args, L=None, sol=None, C_set=None, glm=None,
     coordinates stay exactly 0 for l1/l2/no-prox solves, and
     ``Solution.x`` is sliced back to ``n_true``. ``grad_fx(A, y, x)`` is
     ∇f (L-BFGS, and the BB and Armijo step sizes; autograd through ``f``
-    when absent); ``mglm`` cannot be padded.
+    when absent); ``mglm`` cannot be padded. The derivative hooks
+    ``hess_fx``, ``out_fn``, ``loss_fn``, ``jac_yx``, ``grad_fy``,
+    ``hess_fy``, ``hess_fy_diag``, ``hvp_w`` and ``ggn_w`` are the JAX
+    package's (see :class:`Problem`).
     """
     if unported:
         raise NotImplementedError(
@@ -251,5 +333,14 @@ def make_problem(*args, L=None, sol=None, C_set=None, glm=None,
         mglm=mglm,
         grad_fx=grad_fx,
         n_true=n_true,
+        hess_fx=hess_fx,
+        out_fn=out_fn,
+        loss_fn=loss_fn,
+        jac_yx=jac_yx,
+        grad_fy=grad_fy,
+        hess_fy=hess_fy,
+        hess_fy_diag=hess_fy_diag,
+        hvp_w=hvp_w,
+        ggn_w=ggn_w,
     )
 

@@ -29,8 +29,8 @@ def _to(dtype, device):
 
 def problem_from_numpy(A, y, x0, lam, *, x_star=None, L=None, n_true=None,
                        glm="logistic01", n_out=None, grad_fx=False,
-                       A_lp=None, dtype=torch.float64,
-                       device=None) -> Problem:
+                       A_lp=None, dtype=torch.float64, device=None,
+                       **hooks) -> Problem:
     """A :class:`Problem` over arrays that are already as the JAX
     Problem holds them (padded, when ``n_true`` is given — no padding is
     applied here). ``glm='multinomial'`` builds the multi-output problem
@@ -42,7 +42,9 @@ def problem_from_numpy(A, y, x0, lam, *, x_star=None, L=None, n_true=None,
     becomes a bfloat16 tensor with the same bits, so that both packages
     solve with the same copy. A value that bfloat16 cannot hold exactly
     raises: rounding A to bfloat16 on each side separately could round
-    differently."""
+    differently. ``hooks`` are `Problem`'s derivative hooks (hess_fx,
+    out_fn, loss_fn, jac_yx, grad_fy, hess_fy, hess_fy_diag, hvp_w,
+    ggn_w), passed through as given."""
     if glm not in _GLMS:
         raise ValueError(f"unknown GLM {glm!r}; known: {sorted(_GLMS)}")
     spec, f, grad = _GLMS[glm]
@@ -59,7 +61,8 @@ def problem_from_numpy(A, y, x0, lam, *, x_star=None, L=None, n_true=None,
         f=f, dtype=dtype, device=x0.device,
         L=None if L is None else to(L), glm=spec, mglm=mglm,
         grad_fx=grad if grad_fx else None, n_true=n_true,
-        A_lp=None if A_lp is None else _bf16_exact(A_lp, x0.device))
+        A_lp=None if A_lp is None else _bf16_exact(A_lp, x0.device),
+        **hooks)
 
 
 def _bf16_exact(a, device):

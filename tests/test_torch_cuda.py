@@ -1,9 +1,9 @@
 """The port's CUDA kernels and its solve on the card (marked ``cuda``).
 
 Each kernel is held against its plain PyTorch version on the same CUDA
-tensors, and a small float64 solve through the kernels against the
-plain path on the CPU. K1s runs under a one-rank NCCL group, where it
-must be K1 bit for bit. K1 with A in bfloat16 (the copy of
+tensors (K2 in both its flavours), and small float64 solves through the
+kernels (GGN-CG, L-BFGS, Newton-CG) against the plain path on the CPU.
+K1s runs under a one-rank NCCL group, where it must be K1 bit for bit. K1 with A in bfloat16 (the copy of
 precision-adaptive CG) is held against its plain version (A upcast to
 w's dtype) at the same tolerances as K1. Without a CUDA device every
 test here skips.
@@ -130,6 +130,7 @@ def test_data_kernels_match_plain(dev, dtype, m, n):
                                    "normal_matvec_bf16": 0,
                                    "normal_matvec_sharded": 0,
                                    "glm_prep": 0, "glm_prep_pair": 2,
+                                   "glm_prep_pair_newton": 0,
                                    "score_update": 0, "mglm_matvec": 0,
                                    "two_loop": 0}
 
@@ -342,6 +343,36 @@ def test_score_update_matches_plain(dev, dtype, n, reg):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [7, 8320, (1 << 24) + 1])
+@pytest.mark.parametrize("reg", ["l1", "l2", "indbox", "none"])
+def test_score_update_keeps_non_finite_values(dev, dtype, n, reg):
+    # a runaway step (NaN and ±inf in d), then a NaN η: the kernel's
+    # outputs are NaN and ±inf where the plain version's are, in both
+    # forms (one block, and past it)
+    gen = torch.Generator(device=dev).manual_seed(n)
+    r = lambda: torch.randn((n,), generator=gen, device=dev, dtype=dtype)
+    x, d, lgr = r(), r(), r()
+    d[::7], d[1::11], d[2::13] = float("nan"), float("inf"), -float("inf")
+    hr = torch.rand((n,), generator=gen, device=dev, dtype=dtype) + 1e-3
+    lam = torch.tensor(0.07, dtype=dtype, device=dev)
+    ss = torch.tensor(0.6, dtype=dtype, device=dev)
+    for nan_eta in (False, True):
+        if nan_eta:
+            lgr[n // 2] = float("nan")
+        args = (x, d, lgr, hr, lam, ss, 3.0, "l1" if reg == "none" else reg,
+                reg != "none", torch.full_like(x, -0.5),
+                torch.full_like(x, 0.7))
+        got, want = score_update(*args), score_update_torch(*args)
+        assert not bool(torch.isfinite(want.x_new).all())
+        for g, w_ in zip(got, want):
+            fin = w_[torch.isfinite(w_)]
+            rtol, atol = TOL[dtype]
+            scale = max(1.0, float(fin.abs().max())) if fin.numel() else 1.0
+            torch.testing.assert_close(g, w_, rtol=rtol, atol=atol * scale,
+                                       equal_nan=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("m,n", K2S_SHAPES)
 def test_glm_prep_matches_plain(dev, dtype, m, n):
     gen = torch.Generator(device=dev).manual_seed(m + n)
@@ -485,11 +516,11 @@ def test_small_solve_matches_cpu(dev):
                                rtol=1e-9)
 
 
-def _small_logreg(device):
+def _small_logreg(device, lam=0.01):
     A, y, x0, _ = synthetic.make_sparse_logreg_data(
         512, 200, density=0.05, n_active=8, seed=7, dtype=np.float64,
         label01=True)
-    return st.Problem(A, y, x0, losses.logistic01_f, 0.01,
+    return st.Problem(A, y, x0, losses.logistic01_f, lam,
                       grad_fx=losses.logistic01_grad,
                       glm=losses.LOGISTIC01_GLM, dtype=torch.float64,
                       device=device, pad_features=True)
@@ -528,6 +559,88 @@ def test_small_lbfgs_solve_with_a_long_memory_matches_cpu(dev):
     assert s_gpu.epochs == s_cpu.epochs
     np.testing.assert_allclose(s_gpu.obj.numpy(), s_cpu.obj.numpy(),
                                rtol=1e-9)
+
+
+# K2's newton flavour: tests/test_pallas.py's matvec shapes, then K2's
+# own (both sides of the one-pass form's n limit, so the wide form too)
+NEWTON_SHAPES = [(64, 128), (500, 256), (37, 128)] + K2_SHAPES
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,n", NEWTON_SHAPES)
+def test_newton_prep_matches_plain(dev, dtype, m, n):
+    # mixed 0/1 labels; row 0 scaled so that its z_t = 40 saturates σ
+    # (z ≳ 17 in float32, where s·(1 − s) is exactly 0); the logistic01
+    # spec in the kernel, a kind=None one in the split form
+    gen = torch.Generator(device=dev).manual_seed(m + 5 * n)
+    A = torch.randn((m, n), generator=gen, device=dev, dtype=dtype) * 0.1
+    y = (torch.rand((m,), generator=gen, device=dev) < 0.5).to(dtype)
+    xt = torch.randn((n,), generator=gen, device=dev, dtype=dtype) * 0.3
+    xd = torch.randn((n,), generator=gen, device=dev, dtype=dtype) * 0.3
+    A[0] = xt * (40.0 / float(xt @ xt))
+    for glm in (LOGISTIC01_GLM, replace(LOGISTIC01_GLM, kind=None)):
+        counters.reset()
+        got = glm_prep_pair(A, y, xt, xd, glm, flavour="newton")
+        want = glm_prep_pair_torch(A, y, xt, xd, glm, flavour="newton")
+        for g, w_ in zip(got, want):
+            _check(g, w_, dtype)
+        if dtype == torch.float32:
+            assert float(got.w_t[0]) == float(want.w_t[0]) == 0.0
+        assert all(torch.equal(g, a) for g, a in zip(
+            got, glm_prep_pair(A, y, xt, xd, glm, flavour="newton")))
+        snap = counters.snapshot()
+        assert snap["glm_prep_pair_newton"] == 2
+        assert snap["glm_prep_pair"] == 0
+
+
+@pytest.mark.parametrize("method,kernels", [
+    (st.ProxNSCORE(solver="cg", greedy_alpha=False),
+     ("glm_prep_pair_newton", "normal_matvec", "score_update")),
+    (st.ProxNSCORE(solver="cg", greedy_alpha=True),
+     ("glm_prep_pair_newton", "normal_matvec", "score_update")),
+    (st.ProxNSCORE(solver="cg", ss_type=3), ("normal_matvec",
+                                             "score_update")),
+], ids=["cached", "cached-greedy", "uncached"])
+def test_small_newton_solves_match_cpu(dev, method, kernels):
+    # λ = 0.1: at 0.01 the damped Newton iteration diverges on this data,
+    # in the JAX package as here
+    kw = dict(x_tol=1e-12, f_tol=1e-10, max_epoch=40, verbose=0,
+              stats_every=4, alpha=1.0)
+    counters.reset()
+    s_gpu = st.iterate(method, _small_logreg(dev, 0.1), "l1",
+                       st.PHuberSmootherL1L2(1.0), **kw)
+    got = counters.snapshot()
+    assert all((got[k] > 0) == (k in kernels) for k in got), got
+    s_cpu = st.iterate(method, _small_logreg("cpu", 0.1), "l1",
+                       st.PHuberSmootherL1L2(1.0), **kw)
+    assert bool(torch.isfinite(s_cpu.obj).all())
+    if method.greedy_alpha:  # the accept test sees last-ulp differences
+        assert float(s_gpu.obj[-1]) == pytest.approx(float(s_cpu.obj[-1]),
+                                                     rel=1e-8)
+        return
+    assert s_gpu.epochs == s_cpu.epochs
+    np.testing.assert_allclose(s_gpu.obj.numpy(), s_cpu.obj.numpy(),
+                               rtol=1e-9)
+
+
+def test_small_newton_divergence_matches_cpu(dev):
+    # λ = 0.01 with greedy on: the trial's full Newton steps run away on
+    # this data (in the JAX package too); the card's kernels must follow
+    # the CPU's records and turn non-finite at the same one
+    kw = dict(x_tol=1e-12, f_tol=1e-10, max_epoch=40, verbose=0,
+              stats_every=4, alpha=1.0)
+    method = st.ProxNSCORE(solver="cg", greedy_alpha=True)
+    counters.reset()
+    s_gpu = st.iterate(method, _small_logreg(dev), "l1",
+                       st.PHuberSmootherL1L2(1.0), **kw)
+    assert counters.snapshot()["glm_prep_pair_newton"] > 0
+    s_cpu = st.iterate(method, _small_logreg("cpu"), "l1",
+                       st.PHuberSmootherL1L2(1.0), **kw)
+    got, want = s_gpu.obj.numpy(), s_cpu.obj.numpy()
+    assert not np.isfinite(want[-1])
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-9)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -314,6 +314,35 @@ class TestScoreUpdate:
                       (got.eta, eta_j)):
             assert float(g) == pytest.approx(float(w_), rel=1e-12)
 
+    @pytest.mark.parametrize("what", ["runaway step", "nan eta"])
+    @pytest.mark.parametrize("reg", ["l1", "l2", "indbox", "none"])
+    def test_plain_keeps_non_finite_values_as_pallas(self, reg, what):
+        # a diverging Newton step: NaN and ±inf in d, or a NaN η; the
+        # prox must carry them into x⁺ (and pri, safe) as the kernel does,
+        # never turn them into finite values
+        n = 1000
+        rng = np.random.default_rng(3)
+        x, d = rng.standard_normal(n), rng.standard_normal(n)
+        d[::7], d[1::11], d[2::13] = np.nan, np.inf, -np.inf
+        lgr = 0.05 * rng.standard_normal(n)
+        if what == "nan eta":
+            lgr[n // 2] = np.nan
+        hr = rng.random(n) + 1e-3
+        lb, ub = np.full(n, -0.4), np.full(n, 0.4)
+        xj, pri_j, eta_j, safe_j = _fused_update(
+            *(jnp.asarray(a) for a in (x, d, lgr, hr, lb, ub)),
+            0.05, 0.5, 3.0, reg, True)
+        got = score_update_torch(
+            _t(x), _t(d), _t(lgr), _t(hr), _t(0.05), _t(0.5), 3.0,
+            "l1" if reg == "none" else reg, use_prox=reg != "none",
+            lb=_t(lb), ub=_t(ub))
+        assert not np.isfinite(np.asarray(xj)).all()
+        # assert_allclose holds NaN to NaN and ±inf to the same ±inf
+        _close(got.x_new, xj, rtol=0, atol=1e-13)
+        for g, w_ in ((got.pri, pri_j), (got.safe, safe_j),
+                      (got.eta, eta_j)):
+            _close(g, w_, rtol=1e-12, atol=0)
+
     def test_zero_gradient_at_zero_curvature_is_not_nan(self):
         n = 16
         lgr = torch.zeros(n, dtype=torch.float64)

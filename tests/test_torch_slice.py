@@ -176,7 +176,7 @@ def test_kernel_resolution():
 
 @pytest.mark.parametrize("method,kw", [
     (st.ProxGGNSCORE(solver="cg"), {"resume_state": None}),
-    (st.ProxGGNSCORE(solver="dense_dual"), {}),
+    (st.ProxGGNSCORE(solver="cg", curvature_rows=8), {}),
     (st.ProxGGNSCORE(solver="cg"), {"slice_samples": True}),
     (st.ProxGGNSCORE(solver="cg"), {"batch_size": 16}),
     (st.ProxGGNSCORE(solver="cg"), {"mode": "timed"}),
