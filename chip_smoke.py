@@ -32,8 +32,10 @@ result. Phases, each fatal on failure:
      and for K2 and K2s on both sides of their one-pass form's n limit
      and at fewer rows than blocks; the split forms of K2, K2s (a
      least-squares and a kind=None logistic spec) and K5 (a squared-loss
-     and a kind=None multinomial spec) at a few shapes; two runs of a
-     kernel must give bitwise-equal outputs. Times (CUDA events around
+     and a kind=None multinomial spec) at a few shapes; K2 (both
+     flavours), K2s and K5 also with A in bfloat16 (y and the other
+     operands in float32 or float64) at each of their shapes and forms;
+     two runs of a kernel must give bitwise-equal outputs. Times (CUDA events around
      runs of back-to-back calls, the median of 5 runs' per-call time)
      of each kernel beside its plain version at its path's full-width
      shape, with the rate over A's bytes of those that stream A (K1,
@@ -52,7 +54,8 @@ result. Phases, each fatal on failure:
      kernels must match the plain path on the CPU.
   5. The multinomial path at full width (the JAX bench's
      family_multinomial(big=True)): 196608×1024×16, seed 11, float32,
-     λ = 1e-3, the same method and protocol — K5 and K3 launched, K1
+     λ = 1e-3, the same method (A in float32: auto_lp=False) and
+     protocol — K5 and K3 launched, K1
      and K2 not; the kernels='torch' chain must agree on the final
      objective, K5's form and time at that shape are printed beside its
      plain version's and its two-pass and split forms', and a small
@@ -120,17 +123,37 @@ result. Phases, each fatal on failure:
      uncached (ss_type 3), Newton-CG on a multinomial problem (K5), and
      on the JAX bench's family_logreg_100x50 problem the dense Newton
      solve (hess_fx) and the dense dual and primal GGN solves.
+ 13. iterate_mixed (a coarse solve with A itself cast to bfloat16 to a
+     1e-3 gap, then the float32 finish; the chain's options for the
+     fine phase), under phase 3's protocol with the fine phase chained
+     on to the gap: (a) on phase 3's anchored problem, in turns with
+     phase 3's f32 chain and phase 11's lp chain (f32, lp, mixed, mixed,
+     lp, f32): K2 and K1 with A in bfloat16 at least once a coarse
+     epoch and a coarse CG iteration, the final objective within
+     E2E_RTOL of phase 3's; (b) on phase 5's problem, in turns with its
+     f32 chain: K5 with A in bfloat16, the objective within E2E_RTOL of
+     phase 5's; (c) the cached multinomial chain with auto_lp=True (K5 on
+     the bfloat16 copy in the bulk epochs) against the f32 chain, in
+     turns (f32, lp, lp, f32, five times), at 196608×1024×16 and
+     49152×1024×16: whether the copy won (medians) sets AUTO's
+     multi-output threshold; (d) small float64 iterate_mixed solves
+     through the kernels against the CPU plain path: cached and
+     uncached GGN-CG, Newton-CG, L-BFGS and multinomial. Each chain's
+     seconds, epochs (coarse and fine), CG iterations, launches and the
+     products of the bfloat16 A outside the kernels are printed.
 
 The last two lines of standard output are one JSON object with each
 kernel's numbers, then ``{"ok": true, "device": {...}}`` (K1 with A in
 bfloat16 is its own row, ``normal_matvec_bf16``: its launches are
-phase 11's lp chains'; so is K2's newton flavour,
-``glm_prep_pair_newton``, with phase 12's launches). Each kernel's
-``bound_ms`` is the larger of the bytes it must move (each input read
-once, each output written once) over 3.35 TB/s and its multiply-adds
-over A (or the vectors) at 67 TFLOP/s, the H100 SXM data sheet's HBM
-and FP32 rates, at the shape it was timed; ``library_ms`` is null: no
-single PyTorch call computes any of these functions.
+phase 11's lp chains' and 13's; so is K2's newton flavour,
+``glm_prep_pair_newton``, with phase 12's launches, and K2, its newton
+flavour, K2s and K5 with A in bfloat16, the ``_bf16`` rows, with phase
+13's). Each kernel's ``bound_ms`` is the larger of the bytes it must
+move (each input read once, each output written once) over 3.35 TB/s
+and its multiply-adds over A (or the vectors) at 67 TFLOP/s — K5 with
+A in bfloat16, on the tensor cores, at 495 TFLOP/s (TF32) — the H100
+SXM data sheet's rates, at the shape it was timed; ``library_ms`` is
+null: no single PyTorch call computes any of these functions.
 Tolerances (stated with each comparison below): float32 rtol 2e-5 and
 atol 3e-5·max(1, max|ref|); K5 in float32 atol TOL["k5"]·max|ref|
 alone, with no floor of 1, so that it holds the tensor-core form's
@@ -162,7 +185,7 @@ NARROW_SHAPE = (524288, 1024)
 # 16-byte aligned: the kernels' one-value-per-load path)
 BOUNDARY_SHAPES = [(37, 128), (947, 384), (2249, 1920), (131, 128),
                    (660, 256), (3465, 2432), (999, 1001), (64, 130)]
-# K2/K2s form boundaries (csrc/glm_prep.cu): the last n of the one-pass
+# K2/K2s form boundaries (csrc/glm_prep.cuh): the last n of the one-pass
 # form and the first past it — K2 14336 f32 / 7168 f64, K2s 28672 f32 /
 # 14336 f64 — and fewer rows than blocks (m = 1, 5), in both dtypes
 PREP_SHAPES = [(1, 256), (5, 1001), (1031, 14336), (1031, 14340),
@@ -205,16 +228,18 @@ TWO_LOOP_CASES = [(10112, 10, 10), (10112, 10, 0), (361, 5, 3),
                   (777, 65, 70), (361, 100, 103), (2000, 200, 130),
                   (64, 4100, 4103)]
 TWO_RANK_ROWS = 32768  # rows of each rank in phase 8(b)
-# the GGN-CG method of phases 3 and 7-10 (and chip_profile.py,
+# the GGN-CG method of phases 3, 5, 7-10 and 13 (and chip_profile.py,
 # chip_sharded.py): the JAX bench's ProxGGNSCORE(solver='cg',
-# cg_maxiter=100) with A in float32 throughout; phase 11 runs it with
-# the bfloat16 copy (auto_lp=True)
+# cg_maxiter=100) with A in float32 throughout; phases 11 and 13(c) run
+# it with the bfloat16 copy (auto_lp=True), which AUTO attaches on the
+# card from iterate._AUTO_LP_MIN_BYTES (_MGLM for the multinomial) on
 F32_CG = dict(solver="cg", cg_maxiter=100, auto_lp=False)
 # phase 11's third, smaller shape, for AUTO's byte threshold (the bench
 # shapes are the other two)
 LP_SMALL_SHAPE = (32768, 10000)
 HBM_BYTES_S = 3.35e12  # H100 SXM data sheet: HBM3 rate
 FP32_FLOP_S = 67e12    # H100 SXM data sheet: FP32 outside the tensor cores
+TF32_FLOP_S = 495e12   # H100 SXM data sheet: TF32 on the tensor cores
 
 KERNELS = {
     "normal_matvec": ("scso_tpu_torch/csrc/matvec.cu",
@@ -239,7 +264,24 @@ KERNELS = {
                     "scso_tpu/ops/pallas/mglm_matvec.py:152"),
     "two_loop": ("scso_tpu_torch/csrc/two_loop.cu",
                  "scso_tpu/ops/pallas/two_loop.py:69"),
+    # K2, its newton flavour, K2s and K5 with A in bfloat16 (the TPU
+    # kernels compile the same functions for a bf16 A and upcast each
+    # tile): iterate_mixed's coarse phase, K5 also the cached mglm lp copy
+    "glm_prep_pair_bf16": ("scso_tpu_torch/csrc/glm_prep_bf16.cu",
+                           "scso_tpu/ops/pallas/glm_prep.py:239"),
+    "glm_prep_pair_newton_bf16": ("scso_tpu_torch/csrc/glm_prep_bf16.cu",
+                                  "scso_tpu/ops/pallas/glm_prep.py:239"),
+    "glm_prep_bf16": ("scso_tpu_torch/csrc/glm_prep_bf16.cu",
+                      "scso_tpu/ops/pallas/glm_prep.py:84"),
+    "mglm_matvec_bf16": ("scso_tpu_torch/csrc/mglm_matvec.cu",
+                         "scso_tpu/ops/pallas/mglm_matvec.py:152"),
 }
+# the rows of KERNELS that are the kernel of another row with A in
+# bfloat16
+BF16_OF = {"normal_matvec_bf16": "normal_matvec",
+           "glm_prep_pair_bf16": "glm_prep_pair",
+           "glm_prep_pair_newton_bf16": "glm_prep_pair_newton",
+           "glm_prep_bf16": "glm_prep", "mglm_matvec_bf16": "mglm_matvec"}
 LOGISTIC_KERNELS = ("normal_matvec", "glm_prep_pair", "score_update")
 MGLM_KERNELS = ("mglm_matvec", "score_update")
 LBFGS_KERNELS = ("two_loop", "score_update")
@@ -381,6 +423,7 @@ def data_kernel_case(m, n, dtype, gen, mesh, timed=False):
                                                    dn)
 
     res.update(prep_checks(A, y, xt, xd, tag, dn))
+    res.update(bf16_prep_checks(A_lp, y, xt, xd, tag, dn))
     times = {}
     if timed:
         times["normal_matvec"] = (
@@ -404,6 +447,20 @@ def data_kernel_case(m, n, dtype, gen, mesh, timed=False):
         times["glm_prep"] = (
             time_ms(lambda: glm_prep(A, y, xt, LOGISTIC01_GLM)),
             time_ms(lambda: glm_prep_torch(A, y, xt, LOGISTIC01_GLM)))
+        # with A in bfloat16, beside the float32 A's times above
+        times["glm_prep_pair_bf16"] = (
+            time_ms(lambda: glm_prep_pair(A_lp, y, xt, xd, LOGISTIC01_GLM)),
+            time_ms(lambda: glm_prep_pair_torch(A_lp, y, xt, xd,
+                                                LOGISTIC01_GLM)))
+        times["glm_prep_pair_newton_bf16"] = (
+            time_ms(lambda: glm_prep_pair(A_lp, y, xt, xd, LOGISTIC01_GLM,
+                                          flavour="newton")),
+            time_ms(lambda: glm_prep_pair_torch(A_lp, y, xt, xd,
+                                                LOGISTIC01_GLM,
+                                                flavour="newton")))
+        times["glm_prep_bf16"] = (
+            time_ms(lambda: glm_prep(A_lp, y, xt, LOGISTIC01_GLM)),
+            time_ms(lambda: glm_prep_torch(A_lp, y, xt, LOGISTIC01_GLM)))
         # the split form (phase 10's spec): the same plain version
         split = replace(LOGISTIC01_GLM, kind=None)
         times["glm_prep_pair, split form"] = (
@@ -500,6 +557,14 @@ def prep_checks(A, y, xt, xd, tag, dn, glm=None):
     return res
 
 
+def bf16_prep_checks(A_lp, y, xt, xd, tag, dn, glm=None):
+    """`prep_checks` with A in bfloat16 (y and the candidates in ``dn``):
+    {kernel_bf16: max abs err}. The plain versions upcast A to ``dn``
+    (exact), so the tolerances are ``dn``'s."""
+    return {f"{k}_bf16": e for k, e in prep_checks(
+        A_lp, y, xt, xd, f"A in bfloat16 {tag}", dn, glm).items()}
+
+
 def prep_case(m, n, dtype, gen):
     """K2 and K2s alone at one of PREP_SHAPES."""
     import torch
@@ -512,23 +577,33 @@ def prep_case(m, n, dtype, gen):
     xt = torch.randn((n,), generator=gen, device=dev, dtype=dtype) * 0.1
     xd = torch.randn((n,), generator=gen, device=dev, dtype=dtype) * 0.1
     forms = "/".join("one-pass" if n <= max_n(dtype, c) else "wide"
-                     for c in (2, 1))
+                     for c in (2, 1))  # the same with A in bfloat16
     res = prep_checks(A, y, xt, xd, f"({m}x{n} {dn})", dn)
+    res.update(bf16_prep_checks(A.to(torch.bfloat16), y, xt, xd,
+                                f"({m}x{n} {dn})", dn))
     log(f"  K2/K2s {m}x{n} {dn} ({forms}): max abs err "
         f"K2 {res['glm_prep_pair']:.3e} K2 newton "
-        f"{res['glm_prep_pair_newton']:.3e} K2s {res['glm_prep']:.3e}")
+        f"{res['glm_prep_pair_newton']:.3e} K2s {res['glm_prep']:.3e}; "
+        f"A in bf16: K2 {res['glm_prep_pair_bf16']:.3e} K2 newton "
+        f"{res['glm_prep_pair_newton_bf16']:.3e} K2s "
+        f"{res['glm_prep_bf16']:.3e}")
     if (m, n) in PREP_SPLIT_SHAPES:
         from scso_tpu_torch._src.struct import replace
         from scso_tpu_torch.models.losses import LOGISTIC01_GLM
 
         for name, glm in (("least squares", least_squares_glm()),
                           ("kind=None", replace(LOGISTIC01_GLM, kind=None))):
-            res = prep_checks(A, y, xt, xd, f"split, {name} ({m}x{n} {dn})",
-                              dn, glm)
+            what = f"split, {name} ({m}x{n} {dn})"
+            res = prep_checks(A, y, xt, xd, what, dn, glm)
+            res.update(bf16_prep_checks(A.to(torch.bfloat16), y, xt, xd,
+                                        what, dn, glm))
             log(f"  K2/K2s split form, {name} spec, {m}x{n} {dn}: max abs "
                 f"err K2 {res['glm_prep_pair']:.3e} K2 newton "
                 f"{res['glm_prep_pair_newton']:.3e} K2s "
-                f"{res['glm_prep']:.3e}")
+                f"{res['glm_prep']:.3e}; A in bf16: K2 "
+                f"{res['glm_prep_pair_bf16']:.3e} K2 newton "
+                f"{res['glm_prep_pair_newton_bf16']:.3e} K2s "
+                f"{res['glm_prep_bf16']:.3e}")
 
 
 def score_update_case(n, reg, dtype, gen, timed=False):
@@ -698,8 +773,9 @@ def one_tf32_product_rejected(A, y, Z, V, spec, want):
 
 
 def mglm_case(m, p, k, dtype, gen, timed=False):
-    """K5 against its plain version. Returns (max err, (kernel ms, plain
-    ms) or None)."""
+    """K5 against its plain version, with A in ``dtype`` and in
+    bfloat16. Returns ({kernel: max err}, {kernel: (kernel ms, plain
+    ms)}, empty unless ``timed``)."""
     import torch
 
     from scso_tpu_torch.models.losses import multinom_mglm
@@ -709,44 +785,61 @@ def mglm_case(m, p, k, dtype, gen, timed=False):
     dn = str(dtype).replace("torch.", "")
     A, y, Z, V = mglm_inputs(m, p, k, dtype, gen)
     spec = multinom_mglm(k)
-    tag = f"mglm_matvec ({m}x{p}x{k} {dn})"
-    got = mglm_matvec(A, y, Z, V, spec)
-    same_bits(tag, [got], [mglm_matvec(A, y, Z, V, spec)])
-    want = mglm_matvec_torch(A, y, Z, V, spec)
     tol = "k5" if dtype == torch.float32 else dn
-    err = compare(tag, got, want, tol)
-    times = None
-    if timed:
+    errs, times = {}, {}
+    for key, A_ in (("mglm_matvec", A),
+                    ("mglm_matvec_bf16", A.to(torch.bfloat16))):
+        narrow = A_.dtype == torch.bfloat16
+        tag = (f"mglm_matvec{', A in bfloat16' if narrow else ''} "
+               f"({m}x{p}x{k} {dn})")
+        got = mglm_matvec(A_, y, Z, V, spec)
+        if got.dtype != dtype:
+            fail(f"{tag}: result in {got.dtype}, not V's {dtype}")
+        same_bits(tag, [got], [mglm_matvec(A_, y, Z, V, spec)])
+        want = mglm_matvec_torch(A_, y, Z, V, spec)
+        errs[key] = compare(tag, got, want, tol)
+        if not timed:
+            continue
         rtol, atol = limit_of(want, tol)
-        one = one_tf32_product_rejected(A, y, Z, V, spec, want)
-        log(f"  K5 {m}x{p}x{k} {dn}: max abs err {err:.3e}, max|ref| "
+        # A in bfloat16 is exact in TF32: one TF32 product of A is A's
+        # product, and the emulation truncates V (QU) alone
+        A_up = A_.to(dtype) if narrow else A_
+        one = one_tf32_product_rejected(A_up, y, Z, V, spec, want)
+        log(f"  K5 {m}x{p}x{k} {dn}{', A in bf16' if narrow else ''}: max "
+            f"abs err {errs[key]:.3e}, max|ref| "
             f"{float(want.abs().max()):.3e}, limit {atol:.3e}; one TF32 "
             "product (emulated): " + ", ".join(
                 f"in {w} {e:.3e}" for w, e in one.items()) + " (rejected)")
-        times = (time_ms(lambda: mglm_matvec(A, y, Z, V, spec)),
-                 time_ms(lambda: mglm_matvec_torch(A, y, Z, V, spec)))
-    del A
+        del A_up
+        times[key] = (time_ms(lambda: mglm_matvec(A_, y, Z, V, spec)),
+                      time_ms(lambda: mglm_matvec_torch(A_, y, Z, V, spec)))
+    del A, A_
     torch.cuda.empty_cache()
-    return err, times
+    return errs, times
 
 
 def mglm_split_case(m, p, k, dtype, gen):
     """K5's split form (specs it does not compute itself) against the
-    plain version, with a bitwise rerun."""
+    plain version, with A in ``dtype`` and in bfloat16, with a bitwise
+    rerun."""
     from scso_tpu_torch._src.struct import replace
     from scso_tpu_torch.models.losses import multinom_mglm
     from scso_tpu_torch.ops.cuda.mglm_matvec import (
         mglm_matvec, mglm_matvec_torch)
 
+    import torch
+
     dn = str(dtype).replace("torch.", "")
     A, y, Z, V = mglm_inputs(m, p, k, dtype, gen)
     errs = []
     for spec in (squared_moglm(k), replace(multinom_mglm(k), kind=None)):
-        tag = f"mglm_matvec split form, kind {spec.kind} ({m}x{p}x{k} {dn})"
-        got = mglm_matvec(A, y, Z, V, spec)
-        same_bits(tag, [got], [mglm_matvec(A, y, Z, V, spec)])
-        errs.append(compare(tag, got, mglm_matvec_torch(A, y, Z, V, spec),
-                            dn))
+        for A_ in (A, A.to(torch.bfloat16)):
+            tag = (f"mglm_matvec split form, kind {spec.kind}, A in "
+                   f"{A_.dtype} ({m}x{p}x{k} {dn})")
+            got = mglm_matvec(A_, y, Z, V, spec)
+            same_bits(tag, [got], [mglm_matvec(A_, y, Z, V, spec)])
+            errs.append(compare(tag, got,
+                                mglm_matvec_torch(A_, y, Z, V, spec), dn))
     return max(errs)
 
 
@@ -761,25 +854,34 @@ def work_bounds(main, mglm_shape, lbfgs_case):
     n4, mem = lbfgs_case[0], lbfgs_case[1]
     f = 4
     k1 = (f * (m * n + m + 2 * n), 4 * m * n)
-    return {
+    k2 = (m * n, f * (3 * m + 6 * n + 2), 14 * m * n)  # A's values, rest
+    k2s = (m * n, f * (2 * m + 3 * n), 7 * m * n)
+    k5 = (mm * p, f * (2 * mm * k + 2 * p * k), 4 * mm * p * k)
+    out = {
         "normal_matvec": k1,
         # A in bfloat16, w, v and the result in float32
         "normal_matvec_bf16": (2 * m * n + f * (m + 2 * n), 4 * m * n),
         "normal_matvec_sharded": (k1[0] + 2 * f * n, k1[1]),
-        "glm_prep_pair": (f * (m * n + 3 * m + 6 * n + 2), 14 * m * n),
-        "glm_prep_pair_newton": (f * (m * n + 3 * m + 6 * n + 2),
-                                 14 * m * n),
-        "glm_prep": (f * (m * n + 2 * m + 3 * n), 7 * m * n),
         "score_update": (f * 5 * n, 20 * n),
-        "mglm_matvec": (f * (mm * p + 2 * mm * k + 2 * p * k),
-                        4 * mm * p * k),
         "two_loop": (f * (2 * mem * n4 + 2 * n4), 8 * mem * n4),
     }
+    # A in float32, and (the _bf16 rows) in bfloat16 with every other
+    # operand in float32
+    for name, (a, rest, ops) in (("glm_prep_pair", k2),
+                                 ("glm_prep_pair_newton", k2),
+                                 ("glm_prep", k2s), ("mglm_matvec", k5)):
+        out[name] = (f * a + rest, ops)
+        out[f"{name}_bf16"] = (2 * a + rest, ops)
+    return out
 
 
-def bound(bytes_, flops):
-    """(bound_ms, bound_by) on the data sheet's H100 SXM peaks."""
-    t_bytes, t_ops = bytes_ / HBM_BYTES_S, flops / FP32_FLOP_S
+def bound(bytes_, flops, name=None):
+    """(bound_ms, bound_by) on the data sheet's H100 SXM peaks: bytes at
+    the HBM rate, operations at the FP32 rate, but K5 with A in bfloat16
+    (exact in TF32), whose multiply-adds run on the tensor cores, at the
+    TF32 rate."""
+    rate = TF32_FLOP_S if name == "mglm_matvec_bf16" else FP32_FLOP_S
+    t_bytes, t_ops = bytes_ / HBM_BYTES_S, flops / rate
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -804,7 +906,10 @@ def phase_kernels(mesh):
                 f"K1s {res['normal_matvec_sharded']:.3e} "
                 f"K2 {res['glm_prep_pair']:.3e} "
                 f"K2 newton {res['glm_prep_pair_newton']:.3e} "
-                f"K2s {res['glm_prep']:.3e} "
+                f"K2s {res['glm_prep']:.3e}; A in bf16: "
+                f"K2 {res['glm_prep_pair_bf16']:.3e} "
+                f"K2 newton {res['glm_prep_pair_newton_bf16']:.3e} "
+                f"K2s {res['glm_prep_bf16']:.3e} "
                 f"({time.perf_counter() - t0:.1f} s)")
             if timed and (m, n) == main:
                 times.update(t)
@@ -836,12 +941,15 @@ def phase_kernels(mesh):
             t0 = time.perf_counter()
             err, t = mglm_case(m, p, k, dtype, gen, timed=timed)
             if (m, p, k) == MGLM_SHAPE:
-                log(f"  K5 {m}x{p}x{k} {dn}: max abs err {err:.3e} "
+                log(f"  K5 {m}x{p}x{k} {dn}: max abs err "
+                    f"{err['mglm_matvec']:.3e}, with A in bf16 "
+                    f"{err['mglm_matvec_bf16']:.3e} "
                     f"({time.perf_counter() - t0:.1f} s)")
             if timed:
-                times["mglm_matvec"] = t
-                errs["mglm_matvec"] = err
-        log(f"  K5 {len(MGLM_SHAPES)} boundary shapes {dn}: ok")
+                times.update(t)
+                errs.update(err)
+        log(f"  K5 {len(MGLM_SHAPES)} boundary shapes {dn}, A in {dn} and "
+            "in bf16: ok")
         for (m, p, k) in MGLM_SPLIT_SHAPES:
             log(f"  K5 split form {m}x{p}x{k} {dn}: max abs err "
                 f"{mglm_split_case(m, p, k, dtype, gen):.3e}")
@@ -860,7 +968,8 @@ def phase_kernels(mesh):
                              "glm_prep", "glm_prep_pair, split form"),
                             4 * main[0] * main[1])
     a_bytes["mglm_matvec"] = 4 * MGLM_SHAPE[0] * MGLM_SHAPE[1]
-    a_bytes["normal_matvec_bf16"] = 2 * main[0] * main[1]
+    for k in BF16_OF:
+        a_bytes[k] = a_bytes[BF16_OF[k]] // 2
     for k, (ms, plain) in times.items():
         rate = (f", {a_bytes[k] / ms / 1e6:.1f} GB/s of A" if k in a_bytes
                 else "")
@@ -868,9 +977,8 @@ def phase_kernels(mesh):
             f"{rate}, plain {plain:.4f} ms (CUDA events, runs of calls)")
     narrow_bounds = work_bounds(NARROW_SHAPE, MGLM_SHAPE, TWO_LOOP_CASES[0])
     for k, (ms, plain) in narrow_times.items():
-        a = NARROW_SHAPE[0] * NARROW_SHAPE[1] * (
-            2 if k == "normal_matvec_bf16" else 4)
-        extra = (f", bound {bound(*narrow_bounds[k])[0]:.4f} ms"
+        a = NARROW_SHAPE[0] * NARROW_SHAPE[1] * (2 if k in BF16_OF else 4)
+        extra = (f", bound {bound(*narrow_bounds[k], k)[0]:.4f} ms"
                  if k in narrow_bounds else "")
         log(f"  time at {NARROW_SHAPE[0]}x{NARROW_SHAPE[1]}, {k}: kernel "
             f"{ms:.4f} ms, {a / ms / 1e6:.1f} GB/s of A{extra}, plain "
@@ -881,6 +989,12 @@ def phase_kernels(mesh):
         f"{times['glm_prep_pair_newton'][0]:.4f} ms, ggn flavour "
         f"{times['glm_prep_pair'][0]:.4f} ms, bound {main_bound:.4f} ms "
         "(the same bytes)")
+    bounds = work_bounds(main, MGLM_SHAPE, TWO_LOOP_CASES[0])
+    for k, base in BF16_OF.items():
+        log(f"  A in bfloat16 against A in float32, {k}: "
+            f"{times[k][0]:.4f} ms against {times[base][0]:.4f} ms, bound "
+            f"{bound(*bounds[k], k)[0]:.4f} ms against "
+            f"{bound(*bounds[base], base)[0]:.4f} ms (one call)")
     buf = torch.ones(main[1], device="cuda")
     ar_ms = time_ms(lambda: dist.all_reduce(buf, group=mesh.group))
     log(f"  one all-reduce of {buf.numel() * 4} bytes over the one-rank "
@@ -908,12 +1022,16 @@ def build_problem(M, N, device, dtype, sol=None, lam=0.01):
                       device=device, pad_features=True)
 
 
+# the options of each solve of a chain (bench.py's)
+CHUNK_KW = dict(x_tol=1e-12, f_tol=GAP, max_epoch=CHUNK, verbose=0,
+                stats_every=4, alpha=1.0)
+
+
 def solve_chunk(method, prob):
     import scso_tpu_torch as st
 
     return st.iterate(method, prob, "l1", st.PHuberSmootherL1L2(1.0),
-                      x_tol=1e-12, f_tol=GAP, max_epoch=CHUNK, verbose=0,
-                      stats_every=4, alpha=1.0)
+                      **CHUNK_KW)
 
 
 def presolve(method, prob):
@@ -935,15 +1053,21 @@ def presolve(method, prob):
     return best, x_opt, epochs
 
 
-def timed_chain(method, prob, best, keep_x=False):
+def timed_chain(method, prob, best, keep_x=False, first=None):
     """Fresh solves from x0 against x*, chained until the gap fires.
-    ``keep_x`` adds the final iterate (a tensor) as ``x``."""
+    ``keep_x`` adds the final iterate (a tensor) as ``x``. ``first``
+    ((method, problem) → Solution) runs the first solve instead of
+    `solve_chunk` (phase 13: iterate_mixed); its cg_info is kept as
+    ``first_info``."""
     from scso_tpu_torch._src.struct import replace
 
     t_solve, epochs, cg_total, cur, prev_gap = 0.0, 0, 0, prob, float("inf")
-    for _ in range(12):
+    for i in range(12):
         t0 = time.perf_counter()
-        s = solve_chunk(method, cur)
+        s = (first if first is not None and i == 0 else solve_chunk)(
+            method, cur)
+        if i == 0:
+            first_info = dict(s.cg_info or {})
         t_solve += time.perf_counter() - t0
         epochs += s.epochs
         cg_total += (s.cg_info or {}).get("total_cg_iters", 0)
@@ -958,7 +1082,7 @@ def timed_chain(method, prob, best, keep_x=False):
     if gap > GAP and signed_min <= GAP:
         gap = GAP  # reached below the anchor
     out = dict(seconds=t_solve, epochs=epochs, cg_iters=cg_total, gap=gap,
-               obj=float(s.obj[-1]))
+               obj=float(s.obj[-1]), first_info=first_info)
     if keep_x:
         out["x"] = s.x
     return out
@@ -1121,7 +1245,7 @@ def phase_multinomial():
     torch.cuda.synchronize()
     log(f"  data {'x'.join(map(str, MGLM_SHAPE))} made and moved in "
         f"{time.perf_counter() - t0:.1f} s")
-    method = st.ProxGGNSCORE(solver="cg", cg_maxiter=100)
+    method = st.ProxGGNSCORE(**F32_CG)
     t0 = time.perf_counter()
     best, x_opt, pre_epochs = presolve(method, prob)
     log(f"  presolve: obj* {best:.9e} after {pre_epochs} epochs "
@@ -1173,7 +1297,7 @@ def phase_multinomial():
     log(f"  small f64 multinomial {'x'.join(map(str, small))}: "
         f"{s_gpu.epochs} epochs, card kernels vs CPU plain max rel "
         f"objective diff {rel64:.2e} (tolerance {SMALL_RTOL:g})")
-    return kern, plain, launches
+    return kern, plain, launches, prob_t, best
 
 
 # ---------------------------------------------------------------------------
@@ -1479,7 +1603,8 @@ def build_logreg_100x50(device, dtype=None):
 def newton_chains(prob, method, what):
     """Phase 12's chain on ``prob``: a presolve anchor with ``method``
     (from x0), then the timed chain with the kernels and with
-    kernels='torch'. Returns (kernels result, torch result, launches)."""
+    kernels='torch'. Returns (kernels result, torch result, launches,
+    the anchored problem)."""
     import dataclasses
 
     import torch
@@ -1519,7 +1644,7 @@ def newton_chains(prob, method, what):
         fail(f"Newton-CG ({what}) final objectives differ: kernels "
              f"{kern['obj']:.9e}, torch {plain['obj']:.9e} (rel {rel:.2e} > "
              f"{E2E_RTOL:g})")
-    return kern, plain, launches
+    return kern, plain, launches, prob_t
 
 
 def phase_newton(prob3, best3):
@@ -1527,7 +1652,8 @@ def phase_newton(prob3, best3):
     GGN anchor objective is ``best3``) with greedy off, and at λ =
     NEWTON_GREEDY_LAM with greedy AUTO; K2's newton flavour must run in
     the kernel. Then the small float64 Newton and dense GGN solves
-    against the CPU."""
+    against the CPU. Returns (kernels results, torch results, launches,
+    (a)'s anchored problem)."""
     import torch
 
     import scso_tpu_torch as st
@@ -1542,13 +1668,13 @@ def phase_newton(prob3, best3):
         fail(f"K2's newton flavour would run its {grid.form} form at "
              f"{m}x{n}")
     log(f"  K2's newton flavour at {m}x{n}: its {grid.form} form")
-    kern, plain, launches = newton_chains(
+    kern, plain, launches, nprob_t = newton_chains(
         prob3, st.ProxNSCORE(**NEWTON_GREEDY_OFF), "λ = 0.01, greedy off")
     log(f"  phase 3's GGN anchor {best3:.9e}; Newton's "
         f"{kern['anchor_obj']:.9e}")
     lam = torch.tensor(NEWTON_GREEDY_LAM, dtype=prob3.dtype,
                        device=prob3.device)
-    gkern, gplain, glaunches = newton_chains(
+    gkern, gplain, glaunches, _ = newton_chains(
         replace(prob3, lam=lam), st.ProxNSCORE(**NEWTON_CG),
         f"λ = {NEWTON_GREEDY_LAM:g}, greedy AUTO")
     kern["greedy"], plain["greedy"] = gkern, gplain
@@ -1606,7 +1732,273 @@ def phase_newton(prob3, best3):
         phase_small_f64(meth, f"{name}, family_logreg_100x50",
                         build=build_logreg_100x50,
                         kernels=("score_update",))
-    return kern, plain, launches
+    return kern, plain, launches, nprob_t
+
+
+# ---------------------------------------------------------------------------
+# phase 13: iterate_mixed, and the cached multinomial chain with the copy
+# ---------------------------------------------------------------------------
+
+# the kernels of iterate_mixed's two phases: the coarse one's with A in
+# bfloat16, the fine one's with A in float32
+MIXED_KERNELS = LOGISTIC_KERNELS + ("glm_prep_pair_bf16", "normal_matvec_bf16")
+MIXED_MGLM_KERNELS = MGLM_KERNELS + ("mglm_matvec_bf16",)
+# phase 13(c)'s smaller multinomial problem, for AUTO's byte threshold on
+# the cached multinomial path (a quarter of MGLM_SHAPE's rows)
+MGLM_LP_SMALL_SHAPE = (49152, 1024, 16)
+
+
+def mixed_solve(method, prob):
+    """`st.iterate_mixed` with the chain's options for the fine phase and
+    the coarse defaults (coarse_f_tol=1e-3, coarse_max_epoch=50)."""
+    import scso_tpu_torch as st
+
+    return st.iterate_mixed(method, prob, "l1", st.PHuberSmootherL1L2(1.0),
+                            **CHUNK_KW)
+
+
+def turns(arms, prob_t, best, what):
+    """Chains on ``prob_t`` (anchored at obj* ``best``) in the order of
+    ``arms`` ((label, method, first or None) triples, `timed_chain`'s
+    ``first``), each to the gap: {label: [results]}, each with its
+    launches and bf16 products; an iterate_mixed chain also with its
+    coarse phase's epochs and CG iterations (its first `iterate`'s
+    Solution, caught by wrapping `iterate`)."""
+    from scso_tpu_torch.algorithms import iterate as it_mod
+    from scso_tpu_torch.ops.cuda import counters
+
+    runs = {}
+    for label, method, first in arms:
+        real, sols = it_mod.iterate, []
+
+        def spy(*a, **kw):
+            sols.append(real(*a, **kw))
+            return sols[-1]
+
+        counters.reset()
+        it_mod.iterate = spy
+        try:
+            r = timed_chain(method, prob_t, best, first=first)
+        finally:
+            it_mod.iterate = real
+        r["launches"] = counters.snapshot()
+        r["bf16_products"] = counters.BF16_PRODUCTS["calls"]
+        if first is mixed_solve:
+            coarse = sols[0]
+            r["coarse_epochs"] = coarse.epochs
+            r["coarse_cg_iters"] = (coarse.cg_info or {}).get(
+                "total_cg_iters", 0)
+            r["fine_epochs"] = r["epochs"]
+        runs.setdefault(label, []).append(r)
+        extra = (f", coarse {r['coarse_epochs']} epochs and "
+                 f"{r['coarse_cg_iters']} CG iterations"
+                 if "coarse_epochs" in r else "")
+        log(f"  {what}, {label}: {r['seconds']:.4f} s, {r['epochs']} "
+            f"epochs, {r['cg_iters']} CG iterations{extra}, gap "
+            f"{r['gap']:.3e}, obj {r['obj']:.9e}, launches {r['launches']}, "
+            f"bf16 products {r['bf16_products']}")
+        if not r["gap"] <= GAP * 1.05:
+            fail(f"{what} {label} chain missed the {GAP:g} gap: "
+                 f"{r['gap']:.3e}")
+    return runs
+
+
+def check_mixed(runs, ref_obj, expected, prep, what):
+    """iterate_mixed's chains: only ``expected`` kernels launched, the
+    coarse phase's prep (``prep``_bf16) at least once an epoch, K1 (or
+    K5) on the bfloat16 A at least once a coarse CG iteration, and the
+    final objective within E2E_RTOL of ``ref_obj``."""
+    matvec = ("normal_matvec_bf16" if "normal_matvec_bf16" in expected
+              else "mglm_matvec_bf16")
+    for r in runs:
+        lc = r["launches"]
+        check_launches(lc, expected, what)
+        if prep is not None and not lc[prep] >= r["coarse_epochs"]:
+            fail(f"{what}: {prep} launched {lc[prep]} times in "
+                 f"{r['coarse_epochs']} coarse epochs")
+        if not lc[matvec] >= max(1, r["coarse_cg_iters"]):
+            fail(f"{what}: {matvec} launched {lc[matvec]} times for "
+                 f"{r['coarse_cg_iters']} coarse CG iterations")
+        rel = abs(r["obj"] - ref_obj) / abs(ref_obj)
+        if not rel <= E2E_RTOL:
+            fail(f"{what}: final objective {r['obj']:.9e} vs {ref_obj:.9e} "
+                 f"(rel {rel:.2e} > {E2E_RTOL:g})")
+
+
+def summary(runs):
+    return {label: [{k: r[k] for k in ("seconds", "epochs", "cg_iters",
+                                       "obj", "coarse_epochs",
+                                       "coarse_cg_iters", "bf16_products")
+                     if k in r} for r in rs] for label, rs in runs.items()}
+
+
+def mglm_lp_turns(prob_t, best, what):
+    """13(c): the cached multinomial chain with A in float32 and with the
+    bfloat16 copy (auto_lp=True: K5 on the copy while the forcing sits
+    at the floor), in turns f32, lp, lp, f32, five times; each lp chain
+    within E2E_RTOL of the first f32 chain. The copy wins when the median of
+    its chains' seconds is below the f32 chains' median by more than
+    half the f32 chains' spread (the host's clock varies from chain to
+    chain). Reports that, and whether AUTO (auto_lp=None) attaches the
+    copy at this size."""
+    import scso_tpu_torch as st
+    from scso_tpu_torch.algorithms.iterate import _auto_lp
+
+    f32 = st.ProxGGNSCORE(**F32_CG)
+    lp = st.ProxGGNSCORE(**dict(F32_CG, auto_lp=True))
+    auto_on = _auto_lp(st.ProxGGNSCORE(**dict(F32_CG, auto_lp=None)),
+                       prob_t)[1].A_lp is not None
+    solve_chunk(f32, prob_t)  # warm-up
+    solve_chunk(lp, prob_t)
+    runs = turns([("f32", f32, None), ("lp", lp, None), ("lp", lp, None),
+                  ("f32", f32, None)] * 5, prob_t, best, what)
+    ref = runs["f32"][0]["obj"]
+    for r in runs["lp"]:
+        check_launches(r["launches"], MIXED_MGLM_KERNELS, f"{what} lp")
+        if not r["launches"]["mglm_matvec_bf16"] > 0:
+            fail(f"{what} lp chain: K5 never ran on the copy")
+        rel = abs(r["obj"] - ref) / abs(ref)
+        if not rel <= E2E_RTOL:
+            fail(f"{what}: lp final objective {r['obj']:.9e} vs {ref:.9e} "
+                 f"(rel {rel:.2e} > {E2E_RTOL:g})")
+    for r in runs["f32"]:
+        check_launches(r["launches"], MGLM_KERNELS, f"{what} f32")
+    secs = {arm: [r["seconds"] for r in rs] for arm, rs in runs.items()}
+    med = {arm: statistics.median(t) for arm, t in secs.items()}
+    spread = max(secs["f32"]) - min(secs["f32"])
+    won = med["lp"] < med["f32"] - spread / 2
+    lc = runs["lp"][0]["launches"]
+    a_bytes = prob_t.A.numel() * prob_t.A.element_size()
+    log(f"  {what}: A {a_bytes} bytes; f32 chains {secs['f32']} s "
+        f"(median {med['f32']:.4f}), lp chains {secs['lp']} s (median "
+        f"{med['lp']:.4f}): the copy {'won' if won else 'did not win'}; lp "
+        f"launches K5 on the copy {lc['mglm_matvec_bf16']}, on A "
+        f"{lc['mglm_matvec'] - lc['mglm_matvec_bf16']}; AUTO "
+        f"(auto_lp=None) {'attaches' if auto_on else 'does not attach'} "
+        "the copy here")
+    return dict(a_bytes=a_bytes, lp_won=won, auto_attaches=auto_on,
+                median_s=med, **summary(runs))
+
+
+def phase_mixed(main3, newton12, mglm5):
+    """Phase 13. (a) iterate_mixed on phase 3's anchored problem
+    (``main3``: the problem, its anchor objective, phase 3's and phase
+    7's final objectives) in turns with phase 3's f32 chain and phase
+    11's lp chain (f32, lp, mixed, mixed, lp, f32), each to the gap;
+    then one iterate_mixed chain on the uncached GGN-CG path (against
+    phase 7's objective) and one of Newton-CG with greedy off on phase
+    12(a)'s anchored problem (``newton12``: the problem, its anchor,
+    12(a)'s final objective); (b) iterate_mixed on phase 5's problem
+    (``mglm5``), in turns with its f32 chain; (c) `mglm_lp_turns` at
+    MGLM_SHAPE and MGLM_LP_SMALL_SHAPE; (d) small float64 iterate_mixed
+    solves through the kernels against the CPU plain path. Returns
+    (results, the mixed and lp chains' launches summed)."""
+    import torch
+
+    import scso_tpu_torch as st
+    from scso_tpu_torch._src.struct import replace
+
+    res, launches = {}, None
+
+    def add(runs, labels):
+        nonlocal launches
+        for label in labels:
+            for r in runs.get(label, []):
+                lc = r["launches"]
+                launches = lc if launches is None else {
+                    k: launches[k] + lc[k] for k in launches}
+
+    prob3, best3, obj3, obj7 = main3
+    prob5, best5, obj5 = mglm5
+    f32 = st.ProxGGNSCORE(**F32_CG)
+    lp = st.ProxGGNSCORE(**dict(F32_CG, auto_lp=True))
+    st.iterate_mixed(f32, prob3, "l1", st.PHuberSmootherL1L2(1.0),
+                     **dict(CHUNK_KW, max_epoch=2), coarse_max_epoch=2)
+    shape = "x".join(map(str, prob3.A.shape))
+    log(f" (a) {shape}: f32, lp, mixed, mixed, lp, f32; then mixed on "
+        "the uncached and the Newton-CG paths")
+    runs = turns([("f32", f32, None), ("lp", lp, None),
+                  ("mixed", f32, mixed_solve), ("mixed", f32, mixed_solve),
+                  ("lp", lp, None), ("f32", f32, None)], prob3, best3,
+                 f"mixed {shape}")
+    check_mixed(runs["mixed"], obj3, MIXED_KERNELS, "glm_prep_pair_bf16",
+                f"mixed {shape}")
+    for r in runs["f32"]:
+        check_launches(r["launches"], LOGISTIC_KERNELS, f"{shape} f32")
+    for r in runs["lp"]:
+        check_launches(r["launches"], LOGISTIC_KERNELS
+                       + ("normal_matvec_bf16",), f"{shape} lp")
+    res["main"] = summary(runs)
+    add(runs, ("mixed",))
+    # the uncached GGN-CG and the Newton-CG paths' coarse phases: K2s and
+    # K2's newton flavour with A in bfloat16
+    unc = st.ProxGGNSCORE(**F32_CG, epoch_cache=False)
+    runs = turns([("mixed", unc, mixed_solve)], prob3, best3,
+                 f"mixed uncached {shape}")
+    check_mixed(runs["mixed"], obj7, ("glm_prep", "glm_prep_bf16",
+                                      "normal_matvec", "normal_matvec_bf16",
+                                      "score_update"),
+                "glm_prep_bf16", f"mixed uncached {shape}")
+    res["uncached"] = summary(runs)
+    add(runs, ("mixed",))
+    nprob, nbest, nobj = newton12
+    newton = st.ProxNSCORE(**NEWTON_GREEDY_OFF)
+    runs = turns([("mixed", newton, mixed_solve)], nprob, nbest,
+                 f"mixed Newton-CG {shape}")
+    check_mixed(runs["mixed"], nobj, NEWTON_KERNELS + (
+        "glm_prep_pair_newton_bf16", "normal_matvec_bf16"),
+        "glm_prep_pair_newton_bf16", f"mixed Newton-CG {shape}")
+    res["newton"] = summary(runs)
+    add(runs, ("mixed",))
+    torch.cuda.empty_cache()
+
+    shape = "x".join(map(str, MGLM_SHAPE))
+    log(f" (b) {shape}: f32, mixed, mixed, f32")
+    m5 = st.ProxGGNSCORE(**F32_CG)
+    runs = turns([("f32", m5, None), ("mixed", m5, mixed_solve),
+                  ("mixed", m5, mixed_solve), ("f32", m5, None)], prob5,
+                 best5, f"mixed {shape}")
+    check_mixed(runs["mixed"], obj5, MIXED_MGLM_KERNELS, None,
+                f"mixed {shape}")
+    res["multinomial"] = summary(runs)
+    add(runs, ("mixed",))
+
+    log(" (c) the cached multinomial chain with the bfloat16 copy")
+    res["mglm_lp"] = {"main": mglm_lp_turns(prob5, best5, f"lp {shape}")}
+    small = build_mglm_problem(*MGLM_LP_SMALL_SHAPE, "cuda", torch.float32)
+    sbest, sx, _ = presolve(m5, small)
+    small = replace(small, x_star=sx)
+    res["mglm_lp"]["small"] = mglm_lp_turns(
+        small, sbest, "lp " + "x".join(map(str, MGLM_LP_SMALL_SHAPE)))
+    del small
+    torch.cuda.empty_cache()
+
+    log(" (d) small float64 iterate_mixed solves, card against CPU")
+    logreg = lambda lam: (lambda dev: build_problem(512, 200, dev,
+                                                    torch.float64, lam=lam))
+    for method, what, build, kernels in (
+            (st.ProxGGNSCORE(solver="cg", greedy_alpha=False),
+             "iterate_mixed, cached GGN-CG", logreg(0.01),
+             MIXED_KERNELS),
+            (st.ProxGGNSCORE(solver="cg", greedy_alpha=False,
+                             epoch_cache=False),
+             "iterate_mixed, uncached GGN-CG", logreg(0.01),
+             ("glm_prep", "glm_prep_bf16", "normal_matvec",
+              "normal_matvec_bf16", "score_update")),
+            (st.ProxNSCORE(solver="cg", greedy_alpha=False),
+             "iterate_mixed, Newton-CG", logreg(0.1),
+             ("glm_prep_pair_newton", "glm_prep_pair_newton_bf16",
+              "normal_matvec", "normal_matvec_bf16", "score_update")),
+            (st.ProxLQNSCORE(), "iterate_mixed, L-BFGS", logreg(0.01),
+             LBFGS_KERNELS),
+            (st.ProxGGNSCORE(solver="cg", greedy_alpha=False),
+             "iterate_mixed, multinomial",
+             lambda dev: build_mglm_problem(256, 32, 4, dev, torch.float64,
+                                            lam=1e-2),
+             MIXED_MGLM_KERNELS)):
+        phase_small_f64(method, what, solve=mixed_solve, build=build,
+                        kernels=kernels)
+    return res, launches
 
 
 # ---------------------------------------------------------------------------
@@ -1894,7 +2286,7 @@ def main():
                     "GGN-CG")
 
     log("phase 5: multinomial path at full width, and cross-checks")
-    mkern, mplain, mlaunches = phase_multinomial()
+    mkern, mplain, mlaunches, mprob_t, mbest = phase_multinomial()
 
     log("phase 6: L-BFGS path at full width, and cross-checks")
     lkern, lplain, llaunches = phase_lbfgs(prob_t)
@@ -1928,10 +2320,17 @@ def main():
 
     log("phase 12: the Newton-CG path (ProxNSCORE) at full width, and "
         "the small Newton and dense GGN solves")
-    ekern, eplain, elaunches = phase_newton(prob_t, best)
+    ekern, eplain, elaunches, nwprob_t = phase_newton(prob_t, best)
+
+    log("phase 13: iterate_mixed (the coarse phase with A in bfloat16) and "
+        "the cached multinomial chain with a bfloat16 copy")
+    mixed, xlaunches = phase_mixed(
+        (prob_t, best, kern["obj"], ukern["obj"]),
+        (nwprob_t, ekern["anchor_obj"], ekern["obj"]),
+        (mprob_t, mbest, mkern["obj"]))
     launches = {k: launches[k] + mlaunches[k] + llaunches[k] + ulaunches[k]
                 + slaunches[k] + nlaunches[k] + klaunches[k] + lplaunches[k]
-                + elaunches[k] for k in launches}
+                + elaunches[k] + xlaunches[k] for k in launches}
 
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "scso_tpu"
@@ -1958,9 +2357,10 @@ def main():
     log("lp path: " + json.dumps({"card": card, **lp}))
     log("Newton-CG path: " + json.dumps({"card": card, "kernels": ekern,
                                          "torch": eplain}))
+    log("mixed path: " + json.dumps({"card": card, **mixed}))
     rows = []
     for k, (src, rep) in KERNELS.items():
-        bound_ms, bound_by = bound(*work[k])
+        bound_ms, bound_by = bound(*work[k], k)
         rows.append({"name": k, "route": "cuda", "source": src,
                      "replaces": rep, "launches": launches[k],
                      "max_abs_err": errs[k], "ms": times[k][0],

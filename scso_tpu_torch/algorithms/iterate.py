@@ -179,6 +179,12 @@ def _effective_L(prob: Problem, alpha):
 # copy beat the chain without it on the H100 (chip_smoke.py phase 11,
 # PERF.md). The JAX package's 2 GiB was measured on a TPU v5e.
 _AUTO_LP_MIN_BYTES = 2 * 1024**3
+# The same for a multi-output problem, on its cached path, or None: AUTO
+# attaches no copy there. On the H100 the cached multinomial chain with
+# the copy did not beat the chain without it at 49152×1024×16, and at
+# 196608×1024×16 only in some runs (chip_smoke.py phase 13(c), PERF.md).
+# The JAX package's 512 MiB was measured on a TPU v5e.
+_AUTO_LP_MIN_BYTES_MGLM = None
 
 
 def _auto_lp(method, prob: Problem, reg_name: str = "l1"):
@@ -188,16 +194,19 @@ def _auto_lp(method, prob: Problem, reg_name: str = "l1"):
 
     The JAX package's gates, in its order: ProxGGNSCORE; no explicit
     cg_lp_tol, no cg_adaptive, no curvature_rows; a 2-D data problem
-    without a copy yet; a float32 GLM (the port solves full batches
-    only); the resolved solver 'cg'; a row mesh (the port's only kind of
-    mesh, whose copy ``shard_problem`` shards with A). A multi-output
-    problem takes the copy only on its cached path, whose lp product is
-    not ported: auto_lp=True raises there (ROADMAP A10) and None
-    resolves off. ``auto_lp=None`` then adds the measured-win gates: A
-    on a CUDA device (where the JAX package asks for a TPU), at least
-    ``_AUTO_LP_MIN_BYTES`` of this rank's rows, and 1.55 times A (A, the
-    copy and slack) within 0.85 of the card's memory. True skips those
-    three; False disables."""
+    without a copy yet; a float32 GLM or multi-output GLM (the port
+    solves full batches only); the resolved solver 'cg'; a row mesh
+    (the port's only kind of mesh, whose copy ``shard_problem`` shards
+    with A); for a multi-output problem its cached path, where the copy
+    acts (`steps._mo_lp_matvec`). ``auto_lp=None`` then adds the
+    measured-win gates: A on a CUDA device (where the JAX package asks
+    for a TPU), at least ``_AUTO_LP_MIN_BYTES`` of this rank's rows
+    (``_AUTO_LP_MIN_BYTES_MGLM`` for a multi-output problem; None:
+    never),
+    and 1.55 times A (A, the copy and slack) within 0.85 of the card's
+    memory. True skips those three; False disables. A that is already
+    bfloat16 (the coarse phase of `iterate_mixed`) gets itself as the
+    copy, as in the JAX package."""
     auto = method.auto_lp if isinstance(method, ProxGGNSCORE) else False
     if auto is False:
         return method, prob
@@ -205,22 +214,22 @@ def _auto_lp(method, prob: Problem, reg_name: str = "l1"):
         return method, prob
     if prob.A is None or prob.A.ndim != 2 or prob.A_lp is not None:
         return method, prob
-    if prob.mglm is not None:
-        if auto and epoch_cache_enabled(method, prob, reg_name, True):
-            raise NotImplementedError(
-                "precision-adaptive CG on the cached multi-output path (its "
-                "bf16-A product) is not ported yet (ROADMAP A10)")
-        return method, prob
-    if prob.glm is None or prob.x0.dtype != torch.float32:
+    if ((prob.glm is None and prob.mglm is None)
+            or prob.x0.dtype != torch.float32):
         return method, prob
     if _resolve_ggn_solver(method, prob, prob.x0) != "cg":
         return method, prob
+    if prob.mglm is not None and not epoch_cache_enabled(method, prob,
+                                                         reg_name, True):
+        return method, prob  # the uncached mglm path never reads a copy
     if auto is None:
         A = prob.A
         if A.device.type != "cuda":
             return method, prob
         nbytes = A.numel() * A.element_size()  # this rank's rows
-        if nbytes < _AUTO_LP_MIN_BYTES:
+        min_bytes = (_AUTO_LP_MIN_BYTES_MGLM if prob.mglm is not None
+                     else _AUTO_LP_MIN_BYTES)
+        if min_bytes is None or nbytes < min_bytes:
             return method, prob
         _, total = torch.cuda.mem_get_info(A.device)
         if nbytes * 1.55 > 0.85 * total:
@@ -234,6 +243,10 @@ def solve(method, prob: Problem, reg_name: str, sm, opts: Options,
     """Run one solve; returns a :class:`Solution`."""
     if not isinstance(method, (ProxNSCORE, ProxGGNSCORE, ProxLQNSCORE)):
         raise TypeError(f"unknown method {method!r}")
+    if prob.A is None or prob.y is None:
+        raise NotImplementedError(
+            "a problem without data (the f(x) flavour) is not ported yet "
+            "(ROADMAP A7)")
     prob = _effective_L(prob, alpha)
     method = _resolve_kernels(method, prob)
     method, prob = _auto_lp(method, prob, reg_name)

@@ -88,19 +88,22 @@ class ProxGGNSCORE:
     cg_adaptive: bool = False
     #: greedy SCORE damping; None = AUTO (on for ss_type=1 and n >= 4096)
     greedy_alpha: Optional[bool] = None
-    #: precision-adaptive CG (GLM specs): epochs whose CG forcing
-    #: tolerance is >= cg_lp_tol run their curvature matvecs on the
-    #: problem's low-precision copy of A (Problem.A_lp, mixed.with_lp_copy:
-    #: K1 with A in bfloat16), the others on A. 0.0 disables. At most
-    #: the CG floor it is refused with a warning (steps._lp_tol_refused),
-    #: except equal to it under the float32 tightening-only forcing.
-    #: Multi-output problems: the uncached path ignores the copy, as the
-    #: JAX package does; the cached lp product is not ported yet (A10)
+    #: precision-adaptive CG (GLM and multi-output specs): epochs whose
+    #: CG forcing tolerance is >= cg_lp_tol run their curvature matvecs
+    #: on the problem's low-precision copy of A (Problem.A_lp,
+    #: mixed.with_lp_copy: K1 or K5 with A in bfloat16), the others on
+    #: A. 0.0 disables. At most the CG floor it is refused with a
+    #: warning (steps._lp_tol_refused), except equal to it under the
+    #: float32 tightening-only forcing. Multi-output problems: only the
+    #: cached path reads the copy (steps._mo_lp_matvec); the uncached
+    #: one ignores it, as the JAX package does
     cg_lp_tol: float = 0.0
     #: AUTO precision-adaptive CG (iterate._auto_lp): None attaches the
     #: bf16 copy and sets cg_lp_tol to the CG floor for a float32 GLM
     #: problem whose A lies on a CUDA device and is at least
-    #: _AUTO_LP_MIN_BYTES (measured on the H100, PERF.md) and fits
+    #: _AUTO_LP_MIN_BYTES (measured on the H100, PERF.md; a multi-output
+    #: one never: _AUTO_LP_MIN_BYTES_MGLM is None, as the copy did not
+    #: win clearly there) and fits
     #: twice over; True skips the device, size and memory gates; False
     #: disables. An explicit cg_lp_tol > 0 always wins over AUTO
     auto_lp: Optional[bool] = None

@@ -1,14 +1,17 @@
-"""Mixed precision: the low-precision copy of A for precision-adaptive CG.
+"""Mixed precision: a bfloat16 A for the bandwidth-bound passes.
 
 Port of `scso_tpu.algorithms.mixed`. At the bench shapes the CG
-curvature matvec (K1) is bound by the bytes of A, so a bfloat16 copy of
-A halves the bytes of every CG iteration; bf16's ~3 significant digits
-bound the matvec's relative error near 1e-3, which is below the CG
-forcing tolerance of the bulk epochs. `with_lp_copy` attaches the copy
-(`Problem.A_lp`), and `ProxGGNSCORE(cg_lp_tol=...)` or AUTO
-(`auto_lp`, `iterate._auto_lp`) decides which epochs use it. The
-two-phase `iterate_mixed` (a coarse solve with A itself in bf16, then a
-full-precision finish) is not ported yet (ROADMAP A10).
+curvature matvec (K1, K5) and the epoch prep (K2, K2s) are bound by the
+bytes of A, so A in bfloat16 halves them; bf16's ~3 significant digits
+bound a product's relative error near 1e-3. Two schemes:
+  * `with_lp_copy` attaches a copy (`Problem.A_lp`), and
+    `ProxGGNSCORE(cg_lp_tol=...)` or AUTO (`auto_lp`,
+    `iterate._auto_lp`) decides which epochs' CG matvecs use it; the
+    RHS, the prep and the stats keep A;
+  * `iterate_mixed` solves twice: a coarse solve with A itself cast to
+    bfloat16 (every pass over A, the kernels' and `ops.dense`'s, at half
+    the bytes) to a loose gap, then a full-precision finish from its
+    iterate.
 """
 
 from __future__ import annotations
@@ -17,6 +20,9 @@ import torch
 
 from scso_tpu_torch._src.struct import replace as dc_replace
 from scso_tpu_torch.problems import Problem
+
+# `iterate` imports this module (for with_lp_copy): iterate_mixed
+# imports it when it runs
 
 
 def with_lp_copy(model: Problem, dtype=torch.bfloat16) -> Problem:
@@ -42,9 +48,38 @@ def with_lp_copy(model: Problem, dtype=torch.bfloat16) -> Problem:
 def iterate_mixed(method, model: Problem, reg_name: str, h_mu, *,
                   coarse_f_tol: float = 1e-3, coarse_max_epoch: int = 50,
                   coarse_dtype=torch.bfloat16, **kwargs):
-    """Two-phase mixed-precision `iterate` (a coarse solve with A in
-    ``coarse_dtype``, then the full-precision finish): not ported yet.
-    Its coarse phase needs K2, K2s and K5 with a bfloat16 A."""
-    raise NotImplementedError(
-        "iterate_mixed (the two-phase bf16 coarse solve) is not ported "
-        "yet (ROADMAP A10)")
+    """Two-phase mixed-precision `iterate`.
+
+    Accepts every `iterate` kwarg for the fine phase; the coarse phase
+    runs with the data matrix cast to ``coarse_dtype`` (x, y and every
+    other tensor keep their dtype; an attached ``A_lp`` stays) and stops
+    at ``coarse_f_tol`` relative objective gap or after
+    ``coarse_max_epoch`` epochs. The fine phase starts from the coarse
+    iterate in x0's dtype — the padded one, ``state.x``, so that a
+    problem built with ``pad_features`` fits its padded A. The returned
+    Solution is the fine phase's (its histories and ``times`` cover the
+    fine phase); ``cg_info`` gains ``coarse_epochs`` and
+    ``coarse_time_s`` beside the fine solve's own entries. A problem
+    without data runs the plain `iterate`. On a row-sharded problem both
+    phases run the sharded cached path (each rank casts its rows)."""
+    from scso_tpu_torch.algorithms.iterate import iterate
+
+    if model.A is None or model.y is None:
+        # nothing bandwidth-bound to downcast: a plain solve
+        return iterate(method, model, reg_name, h_mu, **kwargs)
+
+    coarse_prob = dc_replace(model, A=model.A.to(coarse_dtype))
+    coarse_kwargs = dict(kwargs, f_tol=coarse_f_tol,
+                         max_epoch=coarse_max_epoch)
+    coarse = iterate(method, coarse_prob, reg_name, h_mu, **coarse_kwargs)
+
+    fine_prob = dc_replace(model, x0=coarse.state.x.to(model.x0.dtype))
+    fine = iterate(method, fine_prob, reg_name, h_mu, **kwargs)
+    # merge, don't overwrite: the fine solve's total_cg_iters survives
+    fine.cg_info = {
+        **(fine.cg_info or {}),
+        "coarse_epochs": coarse.epochs,
+        "coarse_time_s": (float(coarse.times[-1]) if len(coarse.times)
+                          else 0.0),
+    }
+    return fine

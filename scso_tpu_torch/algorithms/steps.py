@@ -50,21 +50,23 @@ over the materialized Jacobian (`Problem.ggn_pieces`).
 CUDA kernels or their plain versions, for any spec: K2, K2s and K5
 compute the logistic01 and multinomial specs in the kernel and any
 other between their passes over A (their split form). Gradients and
-the mglm prep stay `torch.matmul`: the JAX package runs them as plain
-XLA matmuls, not as Pallas kernels.
+the mglm prep stay `torch.matmul` (`ops.dense`): the JAX package runs
+them as plain XLA matmuls, not as Pallas kernels. A may be stored in
+bfloat16 (the coarse phase of `iterate_mixed`): the kernels take it as
+it is, `ops.dense` upcasts its values exactly.
 
-Precision-adaptive CG (GLM specs, cached, uncached and row-sharded):
-with a low-precision copy of A (`Problem.A_lp`, bfloat16) and
-``method.cg_lp_tol`` > 0, an epoch whose CG forcing tolerance is at
-least ``cg_lp_tol`` runs its CG matvecs on the copy (K1, or K1s, with A
-in bfloat16), the others on A (`_lp_matvec`, `_cg_direction_solve`).
-The RHS, the prep and the greedy pass always read A. The JAX package
-picks the operator with a `lax.cond` on the device; here the choice is
-a host branch on the forcing tolerance, one scalar read an epoch.
+Precision-adaptive CG (cached, uncached and row-sharded GLM specs, and
+the cached multi-output path): with a low-precision copy of A
+(`Problem.A_lp`, bfloat16) and ``method.cg_lp_tol`` > 0, an epoch whose
+CG forcing tolerance is at least ``cg_lp_tol`` runs its CG matvecs on
+the copy (K1, K1s or K5 with A in bfloat16), the others on A
+(`_lp_matvec`, `_mo_lp_matvec`, `_cg_direction_solve`). The RHS, the
+prep and the greedy pass always read A. The JAX package picks the
+operator with a `lax.cond` on the device; here the choice is a host
+branch on the forcing tolerance, one scalar read an epoch.
 
-Subsampled curvature, the static preconditioner, the generic jvp/vjp
-GGN-CG branch and the cached multi-output lp product are not ported yet
-(ROADMAP A7, A10).
+Subsampled curvature, the static preconditioner and the generic jvp/vjp
+GGN-CG branch are not ported yet (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -87,6 +89,7 @@ from scso_tpu_torch.ops.cuda.mglm_matvec import (
 from scso_tpu_torch.ops.cuda.score_update import (
     score_update, score_update_torch)
 from scso_tpu_torch.ops.cuda.two_loop import two_loop, two_loop_torch
+from scso_tpu_torch.ops.dense import amul, atmul, sq_atmul
 from scso_tpu_torch.ops.lbfgs_core import LBFGSMemory, update_memory
 from scso_tpu_torch.ops.linalg import (
     armijo_linesearch, cg_solve, inv_bb_step)
@@ -289,13 +292,14 @@ def _greedy_prox_update(method, prob: Problem, reg_name, sm, As, ys,
                            Hr_diag)
     data_2d = As.ndim == 2
     if data_2d and prob.glm is not None and prob.glm.loss_z is not None:
-        z_x = As @ x if z is None else z
+        z_x = amul(As, x) if z is None else z
         F_x = prob.glm.loss_z(ys, z_x) + prob.reg(reg_name, x)
-        F_t = prob.glm.loss_z(ys, As @ x_trial) + prob.reg(reg_name, x_trial)
+        F_t = (prob.glm.loss_z(ys, amul(As, x_trial))
+               + prob.reg(reg_name, x_trial))
     elif (data_2d and prob.mglm is not None
           and prob.mglm.loss_z is not None):
         k = int(prob.mglm.n_out)
-        Zf = lambda v: As @ v.reshape(v.shape[-1] // k, k)
+        Zf = lambda v: amul(As, v.reshape(v.shape[-1] // k, k))
         F_x = prob.mglm.loss_z(ys, Zf(x)) + prob.reg(reg_name, x)
         F_t = prob.mglm.loss_z(ys, Zf(x_trial)) + prob.reg(reg_name,
                                                            x_trial)
@@ -533,12 +537,6 @@ def _mo_shapes(g, x):
     return k, pf
 
 
-def _jacobi_mo(Q, As):
-    """Σᵢ Qᵢc·Aᵢⱼ² as (p, c) — the einsum "ic,ij,ij->jc" with one
-    A-sized temporary (A²)."""
-    return torch.square(As).T @ Q
-
-
 def _moglm_pair_prep(As, ys, g, x_t, x_d):
     """Dual-candidate mglm prep: both candidates' Z, data gradient,
     Jacobi diagonal and loss from three A-reads (the per-candidate
@@ -547,12 +545,12 @@ def _moglm_pair_prep(As, ys, g, x_t, x_d):
     k, pf = _mo_shapes(g, x_t)
     m = As.shape[0]
     W2 = torch.cat([x_t.reshape(pf, k), x_d.reshape(pf, k)], dim=1)
-    Z2 = As @ W2                                     # read 1
+    Z2 = amul(As, W2)                                # read 1
     Zt, Zd = Z2[:, :k].contiguous(), Z2[:, k:].contiguous()
     R2 = torch.cat([g.gres(ys, Zt), g.gres(ys, Zd)], dim=1)
-    G2 = As.T @ R2                                   # read 2
+    G2 = atmul(As, R2)                               # read 2
     Q2 = torch.cat([g.qdiag_w(ys, Zt), g.qdiag_w(ys, Zd)], dim=1)
-    H2 = _jacobi_mo(Q2, As)                          # read 3
+    H2 = sq_atmul(As, Q2)                            # read 3
     scale = (1.0 / m) if g.sample_normalized else 1.0
     lt = torch.sum(g.loss_sample(ys, Zt)) * scale
     ld = torch.sum(g.loss_sample(ys, Zd)) * scale
@@ -563,9 +561,9 @@ def _moglm_pair_prep(As, ys, g, x_t, x_d):
 def _prime_moglm(prob: Problem, x, As, ys) -> MOGLMCache:
     g = prob.mglm
     k, pf = _mo_shapes(g, x)
-    Z = As @ x.reshape(pf, k)
-    grad_vec = (As.T @ g.gres(ys, Z)).reshape(-1)
-    hd = _jacobi_mo(g.qdiag_w(ys, Z), As).reshape(-1)
+    Z = amul(As, x.reshape(pf, k))
+    grad_vec = atmul(As, g.gres(ys, Z)).reshape(-1)
+    hd = sq_atmul(As, g.qdiag_w(ys, Z)).reshape(-1)
     scale = (1.0 / As.shape[0]) if g.sample_normalized else 1.0
     loss = torch.sum(g.loss_sample(ys, Z)) * scale
     return MOGLMCache(Z=Z, grad_vec=grad_vec, hd_raw=hd, loss=loss)
@@ -631,17 +629,26 @@ def _mo_curv_matvec(method, As, ys, Z, g, lhr, pf, k):
     return lambda v: mv(As, ys, Z, v.reshape(pf, k), g).reshape(-1) + lhr * v
 
 
+def _mo_lp_matvec(method, prob: Problem, As, ys, Z, g, lhr, pf, k):
+    """The low-precision curvature matvec of the cached multi-output
+    path, or None when precision-adaptive CG does not act
+    (`_lp_engaged`): `_mo_curv_matvec` on the copy ``prob.A_lp`` — one
+    K5 launch with A in bfloat16 — while the cached Z, the spec's quad
+    and the RHS stay in x's dtype. The JAX package sends this product
+    through its XLA pair rather than its kernel; the function is the
+    same, and PyTorch multiplies no bfloat16 matrix by a wider one."""
+    if not _lp_engaged(method, prob, As, Z.dtype):
+        return None
+    return _mo_curv_matvec(method, prob.A_lp, ys, Z, g, lhr, pf, k)
+
+
 def _mo_cg_from_cache(method, prob: Problem, As, ys, x, gr, Hr_diag, lam,
                       cache: MOGLMCache, d_prev, it, bnorm_prev, x_prev):
     """Multi-output GGN-CG direction from the carried MOGLMCache: no
     prep pass over A; each CG matvec applies the per-sample curvature
-    action from the cached Z (one K5 launch per iteration). Its
-    low-precision product (the JAX package's `_mo_lp_matvec`) is not
-    ported: a copy that would act raises."""
-    if _lp_engaged(method, prob, As, x.dtype):
-        raise NotImplementedError(
-            "precision-adaptive CG on the cached multi-output path (its "
-            "bf16-A product) is not ported yet (ROADMAP A10)")
+    action from the cached Z (one K5 launch per iteration) — on the
+    bfloat16 copy of A in the bulk epochs of precision-adaptive CG
+    (`_mo_lp_matvec`, `_cg_direction_solve`)."""
     g = prob.mglm
     k, pf = _mo_shapes(g, x)
     lhr = lam * Hr_diag
@@ -651,8 +658,9 @@ def _mo_cg_from_cache(method, prob: Problem, As, ys, x, gr, Hr_diag, lam,
     xp = x if x_prev is None else x_prev
     tol, bnorm = _forcing_tol(method, b, x, xp, bnorm_prev, it,
                               endgame=True)
-    res = cg_solve(mv, b, d_prev, tol=tol, maxiter=method.cg_maxiter,
-                   M_inv=lambda v: v / diag)
+    res = _cg_direction_solve(
+        method, mv, _mo_lp_matvec(method, prob, As, ys, cache.Z, g, lhr, pf,
+                                  k), b, d_prev, tol, lambda v: v / diag)
     return res.x, res.iters, bnorm
 
 
@@ -770,7 +778,7 @@ def _weighted_system(method, As, x, w, lhr, hd_raw=None):
     tiny = torch.finfo(x.dtype).tiny
     matvec = normal_matvec if method.kernels == "cuda" else normal_matvec_torch
     if hd_raw is None:
-        hd_raw = torch.einsum("i,ij,ij->j", w, As, As)
+        hd_raw = sq_atmul(As, w)
     hdiag = hd_raw + lhr
     return (lambda v: matvec(As, w, v) + lhr * v,
             lambda v: v / torch.clamp_min(hdiag, tiny))
@@ -784,10 +792,10 @@ def _mo_glm_system(method, prob: Problem, As, ys, x, lhr):
     diagonal Σᵢ qdiag_wᵢ·Aᵢⱼ² + λHr."""
     g = prob.mglm
     k, pf = _mo_shapes(g, x)
-    Z = As @ x.reshape(pf, k)
-    grad_vec = (As.T @ g.gres(ys, Z)).reshape(-1)
+    Z = amul(As, x.reshape(pf, k))
+    grad_vec = atmul(As, g.gres(ys, Z)).reshape(-1)
     mv = _mo_curv_matvec(method, As, ys, Z, g, lhr, pf, k)
-    hdiag = _jacobi_mo(g.qdiag_w(ys, Z), As).reshape(-1) + lhr
+    hdiag = sq_atmul(As, g.qdiag_w(ys, Z)).reshape(-1) + lhr
     tiny = torch.finfo(x.dtype).tiny
     return Z, grad_vec, mv, lambda v: v / torch.clamp_min(hdiag, tiny)
 
@@ -860,8 +868,8 @@ def newton_step(method: ProxNSCORE, prob: Problem, reg_name: str, sm,
                                                 lhr)
         gq = grad_vec + lgr
     elif solver == "cg" and prob.glm is not None and data_2d:
-        z_cache = As @ x
-        gq = As.T @ prob.glm.gres(ys, z_cache) + lgr
+        z_cache = amul(As, x)
+        gq = atmul(As, prob.glm.gres(ys, z_cache)) + lgr
         mv, M_inv = _weighted_system(method, As, x,
                                      prob.glm.hvp_w(ys, z_cache), lhr)
     else:
@@ -963,9 +971,9 @@ def _ggn_cg_direction(method, prob: Problem, As, ys, x, gr, Hr_diag, lam,
         if method.kernels == "cuda" and method.use_fused_prep is not False:
             w, b_raw, hd_raw = glm_prep(As, ys, x, prob.glm)
         else:
-            z_cache = As @ x
+            z_cache = amul(As, x)
             rw, w = ggn_weights(prob.glm, ys, z_cache)
-            b_raw, hd_raw = As.T @ rw, None
+            b_raw, hd_raw = atmul(As, rw), None
         b = -(b_raw + lam * gr)
         mv, M_inv = _weighted_system(method, As, x, w, lhr, hd_raw)
         mv_lp = _lp_matvec(method, prob, As, w, lhr)

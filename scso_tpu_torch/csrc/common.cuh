@@ -7,7 +7,10 @@
 #pragma once
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace scso {
 
@@ -122,6 +125,26 @@ __device__ __forceinline__ float dexp(float v) { return expf(v); }
 __device__ __forceinline__ double dexp(double v) { return exp(v); }
 __device__ __forceinline__ float dlog1p(float v) { return log1pf(v); }
 __device__ __forceinline__ double dlog1p(double v) { return log1p(v); }
+
+// bfloat16 bits → float, exactly (what __bfloat162float computes): the
+// low and the high half of a 32-bit word of two packed values
+__device__ __forceinline__ float bf16_lo(uint32_t x) {
+  return __uint_as_float(x << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t x) {
+  return __uint_as_float(x & 0xffff0000u);
+}
+
+// A value of A (stored in T, or in bfloat16) in the compute type T: a
+// bfloat16 value upcast exactly
+template <typename T, typename S>
+__device__ __forceinline__ T upcast(S v) {
+  if constexpr (std::is_same_v<S, __nv_bfloat16>) {
+    return static_cast<T>(__bfloat162float(v));
+  } else {
+    return static_cast<T>(v);
+  }
+}
 
 // A 16-byte vector of T (VEC: float4 / double2) or T itself, with the
 // ops the kernels need. VEC requires 16-byte aligned rows (n % E == 0).

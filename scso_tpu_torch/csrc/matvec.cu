@@ -121,13 +121,8 @@ struct Cols<T, T, VEC, WIDE> {
   }
 };
 
-// bfloat16 bits → float, exactly (what __bfloat162float computes)
-__device__ __forceinline__ float bf16_lo(uint32_t x) {
-  return __uint_as_float(x << 16);
-}
-__device__ __forceinline__ float bf16_hi(uint32_t x) {
-  return __uint_as_float(x & 0xffff0000u);
-}
+using scso::bf16_hi;
+using scso::bf16_lo;
 
 // A stored in bfloat16, rows 16-byte aligned: a 16-byte load of A holds
 // 8 values, upcast in registers; v and the accumulator hold them as 8

@@ -61,6 +61,20 @@
 // it, and the column kernel forms Aᵀ·QU.
 // Every form writes per-block (p × k) partials that sum_partials adds in
 // a fixed order in double: no float atomics, bitwise-equal reruns.
+//
+// A stored in bfloat16 (S = __nv_bfloat16; y, Z, V, QU and the output in
+// T, float or double): the coarse phase of iterate_mixed and the copy of
+// precision-adaptive CG on the cached path (steps._mo_lp_matvec). The TPU
+// kernel upcasts each tile (mglm_matvec.py:97 and :126); every form here
+// takes A's values upcast exactly, so the function is the one of A
+// upcast. A bfloat16 value is exact in TF32 (8 significant bits against
+// 11), so in the tensor-core form its split has lo = 0 and each product
+// takes two mma.sync (hi·lo and hi·hi of the other operand), not three;
+// a stage holds 16-byte chunks of 8 values (32 KB at p = 1024, half the
+// f32 stage), swizzled as the f32 chunks of 4 are, and rows that are not
+// 16-byte aligned (p % 8 != 0) are staged one value at a time by plain
+// loads (cp.async copies no fewer than 4 bytes). The two-pass and split
+// forms read A one value at a time and upcast it.
 #include <math_constants.h>
 
 #include "common.cuh"
@@ -105,31 +119,53 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// split TF32: the two small terms first, then hi·hi (lo·lo is below
-// f32's last bit)
-__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], float b0,
-                                     float b1) {
+// c += a·b in split TF32, a from A (stored in S), b = (b0, b1) of a
+// float operand: the small terms first, then hi·hi (lo·lo is below
+// f32's last bit). A in float: three products; A in bfloat16 (exact in
+// TF32, al unused): two
+template <typename S>
+__device__ __forceinline__ void mma_a(float (&c)[4], const uint32_t (&ah)[4],
+                                      const uint32_t (&al)[4], float b0,
+                                      float b1) {
   uint32_t bh0, bl0, bh1, bl1;
   split(b0, bh0, bl0);
   split(b1, bh1, bl1);
-  mma(c, al, bh0, bh1);
+  if constexpr (std::is_same_v<S, float>) mma(c, al, bh0, bh1);
   mma(c, ah, bl0, bl1);
   mma(c, ah, bh0, bh1);
+}
+
+// A value of a stage as a TF32 operand, hi + lo: a float split, a
+// bfloat16 value (its bits above 16 zero bits) exact as hi
+__device__ __forceinline__ void frag(float a, uint32_t& hi, uint32_t& lo) {
+  split(a, hi, lo);
+}
+__device__ __forceinline__ void frag(__nv_bfloat16 a, uint32_t& hi,
+                                     uint32_t& lo) {
+  hi = static_cast<uint32_t>(__bfloat16_as_ushort(a)) << 16;
+  lo = 0u;
 }
 
 // The 16-byte chunk q of row r sits at chunk q ^ swz(r & 7). Both
 // contractions' fragment loads then hit 32 distinct banks: the first
 // reads rows g = 0..7 at one chunk pair (swz is a permutation of 0..7),
 // the second rows t4 = 0..3 (or 4..7) at chunks {q, q+1}, q even
-// (swz(r) >> 1 is a permutation of 0..3 on each half).
+// (swz(r) >> 1 is a permutation of 0..3 on each half). With A in
+// bfloat16 a chunk holds 8 values: the first contraction reads one
+// chunk a row, the second one chunk of each of its 4 rows, each at 4
+// distinct words.
 __device__ __forceinline__ int swz(int r) {
   return ((r & 3) << 1) | ((r >> 2) & 1);
 }
 
-template <int PP>
+// values of A a 16-byte chunk
+template <typename S>
+constexpr int kChunk = 16 / static_cast<int>(sizeof(S));
+
+template <typename S, int PP>
 __device__ __forceinline__ int a_off(int r, int j) {
-  return r * PP + ((((j >> 2) ^ swz(r & 7))) << 2) + (j & 3);
+  constexpr int C = kChunk<S>, L = C == 4 ? 2 : 3;
+  return r * PP + (((j >> L) ^ swz(r & 7)) << L) + (j & (C - 1));
 }
 
 __device__ __forceinline__ void cp16(float* dst, const float* src,
@@ -140,12 +176,18 @@ __device__ __forceinline__ void cp16(float* dst, const float* src,
                "l"(src), "r"(n));
 }
 
-// one float, for rows that are not 16-byte aligned
-__device__ __forceinline__ void cp4(float* dst, const float* src, bool pred) {
+// one value, for rows that are not 16-byte aligned: a float by a 4-byte
+// cp.async, a bfloat16 value by a plain load and store (cp.async copies
+// no fewer than 4 bytes), visible to the warp after its next __syncwarp
+__device__ __forceinline__ void cp1(float* dst, const float* src, bool pred) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   const int n = pred ? 4 : 0;
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
                "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp1(__nv_bfloat16* dst,
+                                    const __nv_bfloat16* src, bool pred) {
+  *dst = pred ? *src : __ushort_as_bfloat16(0);
 }
 
 __device__ __forceinline__ void cp_commit() {
@@ -159,21 +201,22 @@ __device__ __forceinline__ void cp_wait_all_but_one() {
 // rows [r0, r0 + 16) of the warp's 16·MT columns from wc on, into a
 // stage (zeros past r_end and past p): each warp copies the columns it
 // alone reads, so a stage is waited for and reused warp by warp. ``vec``
-// (A's rows 16-byte aligned, so p % 4 == 0): 16-byte copies, else one
-// float a copy, to the same slots.
-template <int PP, int MT>
-__device__ __forceinline__ void load_cols(float* stage,
-                                          const float* __restrict__ A,
+// (A's rows 16-byte aligned, so p % kChunk == 0): 16-byte copies, else
+// one value a copy, to the same slots.
+template <typename S, int PP, int MT>
+__device__ __forceinline__ void load_cols(S* stage, const S* __restrict__ A,
                                           int64_t r0, int64_t r_end, int p,
                                           int wc, int lane, bool vec) {
+  constexpr int C = kChunk<S>;
   if (vec) {
-    constexpr int QW = 4 * MT;  // 16-byte chunks of a row of the warp's
+    constexpr int QW = 16 * MT / C;  // 16-byte chunks of a row of the warp's
     for (int e = lane; e < kRows * QW; e += 32) {
-      const int r = e / QW, q = (wc >> 2) + e - r * QW;
+      const int r = e / QW, q = wc / C + e - r * QW;
       const int64_t i = r0 + r;
-      const bool pred = i < r_end && q * 4 < p;
-      cp16(stage + r * PP + ((q ^ swz(r & 7)) << 2),
-           pred ? A + i * p + q * 4 : A, pred);
+      const bool pred = i < r_end && q * C < p;
+      cp16(reinterpret_cast<float*>(stage + r * PP + (q ^ swz(r & 7)) * C),
+           reinterpret_cast<const float*>(pred ? A + i * p + q * C : A),
+           pred);
     }
   } else {
     constexpr int CW = 16 * MT;  // columns of the warp
@@ -181,33 +224,33 @@ __device__ __forceinline__ void load_cols(float* stage,
       const int r = e / CW, j = wc + e - r * CW;
       const int64_t i = r0 + r;
       const bool pred = i < r_end && j < p;
-      cp4(stage + a_off<PP>(r, j), pred ? A + i * p + j : A, pred);
+      cp1(stage + a_off<S, PP>(r, j), pred ? A + i * p + j : A, pred);
     }
   }
 }
 
 // W warps, each owning 16·MT columns; NT n8 tiles of classes. Shared
-// memory (floats): two stages of kRows × PP; V in fragment order
-// [PP/8 k-steps][NT][32 lanes][2]; the warps' partial U
-// [W][kRows][8·NT]; QU in fragment order [2][NT][32][2].
-template <int W, int MT, int NT>
+// memory: two stages of kRows × PP values of A (in S); then, in floats,
+// V in fragment order [PP/8 k-steps][NT][32 lanes][2]; the warps'
+// partial U [W][kRows][8·NT]; QU in fragment order [2][NT][32][2].
+template <typename S, int W, int MT, int NT>
 constexpr size_t smem_bytes() {
   constexpr int PP = W * MT * 16;
-  return sizeof(float) * (2 * kRows * PP + PP * NT * 8 +
-                          W * kRows * 8 * NT + 2 * NT * 32 * 2);
+  return sizeof(S) * 2 * kRows * PP +
+         sizeof(float) * (PP * NT * 8 + W * kRows * 8 * NT + 2 * NT * 32 * 2);
 }
 
-template <int W, int MT, int NT>
+template <typename S, int W, int MT, int NT>
 __global__ void __launch_bounds__(W * 32, 1)
-mglm_tc(const float* __restrict__ A, const float* __restrict__ Z,
+mglm_tc(const S* __restrict__ A, const float* __restrict__ Z,
         const float* __restrict__ V, float* __restrict__ partials,
         int64_t m, int p, int k, int64_t rows_per_block, bool vec) {
   constexpr int PP = W * MT * 16;  // columns of a stage: p padded
   constexpr int KS = 2 * MT;       // k8 steps over a warp's columns
   constexpr int KB = 8 * NT;       // classes, padded
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* stages = reinterpret_cast<float*>(smem_raw);
-  float* vf = stages + 2 * kRows * PP;
+  S* stages = reinterpret_cast<S*>(smem_raw);
+  float* vf = reinterpret_cast<float*>(stages + 2 * kRows * PP);
   float* red = vf + PP * NT * 8;
   float* qf = red + W * kRows * KB;
 
@@ -239,11 +282,11 @@ mglm_tc(const float* __restrict__ A, const float* __restrict__ Z,
   const int64_t r_begin = static_cast<int64_t>(blockIdx.x) * rows_per_block;
   const int64_t r_end = scso::imin(m, r_begin + rows_per_block);
   const int64_t tiles = (r_end - r_begin + kRows - 1) / kRows;
-  load_cols<PP, MT>(stages, A, r_begin, r_end, p, wc, lane, vec);
+  load_cols<S, PP, MT>(stages, A, r_begin, r_end, p, wc, lane, vec);
   cp_commit();
   if (tiles > 1)
-    load_cols<PP, MT>(stages + kRows * PP, A, r_begin + kRows, r_end, p, wc,
-                      lane, vec);
+    load_cols<S, PP, MT>(stages + kRows * PP, A, r_begin + kRows, r_end, p,
+                         wc, lane, vec);
   cp_commit();
 
   // the softmax: thread (sr, sc) for row sr and class sc, KB lanes a row
@@ -252,7 +295,7 @@ mglm_tc(const float* __restrict__ A, const float* __restrict__ Z,
 
   for (int64_t t = 0; t < tiles; ++t) {
     const int64_t r0 = r_begin + t * kRows;
-    const float* as = stages + (t & 1) * kRows * PP;
+    const S* as = stages + (t & 1) * kRows * PP;
     const bool live = soft && sc < k && r0 + sr < r_end;
     const float z = live ? Z[(r0 + sr) * k + sc] : neg_inf<float>();
     cp_wait_all_but_one();  // this thread's copies of tile t
@@ -271,15 +314,15 @@ mglm_tc(const float* __restrict__ A, const float* __restrict__ Z,
     for (int ks = 0; ks < KS; ++ks) {
       const int jb = wc + ks * 8;
       uint32_t ah[4], al[4];
-      split(as[a_off<PP>(g, jb + t4)], ah[0], al[0]);
-      split(as[a_off<PP>(g + 8, jb + t4)], ah[1], al[1]);
-      split(as[a_off<PP>(g, jb + t4 + 4)], ah[2], al[2]);
-      split(as[a_off<PP>(g + 8, jb + t4 + 4)], ah[3], al[3]);
+      frag(as[a_off<S, PP>(g, jb + t4)], ah[0], al[0]);
+      frag(as[a_off<S, PP>(g + 8, jb + t4)], ah[1], al[1]);
+      frag(as[a_off<S, PP>(g, jb + t4 + 4)], ah[2], al[2]);
+      frag(as[a_off<S, PP>(g + 8, jb + t4 + 4)], ah[3], al[3]);
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const float2 v = *reinterpret_cast<const float2*>(
             &vf[(((warp * KS + ks) * NT + nt) * 32 + lane) * 2]);
-        mma3(u[ks & 1][nt], ah, al, v.x, v.y);
+        mma_a<S>(u[ks & 1][nt], ah, al, v.x, v.y);
       }
     }
 #pragma unroll
@@ -322,19 +365,19 @@ mglm_tc(const float* __restrict__ A, const float* __restrict__ Z,
       for (int mt = 0; mt < MT; ++mt) {
         const int j0 = wc + mt * 16;
         uint32_t ah[4], al[4];
-        split(as[a_off<PP>(rr, j0 + g)], ah[0], al[0]);
-        split(as[a_off<PP>(rr, j0 + g + 8)], ah[1], al[1]);
-        split(as[a_off<PP>(rr + 4, j0 + g)], ah[2], al[2]);
-        split(as[a_off<PP>(rr + 4, j0 + g + 8)], ah[3], al[3]);
+        frag(as[a_off<S, PP>(rr, j0 + g)], ah[0], al[0]);
+        frag(as[a_off<S, PP>(rr, j0 + g + 8)], ah[1], al[1]);
+        frag(as[a_off<S, PP>(rr + 4, j0 + g)], ah[2], al[2]);
+        frag(as[a_off<S, PP>(rr + 4, j0 + g + 8)], ah[3], al[3]);
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
-          mma3(acc[mt][nt], ah, al, qv[nt].x, qv[nt].y);
+          mma_a<S>(acc[mt][nt], ah, al, qv[nt].x, qv[nt].y);
       }
     }
     __syncwarp();  // the warp's columns of the stage are free
     if (t + 2 < tiles)
-      load_cols<PP, MT>(stages + (t & 1) * kRows * PP, A, r0 + 2 * kRows,
-                        r_end, p, wc, lane, vec);
+      load_cols<S, PP, MT>(stages + (t & 1) * kRows * PP, A, r0 + 2 * kRows,
+                           r_end, p, wc, lane, vec);
     cp_commit();  // possibly empty: keeps the wait's count
   }
 
@@ -352,13 +395,13 @@ mglm_tc(const float* __restrict__ A, const float* __restrict__ Z,
       }
 }
 
-template <int W, int MT, int NT>
-cudaError_t launch_wmt(const float* A, const float* Z, const float* V,
+template <typename S, int W, int MT, int NT>
+cudaError_t launch_wmt(const S* A, const float* Z, const float* V,
                        float* partials, int64_t m, int p, int k,
                        int64_t nblk, int64_t rows_per_block, bool vec,
                        cudaStream_t s) {
-  constexpr size_t smem = smem_bytes<W, MT, NT>();
-  auto kernel = mglm_tc<W, MT, NT>;
+  constexpr size_t smem = smem_bytes<S, W, MT, NT>();
+  auto kernel = mglm_tc<S, W, MT, NT>;
   cudaError_t err = scso::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<static_cast<unsigned>(nblk), W * 32, smem, s>>>(
@@ -368,33 +411,35 @@ cudaError_t launch_wmt(const float* A, const float* Z, const float* V,
 
 // p padded to 128 (8 warps of 16 columns), 256 (16 warps of 16), 512
 // (16 of 32) or 1024 (16 of 64); the wrapper's tc_geometry
-template <int NT>
-cudaError_t launch_nt(const float* A, const float* Z, const float* V,
+template <typename S, int NT>
+cudaError_t launch_nt(const S* A, const float* Z, const float* V,
                       float* partials, int64_t m, int p, int k, int64_t nblk,
                       int64_t rows, bool vec, cudaStream_t s) {
   if (p <= 128)
-    return launch_wmt<8, 1, NT>(A, Z, V, partials, m, p, k, nblk, rows, vec,
-                                s);
+    return launch_wmt<S, 8, 1, NT>(A, Z, V, partials, m, p, k, nblk, rows,
+                                   vec, s);
   if (p <= 256)
-    return launch_wmt<16, 1, NT>(A, Z, V, partials, m, p, k, nblk, rows, vec,
-                                 s);
+    return launch_wmt<S, 16, 1, NT>(A, Z, V, partials, m, p, k, nblk, rows,
+                                    vec, s);
   if (p <= 512)
-    return launch_wmt<16, 2, NT>(A, Z, V, partials, m, p, k, nblk, rows, vec,
-                                 s);
-  return launch_wmt<16, 4, NT>(A, Z, V, partials, m, p, k, nblk, rows, vec,
-                               s);
+    return launch_wmt<S, 16, 2, NT>(A, Z, V, partials, m, p, k, nblk, rows,
+                                    vec, s);
+  return launch_wmt<S, 16, 4, NT>(A, Z, V, partials, m, p, k, nblk, rows,
+                                  vec, s);
 }
 
 // k <= 16, p <= 1024 (the wrapper's mglm_grid)
-cudaError_t launch(const float* A, const float* Z, const float* V,
+template <typename S>
+cudaError_t launch(const S* A, const float* Z, const float* V,
                    float* partials, int64_t m, int p, int k, int64_t nblk,
                    int64_t rows_per_block, cudaStream_t s) {
   if (k > 16 || p > 1024) return cudaErrorInvalidValue;
-  const bool vec = p % 4 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0;
-  return k <= 8 ? launch_nt<1>(A, Z, V, partials, m, p, k, nblk,
-                               rows_per_block, vec, s)
-                : launch_nt<2>(A, Z, V, partials, m, p, k, nblk,
-                               rows_per_block, vec, s);
+  const bool vec =
+      p % kChunk<S> == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0;
+  return k <= 8 ? launch_nt<S, 1>(A, Z, V, partials, m, p, k, nblk,
+                                  rows_per_block, vec, s)
+                : launch_nt<S, 2>(A, Z, V, partials, m, p, k, nblk,
+                                  rows_per_block, vec, s);
 }
 
 }  // namespace tc
@@ -409,15 +454,15 @@ cudaError_t launch(const float* A, const float* Z, const float* V,
 // the row's classes in passes that each hold one value a lane (a max,
 // the denominator, Σ P∘U, then QU over U in place), so no array is sized
 // by k.
-template <typename T, bool SOFTMAX>
+template <typename S, typename T, bool SOFTMAX>
 __global__ void __launch_bounds__(kRowWarps * 32)
-mglm_rows(const T* __restrict__ A, const T* __restrict__ Z,
+mglm_rows(const S* __restrict__ A, const T* __restrict__ Z,
           const T* __restrict__ Vt, T* __restrict__ qu, int64_t m, int p,
           int k) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * kRowWarps + warp; i < m;
        i += static_cast<int64_t>(gridDim.x) * kRowWarps) {
-    const T* a_row = A + i * p;
+    const S* a_row = A + i * p;
     const T* z_row = Z + i * k;
     T* q_row = qu + i * k;
     for (int c0 = 0; c0 < k; c0 += kKC) {
@@ -425,7 +470,7 @@ mglm_rows(const T* __restrict__ A, const T* __restrict__ Z,
 #pragma unroll
       for (int cc = 0; cc < kKC; ++cc) u[cc] = T(0);
       for (int j = lane; j < p; j += 32) {
-        const T a = a_row[j];
+        const T a = scso::upcast<T>(a_row[j]);
         const T* vc = Vt + static_cast<int64_t>(c0) * p + j;
 #pragma unroll
         for (int cc = 0; cc < kKC; ++cc)
@@ -456,9 +501,9 @@ mglm_rows(const T* __restrict__ A, const T* __restrict__ Z,
   }
 }
 
-template <typename T>
+template <typename S, typename T>
 __global__ void __launch_bounds__(kColThreads)
-mglm_cols(const T* __restrict__ A, const T* __restrict__ qu,
+mglm_cols(const S* __restrict__ A, const T* __restrict__ qu,
           T* __restrict__ partials, int64_t m, int p, int k,
           int64_t rows_per_chunk) {
   const int j = blockIdx.x * kColThreads + threadIdx.x;
@@ -470,7 +515,7 @@ mglm_cols(const T* __restrict__ A, const T* __restrict__ qu,
 #pragma unroll
   for (int cc = 0; cc < kKC; ++cc) acc[cc] = T(0);
   for (int64_t i = r_begin; i < r_end; ++i) {
-    const T a = A[i * p + j];
+    const T a = scso::upcast<T>(A[i * p + j]);
     const T* qr = qu + i * k + c0;
 #pragma unroll
     for (int cc = 0; cc < kKC; ++cc)
@@ -483,36 +528,37 @@ mglm_cols(const T* __restrict__ A, const T* __restrict__ qu,
     if (c0 + cc < k) dst[cc] = acc[cc];
 }
 
-template <typename T, bool SOFTMAX>
-cudaError_t launch_rows(const T* A, const T* Z, const T* Vt, T* qu, int64_t m,
+template <typename S, typename T, bool SOFTMAX>
+cudaError_t launch_rows(const S* A, const T* Z, const T* Vt, T* qu, int64_t m,
                         int p, int k, cudaStream_t s) {
   const int64_t row_blocks =
       scso::imin((m + kRowWarps - 1) / kRowWarps, int64_t(1) << 16);
-  mglm_rows<T, SOFTMAX><<<static_cast<unsigned>(row_blocks), kRowWarps * 32,
+  mglm_rows<S, T, SOFTMAX><<<static_cast<unsigned>(row_blocks), kRowWarps * 32,
                           0, s>>>(A, Z, Vt, qu, m, p, k);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_cols(const T* A, const T* qu, T* partials, int64_t m,
+template <typename S, typename T>
+cudaError_t launch_cols(const S* A, const T* qu, T* partials, int64_t m,
                         int p, int k, int64_t nblk, int64_t rows_per_chunk,
                         cudaStream_t s) {
   const dim3 grid((p + kColThreads - 1) / kColThreads, (k + kKC - 1) / kKC,
                   static_cast<unsigned>(nblk));
-  mglm_cols<T><<<grid, kColThreads, 0, s>>>(A, qu, partials, m, p, k,
-                                            rows_per_chunk);
+  mglm_cols<S, T><<<grid, kColThreads, 0, s>>>(A, qu, partials, m, p, k,
+                                               rows_per_chunk);
   return cudaGetLastError();
 }
 
-// form: 0 two-pass, 1 tensor-core (f32 only); the split form's passes:
-// 2 U = A·V into qu (no sum), 3 out = Aᵀ·qu
-template <typename T>
+// form: 0 two-pass, 1 tensor-core (T = float only); the split form's
+// passes: 2 U = A·V into qu (no sum), 3 out = Aᵀ·qu. A in S, the rest
+// in T.
+template <typename S, typename T>
 int launch(const void* A, const void* Z, const void* V, void* qu,
            void* partials, void* out, int64_t m, int64_t p, int64_t k,
            int64_t nblk, int64_t rows_per_block, int64_t form,
            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const T* a = static_cast<const T*>(A);
+  const S* a = static_cast<const S*>(A);
   const T* z = static_cast<const T*>(Z);
   const T* v = static_cast<const T*>(V);
   T* q = static_cast<T*>(qu);
@@ -523,13 +569,15 @@ int launch(const void* A, const void* Z, const void* V, void* qu,
     if constexpr (sizeof(T) == 4)
       err = tc::launch(a, z, v, part, m, pi, ki, nblk, rows_per_block, s);
   } else if (form == 2) {
-    return static_cast<int>(launch_rows<T, false>(a, z, v, q, m, pi, ki, s));
+    return static_cast<int>(
+        launch_rows<S, T, false>(a, z, v, q, m, pi, ki, s));
   } else if (form == 3) {
-    err = launch_cols<T>(a, q, part, m, pi, ki, nblk, rows_per_block, s);
+    err = launch_cols<S, T>(a, q, part, m, pi, ki, nblk, rows_per_block, s);
   } else if (form == 0) {
-    err = launch_rows<T, true>(a, z, v, q, m, pi, ki, s);
+    err = launch_rows<S, T, true>(a, z, v, q, m, pi, ki, s);
     if (err == cudaSuccess)
-      err = launch_cols<T>(a, q, part, m, pi, ki, nblk, rows_per_block, s);
+      err = launch_cols<S, T>(a, q, part, m, pi, ki, nblk, rows_per_block,
+                              s);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t n = p * k;
@@ -540,15 +588,19 @@ int launch(const void* A, const void* Z, const void* V, void* qu,
 
 }  // namespace
 
-#define SCSO_MGLM_ENTRY(NAME, T)                                           \
+// A in S, Z, V, qu, partials and out in T: A in T, or (the _bf16
+// entries) A in bfloat16
+#define SCSO_MGLM_ENTRY(NAME, S, T)                                        \
   extern "C" int NAME(const void* A, const void* Z, const void* V,        \
                       void* qu, void* partials, void* out, int64_t m,     \
                       int64_t p, int64_t k, int64_t nblk,                 \
                       int64_t rows_per_block, int64_t form,               \
                       void* stream) {                                     \
-    return launch<T>(A, Z, V, qu, partials, out, m, p, k, nblk,           \
-                     rows_per_block, form, stream);                       \
+    return launch<S, T>(A, Z, V, qu, partials, out, m, p, k, nblk,        \
+                        rows_per_block, form, stream);                    \
   }
 
-SCSO_MGLM_ENTRY(scso_mglm_matvec_f32, float)
-SCSO_MGLM_ENTRY(scso_mglm_matvec_f64, double)
+SCSO_MGLM_ENTRY(scso_mglm_matvec_f32, float, float)
+SCSO_MGLM_ENTRY(scso_mglm_matvec_f64, double, double)
+SCSO_MGLM_ENTRY(scso_mglm_matvec_bf16_f32, __nv_bfloat16, float)
+SCSO_MGLM_ENTRY(scso_mglm_matvec_bf16_f64, __nv_bfloat16, double)

@@ -17,6 +17,10 @@ multinomial, QP, Rosenbrock) are not ported yet (ROADMAP A7, A8).
 ``softplus`` here is ``logaddexp(z, 0)``, the form `jax.nn.softplus`
 uses. `torch.nn.functional.softplus` switches to the identity above
 ``threshold=20``, which breaks float64 parity with the JAX package.
+
+A may be stored in bfloat16 with x in float32 or float64 (the coarse
+phase of `iterate_mixed`): its products go through `ops.dense`, which
+upcasts A's values exactly, as JAX promotes them.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from scso_tpu_torch._src.struct import replace
+from scso_tpu_torch.ops.dense import amul, atmul, widen
 from scso_tpu_torch.problems import GLMSpec, MOGLMSpec
 
 
@@ -33,16 +38,17 @@ def softplus(z):
 
 
 def logistic_f(A, y, x):
-    return torch.mean(softplus(-y * (A @ x)))
+    return torch.mean(softplus(-y * amul(A, x)))
 
 
 def logistic_grad(A, y, x):
-    s = torch.sigmoid(-y * (A @ x))
-    return A.T @ (-y * s) / A.shape[0]
+    s = torch.sigmoid(-y * amul(A, x))
+    return atmul(A, -y * s) / A.shape[0]
 
 
 def logistic_hess(A, y, x):
-    s = torch.sigmoid(y * (A @ x))
+    s = torch.sigmoid(y * amul(A, x))
+    A = widen(A, x.dtype)
     return (A.T * (s * (1.0 - s))) @ A / A.shape[0]
 
 
@@ -68,40 +74,41 @@ def logistic_ggn_qdiag(A, y, yhat):
 
 def sigmoid_jac(A, y, yhat, x):
     """J = ∂ŷ/∂x = diag(ŷ(1−ŷ))·A."""
-    return A * (yhat * (1.0 - yhat))[:, None]
+    return widen(A, yhat.dtype) * (yhat * (1.0 - yhat))[:, None]
 
 
 def logistic01_f(A, y, x):
-    z = A @ x
+    z = amul(A, x)
     return torch.mean(softplus(z) - y * z)
 
 
 def logistic01_grad(A, y, x):
-    return A.T @ (torch.sigmoid(A @ x) - y) / A.shape[0]
+    return atmul(A, torch.sigmoid(amul(A, x)) - y) / A.shape[0]
 
 
 def logistic01_hess(A, y, x):
-    s = torch.sigmoid(A @ x)
+    s = torch.sigmoid(amul(A, x))
+    A = widen(A, x.dtype)
     return (A.T * (s * (1.0 - s))) @ A / A.shape[0]
 
 
 def logistic01_hvp_w(A, y, x):
     """w = σ'(Ax)/m — label-independent GLM Hessian weights."""
-    s = torch.sigmoid(A @ x)
+    s = torch.sigmoid(amul(A, x))
     return s * (1.0 - s) / A.shape[0]
 
 
 def logistic_ggn_w(A, y, x):
     """GGN weights w = (y·(1−ŷ)² + (1−y)·ŷ²)/m, ŷ = σ(Ax), in the
     saturation-stable product form."""
-    z = A @ x
+    z = amul(A, x)
     return (y * torch.sigmoid(-z) ** 2
             + (1.0 - y) * torch.sigmoid(z) ** 2) / A.shape[0]
 
 
 def sigmoid_out(A, x):
     """Model output ŷ = σ(A x)."""
-    return torch.sigmoid(A @ x)
+    return torch.sigmoid(amul(A, x))
 
 
 def _sig_dlink(z):
@@ -131,15 +138,15 @@ LOGISTIC01_GLM = GLMSpec(
 
 def multinom_f(A, y, x):
     """Softmax cross-entropy in x, in the logsumexp form."""
-    z = A @ x.reshape(A.shape[1], -1)
+    z = amul(A, x.reshape(A.shape[1], -1))
     return (torch.sum(torch.logsumexp(z, dim=-1)) - torch.sum(y * z)
             ) / A.shape[0]
 
 
 def multinom_grad(A, y, x):
     """∇_x f = vec(Aᵀ(ŷ − y))/m."""
-    p = torch.softmax(A @ x.reshape(A.shape[1], -1), dim=-1)
-    return ((A.T @ (p - y)) / A.shape[0]).reshape(-1)
+    p = torch.softmax(amul(A, x.reshape(A.shape[1], -1)), dim=-1)
+    return (atmul(A, p - y) / A.shape[0]).reshape(-1)
 
 
 def _softmax_quad(y, Z, U):

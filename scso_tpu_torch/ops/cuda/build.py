@@ -43,6 +43,7 @@ SIGNATURES = {
     # scratch), partials, out, m, p, k, n_blocks, rows_per_block, form (0
     # two-pass, 1 tensor-core, 2 and 3 the split form's passes), stream
     "scso_mglm_matvec": [_p] * 6 + [_i64] * 6 + [_p],
+    "scso_mglm_matvec_bf16": [_p] * 6 + [_i64] * 6 + [_p],  # A in bf16
     # A, y, x_t, x_d, w_t, w_d, rw, b_t, b_d, hd_t, hd_d, loss_t, loss_d,
     # partials, loss_partials, m, n, m_norm, then the PrepGrid (blocks,
     # rows_per_block, smem_bytes, threads, chunks_per_thread,
@@ -53,6 +54,10 @@ SIGNATURES = {
     # A, y, x, w, rw, b, hd, partials, m, n, m_norm, the PrepGrid, phase,
     # stream
     "scso_glm_prep": [_p] * 8 + [_i64] * 10 + [_p],
+    # the same three with A in bfloat16, the rest in float32 / float64
+    "scso_glm_prep_pair_bf16": [_p] * 15 + [_i64] * 10 + [_p],
+    "scso_glm_prep_pair_newton_bf16": [_p] * 15 + [_i64] * 10 + [_p],
+    "scso_glm_prep_bf16": [_p] * 8 + [_i64] * 10 + [_p],
     # S, Y, g, pos, count, H0, scratch (None: α/ρ in shared memory),
     # out, m, n, stream
     "scso_two_loop": [_p] * 8 + [_i64] * 2 + [_p],

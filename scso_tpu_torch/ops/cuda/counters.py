@@ -12,15 +12,26 @@ from __future__ import annotations
 KERNEL_LAUNCHES: dict = {
     "normal_matvec": 0,
     "normal_matvec_bf16": 0,   # K1 launches on a bfloat16 A (counted
-    #                            in normal_matvec as well)
+    #                            in normal_matvec as well; so for each
+    #                            _bf16 name below)
     "normal_matvec_sharded": 0,
     "glm_prep": 0,
+    "glm_prep_bf16": 0,
     "glm_prep_pair": 0,         # K2, ggn flavour
+    "glm_prep_pair_bf16": 0,
     "glm_prep_pair_newton": 0,  # K2, newton flavour (ProxNSCORE)
+    "glm_prep_pair_newton_bf16": 0,
     "score_update": 0,
     "mglm_matvec": 0,
+    "mglm_matvec_bf16": 0,
     "two_loop": 0,
 }
+
+#: products of a bfloat16 A with a wider vector or matrix that the port
+#: runs outside its kernels (`ops/dense.py`: row blocks of A upcast, then
+#: torch.matmul, as the JAX package leaves them to XLA), one a call, on
+#: the card only. No kernel of the port: kept apart from the launches.
+BF16_PRODUCTS: dict = {"calls": 0}
 
 
 def bump(name: str) -> None:
@@ -30,6 +41,7 @@ def bump(name: str) -> None:
 def reset() -> None:
     for k in KERNEL_LAUNCHES:
         KERNEL_LAUNCHES[k] = 0
+    BF16_PRODUCTS["calls"] = 0
 
 
 def snapshot() -> dict:

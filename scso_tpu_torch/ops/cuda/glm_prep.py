@@ -8,7 +8,7 @@ Port of `scso_tpu/ops/pallas/glm_prep.py`:
     the stats objective in one call (the epoch-cache path);
   * K2s (`_fused_glm_prep`, :func:`glm_prep`): the same at one x, with
     no loss — the prep of the uncached GGN-CG path.
-Both kernels are ``csrc/glm_prep.cu``; :func:`glm_prep_torch` and
+Both kernels are ``csrc/glm_prep.cuh``; :func:`glm_prep_torch` and
 :func:`glm_prep_pair_torch` are the plain versions. The ``flavour``
 picks the weights (the JAX package's `steps._glm_kernel_fns`): 'ggn'
 (ProxGGNSCORE: the spec's GGN forms, :func:`ggn_weights`) or, for K2
@@ -33,7 +33,7 @@ the column sums. Blocks sum in T, the sum over blocks is in double and
 in a fixed order. Above max_n the accumulators do not fit a block, and
 the wide form takes two passes over A (a rows pass and a columns pass).
 :func:`prep_grid` picks the form and its geometry from the shapes
-and the spec's kind alone; ``csrc/glm_prep.cu``'s head note gives the
+and the spec's kind alone; ``csrc/glm_prep.cuh``'s head note gives the
 design and its register and shared-memory budget.
 
 Every entry takes ``m_norm``, the count of the 1/m normalization,
@@ -42,6 +42,14 @@ of all ranks (`Problem.m_total`), and the shard's sums add up over the
 ranks to the unsharded ones. The kernels divide by it directly; the
 plain versions rescale the spec's own 1/len(z) forms by len(z)/m_norm,
 the JAX package's rule (`steps._glm_kernel_fns`). None means A's rows.
+
+A may be stored in bfloat16 (the coarse phase of
+`algorithms.mixed.iterate_mixed`, where A itself is cast) with y and
+the candidates in float32 or float64: the kernels load A narrow and
+upcast it in registers, as the TPU kernels do, and every output comes
+out in x's dtype. Such a launch counts as ``glm_prep_pair_bf16`` (or
+``glm_prep_bf16``) as well as its base name. The plain versions upcast
+A to x's dtype first (exact).
 
 The TPU's n ≥ 8192 gates (`steps._use_pair_kernel`, the AUTO
 `use_fused_prep`) are not carried over: the kernels take any m, n and
@@ -55,6 +63,7 @@ from typing import NamedTuple
 import torch
 
 from scso_tpu_torch.ops.cuda import build, counters, launch
+from scso_tpu_torch.ops.dense import widen
 
 KERNEL_KINDS = ("logistic01",)
 FLAVOURS = ("ggn", "newton")
@@ -66,17 +75,37 @@ _SM_SMEM_BYTES = 228 * 1024     # shared memory of one SM
 _SM_BLOCK_OVERHEAD = 2 * 1024   # per block: reserved + static buffers
 _SM_REGS = 65536                # registers of one SM
 _MAX_REGS = 128           # a thread's most under __launch_bounds__(512, 1)
-_MAX_THREADS = 512        # kMaxThreads in csrc/glm_prep.cu
-_WIDE_THREADS = 256       # kThreads in csrc/glm_prep.cu
-# the one-pass kernel's instantiated chunks-a-thread buckets, by
-# candidate count (dispatch_onepass in csrc/glm_prep.cu), and its rows a
-# step for a bucket (rows_a_step)
+_MAX_THREADS = 512        # kMaxThreads in csrc/glm_prep.cuh
+_WIDE_THREADS = 256       # kThreads in csrc/glm_prep.cuh
+# the one-pass kernel's instantiated chunks-a-thread buckets with A in
+# the compute type, by candidate count (has_bucket in
+# csrc/glm_prep.cuh), and its rows a step for a bucket (rows_a_step)
 _CHUNKS_PER_THREAD = {2: (1, 2, 3, 4, 5, 6, 7),
                       1: (1, 2, 3, 4, 5, 6, 7, 8, 10, 12, 14)}
 
 
 def _rows_a_step(q):
     return 8 if q == 1 else 4 if q == 2 else 2
+
+
+def _chunk(dtype, a_dtype):
+    """(values of A in a 16-byte chunk, bytes of its accumulators in the
+    compute type ``dtype``) for A stored in ``a_dtype``."""
+    e = 16 // a_dtype.itemsize
+    return e, e * dtype.itemsize
+
+
+def _buckets(candidates, dtype, a_dtype):
+    """The one-pass kernel's chunks-a-thread buckets: with A in the
+    compute type, :data:`_CHUNKS_PER_THREAD`; with A in bfloat16, 1 up
+    to the fewest that cover :func:`max_n`'s chunks at 512 threads (K2:
+    4 in float32, 2 in float64; K2s: 7 and 4), the instances
+    csrc/glm_prep_bf16.cu builds."""
+    if a_dtype == dtype:
+        return _CHUNKS_PER_THREAD[candidates]
+    e, _ = _chunk(dtype, a_dtype)
+    chunks = max_n(dtype, candidates, a_dtype) // e
+    return tuple(range(1, -(-chunks // _MAX_THREADS) + 1))
 
 
 class PairPrep(NamedTuple):
@@ -148,7 +177,9 @@ def glm_prep_torch(A, y, x, glm, m_norm=None, flavour="ggn"):
 
     ``Σᵢ wᵢAᵢⱼ²`` materialises an A-sized temporary (w·A, then the
     contraction with A): about 8 GB at the full 196608×10112 float32
-    width. The CUDA kernel needs none."""
+    width. The CUDA kernel needs none. A bfloat16 A is first upcast to
+    x's dtype (exact): another A-sized temporary."""
+    A = widen(A, x.dtype)
     z = A @ x
     rw, w = _weights(glm, y, z, m_norm, flavour)
     return (w, A.T @ rw, torch.einsum("i,ij,ij->j", w, A, A),
@@ -185,16 +216,20 @@ class PrepGrid(NamedTuple):
     row_blocks: int         # blocks with a loss partial (wide: rows pass)
 
 
-def max_n(dtype, candidates) -> int:
+def max_n(dtype, candidates, a_dtype=None) -> int:
     """Largest n of the one-pass form: 2·candidates (n,) accumulators in
-    one block's shared memory, in 16-byte chunks (K2: 14336 in float32,
-    7168 in float64; K2s: 28672 and 14336)."""
-    e = 16 // dtype.itemsize
-    return e * (_SMEM_BYTES // (2 * candidates * 16))
+    the compute type ``dtype`` in one block's shared memory, for whole
+    16-byte chunks of A stored in ``a_dtype`` (default ``dtype``): K2
+    14336 in float32, 7168 in float64; K2s 28672 and 14336 — with A in
+    bfloat16 too, as the accumulators stay in ``dtype``."""
+    e, chunk_bytes = _chunk(dtype, a_dtype or dtype)
+    return e * (_SMEM_BYTES // (2 * candidates * chunk_bytes))
 
 
-def prep_grid(m, n, dtype, candidates, sms, covered=True) -> PrepGrid:
-    """The form and launch geometry for A (m, n) of ``dtype`` and
+def prep_grid(m, n, dtype, candidates, sms, covered=True,
+              a_dtype=None) -> PrepGrid:
+    """The form and launch geometry for A (m, n) stored in ``a_dtype``
+    (default ``dtype``; else bfloat16), computed in ``dtype``, and
     ``candidates`` (2: K2, 1: K2s) on a card with ``sms`` SMs, from the
     shapes and ``covered`` (:func:`covers` of the spec) alone.
 
@@ -205,18 +240,20 @@ def prep_grid(m, n, dtype, candidates, sms, covered=True) -> PrepGrid:
     threads; its slice of the candidates and the current row group sit
     in registers. As many blocks share an SM as its registers (at the
     128 a thread the kernel may use), threads and shared memory hold:
-    one at 512 threads, so at the main shape. Wide form (n above it):
-    the two-pass geometry — a rows pass of up to 8 blocks an SM, one
-    warp a row, and enough row chunks for the columns pass to give
-    about 8 blocks an SM. Split form (a spec not covered, any n): the
-    wide geometry."""
-    e = 16 // dtype.itemsize
-    if covered and n <= max_n(dtype, candidates):
+    one at 512 threads, so at the main shape. A chunk holds 16 bytes of
+    A (8 values in bfloat16) and its accumulators are in ``dtype``.
+    Wide form (n above it): the two-pass geometry — a rows pass of up
+    to 8 blocks an SM, one warp a row, and enough row chunks for the
+    columns pass to give about 8 blocks an SM. Split form (a spec not
+    covered, any n): the wide geometry."""
+    a_dtype = a_dtype or dtype
+    e, chunk_bytes = _chunk(dtype, a_dtype)
+    if covered and n <= max_n(dtype, candidates, a_dtype):
         nc = -(-n // e)
-        q = next(q for q in _CHUNKS_PER_THREAD[candidates]
+        q = next(q for q in _buckets(candidates, dtype, a_dtype)
                  if -(-nc // q) <= _MAX_THREADS)
         threads = max(32, 32 * -(-nc // (32 * q)))
-        smem = 2 * candidates * nc * 16
+        smem = 2 * candidates * nc * chunk_bytes
         per_sm = max(1, min(2048 // threads,
                             _SM_REGS // (_MAX_REGS * threads),
                             _SM_SMEM_BYTES // (smem + _SM_BLOCK_OVERHEAD)))
@@ -278,22 +315,33 @@ def _launcher(name, dev, dt, *args):
     return run
 
 
+def _base(name, A):
+    """The C entry's base name and the counters of a launch on A: a
+    bfloat16 A adds ``_bf16`` to both (and counts under ``name`` too)."""
+    if A.dtype == torch.bfloat16:
+        return f"scso_{name}_bf16", (name, f"{name}_bf16")
+    return f"scso_{name}", (name,)
+
+
 def glm_prep(A, y, x, glm, m_norm=None):
     """Single-candidate prep (w, Aᵀρ, Σᵢ wᵢAᵢⱼ²) at x — the K2s kernel
     for CUDA tensors (its split form for a spec that :func:`covers`
-    refuses), the plain version for CPU tensors."""
+    refuses), the plain version for CPU tensors. A is in x's dtype
+    (float32 or float64) or in bfloat16; the outputs are in x's."""
     if launch.on_cpu(A, "glm_prep"):
         return glm_prep_torch(A, y, x, glm, m_norm)[:3]
-    launch.check_operands("glm_prep", A.dtype, A.device, A=A, y=y, x=x)
+    launch.check_operands("glm_prep", x.dtype, A.device, narrow=("A",), A=A,
+                          y=y, x=x)
     m_norm = _check_shapes("glm_prep", A, y, m_norm, x)
     m, n = A.shape
-    dev, dt = A.device, A.dtype
+    dev, dt = A.device, x.dtype
     grid = prep_grid(m, n, dt, 1, launch.sm_count(dev.index or 0),
-                     covers(glm))
+                     covers(glm), A.dtype)
+    base, counts = _base("glm_prep", A)
     w, b, hd = torch.empty(m + 2 * n, dtype=dt, device=dev).split([m, n, n])
     # ``buf`` holds the scratch the pointers address until the launches
     buf, partials, _, rw = _scratch(grid, 1, m, n, dt, dev)
-    run = _launcher("scso_glm_prep", dev, dt, A.data_ptr(), y.data_ptr(),
+    run = _launcher(base, dev, dt, A.data_ptr(), y.data_ptr(),
                     x.data_ptr(), w.data_ptr(),
                     None if rw is None else rw.data_ptr(), b.data_ptr(),
                     hd.data_ptr(), partials, m, n, m_norm, *grid[1:])
@@ -306,7 +354,8 @@ def glm_prep(A, y, x, glm, m_norm=None):
     else:
         run(0)
     del buf
-    counters.bump("glm_prep")
+    for c in counts:
+        counters.bump(c)
     return w, b, hd
 
 
@@ -314,24 +363,26 @@ def glm_prep_pair(A, y, x_t, x_d, glm, m_norm=None,
                   flavour="ggn") -> PairPrep:
     """Dual-candidate prep in ``flavour`` ('ggn' or 'newton') — the K2
     kernel for CUDA tensors (its split form for a spec that
-    :func:`covers` refuses), the plain version for CPU tensors."""
+    :func:`covers` refuses), the plain version for CPU tensors. A is in
+    the candidates' dtype (float32 or float64) or in bfloat16; the
+    outputs are in the candidates'."""
     _check_flavour(flavour)
     if launch.on_cpu(A, "glm_prep_pair"):
         return glm_prep_pair_torch(A, y, x_t, x_d, glm, m_norm, flavour)
-    launch.check_operands("glm_prep_pair", A.dtype, A.device, A=A, y=y,
-                          x_t=x_t, x_d=x_d)
+    launch.check_operands("glm_prep_pair", x_t.dtype, A.device,
+                          narrow=("A",), A=A, y=y, x_t=x_t, x_d=x_d)
     m_norm = _check_shapes("glm_prep_pair", A, y, m_norm, x_t, x_d)
     m, n = A.shape
-    dev, dt = A.device, A.dtype
+    dev, dt = A.device, x_t.dtype
     grid = prep_grid(m, n, dt, 2, launch.sm_count(dev.index or 0),
-                     covers(glm))
+                     covers(glm), A.dtype)
     out = torch.empty(2 * m + 4 * n + 2, dtype=dt, device=dev)
     w_t, w_d, b_t, b_d, hd_t, hd_d = out[:-2].split([m, m, n, n, n, n])
     loss_t, loss_d = out[-2], out[-1]
     # ``buf`` holds the scratch the pointers address until the launches
     buf, partials, loss_partials, rw = _scratch(grid, 2, m, n, dt, dev)
-    name = ("scso_glm_prep_pair_newton" if flavour == "newton"
-            else "scso_glm_prep_pair")
+    name, counts = _base("glm_prep_pair_newton" if flavour == "newton"
+                         else "glm_prep_pair", A)
     run = _launcher(name, dev, dt, A.data_ptr(), y.data_ptr(),
                     x_t.data_ptr(), x_d.data_ptr(), w_t.data_ptr(),
                     w_d.data_ptr(), None if rw is None else rw.data_ptr(),
@@ -349,6 +400,6 @@ def glm_prep_pair(A, y, x_t, x_d, glm, m_norm=None,
     else:
         run(0)
     del buf
-    counters.bump("glm_prep_pair_newton" if flavour == "newton"
-                  else "glm_prep_pair")
+    for c in counts:
+        counters.bump(c)
     return PairPrep(w_t, w_d, b_t, b_d, hd_t, hd_d, loss_t, loss_d)

@@ -33,6 +33,7 @@ import torch
 import torch.distributed as dist
 
 from scso_tpu_torch.ops.cuda import build, counters, launch
+from scso_tpu_torch.ops.dense import widen
 
 # dynamic shared memory a block may use: Hopper's 227 KB less headroom
 # for the kernel's static buffers
@@ -50,8 +51,7 @@ def normal_matvec_torch(A, w, v):
     twice. A bfloat16 A is first upcast to w's dtype (exact; PyTorch
     multiplies no bfloat16 matrix by a float32 or float64 vector): an
     A-sized temporary in w's dtype."""
-    if A.dtype == torch.bfloat16:
-        A = A.to(w.dtype)
+    A = widen(A, w.dtype)
     return A.T @ (w * (A @ v))
 
 
@@ -144,8 +144,7 @@ def _sharded(matvec, A, w, v, mesh, overlap_chunks):
         out = matvec(A, w, v)
         dist.all_reduce(out, group=mesh.group)
         return out
-    if A.dtype == torch.bfloat16:
-        A = A.to(w.dtype)
+    A = widen(A, w.dtype)
     n = A.shape[1]
     c = min(overlap_chunks, max(1, n // 128))
     h = -(-n // c)

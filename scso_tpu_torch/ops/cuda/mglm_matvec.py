@@ -17,6 +17,14 @@ and k. :func:`mglm_grid` picks its form from the shapes and the spec:
 the tensor-core form (float32, k ≤ :data:`TC_MAX_K`, p ≤
 :data:`TC_MAX_P`) reads A once, the two-pass form (float64 and larger k
 or p) and the split form read it twice.
+
+A may be stored in bfloat16 (the coarse phase of
+`algorithms.mixed.iterate_mixed`, and the copy of precision-adaptive CG
+on the cached path, `steps._mo_lp_matvec`) with y, Z and V in float32
+or float64: every form loads A narrow and upcasts it, as the TPU kernel
+does, and the result comes out in V's dtype. Such a launch counts as
+``mglm_matvec_bf16`` as well as ``mglm_matvec``. The plain version
+upcasts A to V's dtype first (exact).
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from typing import NamedTuple
 import torch
 
 from scso_tpu_torch.ops.cuda import build, counters, launch
+from scso_tpu_torch.ops.dense import widen
 
 KERNEL_KINDS = ("multinomial",)
 #: the tensor-core form's limits: its (p × k) accumulators in the
@@ -59,12 +68,13 @@ def tc_geometry(p, k):
     return (8 if pp == 128 else 16), pp, (1 if k <= 8 else 2)
 
 
-def tc_smem_bytes(p, k) -> int:
-    """Shared memory of the tensor-core form: two 16-row stages of A, V
-    in fragment order, the warps' partial U and QU's fragments."""
+def tc_smem_bytes(p, k, a_dtype=torch.float32) -> int:
+    """Shared memory of the tensor-core form: two 16-row stages of A (in
+    ``a_dtype``: float32 or bfloat16), then, in float32, V in fragment
+    order, the warps' partial U and QU's fragments."""
     w, pp, nt = tc_geometry(p, k)
-    return 4 * (2 * _TC_ROWS * pp + pp * nt * 8 + w * _TC_ROWS * 8 * nt
-                + 2 * nt * 32 * 2)
+    return (a_dtype.itemsize * 2 * _TC_ROWS * pp
+            + 4 * (pp * nt * 8 + w * _TC_ROWS * 8 * nt + 2 * nt * 32 * 2))
 
 
 def _two_pass_grid(m, p, k, sms, form) -> MglmGrid:
@@ -75,13 +85,15 @@ def _two_pass_grid(m, p, k, sms, form) -> MglmGrid:
     return MglmGrid(form, -(-m // rows), rows, 0, _THREADS)
 
 
-def mglm_grid(m, p, k, dtype, sms, covered=True) -> MglmGrid:
-    """The form and launch geometry for A (m, p), k classes, ``dtype``,
-    on a card with ``sms`` SMs, from the shapes and ``covered``
-    (:func:`covers` of the spec) alone.
+def mglm_grid(m, p, k, dtype, sms, covered=True, a_dtype=None) -> MglmGrid:
+    """The form and launch geometry for A (m, p) stored in ``a_dtype``
+    (default ``dtype``; else bfloat16), k classes, computed in
+    ``dtype``, on a card with ``sms`` SMs, from the shapes and
+    ``covered`` (:func:`covers` of the spec) alone.
 
-    Tensor-core form (covered, float32, k <= 16, p <= 1024): one block
-    an SM (A's two stages fill its shared memory), each owning a
+    Tensor-core form (covered, float32, k <= 16, p <= 1024, A in float32
+    or bfloat16): one block an SM (A's two stages and V fill its shared
+    memory, and its 512 threads its registers), each owning a
     contiguous row range, every row in exactly one block. Two-pass form
     (covered, any other k, p or type) and split form (not covered): the
     two-pass geometry."""
@@ -89,7 +101,8 @@ def mglm_grid(m, p, k, dtype, sms, covered=True) -> MglmGrid:
         return _two_pass_grid(m, p, k, sms, "split")
     if dtype == torch.float32 and k <= TC_MAX_K and p <= TC_MAX_P:
         rows = -(-m // max(1, min(sms, -(-m // _TC_ROWS))))
-        return MglmGrid("tensor", -(-m // rows), rows, tc_smem_bytes(p, k),
+        return MglmGrid("tensor", -(-m // rows), rows,
+                        tc_smem_bytes(p, k, a_dtype or dtype),
                         32 * tc_geometry(p, k)[0])
     return _two_pass_grid(m, p, k, sms, "two_pass")
 
@@ -104,19 +117,22 @@ def covers(spec) -> bool:
 
 def mglm_matvec_torch(A, y, Z, V, spec):
     """Plain PyTorch Aᵀ·quad(y, Z, A·V): two matrix products, A read
-    twice."""
+    twice. A bfloat16 A is first upcast to V's dtype (exact): an A-sized
+    temporary."""
+    A = widen(A, V.dtype)
     return A.T @ spec.quad(y, Z, A @ V)
 
 
 def mglm_matvec(A, y, Z, V, spec):
     """Aᵀ·quad(y, Z, A·V) as (p, k) — the CUDA kernel for CUDA tensors,
     in the form :func:`mglm_grid` picks, the plain version for CPU
-    tensors."""
+    tensors. A is in V's dtype (float32 or float64) or in bfloat16; the
+    result is in V's."""
     if launch.on_cpu(A, "mglm_matvec"):
         return mglm_matvec_torch(A, y, Z, V, spec)
     m, p = A.shape
-    launch.check_operands("mglm_matvec", A.dtype, A.device, A=A, y=y, Z=Z,
-                          V=V)
+    launch.check_operands("mglm_matvec", V.dtype, A.device, narrow=("A",),
+                          A=A, y=y, Z=Z, V=V)
     k = V.shape[-1] if V.ndim == 2 else -1
     if V.shape != (p, k) or Z.shape != (m, k) or y.shape != (m, k):
         raise ValueError(
@@ -125,8 +141,8 @@ def mglm_matvec(A, y, Z, V, spec):
     if m == 0 or p == 0 or k == 0:
         raise ValueError("mglm_matvec: A has no rows or no columns, or "
                          "there are no classes")
-    grid = mglm_grid(m, p, k, A.dtype, launch.sm_count(A.device.index or 0),
-                     covers(spec))
+    grid = mglm_grid(m, p, k, V.dtype, launch.sm_count(A.device.index or 0),
+                     covers(spec), A.dtype)
     return _launch(A, y, Z, V, spec, grid)
 
 
@@ -134,13 +150,15 @@ def _launch(A, y, Z, V, spec, grid):
     """K5 on checked CUDA operands in ``grid``'s form and geometry (the
     split form applies ``spec.quad`` between its passes); one count."""
     (m, p), k = A.shape, V.shape[1]
-    dev, dt = A.device, A.dtype
+    dev, dt = A.device, V.dtype
+    narrow = A.dtype == torch.bfloat16
     partials = torch.empty((grid.blocks, p * k), dtype=dt, device=dev)
     out = torch.empty((p, k), dtype=dt, device=dev)
 
     def run(form, v, qu):
         with torch.cuda.device(dev):
-            rc = launch.entry("scso_mglm_matvec", dt)(
+            rc = launch.entry("scso_mglm_matvec_bf16" if narrow
+                              else "scso_mglm_matvec", dt)(
                 A.data_ptr(), Z.data_ptr(), v.data_ptr(),
                 None if qu is None else qu.data_ptr(), partials.data_ptr(),
                 out.data_ptr(), m, p, k, grid.blocks, grid.rows_per_block,
@@ -159,4 +177,6 @@ def _launch(A, y, Z, V, spec, grid):
             qu = spec.quad(y, Z, qu).to(dt).contiguous()
             run("split_cols", vt, qu)
     counters.bump("mglm_matvec")
+    if narrow:
+        counters.bump("mglm_matvec_bf16")
     return out

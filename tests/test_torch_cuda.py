@@ -3,10 +3,13 @@
 Each kernel is held against its plain PyTorch version on the same CUDA
 tensors (K2 in both its flavours), and small float64 solves through the
 kernels (GGN-CG, L-BFGS, Newton-CG) against the plain path on the CPU.
-K1s runs under a one-rank NCCL group, where it must be K1 bit for bit. K1 with A in bfloat16 (the copy of
-precision-adaptive CG) is held against its plain version (A upcast to
-w's dtype) at the same tolerances as K1. Without a CUDA device every
-test here skips.
+K1s runs under a one-rank NCCL group, where it must be K1 bit for bit.
+K1, K2 (both flavours), K2s and K5 with A in bfloat16 (the copy of
+precision-adaptive CG, the coarse phase of iterate_mixed) are held
+against their plain versions (A upcast to the other operands' dtype)
+at the same tolerances as with A in that dtype, and never reach the
+plain version on the card; small float64 iterate_mixed solves through
+the kernels match the CPU. Without a CUDA device every test here skips.
 This file imports neither jax nor scso_tpu, so it also runs on a GPU
 machine without them — there, skip tests/conftest.py (which configures
 jax):
@@ -129,10 +132,13 @@ def test_data_kernels_match_plain(dev, dtype, m, n):
     assert counters.snapshot() == {"normal_matvec": 1,
                                    "normal_matvec_bf16": 0,
                                    "normal_matvec_sharded": 0,
-                                   "glm_prep": 0, "glm_prep_pair": 2,
+                                   "glm_prep": 0, "glm_prep_bf16": 0,
+                                   "glm_prep_pair": 2,
+                                   "glm_prep_pair_bf16": 0,
                                    "glm_prep_pair_newton": 0,
+                                   "glm_prep_pair_newton_bf16": 0,
                                    "score_update": 0, "mglm_matvec": 0,
-                                   "two_loop": 0}
+                                   "mglm_matvec_bf16": 0, "two_loop": 0}
 
 
 @pytest.mark.parametrize("dtype,m,n", [(torch.float32, 4099, 40000),
@@ -819,4 +825,170 @@ def test_small_sharded_solve_on_one_rank(nccl_mesh):
     s_cpu = st.iterate(method, _small_logreg("cpu"), "l1",
                        st.PHuberSmootherL1L2(1.0), **kw)
     np.testing.assert_allclose(s_sh.obj.numpy(), s_cpu.obj.numpy(),
+                               rtol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# K2, K2s and K5 with A in bfloat16, and iterate_mixed
+# ---------------------------------------------------------------------------
+
+
+def _bf16_prep_inputs(dev, dtype, m, n):
+    gen = torch.Generator(device=dev).manual_seed(m * 7 + n)
+    A = (torch.randn((m, n), generator=gen, device=dev) * 0.1).to(
+        torch.bfloat16)
+    y = (torch.rand((m,), generator=gen, device=dev) < 0.5).to(dtype)
+    xt = torch.randn((n,), generator=gen, device=dev, dtype=dtype) * 0.3
+    xd = torch.randn((n,), generator=gen, device=dev, dtype=dtype) * 0.3
+    return A, y, xt, xd
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,n", K2_SHAPES)
+def test_bf16_pair_prep_matches_plain(dev, dtype, m, n):
+    # both flavours, the logistic01 spec in the kernel and a kind=None
+    # one in the split form
+    A, y, xt, xd = _bf16_prep_inputs(dev, dtype, m, n)
+    for flavour in ("ggn", "newton"):
+        for glm in (LOGISTIC01_GLM, replace(LOGISTIC01_GLM, kind=None)):
+            counters.reset()
+            got = glm_prep_pair(A, y, xt, xd, glm, flavour=flavour)
+            want = glm_prep_pair_torch(A, y, xt, xd, glm, flavour=flavour)
+            for g, w_ in zip(got, want):
+                assert g.dtype == dtype
+                _check(g, w_, dtype)
+            assert all(torch.equal(g, a) for g, a in zip(
+                got, glm_prep_pair(A, y, xt, xd, glm, flavour=flavour)))
+            base = ("glm_prep_pair_newton" if flavour == "newton"
+                    else "glm_prep_pair")
+            snap = counters.snapshot()
+            assert snap[base] == snap[f"{base}_bf16"] == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,n", K2S_SHAPES)
+def test_bf16_prep_matches_plain(dev, dtype, m, n):
+    A, y, xt, _ = _bf16_prep_inputs(dev, dtype, m, n)
+    for glm in (LOGISTIC01_GLM, _least_squares_glm()):
+        counters.reset()
+        got = glm_prep(A, y, xt, glm)
+        for g, w_ in zip(got, glm_prep_torch(A, y, xt, glm)[:3]):
+            assert g.dtype == dtype
+            _check(g, w_, dtype)
+        assert all(torch.equal(g, a) for g, a in zip(
+            got, glm_prep(A, y, xt, glm)))
+        snap = counters.snapshot()
+        assert snap["glm_prep"] == snap["glm_prep_bf16"] == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,p,k", MGLM_SHAPES)
+def test_bf16_mglm_matvec_matches_plain(dev, dtype, m, p, k):
+    A, y, Z, V = _mglm_inputs(dev, dtype, m, p, k)
+    A = A.to(torch.bfloat16)
+    spec = losses.multinom_mglm(k)
+    want = mglm_matvec_torch(A, y, Z, V, spec)
+    counters.reset()
+    got = mglm_matvec(A, y, Z, V, spec)
+    assert got.dtype == dtype and tuple(got.shape) == (p, k)
+    _check_k5(got, want, dtype)
+    assert torch.equal(got, mglm_matvec(A, y, Z, V, spec))
+    snap = counters.snapshot()
+    assert snap["mglm_matvec"] == snap["mglm_matvec_bf16"] == 2
+
+
+@pytest.mark.parametrize("m,p,k", [(3001, 1024, 16), (999, 132, 9),
+                                   (517, 77, 3), (999, 1022, 16)])
+def test_bf16_mglm_matvec_forms_agree(dev, m, p, k):
+    # each of K5's forms with A in bfloat16: the tensor-core form (rows
+    # 16-byte aligned or not), the two-pass and split forms' geometry
+    A, y, Z, V = _mglm_inputs(dev, torch.float32, m, p, k)
+    A = A.to(torch.bfloat16)
+    spec = losses.multinom_mglm(k)
+    want = mglm_matvec_torch(A, y, Z, V, spec)
+    bf = torch.bfloat16
+    grid = k5.mglm_grid(m, p, k, torch.float32, 132, a_dtype=bf)
+    assert grid.form == "tensor"
+    for g in (grid, k5.mglm_grid(m, p, k, torch.float64, 132, a_dtype=bf),
+              k5.mglm_grid(m, p, k, torch.float32, 132, covered=False,
+                           a_dtype=bf)):
+        got = k5._launch(A, y, Z, V, spec, g)
+        _check_k5(got, want, torch.float32)
+        assert torch.equal(got, k5._launch(A, y, Z, V, spec, g))
+
+
+def test_bf16_a_on_the_card_never_takes_the_plain_version(dev, monkeypatch):
+    from scso_tpu_torch.ops.cuda import glm_prep as k2
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+
+    for mod, name in ((k2, "glm_prep_torch"), (k2, "glm_prep_pair_torch"),
+                      (k5, "mglm_matvec_torch")):
+        monkeypatch.setattr(mod, name, refuse)
+    A, y, xt, xd = _bf16_prep_inputs(dev, torch.float32, 300, 256)
+    counters.reset()
+    k2.glm_prep_pair(A, y, xt, xd, LOGISTIC01_GLM)
+    k2.glm_prep_pair(A, y, xt, xd, LOGISTIC01_GLM, flavour="newton")
+    k2.glm_prep(A, y, xt, LOGISTIC01_GLM)
+    Am, ym, Z, V = _mglm_inputs(dev, torch.float32, 300, 64, 5)
+    k5.mglm_matvec(Am.to(torch.bfloat16), ym, Z, V, losses.multinom_mglm(5))
+    snap = counters.snapshot()
+    assert all(snap[k] == 1 for k in (
+        "glm_prep_pair_bf16", "glm_prep_pair_newton_bf16", "glm_prep_bf16",
+        "mglm_matvec_bf16"))
+    # a mix the kernels do not take raises: A in bfloat16 with half x,
+    # or candidates in two dtypes
+    with pytest.raises(ValueError):
+        k2.glm_prep(A, y.half(), xt.half(), LOGISTIC01_GLM)
+    with pytest.raises(ValueError):
+        k2.glm_prep_pair(A, y, xt, xd.double(), LOGISTIC01_GLM)
+    with pytest.raises(ValueError):
+        k5.mglm_matvec(Am.to(torch.bfloat16), ym, Z, V.double(),
+                       losses.multinom_mglm(5))
+
+
+def _mixed_problem(kind, device, lam):
+    if kind == "mglm":
+        A, Y, x0, _ = synthetic.make_multinomial_data(256, 32, 4, seed=11,
+                                                      dtype=np.float64)
+        return st.Problem(A, Y, x0, losses.multinom_f, lam,
+                          grad_fx=losses.multinom_grad,
+                          mglm=losses.multinom_mglm(4), dtype=torch.float64,
+                          device=device)
+    return _small_logreg(device, lam)
+
+
+# method, problem kind, λ, the kernels the card's coarse phase launches
+# with A in bfloat16
+MIXED = [
+    (st.ProxGGNSCORE(solver="cg", greedy_alpha=False), "logreg", 0.01,
+     ("glm_prep_pair_bf16", "normal_matvec_bf16")),
+    (st.ProxGGNSCORE(solver="cg", greedy_alpha=False, epoch_cache=False),
+     "logreg", 0.01, ("glm_prep_bf16", "normal_matvec_bf16")),
+    (st.ProxNSCORE(solver="cg", greedy_alpha=False), "logreg", 0.1,
+     ("glm_prep_pair_newton_bf16", "normal_matvec_bf16")),
+    (st.ProxLQNSCORE(), "logreg", 0.01, ("two_loop",)),
+    (st.ProxGGNSCORE(solver="cg", greedy_alpha=False), "mglm", 0.01,
+     ("mglm_matvec_bf16",)),
+]
+
+
+@pytest.mark.parametrize("method,kind,lam,coarse", MIXED,
+                         ids=["cached", "uncached", "newton", "lbfgs",
+                              "mglm"])
+def test_small_mixed_solves_match_cpu(dev, method, kind, lam, coarse):
+    kw = dict(x_tol=1e-12, f_tol=1e-10, max_epoch=40, verbose=0,
+              stats_every=4, alpha=1.0)
+    sm = st.PHuberSmootherL1L2(1.0)
+    counters.reset()
+    s_gpu = st.iterate_mixed(method, _mixed_problem(kind, dev, lam), "l1",
+                             sm, coarse_max_epoch=20, **kw)
+    got = counters.snapshot()
+    assert all(got[k] > 0 for k in coarse), got
+    s_cpu = st.iterate_mixed(method, _mixed_problem(kind, "cpu", lam), "l1",
+                             sm, coarse_max_epoch=20, **kw)
+    assert s_gpu.epochs == s_cpu.epochs
+    assert s_gpu.cg_info["coarse_epochs"] == s_cpu.cg_info["coarse_epochs"]
+    np.testing.assert_allclose(s_gpu.obj.numpy(), s_cpu.obj.numpy(),
                                rtol=1e-9)

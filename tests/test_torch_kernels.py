@@ -142,7 +142,7 @@ class TestGLMPrepPair:
 
 class TestPrepGrid:
     """K2/K2s's form and launch geometry, from the shapes alone (no
-    card): csrc/glm_prep.cu's one-pass form holds 2·candidates (n,)
+    card): csrc/glm_prep.cuh's one-pass form holds 2·candidates (n,)
     accumulators in 224 KB of shared memory."""
 
     SMEM = 224 * 1024

@@ -203,14 +203,27 @@ def test_bf16_copy_reaches_the_same_optimum(dtype, kw, rtol, atol):
 
 
 def test_with_lp_copy_requires_a_data_problem():
+    """with_lp_copy refuses a problem without data; on a data problem
+    with a copy, iterate_mixed runs and matches scso.iterate_mixed."""
     bare = st.CompositeProblem(
         x0=torch.zeros(3), lam=torch.tensor(0.1), A=None, y=None,
         x_star=torch.zeros(3), f=None, dtype=torch.float64,
         device=torch.device("cpu"))
     with pytest.raises(ValueError, match="data problem"):
         st.with_lp_copy(bare)
-    with pytest.raises(NotImplementedError, match="A10"):
-        st.iterate_mixed(st.ProxGGNSCORE(solver="cg"), _port(), "l1", SM)
+    kw = dict(max_epoch=20, verbose=0)
+    s = st.iterate_mixed(st.ProxGGNSCORE(solver="cg"),
+                         st.with_lp_copy(_port()), "l1", SM, **kw)
+    sj = scso.iterate_mixed(scso.ProxGGNSCORE(solver="cg", kernels="xla"),
+                            scso.with_lp_copy(_jax()), "l1",
+                            scso.PHuberSmootherL1L2(1.0), **kw)
+    assert s.epochs == sj.epochs
+    assert s.cg_info["coarse_epochs"] == sj.cg_info["coarse_epochs"]
+    assert (s.cg_info["total_cg_iters"]
+            == sj.cg_info["total_cg_iters"])
+    np.testing.assert_allclose(s.obj.numpy(), np.asarray(sj.obj),
+                               rtol=1e-10)
+    np.testing.assert_allclose(s.x.numpy(), np.asarray(sj.x), atol=1e-9)
 
 
 def test_converter_refuses_a_copy_bf16_cannot_hold():

@@ -16,8 +16,8 @@ Same numpy inputs, float64, through each JAX function and its port:
     JAX package never reads the copy there, and neither does the port
     (the same trajectory, to the damped solve's bounds, and bit for bit
     the port's solve without the copy);
-  * the validation that raises (the cached path's lp product is not
-    ported yet).
+  * the validation that raises, and the cached path's lp options
+    (auto_lp=True, cg_lp_tol with a bfloat16 copy) against scso.iterate.
 The CUDA kernel itself is held against the plain version on the card by
 tests/test_torch_cuda.py and chip_smoke.py.
 """
@@ -273,14 +273,24 @@ def test_validation_raises():
                            device="cpu")
 
 
-@pytest.mark.parametrize("method,match", [
-    (st.ProxGGNSCORE(solver="cg", auto_lp=True), "A10"),
-    (st.ProxGGNSCORE(solver="cg", cg_lp_tol=1e-3), "A10"),
-])
-def test_unported_parts_raise(method, match):
-    _, pt = _problems(64, 8, 3)
-    if method.cg_lp_tol > 0:  # the cached lp product, with a copy
-        pt = st.with_lp_copy(pt)
-    with pytest.raises(NotImplementedError, match=match):
-        st.iterate(method, pt, "l1", st.PHuberSmootherL1L2(1.0), verbose=0,
-                   max_epoch=2)
+@pytest.mark.parametrize("fields", [
+    dict(solver="cg", auto_lp=True),
+    dict(solver="cg", cg_lp_tol=1e-3),
+], ids=["auto_lp", "cg_lp_tol"])
+def test_unported_parts_raise(fields):
+    """The cached path's lp options run and match scso_tpu: auto_lp=True
+    (no copy on a float64 problem, in both packages) and cg_lp_tol with a
+    bfloat16 copy (the JAX package's, carried over bit for bit)."""
+    pj, pt = _problems(64, 8, 3)
+    if "cg_lp_tol" in fields:  # the cached lp product, with a copy
+        pj = scso.with_lp_copy(pj)
+        pt = replace(pt, A_lp=torch.tensor(
+            np.asarray(pj.A_lp, np.float32)).to(torch.bfloat16))
+    kw = dict(verbose=0, max_epoch=8)
+    sj = scso.iterate(scso.ProxGGNSCORE(kernels="xla", **fields), pj, "l1",
+                      scso.PHuberSmootherL1L2(1.0), **kw)
+    s = st.iterate(st.ProxGGNSCORE(**fields), pt, "l1",
+                   st.PHuberSmootherL1L2(1.0), **kw)
+    assert s.epochs == sj.epochs and s.cg_info == sj.cg_info
+    _close(s.obj.numpy(), np.asarray(sj.obj), rtol=1e-10, atol=0)
+    _close(s.x.numpy(), np.asarray(sj.x), rtol=0, atol=1e-9)
