@@ -30,9 +30,14 @@ result. Phases, each fatal on failure:
      L-BFGS path's shape and at other n and m (up to 4100 slots) with
      empty, partial, full and wrapped memories and a slot with yᵀs = 0,
      and for K2 and K2s on both sides of their one-pass form's n limit
-     and at fewer rows than blocks; the split forms of K2, K2s (a
-     least-squares and a kind=None logistic spec) and K5 (a squared-loss
-     and a kind=None multinomial spec) at a few shapes; K2 (both
+     and at fewer rows than blocks; K2 (both flavours) and K2s with
+     LSQ_GLM and POISSON_GLM, each kind computed in the kernel (its
+     launches counted under the kind, never the split form), at the
+     main shape, 262144×4096, 524288×1024 and those boundary shapes, A
+     in float32, float64 and bfloat16; the split forms of K2, K2s (a
+     user-built least-squares spec of kind "least_squares" and a
+     kind=None logistic spec) and K5 (a squared-loss and a kind=None
+     multinomial spec) at a few shapes; K2 (both
      flavours), K2s and K5 also with A in bfloat16 (y and the other
      operands in float32 or float64) at each of their shapes and forms;
      two runs of a kernel must give bitwise-equal outputs. Times (CUDA events around
@@ -40,8 +45,9 @@ result. Phases, each fatal on failure:
      of each kernel beside its plain version at its path's full-width
      shape, with the rate over A's bytes of those that stream A (K1,
      K1 with A in bfloat16, K1s, K2 in both flavours and K2s also at
-     524288×1024 beside their bounds, K2 also in its split form), and
-     of one 40 KB NCCL all-reduce.
+     524288×1024 beside their bounds, K2 also in its split form; the lsq
+     kind's rows at 262144×4096, the poisson kind's at the main shape),
+     and of one 40 KB NCCL all-reduce.
   3. The sparse-logistic path at full width: 196608×10000 (padded to
      10112), seed 7, float32 on the card, solved by the JAX bench's
      ProxGGNSCORE(solver='cg', cg_maxiter=100) with A in float32
@@ -142,13 +148,39 @@ result. Phases, each fatal on failure:
      seconds, epochs (coarse and fine), CG iterations, launches and the
      products of the bfloat16 A outside the kernels are printed.
 
+ 14. The sparse-group-lasso λ₂ path at full width (bench.py's
+     family_gl_path(big=True)): 262144×4000 (seed 1234, groups of 16,
+     p_active 0.1, noise 0.1, float32) padded to 4096 with a zero-weight
+     pad group — A 4.29 GB on the card —, LSQ_GLM, λ = [1e-8, λ₂] for λ₂
+     in logspace(-1, -4, 8), PHuberSmootherGL(1e-2), the 'gl' prox,
+     F32_CG; per point a presolve of at most 6 chunks from the previous
+     point's x, then timed chunks at f_tol=1e-6 until the signed gap is
+     at most 1e-6. Worst gap ≤ 1.05e-6, with K1 and K2 (its lsq kind in
+     the kernel) launched and no other kernel (the 'gl' prox's tail is
+     not K3's); the kernels='torch' timed chains from the same points
+     agree on each point's final objective. Small float64 group-lasso
+     solves (512×128: cached and uncached GGN-CG, iterate_mixed of
+     both) through the kernels match the CPU.
+ 15. The Poisson l1 path at the main path's shape:
+     make_sparse_poisson_data(196608, 10000) (density 0.05, 64 active,
+     seed 7, float32, padded to 10112), POISSON_GLM with its hooks,
+     PHuberSmootherL1L2(1.0), F32_CG, phase 3's protocol at λ = 0.01 (λ
+     = 1e-3 where x* is all zero or the chain takes fewer than 5
+     epochs): the 1e-6 gap with K1, K2 (its poisson kind in the kernel)
+     and K3; the kernels='torch' chain agrees on the final objective.
+     Small float64 Poisson solves (examples/07_poisson.py's 2000×192:
+     cached and uncached GGN-CG, Newton-CG and iterate_mixed of each)
+     through the kernels match the CPU.
+
 The last two lines of standard output are one JSON object with each
 kernel's numbers, then ``{"ok": true, "device": {...}}`` (K1 with A in
 bfloat16 is its own row, ``normal_matvec_bf16``: its launches are
 phase 11's lp chains' and 13's; so is K2's newton flavour,
 ``glm_prep_pair_newton``, with phase 12's launches, and K2, its newton
 flavour, K2s and K5 with A in bfloat16, the ``_bf16`` rows, with phase
-13's). Each kernel's ``bound_ms`` is the larger of the bytes it must
+13's; K2 and K2s computing the lsq and poisson kinds, ``KIND_ROWS`` and
+their ``_bf16`` rows, with phase 14's and 15's, the small solves'
+included, timed at their paths' shapes). Each kernel's ``bound_ms`` is the larger of the bytes it must
 move (each input read once, each output written once) over 3.35 TB/s
 and its multiply-adds over A (or the vectors) at 67 TFLOP/s — K5 with
 A in bfloat16, on the tensor cores, at 495 TFLOP/s (TF32) — the H100
@@ -237,6 +269,17 @@ F32_CG = dict(solver="cg", cg_maxiter=100, auto_lp=False)
 # phase 11's third, smaller shape, for AUTO's byte threshold (the bench
 # shapes are the other two)
 LP_SMALL_SHAPE = (32768, 10000)
+# phase 14: bench.py's family_gl_path(big=True) — 262144×4000 (padded to
+# 4096 with the zero-weight pad group), groups of 16, an 8-point λ₂ path
+GL_DATA = (262144, 4000)
+GL_SHAPE = (262144, 4096)
+GL_GROUP = 16
+GL_PATH = 8
+GL_KW = dict(x_tol=1e-8, max_epoch=60, verbose=0, alpha=1.0, stats_every=4)
+GL_GAP_LIMIT = 1.05e-6   # bench.py's worst_gap gate
+# phase 15: the Poisson l1 path at the main path's shape, λ = 0.01, else
+# (x* all zero, or a chain of fewer than 5 epochs) λ = 1e-3
+POISSON_LAMS = (0.01, 1e-3)
 HBM_BYTES_S = 3.35e12  # H100 SXM data sheet: HBM3 rate
 FP32_FLOP_S = 67e12    # H100 SXM data sheet: FP32 outside the tensor cores
 TF32_FLOP_S = 495e12   # H100 SXM data sheet: TF32 on the tensor cores
@@ -276,6 +319,23 @@ KERNELS = {
     "mglm_matvec_bf16": ("scso_tpu_torch/csrc/mglm_matvec.cu",
                          "scso_tpu/ops/pallas/mglm_matvec.py:152"),
 }
+# K2 (both flavours) and K2s computing the least-squares and the Poisson
+# GLM in the kernel (the TPU kernels trace LSQ_GLM's and POISSON_GLM's
+# forms): row → (the kernel's row, kind, flavour). Each is timed at its
+# path's shape: lsq at GL_SHAPE (phase 14), poisson at the main shape
+# (phase 15); its launches are its path's, and the small float64 solves'
+# (K2s; K2's newton flavour; A in bfloat16: iterate_mixed's coarse phase)
+KIND_ROWS = {
+    "glm_prep_pair_lsq": ("glm_prep_pair", "lsq", "ggn"),
+    "glm_prep_pair_poisson": ("glm_prep_pair", "poisson", "ggn"),
+    "glm_prep_pair_newton_poisson": ("glm_prep_pair_newton", "poisson",
+                                     "newton"),
+    "glm_prep_lsq": ("glm_prep", "lsq", "ggn"),
+    "glm_prep_poisson": ("glm_prep", "poisson", "ggn"),
+}
+for _row, (_base, _, _) in list(KIND_ROWS.items()):
+    KERNELS[_row] = KERNELS[_base]
+    KERNELS[f"{_row}_bf16"] = KERNELS[f"{_base}_bf16"]
 # the rows of KERNELS that are the kernel of another row with A in
 # bfloat16
 BF16_OF = {"normal_matvec_bf16": "normal_matvec",
@@ -289,6 +349,10 @@ UNCACHED_KERNELS = ("glm_prep", "normal_matvec", "score_update")
 SHARDED_KERNELS = ("normal_matvec_sharded", "normal_matvec", "glm_prep_pair",
                    "score_update")
 NEWTON_KERNELS = ("normal_matvec", "glm_prep_pair_newton", "score_update")
+# phase 14 (the 'gl' prox keeps its tail out of K3, in both packages) and
+# phase 15
+GL_KERNELS = ("normal_matvec", "glm_prep_pair", "glm_prep_pair_lsq")
+POISSON_KERNELS = LOGISTIC_KERNELS + ("glm_prep_pair_poisson",)
 # phase 12: the Newton-CG method; on phase 3's data at λ = 0.01 the
 # greedy trial's full Newton steps run away to NaN, as the JAX package's
 # do (chain (c) holds both modes to the same records), so chain (a)
@@ -606,6 +670,81 @@ def prep_case(m, n, dtype, gen):
                 f"{res['glm_prep_bf16']:.3e}")
 
 
+def kind_inputs(m, n, dtype, gen, kind):
+    """A (m, n), y of the family (counts 0-5 for Poisson, Gaussian for
+    least squares) and two candidates, on the card."""
+    import torch
+
+    dev = "cuda"
+    A = torch.randn((m, n), generator=gen, device=dev, dtype=dtype)
+    A.mul_(0.1)
+    if kind == "poisson":
+        y = torch.randint(0, 6, (m,), generator=gen, device=dev).to(dtype)
+    else:
+        y = torch.randn((m,), generator=gen, device=dev, dtype=dtype)
+    xt = torch.randn((n,), generator=gen, device=dev, dtype=dtype) * 0.1
+    xd = torch.randn((n,), generator=gen, device=dev, dtype=dtype) * 0.1
+    return A, y, xt, xd
+
+
+def kind_case(m, n, dtype, gen, timed=False):
+    """K2 (both flavours) and K2s with LSQ_GLM and POISSON_GLM against
+    their plain versions at (m, n), A in ``dtype`` and in bfloat16, each
+    with a bitwise rerun (`prep_checks`); every launch must compute the
+    kind in the kernel (its kind counter, not the split form). ``timed``:
+    every row of KIND_ROWS is timed here too (kernel and plain). Returns
+    ({row: max abs err}, {row: (ms, plain ms)})."""
+    import torch
+
+    from scso_tpu_torch.models.losses import LSQ_GLM, POISSON_GLM
+    from scso_tpu_torch.ops.cuda import counters
+    from scso_tpu_torch.ops.cuda.glm_prep import (
+        glm_prep, glm_prep_pair, glm_prep_pair_torch, glm_prep_torch)
+
+    dn = str(dtype).replace("torch.", "")
+    errs, times = {}, {}
+    for kind, glm in (("lsq", LSQ_GLM), ("poisson", POISSON_GLM)):
+        A, y, xt, xd = kind_inputs(m, n, dtype, gen, kind)
+        A_lp = A.to(torch.bfloat16)
+        tag = f"{kind} ({m}x{n} {dn})"
+        counters.reset()
+        res = prep_checks(A, y, xt, xd, tag, dn, glm)
+        res.update(bf16_prep_checks(A_lp, y, xt, xd, tag, dn, glm))
+        snap = counters.snapshot()
+        for base in ("glm_prep_pair", "glm_prep_pair_newton", "glm_prep"):
+            for a in ("", "_bf16"):
+                if not snap[f"{base}{a}"] == snap[f"{base}_{kind}{a}"] > 0:
+                    fail(f"{base}{a} {tag}: {snap[f'{base}{a}']} launches, "
+                         f"{snap[f'{base}_{kind}{a}']} of them with the "
+                         f"{kind} kind in the kernel")
+        for row, (base, k, flavour) in KIND_ROWS.items():
+            if k != kind:
+                continue
+            errs[row], errs[f"{row}_bf16"] = res[base], res[f"{base}_bf16"]
+            if not timed:
+                continue
+            for a, key in ((A, row), (A_lp, f"{row}_bf16")):
+                if base == "glm_prep":
+                    times[key] = (
+                        time_ms(lambda: glm_prep(a, y, xt, glm)),
+                        time_ms(lambda: glm_prep_torch(a, y, xt, glm)))
+                else:
+                    times[key] = (
+                        time_ms(lambda: glm_prep_pair(
+                            a, y, xt, xd, glm, flavour=flavour)),
+                        time_ms(lambda: glm_prep_pair_torch(
+                            a, y, xt, xd, glm, flavour=flavour)))
+        log(f"  K2/K2s {tag}, one read of A: max abs err K2 "
+            f"{res['glm_prep_pair']:.3e} K2 newton "
+            f"{res['glm_prep_pair_newton']:.3e} K2s {res['glm_prep']:.3e}; "
+            f"A in bf16: K2 {res['glm_prep_pair_bf16']:.3e} K2 newton "
+            f"{res['glm_prep_pair_newton_bf16']:.3e} K2s "
+            f"{res['glm_prep_bf16']:.3e}")
+        del A, A_lp
+        torch.cuda.empty_cache()
+    return errs, times
+
+
 def score_update_case(n, reg, dtype, gen, timed=False):
     import torch
 
@@ -854,8 +993,6 @@ def work_bounds(main, mglm_shape, lbfgs_case):
     n4, mem = lbfgs_case[0], lbfgs_case[1]
     f = 4
     k1 = (f * (m * n + m + 2 * n), 4 * m * n)
-    k2 = (m * n, f * (3 * m + 6 * n + 2), 14 * m * n)  # A's values, rest
-    k2s = (m * n, f * (2 * m + 3 * n), 7 * m * n)
     k5 = (mm * p, f * (2 * mm * k + 2 * p * k), 4 * mm * p * k)
     out = {
         "normal_matvec": k1,
@@ -867,9 +1004,33 @@ def work_bounds(main, mglm_shape, lbfgs_case):
     }
     # A in float32, and (the _bf16 rows) in bfloat16 with every other
     # operand in float32
+    out.update(prep_work(m, n))
+    a, rest, ops = k5
+    out["mglm_matvec"] = (f * a + rest, ops)
+    out["mglm_matvec_bf16"] = (2 * a + rest, ops)
+    # the kinds' rows at their paths' shapes (KIND_ROWS)
+    for shape, kind in ((GL_SHAPE, "lsq"), (main, "poisson")):
+        at = prep_work(*shape)
+        for row, (base, k_, _) in KIND_ROWS.items():
+            if k_ == kind:
+                out[row] = at[base]
+                out[f"{row}_bf16"] = at[f"{base}_bf16"]
+    return out
+
+
+def prep_work(m, n):
+    """(bytes, flops) of K2 (both flavours) and K2s at (m, n), A in
+    float32 and (the _bf16 keys) in bfloat16, every other operand in
+    float32: A, y and the candidates read once; w, b, hd and the losses
+    written once; 7 operations an element of A a candidate (the dot's
+    multiply-add, ρ·a and w·a² added)."""
+    f = 4
+    k2 = (m * n, f * (3 * m + 6 * n + 2), 14 * m * n)  # A's values, rest
+    k2s = (m * n, f * (2 * m + 3 * n), 7 * m * n)
+    out = {}
     for name, (a, rest, ops) in (("glm_prep_pair", k2),
                                  ("glm_prep_pair_newton", k2),
-                                 ("glm_prep", k2s), ("mglm_matvec", k5)):
+                                 ("glm_prep", k2s)):
         out[name] = (f * a + rest, ops)
         out[f"{name}_bf16"] = (2 * a + rest, ops)
     return out
@@ -962,6 +1123,32 @@ def phase_kernels(mesh):
                 times["two_loop"] = t
                 errs["two_loop"] = err
         log(f"  K4 {len(TWO_LOOP_CASES)} memories {dn}: ok")
+    # the least-squares and Poisson kinds in K2/K2s: the main shape, the GL
+    # path's, the narrow one and PREP_SHAPES (both sides of each one-pass
+    # limit, fewer rows than blocks), A in float32 / float64 and bfloat16;
+    # every kind row timed at the main shape and at GL_SHAPE, the JSON
+    # line taking each at its path's shape
+    t0 = time.perf_counter()
+    for dtype in (torch.float32, torch.float64):
+        for (m, n) in [main, GL_SHAPE, NARROW_SHAPE] + PREP_SHAPES:
+            timed = dtype == torch.float32 and (m, n) in (main, GL_SHAPE)
+            e, t = kind_case(m, n, dtype, gen, timed)
+            for k, v in t.items():
+                kind = KIND_ROWS[k.replace("_bf16", "")][1]
+                path_shape = GL_SHAPE if kind == "lsq" else main
+                if (m, n) == path_shape:
+                    times[k] = v
+                    errs[k] = e[k]
+                a = m * n * (2 if k.endswith("_bf16") else 4)
+                at = prep_work(m, n)[KIND_ROWS[k.replace("_bf16", "")][0]
+                                     + ("_bf16" if k.endswith("_bf16")
+                                        else "")]
+                log(f"  time at {m}x{n}, {k}: kernel {v[0]:.4f} ms, "
+                    f"{a / v[0] / 1e6:.1f} GB/s of A, bound "
+                    f"{bound(*at, k)[0]:.4f} ms, plain {v[1]:.4f} ms (CUDA "
+                    "events, runs of calls)")
+    log(f"  K2/K2s lsq and poisson kinds: {2 * (3 + len(PREP_SHAPES))} "
+        f"shapes ({time.perf_counter() - t0:.1f} s)")
     # the kernels that stream A: their achieved rate over A's bytes
     a_bytes = dict.fromkeys(("normal_matvec", "normal_matvec_sharded",
                              "glm_prep_pair", "glm_prep_pair_newton",
@@ -971,6 +1158,8 @@ def phase_kernels(mesh):
     for k in BF16_OF:
         a_bytes[k] = a_bytes[BF16_OF[k]] // 2
     for k, (ms, plain) in times.items():
+        if k.replace("_bf16", "") in KIND_ROWS:
+            continue  # logged above, at their paths' shapes
         rate = (f", {a_bytes[k] / ms / 1e6:.1f} GB/s of A" if k in a_bytes
                 else "")
         log(f"  time at the main-path shape, {k}: kernel {ms:.4f} ms"
@@ -1144,7 +1333,7 @@ def phase_small_f64(method, what, solve=None, build=None, kernels=None):
     plain path on the CPU: the objective histories must agree. ``build``
     (device → problem) defaults to the 512x200 sparse-logistic problem;
     ``kernels``, when given, are the kernels the card's solve must
-    launch, and it must launch no other."""
+    launch, and it must launch no other. Returns the card's launches."""
     import torch
 
     from scso_tpu_torch.ops.cuda import counters
@@ -1155,8 +1344,9 @@ def phase_small_f64(method, what, solve=None, build=None, kernels=None):
     counters.reset()
     gpu = build("cuda")
     s_gpu = solve(method, gpu)
+    launched = counters.snapshot()
     if kernels is not None:
-        check_launches(counters.snapshot(), kernels, f"small f64 {what}")
+        check_launches(launched, kernels, f"small f64 {what}")
     s_cpu = solve(method, build("cpu"))
     if s_gpu.epochs != s_cpu.epochs or s_gpu.x.shape != s_cpu.x.shape:
         fail(f"small f64 {what} solve: epochs {s_gpu.epochs} vs "
@@ -1170,6 +1360,7 @@ def phase_small_f64(method, what, solve=None, build=None, kernels=None):
     log(f"  small f64 {what} {shape}: {s_gpu.epochs} epochs, card kernels "
         f"vs CPU plain max rel objective diff {rel:.2e} "
         f"(tolerance {SMALL_RTOL:g})")
+    return launched
 
 
 def check_launches(launches, expected, what):
@@ -2002,6 +2193,306 @@ def phase_mixed(main3, newton12, mglm5):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the sparse-group-lasso λ₂ path (least squares, K2's lsq kind)
+# ---------------------------------------------------------------------------
+
+
+def build_gl_problem(data, device, dtype, data_dtype=None):
+    """bench.py's family_gl_path problem: make_group_lasso_problem(m, n,
+    16, p_active=0.1, noise_std=0.1, seed=1234), LSQ_GLM with its hooks,
+    λ = [1e-8, 0.1], x* the generator's x, padded to a multiple of 128
+    with the zero-weight pad group."""
+    import numpy as np
+
+    import scso_tpu_torch as st
+    from scso_tpu_torch.models import losses, synthetic
+
+    A, y, x_true, x0, groups = synthetic.make_group_lasso_problem(
+        *data, GL_GROUP, p_active=0.1, noise_std=0.1, seed=1234,
+        dtype=data_dtype or np.float32)
+    lam2 = float(np.logspace(-1, -4, GL_PATH).astype(np.float32)[0])
+    return st.Problem(
+        A, y, x0, losses.lsq_f, [1e-8, lam2], grad_fx=losses.lsq_grad,
+        out_fn=losses.linear_out, loss_fn=losses.lsq_loss,
+        grad_fy=losses.lsq_ggn_residual, hess_fy_diag=losses.lsq_ggn_qdiag,
+        glm=losses.LSQ_GLM, sol=x_true, groups=groups, dtype=dtype,
+        device=device, pad_features=True)
+
+
+def gl_solve(method, prob, **kw):
+    import scso_tpu_torch as st
+
+    return st.iterate(method, prob, "gl", st.PHuberSmootherGL(1e-2, prob),
+                      **{**GL_KW, **kw})
+
+
+def gl_path(method, prob, anchors=None):
+    """bench.py's family_gl_path protocol: for λ₂ in logspace(-1, -4, 8),
+    a presolve of at most 6 chunks (f_tol=0) from the previous point's x
+    fixes the point's anchor (its best chunk), then timed chunks from
+    that x at f_tol=1e-6, chained until the signed gap (obj − obj*)/|obj*|
+    is at most 1e-6 or stops improving. (bench.py's untimed warm-up
+    solves are jit dispatches; eager PyTorch has none to warm.) With
+    ``anchors`` — another run's points — the timed chunks alone, from
+    those points' x, λ and anchors. Returns the timed seconds, epochs,
+    CG iterations, worst gap and the points (x_warm, λ, x*, obj*, final
+    objective, gap)."""
+    import numpy as np
+    import torch
+
+    from scso_tpu_torch._src.struct import replace
+
+    t_path, epochs, cg, worst = 0.0, 0, 0, 0.0
+    points, x_warm = [], prob.x0
+    grid = np.logspace(-1, -4, GL_PATH).astype(np.float32)
+    for i, lam2 in enumerate(grid[:len(anchors) if anchors else None]):
+        if anchors:
+            x_warm, lamv, x_opt, best = anchors[i][:4]
+        else:
+            lamv = torch.tensor([1e-8, float(lam2)], dtype=prob.dtype,
+                                device=prob.device)
+            cur, best, x_opt = replace(prob, lam=lamv, x0=x_warm), np.inf, None
+            for _ in range(6):
+                s = gl_solve(method, cur, f_tol=0.0)
+                obj = float(s.obj[-1])
+                improved = obj < best * (1 - 1e-7)
+                if obj < best:
+                    best, x_opt = obj, s.state.x
+                if not improved:
+                    break
+                cur = replace(cur, x0=s.state.x)
+        cur_t = replace(prob, lam=lamv, x0=x_warm, x_star=x_opt)
+        pt_gap = np.inf
+        for _ in range(6):
+            t0 = time.perf_counter()
+            s = gl_solve(method, cur_t, f_tol=1e-6)
+            t_path += time.perf_counter() - t0
+            epochs += s.epochs
+            cg += (s.cg_info or {}).get("total_cg_iters", 0)
+            gap = float(((s.obj.double() - best) / abs(best)).min())
+            improved = gap < pt_gap - 1e-8
+            pt_gap = min(pt_gap, gap)
+            if pt_gap <= 1e-6 or not improved:
+                break
+            cur_t = replace(cur_t, x0=s.state.x)
+        # a below-anchor finish counts as the target, as in bench.py
+        worst = max(worst, max(pt_gap, 1e-6) if pt_gap <= 1e-6 else pt_gap)
+        points.append((x_warm, lamv, x_opt, best, float(s.obj[-1]), pt_gap))
+        x_warm = s.state.x
+    return t_path, epochs, cg, worst, points
+
+
+def phase_gl_path():
+    """The sparse-group-lasso λ₂ path at full width (bench.py's
+    family_gl_path(big=True)) through the kernels: K1 and K2 with the
+    lsq kind in the kernel, no other kernel (the 'gl' prox's tail is not
+    K3's); worst gap ≤ GL_GAP_LIMIT; each point's final objective
+    against the kernels='torch' chain from the same x and anchor. Then
+    small float64 group-lasso solves against the CPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import scso_tpu_torch as st
+    from scso_tpu_torch.ops.cuda import counters
+
+    t0 = time.perf_counter()
+    prob = build_gl_problem(GL_DATA, "cuda", torch.float32)
+    torch.cuda.synchronize()
+    a_bytes = prob.A.numel() * prob.A.element_size()
+    log(f"  data {GL_DATA[0]}x{GL_DATA[1]} padded to {tuple(prob.A.shape)} "
+        f"({prob.groups.n_groups} groups, the last the zero-weight pad "
+        f"group), A {a_bytes} bytes ({a_bytes / 1e9:.2f} GB) on the card, "
+        f"made and moved in {time.perf_counter() - t0:.1f} s")
+    method = st.ProxGGNSCORE(**F32_CG)
+    t0 = time.perf_counter()
+    counters.reset()
+    secs, epochs, cg, worst, points = gl_path(method, prob)
+    launches = counters.snapshot()
+    wall = time.perf_counter() - t0
+    log(f"  path, kernels: timed solves {secs:.4f} s, {epochs} epochs, "
+        f"{cg} CG iterations, worst gap {worst:.3e} (whole path with "
+        f"presolves {wall:.1f} s), launches {launches}")
+    for i, p in enumerate(points):
+        log(f"   point {i}: λ₂ {float(p[1][1]):.3e}, obj* {p[3]:.9e}, final "
+            f"{p[4]:.9e}, signed gap {p[5]:.3e}, nnz "
+            f"{int((p[2] != 0).sum())}")
+    if not worst <= GL_GAP_LIMIT:
+        fail(f"the group-lasso path's worst gap {worst:.3e} exceeds "
+             f"{GL_GAP_LIMIT:g}")
+    check_launches(launches, GL_KERNELS, "group-lasso")
+    if launches["glm_prep_pair_lsq"] != launches["glm_prep_pair"]:
+        fail(f"group-lasso path: {launches['glm_prep_pair']} K2 launches, "
+             f"{launches['glm_prep_pair_lsq']} with the lsq kind in the "
+             "kernel")
+    plain_method = dataclasses.replace(method, kernels="torch")
+    t0 = time.perf_counter()
+    psecs, pepochs, pcg, pworst, ppoints = gl_path(plain_method, prob,
+                                                   anchors=points)
+    rels = [abs(k[4] - p[4]) / abs(p[4]) for k, p in zip(points, ppoints)]
+    log(f"  path, kernels='torch' (all {len(ppoints)} points, timed "
+        f"chains from the kernels run's x and anchors): {psecs:.4f} s, "
+        f"{pepochs} epochs, {pcg} CG iterations, worst gap {pworst:.3e} "
+        f"({time.perf_counter() - t0:.1f} s); final objectives' max rel "
+        f"diff {max(rels):.2e} (tolerance {E2E_RTOL:g})")
+    if not max(rels) <= E2E_RTOL:
+        fail(f"group-lasso path: final objectives differ by {max(rels):.2e}")
+    res = dict(seconds=secs, epochs=epochs, cg_iters=cg, worst_gap=worst,
+               a_bytes=a_bytes, torch_seconds=psecs, torch_epochs=pepochs,
+               objs=[p[4] for p in points])
+    del prob, points, ppoints
+    torch.cuda.empty_cache()
+
+    small = dict(x_tol=1e-12, f_tol=1e-10, max_epoch=40)
+    gl_small = lambda dev: build_gl_problem((512, 128), dev, torch.float64,
+                                            np.float64)
+    solve = lambda m, p: gl_solve(m, p, **small)
+    mixed = lambda m, p: st.iterate_mixed(
+        m, p, "gl", st.PHuberSmootherGL(1e-2, p), **{**GL_KW, **small})
+    small_launches = {}
+    for method, what, run, kernels in (
+            (st.ProxGGNSCORE(**F32_CG), "group-lasso GGN-CG", solve,
+             GL_KERNELS),
+            (st.ProxGGNSCORE(**F32_CG, epoch_cache=False),
+             "group-lasso uncached GGN-CG", solve,
+             ("normal_matvec", "glm_prep", "glm_prep_lsq")),
+            (st.ProxGGNSCORE(**F32_CG), "group-lasso iterate_mixed, cached",
+             mixed, GL_KERNELS + ("normal_matvec_bf16", "glm_prep_pair_bf16",
+                                  "glm_prep_pair_lsq_bf16")),
+            (st.ProxGGNSCORE(**F32_CG, epoch_cache=False),
+             "group-lasso iterate_mixed, uncached", mixed,
+             ("normal_matvec", "glm_prep", "glm_prep_lsq",
+              "normal_matvec_bf16", "glm_prep_bf16", "glm_prep_lsq_bf16"))):
+        got = phase_small_f64(method, what, solve=run, build=gl_small,
+                              kernels=kernels)
+        small_launches = {k: small_launches.get(k, 0) + c
+                          for k, c in got.items()}
+    return res, {k: launches[k] + small_launches[k] for k in launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the Poisson l1 path (K2's poisson kind)
+# ---------------------------------------------------------------------------
+
+
+def build_poisson_problem(M, N, device, dtype, lam, density=0.05,
+                          n_active=64, data_dtype=None, pad=True):
+    """make_sparse_poisson_data(M, N) at seed 7 with POISSON_GLM and its
+    hooks, as examples/07_poisson.py builds the problem."""
+    import numpy as np
+
+    import scso_tpu_torch as st
+    from scso_tpu_torch.models import losses, synthetic
+
+    A, y, x0, x_true = synthetic.make_sparse_poisson_data(
+        M, N, density=density, n_active=n_active, seed=SEED,
+        dtype=data_dtype or np.float32)
+    return st.Problem(
+        A, y, x0, losses.poisson_f, lam, grad_fx=losses.poisson_grad,
+        hess_fx=losses.poisson_hess, out_fn=losses.exp_out,
+        grad_fy=losses.poisson_ggn_residual,
+        hess_fy_diag=losses.poisson_ggn_qdiag, loss_fn=losses.poisson_loss,
+        hvp_w=losses.poisson_hvp_w, ggn_w=losses.poisson_ggn_w,
+        glm=losses.POISSON_GLM, dtype=dtype, device=device,
+        pad_features=pad, sol=None if pad else x_true)
+
+
+def phase_poisson():
+    """The Poisson l1 path at the main path's shape under phase 3's
+    protocol (presolve anchor, timed chain from x0 to the 1e-6 gap): K1,
+    K2 with the poisson kind in the kernel, and K3; the kernels='torch'
+    chain must agree on the final objective. Then small float64 Poisson
+    solves against the CPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import scso_tpu_torch as st
+    from scso_tpu_torch._src.struct import replace
+    from scso_tpu_torch.ops.cuda import counters
+
+    t0 = time.perf_counter()
+    prob = build_poisson_problem(*MAIN_SHAPE, "cuda", torch.float32,
+                                 POISSON_LAMS[0])
+    torch.cuda.synchronize()
+    log(f"  data {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} padded to "
+        f"{tuple(prob.A.shape)}, made and moved in "
+        f"{time.perf_counter() - t0:.1f} s")
+    method = st.ProxGGNSCORE(**F32_CG)
+    for lam in POISSON_LAMS:
+        prob = replace(prob, lam=torch.tensor(lam, dtype=prob.dtype,
+                                              device=prob.device))
+        t0 = time.perf_counter()
+        best, x_opt, pre_epochs = presolve(method, prob)
+        nnz = int((x_opt != 0).sum())
+        log(f"  λ = {lam:g}: presolve obj* {best:.9e}, nnz {nnz}, after "
+            f"{pre_epochs} epochs ({time.perf_counter() - t0:.1f} s)")
+        prob_t = replace(prob, x_star=x_opt)
+        counters.reset()
+        kern = timed_chain(method, prob_t, best)
+        launches = counters.snapshot()
+        log(f"  timed solve, kernels: {kern['seconds']:.4f} s, "
+            f"{kern['epochs']} epochs, {kern['cg_iters']} CG iterations, "
+            f"gap {kern['gap']:.3e}, launches {launches}")
+        if nnz > 0 and kern["epochs"] >= 5:
+            break
+        log(f"  λ = {lam:g} gives a trivial path (nnz {nnz}, "
+            f"{kern['epochs']} epochs)")
+    log(f"  λ used: {lam:g}")
+    if not kern["gap"] <= GAP * 1.05:
+        fail(f"the Poisson path missed the {GAP:g} gap: {kern['gap']:.3e}")
+    check_launches(launches, POISSON_KERNELS, "Poisson")
+    if launches["glm_prep_pair_poisson"] != launches["glm_prep_pair"]:
+        fail(f"Poisson path: {launches['glm_prep_pair']} K2 launches, "
+             f"{launches['glm_prep_pair_poisson']} with the poisson kind in "
+             "the kernel")
+    plain = timed_chain(dataclasses.replace(method, kernels="torch"),
+                        prob_t, best)
+    rel = abs(kern["obj"] - plain["obj"]) / abs(plain["obj"])
+    log(f"  timed solve, kernels='torch': {plain['seconds']:.4f} s, "
+        f"{plain['epochs']} epochs, {plain['cg_iters']} CG iterations; "
+        f"final objective rel diff {rel:.2e} (tolerance {E2E_RTOL:g})")
+    if not rel <= E2E_RTOL:
+        fail(f"Poisson final objectives differ: kernels {kern['obj']:.9e}, "
+             f"torch {plain['obj']:.9e} (rel {rel:.2e} > {E2E_RTOL:g})")
+    kern["lam"] = lam
+    del prob, prob_t
+    torch.cuda.empty_cache()
+
+    small = lambda dev: build_poisson_problem(
+        2000, 192, dev, torch.float64, 5e-2, density=0.08, n_active=12,
+        data_dtype=np.float64, pad=False)
+    cached = ("normal_matvec", "glm_prep_pair", "glm_prep_pair_poisson",
+              "score_update")
+    uncached = ("normal_matvec", "glm_prep", "glm_prep_poisson",
+                "score_update")
+    newton = ("normal_matvec", "glm_prep_pair_newton",
+              "glm_prep_pair_newton_poisson", "score_update")
+    bf16 = lambda ks: ks + tuple(f"{k}_bf16" for k in ks
+                                 if k != "score_update")
+    small_launches = {}
+    for meth, what, run, kernels in (
+            (st.ProxGGNSCORE(solver="cg"), "Poisson GGN-CG", None, cached),
+            (st.ProxGGNSCORE(solver="cg", epoch_cache=False),
+             "Poisson uncached GGN-CG", None, uncached),
+            (st.ProxNSCORE(solver="cg"), "Poisson Newton-CG", None, newton),
+            (st.ProxGGNSCORE(solver="cg"), "Poisson iterate_mixed, cached",
+             mixed_solve, bf16(cached)),
+            (st.ProxGGNSCORE(solver="cg", epoch_cache=False),
+             "Poisson iterate_mixed, uncached", mixed_solve, bf16(uncached)),
+            (st.ProxNSCORE(solver="cg"), "Poisson iterate_mixed, Newton-CG",
+             mixed_solve, bf16(newton))):
+        got = phase_small_f64(meth, what, solve=run, build=small,
+                              kernels=kernels)
+        small_launches = {k: small_launches.get(k, 0) + c
+                          for k, c in got.items()}
+    return kern, plain, {k: launches[k] + small_launches[k]
+                         for k in launches}
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the row-sharded cached GGN-CG path
 # ---------------------------------------------------------------------------
 
@@ -2328,9 +2819,22 @@ def main():
         (prob_t, best, kern["obj"], ukern["obj"]),
         (nwprob_t, ekern["anchor_obj"], ekern["obj"]),
         (mprob_t, mbest, mkern["obj"]))
+    del nwprob_t, mprob_t
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log("phase 14: the sparse-group-lasso path (least squares, 'gl') at "
+        "full width, and small float64 group-lasso solves")
+    gl, glaunches = phase_gl_path()
+    log(f"  phase 14: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    log("phase 15: the Poisson l1 path at the main path's shape, and small "
+        "float64 Poisson solves")
+    pkern, pplain, plaunches = phase_poisson()
+    log(f"  phase 15: {time.perf_counter() - t0:.1f} s")
     launches = {k: launches[k] + mlaunches[k] + llaunches[k] + ulaunches[k]
                 + slaunches[k] + nlaunches[k] + klaunches[k] + lplaunches[k]
-                + elaunches[k] + xlaunches[k] for k in launches}
+                + elaunches[k] + xlaunches[k] + glaunches[k] + plaunches[k]
+                for k in launches}
 
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "scso_tpu"
@@ -2358,6 +2862,9 @@ def main():
     log("Newton-CG path: " + json.dumps({"card": card, "kernels": ekern,
                                          "torch": eplain}))
     log("mixed path: " + json.dumps({"card": card, **mixed}))
+    log("group-lasso path: " + json.dumps({"card": card, **gl}))
+    log("Poisson path: " + json.dumps({"card": card, "kernels": pkern,
+                                       "torch": pplain}))
     rows = []
     for k, (src, rep) in KERNELS.items():
         bound_ms, bound_by = bound(*work[k], k)

@@ -124,9 +124,15 @@ def _stats(prob: Problem, reg_name: str, x, obj_star, x_tol, f_tol,
         fval = prob.f_val(prob.A, prob.y, x)
     obj = fval + prob.reg(reg_name, x)
     x_star = prob.x_star
-    rel = torch.clamp_min(
-        torch.linalg.vector_norm(x - x_star)
-        / torch.clamp_min(torch.linalg.vector_norm(x_star), 1.0), x_tol)
+    if reg_name == "gl":
+        # the mean squared error, over the TRUE n under feature padding
+        # (the padded coordinates of x and x_star are both exactly 0)
+        n_eff = prob.n_true if prob.n_true is not None else x.shape[-1]
+        rel = torch.sum((x_star - x) ** 2) / n_eff
+    else:
+        rel = torch.clamp_min(
+            torch.linalg.vector_norm(x - x_star)
+            / torch.clamp_min(torch.linalg.vector_norm(x_star), 1.0), x_tol)
     raw_frel = torch.abs(obj - obj_star) / torch.abs(obj_star)
     objrel = torch.clamp_min(raw_frel, f_tol)
     return fval, obj, rel, objrel, raw_frel

@@ -47,9 +47,12 @@ densely through ∇²f (the user's hess_fx or autograd) for n up to
 over the materialized Jacobian (`Problem.ggn_pieces`).
 
 ``method.kernels`` ('cuda' or 'torch', resolved by `iterate`) picks the
-CUDA kernels or their plain versions, for any spec: K2, K2s and K5
-compute the logistic01 and multinomial specs in the kernel and any
-other between their passes over A (their split form). Gradients and
+CUDA kernels or their plain versions, for any spec: K2 and K2s compute
+the logistic01, least-squares and Poisson specs in the kernel, K5 the
+multinomial one, and any other between their passes over A (their
+split form). The group-lasso prox ('gl') keeps its damped tail in
+PyTorch (`_damped_prox_update`), as the JAX package keeps it out of its
+kernel: K3 serves 'l1', 'l2', 'indbox' and no prox. Gradients and
 the mglm prep stay `torch.matmul` (`ops.dense`): the JAX package runs
 them as plain XLA matmuls, not as Pallas kernels. A may be stored in
 bfloat16 (the coarse phase of `iterate_mixed`): the kernels take it as
@@ -209,10 +212,12 @@ def _lam_scalar(lam):
 
 
 def _cw(prob: Problem, reg_name: str):
-    """Group element-weights for 'gl' (not ported yet), None otherwise."""
+    """Diagonal of the reference's Cmat: group element-weights for 'gl',
+    None (the identity) otherwise."""
     if reg_name == "gl":
-        raise NotImplementedError(
-            "the group-lasso regularizer is not ported yet (ROADMAP A8)")
+        if prob.groups is None:
+            raise ValueError("'gl' regularizer requires group structure")
+        return prob.groups.element_weights
     return None
 
 
@@ -259,10 +264,23 @@ def _damped_prox_update(method, prob: Problem, reg_name, sm, x, d,
     """SCORE damping + scaled prox, the tail of every step:
     α = ss/(1 + M_g·η), η = sqrt(λgr'·diag(1/Hr)·λgr), safe = min(1, α),
     x⁺ = prox(x + safe·d; threshold ss·λ·Hr) — K3, or its plain version.
-    Returns (x⁺, ‖x⁺ − x‖, safe·d)."""
+    The group-lasso prox ('gl') is not K3's: that tail stays plain
+    PyTorch, as the JAX package keeps it out of its kernel. Returns
+    (x⁺, ‖x⁺ − x‖, safe·d)."""
     # feature-padded problems damp with the TRUE n (get_Mg depends on n)
     n_eff = prob.n_true if prob.n_true is not None else x.shape[-1]
     Mg = get_Mg(sm.Mh, sm.nu, sm.mu, n_eff)
+    if reg_name == "gl" and method.use_prox:
+        hdiag_inv = 1.0 / Hr_diag
+        # lgr²/Hr → 0 where lgr = 0, also where Hr = 0 (the GL smoother's
+        # Hessian vanishes with its gradient at a fully thresholded x)
+        eta_terms = torch.where(lgr == 0, torch.zeros_like(lgr),
+                                lgr * hdiag_inv * lgr)
+        alpha = step_size / (1.0 + Mg * torch.sqrt(torch.sum(eta_terms)))
+        dx = torch.clamp_max(alpha, 1.0) * d
+        x_new = prox_step(reg_name, x + dx, hdiag_inv, prob.lam, step_size,
+                          groups=prob.groups)
+        return x_new, torch.linalg.vector_norm(x_new - x), dx
     update = score_update if method.kernels == "cuda" else score_update_torch
     out = update(x, d, lgr, Hr_diag, lam, step_size, Mg, reg_name,
                  use_prox=method.use_prox, lb=prob.lb, ub=prob.ub)
@@ -273,8 +291,10 @@ def _trial_point(method, prob: Problem, reg_name, x, d, step_size, lam,
                  Hr_diag):
     """The greedy trial: the UNDAMPED prox step (or x + d without prox)."""
     if method.use_prox:
-        return prox_step(reg_name, x + d, 1.0 / Hr_diag, lam, step_size,
-                         lb=prob.lb, ub=prob.ub)
+        # the group-lasso prox takes the whole [λ₁, λ₂]
+        lam_prox = prob.lam if reg_name == "gl" else lam
+        return prox_step(reg_name, x + d, 1.0 / Hr_diag, lam_prox, step_size,
+                         lb=prob.lb, ub=prob.ub, groups=prob.groups)
     return x + d
 
 

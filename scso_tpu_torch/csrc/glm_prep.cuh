@@ -1,4 +1,5 @@
-// K2 and K2s: GLM epoch prep for the logistic01 GLM.
+// K2 and K2s: GLM epoch prep for the logistic01, least-squares and
+// Poisson GLMs.
 //
 // Replaces two TPU kernels: scso_tpu/ops/pallas/glm_prep.py:239
 // (_fused_glm_prep_pair, K2) and :84 (_fused_glm_prep, K2s). For NC
@@ -6,28 +7,43 @@
 // SCORE-damped x_d; K2s: NC = 1, the current iterate) it gives, per
 // candidate c:
 //   z     = A x_c
-//   w     = CG matvec weights (m,), by flavour (below)
-//   b     = Aᵀ ρ,  ρ = (σ(z) − y) / m_norm       RHS pullback      (n,)
+//   ρ, w  = the RHS pullback weights and CG matvec weights (m,), by kind
+//           and flavour (below)
+//   b     = Aᵀ ρ                                 RHS pullback      (n,)
 //   hd    = Σ_i w_i A_ij²                        Jacobi diagonal   (n,)
-//   loss  = Σ_{i<m} softplus(z_i) − y_i z_i      unnormalized, K2 only
+//   loss  = Σ_{i<m} ℓ(z_i, y_i)                  unnormalized, K2 only
+// The kind is the spec's family (scso_tpu/models/losses.py), a runtime
+// argument, the same for every row, so every warp takes the same branch:
+//   logistic01  ρ = (σ(z) − y)/m_norm            ℓ = softplus(z) − y z
+//               ggn     w = (y σ(−z)² + (1−y) σ(z)²)/m_norm
+//               newton  w = s (1 − s)/m_norm, s = σ(z)
+//   lsq         ρ = (z − y)/m_norm, w = 1/m_norm  ℓ = ½ (z − y)²
+//               (both flavours)
+//   poisson     ρ = (e^z − y)/m_norm              ℓ = e^z − y z
+//               ggn     w = y/m_norm
+//               newton  w = e^z/m_norm
 // The flavour picks w (scso_tpu/algorithms/steps.py:_glm_kernel_fns):
-//   ggn     w = (y σ(−z)² + (1−y) σ(z)²) / m_norm   (ProxGGNSCORE)
-//   newton  w = s (1 − s) / m_norm, s = σ(z)        (ProxNSCORE: the
-//           true Hessian weights, hvp_w; ρ = gres equals the ggn ρ)
-// K2 comes in both flavours, K2s in the ggn flavour alone (the JAX
-// package calls its single-candidate kernel from GGN-CG only). The
-// newton w is s·(1 − s) with s rounded first, as the JAX spec's
-// _sig_dlink computes it: exactly 0 once s rounds to 1 (z ≳ 17 in f32).
+// ggn is ProxGGNSCORE's (the spec's ggn_rw/ggn_w), newton ProxNSCORE's
+// (gres and the true Hessian weights hvp_w; gres equals the ggn ρ for
+// all three kinds). K2 comes in both flavours, K2s in the ggn flavour
+// alone (the JAX package calls its single-candidate kernel from GGN-CG
+// only). The logistic01 newton w is s·(1 − s) with s rounded first, as
+// the JAX spec's _sig_dlink computes it: exactly 0 once s rounds to 1
+// (z ≳ 17 in f32). e^z is the full-precision exp (expf, not __expf),
+// which overflows f32 at z ≈ 88.7 as the JAX spec does.
 // The TPU kernels trace arbitrary Python ρ/ω/ℓ into their bodies; CUDA
-// cannot, so the one-pass and wide forms are specialised on the spec kind
-// (logistic01, with the 1/m normalization folded in), and any other spec
-// runs the split form (below). m_norm is the normalizing
-// count, apart from the m rows read: all rows of all ranks when A is
-// one rank's row shard (the TPU kernels rescale from the tile's count
-// to the true m instead, steps._glm_kernel_fns; dividing by m_norm
-// directly keeps the unsharded bits). Rows are never padded: the
-// kernels mask the ragged edges themselves, so the loss covers the true
-// rows only. K2s has no loss output, as its TPU kernel has none.
+// cannot, so the one-pass and wide forms compute these three kinds
+// (with the 1/m normalization folded in), and any other spec runs the
+// split form (below). The kind is a runtime argument rather than a
+// template parameter: a third as many instances to build, and a branch
+// that costs nothing next to the row's dot (the logistic01 one-pass
+// time is held to its time before the kinds, PERF.md). m_norm is the
+// normalizing count, apart from the m rows read: all rows of all ranks
+// when A is one rank's row shard (the TPU kernels rescale from the
+// tile's count to the true m instead, steps._glm_kernel_fns; dividing
+// by m_norm directly keeps the unsharded bits). Rows are never padded:
+// the kernels mask the ragged edges themselves, so the loss covers the
+// true rows only. K2s has no loss output, as its TPU kernel has none.
 //
 // A is stored in S: T itself (float or double, the compute type T of x,
 // y and every output) or bfloat16 (the coarse phase of iterate_mixed,
@@ -75,9 +91,9 @@
 //     a warp sum, one partial per warp into a double-buffered shared
 //     array; barrier;
 //   - z, ρ and w: lane j of every warp sums pair j's warp partials in a
-//     fixed order and evaluates the spec (so every warp holds the same
-//     bits), shuffles hand ρ and w to the other lanes; warp 0 writes w
-//     and adds the loss in double;
+//     fixed order and evaluates the spec's kind (so every warp holds the
+//     same bits), shuffles hand ρ and w to the other lanes; warp 0
+//     writes w and adds the loss in double;
 //   - phase B: each thread adds ρ·a and w·a² into its own accumulator
 //     chunks from the same registers (a the upcast value, squared in
 //     T): no second read of A.
@@ -103,7 +119,7 @@
 // chunk's rows, accumulating b and hd in double registers, one partial
 // per row chunk. It reads A twice, and exists so that any n runs.
 //
-// Split form (any GLM spec other than logistic01, any n): the wide form
+// Split form (a GLM spec of another kind, any n): the wide form
 // in two calls, the spec's own ρ and w computed by the wrapper in
 // PyTorch between them: phase 1 is glm_rows writing z_c = A·x_c alone
 // (into the ρ scratch), phase 2 glm_cols and glm_finalize from the ρ and
@@ -157,27 +173,47 @@ struct Prep {
   T* loss[NC];
 };
 
-// What a row's dot becomes: logistic01's ρ and w (and loss) in the ggn
-// or the newton flavour, or z alone (the split form's first pass)
+// What a row's dot becomes: the spec's ρ and w (and loss) in the ggn or
+// the newton flavour, or z alone (the split form's first pass)
 enum RowOut { kGGN, kNewton, kZ };
 
+// The spec kinds computed in the kernels, in the wrapper's KERNEL_KINDS
+// order (a runtime argument: one value for the whole launch)
+enum Kind : int { kLogistic01 = 0, kLsq = 1, kPoisson = 2 };
+
 template <RowOut F, typename T>
-__device__ __forceinline__ void logistic01(T z, T y, T m, T* rho, T* w) {
+__device__ __forceinline__ void row_spec(int kind, T z, T y, T m, T* rho,
+                                         T* w) {
   static_assert(F == kGGN || F == kNewton, "a flavour of the spec");
-  const T sp = T(1) / (T(1) + scso::dexp(-z));   // σ(z)
-  *rho = (sp - y) / m;
-  if constexpr (F == kNewton) {
-    *w = (sp * (T(1) - sp)) / m;
+  if (kind == kLsq) {
+    *rho = (z - y) / m;
+    *w = T(1) / m;
+  } else if (kind == kPoisson) {
+    const T ez = scso::dexp(z);
+    *rho = (ez - y) / m;
+    *w = (F == kNewton ? ez : y) / m;
   } else {
-    const T sn = T(1) / (T(1) + scso::dexp(z));  // σ(−z)
-    *w = (y * (sn * sn) + (T(1) - y) * (sp * sp)) / m;
+    const T sp = T(1) / (T(1) + scso::dexp(-z));  // σ(z)
+    *rho = (sp - y) / m;
+    if constexpr (F == kNewton) {
+      *w = (sp * (T(1) - sp)) / m;
+    } else {
+      const T sn = T(1) / (T(1) + scso::dexp(z));  // σ(−z)
+      *w = (y * (sn * sn) + (T(1) - y) * (sp * sp)) / m;
+    }
   }
 }
 
-// softplus(z) − y·z, with softplus(z) = max(z, 0) + log1p(exp(−|z|)),
+// The unnormalized per-sample loss ℓ(z, y) of the kind, in T, returned
+// in double; logistic01's softplus(z) = max(z, 0) + log1p(exp(−|z|)) is
 // stable for every z
 template <typename T>
-__device__ __forceinline__ double logistic01_loss(T z, T y) {
+__device__ __forceinline__ double row_loss(int kind, T z, T y) {
+  if (kind == kLsq) {
+    const T r = z - y;
+    return static_cast<double>(T(0.5) * (r * r));
+  }
+  if (kind == kPoisson) return static_cast<double>(scso::dexp(z) - y * z);
   const T softplus = (z > T(0) ? z : T(0)) +
                      scso::dlog1p(scso::dexp(z > T(0) ? -z : z));
   return static_cast<double>(softplus - y * z);
@@ -288,7 +324,8 @@ template <typename S, typename T, bool VEC, int NC, int Q, RowOut F>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 glm_onepass(const S* __restrict__ A, const T* __restrict__ y, Prep<T, NC> p,
             T* __restrict__ partials, double* __restrict__ loss_partials,
-            int64_t m, int64_t n, int64_t m_norm, int64_t rows_per_block) {
+            int64_t m, int64_t n, int64_t m_norm, int kind,
+            int64_t rows_per_block) {
   using AR = ARow<S, T>;
   constexpr int E = AR::E;            // values of A a chunk
   constexpr int ET = 16 / sizeof(T);  // values of T a 16-byte piece
@@ -397,11 +434,11 @@ glm_onepass(const S* __restrict__ A, const T* __restrict__ y, Prep<T, NC> p,
       for (int k = 0; k < nwarps; ++k) z += part[slot][lane][k];
       if (r0 + r < row_end) {
         const T yi = y[r0 + r];
-        logistic01<F>(z, yi, mT, &rho_j, &w_j);
+        row_spec<F>(kind, z, yi, mT, &rho_j, &w_j);
         if (warp == 0) {
           // (a constant index: a dynamic one would put p in local memory)
           (lane % NC == 0 ? p.w[0] : p.w[NC - 1])[r0 + r] = w_j;
-          if constexpr (NC == 2) loss += logistic01_loss(z, yi);
+          if constexpr (NC == 2) loss += row_loss(kind, z, yi);
         }
       }
     }
@@ -506,13 +543,13 @@ struct Wide<__nv_bfloat16, T, false> {
   }
 };
 
-// F: the logistic01 ρ, w and loss of each row in that flavour; kZ: z
-// alone, into rw
+// F: the kind's ρ, w and loss of each row in that flavour; kZ: z alone,
+// into rw
 template <typename S, typename T, bool VEC, int NC, RowOut F>
 __global__ void __launch_bounds__(kThreads)
 glm_rows(const S* __restrict__ A, const T* __restrict__ y, Prep<T, NC> p,
          T* __restrict__ rw, double* __restrict__ loss_partials, int64_t m,
-         int64_t n, int64_t m_norm) {
+         int64_t n, int64_t m_norm, int kind) {
   using W = Wide<S, T, VEC>;
   using Raw = typename W::Raw;
   constexpr int E = W::E;
@@ -553,8 +590,8 @@ glm_rows(const S* __restrict__ A, const T* __restrict__ y, Prep<T, NC> p,
       for (int c = 0; c < NC; ++c) {
         if constexpr (kSpec) {
           const T yi = y[i];
-          logistic01<F>(z[c], yi, mT, rw + c * m + i, p.w[c] + i);
-          if constexpr (kLoss) loss[c] += logistic01_loss(z[c], yi);
+          row_spec<F>(kind, z[c], yi, mT, rw + c * m + i, p.w[c] + i);
+          if constexpr (kLoss) loss[c] += row_loss(kind, z[c], yi);
         } else {
           rw[c * m + i] = z[c];
         }
@@ -705,9 +742,11 @@ glm_finalize(const P* __restrict__ partials,
 // prep_grid). One-pass form: q > 0 chunks a thread, ``threads`` a
 // block, ``blocks`` blocks of ``rows_per_block`` rows, ``smem`` bytes.
 // Wide form: q == 0; ``blocks`` row chunks of ``rows_per_block`` rows
-// for the columns pass, ``row_blocks`` blocks for the rows pass.
+// for the columns pass, ``row_blocks`` blocks for the rows pass. ``kind``
+// is the spec's (Kind; the split form's calls do not read it).
 struct Grid {
   int64_t blocks, rows_per_block, smem, threads, q, row_blocks;
+  int kind;
 };
 
 template <typename S, typename T, int NC, RowOut F, int Q>
@@ -721,7 +760,8 @@ cudaError_t launch_onepass(const S* A, const T* y, const Prep<T, NC>& p,
   if (err != cudaSuccess) return err;
   kernel<<<static_cast<unsigned>(g.blocks), static_cast<unsigned>(g.threads),
            static_cast<size_t>(g.smem), s>>>(A, y, p, partials, loss_partials,
-                                             m, n, m_norm, g.rows_per_block);
+                                             m, n, m_norm, g.kind,
+                                             g.rows_per_block);
   return cudaGetLastError();
 }
 
@@ -759,10 +799,10 @@ cudaError_t launch_wide(const S* A, const T* y, const Prep<T, NC>& p, T* rw,
   if (phase == 0)
     glm_rows<S, T, VEC, NC, F><<<rb, kThreads, 0, s>>>(A, y, p, rw,
                                                        loss_partials, m, n,
-                                                       m_norm);
+                                                       m_norm, g.kind);
   if (phase == 1)
     glm_rows<S, T, VEC, NC, kZ><<<rb, kThreads, 0, s>>>(A, y, p, rw, nullptr,
-                                                        m, n, m_norm);
+                                                        m, n, m_norm, g.kind);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || phase == 1) return err;
   const int64_t nc = n / Wide<S, T, VEC>::E;
@@ -774,9 +814,9 @@ cudaError_t launch_wide(const S* A, const T* y, const Prep<T, NC>& p, T* rw,
   return cudaGetLastError();
 }
 
-// phase 0: the whole prep (logistic01 in flavour F; one-pass form where
+// phase 0: the whole prep (g.kind in flavour F; one-pass form where
 // g.q > 0, else wide); 1 and 2: the split form's two calls (g is a wide
-// grid; F does not enter them)
+// grid; F and g.kind do not enter them)
 template <typename S, typename T, int NC, RowOut F>
 int launch(const void* A, const void* y, const Prep<T, NC>& p, void* rw,
            void* partials, void* loss_partials, int64_t m, int64_t n,
@@ -793,7 +833,8 @@ int launch(const void* A, const void* y, const Prep<T, NC>& p, void* rw,
   const T* y_ = static_cast<const T*>(y);
   double* lp = static_cast<double*>(loss_partials);
   cudaError_t err;
-  if (phase < 0 || phase > 2 || (phase > 0 && g.q > 0)) {
+  if (phase < 0 || phase > 2 || (phase > 0 && g.q > 0) ||
+      (phase == 0 && (g.kind < kLogistic01 || g.kind > kPoisson))) {
     err = cudaErrorInvalidValue;
   } else if (g.q > 0) {
     err = dispatch_onepass<S, T, NC, F>(a, y_, p, static_cast<T*>(partials),
@@ -821,7 +862,8 @@ int launch(const void* A, const void* y, const Prep<T, NC>& p, void* rw,
 }  // namespace
 
 // K2: both candidates, with their loss sums, in flavour F (the _newton
-// entries: ProxNSCORE's cache), A in S and the rest in T. ``rw`` (2, m)
+// entries: ProxNSCORE's cache) for the spec ``kind`` (Kind), A in S and
+// the rest in T. ``rw`` (2, m)
 // is the wide form's scratch for ρ (unused by the one-pass form; the
 // split form's z, then its ρ); ``partials`` are (blocks, 4, n) in T
 // (one-pass) or double (wide, split); ``loss_partials`` (row_blocks, 2)
@@ -833,8 +875,8 @@ int launch(const void* A, const void* y, const Prep<T, NC>& p, void* rw,
                       const void* xd, void* wt, void* wd, void* rw,         \
                       void* bt, void* bd, void* ht, void* hd, void* lt,     \
                       void* ld, void* partials, void* loss_partials,        \
-                      int64_t m, int64_t n, int64_t m_norm, int64_t blocks, \
-                      int64_t rows_per_block, int64_t smem,                 \
+                      int64_t m, int64_t n, int64_t m_norm, int64_t kind,   \
+                      int64_t blocks, int64_t rows_per_block, int64_t smem, \
                       int64_t threads, int64_t q, int64_t row_blocks,       \
                       int64_t phase, void* stream) {                        \
     const Prep<T, 2> p{                                                     \
@@ -846,18 +888,19 @@ int launch(const void* A, const void* y, const Prep<T, NC>& p, void* rw,
     return launch<S, T, 2, F>(A, y, p, rw, partials, loss_partials, m, n,   \
                               m_norm,                                       \
                               Grid{blocks, rows_per_block, smem, threads,   \
-                                   q, row_blocks},                          \
+                                   q, row_blocks, static_cast<int>(kind)},  \
                               phase, stream);                               \
   }
 
-// K2s: one candidate, no loss, A in S. ``rw`` (m,) is the wide form's
+// K2s: one candidate, no loss, for the spec ``kind``, A in S. ``rw``
+// (m,) is the wide form's
 // scratch (the split form's z, then its ρ); ``partials`` (blocks, 2, n)
 // in T (one-pass) or double (wide, split); ``phase`` as K2's.
 #define SCSO_GLM_PREP_ENTRY(NAME, S, T)                                     \
   extern "C" int NAME(const void* A, const void* y, const void* x, void* w, \
                       void* rw, void* b, void* hd, void* partials,          \
-                      int64_t m, int64_t n, int64_t m_norm, int64_t blocks, \
-                      int64_t rows_per_block, int64_t smem,                 \
+                      int64_t m, int64_t n, int64_t m_norm, int64_t kind,   \
+                      int64_t blocks, int64_t rows_per_block, int64_t smem, \
                       int64_t threads, int64_t q, int64_t row_blocks,       \
                       int64_t phase, void* stream) {                        \
     const Prep<T, 1> p{{static_cast<const T*>(x)}, {static_cast<T*>(w)},    \
@@ -866,6 +909,7 @@ int launch(const void* A, const void* y, const Prep<T, NC>& p, void* rw,
     return launch<S, T, 1, kGGN>(A, y, p, rw, partials, nullptr, m, n,      \
                                  m_norm,                                    \
                                  Grid{blocks, rows_per_block, smem,         \
-                                      threads, q, row_blocks},              \
+                                      threads, q, row_blocks,               \
+                                      static_cast<int>(kind)},              \
                                  phase, stream);                            \
   }

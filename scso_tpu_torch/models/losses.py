@@ -1,6 +1,11 @@
 """The ported model families.
 
-Port of three parts of `scso_tpu.models.losses`:
+Port of five parts of `scso_tpu.models.losses`:
+  * least squares, f(A, y, x) = (1/(2m))·‖Ax − y‖², its gradient,
+    Hessian, GGN hooks and :data:`LSQ_GLM` spec (the group-lasso path);
+  * Poisson regression with the canonical log link,
+    f(A, y, x) = (1/m)·Σ [exp(Ax) − y⊙(Ax)], its gradient, Hessian, GGN
+    hooks and :data:`POISSON_GLM` spec;
   * logistic regression with 0/1 labels (the sparse-logistic path),
     f(A, y, x) = (1/m)·Σ [softplus(Ax) − y⊙(Ax)], its Hessian and its
     :data:`LOGISTIC01_GLM` spec;
@@ -11,8 +16,8 @@ Port of three parts of `scso_tpu.models.losses`:
   * multinomial (softmax) regression over the logits split Z = A·W,
     W = x.reshape(p, k), f = (1/m)·Σᵢ [logsumexp(Zᵢ) − yᵢ·Zᵢ], and its
     :data:`MULTINOM_MGLM` spec (per-k: :func:`multinom_mglm`).
-The other families (least squares, Poisson, the probability-split
-multinomial, QP, Rosenbrock) are not ported yet (ROADMAP A7, A8).
+The other families (the probability-split multinomial, QP, Rosenbrock)
+are not ported yet (ROADMAP A7).
 
 ``softplus`` here is ``logaddexp(z, 0)``, the form `jax.nn.softplus`
 uses. `torch.nn.functional.softplus` switches to the identity above
@@ -133,6 +138,136 @@ LOGISTIC01_GLM = GLMSpec(
     loss_z=lambda y, z: torch.mean(softplus(z) - y * z),
     loss_sample=lambda y, z: softplus(z) - y * z,
     kind="logistic01",
+)
+
+
+def lsq_f(A, y, x):
+    r = amul(A, x) - y
+    return 0.5 * torch.sum(r * r) / A.shape[0]
+
+
+def lsq_grad(A, y, x):
+    return atmul(A, amul(A, x) - y) / A.shape[0]
+
+
+def lsq_hess(A, y, x):
+    A = widen(A, x.dtype)
+    return A.T @ A / A.shape[0]
+
+
+def linear_out(A, x):
+    return amul(A, x)
+
+
+def lsq_loss(y, yhat):
+    r = yhat - y
+    return 0.5 * torch.sum(r * r) / yhat.shape[0]
+
+
+def lsq_ggn_residual(A, y, yhat):
+    return (yhat - y) / yhat.shape[0]
+
+
+def lsq_ggn_qdiag(A, y, yhat):
+    return torch.full_like(yhat, 1.0 / yhat.shape[0])
+
+
+def linear_jac(A, y, yhat, x):
+    return widen(A, yhat.dtype)
+
+
+def lsq_hvp_w(A, y, x):
+    """∇²f·v = Aᵀ(w∘(Av)) with w = 1/m for least squares."""
+    return torch.full((A.shape[0],), 1.0 / A.shape[0], dtype=x.dtype,
+                      device=x.device)
+
+
+lsq_ggn_w = lsq_hvp_w  # J = A, Q = I/m
+
+
+LSQ_GLM = GLMSpec(
+    link=lambda z: z,
+    dlink=torch.ones_like,
+    res=lambda y, yhat: (yhat - y) / yhat.shape[0],
+    qdiag=lambda y, yhat: torch.full_like(yhat, 1.0 / yhat.shape[0]),
+    hvp_w=lambda y, z: torch.full_like(z, 1.0 / z.shape[0]),
+    gres=lambda y, z: (z - y) / z.shape[0],
+    ggn_rw=lambda y, z: (z - y) / z.shape[0],
+    ggn_w=lambda y, z: torch.full_like(z, 1.0 / z.shape[0]),
+    loss_z=lambda y, z: 0.5 * torch.sum((z - y) ** 2) / z.shape[0],
+    loss_sample=lambda y, z: 0.5 * (z - y) ** 2,
+    kind="lsq",
+)
+
+
+# exp overflows float32 at z ≈ 88.7, in the JAX spec as here: keep the
+# data scaled so that the linear predictor stays moderate
+
+
+def poisson_f(A, y, x):
+    z = amul(A, x)
+    return torch.mean(torch.exp(z) - y * z)
+
+
+def poisson_grad(A, y, x):
+    return atmul(A, torch.exp(amul(A, x)) - y) / A.shape[0]
+
+
+def poisson_hess(A, y, x):
+    w = torch.exp(amul(A, x))
+    A = widen(A, x.dtype)
+    return (A.T * w) @ A / A.shape[0]
+
+
+def poisson_hvp_w(A, y, x):
+    """GLM Hessian weights: ∇²f·v = Aᵀ(w∘(Av)), w = exp(Ax)/m."""
+    return torch.exp(amul(A, x)) / A.shape[0]
+
+
+def exp_out(A, x):
+    """Model output ŷ = exp(A x), the canonical Poisson mean."""
+    return torch.exp(amul(A, x))
+
+
+def poisson_loss(y, yhat):
+    """(1/m)·Σ [ŷ − y log ŷ], the Poisson NLL in ŷ."""
+    return torch.mean(yhat - y * torch.log(yhat))
+
+
+def poisson_ggn_residual(A, y, yhat):
+    """∇_ŷ of :func:`poisson_loss`: (1 − y/ŷ)/m."""
+    return (1.0 - y / yhat) / yhat.shape[0]
+
+
+def poisson_ggn_qdiag(A, y, yhat):
+    """diag ∇²_ŷ of :func:`poisson_loss`: (y/ŷ²)/m."""
+    return y / yhat**2 / yhat.shape[0]
+
+
+def exp_jac(A, y, yhat, x):
+    """J = ∂ŷ/∂x = diag(ŷ)·A."""
+    return widen(A, yhat.dtype) * yhat[:, None]
+
+
+def poisson_ggn_w(A, y, x):
+    """GGN weights w = ŷ²·qdiag = y/m: the counts, no link evaluation
+    (the product form cancels both exponentials)."""
+    return torch.broadcast_to(y / A.shape[0], (A.shape[0],))
+
+
+POISSON_GLM = GLMSpec(
+    link=torch.exp,
+    dlink=torch.exp,
+    res=lambda y, yhat: (1.0 - y / yhat) / yhat.shape[0],
+    qdiag=lambda y, yhat: y / yhat**2 / yhat.shape[0],
+    hvp_w=lambda y, z: torch.exp(z) / z.shape[0],
+    gres=lambda y, z: (torch.exp(z) - y) / z.shape[0],
+    # product forms: ŷ·res = (ŷ−y)/m (no division) and ŷ²·qdiag = y/m
+    ggn_rw=lambda y, z: (torch.exp(z) - y) / z.shape[0],
+    ggn_w=lambda y, z: torch.broadcast_to(y / z.shape[0], z.shape),
+    loss_z=lambda y, z: torch.mean(torch.exp(z) - y * z),
+    loss_sample=lambda y, z: torch.exp(z) - y * z,
+    kind="poisson",
 )
 
 

@@ -45,19 +45,20 @@ SIGNATURES = {
     "scso_mglm_matvec": [_p] * 6 + [_i64] * 6 + [_p],
     "scso_mglm_matvec_bf16": [_p] * 6 + [_i64] * 6 + [_p],  # A in bf16
     # A, y, x_t, x_d, w_t, w_d, rw, b_t, b_d, hd_t, hd_d, loss_t, loss_d,
-    # partials, loss_partials, m, n, m_norm, then the PrepGrid (blocks,
-    # rows_per_block, smem_bytes, threads, chunks_per_thread,
-    # row_blocks), phase (0, or the split form's 1 and 2), stream
-    "scso_glm_prep_pair": [_p] * 15 + [_i64] * 10 + [_p],
+    # partials, loss_partials, m, n, m_norm, the spec's kind, then the
+    # PrepGrid (blocks, rows_per_block, smem_bytes, threads,
+    # chunks_per_thread, row_blocks), phase (0, or the split form's 1
+    # and 2), stream
+    "scso_glm_prep_pair": [_p] * 15 + [_i64] * 11 + [_p],
     # the same in the newton flavour (ProxNSCORE's epoch cache)
-    "scso_glm_prep_pair_newton": [_p] * 15 + [_i64] * 10 + [_p],
-    # A, y, x, w, rw, b, hd, partials, m, n, m_norm, the PrepGrid, phase,
-    # stream
-    "scso_glm_prep": [_p] * 8 + [_i64] * 10 + [_p],
+    "scso_glm_prep_pair_newton": [_p] * 15 + [_i64] * 11 + [_p],
+    # A, y, x, w, rw, b, hd, partials, m, n, m_norm, the kind, the
+    # PrepGrid, phase, stream
+    "scso_glm_prep": [_p] * 8 + [_i64] * 11 + [_p],
     # the same three with A in bfloat16, the rest in float32 / float64
-    "scso_glm_prep_pair_bf16": [_p] * 15 + [_i64] * 10 + [_p],
-    "scso_glm_prep_pair_newton_bf16": [_p] * 15 + [_i64] * 10 + [_p],
-    "scso_glm_prep_bf16": [_p] * 8 + [_i64] * 10 + [_p],
+    "scso_glm_prep_pair_bf16": [_p] * 15 + [_i64] * 11 + [_p],
+    "scso_glm_prep_pair_newton_bf16": [_p] * 15 + [_i64] * 11 + [_p],
+    "scso_glm_prep_bf16": [_p] * 8 + [_i64] * 11 + [_p],
     # S, Y, g, pos, count, H0, scratch (None: α/ρ in shared memory),
     # out, m, n, stream
     "scso_two_loop": [_p] * 8 + [_i64] * 2 + [_p],

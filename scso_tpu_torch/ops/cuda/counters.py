@@ -26,6 +26,13 @@ KERNEL_LAUNCHES: dict = {
     "mglm_matvec_bf16": 0,
     "two_loop": 0,
 }
+# K2 (both flavours) and K2s launches that computed the least-squares or
+# the Poisson GLM in the kernel (counted under the names above as well;
+# the split form counts there alone)
+KERNEL_LAUNCHES.update({
+    f"{k}_{kind}{a}": 0
+    for k in ("glm_prep", "glm_prep_pair", "glm_prep_pair_newton")
+    for kind in ("lsq", "poisson") for a in ("", "_bf16")})
 
 #: products of a bfloat16 A with a wider vector or matrix that the port
 #: runs outside its kernels (`ops/dense.py`: row blocks of A upcast, then

@@ -16,10 +16,15 @@ alone, 'newton' (ProxNSCORE's epoch cache: ρ = gres and w = hvp_w, the
 true Hessian weights, :func:`newton_weights`); K2 counts its newton
 launches apart (``glm_prep_pair_newton``). The TPU kernels trace a
 spec's Python callables into their bodies, which CUDA cannot: the
-one-pass and wide forms below compute the logistic01 GLM in the kernel
-(:func:`covers`), and any other GLM spec runs the split form: the wide
-form's two passes over A as two calls, the spec's own ρ, w and loss
-computed in PyTorch on the (m,) vector z between them.
+one-pass and wide forms below compute the spec kinds of
+:data:`KERNEL_KINDS` in the kernel — the logistic01, least-squares and
+Poisson GLMs, chosen by a runtime argument (:func:`covers`) — and any
+other GLM spec runs the split form: the wide form's two passes over A
+as two calls, the spec's own ρ, w and loss computed in PyTorch on the
+(m,) vector z between them. A launch of a kind other than logistic01
+also counts under its kind (``glm_prep_pair_lsq``,
+``glm_prep_pair_newton_poisson``, …); the split form counts under the
+base name alone.
 
 What bounds both on the H100 is the bytes of A. Up to :func:`max_n`
 (K2: n = 14336 in float32, 7168 in float64; K2s: 28672 and 14336) the
@@ -65,7 +70,9 @@ import torch
 from scso_tpu_torch.ops.cuda import build, counters, launch
 from scso_tpu_torch.ops.dense import widen
 
-KERNEL_KINDS = ("logistic01",)
+#: the spec kinds the one-pass and wide forms compute, in the order of
+#: their codes (``Kind`` in csrc/glm_prep.cuh)
+KERNEL_KINDS = ("logistic01", "lsq", "poisson")
 FLAVOURS = ("ggn", "newton")
 
 # dynamic shared memory a block may use: Hopper's 227 KB less headroom
@@ -198,9 +205,15 @@ def glm_prep_pair_torch(A, y, x_t, x_d, glm, m_norm=None,
 def covers(glm) -> bool:
     """True for a GLM spec whose forms the kernels compute themselves,
     in both flavours (the one-pass and wide forms): a kind in
-    :data:`KERNEL_KINDS` (logistic01), normalized by 1/m. Any other spec
-    takes the split form."""
+    :data:`KERNEL_KINDS` (logistic01, lsq, poisson), normalized by 1/m.
+    Any other spec takes the split form."""
     return glm.kind in KERNEL_KINDS and glm.sample_normalized
+
+
+def _kind_code(glm) -> int:
+    """The kernels' code of a covered spec's kind; -1 (unread) for the
+    split form."""
+    return KERNEL_KINDS.index(glm.kind) if covers(glm) else -1
 
 
 class PrepGrid(NamedTuple):
@@ -315,12 +328,17 @@ def _launcher(name, dev, dt, *args):
     return run
 
 
-def _base(name, A):
-    """The C entry's base name and the counters of a launch on A: a
-    bfloat16 A adds ``_bf16`` to both (and counts under ``name`` too)."""
-    if A.dtype == torch.bfloat16:
-        return f"scso_{name}_bf16", (name, f"{name}_bf16")
-    return f"scso_{name}", (name,)
+def _base(name, A, glm):
+    """The C entry's base name and the counters of a launch on A for
+    ``glm``: a bfloat16 A adds ``_bf16`` to both (and counts under
+    ``name`` too); a covered kind other than logistic01 counts under
+    ``name_kind`` (and ``name_kind_bf16``) as well."""
+    bf16 = A.dtype == torch.bfloat16
+    counts = [name] + ([f"{name}_bf16"] if bf16 else [])
+    if covers(glm) and glm.kind != "logistic01":
+        counts += [f"{name}_{glm.kind}"] + (
+            [f"{name}_{glm.kind}_bf16"] if bf16 else [])
+    return f"scso_{name}_bf16" if bf16 else f"scso_{name}", tuple(counts)
 
 
 def glm_prep(A, y, x, glm, m_norm=None):
@@ -337,14 +355,15 @@ def glm_prep(A, y, x, glm, m_norm=None):
     dev, dt = A.device, x.dtype
     grid = prep_grid(m, n, dt, 1, launch.sm_count(dev.index or 0),
                      covers(glm), A.dtype)
-    base, counts = _base("glm_prep", A)
+    base, counts = _base("glm_prep", A, glm)
     w, b, hd = torch.empty(m + 2 * n, dtype=dt, device=dev).split([m, n, n])
     # ``buf`` holds the scratch the pointers address until the launches
     buf, partials, _, rw = _scratch(grid, 1, m, n, dt, dev)
     run = _launcher(base, dev, dt, A.data_ptr(), y.data_ptr(),
                     x.data_ptr(), w.data_ptr(),
                     None if rw is None else rw.data_ptr(), b.data_ptr(),
-                    hd.data_ptr(), partials, m, n, m_norm, *grid[1:])
+                    hd.data_ptr(), partials, m, n, m_norm, _kind_code(glm),
+                    *grid[1:])
     if grid.form == "split":
         run(1)  # z into rw
         rho, w_ = _weights(glm, y, rw[0], m_norm)
@@ -382,13 +401,14 @@ def glm_prep_pair(A, y, x_t, x_d, glm, m_norm=None,
     # ``buf`` holds the scratch the pointers address until the launches
     buf, partials, loss_partials, rw = _scratch(grid, 2, m, n, dt, dev)
     name, counts = _base("glm_prep_pair_newton" if flavour == "newton"
-                         else "glm_prep_pair", A)
+                         else "glm_prep_pair", A, glm)
     run = _launcher(name, dev, dt, A.data_ptr(), y.data_ptr(),
                     x_t.data_ptr(), x_d.data_ptr(), w_t.data_ptr(),
                     w_d.data_ptr(), None if rw is None else rw.data_ptr(),
                     b_t.data_ptr(), b_d.data_ptr(), hd_t.data_ptr(),
                     hd_d.data_ptr(), loss_t.data_ptr(), loss_d.data_ptr(),
-                    partials, loss_partials, m, n, m_norm, *grid[1:])
+                    partials, loss_partials, m, n, m_norm, _kind_code(glm),
+                    *grid[1:])
     if grid.form == "split":
         run(1)  # z_t, z_d into rw
         loss_t, loss_d = (torch.sum(glm.loss_sample(y, z)) for z in rw)

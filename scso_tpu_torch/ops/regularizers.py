@@ -1,12 +1,13 @@
 """True (nonsmooth) regularizer values g(x).
 
-Port of `scso_tpu.ops.regularizers` for 'l1', 'l2' and 'indbox'; the
-group-lasso value is not ported yet (ROADMAP A8).
+Port of `scso_tpu.ops.regularizers`: 'l1', 'l2', 'indbox' and 'gl'.
 """
 
 from __future__ import annotations
 
 import torch
+
+from scso_tpu_torch.ops.groups import Groups, lasso_fz
 
 
 def indbox_f(x, lb, ub):
@@ -16,8 +17,10 @@ def indbox_f(x, lb, ub):
                        x.new_zeros(()))
 
 
-def reg_value(reg_name: str, x, *, lam, lb=None, ub=None):
-    """g(x): lam·Σ|x| (l1), lam·Σx² (l2), or the [lb, ub] indicator."""
+def reg_value(reg_name: str, x, *, lam, lb=None, ub=None,
+              groups: Groups = None):
+    """g(x): lam·Σ|x| (l1), lam·Σx² (l2), the [lb, ub] indicator, or
+    λ₂·Σ_g w_g‖x_g‖ + λ₁·Σ|x| (gl, lam = [λ₁, λ₂])."""
     if reg_name == "l1":
         return lam * torch.sum(torch.abs(x))
     if reg_name == "l2":
@@ -27,6 +30,12 @@ def reg_value(reg_name: str, x, *, lam, lb=None, ub=None):
             raise ValueError("indbox regularizer requires lb/ub (C_set)")
         return indbox_f(x, lb, ub)
     if reg_name == "gl":
-        raise NotImplementedError(
-            "the group-lasso regularizer is not ported yet (ROADMAP A8)")
+        lam = torch.atleast_1d(torch.as_tensor(lam))
+        if lam.shape[0] != 2:
+            raise ValueError(
+                "Please provide exactly two entries for lam, e.g. "
+                "[lam1, lam2]")
+        if groups is None:
+            raise ValueError("gl regularizer requires group structure")
+        return lam[1] * lasso_fz(groups, x) + lam[0] * torch.sum(torch.abs(x))
     raise ValueError(f"reg_name {reg_name!r} not valid.")

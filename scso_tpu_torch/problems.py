@@ -9,8 +9,9 @@ card). ∇f is the user's ``grad_fx``, else autograd through ``f``
 ``torch.func.hessian``; the Hessian-vector product forward-over-reverse.
 The dense GGN step reads (ŷ, J, residual, Q) from the user's ``jac_yx``,
 ``grad_fy`` and ``hess_fy``, else from autograd of ``out_fn`` and
-``loss_fn``. The generic ``f(x)`` flavour, group structure and test data
-are not ported yet (ROADMAP A7, A8).
+``loss_fn``. ``groups`` is the group structure of the sparse group
+lasso ('gl'). The generic ``f(x)`` flavour and test data are not
+ported yet (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from scso_tpu_torch._src.struct import frozen_dataclass
+from scso_tpu_torch.ops.groups import Groups, make_groups
 from scso_tpu_torch.ops.regularizers import reg_value
 
 
@@ -114,6 +116,7 @@ class Problem:
     L: Optional[torch.Tensor] = None
     lb: Optional[torch.Tensor] = None
     ub: Optional[torch.Tensor] = None
+    groups: Optional[Groups] = None
     glm: Optional[GLMSpec] = None
     mglm: Optional[MOGLMSpec] = None
     grad_fx: Optional[Callable] = None
@@ -213,7 +216,8 @@ class Problem:
         return yhat, residual, q_diag
 
     def reg(self, reg_name: str, x):
-        return reg_value(reg_name, x, lam=self.lam, lb=self.lb, ub=self.ub)
+        return reg_value(reg_name, x, lam=self.lam, lb=self.lb, ub=self.ub,
+                         groups=self.groups)
 
     def obj(self, reg_name: str, x, As=None, ys=None):
         """f(x) + λ·g(x), on the full data by default."""
@@ -243,7 +247,22 @@ def _resolve_bounds(C_set, dtype, device):
     return to(C_set[0]), to(C_set[1])
 
 
-def make_problem(*args, L=None, sol=None, C_set=None, glm=None,
+def _pad_groups(grp: Groups, pad: int) -> Groups:
+    """``grp`` with ONE zero-weight group of the ``pad`` padded elements
+    appended. Zeros stay exactly zero through a solve: the zero-padded A
+    keeps the gradient and CG right-hand side at 0 there, the GL
+    smoother's chain-rule gradient and Hessian carry the element weight
+    (0), and both prox stages map 0 to 0."""
+    seg = grp.segment_ids.cpu().numpy()
+    w = grp.weights.cpu()
+    return make_groups(
+        np.concatenate([seg, np.full((pad,), grp.n_groups, dtype=np.int64)]),
+        torch.cat([w, torch.zeros((1,), dtype=w.dtype)]).numpy(),
+        n_groups=grp.n_groups + 1, dtype=w.dtype)
+
+
+def make_problem(*args, L=None, sol=None, C_set=None, P=None, groups=None,
+                 glm=None,
                  mglm=None, grad_fx=None, hess_fx=None, out_fn=None,
                  loss_fn=None, jac_yx=None, grad_fy=None, hess_fy=None,
                  hess_fy_diag=None, hvp_w=None, ggn_w=None, dtype=None,
@@ -261,12 +280,16 @@ def make_problem(*args, L=None, sol=None, C_set=None, glm=None,
     when absent); ``mglm`` cannot be padded. The derivative hooks
     ``hess_fx``, ``out_fn``, ``loss_fn``, ``jac_yx``, ``grad_fy``,
     ``hess_fy``, ``hess_fy_diag``, ``hvp_w`` and ``ggn_w`` are the JAX
-    package's (see :class:`Problem`).
+    package's (see :class:`Problem`). ``P``/``groups`` take a
+    :class:`~scso_tpu_torch.ops.groups.Groups` (the reference's `get_P`
+    object); it is moved to ``device`` with its weights in ``dtype``,
+    and under padding gets one zero-weight group of the padded
+    coordinates.
     """
     if unported:
         raise NotImplementedError(
             f"make_problem options {sorted(unported)} are not ported yet "
-            "(ROADMAP A7, A8)")
+            "(ROADMAP A7)")
     if len(args) != 5:
         raise NotImplementedError(
             "only the data flavour make_problem(A, y, x0, f, lam) is "
@@ -278,6 +301,7 @@ def make_problem(*args, L=None, sol=None, C_set=None, glm=None,
         if not dtype.is_floating_point:
             dtype = torch.float32
 
+    grp = groups if groups is not None else P
     n_true = None
     if pad_features:
         n = x0.shape[-1]
@@ -293,6 +317,8 @@ def make_problem(*args, L=None, sol=None, C_set=None, glm=None,
                     "pad_features cannot be combined with mglm: padding "
                     "appends to the flat x while the multi-output model "
                     "reads x.reshape(n_features, n_out)")
+            if grp is not None:
+                grp = _pad_groups(grp, pad)
             n_true = n
 
             def zpad(v):
@@ -329,6 +355,7 @@ def make_problem(*args, L=None, sol=None, C_set=None, glm=None,
         L=None if L is None else to(L),
         lb=lb,
         ub=ub,
+        groups=None if grp is None else grp.to(device=device, dtype=dtype),
         glm=glm,
         mglm=mglm,
         grad_fx=grad_fx,

@@ -14,11 +14,15 @@ import torch
 
 from scso_tpu_torch.algorithms.steps import GLMCache, MOGLMCache
 from scso_tpu_torch.models import losses
+from scso_tpu_torch.ops.groups import make_groups
 from scso_tpu_torch.ops.lbfgs_core import LBFGSMemory
 from scso_tpu_torch.problems import Problem, resolve_device
 
 _GLMS = {"logistic01": (losses.LOGISTIC01_GLM, losses.logistic01_f,
                         losses.logistic01_grad),
+         "lsq": (losses.LSQ_GLM, losses.lsq_f, losses.lsq_grad),
+         "poisson": (losses.POISSON_GLM, losses.poisson_f,
+                     losses.poisson_grad),
          "multinomial": (None, losses.multinom_f, losses.multinom_grad)}
 
 
@@ -29,12 +33,15 @@ def _to(dtype, device):
 
 def problem_from_numpy(A, y, x0, lam, *, x_star=None, L=None, n_true=None,
                        glm="logistic01", n_out=None, grad_fx=False,
-                       A_lp=None, dtype=torch.float64, device=None,
-                       **hooks) -> Problem:
+                       A_lp=None, groups=None, dtype=torch.float64,
+                       device=None, **hooks) -> Problem:
     """A :class:`Problem` over arrays that are already as the JAX
     Problem holds them (padded, when ``n_true`` is given — no padding is
-    applied here). ``glm='multinomial'`` builds the multi-output problem
-    with ``mglm=multinom_mglm(n_out)``. ``grad_fx=True`` passes the
+    applied here). ``glm`` names the family: 'logistic01', 'lsq' or
+    'poisson' (their GLM specs), or 'multinomial', the multi-output
+    problem with ``mglm=multinom_mglm(n_out)``. ``groups`` is the JAX
+    Groups' (segment_ids, weights) as numpy arrays (the pad group
+    included, when the JAX problem has one). ``grad_fx=True`` passes the
     family's closed-form gradient (else ∇f is autograd through f).
 
     ``A_lp`` is the JAX problem's low-precision copy of A, given as
@@ -55,11 +62,15 @@ def problem_from_numpy(A, y, x0, lam, *, x_star=None, L=None, n_true=None,
         mglm = losses.multinom_mglm(n_out)
     to = _to(dtype, device)
     x0 = to(x0)
+    if groups is not None:
+        seg, wts = (np.asarray(g) for g in groups)
+        groups = make_groups(seg, wts, n_groups=wts.shape[0], dtype=dtype,
+                             device=x0.device)
     return Problem(
         x0=x0, lam=to(lam), A=to(A), y=to(y),
         x_star=to(x_star) if x_star is not None else torch.zeros_like(x0),
         f=f, dtype=dtype, device=x0.device,
-        L=None if L is None else to(L), glm=spec, mglm=mglm,
+        L=None if L is None else to(L), groups=groups, glm=spec, mglm=mglm,
         grad_fx=grad if grad_fx else None, n_true=n_true,
         A_lp=None if A_lp is None else _bf16_exact(A_lp, x0.device),
         **hooks)

@@ -73,8 +73,12 @@ def test_problem_from_numpy_round_trip():
         assert np.array_equal(got.numpy(), want)
     assert float(p.lam) == 0.02 and float(p.L) == 2.0 and p.n_true == 6
     assert p.glm is losses.LOGISTIC01_GLM
+    for name, spec in (("lsq", losses.LSQ_GLM),
+                       ("poisson", losses.POISSON_GLM)):
+        assert problem_from_numpy(A, y, x0, 0.02, glm=name,
+                                  device="cpu").glm is spec
     with pytest.raises(ValueError):
-        problem_from_numpy(A, y, x0, 0.02, glm="poisson", device="cpu")
+        problem_from_numpy(A, y, x0, 0.02, glm="probit", device="cpu")
 
 
 def test_glm_cache_round_trip():

@@ -1,8 +1,11 @@
 """The port's CUDA kernels and its solve on the card (marked ``cuda``).
 
 Each kernel is held against its plain PyTorch version on the same CUDA
-tensors (K2 in both its flavours), and small float64 solves through the
-kernels (GGN-CG, L-BFGS, Newton-CG) against the plain path on the CPU.
+tensors (K2 in both its flavours; K2 and K2s also with the least-squares
+and Poisson kinds computed in the kernel), and small float64 solves
+through the kernels (GGN-CG, L-BFGS, Newton-CG; also on the group-lasso
+and Poisson problems) against the plain path on the CPU. The group sums
+and the group-lasso smoother rerun bitwise on the card.
 K1s runs under a one-rank NCCL group, where it must be K1 bit for bit.
 K1, K2 (both flavours), K2s and K5 with A in bfloat16 (the copy of
 precision-adaptive CG, the coarse phase of iterate_mixed) are held
@@ -129,16 +132,11 @@ def test_data_kernels_match_plain(dev, dtype, m, n):
         _check(g, w_, dtype)
     again = glm_prep_pair(A, y, v * 0.1, v * 0.2, LOGISTIC01_GLM)
     assert all(torch.equal(g, a) for g, a in zip(got, again))
-    assert counters.snapshot() == {"normal_matvec": 1,
-                                   "normal_matvec_bf16": 0,
-                                   "normal_matvec_sharded": 0,
-                                   "glm_prep": 0, "glm_prep_bf16": 0,
-                                   "glm_prep_pair": 2,
-                                   "glm_prep_pair_bf16": 0,
-                                   "glm_prep_pair_newton": 0,
-                                   "glm_prep_pair_newton_bf16": 0,
-                                   "score_update": 0, "mglm_matvec": 0,
-                                   "mglm_matvec_bf16": 0, "two_loop": 0}
+    # one K1 launch and two K2 launches (the logistic01 kind, which has
+    # no kind counter of its own); every other counter 0
+    want = dict.fromkeys(counters.KERNEL_LAUNCHES, 0)
+    want.update(normal_matvec=1, glm_prep_pair=2)
+    assert counters.snapshot() == want
 
 
 @pytest.mark.parametrize("dtype,m,n", [(torch.float32, 4099, 40000),
@@ -282,9 +280,9 @@ def test_mglm_matvec_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError):
         mglm_matvec(A.half(), y.half(), Z.half(), V.half(), spec)
     # any kind runs (the split form), and any k (the two-pass form)
-    poisson = replace(spec, kind="poisson")
-    _check(mglm_matvec(A, y, Z, V, poisson),
-           mglm_matvec_torch(A, y, Z, V, poisson), torch.float32)
+    probit = replace(spec, kind="probit")
+    _check(mglm_matvec(A, y, Z, V, probit),
+           mglm_matvec_torch(A, y, Z, V, probit), torch.float32)
     A, y, Z, V = _mglm_inputs(dev, torch.float32, 16, 4, 129)
     spec = losses.multinom_mglm(129)
     _check_k5(mglm_matvec(A, y, Z, V, spec),
@@ -483,10 +481,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="shapes"):
         glm_prep_pair(A, torch.zeros(5, device=dev), torch.zeros(8, device=dev),
                       torch.zeros(8, device=dev),
-                      replace(LOGISTIC01_GLM, kind="poisson"))
+                      replace(LOGISTIC01_GLM, kind="probit"))
     with pytest.raises(ValueError, match="shapes"):
         glm_prep(A, torch.zeros(4, device=dev), torch.zeros(9, device=dev),
-                 replace(LOGISTIC01_GLM, kind="poisson"))
+                 replace(LOGISTIC01_GLM, kind="probit"))
     g = torch.zeros(8, device=dev)
     # any memory size runs: an empty one gives −g
     assert torch.equal(two_loop(lbfgs_core.init_memory(
@@ -990,5 +988,161 @@ def test_small_mixed_solves_match_cpu(dev, method, kind, lam, coarse):
                              sm, coarse_max_epoch=20, **kw)
     assert s_gpu.epochs == s_cpu.epochs
     assert s_gpu.cg_info["coarse_epochs"] == s_cpu.cg_info["coarse_epochs"]
+    np.testing.assert_allclose(s_gpu.obj.numpy(), s_cpu.obj.numpy(),
+                               rtol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# the least-squares and Poisson kinds in K2 and K2s, the group sums, and
+# the group-lasso and Poisson solves
+# ---------------------------------------------------------------------------
+
+KINDS = {"lsq": losses.LSQ_GLM, "poisson": losses.POISSON_GLM}
+# both sides of K2's and K2s's one-pass limits, fewer rows than blocks,
+# ragged rows
+KIND_SHAPES = K2_SHAPES + [(301, 28672), (301, 28676), (517, 14336),
+                           (517, 14338)]
+
+
+def _kind_inputs(dev, dtype, m, n, kind):
+    gen = torch.Generator(device=dev).manual_seed(m * 5 + n)
+    A = torch.randn((m, n), generator=gen, device=dev, dtype=dtype) * 0.1
+    if kind == "poisson":
+        y = torch.randint(0, 6, (m,), generator=gen, device=dev).to(dtype)
+    else:
+        y = torch.randn((m,), generator=gen, device=dev, dtype=dtype)
+    xt = torch.randn((n,), generator=gen, device=dev, dtype=dtype) * 0.3
+    xd = torch.randn((n,), generator=gen, device=dev, dtype=dtype) * 0.3
+    return A, y, xt, xd
+
+
+@pytest.mark.parametrize("kind", ["lsq", "poisson"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,n", KIND_SHAPES)
+def test_glm_kinds_match_plain(dev, dtype, m, n, kind):
+    # K2 in both flavours and K2s compute the kind in the kernel (never
+    # the split form), with A in the compute type and in bfloat16;
+    # reruns are bitwise equal
+    glm = KINDS[kind]
+    A, y, xt, xd = _kind_inputs(dev, dtype, m, n, kind)
+    for a in (A, A.to(torch.bfloat16)):
+        bf = "_bf16" if a.dtype == torch.bfloat16 else ""
+        for flavour in ("ggn", "newton"):
+            counters.reset()
+            got = glm_prep_pair(a, y, xt, xd, glm, flavour=flavour)
+            want = glm_prep_pair_torch(a, y, xt, xd, glm, flavour=flavour)
+            for g, w_ in zip(got, want):
+                assert g.dtype == dtype
+                _check(g, w_, dtype)
+            assert all(torch.equal(g, r) for g, r in zip(
+                got, glm_prep_pair(a, y, xt, xd, glm, flavour=flavour)))
+            base = ("glm_prep_pair_newton" if flavour == "newton"
+                    else "glm_prep_pair")
+            snap = counters.snapshot()
+            assert snap[base] == snap[f"{base}_{kind}{bf}"] == 2, snap
+        counters.reset()
+        got = glm_prep(a, y, xt, glm)
+        for g, w_ in zip(got, glm_prep_torch(a, y, xt, glm)[:3]):
+            _check(g, w_, dtype)
+        assert all(torch.equal(g, r) for g, r in zip(
+            got, glm_prep(a, y, xt, glm)))
+        snap = counters.snapshot()
+        assert snap["glm_prep"] == snap[f"glm_prep_{kind}{bf}"] == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_group_sums_and_gl_hessian_rerun_bitwise(dev, dtype):
+    # the segment sums take a fixed order on the card (no float atomics):
+    # contiguous groups with a zero-weight pad group, and unsorted ids
+    n = 4096
+    seg = np.concatenate([np.arange(4000) // 16, np.full(96, 250)])
+    w = np.concatenate([np.ones(250), [0.0]])
+    perm = np.random.default_rng(3).permutation(n)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((n,), generator=gen, device=dev, dtype=dtype)
+    for ids in (seg, seg[perm]):
+        g = st.make_groups(ids, w, dtype=dtype).to(device=dev)
+        sums = st.ops.groups.segment_sum(g, x)
+        assert torch.equal(sums, st.ops.groups.segment_sum(g, x))
+        _check(sums.cpu(), st.ops.groups.segment_sum(
+            st.make_groups(ids, w, dtype=dtype), x.cpu()), dtype)
+        sm = st.ops.smoothers.PHuberSmootherGL(
+            1e-2, torch.tensor(1e-8, dtype=dtype, device=dev),
+            torch.tensor(0.1, dtype=dtype, device=dev), g)
+        for f in ("val", "grad", "hess_diag"):
+            got = getattr(sm, f)(x, g.element_weights)
+            assert torch.equal(got, getattr(sm, f)(x, g.element_weights))
+        assert torch.equal(st.reg_value("gl", x, lam=torch.tensor(
+            [1e-8, 0.1], dtype=dtype, device=dev), groups=g),
+            st.reg_value("gl", x, lam=torch.tensor(
+                [1e-8, 0.1], dtype=dtype, device=dev), groups=g))
+
+
+def _small_gl(device):
+    A, y, x_true, x0, groups = synthetic.make_group_lasso_problem(
+        512, 120, 16, p_active=0.1, noise_std=0.1, seed=1234,
+        dtype=np.float64)
+    return st.Problem(A, y, x0, losses.lsq_f, [1e-8, 0.01],
+                      grad_fx=losses.lsq_grad, glm=losses.LSQ_GLM,
+                      sol=x_true, groups=groups, dtype=torch.float64,
+                      device=device, pad_features=True)
+
+
+def _small_poisson(device):
+    A, y, x0, x_true = synthetic.make_sparse_poisson_data(
+        2000, 192, density=0.08, n_active=12, seed=7, dtype=np.float64)
+    return st.Problem(A, y, x0, losses.poisson_f, 5e-2,
+                      grad_fx=losses.poisson_grad, glm=losses.POISSON_GLM,
+                      sol=x_true, dtype=torch.float64, device=device)
+
+
+# problem, method, the kernels the card launches (and no other), mixed
+SMALL_KIND_SOLVES = {
+    "gl_cached": ("gl", st.ProxGGNSCORE(solver="cg", cg_maxiter=100),
+                  ("normal_matvec", "glm_prep_pair", "glm_prep_pair_lsq"),
+                  False),
+    "gl_uncached": ("gl", st.ProxGGNSCORE(solver="cg", epoch_cache=False),
+                    ("normal_matvec", "glm_prep", "glm_prep_lsq"), False),
+    "poisson_cached": ("poisson", st.ProxGGNSCORE(solver="cg"),
+                       ("normal_matvec", "glm_prep_pair",
+                        "glm_prep_pair_poisson", "score_update"), False),
+    "poisson_uncached": ("poisson", st.ProxGGNSCORE(solver="cg",
+                                                    epoch_cache=False),
+                         ("normal_matvec", "glm_prep", "glm_prep_poisson",
+                          "score_update"), False),
+    "poisson_newton": ("poisson", st.ProxNSCORE(solver="cg"),
+                       ("normal_matvec", "glm_prep_pair_newton",
+                        "glm_prep_pair_newton_poisson", "score_update"),
+                       False),
+    "gl_cached_mixed": ("gl", st.ProxGGNSCORE(solver="cg"),
+                        ("glm_prep_pair_lsq_bf16", "normal_matvec_bf16"),
+                        True),
+    "poisson_cached_mixed": ("poisson", st.ProxGGNSCORE(solver="cg"),
+                             ("glm_prep_pair_poisson_bf16",
+                              "normal_matvec_bf16"), True),
+}
+
+
+@pytest.mark.parametrize("name", list(SMALL_KIND_SOLVES))
+def test_small_gl_and_poisson_solves_match_cpu(dev, name):
+    what, method, kernels, mixed = SMALL_KIND_SOLVES[name]
+    mk = _small_gl if what == "gl" else _small_poisson
+    reg = "gl" if what == "gl" else "l1"
+    sm = ((lambda p: st.PHuberSmootherGL(1e-2, p)) if what == "gl"
+          else (lambda p: st.PHuberSmootherL1L2(1.0)))
+    kw = dict(x_tol=1e-12, f_tol=1e-10, max_epoch=40, verbose=0,
+              stats_every=4, alpha=1.0)
+    run = ((lambda p: st.iterate_mixed(method, p, reg, sm(p),
+                                       coarse_max_epoch=20, **kw))
+           if mixed else (lambda p: st.iterate(method, p, reg, sm(p), **kw)))
+    counters.reset()
+    s_gpu = run(mk(dev))
+    got = counters.snapshot()
+    if mixed:
+        assert all(got[k] > 0 for k in kernels), got
+    else:
+        assert all((got[k] > 0) == (k in kernels) for k in got), got
+    s_cpu = run(mk("cpu"))
+    assert s_gpu.epochs == s_cpu.epochs
     np.testing.assert_allclose(s_gpu.obj.numpy(), s_cpu.obj.numpy(),
                                rtol=1e-9)

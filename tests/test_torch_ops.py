@@ -12,11 +12,12 @@ import torch
 
 import jax.numpy as jnp
 
+from scso_tpu.ops import groups as jgroups
 from scso_tpu.ops import linalg as jlinalg
 from scso_tpu.ops import prox as jprox
 from scso_tpu.ops import regularizers as jreg
 from scso_tpu.ops import smoothers as jsm
-from scso_tpu_torch.ops import linalg, prox, regularizers, smoothers
+from scso_tpu_torch.ops import groups, linalg, prox, regularizers, smoothers
 
 torch.set_num_threads(1)
 
@@ -81,9 +82,22 @@ class TestProx:
         _close(got, want)
 
     def test_gl_and_unknown_raise(self):
+        # 'gl' without groups raises as in the JAX package; with them it
+        # is the JAX package's prox (tests/test_torch_group_lasso.py holds
+        # it on more inputs)
         x = _t(np.ones(4))
-        with pytest.raises(NotImplementedError, match="A8"):
-            prox.prox_step("gl", x, x, 0.1, 1.0)
+        with pytest.raises(ValueError, match="group"):
+            prox.prox_step("gl", x, x, _t([0.1, 0.2]), 1.0)
+        xv = np.random.default_rng(2).standard_normal(8)
+        h = np.linspace(0.5, 2.0, 8)
+        got = prox.prox_step("gl", _t(xv), _t(h), _t([0.05, 0.3]), 0.7,
+                             groups=groups.make_contiguous_groups(
+                                 8, 4, dtype=torch.float64))
+        want = jprox.prox_step("gl", jnp.asarray(xv), jnp.asarray(h),
+                               jnp.asarray([0.05, 0.3]), 0.7,
+                               groups=jgroups.make_contiguous_groups(
+                                   8, 4, dtype=np.float64))
+        _close(got, want)
         with pytest.raises(ValueError):
             prox.prox_step("l0", x, x, 0.1, 1.0)
         with pytest.raises(ValueError):
@@ -109,8 +123,21 @@ class TestRegularizers:
         assert float(got) == float(want)
 
     def test_gl_raises(self):
-        with pytest.raises(NotImplementedError, match="A8"):
-            regularizers.reg_value("gl", _t(np.ones(3)), lam=_t(0.1))
+        # the 'gl' value raises without two λ or without groups, as in the
+        # JAX package, and with them is λ₂·Σ_g w_g‖x_g‖ + λ₁·Σ|x|
+        grp = groups.make_contiguous_groups(6, 2, dtype=torch.float64)
+        with pytest.raises(ValueError, match="two entries"):
+            regularizers.reg_value("gl", _t(np.ones(6)), lam=_t(0.1),
+                                   groups=grp)
+        with pytest.raises(ValueError, match="group"):
+            regularizers.reg_value("gl", _t(np.ones(6)), lam=_t([0.1, 0.2]))
+        x = np.random.default_rng(3).standard_normal(6)
+        got = regularizers.reg_value("gl", _t(x), lam=_t([0.1, 0.2]),
+                                     groups=grp)
+        want = jreg.reg_value("gl", jnp.asarray(x), lam=[0.1, 0.2],
+                              groups=jgroups.make_contiguous_groups(
+                                  6, 2, dtype=np.float64))
+        assert float(got) == pytest.approx(float(want), rel=RTOL)
 
 
 class TestCG:

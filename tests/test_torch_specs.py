@@ -1,8 +1,9 @@
 """GLM and MOGLM specs of any kind in the port's kernels, against scso_tpu.
 
 The JAX package traces any spec's callables into its kernels. K2/K2s
-(the GLM preps) compute the logistic01 GLM and K5 (the mglm matvec) the
-multinomial MOGLM inside the kernel, and every other spec through their
+(the GLM preps) compute the logistic01, least-squares and Poisson GLMs
+and K5 (the mglm matvec) the multinomial MOGLM inside the kernel, and
+every other spec through their
 split form: the kernel's two passes over A, the spec's own forms in
 PyTorch between them. The form is a pure function of the shapes and
 the spec (`glm_prep.prep_grid`, `mglm_matvec.mglm_grid`, from
@@ -50,8 +51,10 @@ SPECS = [
     ("logistic01", "glm_prep", losses.LOGISTIC01_GLM, True),
     ("glm_kind_none", "glm_prep", replace(losses.LOGISTIC01_GLM, kind=None),
      False),
-    ("glm_poisson", "glm_prep",
-     replace(losses.LOGISTIC01_GLM, kind="poisson"), False),
+    ("glm_poisson", "glm_prep", losses.POISSON_GLM, True),
+    ("glm_lsq", "glm_prep", losses.LSQ_GLM, True),
+    ("glm_unknown_kind", "glm_prep",
+     replace(losses.LOGISTIC01_GLM, kind="probit"), False),
     ("glm_unnormalized", "glm_prep",
      replace(losses.LOGISTIC01_GLM, sample_normalized=False), False),
     ("multinomial", "mglm_matvec", losses.multinom_mglm(4), True),
