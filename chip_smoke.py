@@ -20,7 +20,10 @@ result. Phases, each fatal on failure:
      version), at block-boundary shapes (with n % 8 != 0: a bfloat16
      row that is not 16-byte aligned), at n above K1's shared-memory
      form (also with A in bfloat16),
-     at odd n for K3 and at n = 2²⁴ + 1 (its multi-block form), also
+     at odd n for K3, on both sides of its form gates (one block, one
+     cluster of the card's largest size, the grid form) and at slice
+     edges of its cluster (every slice full, a short last
+     one, empty trailing blocks), also
      with NaN and ±inf in d and with a NaN η (non-finite where the plain
      version's outputs are, equal elsewhere), for K5
      at the multinomial bench shape (where its limit must also reject
@@ -29,6 +32,9 @@ result. Phases, each fatal on failure:
      each limit) and at k = 1, 17, 128, 129 and 200, and for K4 at the
      L-BFGS path's shape and at other n and m (up to 4100 slots) with
      empty, partial, full and wrapped memories and a slot with yᵀs = 0,
+     on both sides of its shared-memory residency limit and of
+     SMEM_BYTES, each also launched with S and Y streamed, q in the
+     output and α, ρ in the scratch (the same bits),
      and for K2 and K2s on both sides of their one-pass form's n limit
      and at fewer rows than blocks; K2 (both flavours) and K2s with
      LSQ_GLM and POISSON_GLM, each kind computed in the kernel (its
@@ -47,7 +53,15 @@ result. Phases, each fatal on failure:
      K1 with A in bfloat16, K1s, K2 in both flavours and K2s also at
      524288×1024 beside their bounds, K2 also in its split form; the lsq
      kind's rows at 262144×4096, the poisson kind's at the main shape),
-     and of one 40 KB NCCL all-reduce.
+     and of one 40 KB NCCL all-reduce. K3 (at n = 10112, 2²⁰ and 2²⁴)
+     and K4 (at (n, m) = (10112, 10), (100000, 10) and (10112, 100))
+     also get the device time alone (``graph_ms``: a CUDA graph of 20
+     calls replayed between events) and the host time a call
+     (``host_ms``: the enqueue rate over 100 calls), beside an empty
+     kernel's launch measured the same three ways (one block, and one
+     cluster of 16), the floor a launch sets; and K3's device time in
+     each form (one block, clusters of 8 and 16, the grid) at n from
+     1024 to 2²⁴ (``k3_sweep``), the sweep its gates come from.
   3. The sparse-logistic path at full width: 196608×10000 (padded to
      10112), seed 7, float32 on the card, solved by the JAX bench's
      ProxGGNSCORE(solver='cg', cg_maxiter=100) with A in float32
@@ -185,7 +199,9 @@ move (each input read once, each output written once) over 3.35 TB/s
 and its multiply-adds over A (or the vectors) at 67 TFLOP/s — K5 with
 A in bfloat16, on the tensor cores, at 495 TFLOP/s (TF32) — the H100
 SXM data sheet's rates, at the shape it was timed; ``library_ms`` is
-null: no single PyTorch call computes any of these functions.
+null: no single PyTorch call computes any of these functions. The K3
+and K4 rows add ``device_ms`` and ``host_ms`` (``graph_ms`` and
+``host_ms`` at the ``ms`` row's shape).
 Tolerances (stated with each comparison below): float32 rtol 2e-5 and
 atol 3e-5·max(1, max|ref|); K5 in float32 atol TOL["k5"]·max|ref|
 alone, with no floor of 1, so that it holds the tensor-core form's
@@ -223,10 +239,16 @@ BOUNDARY_SHAPES = [(37, 128), (947, 384), (2249, 1920), (131, 128),
 PREP_SHAPES = [(1, 256), (5, 1001), (1031, 14336), (1031, 14340),
                (517, 7168), (517, 7170), (301, 28672), (301, 28676),
                (517, 14336), (517, 14338)]
-# the last n is K3's first past its one-block form (2²⁴)
-K3_NS = [7, 129, 1000, 8192, 8320, 9001, 16384, 23456, 131072,
-         (1 << 24) + 1]
+# K3 at odd n; phase 2 adds both sides of each of its form gates and
+# slice edges (k3_boundary_cases)
+K3_NS = [7, 129, 1000, 8192, 8320, 9001, 16384, 23456, 131072]
 K3_REGS = ["l1", "l2", "indbox", "none"]
+# K3 timed (per call, device, host) at the main path's n and at 2²⁰ and
+# 2²⁴; its forms swept at K3_SWEEP_NS, from 1024 to 2²⁴ (the gates of
+# ops/cuda/score_update.py come from that sweep)
+K3_TIMED_NS = (10112, 1 << 20, 1 << 24)
+K3_SWEEP_NS = (1024, 4096, 10112, 16384, 32768, 65536, 1 << 18, 1 << 19,
+               1 << 20, 1 << 22, 1 << 24)
 WIDE_SHAPES = [(4099, 40000, "float32"), (2049, 20000, "float64")]
 MGLM_SHAPE = (196608, 1024, 16)
 # tests/test_multioutput.py's kernel and odd shapes, the widest p of
@@ -258,7 +280,11 @@ LBFGS_RTOL = 1e-5     # L-BFGS objective histories, kernels vs plain, f32
 TWO_LOOP_CASES = [(10112, 10, 10), (10112, 10, 0), (361, 5, 3),
                   (777, 9, 18), (100000, 10, 13), (64, 1, 4),
                   (777, 65, 70), (361, 100, 103), (2000, 200, 130),
-                  (64, 4100, 4103)]
+                  (64, 4100, 4103), (10112, 100, 103)]
+# K4 timed (per call, device, host): the L-BFGS path's shape, a wider n
+# and a larger memory; phase 2 adds both sides of its shared-memory
+# residency limit and of SMEM_BYTES (two_loop_boundary_cases)
+TWO_LOOP_TIMED = ((10112, 10), (100000, 10), (10112, 100))
 TWO_RANK_ROWS = 32768  # rows of each rank in phase 8(b)
 # the GGN-CG method of phases 3, 5, 7-10 and 13 (and chip_profile.py,
 # chip_sharded.py): the JAX bench's ProxGGNSCORE(solver='cg',
@@ -437,6 +463,73 @@ def time_ms(fn, reps=5, run_ms=20.0):
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def graph_ms(fn, calls=20, reps=5):
+    """Device time a call alone: a CUDA graph of ``calls`` calls, captured
+    after a warm-up on a side stream, replayed between two CUDA events;
+    the median over ``reps`` replays."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(times)
+
+
+def host_ms(fn, calls=100, reps=5):
+    """Host time a call: the enqueue rate, the host clock around
+    ``calls`` calls with no synchronisation among them; the median over
+    ``reps`` runs."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e3 / calls)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def three_times(fn):
+    """(per call, device, host) ms of ``fn``: time_ms, graph_ms,
+    host_ms."""
+    return time_ms(fn), graph_ms(fn), host_ms(fn)
+
+
+def launch_floor():
+    """three_times of an empty kernel's launch: one block, and one
+    cluster of 16 blocks through cudaLaunchKernelEx."""
+    import torch
+
+    from scso_tpu_torch.ops.cuda import launch
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return {"one block": three_times(lambda: launch.empty_launch(dev)),
+            "cluster of 16": three_times(
+                lambda: launch.empty_launch(dev, 16, 16))}
 
 
 def data_kernel_case(m, n, dtype, gen, mesh, timed=False):
@@ -745,14 +838,11 @@ def kind_case(m, n, dtype, gen, timed=False):
     return errs, times
 
 
-def score_update_case(n, reg, dtype, gen, timed=False):
+def score_update_inputs(n, reg, dtype, gen):
+    """K3's arguments at n: lgr = 0 on a tenth of the values."""
     import torch
 
-    from scso_tpu_torch.ops.cuda.score_update import (
-        score_update, score_update_torch)
-
     dev = "cuda"
-    dn = str(dtype).replace("torch.", "")
     r = lambda: torch.randn((n,), generator=gen, device=dev, dtype=dtype)
     x, d, lgr = r(), r(), r()
     lgr[torch.rand((n,), generator=gen, device=dev) < 0.1] = 0.0
@@ -761,30 +851,88 @@ def score_update_case(n, reg, dtype, gen, timed=False):
     ss = torch.tensor(0.6, dtype=dtype, device=dev)
     lb = torch.full((n,), -0.5, dtype=dtype, device=dev)
     ub = torch.full((n,), 0.7, dtype=dtype, device=dev)
-    use_prox = reg != "none"
-    args = (x, d, lgr, hr, lam, ss, 3.0, "l1" if reg == "none" else reg,
-            use_prox, lb, ub)
-    tag = f"score_update (n={n} {reg} {dn})"
-    got = score_update(*args)
-    same_bits(tag, got, score_update(*args))
-    want = score_update_torch(*args)
+    return (x, d, lgr, hr, lam, ss, 3.0, "l1" if reg == "none" else reg,
+            reg != "none", lb, ub)
+
+
+def score_update_case(n, reg, dtype, gen, timed=False, form=None):
+    """K3 against its plain version at n, in update_form's form or in
+    ``form``; with ``timed``, (per call, device, host) ms of the kernel
+    and the plain version's per-call ms."""
+    from scso_tpu_torch.ops.cuda import score_update as k3
+
+    dn = str(dtype).replace("torch.", "")
+    args = score_update_inputs(n, reg, dtype, gen)
+    run = ((lambda: k3.score_update(*args)) if form is None
+           else (lambda: k3._launch(*args, form=form)))
+    tag = f"score_update (n={n} {reg} {dn}{'' if form is None else f' {form}'})"
+    got = run()
+    same_bits(tag, got, run())
+    want = k3.score_update_torch(*args)
     err = max(compare(f"{tag}.{f}", g, w_, dn)
               for f, g, w_ in zip(got._fields, got, want))
     times = None
     if timed:
-        times = (time_ms(lambda: score_update(*args)),
-                 time_ms(lambda: score_update_torch(*args)))
+        times = (*three_times(run), time_ms(lambda: k3.score_update_torch(
+            *args)))
     return err, times
 
 
-def score_update_nonfinite_case(n, reg, dtype, gen):
-    """K3 on a runaway step (NaN and ±inf in d), then on a NaN η: its
-    outputs must be non-finite where the plain version's are, with the
-    same values elsewhere (a NaN must not come out as a finite x⁺)."""
+def k3_boundary_cases(max_cluster):
+    """(n, form) of K3 on both sides of each gate of update_form (form
+    None: the wrapper's own choice) and at slice edges of a cluster of
+    ``max_cluster`` blocks (forced): every slice full, a short last
+    slice, and empty trailing blocks."""
+    from scso_tpu_torch.ops.cuda.score_update import (
+        CLUSTER_N, GRID_N, UpdateForm, cluster_slice)
+
+    gates = [(n, None) for n in (CLUSTER_N - 1, CLUSTER_N, GRID_N - 1,
+                                 GRID_N)]
+    full = max_cluster * 640
+    edges = [(n, UpdateForm(max_cluster, cluster_slice(n, max_cluster),
+                            False))
+             for n in (full, full + 1, 16 * 32 + 1, 1)]
+    return gates + edges
+
+
+def k3_sweep(max_cluster, gen):
+    """K3's device time (graph_ms, float32, l1) at each n of K3_SWEEP_NS
+    in each form: one block, clusters of 8 and ``max_cluster`` blocks,
+    and the grid form (blocks of at least 65536 values)."""
     import torch
 
-    from scso_tpu_torch.ops.cuda.score_update import (
-        score_update, score_update_torch)
+    from scso_tpu_torch.ops.cuda import score_update as k3
+
+    out = {}
+    for n in K3_SWEEP_NS:
+        args = score_update_inputs(n, "l1", torch.float32, gen)
+        forms = {f"cluster {c}": k3.UpdateForm(c, k3.cluster_slice(n, c),
+                                               False)
+                 for c in sorted({1, 8, max_cluster})}
+        nblk = min(1024, -(-n // (1 << 16)))
+        forms["grid"] = k3.UpdateForm(nblk, -(-n // nblk), True)
+        out[n] = {name: graph_ms(lambda: k3._launch(*args, form=f))
+                  for name, f in forms.items()}
+        log(f"  K3 sweep n={n}: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in out[n].items())
+            + f" (device time, graph_ms); update_form: "
+            f"{k3.update_form(n, max_cluster)}")
+        del args
+    return out
+
+
+def score_update_nonfinite_case(n, reg, dtype, gen, form=None):
+    """K3 on a runaway step (NaN and ±inf in d), then on a NaN η: its
+    outputs must be non-finite where the plain version's are, with the
+    same values elsewhere (a NaN must not come out as a finite x⁺); in
+    update_form's form or in ``form``."""
+    import torch
+
+    from scso_tpu_torch.ops.cuda import score_update as k3
+    from scso_tpu_torch.ops.cuda.score_update import score_update_torch
+
+    score_update = ((lambda *a: k3._launch(*a, form=form)) if form
+                    else k3.score_update)
 
     dev = "cuda"
     dn = str(dtype).replace("torch.", "")
@@ -813,16 +961,15 @@ def score_update_nonfinite_case(n, reg, dtype, gen):
                 compare(f"{tag}.{f}", u[fin], v[fin], dn)
 
 
-def two_loop_case(n, m, pushes, dtype, gen, timed=False):
-    """K4 against its plain version on a memory of ``pushes``
-    SPD-quadratic pairs (γ = B·δ); with two or more, one valid slot gets
-    an s and a y of disjoint support, so yᵀs = 0 exactly."""
+def two_loop_inputs(n, m, pushes, dtype, gen):
+    """K4's memory of ``pushes`` SPD-quadratic pairs (γ = B·δ) and a
+    gradient; with two or more pairs, one valid slot gets an s and a y
+    of disjoint support, so yᵀs = 0 exactly."""
     import torch
 
     from scso_tpu_torch.ops import lbfgs_core
-    from scso_tpu_torch.ops.cuda.two_loop import two_loop, two_loop_torch
 
-    dev, dn = "cuda", str(dtype).replace("torch.", "")
+    dev = "cuda"
     bdiag = torch.rand((n,), generator=gen, device=dev, dtype=dtype) * 4 + 0.5
     mem = lbfgs_core.init_memory(n, m, dtype, dev)
     for _ in range(pushes):
@@ -836,17 +983,64 @@ def two_loop_case(n, m, pushes, dtype, gen, timed=False):
         Y[slot, : n // 2] = 0
         mem = mem._replace(S=S, Y=Y)
     g = torch.randn((n,), generator=gen, device=dev, dtype=dtype)
-    tag = f"two_loop (n={n} m={m} pairs={pushes} {dn})"
-    got = two_loop(mem, g)
-    same_bits(tag, [got], [two_loop(mem, g)])
-    err = compare(tag, got, two_loop_torch(mem, g), dn)
+    return mem, g
+
+
+def two_loop_case(n, m, pushes, dtype, gen, timed=False, plan=None):
+    """K4 against its plain version on two_loop_inputs' memory;
+    ``plan`` forces a launch plan; with ``timed``, (per call, device,
+    host) ms of the kernel and the plain version's per-call ms."""
+    import torch
+
+    from scso_tpu_torch.ops.cuda import launch
+    from scso_tpu_torch.ops.cuda import two_loop as k4
+
+    dn = str(dtype).replace("torch.", "")
+    mem, g = two_loop_inputs(n, m, pushes, dtype, gen)
+    run = ((lambda: k4.two_loop(mem, g)) if plan is None
+           else (lambda: k4._launch(mem, g, plan)))
+    tag = (f"two_loop (n={n} m={m} pairs={pushes} {dn}"
+           f"{'' if plan is None else f' {plan}'})")
+    got = run()
+    same_bits(tag, [got], [run()])
+    if plan is None:
+        # the same blocks and slices with S and Y streamed, q in the
+        # output and α, ρ in the scratch must give the same bits
+        bare = k4.two_loop_plan(n, m, g.element_size(), launch.max_cluster(
+            "scso_two_loop", dtype, g.device.index))._replace(
+                alpha_smem=False, q_smem=False, resident=False, smem=0)
+        same_bits(f"{tag} against {bare}", [got], [k4._launch(mem, g, bare)])
+    err = compare(tag, got, k4.two_loop_torch(mem, g), dn)
     if pushes == 0 and not torch.equal(got, -g):
         fail(f"{tag}: an empty memory must give -g exactly")
     times = None
     if timed:
-        times = (time_ms(lambda: two_loop(mem, g)),
-                 time_ms(lambda: two_loop_torch(mem, g)))
+        times = (*three_times(run),
+                 time_ms(lambda: k4.two_loop_torch(mem, g)))
     return err, times
+
+
+def two_loop_boundary_cases(dtype, max_cluster):
+    """(n, m, pushes) of K4 on both sides of its shared-memory residency
+    limit (m = 10: the largest n whose slices sit in shared memory, and
+    the next) and of SMEM_BYTES (the largest m whose α and ρ sit in
+    shared memory, and the next), as two_loop_plan lays them out on this
+    card."""
+    import torch
+
+    from scso_tpu_torch.ops.cuda.two_loop import SMEM_BYTES, two_loop_plan
+
+    size = torch.empty((), dtype=dtype).element_size()
+    step = 32 * max_cluster
+    n = step
+    while two_loop_plan(n + step, 10, size, max_cluster).resident:
+        n += step
+    if not (two_loop_plan(n, 10, size, max_cluster).resident
+            and not two_loop_plan(n + 1, 10, size, max_cluster).resident):
+        fail(f"two_loop: no residency edge at n={n} ({dtype})")
+    m = SMEM_BYTES // (2 * size)
+    return [(n, 10, 13), (n + 1, 10, 13), (64, m, m + 3),
+            (64, m + 1, m + 4)]
 
 
 def wide_matvec_case(m, n, dtype, gen):
@@ -1051,11 +1245,21 @@ def phase_kernels(mesh):
     import torch
     import torch.distributed as dist
 
+    from scso_tpu_torch.ops.cuda import launch
+    from scso_tpu_torch.ops.cuda.two_loop import two_loop_plan
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     main = (MAIN_SHAPE[0], MAIN_SHAPE[1] + (-MAIN_SHAPE[1]) % 128)
     errs = {k: 0.0 for k in KERNELS}
     times, narrow_times = {}, {}
+    # (device, host) ms a call of K3 and K4 at their paths' shapes
+    split = {}
+    floor = launch_floor()
+    for what, t in floor.items():
+        log(f"  launch floor, an empty kernel ({what}): per call {t[0]:.4f}"
+            f" ms, device {t[1]:.4f} ms, host {t[2]:.4f} ms a call")
+    k3_sweep(launch.max_cluster("scso_score_update", torch.float32, 0), gen)
     for dtype in (torch.float32, torch.float64):
         for (m, n) in [main, NARROW_SHAPE] + BOUNDARY_SHAPES:
             timed = dtype == torch.float32 and (m, n) in (main, NARROW_SHAPE)
@@ -1079,18 +1283,30 @@ def phase_kernels(mesh):
                 narrow_times = t
         for (m, n) in PREP_SHAPES:
             prep_case(m, n, dtype, gen)
-        for n in K3_NS:
+        k3_cases = [(n, None) for n in K3_NS] + k3_boundary_cases(
+            launch.max_cluster("scso_score_update", dtype, 0))
+        for n, form in k3_cases:
             for reg in K3_REGS:
-                score_update_case(n, reg, dtype, gen)
-                score_update_nonfinite_case(n, reg, dtype, gen)
-        # K3 at the main-path width (not in the odd-n list)
+                score_update_case(n, reg, dtype, gen, form=form)
+                score_update_nonfinite_case(n, reg, dtype, gen, form=form)
+        # K3 at the main-path width (not in the odd-n list), and timed
+        # there and at the other K3_TIMED_NS
         err, t = score_update_case(main[1], "l1", dtype, gen,
                                    timed=dtype == torch.float32)
         if dtype == torch.float32:
-            times["score_update"] = t
+            times["score_update"] = (t[0], t[3])
+            split["score_update"] = t[1:3]
             errs["score_update"] = err
-        log(f"  K3 {len(K3_NS)}×{len(K3_REGS)} cases + n={main[1]} "
-            f"{dtype}: ok")
+            for n in K3_TIMED_NS:
+                t = t if n == main[1] else score_update_case(
+                    n, "l1", dtype, gen, timed=True)[1]
+                log(f"  K3 n={n} float32: per call {t[0]:.4f} ms, device "
+                    f"{t[1]:.4f} ms, host {t[2]:.4f} ms a call, plain "
+                    f"{t[3]:.4f} ms; bound "
+                    f"{bound(4 * 5 * n, 20 * n)[0]:.5f} ms")
+        log(f"  K3 {len(k3_cases)}×{len(K3_REGS)} cases (gates and slice "
+            f"edges: {[(n, f) for n, f in k3_cases if n not in K3_NS]}) "
+            f"+ n={main[1]} {dtype}: ok")
         dn = str(dtype).replace("torch.", "")
         for (m, n, wdn) in WIDE_SHAPES:
             if wdn == dn:
@@ -1114,15 +1330,27 @@ def phase_kernels(mesh):
         for (m, p, k) in MGLM_SPLIT_SHAPES:
             log(f"  K5 split form {m}x{p}x{k} {dn}: max abs err "
                 f"{mglm_split_case(m, p, k, dtype, gen):.3e}")
-        for i, (n, m, pushes) in enumerate(TWO_LOOP_CASES):
+        k4_max = launch.max_cluster("scso_two_loop", dtype, 0)
+        k4_cases = TWO_LOOP_CASES + two_loop_boundary_cases(dtype, k4_max)
+        for i, (n, m, pushes) in enumerate(k4_cases):
             timed = dtype == torch.float32 and i == 0
             err, t = two_loop_case(n, m, pushes, dtype, gen, timed=timed)
             if i == 0:
                 log(f"  K4 n={n} m={m} {dn}: max abs err {err:.3e}")
             if timed:
-                times["two_loop"] = t
+                times["two_loop"] = (t[0], t[3])
+                split["two_loop"] = t[1:3]
                 errs["two_loop"] = err
-        log(f"  K4 {len(TWO_LOOP_CASES)} memories {dn}: ok")
+        log(f"  K4 {len(k4_cases)} memories {dn} (residency and SMEM_BYTES "
+            f"edges: {k4_cases[len(TWO_LOOP_CASES):]}; cluster of "
+            f"{k4_max} at most): ok")
+        if dtype == torch.float32:
+            for n, m in TWO_LOOP_TIMED:
+                t = two_loop_case(n, m, m + 3, dtype, gen, timed=True)[1]
+                log(f"  K4 n={n} m={m} float32 ({two_loop_plan(n, m, 4, k4_max)}): "
+                    f"per call {t[0]:.4f} ms, device {t[1]:.4f} ms, host "
+                    f"{t[2]:.4f} ms a call, plain {t[3]:.4f} ms; bound "
+                    f"{bound(4 * (2 * m * n + 2 * n), 8 * m * n)[0]:.5f} ms")
     # the least-squares and Poisson kinds in K2/K2s: the main shape, the GL
     # path's, the narrow one and PREP_SHAPES (both sides of each one-pass
     # limit, fewer rows than blocks), A in float32 / float64 and bfloat16;
@@ -1188,7 +1416,8 @@ def phase_kernels(mesh):
     ar_ms = time_ms(lambda: dist.all_reduce(buf, group=mesh.group))
     log(f"  one all-reduce of {buf.numel() * 4} bytes over the one-rank "
         f"NCCL group: {ar_ms:.4f} ms (CUDA events, runs of calls)")
-    return errs, times, work_bounds(main, MGLM_SHAPE, TWO_LOOP_CASES[0])
+    return (errs, times, work_bounds(main, MGLM_SHAPE, TWO_LOOP_CASES[0]),
+            split)
 
 
 # ---------------------------------------------------------------------------
@@ -2769,7 +2998,7 @@ def main():
 
     mesh = one_rank_nccl()
     log("phase 2: kernels against their plain versions")
-    errs, times, work = phase_kernels(mesh)
+    errs, times, work, split = phase_kernels(mesh)
 
     log("phase 3/4: sparse-logistic path at full width, and cross-checks")
     kern, plain, launches, prob_t, best = phase_main_path()
@@ -2873,6 +3102,8 @@ def main():
                      "max_abs_err": errs[k], "ms": times[k][0],
                      "plain_ms": times[k][1], "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": None})
+        if k in split:
+            rows[-1]["device_ms"], rows[-1]["host_ms"] = split[k]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

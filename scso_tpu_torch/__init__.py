@@ -41,7 +41,8 @@ from scso_tpu_torch.ops.prox import (
 from scso_tpu_torch.ops.regularizers import reg_value
 from scso_tpu_torch.ops.smoothers import (
     NoSmooth, OsBaSmootherL1L2, PHuberSmootherL1L2, get_Mg, sanitize_bounds)
-from scso_tpu_torch.problems import GLMSpec, MOGLMSpec
+from scso_tpu_torch.problems import (
+    GLMSpec, Interval, MOGLMSpec, is_interval_set)
 from scso_tpu_torch.problems import Problem as CompositeProblem
 from scso_tpu_torch.problems import make_problem
 
@@ -90,6 +91,8 @@ __all__ = [
     "GLMSpec",
     "MOGLMSpec",
     "make_problem",
+    "Interval",
+    "is_interval_set",
     "ProxNSCORE",
     "ProxGGNSCORE",
     "ProxLQNSCORE",

@@ -6,6 +6,7 @@
 // values that are each a long sum, and reacts to their last bits.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -176,6 +177,103 @@ template <> struct Chunk<double, true> {
   }
 };
 
+// The most blocks of a cluster (the H100's non-portable limit).
+constexpr int kMaxCluster = 16;
+
+// A cluster barrier split in two: a block may write another's shared
+// memory only once that block has started, so a cluster kernel arrives
+// (relaxed: it orders no memory) as it starts and waits, with every
+// thread, just before its first store into another block; the work
+// between hides the barrier's latency.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// Sums of W values over a thread-block cluster, returned in ``v`` to
+// every thread of every block with the same bits:
+//   * each warp sums its lanes (warp_sum) into ``red`` (W·32 doubles);
+//     after a block barrier warp 0 adds those in warp order: the block's
+//     partials;
+//   * lane r of warp 0 stores them into block r's ``inbox`` (W·16
+//     doubles), at this block's rank, through distributed shared memory:
+//     one store a block and value, where reading them remotely would
+//     take one load a reading warp;
+//   * after cluster.sync() every thread adds the partials in its own
+//     inbox in rank order 0, 1, ….
+// A call writes every block's inbox, so the next call must take another
+// one (two, used in turns, suffice: a block writes an inbox again only
+// after every block has passed the barrier of the call between, that
+// is, has read it); ``red`` is free again after the cluster barrier.
+// No block reads another's shared memory, so a block may leave right
+// after; before the first call every block must have passed
+// cluster_wait(). With one block the sums are block_sum's order.
+template <int W>
+__device__ __forceinline__ void cluster_reduce(
+    cooperative_groups::cluster_group& cl, double (&v)[W], double* red,
+    double* inbox) {
+  const unsigned lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned nw = blockDim.x >> 5, nb = cl.num_blocks();
+#pragma unroll
+  for (int w = 0; w < W; ++w) v[w] = warp_sum(v[w]);
+  if (lane == 0) {
+#pragma unroll
+    for (int w = 0; w < W; ++w) red[w * 32 + warp] = v[w];
+  }
+  __syncthreads();
+  if (warp == 0) {
+    double b[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      b[w] = red[w * 32];
+      for (unsigned k = 1; k < nw; ++k) b[w] += red[w * 32 + k];
+    }
+    if (lane < nb) {
+      double* dst = cl.map_shared_rank(inbox, lane) + cl.block_rank() * W;
+#pragma unroll
+      for (int w = 0; w < W; ++w) dst[w] = b[w];
+    }
+  }
+  cl.sync();
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    v[w] = inbox[w];
+    for (unsigned r = 1; r < nb; ++r) v[w] += inbox[r * W + w];
+  }
+}
+
+// Launch config of one cluster of ``blocks`` blocks (the whole grid).
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  ClusterLaunch(unsigned blocks, unsigned threads, size_t smem,
+                cudaStream_t stream)
+      : cfg(), attr() {
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = blocks;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// How many clusters of ``blocks`` blocks of ``kernel`` the card can hold
+// at once (0: such a cluster cannot be launched).
+template <typename K>
+inline cudaError_t clusters_that_fit(K kernel, unsigned blocks,
+                                     unsigned threads, size_t smem,
+                                     int* count) {
+  ClusterLaunch l(blocks, threads, smem, nullptr);
+  return cudaOccupancyMaxActiveClusters(count, kernel, &l.cfg);
+}
+
 // Allow more than 48 KB of dynamic shared memory for a kernel.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {
@@ -183,6 +281,15 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// Let a cluster kernel run clusters of up to 16 blocks (8 is the
+// portable limit) and take ``smem`` bytes of dynamic shared memory.
+template <typename K>
+inline cudaError_t allow_cluster(K kernel, size_t smem) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e != cudaSuccess ? e : allow_smem(kernel, smem);
 }
 
 }  // namespace scso

@@ -6,22 +6,29 @@
 //   α     = ss / (1 + M_g·η);  safe = min(1, α)
 //   x⁺    = prox(x + safe·d; t = ss·λ·hr)   for l1, l2, indbox or none
 //   pri   = ‖x⁺ − x‖
-// The elementwise phase needs the grid-wide η first. The vectors are
-// short (n ≈ 10⁴ on the main path): the whole update is ~7 reads of n
-// values, so it is bound by launch latency, not by bytes. One block of
-// 1024 threads therefore loops over all of n — no grid-wide
-// synchronisation, one launch — with two fixed-order block reductions
-// (in double), so the result is bitwise the same from run to run.
-// Past the wrapper's one-block limit (n > 2²⁴) the bytes dominate and
-// one SM would take milliseconds, so a multi-block form takes over,
-// still in a fixed order: (1) each block writes its slice's partial of
-// Σ lgr²/hr; (2) every block adds all those partials in the same order
-// (so every block forms the same η, α and safe), applies the prox to
-// its slice and writes its partial of ‖x⁺ − x‖²; (3) one block adds
-// those in order. The one-block form stays below the limit, so every
-// chain of the smaller problems keeps its bits.
-// λ and ss are read from device memory and pri, safe, η are written
-// there, so the caller never waits for the device.
+// The elementwise phase needs the grid-wide η first. What bounds it on
+// the H100: at the main path's n ≈ 10⁴ the update is ~7 reads of n
+// values, so latency (one launch, two dependent reductions), not bytes;
+// at n = 2²⁰ and more it is the bytes, which one SM cannot pull at the
+// card's rate.
+//
+// Cluster form (the wrapper's ``update_form``): ONE launch of one
+// thread-block cluster of up to 16 blocks of 1024 threads, block b owning
+// a contiguous slice of n. Each block reduces its double partial of
+// Σ lgr²/hr and pushes it into every block's shared memory through
+// distributed shared memory; after cluster.sync() every block adds the
+// partials in rank order (common.cuh, cluster_reduce), so every block
+// forms the same η, α and safe; each block applies the prox to its slice
+// and the partials of ‖x⁺ − x‖² are added the same way.
+// Grid form, from the cluster's n limit on: three launches, still in a
+// fixed order: (1) each block writes its slice's partial of Σ lgr²/hr;
+// (2) every block adds all those partials in the same order, applies the
+// prox to its slice and writes its partial of ‖x⁺ − x‖²; (3) one block
+// adds those in order.
+// Every sum is in double and in a fixed order, with no float atomics, so
+// reruns are bitwise equal. λ and ss are read from device memory and
+// pri, safe, η are written there, so the caller never waits for the
+// device.
 #include "common.cuh"
 
 namespace {
@@ -92,31 +99,41 @@ __device__ __forceinline__ T safe_step(T eta, T ss, double Mg) {
   return nan_min(ss / (T(1) + static_cast<T>(Mg) * eta), T(1));
 }
 
+// cluster form: block of rank b owns [b·chunk, min(n, (b+1)·chunk))
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-score_update(const T* __restrict__ x, const T* __restrict__ d,
-             const T* __restrict__ lgr, const T* __restrict__ hr,
-             const T* __restrict__ lb, const T* __restrict__ ub,
-             const T* __restrict__ lam_p, const T* __restrict__ ss_p,
-             double Mg, int64_t reg, T* __restrict__ x_new,
-             T* __restrict__ stats, int64_t n) {
+score_update_cluster(const T* __restrict__ x, const T* __restrict__ d,
+                     const T* __restrict__ lgr, const T* __restrict__ hr,
+                     const T* __restrict__ lb, const T* __restrict__ ub,
+                     const T* __restrict__ lam_p, const T* __restrict__ ss_p,
+                     double Mg, int64_t reg, T* __restrict__ x_new,
+                     T* __restrict__ stats, int64_t n, int64_t chunk) {
   __shared__ double red[32];
-  double acc = 0.0;
-  for (int64_t i = threadIdx.x; i < n; i += kThreads)
-    acc += eta_term(lgr[i], hr[i]);
-  const T eta = static_cast<T>(sqrt(scso::block_sum(acc, red)));
+  // the blocks' partials of Σ lgr²/hr, then of Σ (x⁺ − x)², by rank
+  __shared__ double inbox[2][scso::kMaxCluster];
+  cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+  scso::cluster_arrive_relaxed();
+  const int64_t i0 = static_cast<int64_t>(cl.block_rank()) * chunk;
+  const int64_t i1 = scso::imin(n, i0 + chunk);
+  double acc[1] = {0.0};
+  for (int64_t i = i0 + threadIdx.x; i < i1; i += kThreads)
+    acc[0] += eta_term(lgr[i], hr[i]);
+  scso::cluster_wait();  // every block has started
+  scso::cluster_reduce<1>(cl, acc, red, inbox[0]);
+  const T eta = static_cast<T>(sqrt(acc[0]));
   const T lam = *lam_p, ss = *ss_p;
   const T safe = safe_step(eta, ss, Mg);
-  const double pri = sqrt(scso::block_sum(
-      apply(x, d, hr, lb, ub, lam, ss, safe, reg, x_new, 0, n), red));
-  if (threadIdx.x == 0) {
-    stats[0] = static_cast<T>(pri);
+  double pri2[1] = {apply(x, d, hr, lb, ub, lam, ss, safe, reg, x_new, i0,
+                          i1)};
+  scso::cluster_reduce<1>(cl, pri2, red, inbox[1]);
+  if (cl.block_rank() == 0 && threadIdx.x == 0) {
+    stats[0] = static_cast<T>(sqrt(pri2[0]));
     stats[1] = safe;
     stats[2] = eta;
   }
 }
 
-// multi-block form: block b owns [b·chunk, min(n, (b+1)·chunk))
+// grid form: block b owns [b·chunk, min(n, (b+1)·chunk))
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 score_eta_partials(const T* __restrict__ lgr, const T* __restrict__ hr,
@@ -176,8 +193,8 @@ template <typename T>
 int launch(const void* x_, const void* d_, const void* lgr_, const void* hr_,
            const void* lb_, const void* ub_, const void* lam_,
            const void* ss_, double Mg, int64_t reg, void* x_new_,
-           void* stats_, void* partials, int64_t n, int64_t nblk,
-           void* stream) {
+           void* stats_, void* partials, int64_t n, int64_t blocks,
+           int64_t chunk, int64_t grid, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   const T* x = static_cast<const T*>(x_);
   const T* d = static_cast<const T*>(d_);
@@ -189,43 +206,65 @@ int launch(const void* x_, const void* d_, const void* lgr_, const void* hr_,
   const T* ss = static_cast<const T*>(ss_);
   T* x_new = static_cast<T*>(x_new_);
   T* stats = static_cast<T*>(stats_);
-  if (nblk == 0) {
-    score_update<T><<<1, kThreads, 0, s>>>(x, d, lgr, hr, lb, ub, lam, ss,
-                                           Mg, reg, x_new, stats, n);
-    return static_cast<int>(cudaGetLastError());
+  // the wrapper's slices must cover n
+  if (blocks < 1 || chunk < 1 || blocks * chunk < n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!grid) {
+    if (blocks > 16) return static_cast<int>(cudaErrorInvalidValue);
+    static const cudaError_t allowed =
+        scso::allow_cluster(score_update_cluster<T>, 0);
+    if (allowed != cudaSuccess) return static_cast<int>(allowed);
+    scso::ClusterLaunch l(static_cast<unsigned>(blocks), kThreads, 0, s);
+    return static_cast<int>(cudaLaunchKernelEx(
+        &l.cfg, score_update_cluster<T>, x, d, lgr, hr, lb, ub, lam, ss, Mg,
+        reg, x_new, stats, n, chunk));
   }
   double* eta_part = static_cast<double*>(partials);
-  double* pri_part = eta_part + nblk;
-  const int64_t chunk = (n + nblk - 1) / nblk;
-  const unsigned grid = static_cast<unsigned>(nblk);
-  score_eta_partials<T><<<grid, kThreads, 0, s>>>(lgr, hr, eta_part, n,
+  double* pri_part = eta_part + blocks;
+  const unsigned nblk = static_cast<unsigned>(blocks);
+  score_eta_partials<T><<<nblk, kThreads, 0, s>>>(lgr, hr, eta_part, n,
                                                   chunk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  score_apply<T><<<grid, kThreads, 0, s>>>(x, d, hr, lb, ub, lam, ss, Mg,
+  score_apply<T><<<nblk, kThreads, 0, s>>>(x, d, hr, lb, ub, lam, ss, Mg,
                                            reg, eta_part, pri_part, x_new,
                                            stats, n, chunk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  score_pri<T><<<1, kThreads, 0, s>>>(pri_part, stats, nblk);
+  score_pri<T><<<1, kThreads, 0, s>>>(pri_part, stats, blocks);
   return static_cast<int>(cudaGetLastError());
+}
+
+// clusters of ``blocks`` blocks of the cluster form the card holds at once
+template <typename T>
+int cluster_fit(int64_t blocks, void* count) {
+  cudaError_t e = scso::allow_cluster(score_update_cluster<T>, 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(scso::clusters_that_fit(
+      score_update_cluster<T>, static_cast<unsigned>(blocks), kThreads, 0,
+      static_cast<int*>(count)));
 }
 
 }  // namespace
 
-#define SCSO_SCORE_UPDATE_ENTRY(NAME, T)                                     \
+#define SCSO_SCORE_UPDATE_ENTRY(NAME, FIT, T)                                \
   extern "C" int NAME(const void* x, const void* d, const void* lgr,        \
                       const void* hr, const void* lb, const void* ub,       \
                       const void* lam, const void* ss, double Mg,           \
                       int64_t reg, void* x_new, void* stats,                \
-                      void* partials, int64_t n, int64_t nblk,              \
-                      void* stream) {                                       \
+                      void* partials, int64_t n, int64_t blocks,            \
+                      int64_t chunk, int64_t grid, void* stream) {          \
     return launch<T>(x, d, lgr, hr, lb, ub, lam, ss, Mg, reg, x_new, stats, \
-                     partials, n, nblk, stream);                            \
+                     partials, n, blocks, chunk, grid, stream);             \
+  }                                                                          \
+  extern "C" int FIT(int64_t blocks, void* count) {                          \
+    return cluster_fit<T>(blocks, count);                                    \
   }
 
-SCSO_SCORE_UPDATE_ENTRY(scso_score_update_f32, float)
-SCSO_SCORE_UPDATE_ENTRY(scso_score_update_f64, double)
+SCSO_SCORE_UPDATE_ENTRY(scso_score_update_f32,
+                        scso_score_update_cluster_fit_f32, float)
+SCSO_SCORE_UPDATE_ENTRY(scso_score_update_f64,
+                        scso_score_update_cluster_fit_f64, double)
 
 // Message for a CUDA error code returned by any entry point above.
 extern "C" const char* scso_cuda_error_string(int code) {

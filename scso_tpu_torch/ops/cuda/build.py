@@ -60,12 +60,15 @@ SIGNATURES = {
     "scso_glm_prep_pair_newton_bf16": [_p] * 15 + [_i64] * 11 + [_p],
     "scso_glm_prep_bf16": [_p] * 8 + [_i64] * 11 + [_p],
     # S, Y, g, pos, count, H0, scratch (None: α/ρ in shared memory),
-    # out, m, n, stream
-    "scso_two_loop": [_p] * 8 + [_i64] * 2 + [_p],
+    # out, m, n, then the TwoLoopPlan (blocks, chunk, flags, smem), stream
+    "scso_two_loop": [_p] * 8 + [_i64] * 6 + [_p],
     # x, d, lgr, hr, lb, ub, lam, ss, Mg, reg, x_new, stats, partials
-    # (multi-block form), n, n_blocks (0: one block), stream
-    "scso_score_update": [_p] * 8 + [_f64, _i64, _p, _p, _p, _i64, _i64,
-                                     _p],
+    # (grid form), n, then the UpdateForm (blocks, chunk, grid), stream
+    "scso_score_update": [_p] * 8 + [_f64, _i64, _p, _p, _p] + [_i64] * 4
+    + [_p],
+    # cluster size, &count: how many such clusters the card holds at once
+    "scso_two_loop_cluster_fit": [_i64, _p],
+    "scso_score_update_cluster_fit": [_i64, _p],
 }
 
 
@@ -159,6 +162,9 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, f"{base}_{suffix}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+    # blocks, cluster size (0: a plain launch), stream
+    lib.scso_empty_kernel.argtypes = [_i64, _i64, _p]
+    lib.scso_empty_kernel.restype = ctypes.c_int
     lib.scso_cuda_error_string.argtypes = [ctypes.c_int]
     lib.scso_cuda_error_string.restype = ctypes.c_char_p
     return lib

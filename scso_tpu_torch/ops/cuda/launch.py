@@ -1,8 +1,10 @@
 """What every CUDA wrapper does before a launch: route by device, check
-the operands, and find the entry point, the stream and the SM count."""
+the operands, and find the entry point, the stream, the SM count and the
+largest thread-block cluster a kernel can launch."""
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -48,7 +50,52 @@ def entry(base: str, dtype):
 
 
 def stream(device) -> int:
+    """The raw handle of the current stream on ``device`` (a side stream
+    under CUDA-graph capture), without building a Stream object where
+    this PyTorch has the call that Triton's launcher uses."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(device.index)
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def call(device, fn, *args) -> int:
+    """``fn(*args)`` with ``device`` current: the C entry points launch
+    on the calling thread's current device."""
+    if torch.cuda.current_device() == device.index:
+        return fn(*args)
+    with torch.cuda.device(device):
+        return fn(*args)
+
+
+#: cluster sizes a cluster kernel may take, the largest first: 16 needs
+#: the non-portable opt-in, 8 is the portable limit
+CLUSTER_SIZES = (16, 8)
+
+
+@functools.lru_cache(maxsize=None)
+def max_cluster(base: str, dtype, device_index: int) -> int:
+    """The largest of :data:`CLUSTER_SIZES` of which the card holds one
+    cluster of ``<base>``'s kernel at once (cudaOccupancyMaxActiveClusters
+    at the most shared memory that kernel asks for), else the portable 8
+    (whose launch then raises)."""
+    fit = entry(f"{base}_cluster_fit", dtype)
+    count = ctypes.c_int(0)
+    for blocks in CLUSTER_SIZES:
+        with torch.cuda.device(device_index):
+            build.check(fit(blocks, ctypes.addressof(count)),
+                        f"{base}: cluster of {blocks}")
+        if count.value > 0:
+            return blocks
+    return CLUSTER_SIZES[-1]
+
+
+def empty_launch(device, blocks: int = 1, cluster: int = 0) -> None:
+    """Launch an empty kernel (``csrc/launch_floor.cu``): the floor under
+    every kernel's time. ``cluster`` > 0 launches clusters of that many
+    blocks, as K3 and K4 do. No path of the solver calls it."""
+    build.check(call(device, build.load().scso_empty_kernel, blocks, cluster,
+                     stream(device)), "empty kernel")
 
 
 @functools.lru_cache(maxsize=None)

@@ -8,12 +8,13 @@ tail of every epoch:
     x⁺    = prox(x + safe·d; t = ss·λ·hr)   for 'l1', 'l2', 'indbox', 'none'
     pri   = ‖x⁺ − x‖
 
-The CUDA kernel is ``csrc/score_update.cu``: one block up to
-:data:`ONE_BLOCK_N`, a multi-block form past it (:func:`update_blocks`);
-:func:`score_update_torch` is the plain version, and the one the
-solver's 'torch' path runs. λ and
-ss come in, and pri, safe, η go out, as 0-d tensors on the device, so
-neither version waits for the device.
+The CUDA kernel is ``csrc/score_update.cu``: one launch of one
+thread-block cluster, of one block below :data:`CLUSTER_N` and of the
+card's largest size up to :data:`GRID_N`, three grid launches from it on
+(:func:`update_form`); :func:`score_update_torch` is the plain version,
+and the one the
+solver's 'torch' path runs. λ and ss come in, and pri, safe, η go out,
+as 0-d tensors on the device, so neither version waits for the device.
 """
 
 from __future__ import annotations
@@ -25,21 +26,54 @@ import torch
 from scso_tpu_torch.ops.cuda import build, counters, launch
 
 REG_CODES = {"l1": 0, "l2": 1, "indbox": 2, "none": 3}
-#: one block loops over n up to this; past it the multi-block form runs
-ONE_BLOCK_N = 1 << 24
-#: elements a block of the multi-block form owns, at least
+#: from this n on, one cluster of the card's largest size (16 blocks on
+#: the H100); below it one block (a cluster of one). Swept on the H100
+#: (PERF.md §6): one block is ahead at n = 1024, 16 blocks from 4096
+CLUSTER_N = 4096
+#: from this n on, the grid form (three launches over the whole card),
+#: which the sweep puts ahead of one cluster from 2²⁰ (PERF.md §6)
+GRID_N = 1 << 20
+#: a cluster block's slice is a multiple of this many values
+_SLICE_ALIGN = 32
+#: elements a block of the grid form owns, at least
 _BLOCK_ELEMS = 1 << 16
 _MAX_BLOCKS = 1024
 
 
+class UpdateForm(NamedTuple):
+    blocks: int   # the cluster's blocks, or the grid's
+    chunk: int    # values of n each block owns (the last may own fewer)
+    grid: bool    # the three-launch grid form
+
+
 def update_blocks(n: int) -> int:
-    """Blocks of K3's multi-block form for n values; 0 (the one-block
-    form) up to :data:`ONE_BLOCK_N`. Each block owns a contiguous slice
-    of at least 65536 values; at most 1024 blocks, so the fixed-order
-    sums over the blocks' partials stay one block's loop."""
-    if n <= ONE_BLOCK_N:
+    """Blocks of K3's grid form for n values; 0 (the cluster form) below
+    :data:`GRID_N`. Each block owns a contiguous slice of at least 65536
+    values; at most 1024 blocks, so the fixed-order sums over the
+    blocks' partials stay one block's loop."""
+    if n < GRID_N:
         return 0
     return min(_MAX_BLOCKS, -(-n // _BLOCK_ELEMS))
+
+
+def cluster_slice(n: int, blocks: int) -> int:
+    """Values of n a block of a ``blocks``-block cluster owns: the even
+    share rounded up to :data:`_SLICE_ALIGN`, so every slice but the last
+    starts on a 128-byte line in float32."""
+    share = max(1, -(-n // blocks))
+    return -(-share // _SLICE_ALIGN) * _SLICE_ALIGN
+
+
+def update_form(n: int, max_cluster: int = 16) -> UpdateForm:
+    """K3's form for n values on a card whose largest cluster of this
+    kernel is ``max_cluster`` blocks (``launch.max_cluster``): one block
+    below :data:`CLUSTER_N`, one cluster of ``max_cluster`` blocks below
+    :data:`GRID_N`, the grid form from it on."""
+    nblk = update_blocks(n)
+    if nblk:
+        return UpdateForm(nblk, -(-n // nblk), True)
+    blocks = 1 if n < CLUSTER_N else max_cluster
+    return UpdateForm(blocks, cluster_slice(n, blocks), False)
 
 
 class ScoreUpdate(NamedTuple):
@@ -97,39 +131,56 @@ def score_update(x, d, lgr, hr, lam, ss, Mg, reg_name: str,
     if launch.on_cpu(x, "score_update"):
         return score_update_torch(x, d, lgr, hr, lam, ss, Mg, reg_name,
                                   use_prox, lb, ub)
+    return _launch(x, d, lgr, hr, lam, ss, Mg, reg_name, use_prox, lb, ub)
+
+
+def _scalar(s, dt, dev) -> torch.Tensor:
+    """``s`` as a 0-d tensor of ``dt`` on ``dev``, as it is if it is one."""
+    if (isinstance(s, torch.Tensor) and s.dtype == dt and s.device == dev
+            and s.dim() == 0):
+        return s
+    return torch.as_tensor(s, dtype=dt, device=dev).reshape(())
+
+
+def _launch(x, d, lgr, hr, lam, ss, Mg, reg_name: str, use_prox=True,
+            lb=None, ub=None, form: UpdateForm = None) -> ScoreUpdate:
+    """The kernel on CUDA tensors, in ``form`` (default: update_form's;
+    chip_smoke.py sweeps the forms with it)."""
     reg = _reg_kind(reg_name, use_prox)
     (n,) = x.shape
     dev, dt = x.device, x.dtype
-    scalar = lambda s: torch.as_tensor(s, dtype=dt, device=dev).reshape(())
-    lam, ss = scalar(lam), scalar(ss)
+    lam, ss = _scalar(lam, dt, dev), _scalar(ss, dt, dev)
     if reg == "indbox":
         if lb is None or ub is None:
             raise ValueError("indbox prox requires lb/ub (C_set)")
         full = lambda b: torch.broadcast_to(
             torch.as_tensor(b, dtype=dt, device=dev), (n,)).contiguous()
-        bounds = dict(lb=full(lb), ub=full(ub))
+        lb, ub = full(lb), full(ub)
+        launch.check_operands("score_update", dt, dev, x=x, d=d, lgr=lgr,
+                              hr=hr, lam=lam, ss=ss, lb=lb, ub=ub)
     else:
-        bounds = {}
-    launch.check_operands("score_update", dt, dev, x=x, d=d, lgr=lgr,
-                          hr=hr, lam=lam, ss=ss, **bounds)
+        lb = ub = None
+        launch.check_operands("score_update", dt, dev, x=x, d=d, lgr=lgr,
+                              hr=hr, lam=lam, ss=ss)
     for arg, t in (("d", d), ("lgr", lgr), ("hr", hr)):
         if t.shape != (n,):
             raise ValueError(f"score_update: {arg} has shape "
                              f"{tuple(t.shape)}, expected ({n},)")
+    if form is None:
+        form = update_form(n, launch.max_cluster("scso_score_update", dt,
+                                                 dev.index))
     x_new = torch.empty_like(x)
     stats = torch.empty((3,), dtype=dt, device=dev)
-    nblk = update_blocks(n)
-    # multi-block form: the blocks' partials of Σ lgr²/hr and ‖x⁺ − x‖²
-    partials = (torch.empty((2 * nblk,), dtype=torch.float64, device=dev)
-                if nblk else None)
+    # grid form: the blocks' partials of Σ lgr²/hr and ‖x⁺ − x‖²
+    partials = (torch.empty((2 * form.blocks,), dtype=torch.float64,
+                            device=dev) if form.grid else None)
     ptr = lambda t: None if t is None else t.data_ptr()
-    with torch.cuda.device(dev):
-        rc = launch.entry("scso_score_update", dt)(
-            x.data_ptr(), d.data_ptr(), lgr.data_ptr(), hr.data_ptr(),
-            ptr(bounds.get("lb")), ptr(bounds.get("ub")), lam.data_ptr(),
-            ss.data_ptr(), float(Mg), REG_CODES[reg], x_new.data_ptr(),
-            stats.data_ptr(), ptr(partials), n, nblk, launch.stream(dev))
+    rc = launch.call(
+        dev, launch.entry("scso_score_update", dt), x.data_ptr(),
+        d.data_ptr(), lgr.data_ptr(), hr.data_ptr(), ptr(lb), ptr(ub),
+        lam.data_ptr(), ss.data_ptr(), float(Mg), REG_CODES[reg],
+        x_new.data_ptr(), stats.data_ptr(), ptr(partials), n, form.blocks,
+        form.chunk, int(form.grid), launch.stream(dev))
     build.check(rc, "score_update")
     counters.bump("score_update")
-    return ScoreUpdate(x_new, stats[0], stats[1], stats[2])
-
+    return ScoreUpdate(x_new, *stats.unbind())

@@ -16,7 +16,7 @@ ported yet (ROADMAP A7).
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -239,11 +239,46 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+class Interval(NamedTuple):
+    """Closed interval [lower, upper], accepted as ``C_set`` alone (scalar
+    bounds) or as a tuple/list of per-coordinate intervals. Any object
+    with ``lower``/``upper`` attributes works too."""
+
+    lower: float
+    upper: float
+
+
+def is_interval_set(obj) -> bool:
+    """True for an :class:`Interval` (or any ``.lower``/``.upper``
+    object) or a non-empty tuple/list of them."""
+    has_lu = lambda o: hasattr(o, "lower") and hasattr(o, "upper")
+    if has_lu(obj):
+        return True
+    return (isinstance(obj, (tuple, list)) and len(obj) > 0
+            and all(has_lu(o) for o in obj))
+
+
 def _resolve_bounds(C_set, dtype, device):
-    """``[lb, ub]`` (scalars or length-n arrays) → (lb, ub) tensors."""
+    """``C_set`` → (lb, ub) tensors. Three forms:
+
+      * one :class:`Interval` — scalar bounds, normalised to min/max;
+      * a tuple/list of n intervals — per-coordinate bounds, each
+        normalised;
+      * ``[lb, ub]`` / ``(lb, ub)`` — scalars or length-n arrays, as
+        given. A bare nested sequence keeps this meaning: intervals are
+        told apart by type, never by length.
+
+    Infinities are kept (the prox and the regularizer read the raw
+    bounds; only the smoothers sanitize them)."""
     if C_set is None:
         return None, None
     to = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
+    if is_interval_set(C_set):
+        if hasattr(C_set, "lower"):
+            lo, hi = C_set.lower, C_set.upper
+            return to(min(lo, hi)), to(max(lo, hi))
+        return (to([min(i.lower, i.upper) for i in C_set]),
+                to([max(i.lower, i.upper) for i in C_set]))
     return to(C_set[0]), to(C_set[1])
 
 

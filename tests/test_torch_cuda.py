@@ -48,6 +48,9 @@ from scso_tpu_torch.ops.cuda.matvec import (
     normal_matvec_torch)
 from scso_tpu_torch.ops.cuda import mglm_matvec as k5
 from scso_tpu_torch.ops.cuda.mglm_matvec import mglm_matvec, mglm_matvec_torch
+from scso_tpu_torch.ops.cuda import launch
+from scso_tpu_torch.ops.cuda import score_update as k3
+from scso_tpu_torch.ops.cuda import two_loop as k4
 from scso_tpu_torch.ops.cuda.score_update import (
     score_update, score_update_torch)
 from scso_tpu_torch.ops.cuda.two_loop import two_loop, two_loop_torch
@@ -466,6 +469,106 @@ def test_score_update_past_one_block(dev, dtype, reg):
     assert counters.snapshot()["score_update"] == 2
     for g, w_ in zip(got, score_update_torch(*args)):
         _check(g, w_, dtype)
+
+
+def _k3_case(dev, dtype, where):
+    """(n, form) of K3 at one side of a gate of update_form (form None:
+    the wrapper's choice) or at a slice edge of the card's largest
+    cluster (forced)."""
+    c = launch.max_cluster("scso_score_update", dtype, dev.index)
+    edge = lambda n: (n, k3.UpdateForm(c, k3.cluster_slice(n, c), False))
+    return {
+        "below CLUSTER_N": (k3.CLUSTER_N - 1, None),
+        "at CLUSTER_N": (k3.CLUSTER_N, None),
+        "below GRID_N": (k3.GRID_N - 1, None),
+        "at GRID_N": (k3.GRID_N, None),
+        "full slices": edge(c * 640),
+        "short last slice": edge(c * 640 + 1),
+        "empty trailing blocks": edge(16 * 32 + 1),
+        "one value": edge(1),
+    }[where]
+
+
+K3_EDGES = ["below CLUSTER_N", "at CLUSTER_N", "below GRID_N", "at GRID_N",
+            "full slices", "short last slice", "empty trailing blocks",
+            "one value"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("where", K3_EDGES)
+def test_score_update_at_gates_and_slice_edges(dev, dtype, where):
+    # both sides of each form gate and the slices' edges: against the
+    # plain version, bitwise reruns, and a runaway step's NaN and ±inf
+    n, form = _k3_case(dev, dtype, where)
+    want_form = form or k3.update_form(
+        n, launch.max_cluster("scso_score_update", dtype, dev.index))
+    assert want_form.grid == (n >= k3.GRID_N)
+    gen = torch.Generator(device=dev).manual_seed(n)
+    r = lambda: torch.randn((n,), generator=gen, device=dev, dtype=dtype)
+    x, d, lgr = r(), r(), r()
+    lgr[::10] = 0.0
+    hr = torch.rand((n,), generator=gen, device=dev, dtype=dtype) + 1e-3
+    lam = torch.tensor(0.07, dtype=dtype, device=dev)
+    ss = torch.tensor(0.6, dtype=dtype, device=dev)
+    lb, ub = torch.full_like(x, -0.5), torch.full_like(x, 0.7)
+    for reg in ("l1", "indbox"):
+        args = (x, d, lgr, hr, lam, ss, 3.0, reg, True, lb, ub)
+        counters.reset()
+        got = k3._launch(*args, form=form)
+        assert all(torch.equal(a, b)
+                   for a, b in zip(got, k3._launch(*args, form=form)))
+        assert counters.snapshot()["score_update"] == 2
+        for g, w_ in zip(got, score_update_torch(*args)):
+            _check(g, w_, dtype)
+    d = d.clone()
+    d[::7], d[1::11], d[2::13] = float("nan"), float("inf"), -float("inf")
+    args = (x, d, lgr, hr, lam, ss, 3.0, "l1", True, lb, ub)
+    got, want = k3._launch(*args, form=form), score_update_torch(*args)
+    for g, w_ in zip(got, want):
+        fin = w_[torch.isfinite(w_)]
+        rtol, atol = TOL[dtype]
+        scale = max(1.0, float(fin.abs().max())) if fin.numel() else 1.0
+        torch.testing.assert_close(g, w_, rtol=rtol, atol=atol * scale,
+                                   equal_nan=True)
+
+
+def _k4_case(dev, dtype, where):
+    """(n, m) of K4 at one side of two_loop_plan's residency limit (m =
+    10) or of SMEM_BYTES (α and ρ in shared memory or the scratch)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    c = launch.max_cluster("scso_two_loop", dtype, dev.index)
+    n = 32 * c
+    while k4.two_loop_plan(n + 32 * c, 10, size, c).resident:
+        n += 32 * c
+    m = k4.SMEM_BYTES // (2 * size)
+    return {"resident": (n, 10), "past residency": (n + 1, 10),
+            "alpha in smem": (64, m), "alpha in scratch": (64, m + 1),
+            "one block": (300, 7)}[where]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("where", ["resident", "past residency",
+                                   "alpha in smem", "alpha in scratch",
+                                   "one block"])
+def test_two_loop_at_residency_and_smem_limits(dev, dtype, where):
+    n, m = _k4_case(dev, dtype, where)
+    plan = k4.two_loop_plan(n, m, torch.empty((), dtype=dtype).element_size(),
+                            launch.max_cluster("scso_two_loop", dtype,
+                                               dev.index))
+    assert plan.resident == (where == "resident" or where == "one block")
+    assert plan.alpha_smem == (where != "alpha in scratch")
+    for pushes in (m // 2, m + 3):
+        mem, g = _lbfgs_memory(dev, dtype, n, m, pushes, n + m + pushes)
+        counters.reset()
+        got = two_loop(mem, g)
+        assert torch.equal(got, two_loop(mem, g))
+        assert counters.snapshot()["two_loop"] == 2
+        _check(got, two_loop_torch(mem, g), dtype)
+        # the same blocks and slices with S and Y streamed, q in the
+        # output and α, ρ in the scratch: the same bits
+        bare = plan._replace(alpha_smem=False, q_smem=False, resident=False,
+                             smem=0)
+        assert torch.equal(got, k4._launch(mem, g, bare))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):

@@ -32,7 +32,10 @@ from scso_tpu_torch.ops.cuda.matvec import (
 from scso_tpu_torch.ops.cuda.mglm_matvec import (
     TC_MAX_K, TC_MAX_P, mglm_grid, tc_geometry, tc_smem_bytes)
 from scso_tpu_torch.ops.cuda.score_update import (
-    ONE_BLOCK_N, score_update, score_update_torch, update_blocks)
+    CLUSTER_N, GRID_N, UpdateForm, cluster_slice, score_update,
+    score_update_torch, update_blocks, update_form)
+from scso_tpu_torch.ops.cuda.two_loop import (
+    RESIDENT_BYTES, SMEM_BYTES, cluster_blocks, two_loop_plan)
 
 torch.set_num_threads(1)
 
@@ -356,14 +359,41 @@ class TestScoreUpdate:
         assert float(out.eta) == pytest.approx((8 * 0.01) ** 0.5, rel=1e-14)
 
     def test_multi_block_form_only_past_the_one_block_limit(self):
-        assert ONE_BLOCK_N == 1 << 24
-        assert update_blocks(10112) == update_blocks(ONE_BLOCK_N) == 0
-        nb = update_blocks(ONE_BLOCK_N + 1)
-        assert nb == 257  # slices of 65536, the last one value
-        for n in (ONE_BLOCK_N + 1, 3 * ONE_BLOCK_N, 1 << 40):
+        # the grid form (three launches) from GRID_N on, the cluster's
+        # limit (swept on the H100: PERF.md §6)
+        assert GRID_N == 1 << 20
+        assert update_blocks(10112) == update_blocks(GRID_N - 1) == 0
+        nb = update_blocks(GRID_N + 1)
+        assert nb == 17  # slices of 65536, the last one value
+        for n in (GRID_N, GRID_N + 1, 3 * GRID_N, 1 << 24, 1 << 40):
             nb = update_blocks(n)
             chunk = -(-n // nb)
             assert 1 <= nb <= 1024 and (nb - 1) * chunk < n <= nb * chunk
+            assert update_form(n) == UpdateForm(nb, chunk, True)
+
+    @pytest.mark.parametrize("max_cluster", [16, 8])
+    def test_update_form_gates(self, max_cluster):
+        # one block below CLUSTER_N, one cluster of the card's largest
+        # size below GRID_N, the grid form from it on (swept on the H100)
+        assert CLUSTER_N == 4096
+        for n in (1, 7, 1024, CLUSTER_N - 1):
+            assert update_form(n, max_cluster) == UpdateForm(
+                1, cluster_slice(n, 1), False)
+        for n in (CLUSTER_N, 10112, 1 << 16, GRID_N - 1):
+            assert update_form(n, max_cluster) == UpdateForm(
+                max_cluster, cluster_slice(n, max_cluster), False)
+        assert update_form(GRID_N, max_cluster).grid
+        # the main path's n: slices of 640 on 16 blocks, the last 512
+        assert update_form(10112, 16) == UpdateForm(16, 640, False)
+
+    @pytest.mark.parametrize("n", [1, 31, 32, 33, 513, 4097, 10112, 10240,
+                                   10241, 1 << 24])
+    @pytest.mark.parametrize("blocks", [1, 8, 16])
+    def test_cluster_slices_cover_n(self, n, blocks):
+        chunk = cluster_slice(n, blocks)
+        assert chunk % 32 == 0 and chunk >= 32
+        assert blocks * chunk >= n            # every value has a block
+        assert chunk - 32 < -(-n // blocks)   # the even share, rounded up
 
     def test_rejects_unknown_reg_and_device(self):
         x = torch.ones(4, dtype=torch.float64)
@@ -372,6 +402,54 @@ class TestScoreUpdate:
         meta = torch.empty(4, device="meta")
         with pytest.raises(ValueError, match="meta"):
             score_update(meta, meta, meta, meta, 0.1, 1.0, 1.0, "l1")
+
+
+class TestTwoLoopPlan:
+    @pytest.mark.parametrize("n, max_cluster, want", [
+        (1, 16, 1), (64, 16, 1), (512, 16, 1), (513, 16, 2), (2000, 16, 4),
+        (4097, 16, 16), (10112, 16, 16), (10112, 8, 8), (1 << 30, 16, 16)])
+    def test_cluster_blocks(self, n, max_cluster, want):
+        # at least 512 values a block, a power of two, at most the card's
+        assert cluster_blocks(n, max_cluster) == want
+
+    def test_lbfgs_shape_is_resident(self):
+        # m = 10, n = 10112, float32: 16 slices of 640; α/ρ, q and the
+        # 10 S and Y slots of the slice in 53,840 bytes of shared memory
+        assert two_loop_plan(10112, 10, 4) == (
+            16, 640, True, True, True, 80 + 640 * 4 + 2 * 10 * 640 * 4)
+
+    @pytest.mark.parametrize("itemsize, max_cluster, last", [
+        (4, 16, 38912), (8, 16, 19456), (4, 8, 19456), (8, 8, 9728)])
+    def test_residency_limit(self, itemsize, max_cluster, last):
+        # m = 10: the largest n whose slices sit in shared memory
+        inside = two_loop_plan(last, 10, itemsize, max_cluster)
+        past = two_loop_plan(last + 1, 10, itemsize, max_cluster)
+        assert inside.resident and inside.smem <= RESIDENT_BYTES
+        assert not past.resident and past.q_smem
+        assert past.smem == 2 * 10 * itemsize + past.chunk * itemsize
+
+    @pytest.mark.parametrize("itemsize", [4, 8])
+    def test_alpha_rho_past_smem_bytes(self, itemsize):
+        m = SMEM_BYTES // (2 * itemsize)   # 4096 float32, 2048 float64
+        assert two_loop_plan(64, m, itemsize).alpha_smem
+        past = two_loop_plan(64, m + 1, itemsize)
+        assert not past.alpha_smem and not past.resident
+        assert past.smem == 64 * itemsize   # q alone
+
+    @pytest.mark.parametrize("n, m", [(1, 1), (777, 9), (100000, 10),
+                                      (10112, 100), (64, 4100),
+                                      (1 << 26, 10)])
+    @pytest.mark.parametrize("itemsize", [4, 8])
+    def test_plans_cover_n_within_shared_memory(self, n, m, itemsize):
+        p = two_loop_plan(n, m, itemsize)
+        assert p.blocks * p.chunk >= n and p.chunk % 32 == 0
+        assert (p.blocks - 1) * p.chunk < n or p.blocks == 1
+        assert p.smem <= RESIDENT_BYTES
+        assert p.smem == (2 * m * itemsize * p.alpha_smem
+                          + p.chunk * itemsize * p.q_smem
+                          + 2 * m * p.chunk * itemsize * p.resident)
+        if n == 1 << 26:   # q and r too large: the output's slice holds them
+            assert not p.q_smem and not p.resident
 
 
 def test_counters_reset_and_snapshot():
