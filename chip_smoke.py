@@ -238,7 +238,13 @@ BOUNDARY_SHAPES = [(37, 128), (947, 384), (2249, 1920), (131, 128),
 # 14336 f64 — and fewer rows than blocks (m = 1, 5), in both dtypes
 PREP_SHAPES = [(1, 256), (5, 1001), (1031, 14336), (1031, 14340),
                (517, 7168), (517, 7170), (301, 28672), (301, 28676),
-               (517, 14336), (517, 14338)]
+               (517, 14336), (517, 14338),
+               # K2's cluster form with A in bfloat16 (float32): 16-row
+               # groups to n = 2320, clusters of 1 block to 3584, of 2 to
+               # 7168 (prep_case's float32 rows), of 3 to 10752, of 4 to
+               # 14336 (above), rows not 16-byte aligned
+               (1031, 2320), (1031, 2328), (1031, 3584), (1031, 3592),
+               (517, 7176), (517, 10752), (517, 10760), (517, 10753)]
 # K3 at odd n; phase 2 adds both sides of each of its form gates and
 # slice edges (k3_boundary_cases)
 K3_NS = [7, 129, 1000, 8192, 8320, 9001, 16384, 23456, 131072]
@@ -308,7 +314,7 @@ GL_GAP_LIMIT = 1.05e-6   # bench.py's worst_gap gate
 POISSON_LAMS = (0.01, 1e-3)
 HBM_BYTES_S = 3.35e12  # H100 SXM data sheet: HBM3 rate
 FP32_FLOP_S = 67e12    # H100 SXM data sheet: FP32 outside the tensor cores
-TF32_FLOP_S = 495e12   # H100 SXM data sheet: TF32 on the tensor cores
+BF16_FLOP_S = 989e12   # H100 SXM data sheet: bfloat16 on the tensor cores
 
 KERNELS = {
     "normal_matvec": ("scso_tpu_torch/csrc/matvec.cu",
@@ -726,7 +732,7 @@ def prep_case(m, n, dtype, gen):
     """K2 and K2s alone at one of PREP_SHAPES."""
     import torch
 
-    from scso_tpu_torch.ops.cuda.glm_prep import max_n
+    from scso_tpu_torch.ops.cuda.glm_prep import max_n, prep_grid
 
     dev, dn = "cuda", str(dtype).replace("torch.", "")
     A = torch.randn((m, n), generator=gen, device=dev, dtype=dtype) * 0.1
@@ -734,7 +740,9 @@ def prep_case(m, n, dtype, gen):
     xt = torch.randn((n,), generator=gen, device=dev, dtype=dtype) * 0.1
     xd = torch.randn((n,), generator=gen, device=dev, dtype=dtype) * 0.1
     forms = "/".join("one-pass" if n <= max_n(dtype, c) else "wide"
-                     for c in (2, 1))  # the same with A in bfloat16
+                     for c in (2, 1))
+    forms += "; A in bf16 " + "/".join(prep_grid(
+        m, n, dtype, c, 132, True, torch.bfloat16).form for c in (2, 1))
     res = prep_checks(A, y, xt, xd, f"({m}x{n} {dn})", dn)
     res.update(bf16_prep_checks(A.to(torch.bfloat16), y, xt, xd,
                                 f"({m}x{n} {dn})", dn))
@@ -1232,10 +1240,10 @@ def prep_work(m, n):
 
 def bound(bytes_, flops, name=None):
     """(bound_ms, bound_by) on the data sheet's H100 SXM peaks: bytes at
-    the HBM rate, operations at the FP32 rate, but K5 with A in bfloat16
-    (exact in TF32), whose multiply-adds run on the tensor cores, at the
-    TF32 rate."""
-    rate = TF32_FLOP_S if name == "mglm_matvec_bf16" else FP32_FLOP_S
+    the HBM rate, operations at the FP32 rate, but K5 with A in bfloat16,
+    whose multiply-adds run on the tensor cores with A as a bfloat16
+    operand, at the bfloat16 rate."""
+    rate = BF16_FLOP_S if name == "mglm_matvec_bf16" else FP32_FLOP_S
     t_bytes, t_ops = bytes_ / HBM_BYTES_S, flops / rate
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")

@@ -274,10 +274,13 @@ inline cudaError_t clusters_that_fit(K kernel, unsigned blocks,
   return cudaOccupancyMaxActiveClusters(count, kernel, &l.cfg);
 }
 
-// Allow more than 48 KB of dynamic shared memory for a kernel.
+// Allow ``bytes`` of dynamic shared memory for a kernel. Without the
+// opt-in a block may hold 48 KB in all, its static shared memory
+// included (at most 8 KB in every kernel here): from 40 KB of dynamic
+// shared memory on, the attribute is set.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
+  if (bytes + 8 * 1024 <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));

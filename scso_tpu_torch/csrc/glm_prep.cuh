@@ -111,6 +111,14 @@
 // scheme; the TPU kernels' f32 Kahan sums over tiles (glm_prep.py:
 // 165-178) are no tighter.
 //
+// Cluster form (glm_cluster.cuh, its note gives the design): K2 and K2s
+// with A in bfloat16 and float32 compute, n from 1025 to 14336, in place
+// of the one-pass form there: the one-pass form reached 47% of its bound
+// with A in bfloat16 (K2), as its cost a step did not halve with A's
+// bytes. The one-pass form keeps the rest of those instances, every
+// float64 instance and every instance with A in T, with their geometry
+// and bits.
+//
 // Wide form (glm_rows + glm_cols, n above max_n, where the accumulators
 // do not fit a block): two passes over A. rows: one warp per row
 // (grid-stride), the NC dots from one read of the row, lane 0 writes w
@@ -150,12 +158,15 @@ __host__ __device__ constexpr int rows_a_step(int q) {
 // The one-pass form's chunks-a-thread buckets for A in S, compute type T
 // and NC candidates (the wrapper's _buckets): with A in T, 1–7 (K2) and
 // 1–8, 10, 12, 14 (K2s); with A in bfloat16, 1 up to the fewest that
-// cover max_n's chunks at 512 threads.
+// cover max_n's chunks at 512 threads, but 1 alone for K2 in float
+// (n <= 1024; the cluster form, glm_cluster.cuh, takes it above).
 template <typename S, typename T, int NC>
 constexpr bool has_bucket(int q) {
   if constexpr (std::is_same_v<S, T>) {
     return q >= 1 && (q <= 7 || (NC == 1 && (q == 8 || q == 10 || q == 12 ||
                                              q == 14)));
+  } else if constexpr (NC == 2 && std::is_same_v<T, float>) {
+    return q == 1;  // n <= 1024: the cluster form takes K2 above
   } else {
     constexpr int max_chunks =
         kSmemBytes / (2 * NC * 8 * static_cast<int>(sizeof(T)));
@@ -678,7 +689,7 @@ glm_cols(const S* __restrict__ A, Prep<T, NC> p, const T* __restrict__ rw,
 }
 
 // ---------------------------------------------------------------------------
-// both forms: the fixed-order sums over blocks (P = T one-pass, double wide)
+// every form: the fixed-order sums over blocks (P = T one-pass, double wide)
 // ---------------------------------------------------------------------------
 
 // Output row s of the (2·NC, n) sums: b_0 … b_{NC−1}, hd_0 … hd_{NC−1}
@@ -738,14 +749,25 @@ glm_finalize(const P* __restrict__ partials,
   }
 }
 
+}  // namespace
+
+#include "glm_cluster.cuh"
+
+namespace {
+
 // The launch geometry, chosen by the wrapper (ops/cuda/glm_prep.py,
 // prep_grid). One-pass form: q > 0 chunks a thread, ``threads`` a
 // block, ``blocks`` blocks of ``rows_per_block`` rows, ``smem`` bytes.
-// Wide form: q == 0; ``blocks`` row chunks of ``rows_per_block`` rows
-// for the columns pass, ``row_blocks`` blocks for the rows pass. ``kind``
-// is the spec's (Kind; the split form's calls do not read it).
+// Cluster form (glm_cluster.cuh; cluster > 0, A in bfloat16, float32):
+// ``blocks`` clusters of ``cluster`` blocks, each cluster
+// ``rows_per_block`` rows in groups of ``group_rows``, a ring of
+// ``stages`` groups. Wide form: q == 0; ``blocks`` row chunks of
+// ``rows_per_block`` rows for the columns pass, ``row_blocks`` blocks
+// for the rows pass. ``kind`` is the spec's (Kind; the split form's
+// calls do not read it).
 struct Grid {
-  int64_t blocks, rows_per_block, smem, threads, q, row_blocks;
+  int64_t blocks, rows_per_block, smem, threads, q, row_blocks, cluster,
+      stages, group_rows;
   int kind;
 };
 
@@ -785,6 +807,28 @@ cudaError_t dispatch_onepass(const S* A, const T* y, const Prep<T, NC>& p,
       break;
   }
 #undef SCSO_Q
+  return cudaErrorInvalidValue;
+}
+
+// The cluster form's instances: A in bfloat16, float32 compute, group_rows
+// 8 or 16, one chunk a thread (q == 1), stages >= 3 (the ring holds a
+// group from its dots to its sums, one group apart, and loads ahead)
+template <typename S, typename T, int NC, RowOut F>
+cudaError_t dispatch_cluster(const S* A, const T* y, const Prep<T, NC>& p,
+                             T* partials, double* loss_partials, int64_t m,
+                             int64_t n, int64_t m_norm, const Grid& g,
+                             bool vec, cudaStream_t s) {
+  if constexpr (std::is_same_v<S, __nv_bfloat16> && std::is_same_v<T, float>) {
+    if (g.q != 1 || g.stages < 3) return cudaErrorInvalidValue;
+    if (g.group_rows == 8)
+      return cl_form::launch<T, NC, F, 8>(
+          A, y, p, partials, loss_partials, m, n, m_norm, g.kind, g.blocks,
+          g.cluster, g.rows_per_block, g.threads, g.smem, g.stages, vec, s);
+    if (g.group_rows == 16)
+      return cl_form::launch<T, NC, F, 16>(
+          A, y, p, partials, loss_partials, m, n, m_norm, g.kind, g.blocks,
+          g.cluster, g.rows_per_block, g.threads, g.smem, g.stages, vec, s);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -833,9 +877,12 @@ int launch(const void* A, const void* y, const Prep<T, NC>& p, void* rw,
   const T* y_ = static_cast<const T*>(y);
   double* lp = static_cast<double*>(loss_partials);
   cudaError_t err;
-  if (phase < 0 || phase > 2 || (phase > 0 && g.q > 0) ||
+  if (phase < 0 || phase > 2 || (phase > 0 && (g.q > 0 || g.cluster > 0)) ||
       (phase == 0 && (g.kind < kLogistic01 || g.kind > kPoisson))) {
     err = cudaErrorInvalidValue;
+  } else if (g.cluster > 0) {
+    err = dispatch_cluster<S, T, NC, F>(a, y_, p, static_cast<T*>(partials),
+                                        lp, m, n, m_norm, g, vec, s);
   } else if (g.q > 0) {
     err = dispatch_onepass<S, T, NC, F>(a, y_, p, static_cast<T*>(partials),
                                         lp, m, n, m_norm, g, vec, s);
@@ -848,7 +895,7 @@ int launch(const void* A, const void* y, const Prep<T, NC>& p, void* rw,
   if (err != cudaSuccess || phase == 1) return static_cast<int>(err);
   const unsigned fin =
       static_cast<unsigned>((2 * NC * n + kFinThreads - 1) / kFinThreads);
-  if (g.q > 0) {
+  if (g.q > 0 || g.cluster > 0) {
     glm_finalize<T, T, NC><<<fin, kFinThreads, 0, s>>>(
         static_cast<const T*>(partials), lp, p, n, g.blocks, g.row_blocks);
   } else {
@@ -878,6 +925,7 @@ int launch(const void* A, const void* y, const Prep<T, NC>& p, void* rw,
                       int64_t m, int64_t n, int64_t m_norm, int64_t kind,   \
                       int64_t blocks, int64_t rows_per_block, int64_t smem, \
                       int64_t threads, int64_t q, int64_t row_blocks,       \
+                      int64_t cluster, int64_t stages, int64_t group_rows,  \
                       int64_t phase, void* stream) {                        \
     const Prep<T, 2> p{                                                     \
         {static_cast<const T*>(xt), static_cast<const T*>(xd)},             \
@@ -888,7 +936,8 @@ int launch(const void* A, const void* y, const Prep<T, NC>& p, void* rw,
     return launch<S, T, 2, F>(A, y, p, rw, partials, loss_partials, m, n,   \
                               m_norm,                                       \
                               Grid{blocks, rows_per_block, smem, threads,   \
-                                   q, row_blocks, static_cast<int>(kind)},  \
+                                   q, row_blocks, cluster, stages,          \
+                                   group_rows, static_cast<int>(kind)},     \
                               phase, stream);                               \
   }
 
@@ -902,6 +951,7 @@ int launch(const void* A, const void* y, const Prep<T, NC>& p, void* rw,
                       int64_t m, int64_t n, int64_t m_norm, int64_t kind,   \
                       int64_t blocks, int64_t rows_per_block, int64_t smem, \
                       int64_t threads, int64_t q, int64_t row_blocks,       \
+                      int64_t cluster, int64_t stages, int64_t group_rows,  \
                       int64_t phase, void* stream) {                        \
     const Prep<T, 1> p{{static_cast<const T*>(x)}, {static_cast<T*>(w)},    \
                        {static_cast<T*>(b)}, {static_cast<T*>(hd)},         \
@@ -909,7 +959,8 @@ int launch(const void* A, const void* y, const Prep<T, NC>& p, void* rw,
     return launch<S, T, 1, kGGN>(A, y, p, rw, partials, nullptr, m, n,      \
                                  m_norm,                                    \
                                  Grid{blocks, rows_per_block, smem,         \
-                                      threads, q, row_blocks,               \
+                                      threads, q, row_blocks, cluster,      \
+                                      stages, group_rows,                   \
                                       static_cast<int>(kind)},              \
                                  phase, stream);                            \
   }

@@ -12,3 +12,18 @@ SCSO_GLM_PAIR_ENTRY(scso_glm_prep_pair_newton_bf16_f64, __nv_bfloat16, double,
                     kNewton)
 SCSO_GLM_PREP_ENTRY(scso_glm_prep_bf16_f32, __nv_bfloat16, float)
 SCSO_GLM_PREP_ENTRY(scso_glm_prep_bf16_f64, __nv_bfloat16, double)
+
+// How many clusters of the cluster form (glm_cluster.cuh) for ``nc``
+// candidates and ``group_rows`` rows a group, with ``cluster`` blocks of
+// ``threads`` threads and ``smem`` bytes, the card holds at once (into
+// *count); the wrapper sizes its grid by it, so that one wave holds it.
+extern "C" int scso_glm_prep_cluster_fit(int64_t nc, int64_t group_rows,
+                                         int64_t cluster, int64_t threads,
+                                         int64_t smem, void* count) {
+  int* c = static_cast<int*>(count);
+  if (nc == 2)
+    return group_rows == 16 ? cl_form::fit<2, 16>(cluster, threads, smem, c)
+                            : cl_form::fit<2, 8>(cluster, threads, smem, c);
+  return group_rows == 16 ? cl_form::fit<1, 16>(cluster, threads, smem, c)
+                          : cl_form::fit<1, 8>(cluster, threads, smem, c);
+}

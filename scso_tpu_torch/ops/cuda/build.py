@@ -47,18 +47,18 @@ SIGNATURES = {
     # A, y, x_t, x_d, w_t, w_d, rw, b_t, b_d, hd_t, hd_d, loss_t, loss_d,
     # partials, loss_partials, m, n, m_norm, the spec's kind, then the
     # PrepGrid (blocks, rows_per_block, smem_bytes, threads,
-    # chunks_per_thread, row_blocks), phase (0, or the split form's 1
-    # and 2), stream
-    "scso_glm_prep_pair": [_p] * 15 + [_i64] * 11 + [_p],
+    # chunks_per_thread, row_blocks, cluster, stages, group_rows), phase
+    # (0, or the split form's 1 and 2), stream
+    "scso_glm_prep_pair": [_p] * 15 + [_i64] * 14 + [_p],
     # the same in the newton flavour (ProxNSCORE's epoch cache)
-    "scso_glm_prep_pair_newton": [_p] * 15 + [_i64] * 11 + [_p],
+    "scso_glm_prep_pair_newton": [_p] * 15 + [_i64] * 14 + [_p],
     # A, y, x, w, rw, b, hd, partials, m, n, m_norm, the kind, the
     # PrepGrid, phase, stream
-    "scso_glm_prep": [_p] * 8 + [_i64] * 11 + [_p],
+    "scso_glm_prep": [_p] * 8 + [_i64] * 14 + [_p],
     # the same three with A in bfloat16, the rest in float32 / float64
-    "scso_glm_prep_pair_bf16": [_p] * 15 + [_i64] * 11 + [_p],
-    "scso_glm_prep_pair_newton_bf16": [_p] * 15 + [_i64] * 11 + [_p],
-    "scso_glm_prep_bf16": [_p] * 8 + [_i64] * 11 + [_p],
+    "scso_glm_prep_pair_bf16": [_p] * 15 + [_i64] * 14 + [_p],
+    "scso_glm_prep_pair_newton_bf16": [_p] * 15 + [_i64] * 14 + [_p],
+    "scso_glm_prep_bf16": [_p] * 8 + [_i64] * 14 + [_p],
     # S, Y, g, pos, count, H0, scratch (None: α/ρ in shared memory),
     # out, m, n, then the TwoLoopPlan (blocks, chunk, flags, smem), stream
     "scso_two_loop": [_p] * 8 + [_i64] * 6 + [_p],
@@ -165,6 +165,10 @@ def load() -> ctypes.CDLL:
     # blocks, cluster size (0: a plain launch), stream
     lib.scso_empty_kernel.argtypes = [_i64, _i64, _p]
     lib.scso_empty_kernel.restype = ctypes.c_int
+    # candidates, group_rows, cluster, threads, smem, &count: K2's
+    # cluster form (csrc/glm_prep_bf16.cu)
+    lib.scso_glm_prep_cluster_fit.argtypes = [_i64] * 5 + [_p]
+    lib.scso_glm_prep_cluster_fit.restype = ctypes.c_int
     lib.scso_cuda_error_string.argtypes = [ctypes.c_int]
     lib.scso_cuda_error_string.restype = ctypes.c_char_p
     return lib

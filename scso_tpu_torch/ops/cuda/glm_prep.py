@@ -52,9 +52,14 @@ A may be stored in bfloat16 (the coarse phase of
 `algorithms.mixed.iterate_mixed`, where A itself is cast) with y and
 the candidates in float32 or float64: the kernels load A narrow and
 upcast it in registers, as the TPU kernels do, and every output comes
-out in x's dtype. Such a launch counts as ``glm_prep_pair_bf16`` (or
-``glm_prep_bf16``) as well as its base name. The plain versions upcast
-A to x's dtype first (exact).
+out in x's dtype. K2 and K2s with A in bfloat16 and float32 candidates,
+from n = 1025 to 14336, run the cluster form (:func:`cluster_grid`,
+``csrc/glm_cluster.cuh``): a thread-block cluster splits a row's
+columns, A streams through a ring in shared memory, the partial dots go
+between the blocks by asynchronous stores into each other's shared
+memory, and one warp a block evaluates the spec. Such a launch counts
+as ``glm_prep_pair_bf16`` (or ``glm_prep_bf16``) as well as its base
+name. The plain versions upcast A to x's dtype first (exact).
 
 The TPU's n ≥ 8192 gates (`steps._use_pair_kernel`, the AUTO
 `use_fused_prep`) are not carried over: the kernels take any m, n and
@@ -63,6 +68,8 @@ spec.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -106,10 +113,14 @@ def _buckets(candidates, dtype, a_dtype):
     """The one-pass kernel's chunks-a-thread buckets: with A in the
     compute type, :data:`_CHUNKS_PER_THREAD`; with A in bfloat16, 1 up
     to the fewest that cover :func:`max_n`'s chunks at 512 threads (K2:
-    4 in float32, 2 in float64; K2s: 7 and 4), the instances
+    2 in float64; K2s: 7 and 4), but 1 alone for K2 in float32 (the
+    cluster form takes n from 1025 to its limit), the instances
     csrc/glm_prep_bf16.cu builds."""
     if a_dtype == dtype:
         return _CHUNKS_PER_THREAD[candidates]
+    if takes_cluster(max_n(dtype, candidates, a_dtype), dtype, candidates,
+                     True, a_dtype):
+        return (1,)  # n <= CLUSTER_MIN_N: 128 chunks at most
     e, _ = _chunk(dtype, a_dtype)
     chunks = max_n(dtype, candidates, a_dtype) // e
     return tuple(range(1, -(-chunks // _MAX_THREADS) + 1))
@@ -220,13 +231,18 @@ class PrepGrid(NamedTuple):
     """Launch geometry of one K2/K2s call (see :func:`prep_grid`); the
     fields after ``form`` are the C entries' arguments, in order."""
 
-    form: str               # "one_pass" (A read once), "wide" or "split"
-    blocks: int             # one-pass: blocks; else row chunks (partials)
-    rows_per_block: int     # rows of each block (one-pass) or chunk
+    form: str               # "one_pass", "cluster" (A read once), "wide"
+    #                         or "split"
+    blocks: int             # one-pass: blocks; cluster: clusters; else
+    #                         row chunks (a row of partials each)
+    rows_per_block: int     # rows of each block, cluster or chunk
     smem_bytes: int         # dynamic shared memory a block (else 0)
     threads: int            # threads a block
     chunks_per_thread: int  # 16-byte column chunks a thread (wide: 0)
     row_blocks: int         # blocks with a loss partial (wide: rows pass)
+    cluster: int = 0        # cluster form: blocks of a cluster (else 0)
+    stages: int = 0         # cluster form: row groups in the ring
+    group_rows: int = 0     # cluster form: rows a group
 
 
 def max_n(dtype, candidates, a_dtype=None) -> int:
@@ -239,8 +255,130 @@ def max_n(dtype, candidates, a_dtype=None) -> int:
     return e * (_SMEM_BYTES // (2 * candidates * chunk_bytes))
 
 
+#: the cluster form (csrc/glm_cluster.cuh): A in bfloat16, float32
+#: compute, a row's 16-byte chunks split over a cluster of CLUSTER_SIZES
+#: blocks, one chunk a compute thread, a producer and a spec warp beside
+#: them; its candidate counts (K2 and K2s), rows a group, and the ring's
+#: stages
+CLUSTER_SIZES = (1, 2, 3, 4)
+CLUSTER_CANDIDATES = (1, 2)
+CLUSTER_GROUP_ROWS = (8, 16)
+CLUSTER_STAGES = (3, 6)         # fewest, most
+#: up to this n K2 and K2s keep the one-pass form: at 524288×1024 the
+#: two forms were within 2% of each other on the H100 (chip_ab.py;
+#: PERF.md)
+CLUSTER_MIN_N = 1024
+_CLUSTER_SLOTS = 4              # kSlots in csrc/glm_cluster.cuh
+_HELPER_THREADS = 64            # the producer and the spec warp
+
+
+def cluster_max_n() -> int:
+    """Largest n of the cluster form: a cluster of 4 blocks of 448
+    compute threads of 8 values (14336)."""
+    return CLUSTER_SIZES[-1] * 8 * (_MAX_THREADS - _HELPER_THREADS)
+
+
+def takes_cluster(n, dtype, candidates, covered=True, a_dtype=None) -> bool:
+    """True where :func:`prep_grid` picks the cluster form: a covered
+    spec, A in bfloat16, float32 compute, K2 or K2s
+    (:data:`CLUSTER_CANDIDATES`) and n above :data:`CLUSTER_MIN_N` up to
+    :func:`cluster_max_n` (K2s keeps the one-pass form above it, to
+    28672)."""
+    return (covered and a_dtype == torch.bfloat16 and dtype == torch.float32
+            and candidates in CLUSTER_CANDIDATES
+            and CLUSTER_MIN_N < n <= cluster_max_n())
+
+
+def _slice_chunks(n, cluster):
+    """Chunks of a block's slice of a row (slice_chunks in
+    csrc/glm_cluster.cuh)."""
+    return -(-(-(-n // 8)) // cluster)
+
+
+def cluster_smem_bytes(n, cluster, threads, group_rows, stages,
+                       candidates) -> int:
+    """Shared memory of a cluster-form block (csrc/glm_cluster.cuh): the
+    ring of ``stages`` groups of the block's chunks of ``group_rows``
+    rows, the inbox's slots of the cluster's compute warps' partial dots
+    (float32, 16-byte rounded), the slots' ρ and w, then the mbarriers:
+    two a stage, four a slot."""
+    ring = stages * group_rows * _slice_chunks(n, cluster) * 16
+    inbox = (_CLUSTER_SLOTS * cluster * (threads - _HELPER_THREADS) // 32
+             * group_rows * candidates * 4)
+    rw = _CLUSTER_SLOTS * group_rows * 2 * candidates * 4
+    return (ring + -(-inbox // 16) * 16 + rw
+            + 8 * (2 * stages + 4 * _CLUSTER_SLOTS))
+
+
+def cluster_grid(m, n, candidates, sms, cluster=None, group_rows=None,
+                 stages=None, fit=None) -> PrepGrid:
+    """The cluster form's geometry for A (m, n) in bfloat16: a compute
+    thread a 16-byte chunk of the block's slice, and a producer and a
+    spec warp; ``cluster`` blocks a cluster (default the fewest of
+    :data:`CLUSTER_SIZES` whose slices fit a block), ``group_rows`` rows
+    a group (default 16 where three stages of them fit, else 8),
+    ``stages`` (default: the most of :data:`CLUSTER_STAGES` at which as
+    many blocks share an SM as its threads and registers allow, else
+    fewer blocks). As many clusters as the card holds at once
+    (``fit(cluster, threads, smem, group_rows)``; default: the blocks an
+    SM times ``sms`` over the cluster), at most one a group of rows; each
+    owns a contiguous range of whole groups (the last one ragged), every
+    row in exactly one cluster."""
+    top = _MAX_THREADS - _HELPER_THREADS
+    c = cluster or next((c for c in CLUSTER_SIZES
+                         if _slice_chunks(n, c) <= top), CLUSTER_SIZES[-1])
+    threads = 32 * -(-_slice_chunks(n, c) // 32) + _HELPER_THREADS
+    r = group_rows or next(r for r in CLUSTER_GROUP_ROWS[::-1] if r == 8 or
+                           cluster_smem_bytes(n, c, threads, r,
+                                              CLUSTER_STAGES[0],
+                                              candidates) <= _SMEM_BYTES)
+    regs = min(2048 // threads, _SM_REGS // (_MAX_REGS * threads))
+
+    def smem_of(s):
+        return cluster_smem_bytes(n, c, threads, r, s, candidates)
+
+    def fits(s, b):
+        return (smem_of(s) <= _SMEM_BYTES
+                and b * (smem_of(s) + _SM_BLOCK_OVERHEAD) <= _SM_SMEM_BYTES)
+
+    lo, hi = CLUSTER_STAGES
+    if stages is None:
+        b, stages = next(((b, s) for b in range(max(1, regs), 0, -1)
+                          for s in range(hi, lo - 1, -1) if fits(s, b)),
+                         (1, lo))
+    else:
+        b = next((b for b in range(max(1, regs), 0, -1) if fits(stages, b)),
+                 1)
+    smem = smem_of(stages)
+    fitted = b * sms // c if fit is None else fit(c, threads, smem, r)
+    clusters = max(1, min(fitted, -(-m // r)))
+    rows = r * -(-(-(-m // clusters)) // r)
+    clusters = -(-m // rows)
+    return PrepGrid("cluster", clusters, rows, smem, threads, 1, clusters,
+                    c, stages, r)
+
+
+def one_pass_grid(m, n, dtype, candidates, sms, a_dtype=None) -> PrepGrid:
+    """The one-pass form's geometry (see :func:`prep_grid`) for n up to
+    :func:`max_n`."""
+    a_dtype = a_dtype or dtype
+    e, chunk_bytes = _chunk(dtype, a_dtype)
+    nc = -(-n // e)
+    q = next(q for q in _buckets(candidates, dtype, a_dtype)
+             if -(-nc // q) <= _MAX_THREADS)
+    threads = max(32, 32 * -(-nc // (32 * q)))
+    smem = 2 * candidates * nc * chunk_bytes
+    per_sm = max(1, min(2048 // threads,
+                        _SM_REGS // (_MAX_REGS * threads),
+                        _SM_SMEM_BYTES // (smem + _SM_BLOCK_OVERHEAD)))
+    blocks = max(1, min(per_sm * sms, -(-m // _rows_a_step(q))))
+    rows = -(-m // blocks)
+    blocks = -(-m // rows)
+    return PrepGrid("one_pass", blocks, rows, smem, threads, q, blocks)
+
+
 def prep_grid(m, n, dtype, candidates, sms, covered=True,
-              a_dtype=None) -> PrepGrid:
+              a_dtype=None, fit=None) -> PrepGrid:
     """The form and launch geometry for A (m, n) stored in ``a_dtype``
     (default ``dtype``; else bfloat16), computed in ``dtype``, and
     ``candidates`` (2: K2, 1: K2s) on a card with ``sms`` SMs, from the
@@ -255,25 +393,21 @@ def prep_grid(m, n, dtype, candidates, sms, covered=True,
     128 a thread the kernel may use), threads and shared memory hold:
     one at 512 threads, so at the main shape. A chunk holds 16 bytes of
     A (8 values in bfloat16) and its accumulators are in ``dtype``.
-    Wide form (n above it): the two-pass geometry — a rows pass of up
-    to 8 blocks an SM, one warp a row, and enough row chunks for the
-    columns pass to give about 8 blocks an SM. Split form (a spec not
-    covered, any n): the wide geometry."""
+    Cluster form (:func:`takes_cluster`: K2 and K2s with A in bfloat16,
+    float32, 1024 < n <= :func:`cluster_max_n`; ahead of the one-pass
+    form):
+    :func:`cluster_grid`, ``fit`` the count of clusters the card holds
+    (the wrapper asks the card). Wide form (n above both): the
+    two-pass geometry — a rows pass of up to 8 blocks an SM, one warp a
+    row, and enough row chunks for the columns pass to give about 8
+    blocks an SM. Split form (a spec not covered, any n): the wide
+    geometry."""
     a_dtype = a_dtype or dtype
-    e, chunk_bytes = _chunk(dtype, a_dtype)
+    if takes_cluster(n, dtype, candidates, covered, a_dtype):
+        return cluster_grid(m, n, candidates, sms, fit=fit)
     if covered and n <= max_n(dtype, candidates, a_dtype):
-        nc = -(-n // e)
-        q = next(q for q in _buckets(candidates, dtype, a_dtype)
-                 if -(-nc // q) <= _MAX_THREADS)
-        threads = max(32, 32 * -(-nc // (32 * q)))
-        smem = 2 * candidates * nc * chunk_bytes
-        per_sm = max(1, min(2048 // threads,
-                            _SM_REGS // (_MAX_REGS * threads),
-                            _SM_SMEM_BYTES // (smem + _SM_BLOCK_OVERHEAD)))
-        blocks = max(1, min(per_sm * sms, -(-m // _rows_a_step(q))))
-        rows = -(-m // blocks)
-        blocks = -(-m // rows)
-        return PrepGrid("one_pass", blocks, rows, smem, threads, q, blocks)
+        return one_pass_grid(m, n, dtype, candidates, sms, a_dtype)
+    e, _ = _chunk(dtype, a_dtype)
     row_blocks = max(1, min(8 * sms, -(-m // 8)))
     col_tiles = -(-(n // e if n % e == 0 else n) // _WIDE_THREADS)
     chunks = max(1, min(-(-8 * sms // col_tiles), -(-m // 256)))
@@ -288,7 +422,7 @@ def _scratch(grid, candidates, m, n, dtype, device):
     ``dtype`` one-pass and in double otherwise; loss partials
     (row_blocks, 2) double; ρ (candidates, m) in ``dtype``, a view of the
     buffer, wide and split only (None otherwise)."""
-    two_pass = grid.form != "one_pass"
+    two_pass = grid.form in ("wide", "split")
     part_item = 8 if two_pass else dtype.itemsize
     sizes = [grid.blocks * 2 * candidates * n * part_item,
              grid.row_blocks * 2 * 8]
@@ -328,6 +462,34 @@ def _launcher(name, dev, dt, *args):
     return run
 
 
+@functools.lru_cache(maxsize=None)
+def _clusters_fit(device_index, candidates, group_rows, cluster, threads,
+                  smem) -> int:
+    """How many clusters of the cluster form the card holds at once
+    (cudaOccupancyMaxActiveClusters; at least 1, so a launch that cannot
+    run raises there)."""
+    count = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        build.check(build.load().scso_glm_prep_cluster_fit(
+            candidates, group_rows, cluster, threads, smem,
+            ctypes.addressof(count)), "glm_prep cluster fit")
+    return max(1, count.value)
+
+
+def _grid(A, n_dtype, candidates, glm) -> PrepGrid:
+    """:func:`prep_grid` for CUDA operands, the cluster form sized by
+    what the card holds."""
+    m, n = A.shape
+    dev = A.device.index or 0
+
+    def fit(cluster, threads, smem, group_rows):
+        return _clusters_fit(dev, candidates, group_rows, cluster, threads,
+                             smem)
+
+    return prep_grid(m, n, n_dtype, candidates, launch.sm_count(dev),
+                     covers(glm), A.dtype, fit)
+
+
 def _base(name, A, glm):
     """The C entry's base name and the counters of a launch on A for
     ``glm``: a bfloat16 A adds ``_bf16`` to both (and counts under
@@ -351,10 +513,13 @@ def glm_prep(A, y, x, glm, m_norm=None):
     launch.check_operands("glm_prep", x.dtype, A.device, narrow=("A",), A=A,
                           y=y, x=x)
     m_norm = _check_shapes("glm_prep", A, y, m_norm, x)
+    return _single(A, y, x, glm, m_norm, _grid(A, x.dtype, 1, glm))
+
+
+def _single(A, y, x, glm, m_norm, grid):
+    """K2s on checked CUDA operands in ``grid``'s form and geometry."""
     m, n = A.shape
     dev, dt = A.device, x.dtype
-    grid = prep_grid(m, n, dt, 1, launch.sm_count(dev.index or 0),
-                     covers(glm), A.dtype)
     base, counts = _base("glm_prep", A, glm)
     w, b, hd = torch.empty(m + 2 * n, dtype=dt, device=dev).split([m, n, n])
     # ``buf`` holds the scratch the pointers address until the launches
@@ -391,10 +556,15 @@ def glm_prep_pair(A, y, x_t, x_d, glm, m_norm=None,
     launch.check_operands("glm_prep_pair", x_t.dtype, A.device,
                           narrow=("A",), A=A, y=y, x_t=x_t, x_d=x_d)
     m_norm = _check_shapes("glm_prep_pair", A, y, m_norm, x_t, x_d)
+    return _pair(A, y, x_t, x_d, glm, m_norm, flavour,
+                 _grid(A, x_t.dtype, 2, glm))
+
+
+def _pair(A, y, x_t, x_d, glm, m_norm, flavour, grid) -> PairPrep:
+    """K2 on checked CUDA operands in ``grid``'s form and geometry (any
+    :func:`cluster_grid` of A's shape runs; chip_ab.py's sweep)."""
     m, n = A.shape
     dev, dt = A.device, x_t.dtype
-    grid = prep_grid(m, n, dt, 2, launch.sm_count(dev.index or 0),
-                     covers(glm), A.dtype)
     out = torch.empty(2 * m + 4 * n + 2, dtype=dt, device=dev)
     w_t, w_d, b_t, b_d, hd_t, hd_d = out[:-2].split([m, m, n, n, n, n])
     loss_t, loss_d = out[-2], out[-1]

@@ -21,8 +21,11 @@ or p) and the split form read it twice.
 A may be stored in bfloat16 (the coarse phase of
 `algorithms.mixed.iterate_mixed`, and the copy of precision-adaptive CG
 on the cached path, `steps._mo_lp_matvec`) with y, Z and V in float32
-or float64: every form loads A narrow and upcasts it, as the TPU kernel
-does, and the result comes out in V's dtype. Such a launch counts as
+or float64: every form takes A's values upcast exactly, as the TPU
+kernel does, and the result comes out in V's dtype. The tensor-core
+form takes a bfloat16 A as the bfloat16 operand of the tensor cores and
+V and QU as three bfloat16 pieces each, whose sum is the float32 value
+(``csrc/mglm_matvec.cu``, namespace ``tcb``). Such a launch counts as
 ``mglm_matvec_bf16`` as well as ``mglm_matvec``. The plain version
 upcasts A to V's dtype first (exact).
 """
@@ -42,6 +45,10 @@ KERNEL_KINDS = ("multinomial",)
 #: (csrc/mglm_matvec.cu, namespace tc)
 TC_MAX_K = 16
 TC_MAX_P = 1024
+TC_BF16_STAGES = 6      # kMaxStages in csrc/mglm_matvec.cu (tcb)
+_SM_SMEM_BYTES = 228 * 1024     # shared memory of one SM
+_SM_BLOCK_OVERHEAD = 2 * 1024   # per block: reserved + static buffers
+_TC_SMEM_BUDGET = 232448  # the shared memory a block may take (H100)
 _THREADS = 256          # the two-pass and split forms' column kernel
 _TC_ROWS = 16           # rows of a tensor-core tile
 _KC = 16                # kKC in csrc/mglm_matvec.cu
@@ -68,11 +75,50 @@ def tc_geometry(p, k):
     return (8 if pp == 128 else 16), pp, (1 if k <= 8 else 2)
 
 
-def tc_smem_bytes(p, k, a_dtype=torch.float32) -> int:
-    """Shared memory of the tensor-core form: two 16-row stages of A (in
-    ``a_dtype``: float32 or bfloat16), then, in float32, V in fragment
-    order, the warps' partial U and QU's fragments."""
+def tc_stages(p, k, a_dtype=torch.float32) -> int:
+    """Stages of A the tensor-core form keeps: two with A in float32;
+    with A in bfloat16 the ring's, the most up to :data:`TC_BF16_STAGES`
+    that fit 232,448 bytes beside V's three pieces (csrc/mglm_matvec.cu,
+    namespace tcb)."""
+    if a_dtype != torch.bfloat16:
+        return 2
     w, pp, nt = tc_geometry(p, k)
+    fixed = _bf16_fixed_bytes(w, pp, nt)
+    return min(TC_BF16_STAGES,
+               (_TC_SMEM_BUDGET - fixed - 8 * TC_BF16_STAGES)
+               // _bf16_stage_bytes(pp))
+
+
+def tc_blocks_per_sm(p, k) -> int:
+    """Blocks an SM of the tensor-core form with A in bfloat16, as its
+    registers are bounded (blocks_per_sm in csrc/mglm_matvec.cu): 3 at
+    p <= 128, 2 at p <= 256, else 1."""
+    w, pp, _ = tc_geometry(p, k)
+    return 3 if w == 8 else 2 if pp == 256 else 1
+
+
+def _bf16_stage_bytes(pp):
+    """A 16-row stage of a bfloat16 A, rows padded by 16 bytes."""
+    return _TC_ROWS * (pp + 8) * 2
+
+
+def _bf16_fixed_bytes(w, pp, nt):
+    """V's three bfloat16 pieces in fragment order, the warps' partial U
+    and QU's three pieces (bfloat16 tensor-core form)."""
+    return 3 * pp * nt * 16 + 4 * w * _TC_ROWS * 8 * nt + 3 * nt * 32 * 8
+
+
+def tc_smem_bytes(p, k, a_dtype=torch.float32) -> int:
+    """Shared memory of the tensor-core form. A in float32: two 16-row
+    stages of A, then, in float32, V in fragment order, the warps'
+    partial U and QU's fragments. A in bfloat16: :func:`tc_stages`
+    16-row stages of A (rows padded by 16 bytes), V's and QU's three
+    bfloat16 pieces in fragment order, the partial U, one mbarrier a
+    stage."""
+    w, pp, nt = tc_geometry(p, k)
+    if a_dtype == torch.bfloat16:
+        s = tc_stages(p, k, a_dtype)
+        return s * _bf16_stage_bytes(pp) + _bf16_fixed_bytes(w, pp, nt) + 8 * s
     return (a_dtype.itemsize * 2 * _TC_ROWS * pp
             + 4 * (pp * nt * 8 + w * _TC_ROWS * 8 * nt + 2 * nt * 32 * 2))
 
@@ -94,16 +140,24 @@ def mglm_grid(m, p, k, dtype, sms, covered=True, a_dtype=None) -> MglmGrid:
     Tensor-core form (covered, float32, k <= 16, p <= 1024, A in float32
     or bfloat16): one block an SM (A's two stages and V fill its shared
     memory, and its 512 threads its registers), each owning a
-    contiguous row range, every row in exactly one block. Two-pass form
+    contiguous row range, every row in exactly one block; with A in
+    bfloat16 :func:`tc_blocks_per_sm` blocks an SM where shared memory
+    allows, each a range of whole 16-row tiles. Two-pass form
     (covered, any other k, p or type) and split form (not covered): the
     two-pass geometry."""
     if not covered:
         return _two_pass_grid(m, p, k, sms, "split")
     if dtype == torch.float32 and k <= TC_MAX_K and p <= TC_MAX_P:
-        rows = -(-m // max(1, min(sms, -(-m // _TC_ROWS))))
-        return MglmGrid("tensor", -(-m // rows), rows,
-                        tc_smem_bytes(p, k, a_dtype or dtype),
-                        32 * tc_geometry(p, k)[0])
+        smem = tc_smem_bytes(p, k, a_dtype or dtype)
+        threads = 32 * tc_geometry(p, k)[0]
+        if a_dtype == torch.bfloat16:
+            per_sm = min(tc_blocks_per_sm(p, k),
+                         _SM_SMEM_BYTES // (smem + _SM_BLOCK_OVERHEAD))
+            rows = _TC_ROWS * -(-m // (_TC_ROWS * max(
+                1, min(per_sm * sms, -(-m // _TC_ROWS)))))
+        else:
+            rows = -(-m // max(1, min(sms, -(-m // _TC_ROWS))))
+        return MglmGrid("tensor", -(-m // rows), rows, smem, threads)
     return _two_pass_grid(m, p, k, sms, "two_pass")
 
 

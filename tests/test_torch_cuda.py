@@ -1249,3 +1249,137 @@ def test_small_gl_and_poisson_solves_match_cpu(dev, name):
     assert s_gpu.epochs == s_cpu.epochs
     np.testing.assert_allclose(s_gpu.obj.numpy(), s_cpu.obj.numpy(),
                                rtol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# the redesigned bfloat16 forms: K2's cluster form, K5's bfloat16 form
+# ---------------------------------------------------------------------------
+
+# K2's cluster form on both sides of each of its limits
+# (tests/test_torch_bf16_forms.py): the one-pass form up to n = 1024,
+# then 16-row groups up to n = 2320 and
+# 8-row ones past it (one block), clusters of 2 from 3592 (16-row groups
+# to 4560), 3 from 7176, 4 from 10760, the wide form past 14336; pieces
+# of 8 values at n = 8k ± 1 and rows that are not 16-byte aligned; m = 1,
+# m below a group, m not a multiple of a group or of a cluster's rows;
+# then tests/test_pallas.py's block-boundary shapes
+CLUSTER_SHAPES = [(1, 256), (5, 1001), (7, 1024), (7, 1025), (1, 1032),
+                  (17, 2047), (17, 2048), (17, 2049),
+                  (1031, 2320), (1031, 2328), (1031, 3584), (1031, 3585),
+                  (1031, 3592), (1031, 4560), (1031, 4568), (517, 7168),
+                  (517, 7176), (517, 10752), (517, 10753), (517, 10760),
+                  (301, 14336), (301, 14344), (4099, 10112), (64, 128),
+                  (500, 256), (37, 128), (947, 384), (2249, 1920),
+                  (131, 128), (660, 256), (3465, 2432)]
+
+
+@pytest.mark.parametrize("m,n", CLUSTER_SHAPES)
+def test_bf16_cluster_form_matches_plain(dev, m, n):
+    # the form K2 and K2s pick (the cluster form from n = 1025, the
+    # one-pass form up to 1024, past 14336 the wide form for K2 and the
+    # one-pass form for K2s), then, up to 1024, the cluster form's grid
+    # forced
+    from scso_tpu_torch.ops.cuda import glm_prep as k2
+
+    A, y, xt, xd = _bf16_prep_inputs(dev, torch.float32, m, n)
+    grid = k2._grid(A, torch.float32, 2, LOGISTIC01_GLM)
+    assert grid.form == ("wide" if n > k2.cluster_max_n() else "cluster"
+                         if n > k2.CLUSTER_MIN_N else "one_pass")
+    assert k2._grid(A, torch.float32, 1, LOGISTIC01_GLM).form == (
+        "cluster" if grid.form == "cluster" else "one_pass")
+    if grid.form == "one_pass":
+        forced = k2.cluster_grid(m, n, 2, 132)
+        for fl in ("ggn", "newton"):
+            got = k2._pair(A, y, xt, xd, LOGISTIC01_GLM, m, fl, forced)
+            for g, w_ in zip(got, glm_prep_pair_torch(
+                    A, y, xt, xd, LOGISTIC01_GLM, flavour=fl)):
+                _check(g, w_, torch.float32)
+            assert all(torch.equal(g, a) for g, a in zip(got, k2._pair(
+                A, y, xt, xd, LOGISTIC01_GLM, m, fl, forced)))
+    for glm, name in ((LOGISTIC01_GLM, "logistic01"),
+                      (losses.LSQ_GLM, "lsq"),
+                      (losses.POISSON_GLM, "poisson")):
+        yk = (torch.poisson(torch.full_like(y, 2.0)) if name == "poisson"
+              else y)
+        for flavour in ("ggn", "newton"):
+            counters.reset()
+            got = glm_prep_pair(A, yk, xt, xd, glm, flavour=flavour)
+            want = glm_prep_pair_torch(A, yk, xt, xd, glm, flavour=flavour)
+            for g, w_ in zip(got, want):
+                _check(g, w_, torch.float32)
+            assert all(torch.equal(g, a) for g, a in zip(
+                got, glm_prep_pair(A, yk, xt, xd, glm, flavour=flavour)))
+            base = ("glm_prep_pair_newton" if flavour == "newton"
+                    else "glm_prep_pair")
+            snap = counters.snapshot()
+            assert snap[base] == snap[f"{base}_bf16"] == 2
+            if name != "logistic01":
+                assert snap[f"{base}_{name}_bf16"] == 2
+        # K2s, in the same form
+        counters.reset()
+        got = glm_prep(A, yk, xt, glm)
+        for g, w_ in zip(got, glm_prep_torch(A, yk, xt, glm)[:3]):
+            _check(g, w_, torch.float32)
+        assert all(torch.equal(g, a) for g, a in zip(
+            got, glm_prep(A, yk, xt, glm)))
+        assert counters.snapshot()["glm_prep_bf16"] == 2
+
+
+@pytest.mark.parametrize("c,r,s", [(3, 8, 4), (3, 8, 3), (4, 8, 5),
+                                   (1, 16, 3), (2, 16, 3), (2, 8, 6)])
+def test_bf16_cluster_design_points_match_plain(dev, c, r, s):
+    # chip_ab.py's sweep at the main shape's width, and narrow rows
+    from scso_tpu_torch.ops.cuda import glm_prep as k2
+
+    for m, n in ((4099, 10112), (2049, 1024)):
+        A, y, xt, xd = _bf16_prep_inputs(dev, torch.float32, m, n)
+        g = k2.cluster_grid(m, n, 2, 132, cluster=c, group_rows=r, stages=s)
+        if g.smem_bytes > 224 * 1024 or g.threads > 512:
+            continue
+        got = k2._pair(A, y, xt, xd, LOGISTIC01_GLM, m, "ggn", g)
+        for g_, w_ in zip(got, glm_prep_pair_torch(A, y, xt, xd,
+                                                   LOGISTIC01_GLM)):
+            _check(g_, w_, torch.float32)
+        assert all(torch.equal(g_, a) for g_, a in zip(
+            got, k2._pair(A, y, xt, xd, LOGISTIC01_GLM, m, "ggn", g)))
+
+
+@pytest.mark.parametrize("p", [1, 100, 128, 129, 256, 512, 1000, 1024])
+@pytest.mark.parametrize("k", [1, 3, 8, 16])
+def test_bf16_mglm_form_matches_plain_at_every_p_and_k(dev, p, k):
+    # the bfloat16 tensor-core form at each padded p (128/256/512/1024),
+    # rows 16-byte aligned or not (p % 8 != 0), k up to 16; 1031 rows end
+    # in a partial tile
+    A, y, Z, V = _mglm_inputs(dev, torch.float32, 1031, p, k)
+    A = A.to(torch.bfloat16)
+    spec = losses.multinom_mglm(k)
+    grid = k5.mglm_grid(1031, p, k, torch.float32, 132,
+                        a_dtype=torch.bfloat16)
+    assert grid.form == "tensor"
+    counters.reset()
+    got = mglm_matvec(A, y, Z, V, spec)
+    _check_k5(got, mglm_matvec_torch(A, y, Z, V, spec), torch.float32)
+    assert torch.equal(got, mglm_matvec(A, y, Z, V, spec))
+    snap = counters.snapshot()
+    assert snap["mglm_matvec"] == snap["mglm_matvec_bf16"] == 2
+
+
+@pytest.mark.parametrize("m,n,dtype", [(777, 3072, torch.float32),
+                                       (777, 1536, torch.float64),
+                                       (777, 6144, torch.float32)])
+def test_kernels_at_the_48_kb_launch_boundary(dev, m, n, dtype):
+    # 49152 bytes of dynamic shared memory and a few of static ones need
+    # the opt-in: K2 (f32 n = 3072, f64 1536), K2s and K1 (f32 n = 6144)
+    gen = torch.Generator(device=dev).manual_seed(n)
+    A = torch.randn((m, n), generator=gen, device=dev, dtype=dtype) * 0.1
+    y = (torch.rand((m,), generator=gen, device=dev) < 0.5).to(dtype)
+    xt = torch.randn((n,), generator=gen, device=dev, dtype=dtype) * 0.3
+    xd = torch.randn((n,), generator=gen, device=dev, dtype=dtype) * 0.3
+    w = torch.rand((m,), generator=gen, device=dev, dtype=dtype)
+    for g, w_ in zip(glm_prep_pair(A, y, xt, xd, LOGISTIC01_GLM),
+                     glm_prep_pair_torch(A, y, xt, xd, LOGISTIC01_GLM)):
+        _check(g, w_, dtype)
+    for g, w_ in zip(glm_prep(A, y, xt, LOGISTIC01_GLM),
+                     glm_prep_torch(A, y, xt, LOGISTIC01_GLM)[:3]):
+        _check(g, w_, dtype)
+    _check(normal_matvec(A, w, xt), normal_matvec_torch(A, w, xt), dtype)

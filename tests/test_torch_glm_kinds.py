@@ -179,11 +179,16 @@ def test_both_kinds_run_inside_the_kernel(kind, dtype, a_dtype):
     assert not glm_prep.covers(replace(spec, kind="probit"))
     for c in (1, 2):
         limit = max_n(dtype, c, a_dtype)
+        # K2 and K2s with A in bfloat16 and float32 run the cluster form
+        # from n = 1025 to 14336 (K2s past it one-pass, to its limit)
+        bf = (dtype, a_dtype) == (torch.float32, torch.bfloat16)
+        main = ("cluster" if bf else "one_pass" if c == 1 or
+                limit >= 10112 else "wide")
         for (m, n), form in (((1, 256), "one_pass"),
-                             ((3001, limit), "one_pass"),
+                             ((3001, limit),
+                              "cluster" if bf and c == 2 else "one_pass"),
                              ((3001, limit + 8), "wide"),
-                             ((196608, 10112), "one_pass" if c == 1 or
-                              limit >= 10112 else "wide")):
+                             ((196608, 10112), main)):
             g = prep_grid(m, n, dtype, c, 132, glm_prep.covers(spec),
                           a_dtype)
             assert g.form == form, (m, n, c)

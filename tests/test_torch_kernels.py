@@ -221,7 +221,7 @@ class TestPrepGrid:
         # 196608×10112 float32 on a 132-SM H100: one 512-thread block an
         # SM, 5 chunks a thread, K2's accumulators 161,792 B
         g = prep_grid(196608, 10112, torch.float32, 2, 132)
-        assert g == ("one_pass", 132, 1490, 161792, 512, 5, 132)
+        assert g == ("one_pass", 132, 1490, 161792, 512, 5, 132, 0, 0, 0)
         assert prep_grid(196608, 10112, torch.float32, 1, 132).smem_bytes \
             == 80896
 

@@ -66,9 +66,10 @@ from scso_tpu_torch.algorithms import iterate as it_mod
 from scso_tpu_torch.algorithms import steps
 from scso_tpu_torch.models import losses
 from scso_tpu_torch.ops.cuda.glm_prep import (
-    glm_prep_pair_torch, glm_prep_torch, max_n, prep_grid)
+    cluster_max_n, glm_prep_pair_torch, glm_prep_torch, max_n, prep_grid)
 from scso_tpu_torch.ops.cuda.mglm_matvec import (
-    mglm_grid, mglm_matvec_torch, tc_geometry, tc_smem_bytes)
+    mglm_grid, mglm_matvec_torch, tc_blocks_per_sm, tc_geometry,
+    tc_smem_bytes)
 from scso_tpu_torch.parallel import distributed_init, make_mesh, shard_problem
 
 torch.set_num_threads(1)
@@ -404,9 +405,15 @@ def test_prep_grid_with_a_bf16_switches_at_the_limit(candidates, dtype):
     limit = max_n(dtype, candidates, BF16)
     # the accumulators stay in dtype: the same limit as A in dtype
     assert limit == max_n(dtype, candidates)
+    # K2 in float32 runs the cluster form from n = 1025 up to the same n
+    # (K2s's limit is past the cluster form's)
+    below = ("cluster" if (candidates, dtype) == (2, torch.float32)
+             else "one_pass")
+    if below == "cluster":
+        assert cluster_max_n() == limit
     for n in (limit - 8, limit - 1, limit):
         assert prep_grid(1031, n, dtype, candidates, 132,
-                         a_dtype=BF16).form == "one_pass"
+                         a_dtype=BF16).form == below
     for n in (limit + 1, limit + 8, 2 * limit):
         assert prep_grid(1031, n, dtype, candidates, 132,
                          a_dtype=BF16).form == "wide"
@@ -428,6 +435,11 @@ def test_prep_grid_with_a_bf16_covers_rows_and_chunks_once(candidates, dtype,
     if g.form == "wide":
         assert n > max_n(dtype, candidates, BF16)
         return
+    if g.form == "cluster":  # float32: tests/test_torch_bf16_forms.py
+        assert dtype == torch.float32
+        assert g.cluster * (g.threads - 64) * 8 >= n
+        assert g.smem_bytes <= 224 * 1024
+        return
     nc = -(-n // 8)  # 16-byte chunks of 8 bfloat16 values
     assert g.smem_bytes == 2 * candidates * nc * 8 * dtype.itemsize
     assert g.smem_bytes <= 224 * 1024
@@ -443,11 +455,19 @@ def test_prep_grid_with_a_bf16_covers_rows_and_chunks_once(candidates, dtype,
 
 
 def test_main_shape_with_a_bf16_runs_the_one_pass_form():
-    # 196608×10112: 1,264 chunks of 8 values, 3 a thread, 448 threads;
-    # the accumulators in float32 as with A in float32
-    g = prep_grid(196608, 10112, torch.float32, 2, 132, a_dtype=BF16)
+    # K2s past the cluster form's limit, 196608×20224: 2,528 chunks of 8
+    # values, 5 a thread, 512 threads; the accumulators in float32 as
+    # with A in float32 (in float32 K2 and K2s take the cluster form at
+    # the main shape: tests/test_torch_bf16_forms.py)
+    g = prep_grid(196608, 20224, torch.float32, 1, 132, a_dtype=BF16)
     assert (g.form, g.chunks_per_thread, g.threads, g.smem_bytes) == (
-        "one_pass", 3, 448, 161792)
+        "one_pass", 5, 512, 161792)
+    # K2 in float64 at its one-pass limit, 896 chunks: 2 a thread
+    g = prep_grid(196608, 7168, torch.float64, 2, 132, a_dtype=BF16)
+    assert (g.form, g.chunks_per_thread, g.threads) == ("one_pass", 2, 448)
+    for c in (1, 2):
+        assert prep_grid(196608, 10112, torch.float32, c, 132,
+                         a_dtype=BF16).form == "cluster"
 
 
 @pytest.mark.parametrize("p,k", [(1024, 16), (1025, 16), (1024, 17),
@@ -459,16 +479,19 @@ def test_mglm_grid_with_a_bf16(p, k):
         assert g.form == want.form
         assert g.blocks * g.rows_per_block >= 3001
         if g.form == "tensor":
-            # A's two 16-row stages at half the bytes, the rest as before
-            pp = tc_geometry(p, k)[1]
+            # the bfloat16 form's ring, V's and QU's three pieces, and as
+            # many blocks an SM as its registers take (3001 rows: at most
+            # one a 16-row tile)
             assert g.smem_bytes == tc_smem_bytes(p, k, BF16)
-            assert want.smem_bytes - g.smem_bytes == 2 * 16 * pp * 2
-            assert g._replace(smem_bytes=0) == want._replace(smem_bytes=0)
+            assert g.threads == want.threads
+            per_sm = tc_blocks_per_sm(p, k)
+            assert g.blocks <= min(per_sm * 132, -(-3001 // 16))
+            assert g.rows_per_block % 16 == 0
         else:
             assert g == want
-    # 196608×1024×16: two 32 KB stages instead of 64 KB
+    # 196608×1024×16: three stages of 16 padded rows beside V's pieces
     assert mglm_grid(196608, 1024, 16, torch.float32, 132,
-                     a_dtype=BF16).smem_bytes == 214016 - 65536
+                     a_dtype=BF16).smem_bytes == 215320
 
 
 def test_cached_mglm_solve_with_a_bf16_copy_matches_jax():
