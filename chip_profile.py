@@ -8,13 +8,28 @@ each problem — phase 3's sparse logistic (196608×10000 padded to 10112,
 seed 7, float32), phase 9's (524288×1024), and phase 5's multinomial
 (196608×1024×16, seed 11, float32) — it builds the problem, presolves
 for x*, warms up, then profiles one timed chain to the 1e-6 gap (CPU
-and CUDA activities): with A in float32 (chip_smoke's F32_CG), and for
-the two logistic problems also with the bfloat16 copy of A
-(auto_lp=True, phase 11's lp chain). It prints the card's name and
-power limit, then one JSON line a chain: the chain's host seconds; the
-device's busy time (the union of the intervals of its kernels, copies
-and sets) and its idle share of the profiled window (first to last
-device activity); and the device ms and kernel runs of the port's
+and CUDA activities): with A in float32 (chip_smoke's F32_CG) in the
+default fused mode (replays of the captured solve) and in its eager
+form (``capture=False``: the same bodies with a host read a predicate,
+the chain the port ran before its solves were captured, ``_eager``),
+and for the two logistic problems also with the bfloat16 copy of A
+(auto_lp=True, phase 11's lp chain, fused and eager). It prints the
+card's name and power limit, then one JSON line a chain: the chain's
+host seconds; the device's busy time (the union of the intervals of its
+kernels, copies and sets) and its idle share of the profiled window
+(first to last device activity), and beside it the idle share against
+the best of 3 unprofiled runs of the chain, all timed before the
+profiler first runs (the profiler slows a captured graph's replays, for
+the rest of the process: their window grows, their busy time does not),
+with the three runs' seconds and the captures each made (a capture
+inside a timed run would be counted as idle time). The trace of a
+replayed graph can miss kernels that run inside its WHILE nodes: where a
+fused chain's trace holds fewer runs of the port's kernels than its
+eager twin's (the same kernels on the same inputs, bitwise the same
+run), the idle share uses the twin's busy time (``busy_from``), which
+leaves out only the fused chain's one-thread conditional sets and
+launch counts; and the device
+ms and kernel runs of the port's
 kernels in that chain, by kernel — K1 on the bf16 copy (its partial
 sums), K1 (its partial sums on A and the fixed-order sums of both), K2
 (either form and its finalize), K3, K5 (any of its forms and its
@@ -76,9 +91,12 @@ def busy_us(spans):
     return total
 
 
-def profile_problem(name, prob, card, kind, lp=False):
-    """Presolve, then profile the f32 chain (and with ``lp`` the chain
-    with the bf16 copy) on the anchored problem."""
+def prepare(name, prob, kind, lp=False):
+    """Presolve, then the chains to profile on the anchored problem: the
+    f32 chain fused and eager (and with ``lp`` the chain with the bf16
+    copy, fused and eager), each warmed up (its capture) and timed unprofiled (3
+    runs). Returns (name, prob_t, best, method, kind, capture, runs) a
+    chain, ``runs`` the (seconds, captures) of each timed run."""
     import chip_smoke as cs
     import scso_tpu_torch as st
     from scso_tpu_torch._src.struct import replace
@@ -86,25 +104,38 @@ def profile_problem(name, prob, card, kind, lp=False):
     f32 = st.ProxGGNSCORE(**cs.F32_CG)
     best, x_opt, _ = cs.presolve(f32, prob)
     prob_t = replace(prob, x_star=x_opt)
-    profile_chain(name, prob_t, best, f32, card, kind)
+    arms = [(name, f32, True), (f"{name}_eager", f32, False)]
     if lp:
-        profile_chain(f"{name}_lp", prob_t, best, st.ProxGGNSCORE(
-            **dict(cs.F32_CG, auto_lp=True)), card, kind)
+        lp_method = st.ProxGGNSCORE(**dict(cs.F32_CG, auto_lp=True))
+        arms += [(f"{name}_lp", lp_method, True),
+                 (f"{name}_lp_eager", lp_method, False)]
+    chains = []
+    for chain, method, capture in arms:
+        cs.solve_chunk(method, prob_t, capture)  # warm-up (the capture)
+        runs = []
+        for _ in range(3):
+            r = cs.timed_chain(method, prob_t, best, capture=capture)
+            runs.append((r["seconds"], r["loop"]["captures"]))
+        chains.append((chain, prob_t, best, method, kind, capture, runs))
+    return chains
 
 
-def profile_chain(name, prob_t, best, method, card, kind):
-    """Warm up, then profile one timed chain; print its line."""
+def profile_chain(name, prob_t, best, method, kind, capture, runs, card):
+    """Profile one timed chain (timed unprofiled by `prepare`) after a
+    warm-up (a capture again where the cast it read is gone: `cast_once`
+    keeps one); returns its line."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as cs
 
-    cs.solve_chunk(method, prob_t)  # warm-up
+    cs.solve_chunk(method, prob_t, capture)
     torch.cuda.synchronize()
+    unprofiled = min(sec for sec, _ in runs)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        chain = cs.timed_chain(method, prob_t, best)
+        chain = cs.timed_chain(method, prob_t, best, capture=capture)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     if "--trace" in sys.argv:
@@ -125,12 +156,33 @@ def profile_chain(name, prob_t, best, method, card, kind):
                     if any(f in ev for f in frags)), "other")
         kernels[key]["ms"] += (e - s) / 1e3
         kernels[key]["runs"] += 1
-    print(json.dumps({
+    return {
         "chain": name, "card": card, "chain_s": chain["seconds"],
+        "unprofiled_s": unprofiled,
+        "unprofiled_runs_s": [sec for sec, _ in runs],
+        "unprofiled_captures": [n for _, n in runs],
         "wall_s": wall, "epochs": chain["epochs"],
         "cg_iters": chain["cg_iters"], "gap": chain["gap"],
+        "host_reads": chain["loop"]["host_reads"],
+        "captures": chain["loop"]["captures"],
         "window_ms": window / 1e3, "busy_ms": busy / 1e3,
-        "idle_share": 1.0 - busy / window, "kernels": kernels}), flush=True)
+        "idle_share": 1.0 - busy / window, "kernels": kernels}
+
+
+def with_idle(line, twin):
+    """``line`` with its idle share against its unprofiled seconds: its
+    own busy time, or its eager ``twin``'s where its trace holds fewer
+    runs of the port's kernels than the twin's."""
+    busy, src = line["busy_ms"], "trace"
+    if twin is not None:
+        short = any(line["kernels"][k]["runs"] < twin["kernels"][k]["runs"]
+                    for k in line["kernels"] if k != "other")
+        line["trace_runs_short"] = short
+        if short:
+            busy, src = twin["busy_ms"], "eager twin"
+    line["busy_from"] = src
+    line["idle_share_unprofiled"] = 1.0 - busy / 1e3 / line["unprofiled_s"]
+    return line
 
 
 def main():
@@ -149,14 +201,20 @@ def main():
                          text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0].strip()
     print(card, flush=True)
+    # every unprofiled time first: once the profiler has run, the
+    # replays of a captured graph stay slower for the process
+    chains = []
     for name, shape in (("main", cs.MAIN_SHAPE),
                         ("narrow", cs.NARROW_SHAPE)):
-        profile_problem(name, cs.build_problem(*shape, "cuda",
-                                               torch.float32),
-                        card, "logistic", lp=True)
-        torch.cuda.empty_cache()
-    profile_problem("multinomial", cs.build_mglm_problem(
-        *cs.MGLM_SHAPE, "cuda", torch.float32), card, "multinomial")
+        chains += prepare(name, cs.build_problem(*shape, "cuda",
+                                                 torch.float32),
+                          "logistic", lp=True)
+    chains += prepare("multinomial", cs.build_mglm_problem(
+        *cs.MGLM_SHAPE, "cuda", torch.float32), "multinomial")
+    lines = {c[0]: profile_chain(*c, card) for c in chains}
+    for name, line in lines.items():
+        twin = None if name.endswith("_eager") else lines[f"{name}_eager"]
+        print(json.dumps(with_idle(line, twin)), flush=True)
 
 
 if __name__ == "__main__":

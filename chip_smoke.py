@@ -6,7 +6,11 @@
 Run from the root of a checkout, on a machine with one NVIDIA H100 (the
 kernels are built for sm_90a). It never falls back to the CPU: without
 a CUDA device, or outside a checkout, it exits non-zero and prints no
-result. Phases, each fatal on failure:
+result. Every solve runs in the solver's default fused mode — replays
+of the solve captured into a CUDA graph, its CG and Armijo loops
+conditional nodes — unless a phase says otherwise; the presolve or a
+warm-up with the timed chain's options makes each capture, so that the
+timed chains replay it. Phases, each fatal on failure:
 
   1. The card (name and power limit from nvidia-smi); build the CUDA
      kernels from ``scso_tpu_torch/csrc`` and print the build seconds.
@@ -68,7 +72,16 @@ result. Phases, each fatal on failure:
      throughout (auto_lp=False, F32_CG; phase 11 runs the bfloat16
      copy) and the pseudo-Huber l1 smoother — a presolve chain fixes
      x*, then a timed chain from x0 must reach the 1e-6 objective gap
-     with K1, K2 and K3 launched.
+     with K1, K2 and K3 launched (counted on the card under replay).
+     Then the captured chain against its eager form (the private
+     ``capture=False``: the same bodies with a host read a predicate),
+     in turns c, e, e, c, c, e (`capture_turns`): the same epochs and
+     CG iterations, x and every objective history bitwise; each one's
+     best seconds, the capture's seconds and nodes, the replays and
+     host reads a solve. And the chain in timed mode (the JAX package's
+     `_solve_python`, its uncached step): one time a record, times
+     non-decreasing, the final objective within E2E_RTOL of the fused
+     chain's.
   4. Cross-checks: the same timed chain with kernels='torch' must agree
      on the final objective, and a small float64 solve through the
      kernels must match the plain path on the CPU.
@@ -77,7 +90,8 @@ result. Phases, each fatal on failure:
      λ = 1e-3, the same method (A in float32: auto_lp=False) and
      protocol — K5 and K3 launched, K1
      and K2 not; the kernels='torch' chain must agree on the final
-     objective, K5's form and time at that shape are printed beside its
+     objective, the captured chain is the eager one bitwise (as in
+     phase 3), K5's form and time at that shape are printed beside its
      plain version's and its two-pass and split forms', and a small
      float64 multinomial solve through the kernels must match the plain
      path on the CPU.
@@ -85,32 +99,40 @@ result. Phases, each fatal on failure:
      closed-form gradient) on phase 3's data, from x0 for a fixed 300
      epochs, with kernels and with kernels='torch': K4 and K3 launched
      and no other kernel, the two objective histories within 1e-5
-     relative, the gap to phase 3's anchor printed; small float64
+     relative, the gap to phase 3's anchor printed, the captured run
+     the eager one bitwise (as in phase 3); small float64
      L-BFGS solves (m = 10 and 100) through the kernels must match the
      CPU plain path.
   7. The uncached GGN-CG path (ProxGGNSCORE(solver='cg', cg_maxiter=100,
      epoch_cache=False)) on phase 3's data under phase 3's protocol to
      the 1e-6 gap: K2s, K1 and K3 launched, K2, K4 and K5 not; the
-     kernels='torch' chain must agree on the final objective, and a
+     kernels='torch' chain must agree on the final objective, the
+     captured chain is the eager one bitwise (as in phase 3), and a
      small float64 uncached solve through the kernels must match the
      CPU plain path.
   8. The row-sharded cached GGN-CG path. (a) `shard_problem` of phase
      3's problem over the one-rank NCCL mesh under phase 3's protocol:
      the same epochs, CG iterations and final objective, bitwise, with
      K1s, K1, K2 and K3 launched as often as K1, K2 and K3 in phase 3.
+     The one-rank solve captures its NCCL all-reduces into the graph.
      (b) Two ranks on the one card over gloo (NCCL refuses two ranks on
-     one card): the parent writes 2×32768×10000 rows (seed 7) with
+     one card; gloo reduces CUDA tensors through the host, which a
+     capture refuses, so these ranks run timed mode, a row shard's
+     public mode: the cached step, uncaptured): the parent
+     writes 2×32768×10000 rows (seed 7) with
      `save_problem_data` to a temporary directory, two worker processes
      of this script load their rows with `load_problem_rows_sharded`
      and solve to the 1e-6 gap with comm_overlap_chunks 1 and 2; each
      final objective within E2E_RTOL of the parent's unsharded chain,
      x bitwise equal on both ranks, and a small float64 two-rank solve
-     matching the CPU's plain unsharded solve to 1e-9. Its seconds are
+     matching the CPU's plain unsharded solve (fused, a record every
+     epoch) to 1e-9. Its seconds are
      not a scaling number.
   9. Phase 3's chain at the JAX bench's secondary shape, 524288×1024
      (seed 7, f32; where the JAX package's plain f32 tile sums stalled
      at a 1.7e-6 gap): it must reach the 1e-6 gap with K1, K2 and K3,
-     and agree with its kernels='torch' chain on the final objective.
+     agree with its kernels='torch' chain on the final objective, and
+     its captured chain is the eager one bitwise (as in phase 3).
  10. Phase 3's problem with kind=None in its GLM spec (a user-built
      GLMSpec) under kernels='auto', phase 3's protocol: K1, K2 (in its
      split form) and K3 launched; the chain reaches the gap and agrees
@@ -1453,11 +1475,14 @@ CHUNK_KW = dict(x_tol=1e-12, f_tol=GAP, max_epoch=CHUNK, verbose=0,
                 stats_every=4, alpha=1.0)
 
 
-def solve_chunk(method, prob):
+def solve_chunk(method, prob, capture=True, mode="fused"):
+    """One solve of a chain: in the default fused mode a captured solve
+    on the card, with ``capture=False`` the same solve's bodies run
+    eagerly (the reference form); ``mode='timed'`` the timed loop."""
     import scso_tpu_torch as st
 
     return st.iterate(method, prob, "l1", st.PHuberSmootherL1L2(1.0),
-                      **CHUNK_KW)
+                      _capture=capture, **dict(CHUNK_KW, mode=mode))
 
 
 def presolve(method, prob):
@@ -1479,22 +1504,34 @@ def presolve(method, prob):
     return best, x_opt, epochs
 
 
-def timed_chain(method, prob, best, keep_x=False, first=None):
+def timed_chain(method, prob, best, keep_x=False, first=None, capture=True,
+                mode="fused"):
     """Fresh solves from x0 against x*, chained until the gap fires.
-    ``keep_x`` adds the final iterate (a tensor) as ``x``. ``first``
-    ((method, problem) → Solution) runs the first solve instead of
-    `solve_chunk` (phase 13: iterate_mixed); its cg_info is kept as
-    ``first_info``."""
+    ``keep_x`` adds the final iterate (a tensor) as ``x`` and each
+    solve's objective history as ``objs``. ``first`` ((method, problem)
+    → Solution) runs the first solve instead of `solve_chunk` (phase 13:
+    iterate_mixed); its cg_info is kept as ``first_info``. ``capture``
+    and ``mode`` go to `solve_chunk`; ``solves`` counts the solves and
+    ``loop`` holds what the solve loop did on the card meanwhile
+    (`graph.STATS`: captures, replays, host reads)."""
     from scso_tpu_torch._src.struct import replace
+    from scso_tpu_torch.ops.cuda import graph
 
     t_solve, epochs, cg_total, cur, prev_gap = 0.0, 0, 0, prob, float("inf")
+    objs = []
+    graph.reset_stats()
     for i in range(12):
         t0 = time.perf_counter()
-        s = (first if first is not None and i == 0 else solve_chunk)(
-            method, cur)
+        s = (first(method, cur) if first is not None and i == 0 else
+             solve_chunk(method, cur, capture, mode))
         if i == 0:
             first_info = dict(s.cg_info or {})
         t_solve += time.perf_counter() - t0
+        objs.append(s.obj)
+        if mode == "timed" and (len(s.times) != len(s.obj) or not bool(
+                (s.times[1:] >= s.times[:-1]).all())):
+            fail(f"timed mode: {len(s.times)} times for {len(s.obj)} "
+                 "records, or times that decrease")
         epochs += s.epochs
         cg_total += (s.cg_info or {}).get("total_cg_iters", 0)
         gap = float(s.objrel[-1])
@@ -1504,20 +1541,94 @@ def timed_chain(method, prob, best, keep_x=False, first=None):
         if s.epochs < CHUNK and gap >= prev_gap * 0.99:
             break
         prev_gap = gap
-        cur = replace(cur, x0=s.state.x)
+        cur = replace(cur, x0=warm_start(cur, s))
     if gap > GAP and signed_min <= GAP:
         gap = GAP  # reached below the anchor
     out = dict(seconds=t_solve, epochs=epochs, cg_iters=cg_total, gap=gap,
-               obj=float(s.obj[-1]), first_info=first_info)
+               obj=float(s.obj[-1]), first_info=first_info, solves=i + 1,
+               loop=dict(graph.STATS))
     if keep_x:
-        out["x"] = s.x
+        out["x"], out["objs"] = s.x, objs
     return out
 
 
-def phase_main_path(shape=MAIN_SHAPE):
+def warm_start(prob, s):
+    """The padded iterate a chained solve starts from: fused mode's
+    ``state.x``; timed mode keeps no state (as the JAX package's), so its
+    x with the padded features' zeros appended."""
+    if s.state is not None:
+        return s.state.x
+    x0 = prob.x0.new_zeros(prob.x0.shape)
+    x0[..., : s.x.shape[-1]] = s.x
+    return x0
+
+
+def same_run(what, a, b):
+    """Fail unless two runs (captured, eager) took the same epochs and CG
+    iterations to bitwise the same x and objective histories."""
+    import torch
+
+    for key in ("epochs", "cg_iters"):
+        if a[key] != b[key]:
+            fail(f"{what}: captured {key} {a[key]} != eager {b[key]}")
+    if not torch.equal(a["x"], b["x"]) or len(a["objs"]) != len(b["objs"]) \
+            or not all(torch.equal(p, q) for p, q in zip(a["objs"],
+                                                          b["objs"])):
+        fail(f"{what}: the captured and the eager runs differ in x or in "
+             "an objective history")
+
+
+def capture_turns(what, run):
+    """``run(capture)`` — a chain, or one solve, returning timed_chain's
+    dict with ``x`` and ``objs`` — captured (the default fused mode) and
+    eager (``capture=False``: the same graph bodies run on the card with a
+    host read a predicate), in turns c, e, e, c, c, e. The two must take
+    the same epochs and CG iterations to bitwise the same x and
+    objective histories. Returns and prints the best of 3 seconds of
+    each, the capture's seconds and nodes (made earlier, by the
+    presolve or the warm-up), and the replays and host reads a solve."""
+    from scso_tpu_torch.ops.cuda import graph
+
+    runs = {True: [], False: []}
+    for capture in (True, False, False, True, True, False):
+        runs[capture].append(run(capture))
+    c, e = runs[True][0], runs[False][0]
+    for r in runs[True][1:] + runs[False]:
+        same_run(what, c, r)
+    graphs = graph.last_graphs()
+    per = lambda r, k: r["loop"][k] / r["solves"]
+    out = dict(captured_s=min(r["seconds"] for r in runs[True]),
+               eager_s=min(r["seconds"] for r in runs[False]),
+               capture_s={k: g.seconds for k, g in graphs.items()},
+               nodes={k: g.nodes for k, g in graphs.items()},
+               captures_in_turns=sum(r["loop"]["captures"]
+                                     for r in runs[True]),
+               replays_per_solve=per(c, "replays"),
+               host_reads_per_solve=per(c, "host_reads"),
+               eager_host_reads_per_solve=per(e, "host_reads"),
+               solves=c["solves"], epochs=c["epochs"],
+               cg_iters=c["cg_iters"])
+    if out["captures_in_turns"]:
+        fail(f"{what}: the timed captured runs captured anew "
+             f"({out['captures_in_turns']} captures)")
+    log(f"  captured vs eager ({what}): same {c['epochs']} epochs and "
+        f"{c['cg_iters']} CG iterations, x and objective histories "
+        f"bitwise; best of 3 in turns: captured {out['captured_s']:.4f} s, "
+        f"eager {out['eager_s']:.4f} s; {c['solves']} solves, "
+        f"{out['replays_per_solve']:.1f} replays and "
+        f"{out['host_reads_per_solve']:.1f} host reads a solve (eager "
+        f"{out['eager_host_reads_per_solve']:.1f})")
+    for k, g in graphs.items():
+        log(f"  capture seconds ({what}, {k} graph): {g.seconds:.3f}")
+        log(f"  graph nodes ({what}, {k} graph): {g.nodes}")
+    return out
+
+
+def phase_main_path(shape=MAIN_SHAPE, timed_mode=False):
     """The cached GGN-CG chain at ``shape`` (phase 3; phase 9 at the
     JAX bench's secondary shape), then the same chain with
-    kernels='torch'."""
+    kernels='torch', the captured chain against the eager one in turns,
+    and with ``timed_mode`` the chain in timed mode."""
     import dataclasses
 
     import torch
@@ -1562,7 +1673,34 @@ def phase_main_path(shape=MAIN_SHAPE):
              f"{plain['obj']:.9e} (rel {rel:.2e} > {E2E_RTOL:g})")
     log(f"  final objective: kernels {kern['obj']:.9e}, torch "
         f"{plain['obj']:.9e}, rel diff {rel:.2e} (tolerance {E2E_RTOL:g})")
+    tag = "x".join(map(str, shape))
+    kern["loop"] = capture_turns(
+        f"cached GGN-CG {tag}",
+        lambda c: timed_chain(method, prob_t, best, keep_x=True, capture=c))
+    if timed_mode:
+        kern["timed_mode"] = timed_mode_chain(method, prob_t, best, kern)
     return kern, plain, launches, prob_t, best
+
+
+def timed_mode_chain(method, prob_t, best, fused):
+    """Phase 3's chain in timed mode (the JAX package's `_solve_python`:
+    the uncached step, a stats record, a time and a host stop test every
+    epoch): its times one a record and non-decreasing (checked in
+    `timed_chain`), its final objective within E2E_RTOL of the fused
+    chain's."""
+    solve_chunk(method, prob_t, mode="timed")  # warm-up: the capture
+    t = timed_chain(method, prob_t, best, mode="timed")
+    rel = abs(t["obj"] - fused["obj"]) / abs(fused["obj"])
+    log(f"  timed mode: {t['seconds']:.4f} s, {t['epochs']} epochs, gap "
+        f"{t['gap']:.3e}, {t['loop']['host_reads'] / t['solves']:.1f} "
+        f"host reads a solve; final objective {t['obj']:.9e} vs the fused "
+        f"chain's {fused['obj']:.9e}, rel diff {rel:.2e} (tolerance "
+        f"{E2E_RTOL:g})")
+    if not rel <= E2E_RTOL:
+        fail(f"timed mode's final objective {t['obj']:.9e} differs from "
+             f"the fused chain's {fused['obj']:.9e} by {rel:.2e}")
+    t.pop("first_info")
+    return t
 
 
 def phase_small_f64(method, what, solve=None, build=None, kernels=None):
@@ -1705,6 +1843,9 @@ def phase_multinomial():
              f"> {E2E_RTOL:g})")
     log(f"  final objective: kernels {kern['obj']:.9e}, torch "
         f"{plain['obj']:.9e}, rel diff {rel:.2e} (tolerance {E2E_RTOL:g})")
+    kern["loop"] = capture_turns(
+        "multinomial",
+        lambda c: timed_chain(method, prob_t, best, keep_x=True, capture=c))
     kern["k5"] = mglm_form_and_time(prob_t, x_opt)
 
     # small float64 solve: card kernels against the CPU plain path
@@ -1733,14 +1874,26 @@ def phase_multinomial():
 # ---------------------------------------------------------------------------
 
 
-def solve_lbfgs(method, prob, max_epoch=LBFGS_EPOCHS):
+def solve_lbfgs(method, prob, max_epoch=LBFGS_EPOCHS, capture=True):
     """A fixed number of L-BFGS epochs from x0 (x_tol = f_tol = 0: no
     stopping test fires), stats every 4 epochs."""
     import scso_tpu_torch as st
 
     return st.iterate(method, prob, "l1", st.PHuberSmootherL1L2(1.0),
                       x_tol=0.0, f_tol=0.0, max_epoch=max_epoch, verbose=0,
-                      stats_every=4)
+                      stats_every=4, _capture=capture)
+
+
+def lbfgs_run(method, prob, capture):
+    """One L-BFGS solve as `capture_turns` reads a run."""
+    from scso_tpu_torch.ops.cuda import graph
+
+    graph.reset_stats()
+    t0 = time.perf_counter()
+    s = solve_lbfgs(method, prob, capture=capture)
+    return dict(seconds=time.perf_counter() - t0, epochs=s.epochs,
+                cg_iters=0, x=s.x, objs=[s.obj], solves=1,
+                loop=dict(graph.STATS))
 
 
 def phase_lbfgs(prob_t):
@@ -1752,7 +1905,8 @@ def phase_lbfgs(prob_t):
     from scso_tpu_torch.ops.cuda import counters
 
     method = st.ProxLQNSCORE(m=10)
-    solve_lbfgs(method, prob_t, max_epoch=8)  # warm-up
+    for mode in ("cuda", "torch"):  # warm-up: the captures
+        solve_lbfgs(dataclasses.replace(method, kernels=mode), prob_t)
     runs = {}
     for mode in ("cuda", "torch"):
         m_ = dataclasses.replace(method, kernels=mode)
@@ -1781,6 +1935,8 @@ def phase_lbfgs(prob_t):
              f"(> {LBFGS_RTOL:g})")
     log(f"  L-BFGS objective histories, kernels vs torch: max rel diff "
         f"{rel:.2e} (tolerance {LBFGS_RTOL:g})")
+    kern["loop"] = capture_turns(
+        "L-BFGS", lambda c: lbfgs_run(method, prob_t, c))
     for mem in (10, 100):  # 100: past the old 64-slot limit of K4
         phase_small_f64(st.ProxLQNSCORE(m=mem), f"L-BFGS m={mem}",
                         lambda m_, p: solve_lbfgs(m_, p, max_epoch=40))
@@ -1794,9 +1950,7 @@ def phase_uncached(prob_t, best):
     from scso_tpu_torch.ops.cuda import counters
 
     method = st.ProxGGNSCORE(**F32_CG, epoch_cache=False)
-    warm = lambda m_: st.iterate(m_, prob_t, "l1", st.PHuberSmootherL1L2(1.0),
-                                 x_tol=1e-12, f_tol=GAP, max_epoch=4,
-                                 verbose=0, stats_every=4, alpha=1.0)
+    warm = lambda m_: solve_chunk(m_, prob_t)  # the capture
     warm(method)
     counters.reset()
     kern = timed_chain(method, prob_t, best)
@@ -1821,6 +1975,9 @@ def phase_uncached(prob_t, best):
              f"torch {plain['obj']:.9e} (rel {rel:.2e} > {E2E_RTOL:g})")
     log(f"  final objective: kernels {kern['obj']:.9e}, torch "
         f"{plain['obj']:.9e}, rel diff {rel:.2e} (tolerance {E2E_RTOL:g})")
+    kern["loop"] = capture_turns(
+        "uncached GGN-CG",
+        lambda c: timed_chain(method, prob_t, best, keep_x=True, capture=c))
     phase_small_f64(st.ProxGGNSCORE(solver="cg", greedy_alpha=False,
                                     epoch_cache=False), "uncached GGN-CG")
     return kern, plain, launches
@@ -2195,6 +2352,11 @@ def turns(arms, prob_t, best, what):
     from scso_tpu_torch.algorithms import iterate as it_mod
     from scso_tpu_torch.ops.cuda import counters
 
+    # one untimed chain of each arm first: it makes the captures that
+    # the timed chains replay
+    for label in dict.fromkeys(label for label, _, _ in arms):
+        _, method, first = next(a for a in arms if a[0] == label)
+        timed_chain(method, prob_t, best, first=first)
     runs = {}
     for label, method, first in arms:
         real, sols = it_mod.iterate, []
@@ -2210,7 +2372,7 @@ def turns(arms, prob_t, best, what):
         finally:
             it_mod.iterate = real
         r["launches"] = counters.snapshot()
-        r["bf16_products"] = counters.BF16_PRODUCTS["calls"]
+        r["bf16_products"] = counters.bf16_products()
         if first is mixed_solve:
             coarse = sols[0]
             r["coarse_epochs"] = coarse.epochs
@@ -2276,8 +2438,6 @@ def mglm_lp_turns(prob_t, best, what):
     lp = st.ProxGGNSCORE(**dict(F32_CG, auto_lp=True))
     auto_on = _auto_lp(st.ProxGGNSCORE(**dict(F32_CG, auto_lp=None)),
                        prob_t)[1].A_lp is not None
-    solve_chunk(f32, prob_t)  # warm-up
-    solve_chunk(lp, prob_t)
     runs = turns([("f32", f32, None), ("lp", lp, None), ("lp", lp, None),
                   ("f32", f32, None)] * 5, prob_t, best, what)
     ref = runs["f32"][0]["obj"]
@@ -2469,7 +2629,9 @@ def gl_path(method, prob, anchors=None):
     fixes the point's anchor (its best chunk), then timed chunks from
     that x at f_tol=1e-6, chained until the signed gap (obj − obj*)/|obj*|
     is at most 1e-6 or stops improving. (bench.py's untimed warm-up
-    solves are jit dispatches; eager PyTorch has none to warm.) With
+    solves are jit dispatches; here one untimed solve with the timed
+    chunks' options, at the first point, captures the graph that every
+    timed chunk replays.) With
     ``anchors`` — another run's points — the timed chunks alone, from
     those points' x, λ and anchors. Returns the timed seconds, epochs,
     CG iterations, worst gap and the points (x_warm, λ, x*, obj*, final
@@ -2499,6 +2661,8 @@ def gl_path(method, prob, anchors=None):
                     break
                 cur = replace(cur, x0=s.state.x)
         cur_t = replace(prob, lam=lamv, x0=x_warm, x_star=x_opt)
+        if i == 0:
+            gl_solve(method, cur_t, f_tol=1e-6)  # warm-up: the capture
         pt_gap = np.inf
         for _ in range(6):
             t0 = time.perf_counter()
@@ -2816,17 +2980,22 @@ def rank_worker(port, rank, workdir):
         grad_fx=losses.logistic01_grad, glm=losses.LOGISTIC01_GLM,
         sol=np.load(os.path.join(workdir, "xstar.npy")), pad_features=True)
     out = {}
+    # gloo reduces CUDA tensors through the host, which a capture
+    # refuses: these ranks run timed mode, a row shard's public mode
+    # (the cached step, uncaptured)
     for chunks in (1, 2):
         method = st.ProxGGNSCORE(**F32_CG, comm_overlap_chunks=chunks)
-        solve_chunk(method, prob)  # warm-up
+        solve_chunk(method, prob, mode="timed")  # warm-up
         counters.reset()
-        r = timed_chain(method, prob, best, keep_x=True)
+        r = timed_chain(method, prob, best, keep_x=True, mode="timed")
         r["launches"] = counters.snapshot()
         out[f"x{chunks}"] = r.pop("x").cpu().numpy()
+        r.pop("objs")
         out[f"chain{chunks}"] = json.dumps(r)
     s = solve_chunk(st.ProxGGNSCORE(solver="cg", greedy_alpha=False),
                     shard_problem(build_problem(512, 200, "cuda",
-                                                torch.float64), mesh))
+                                                torch.float64), mesh),
+                    mode="timed")
     out["small_obj"] = s.obj.numpy()
     np.savez(os.path.join(workdir, f"rank{rank}.npz"), **out)
     dist.destroy_process_group()
@@ -2927,14 +3096,18 @@ def phase_sharded_two_ranks():
         if chunks == 1 and lc["normal_matvec_sharded"] != lc["normal_matvec"]:
             fail(f"two-rank: K1s launched {lc['normal_matvec_sharded']} "
                  f"times but K1 {lc['normal_matvec']}")
-        log(f"  gloo, two ranks on one card, comm_overlap_chunks={chunks}: "
-            f"{got['seconds']:.4f} s, {got['epochs']} epochs, "
-            f"{got['cg_iters']} CG iterations, obj {got['obj']:.9e} (rel "
+        log(f"  gloo, two ranks on one card, timed mode, "
+            f"comm_overlap_chunks={chunks}: {got['seconds']:.4f} s, "
+            f"{got['epochs']} epochs, obj {got['obj']:.9e} (rel "
             f"diff to unsharded {rel:.2e}, tolerance {E2E_RTOL:g}), x "
             f"bitwise equal on both ranks, launches on rank 0 {lc}")
         res[f"two_ranks_overlap{chunks}"] = got
-    s_cpu = solve_chunk(st.ProxGGNSCORE(solver="cg", greedy_alpha=False),
-                        build_problem(512, 200, "cpu", torch.float64))
+    # a row shard's timed mode takes the cached step and records every
+    # epoch: the unsharded fused solve's records with stats_every = 1
+    s_cpu = st.iterate(st.ProxGGNSCORE(solver="cg", greedy_alpha=False),
+                       build_problem(512, 200, "cpu", torch.float64), "l1",
+                       st.PHuberSmootherL1L2(1.0),
+                       **dict(CHUNK_KW, stats_every=1))
     small = [r["small_obj"] for r in ranks]
     want = s_cpu.obj.numpy()
     if not (np.array_equal(small[0], small[1])
@@ -3009,7 +3182,7 @@ def main():
     errs, times, work, split = phase_kernels(mesh)
 
     log("phase 3/4: sparse-logistic path at full width, and cross-checks")
-    kern, plain, launches, prob_t, best = phase_main_path()
+    kern, plain, launches, prob_t, best = phase_main_path(timed_mode=True)
     phase_small_f64(st.ProxGGNSCORE(solver="cg", greedy_alpha=False),
                     "GGN-CG")
 

@@ -19,7 +19,9 @@ squares and Poisson regression (``GLMSpec``), multinomial softmax
 regression (``MOGLMSpec``, ``mglm=``), or any data f with its
 derivative hooks or autograd.
 GGN-CG on a GLM spec runs precision-adaptive CG on a bfloat16 copy of A
-(``with_lp_copy`` with ``cg_lp_tol``, or ``auto_lp``). What the port leaves out raises NotImplementedError
+(``with_lp_copy`` with ``cg_lp_tol``, or ``auto_lp``). ``iterate`` has
+the JAX package's two modes: 'fused' (the default; on the card the
+solve is captured into a CUDA graph and replayed) and 'timed'. What the port leaves out raises NotImplementedError
 naming its ROADMAP item.
 """
 

@@ -16,6 +16,8 @@ bound a product's relative error near 1e-3. Two schemes:
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from scso_tpu_torch._src.struct import replace as dc_replace
@@ -23,6 +25,26 @@ from scso_tpu_torch.problems import Problem
 
 # `iterate` imports this module (for with_lp_copy): iterate_mixed
 # imports it when it runs
+
+
+#: the last cast of `cast_once`: {(id(A), dtype): (weak A, cast)}
+_CAST: dict = {}
+
+
+def cast_once(A: torch.Tensor, dtype) -> torch.Tensor:
+    """``A.to(dtype)``, made once for the last A asked for and kept while
+    that A lives: the solves of a chain on one A (AUTO's bfloat16 copy,
+    `iterate_mixed`'s coarse A) then share one cast, and so the CUDA
+    graph captured on it. One cast at a time is kept."""
+    key = (id(A), dtype)
+    hit = _CAST.get(key)
+    if hit is not None and hit[0]() is A:
+        return hit[1]
+    _CAST.clear()
+    out = A.to(dtype)
+    _CAST[key] = (weakref.ref(A), out)
+    weakref.finalize(A, lambda: _CAST.pop(key, None))
+    return out
 
 
 def with_lp_copy(model: Problem, dtype=torch.bfloat16) -> Problem:
@@ -50,7 +72,8 @@ def iterate_mixed(method, model: Problem, reg_name: str, h_mu, *,
                   coarse_dtype=torch.bfloat16, **kwargs):
     """Two-phase mixed-precision `iterate`.
 
-    Accepts every `iterate` kwarg for the fine phase; the coarse phase
+    Accepts every `iterate` kwarg for the fine phase (``mode`` included:
+    both phases run in it); the coarse phase
     runs with the data matrix cast to ``coarse_dtype`` (x, y and every
     other tensor keep their dtype; an attached ``A_lp`` stays) and stops
     at ``coarse_f_tol`` relative objective gap or after
@@ -68,7 +91,7 @@ def iterate_mixed(method, model: Problem, reg_name: str, h_mu, *,
         # nothing bandwidth-bound to downcast: a plain solve
         return iterate(method, model, reg_name, h_mu, **kwargs)
 
-    coarse_prob = dc_replace(model, A=model.A.to(coarse_dtype))
+    coarse_prob = dc_replace(model, A=cast_once(model.A, coarse_dtype))
     coarse_kwargs = dict(kwargs, f_tol=coarse_f_tol,
                          max_epoch=coarse_max_epoch)
     coarse = iterate(method, coarse_prob, reg_name, h_mu, **coarse_kwargs)

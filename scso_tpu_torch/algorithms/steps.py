@@ -64,9 +64,15 @@ the cached multi-output path): with a low-precision copy of A
 CG forcing tolerance is at least ``cg_lp_tol`` runs its CG matvecs on
 the copy (K1, K1s or K5 with A in bfloat16), the others on A
 (`_lp_matvec`, `_mo_lp_matvec`, `_cg_direction_solve`). The RHS, the
-prep and the greedy pass always read A. The JAX package picks the
-operator with a `lax.cond` on the device; here the choice is a host
-branch on the forcing tolerance, one scalar read an epoch.
+prep and the greedy pass always read A. The choice is the JAX package's
+`lax.cond` on the device: `graph.device_cond`, two conditionals of a
+captured epoch.
+
+The epoch index ``it`` may be a Python int or a 0-d tensor on the data's
+device (the solve loops pass the tensor): the first-epoch rules of the
+forcing and of the BB step are `torch.where`s on it, as in the JAX
+package. A step reads nothing back to the host, so that it can be
+captured into a CUDA graph.
 
 Subsampled curvature, the static preconditioner and the generic jvp/vjp
 GGN-CG branch are not ported yet (ROADMAP A7).
@@ -82,6 +88,7 @@ import torch
 
 from scso_tpu_torch.algorithms.methods import (
     ProxGGNSCORE, ProxLQNSCORE, ProxNSCORE)
+from scso_tpu_torch.ops.cuda.graph import device_cond
 from scso_tpu_torch.ops.cuda.glm_prep import (
     ggn_weights, glm_prep, glm_prep_pair, glm_prep_pair_torch, glm_prep_torch)
 from scso_tpu_torch.ops.cuda.matvec import (
@@ -133,7 +140,8 @@ class StepOut(NamedTuple):
     gq_new: torch.Tensor   # ∇q at x_new (L-BFGS only; zeros otherwise)
     mem: LBFGSMemory       # L-BFGS memory (passed through by ggn_step)
     d: torch.Tensor        # raw (undamped) direction — CG warm start seed
-    cg_iters: int          # CG iterations spent (0 for L-BFGS)
+    cg_iters: object       # CG iterations spent: a 0-d int32 tensor, or
+    #                        0 where no CG ran (L-BFGS, the dense solves)
     bnorm: torch.Tensor    # forcing s_ref (first outer step length)
     fcache: GLMCache = None  # the cache at x_new (MOGLMCache for mglm);
     #                          None off the epoch-cache path
@@ -222,7 +230,7 @@ def _cw(prob: Problem, reg_name: str):
 
 
 def _resolve_step_size(method, prob: Problem, sm, reg_name, As, ys,
-                       x, x_prev, gq, gq_prev, d, it: int, cw):
+                       x, x_prev, gq, gq_prev, d, it, cw):
     """The three step-size schemes, in the reference's branch order.
 
     GGN:     ss1 & L set → min(1/L, 1); ss1 & L unset → 0.5;
@@ -237,9 +245,9 @@ def _resolve_step_size(method, prob: Problem, sm, reg_name, As, ys,
     lam = _lam_scalar(prob.lam)
 
     def bb():
-        if it == 1:
-            return torch.ones((), dtype=dt, device=x.device)
-        return inv_bb_step(x, x_prev, gq, gq_prev)
+        first = torch.as_tensor(it == 1, device=x.device)
+        return torch.where(first, torch.ones((), dtype=dt, device=x.device),
+                           inv_bb_step(x, x_prev, gq, gq_prev))
 
     def linesearch():
         obj = lambda v: prob.f_val(As, ys, v) + prob.reg(reg_name, v)
@@ -253,7 +261,7 @@ def _resolve_step_size(method, prob: Problem, sm, reg_name, As, ys,
             return bb()
         return linesearch()  # sst == 3
     if sst == 1:
-        return torch.tensor(0.5, dtype=dt, device=x.device)
+        return torch.full((), 0.5, dtype=dt, device=x.device)
     if sst == 2:
         return bb()
     return linesearch()  # sst == 3
@@ -379,7 +387,7 @@ def _cg_tol(method, dtype) -> float:
     return max(tol, 4.0 * eps)
 
 
-def _forcing_tol(method, b, x, x_prev, ref_prev, it: int, endgame=False):
+def _forcing_tol(method, b, x, x_prev, ref_prev, it, endgame=False):
     """(tol, step_ref) for the CG solve.
 
     ``endgame=True`` (float32 and below): TIGHTENING-ONLY forcing,
@@ -406,10 +414,8 @@ def _forcing_tol(method, b, x, x_prev, ref_prev, it: int, endgame=False):
     ref = torch.where(unset & (dxn > 0), dxn, rp)
     ratio = dxn / torch.clamp_min(ref, fin.tiny)
     eta = torch.clamp(0.9 * ratio * ratio, lo, hi)
-    if it <= 1:
-        return torch.full_like(eta, first), ref
-    return torch.where(torch.isnan(ref), torch.full_like(eta, first),
-                       eta), ref
+    return torch.where(torch.isnan(ref) | (it <= 1),
+                       torch.full_like(eta, first), eta), ref
 
 
 def _loss_scale(g, m_total):
@@ -489,14 +495,18 @@ def _lp_matvec(method, prob: Problem, As, w, lhr):
 def _cg_direction_solve(method, mv, mv_lp, b, d_prev, tol, M_inv):
     """Warm-started CG for the direction, on the low-precision operator
     ``mv_lp`` when it is given and ``tol >= method.cg_lp_tol`` (the bulk
-    epochs), else on ``mv``. The test is a host branch on the very
-    ``tol`` the solve then uses: one scalar read an epoch when the
-    forcing is a device tensor (the float32 endgame schedule and
-    cg_adaptive), none when it is the fixed floor."""
-    if mv_lp is not None and bool(tol >= method.cg_lp_tol):
-        mv = mv_lp
-    return cg_solve(mv, b, d_prev, tol=tol, maxiter=method.cg_maxiter,
-                    M_inv=M_inv)
+    epochs), else on ``mv``. The test is on the very ``tol`` the solve
+    then uses: a host branch when it is the fixed floor (a float), else
+    the JAX package's `lax.cond`, `graph.device_cond` (the float32
+    endgame schedule and cg_adaptive give a 0-d tensor)."""
+    run = lambda op: cg_solve(op, b, d_prev, tol=tol,
+                              maxiter=method.cg_maxiter, M_inv=M_inv)
+    if mv_lp is None:
+        return run(mv)
+    if not isinstance(tol, torch.Tensor):
+        return run(mv_lp if tol >= method.cg_lp_tol else mv)
+    return device_cond(tol >= method.cg_lp_tol, lambda: run(mv_lp),
+                       lambda: run(mv))
 
 
 def epoch_cache_enabled(method, prob: Problem, reg_name: str,
@@ -854,7 +864,7 @@ def _cached_step(method, prob: Problem, reg_name, sm, As, ys, x, x_prev,
 
 
 def newton_step(method: ProxNSCORE, prob: Problem, reg_name: str, sm,
-                As, ys, x, x_prev, it: int, d_prev=None, bnorm_prev=None,
+                As, ys, x, x_prev, it, d_prev=None, bnorm_prev=None,
                 fcache: GLMCache = None, gq_prev=None,
                 mem: LBFGSMemory = None) -> StepOut:
     """One proximal Newton step with self-concordant damping:
@@ -903,7 +913,9 @@ def newton_step(method: ProxNSCORE, prob: Problem, reg_name: str, sm,
     bnorm = torch.zeros((), dtype=x.dtype, device=x.device)
     if solver == "dense":
         H = prob.hess_f(As, ys, x)
-        d = -torch.linalg.solve(H + lam * torch.diag(Hr_diag), gq)
+        # solve_ex: a singular system gives NaN on the card, as in the JAX
+        # package, where solve would read its status on the host
+        d = -torch.linalg.solve_ex(H + lam * torch.diag(Hr_diag), gq)[0]
     elif solver == "cg":
         xp = x if x_prev is None else x_prev
         tol, bnorm = _forcing_tol(method, gq, x, xp, bnorm_prev, it,
@@ -952,12 +964,12 @@ def _ggn_dense_direction(solver, prob: Problem, As, ys, x, gr, Hr_diag,
     if use_dual:
         hinv = 1.0 / Hr_diag
         Amat = Qp @ (Jt.T @ (Jt * hinv[:, None]))
-        B = torch.linalg.solve(
-            torch.eye(q + 1, dtype=dt, device=dev) + Amat, rt)
+        B = torch.linalg.solve_ex(
+            torch.eye(q + 1, dtype=dt, device=dev) + Amat, rt)[0]
         d = hinv * (Jt @ B)
     else:
         M = (Jt @ Qp) @ Jt.T + lam * torch.diag(Hr_diag)
-        d = torch.linalg.solve(M, Jt @ rt)
+        d = torch.linalg.solve_ex(M, Jt @ rt)[0]
     return -d
 
 
@@ -1009,7 +1021,7 @@ def _ggn_cg_direction(method, prob: Problem, As, ys, x, gr, Hr_diag, lam,
 
 
 def ggn_step(method: ProxGGNSCORE, prob: Problem, reg_name: str, sm,
-             As, ys, x, x_prev, it: int, d_prev=None, bnorm_prev=None,
+             As, ys, x, x_prev, it, d_prev=None, bnorm_prev=None,
              fcache: GLMCache = None, gq_prev=None,
              mem: LBFGSMemory = None) -> StepOut:
     """One generalized Gauss-Newton step with self-concordant damping.
@@ -1056,7 +1068,7 @@ def ggn_step(method: ProxGGNSCORE, prob: Problem, reg_name: str, sm,
 
 
 def lbfgs_step(method: ProxLQNSCORE, prob: Problem, reg_name: str, sm,
-               As, ys, x, x_prev, gq_prev, it: int, mem: LBFGSMemory,
+               As, ys, x, x_prev, gq_prev, it, mem: LBFGSMemory,
                gq_cached=None) -> StepOut:
     """L-BFGS step with self-concordant damping.
 

@@ -169,6 +169,16 @@ def load() -> ctypes.CDLL:
     # cluster form (csrc/glm_prep_bf16.cu)
     lib.scso_glm_prep_cluster_fit.argtypes = [_i64] * 5 + [_p]
     lib.scso_glm_prep_cluster_fit.restype = ctypes.c_int
+    # parent stream, &pred (one bool), child stream, WHILE (else IF),
+    # &handle: begin a conditional node's body (csrc/graph.cu); child
+    # stream, handle, &pred (a WHILE's; else NULL), &nodes: end it;
+    # graph, &nodes: a graph's top-level node count
+    lib.scso_graph_cond_begin.argtypes = [_p, _p, _p, ctypes.c_int, _p]
+    lib.scso_graph_cond_end.argtypes = [_p, ctypes.c_uint64, _p, _p]
+    lib.scso_graph_nodes.argtypes = [_p, _p]
+    for fn in (lib.scso_graph_cond_begin, lib.scso_graph_cond_end,
+               lib.scso_graph_nodes):
+        fn.restype = ctypes.c_int
     lib.scso_cuda_error_string.argtypes = [ctypes.c_int]
     lib.scso_cuda_error_string.restype = ctypes.c_char_p
     return lib

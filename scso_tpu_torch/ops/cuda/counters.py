@@ -5,9 +5,21 @@ kernel, and nowhere else: the plain PyTorch versions never count. Unlike
 the JAX package's per-trace hit counters, these count launches, so a run
 shows how often each kernel ran — and a solve on the card that shows 0
 for a kernel of its path did not go through that kernel.
+
+A launch made while a solve is being captured into a CUDA graph
+(`graph.capture`, inside :func:`on_card`) runs only when the graph
+replays, and then only where its conditionals let it. So there a
+wrapper's count is a one-element add on a counter tensor on the card,
+captured beside the launch, which replays under the same conditions;
+every other launch adds to the Python count. :func:`snapshot` returns
+the sum of both (one read of each card's counters).
 """
 
 from __future__ import annotations
+
+import contextlib
+
+import torch
 
 KERNEL_LAUNCHES: dict = {
     "normal_matvec": 0,
@@ -41,15 +53,68 @@ KERNEL_LAUNCHES.update({
 BF16_PRODUCTS: dict = {"calls": 0}
 
 
+#: the counters on the card: one int64 a name of KERNEL_LAUNCHES, then
+#: BF16_PRODUCTS' calls, for each card a capture ran on
+_NAMES = tuple(KERNEL_LAUNCHES) + ("bf16_products",)
+_SLOT = {name: i for i, name in enumerate(_NAMES)}
+_DEVICE: dict = {}
+#: the card whose counters count while a solve is captured, else None
+_CAPTURING = {"index": None}
+
+
+@contextlib.contextmanager
+def on_card(index: int):
+    """While a solve is captured on card ``index``: each count is an add
+    on that card's counters (made here, before the capture's first op)."""
+    if index not in _DEVICE:
+        _DEVICE[index] = torch.zeros(len(_NAMES), dtype=torch.int64,
+                                     device=torch.device("cuda", index))
+    prev, _CAPTURING["index"] = _CAPTURING["index"], index
+    try:
+        yield
+    finally:
+        _CAPTURING["index"] = prev
+
+
+def _count(name: str, host: dict, key: str) -> None:
+    index = _CAPTURING["index"]
+    if index is None:
+        host[key] += 1
+    else:
+        i = _SLOT[name]
+        _DEVICE[index][i:i + 1].add_(1)
+
+
 def bump(name: str) -> None:
-    KERNEL_LAUNCHES[name] += 1
+    _count(name, KERNEL_LAUNCHES, name)
+
+
+def bump_product() -> None:
+    """One product of a bfloat16 A outside the kernels (`ops.dense`)."""
+    _count("bf16_products", BF16_PRODUCTS, "calls")
 
 
 def reset() -> None:
     for k in KERNEL_LAUNCHES:
         KERNEL_LAUNCHES[k] = 0
     BF16_PRODUCTS["calls"] = 0
+    for t in _DEVICE.values():
+        t.zero_()
+
+
+def _device_totals() -> dict:
+    totals = dict.fromkeys(_NAMES, 0)
+    for t in _DEVICE.values():
+        for name, c in zip(_NAMES, t.tolist()):
+            totals[name] += c
+    return totals
 
 
 def snapshot() -> dict:
-    return dict(KERNEL_LAUNCHES)
+    dev = _device_totals()
+    return {k: c + dev[k] for k, c in KERNEL_LAUNCHES.items()}
+
+
+def bf16_products() -> int:
+    """BF16_PRODUCTS' calls, the replayed ones included."""
+    return BF16_PRODUCTS["calls"] + _device_totals()["bf16_products"]

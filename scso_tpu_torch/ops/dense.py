@@ -14,7 +14,7 @@ where A's values are upcast exactly first:
     upcast A, each multiplied by `torch.matmul` as it is made, the
     blocks' sums added in row order: no A-sized temporary (7.95 GB at
     196608×10112 float32). Each such call counts once in
-    `counters.BF16_PRODUCTS`.
+    `counters.bf16_products()`.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ def _blocked(A) -> bool:
     """True for a bfloat16 A on the card: multiply it by row blocks."""
     if A.dtype != torch.bfloat16 or A.device.type == "cpu":
         return False
-    counters.BF16_PRODUCTS["calls"] += 1
+    counters.bump_product()
     return True
 
 

@@ -11,8 +11,9 @@ accept test reacts to the last ulp of the regularizer and
 `index_add_` adds CUDA floats with atomics: the elements are put in
 group order once, when the groups are built (``order``, None when the
 ids are already sorted, as for contiguous groups and the pad group),
-and `torch.segment_reduce` sums each group's run of ``sizes`` elements
-in a fixed order.
+and `torch.segment_reduce` sums each group's run in a fixed order. It
+takes the runs' ``offsets``: given lengths instead, it checks them by
+reading the card from the host, which a CUDA graph's capture refuses.
 """
 
 from __future__ import annotations
@@ -41,6 +42,8 @@ class Groups:
       sizes: int64[n_groups] — elements per group.
       order: int64[n] permutation putting the elements in group order,
         or None when ``segment_ids`` is already sorted.
+      offsets: int64[n_groups + 1] — where each group's run starts in
+        group order, then n.
     """
 
     segment_ids: torch.Tensor
@@ -50,6 +53,7 @@ class Groups:
     n: int
     sizes: torch.Tensor
     order: Optional[torch.Tensor] = None
+    offsets: Optional[torch.Tensor] = None
 
     def to(self, device=None, dtype=None) -> "Groups":
         """The same groups with the index tensors on ``device`` and the
@@ -60,7 +64,8 @@ class Groups:
             self, segment_ids=idx(self.segment_ids),
             weights=wts(self.weights),
             element_weights=wts(self.element_weights),
-            sizes=idx(self.sizes), order=idx(self.order))
+            sizes=idx(self.sizes), order=idx(self.order),
+            offsets=idx(self.offsets))
 
 
 def make_groups(segment_ids, weights=None, *, n_groups=None, dtype=None,
@@ -91,11 +96,13 @@ def make_groups(segment_ids, weights=None, *, n_groups=None, dtype=None,
     order = None
     if seg.size and np.any(np.diff(seg) < 0):
         order = torch.from_numpy(np.argsort(seg, kind="stable"))
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
     seg_t = torch.from_numpy(seg)
     return Groups(segment_ids=seg_t, weights=w, element_weights=w[seg_t],
                   n_groups=int(n_groups), n=int(seg.shape[0]),
                   sizes=torch.from_numpy(sizes.astype(np.int64)),
-                  order=order).to(device=device)
+                  order=order, offsets=torch.from_numpy(offsets)).to(
+                      device=device)
 
 
 def make_groups_from_ind(n: int, ind, *, dtype=None,
@@ -134,10 +141,11 @@ def make_contiguous_groups(n: int, group_size: int, weights=None, dtype=None,
 
 def segment_sum(groups: Groups, v: torch.Tensor) -> torch.Tensor:
     """float[n_groups] — the sum of v within each group, each group's
-    elements added in a fixed order (deterministic on the card)."""
+    elements added in a fixed order (deterministic on the card, and
+    without a host read there)."""
     if groups.order is not None:
         v = v[groups.order]
-    return torch.segment_reduce(v, "sum", lengths=groups.sizes)
+    return torch.segment_reduce(v, "sum", offsets=groups.offsets)
 
 
 def group_sumsq(groups: Groups, z: torch.Tensor) -> torch.Tensor:

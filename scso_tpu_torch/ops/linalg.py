@@ -1,12 +1,13 @@
 """Matrix-free linear algebra and the step-size rules.
 
 Port of `scso_tpu.ops.linalg`: preconditioned conjugate gradients, the
-inverse Barzilai–Borwein step and the Armijo line search. The JAX CG is
-a `lax.while_loop` that never leaves the device; here the loop is an
-eager Python loop, and its residual test reads one scalar back to the
-host on every iteration (one synchronisation per CG iteration). The
-Armijo loop likewise reads its sufficient-decrease test once per trial.
-Everything else stays on the device: the step scalars are 0-d tensors.
+inverse Barzilai–Borwein step and the Armijo line search. The JAX CG and
+Armijo loops are `lax.while_loop`s that never leave the device; here
+each is a `graph.device_loop`: its state lives in tensors updated in
+place, its iteration count is a 0-d int32 tensor and its test a 0-d bool
+tensor on the data's device, so that inside a captured CUDA graph the
+loop is one WHILE conditional node and reads nothing back to the host.
+On the CPU the same loop runs as a plain ``while``.
 """
 
 from __future__ import annotations
@@ -15,10 +16,11 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from scso_tpu_torch.ops.cuda.graph import device_loop
 
 class CGResult(NamedTuple):
     x: torch.Tensor
-    iters: int
+    iters: torch.Tensor      # 0-d int32, on b's device
     res_norm_sq: torch.Tensor
 
 
@@ -38,7 +40,7 @@ def cg_solve(
       b: right-hand side.
       x0: initial guess (zeros if None).
       tol: relative residual tolerance ‖r‖ ≤ tol·‖b‖ (float or 0-d tensor).
-      maxiter: iteration cap.
+      maxiter: iteration cap (the loop's test includes it).
       M_inv: optional preconditioner closure v -> M⁻¹ v.
     """
     if M_inv is None:
@@ -48,34 +50,36 @@ def cg_solve(
     if x0 is None:
         # zero initial guess: r0 = b, no matvec spent
         x = torch.zeros_like(b)
-        r = b
+        r = b.clone()
     else:
-        x = x0
+        x = x0.clone()
         r = b - matvec(x0)
-    z = M_inv(r)
-    p = z
-    rz = torch.dot(r, z)
+    p = M_inv(r).clone()
+    rz = torch.dot(r, p)
+    k = torch.zeros((), dtype=torch.int32, device=b.device)
+    live = (torch.dot(r, r) > atol_sq) & (maxiter > 0)
 
-    k = 0
-    # one host read per iteration: the residual test
-    while k < maxiter and bool(torch.dot(r, r) > atol_sq):
+    def iteration():
         Ap = matvec(p)
         denom = torch.dot(p, Ap)
         dz = denom == 0
         alpha = torch.where(dz, torch.zeros_like(rz),
                             rz / torch.where(dz, torch.ones_like(denom),
                                              denom))
-        x = x + alpha * p
-        r = r - alpha * Ap
+        x.copy_(x + alpha * p)
+        r.copy_(r - alpha * Ap)
         z = M_inv(r)
         rz_new = torch.dot(r, z)
         rz0 = rz == 0
         beta = torch.where(rz0, torch.zeros_like(rz),
                            rz_new / torch.where(rz0, torch.ones_like(rz),
                                                 rz))
-        p = z + beta * p
-        rz = rz_new
-        k += 1
+        p.copy_(z + beta * p)
+        rz.copy_(rz_new)
+        k.add_(1)
+        live.copy_((k < maxiter) & (torch.dot(r, r) > atol_sq))
+
+    device_loop(live, maxiter, iteration)
     return CGResult(x=x, iters=k, res_norm_sq=torch.dot(r, r))
 
 
@@ -93,15 +97,20 @@ def inv_bb_step(x, x_prev, grad_x, grad_x_prev):
 def armijo_linesearch(x, d, f: Callable, grad_f: Callable, *, rho=0.5,
                       c=1e-4, max_backtracks: int = 60):
     """Backtracking Armijo line search: the largest α = ρᵏ (k ≤
-    max_backtracks) with f(x + α·d) ≤ f(x) + c·α·∇f(x)·d. An eager loop,
-    one host read per trial; capped at 60 halvings as in the JAX
-    package."""
+    max_backtracks) with f(x + α·d) ≤ f(x) + c·α·∇f(x)·d, capped at 60
+    halvings as in the JAX package. Returns α, a 0-d tensor; each trial
+    is one iteration of a `graph.device_loop`."""
     fx = f(x)
     slope = torch.dot(grad_f(x), d)
     alpha = torch.ones((), dtype=x.dtype, device=x.device)
-    k = 0
-    while k < max_backtracks and bool(
-            f(x + alpha * d) > fx + c * alpha * slope):
-        alpha = rho * alpha
-        k += 1
+    k = torch.zeros((), dtype=torch.int32, device=x.device)
+    worse = lambda: f(x + alpha * d) > fx + c * alpha * slope
+    live = worse() & (max_backtracks > 0)
+
+    def backtrack():
+        alpha.copy_(rho * alpha)
+        k.add_(1)
+        live.copy_((k < max_backtracks) & worse())
+
+    device_loop(live, max_backtracks, backtrack)
     return alpha

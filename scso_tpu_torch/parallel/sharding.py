@@ -11,10 +11,13 @@ process per rank:
   * every contraction over rows ends in an explicit ``all_reduce``: the
     CG matvec (K1s, `ops.cuda.matvec.normal_matvec_sharded`) and the
     epoch prep's packed sums (`steps.prime_glm_cache`).
-So every host decision (the CG residual test, the greedy accept, the
-stopping test) reads replicated values, and the ranks stay in step. On
-the card the backend is NCCL; gloo only when the caller names it (the
-CPU, or several ranks on one card, which NCCL refuses).
+So every decision (the CG residual test, the greedy accept, the
+stopping test, on the card or on the host) reads replicated values, and
+the ranks stay in step. On the card the backend is NCCL, whose
+collectives a captured solve records into its CUDA graph; gloo only
+when the caller names it (the CPU, or several ranks on one card, which
+NCCL refuses), and then a solve on the card cannot be captured (gloo
+reduces CUDA tensors through the host).
 
 Only ``all_reduce`` and ``broadcast`` are used: the two collectives gloo
 also runs on CUDA tensors. The cached GGN-CG path is ported; feature

@@ -12,7 +12,11 @@ precision-adaptive CG, the coarse phase of iterate_mixed) are held
 against their plain versions (A upcast to the other operands' dtype)
 at the same tolerances as with A in that dtype, and never reach the
 plain version on the card; small float64 iterate_mixed solves through
-the kernels match the CPU. Without a CUDA device every test here skips.
+the kernels match the CPU. The solve loop's captured form (``mode='fused'``
+on the card) is its eager form (``_capture=False``) bit for bit, for
+each method, with the same launch counts (counted on the card under
+replay), one capture serving chained solves; timed mode on the card
+matches the CPU. Without a CUDA device every test here skips.
 This file imports neither jax nor scso_tpu, so it also runs on a GPU
 machine without them — there, skip tests/conftest.py (which configures
 jax):
@@ -1383,3 +1387,198 @@ def test_kernels_at_the_48_kb_launch_boundary(dev, m, n, dtype):
                      glm_prep_torch(A, y, xt, LOGISTIC01_GLM)[:3]):
         _check(g, w_, dtype)
     _check(normal_matvec(A, w, xt), normal_matvec_torch(A, w, xt), dtype)
+
+
+# ---------------------------------------------------------------------------
+# the captured solve (mode='fused' on the card) against its eager
+# form (the private _capture=False): the same kernels on the same inputs
+# ---------------------------------------------------------------------------
+
+def _small_mglm(device):
+    A, Y, x0, _ = synthetic.make_multinomial_data(384, 48, 4, seed=11,
+                                                  dtype=np.float32)
+    return st.Problem(A, Y, x0, losses.multinom_f, 1e-3,
+                      grad_fx=losses.multinom_grad,
+                      mglm=losses.multinom_mglm(4), dtype=torch.float32,
+                      device=device)
+
+
+CAPTURED = {
+    "ggn-cached": (st.ProxGGNSCORE(solver="cg", cg_maxiter=100,
+                                   auto_lp=False), _small_logreg, 4),
+    "ggn-cached-f32": (st.ProxGGNSCORE(solver="cg", cg_maxiter=100,
+                                       auto_lp=False), "f32", 1),
+    "ggn-lp-adaptive": (st.ProxGGNSCORE(solver="cg", cg_adaptive=True,
+                                        cg_lp_tol=1e-2), "lp", 4),
+    "ggn-uncached": (st.ProxGGNSCORE(solver="cg", epoch_cache=False,
+                                     greedy_alpha=False), _small_logreg, 4),
+    # λ = 0.1: at 0.01 damped Newton diverges on this problem (in the JAX
+    # package too), and NaN bits are no test
+    "newton-cg": (st.ProxNSCORE(solver="cg", greedy_alpha=False),
+                  lambda dev: _small_logreg(dev, lam=0.1), 4),
+    "newton-ss3": (st.ProxNSCORE(solver="cg", ss_type=3),
+                   lambda dev: _small_logreg(dev, lam=0.1), 1),
+    "lbfgs": (st.ProxLQNSCORE(), _small_logreg, 4),
+    "mglm": (st.ProxGGNSCORE(solver="cg", auto_lp=False), _small_mglm, 4),
+}
+
+
+def _captured_problem(dev, build):
+    if build == "f32":
+        A, y, x0, _ = synthetic.make_sparse_logreg_data(
+            512, 200, density=0.05, n_active=8, seed=7, dtype=np.float32,
+            label01=True)
+        return st.Problem(A, y, x0, losses.logistic01_f, 0.01,
+                          glm=losses.LOGISTIC01_GLM, dtype=torch.float32,
+                          device=dev)
+    if build == "lp":
+        return st.with_lp_copy(_small_logreg(dev))
+    return build(dev)
+
+
+def _solve_pair(method, prob, K, **kw):
+    kw = dict(dict(x_tol=1e-12, f_tol=1e-10, max_epoch=40, verbose=0,
+                   stats_every=K, alpha=1.0), **kw)
+    sm = st.PHuberSmootherL1L2(1.0)
+    out = []
+    for capture in (True, False):
+        counters.reset()
+        s = st.iterate(method, prob, "l1", sm, _capture=capture, **kw)
+        out.append((s, counters.snapshot()))
+    return out
+
+
+@pytest.mark.parametrize("name", list(CAPTURED))
+def test_captured_solve_is_the_eager_solve_bitwise(dev, name):
+    from scso_tpu_torch.ops.cuda import graph
+
+    method, build, K = CAPTURED[name]
+    graph.clear()
+    (cap, lc), (eag, le) = _solve_pair(method, _captured_problem(dev, build),
+                                       K)
+    assert cap.epochs == eag.epochs and cap.cg_info == eag.cg_info
+    assert torch.equal(cap.x, eag.x) and bool(torch.isfinite(cap.x).all())
+    for field in ("obj", "fval", "rel", "objrel", "pri_res_norm"):
+        torch.testing.assert_close(getattr(cap, field), getattr(eag, field),
+                                   rtol=0, atol=0, equal_nan=True)
+    # the counts on the card under replay are the eager launches, exactly
+    assert lc == le and any(lc.values())
+
+
+def test_launch_counts_are_exact_across_replays(dev):
+    from scso_tpu_torch.ops.cuda import graph
+
+    graph.clear()
+    method = st.ProxGGNSCORE(solver="cg", cg_maxiter=100, auto_lp=False)
+    prob = _small_logreg(dev)
+    (_, first), _ = _solve_pair(method, prob, 4)
+    # the second captured solve replays the cached graph: the same counts
+    (s, again), (_, eager) = _solve_pair(method, prob, 4)
+    assert first == again == eager
+    # K1 once a CG iteration and once an epoch (the warm start's
+    # residual); K3 once an epoch; K2 once an epoch and twice to prime
+    # (at x0 and x*)
+    assert again["normal_matvec"] == s.cg_info["total_cg_iters"] + s.epochs
+    assert again["score_update"] == s.epochs
+    assert again["glm_prep_pair"] == s.epochs + 2
+
+
+def test_one_capture_serves_chained_solves(dev):
+    from scso_tpu_torch.ops.cuda import graph
+
+    graph.clear()
+    graph.reset_stats()
+    method = st.ProxGGNSCORE(solver="cg", cg_maxiter=100, auto_lp=False)
+    prob = _small_logreg(dev)
+    kw = dict(x_tol=1e-12, f_tol=1e-10, max_epoch=6, verbose=0,
+              stats_every=4, alpha=1.0)
+    sm = st.PHuberSmootherL1L2(1.0)
+    s1 = st.iterate(method, prob, "l1", sm, **kw)
+    chained = replace(prob, x0=s1.state.x)
+    s2 = st.iterate(method, chained, "l1", sm, **kw)
+    assert graph.STATS["captures"] == 1
+    want = st.iterate(method, chained, "l1", sm, _capture=False, **kw)
+    assert torch.equal(s2.x, want.x) and torch.equal(s2.obj, want.obj)
+    # the solution is the solve's own: the next replay leaves it alone
+    assert not torch.equal(s1.x, s2.x)
+
+
+def test_device_if_on_the_card_raises_outside_a_capture(dev):
+    from scso_tpu_torch.ops.cuda import graph
+
+    with pytest.raises(RuntimeError, match="outside a graph capture"):
+        graph.device_if(torch.ones((), dtype=torch.bool, device=dev),
+                        lambda: None)
+    ran = []
+    with graph.eager():
+        graph.device_if(torch.ones((), dtype=torch.bool, device=dev),
+                        lambda: ran.append(1))
+    assert ran == [1]
+
+
+def test_timed_mode_on_the_card_matches_cpu(dev):
+    kw = dict(x_tol=1e-12, f_tol=1e-10, max_epoch=20, verbose=0,
+              alpha=1.0, mode="timed")
+    method = st.ProxGGNSCORE(solver="cg", greedy_alpha=False)
+    sm = st.PHuberSmootherL1L2(1.0)
+    s_gpu = st.iterate(method, _small_logreg(dev), "l1", sm, **kw)
+    s_cpu = st.iterate(method, _small_logreg("cpu"), "l1", sm, **kw)
+    assert s_gpu.epochs == s_cpu.epochs
+    assert len(s_gpu.times) == len(s_gpu.obj)
+    assert bool((s_gpu.times[1:] >= s_gpu.times[:-1]).all())
+    np.testing.assert_allclose(s_gpu.obj.numpy(), s_cpu.obj.numpy(),
+                               rtol=1e-9)
+
+
+@pytest.mark.parametrize("go,stop,want", [(True, 5, 5), (True, 0, 0),
+                                          (True, 100, 40), (False, 5, 0)])
+def test_device_loop_is_one_while_node(dev, go, stop, want):
+    """A captured `device_loop` is one WHILE node whose body is captured
+    once (here inside an IF): each replay runs the body while its test
+    holds, at most 40 times, and none behind a false IF."""
+    from scso_tpu_torch.ops.cuda import graph
+
+    k = torch.zeros((), dtype=torch.int32, device=dev)
+    bound = torch.zeros((), dtype=torch.int32, device=dev)
+    live = torch.zeros((), dtype=torch.bool, device=dev)
+    outer = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def body():
+        k.add_(1)
+        live.copy_((k < bound) & (k < 40))
+
+    def fn():
+        k.zero_()
+        live.copy_(k < bound)
+        graph.device_if(outer, lambda: graph.device_loop(live, 40, body))
+
+    cap = graph.capture(fn, dev)
+    assert cap.nodes is None or cap.nodes < 30
+    for _ in range(2):
+        outer.fill_(go)
+        bound.fill_(stop)
+        cap.replay()
+        torch.cuda.synchronize()
+        assert int(k) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_group_sums_capture_with_skewed_groups(dev, dtype):
+    """The group sums capture (no host read), replay to the eager bits,
+    and stay O(n) for one group of 3000 among 3000 singletons."""
+    from scso_tpu_torch.ops.cuda import graph
+
+    rng = np.random.default_rng(5)
+    seg = rng.permutation(np.concatenate([np.zeros(3000, np.int64),
+                                          np.arange(1, 3001)]))
+    g = st.make_groups(seg, dtype=dtype, device=dev)
+    assert g.offsets.shape == (g.n_groups + 1,)
+    v = torch.tensor(rng.standard_normal(seg.size), dtype=dtype, device=dev)
+    out = torch.empty(g.n_groups, dtype=dtype, device=dev)
+    cap = graph.capture(
+        lambda: out.copy_(st.ops.groups.segment_sum(g, v)), dev)
+    cap.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, st.ops.groups.segment_sum(g, v))
+    _check(out.cpu(), st.ops.groups.segment_sum(
+        st.make_groups(seg, dtype=dtype), v.cpu()), dtype)

@@ -321,3 +321,34 @@ def test_gl_path_matches(greedy):
         else:
             assert (e, cg) == (je, jcg)
             _close(obj, jobj, rtol=1e-10)
+
+
+@pytest.mark.parametrize("case", ["contiguous", "ind", "unsorted",
+                                  "skewed"])
+def test_group_offsets_bound_each_run(case):
+    """``offsets`` (what the group sums hand `segment_reduce`, which
+    reads given lengths back to the host: a CUDA graph's capture refuses
+    that) bounds each group's run in group order, O(n_groups) beside the
+    data whatever the largest group; the sums equal the lengths form bit
+    for bit and `jax.ops.segment_sum` to 1e-12. "skewed" is one group of
+    200 among 200 singletons, scattered."""
+    if case == "skewed":
+        rng = np.random.default_rng(5)
+        seg = rng.permutation(np.concatenate([np.zeros(200, np.int64),
+                                              np.arange(1, 201)]))
+        g = groups.make_groups(seg, dtype=F64)
+        jg = jgroups.make_groups(seg, dtype=np.float64)
+    else:
+        g, jg = _group_pair(case)
+    offsets = g.offsets.numpy()
+    assert offsets.shape == (g.n_groups + 1,)
+    assert offsets[0] == 0 and offsets[-1] == g.n
+    assert np.array_equal(np.diff(offsets), g.sizes.numpy())
+    v = _t(np.random.default_rng(3).standard_normal(g.n))
+    got = groups.segment_sum(g, v)
+    ordered = v if g.order is None else v[g.order]
+    assert torch.equal(got, torch.segment_reduce(ordered, "sum",
+                                                 lengths=g.sizes))
+    import jax
+    _close(got, jax.ops.segment_sum(jnp.asarray(v.numpy()), jg.segment_ids,
+                                    num_segments=jg.n_groups))

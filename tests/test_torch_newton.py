@@ -292,9 +292,8 @@ def _port_solve(method, pt):
         return st.iterate(method, pt, "l1", sm, **KW)
     kw = dict(KW)
     prob = titerate._effective_L(pt, kw.pop("alpha"))
-    carry, records = titerate._solve_impl(method, prob, "l1", sm,
-                                          titerate.Options(**kw))
-    return titerate._to_solution(carry, prob, records)
+    return titerate._solve_impl(method, prob, "l1", sm,
+                                titerate.Options(**kw))
 
 
 CASES = {

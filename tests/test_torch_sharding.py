@@ -101,6 +101,8 @@ def _solves(mesh, workdir):
                           traj, TRAJ_KW),
         "greedy_on": run(st.ProxGGNSCORE(solver="cg", greedy_alpha=True),
                          traj, TRAJ_KW),
+        "timed": run(st.ProxGGNSCORE(solver="cg", greedy_alpha=False),
+                     traj, dict(TRAJ_KW, mode="timed")),
         "overlap_1": run(st.ProxGGNSCORE(solver="cg"), over, OVERLAP_KW),
         "overlap_2": run(st.ProxGGNSCORE(solver="cg", comm_overlap_chunks=2),
                          over, OVERLAP_KW),
@@ -301,6 +303,25 @@ def test_greedy_off_trajectory_matches_jax(request, world):
                                rtol=1e-10)
     np.testing.assert_allclose(got["greedy_off.x"], np.asarray(sj.x),
                                atol=1e-10)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_timed_mode_runs_the_cached_sharded_step(request, world):
+    """Timed mode is a row shard's public mode: the cached GGN-CG step,
+    uncaptured, a record every epoch. It takes the fused solve's epochs
+    to its x, and its records at the fused solve's record epochs (every
+    4th, then the last) are the fused solve's."""
+    ranks = request.getfixturevalue({2: "two_ranks", 4: "four_ranks"}[world])
+    _same_x_on_every_rank(ranks, "timed")
+    got = ranks[0]
+    epochs = int(got["timed.epochs"])
+    assert epochs == int(got["greedy_off.epochs"])
+    assert got["timed.obj"].shape == (epochs + 1,)
+    at = sorted(set(range(0, epochs, TRAJ_KW["stats_every"])) | {epochs})
+    np.testing.assert_allclose(got["timed.obj"][at], got["greedy_off.obj"],
+                               rtol=1e-13)
+    np.testing.assert_allclose(got["timed.x"], got["greedy_off.x"],
+                               atol=1e-13)
 
 
 def test_lp_copy_trajectory_matches_jax(two_ranks):
