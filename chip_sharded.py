@@ -17,19 +17,28 @@ each sharded chain reaches the 1e-6 gap with its final objective within
 chip_smoke.E2E_RTOL of the unsharded one, and every rank holds rank 0's
 x bit for bit; K2 launched, and K1s as often as K1 with chunks 1 (the
 overlapped form launches neither). Times: the chains (host clock, the
-sum of the chained solves), and, CUDA events, median of 20: K1 on the
-shard, K1s, and one all-reduce of n float32 values. Rank 0 prints the
-card and power limit, then one JSON line. Without CUDA it exits non-zero.
+sum of the chained solves), and, CUDA events, median of 5 runs: K1 on the
+shard, K1s, and one all-reduce of n float32 values (the collectives
+COLLECTIVE_CALLS times a run on every rank). Rank 0 prints the card and
+power limit, then one JSON line; a rank still running EXIT_WAIT_S
+seconds later prints its stacks (faulthandler). Without CUDA it exits
+non-zero.
 """
 
 from __future__ import annotations
 
+import faulthandler
 import json
 import os
 import subprocess
 import sys
 
 import chip_smoke as cs
+
+#: calls a timed run of a collective makes, on every rank
+COLLECTIVE_CALLS = 20
+#: seconds after the JSON line past which every rank dumps its stacks
+EXIT_WAIT_S = 120
 
 
 def main():
@@ -112,16 +121,25 @@ def main():
     w = torch.rand((sp.A.shape[0],), generator=gen, device=dev) / sp.m_total
     v = torch.randn((n,), generator=gen, device=dev)
     buf = torch.ones(n, device=dev)
+    # the collectives run as often on every rank: a count taken from each
+    # rank's own clock left ranks waiting in all-reduces that no other
+    # rank made, and the script hung after its JSON line (ROADMAP C9)
     out["ms"] = {
         "normal_matvec_shard": cs.time_ms(lambda: normal_matvec(sp.A, w, v)),
         "normal_matvec_sharded": cs.time_ms(
-            lambda: normal_matvec_sharded(sp.A, w, v, mesh)),
+            lambda: normal_matvec_sharded(sp.A, w, v, mesh),
+            calls=COLLECTIVE_CALLS),
         "all_reduce_n_f32": cs.time_ms(
-            lambda: dist.all_reduce(buf, group=mesh.group)),
+            lambda: dist.all_reduce(buf, group=mesh.group),
+            calls=COLLECTIVE_CALLS),
     }
-    say(f"CUDA events, median of 20, rank 0: {out['ms']}")
+    say(f"CUDA events, median of 5 runs of {COLLECTIVE_CALLS} calls "
+        f"(K1 alone: as many as fill 20 ms), rank 0: {out['ms']}")
     say(json.dumps(out))
+    # should a rank still wait after this, each rank prints where
+    faulthandler.dump_traceback_later(EXIT_WAIT_S)
     dist.destroy_process_group()
+    faulthandler.cancel_dump_traceback_later()
 
 
 if __name__ == "__main__":

@@ -18,33 +18,41 @@ and 3, and ``ProxLQNSCORE`` (L-BFGS, the default method of
 squares and Poisson regression (``GLMSpec``), multinomial softmax
 regression (``MOGLMSpec``, ``mglm=``), or any data f with its
 derivative hooks or autograd.
+Problems without data (``Problem(x0, f, lam)``: f(x)) run every method.
 GGN-CG on a GLM spec runs precision-adaptive CG on a bfloat16 copy of A
-(``with_lp_copy`` with ``cg_lp_tol``, or ``auto_lp``). ``iterate`` has
-the JAX package's two modes: 'fused' (the default; on the card the
-solve is captured into a CUDA graph and replayed) and 'timed'. What the port leaves out raises NotImplementedError
-naming its ROADMAP item.
+(``with_lp_copy`` with ``cg_lp_tol``, or ``auto_lp``), subsampled
+curvature (``curvature_rows``) or the static Jacobi preconditioner
+(``static_precond`` with ``with_col_sumsq``). ``iterate`` has the JAX
+package's two modes, 'fused' (the default; on the card the solve is
+captured into a CUDA graph and replayed) and 'timed', with its
+mini-batches, metrics, test set and resume (``resume_state``;
+``utils.save_state``/``load_state``); ``iterate_continuation`` anneals
+μ and λ. What the port leaves out raises NotImplementedError naming its
+ROADMAP item (A11: scale-out; A12: the remaining utilities).
 """
 
 from __future__ import annotations
 
 import torch
 
+from scso_tpu_torch.algorithms.continuation import iterate_continuation
 from scso_tpu_torch.algorithms.iterate import Options, Solution, iterate, solve
 from scso_tpu_torch.algorithms.methods import (
-    ProxGGNSCORE, ProxLQNSCORE, ProxNSCORE)
+    ProxGGNSCORE, ProxLQNSCORE, ProximalMethod, ProxNSCORE)
 from scso_tpu_torch.algorithms.mixed import iterate_mixed, with_lp_copy
 from scso_tpu_torch.ops import smoothers as _smoothers
 from scso_tpu_torch.ops.groups import (
     Groups, lasso_fz, make_contiguous_groups, make_groups,
     make_groups_from_ind)
-from scso_tpu_torch.ops.linalg import cg_solve
+from scso_tpu_torch.ops.linalg import armijo_linesearch, cg_solve, inv_bb_step
 from scso_tpu_torch.ops.prox import (
     prox_group_lasso, prox_indbox, prox_l1, prox_l2, prox_step)
-from scso_tpu_torch.ops.regularizers import reg_value
+from scso_tpu_torch.ops.regularizers import indbox_f, reg_value
 from scso_tpu_torch.ops.smoothers import (
     NoSmooth, OsBaSmootherL1L2, PHuberSmootherL1L2, get_Mg, sanitize_bounds)
 from scso_tpu_torch.problems import (
-    GLMSpec, Interval, MOGLMSpec, is_interval_set)
+    GLMSpec, Interval, MOGLMSpec, ProblemLike, is_interval_set,
+    with_col_sumsq)
 from scso_tpu_torch.problems import Problem as CompositeProblem
 from scso_tpu_torch.problems import make_problem
 
@@ -84,6 +92,11 @@ def OsBaSmootherGL(mu, model):
     return _smoothers.make_gl_smoother(_smoothers.OsBaSmootherGL, mu, model)
 
 
+def get_reg(model, x, reg_name: str):
+    """The true nonsmooth g(x) of ``model``."""
+    return model.reg(reg_name, x)
+
+
 # the reference's group-structure constructor, on its 3×G ``ind`` matrix
 get_P = make_groups_from_ind
 
@@ -93,12 +106,16 @@ __all__ = [
     "GLMSpec",
     "MOGLMSpec",
     "make_problem",
+    "ProblemLike",
+    "with_col_sumsq",
     "Interval",
     "is_interval_set",
     "ProxNSCORE",
     "ProxGGNSCORE",
     "ProxLQNSCORE",
+    "ProximalMethod",
     "iterate",
+    "iterate_continuation",
     "solve",
     "Options",
     "Solution",
@@ -113,6 +130,7 @@ __all__ = [
     "PHuberSmootherGL",
     "OsBaSmootherGL",
     "get_Mg",
+    "get_reg",
     "sanitize_bounds",
     "get_P",
     "prox_step",
@@ -121,10 +139,13 @@ __all__ = [
     "prox_indbox",
     "prox_group_lasso",
     "reg_value",
+    "indbox_f",
     "Groups",
     "make_groups",
     "make_groups_from_ind",
     "make_contiguous_groups",
     "lasso_fz",
     "cg_solve",
+    "inv_bb_step",
+    "armijo_linesearch",
 ]

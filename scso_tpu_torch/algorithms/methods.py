@@ -164,3 +164,7 @@ class ProxLQNSCORE:
         if not self.use_prox:
             return "lbfgsscore", "LBFGS-SCORE"
         return self.name, self.label
+
+
+#: the reference's abstract method type: any of the three
+ProximalMethod = (ProxNSCORE, ProxGGNSCORE, ProxLQNSCORE)

@@ -74,8 +74,17 @@ forcing and of the BB step are `torch.where`s on it, as in the JAX
 package. A step reads nothing back to the host, so that it can be
 captured into a CUDA graph.
 
-Subsampled curvature, the static preconditioner and the generic jvp/vjp
-GGN-CG branch are not ported yet (ROADMAP A7).
+Off the cache the GGN-CG system has two more forms, as in the JAX
+package: subsampled curvature (``curvature_rows``: the RHS over all
+rows, the CG operator and its Jacobi diagonal over a strided subsample
+of about that many rows; under 'cuda' K2s on A for the RHS and on the
+subsample for the weights, K1 on the subsample) and the static Jacobi
+preconditioner (``static_precond`` with the problem's ``col_sumsq``:
+(Σw/m)·diag(AᵀA) + λHr). A problem without a GLM spec takes the
+generic branch: J applied by ``torch.func.jvp`` and ``vjp`` of its
+``out_fn``, diagonal Q from ``hess_fy_diag`` (or the ``ggn_w`` hook's
+weights through K1). A problem without data (f(x)) runs the
+Newton, GGN and L-BFGS steps with ``As`` and ``ys`` None.
 """
 
 from __future__ import annotations
@@ -180,17 +189,22 @@ def _resolve_newton_solver(method, x) -> str:
     return "dense"
 
 
-def _resolve_ggn_solver(method, prob: Problem, x) -> str:
+def _resolve_ggn_solver(method, prob: Problem, x, As=None) -> str:
     """'auto' → 'cg' when the (m·k)×n Jacobian exceeds the dense budget
     and the matrix-free pieces exist (a GLM or mglm spec, or out_fn),
-    else 'auto' (the reference's dense branch). An mglm problem without
+    else 'auto' (the reference's dense branch, also for a problem
+    without data). An mglm problem without
     the dense pieces (jac_yx, grad_fy and hess_fy, or out_fn and
-    loss_fn) resolves to 'cg' at any size, as in the JAX package. A row
-    shard counts all ranks' rows, as the JAX package's sharded A keeps
-    its global shape. Warned once a shape."""
+    loss_fn) resolves to 'cg' at any size, as in the JAX package. m is
+    the problem's row count for A itself (a row shard counts all ranks'
+    rows, as the JAX package's sharded A keeps its global shape) and a
+    mini-batch's rows for a batch ``As``. Warned once a shape."""
     if method.solver != "auto":
         return method.solver
-    m = prob.m_total
+    As = prob.A if As is None else As
+    if not prob.has_data or As.ndim != 2:
+        return "auto"
+    m = prob.m_total if As is prob.A else As.shape[0]
     n = x.shape[-1]
     k = prob.mglm.n_out if prob.mglm is not None else 1
     if prob.mglm is not None:
@@ -318,7 +332,7 @@ def _greedy_prox_update(method, prob: Problem, reg_name, sm, As, ys,
         method, prob, reg_name, sm, x, d, step_size, lam, lgr, Hr_diag)
     x_trial = _trial_point(method, prob, reg_name, x, d, step_size, lam,
                            Hr_diag)
-    data_2d = As.ndim == 2
+    data_2d = prob.has_data and As.ndim == 2
     if data_2d and prob.glm is not None and prob.glm.loss_z is not None:
         z_x = amul(As, x) if z is None else z
         F_x = prob.glm.loss_z(ys, z_x) + prob.reg(reg_name, x)
@@ -526,7 +540,7 @@ def epoch_cache_enabled(method, prob: Problem, reg_name: str,
         return False
     if method.epoch_cache is False:
         return False
-    if prob.A.ndim != 2:
+    if not prob.has_data or prob.A.ndim != 2:
         return False
     mo, g = prob.mglm, prob.glm
     if mo is not None:
@@ -538,6 +552,8 @@ def epoch_cache_enabled(method, prob: Problem, reg_name: str,
         return False
     # ProxNSCORE has neither curvature_rows nor cg_lp_tol
     if isinstance(method, ProxNSCORE):
+        if method.static_precond and prob.col_sumsq is not None:
+            return False
         return _resolve_newton_solver(method, prob.x0) == "cg"
     # curvature_rows subsamples rows only on an unsharded problem, as in
     # the JAX package: on a row shard it is a no-op and the cache stays
@@ -546,6 +562,9 @@ def epoch_cache_enabled(method, prob: Problem, reg_name: str,
     # a refused cg_lp_tol warns here, once, as in the JAX package
     if method.cg_lp_tol > 0 and prob.A_lp is not None:
         _lp_tol_refused(method, prob.x0.dtype)
+    # the static preconditioner acts off the cache only
+    if method.static_precond and prob.col_sumsq is not None:
+        return False
     return _resolve_ggn_solver(method, prob, prob.x0) == "cg"
 
 
@@ -794,22 +813,25 @@ def _cached_update(method, prob: Problem, reg_name, sm, As, ys, x, d,
                   lam, lgr, Hr_diag, cache)
 
 
-def _weighted_system(method, As, x, w, lhr, hd_raw=None):
+def _weighted_system(method, prob: Problem, As, x, w, lhr, hd_raw=None):
     """(matvec, preconditioner) from GLM weights w:
     mv(v) = Aᵀ(w∘(Av)) + λHr∘v (one K1 launch under 'cuda'), Jacobi
     M⁻¹ = 1/(Σᵢ wᵢAᵢⱼ² + λHr). ``hd_raw`` is Σᵢ wᵢAᵢⱼ² when the prep
     already has it (K2s); otherwise the plain diagonal builds one A-sized
-    temporary. The static preconditioner and the row-sharded matvec are
-    not ported yet (ROADMAP A7, A11)."""
-    if method.static_precond:
-        raise NotImplementedError(
-            "static_precond (the static Jacobi preconditioner) is not "
-            "ported yet (ROADMAP A7)")
+    temporary. With ``static_precond`` and the problem's ``col_sumsq``
+    the diagonal is (Σw/m)·diag(AᵀA) + λHr instead, O(m + n), where
+    ``As`` holds all of A's rows (a subsample has other column sums):
+    exact where w is uniform (least squares), the same CG operator and
+    fixed point otherwise."""
     tiny = torch.finfo(x.dtype).tiny
     matvec = normal_matvec if method.kernels == "cuda" else normal_matvec_torch
-    if hd_raw is None:
-        hd_raw = sq_atmul(As, w)
-    hdiag = hd_raw + lhr
+    if (method.static_precond and prob.col_sumsq is not None
+            and As.shape[0] == prob.A.shape[0]):
+        hdiag = (torch.sum(w) / As.shape[0]) * prob.col_sumsq + lhr
+    else:
+        if hd_raw is None:
+            hd_raw = sq_atmul(As, w)
+        hdiag = hd_raw + lhr
     return (lambda v: matvec(As, w, v) + lhr * v,
             lambda v: v / torch.clamp_min(hdiag, tiny))
 
@@ -836,8 +858,9 @@ def _glm_cg_system(method, prob: Problem, As, ys, x, lhr, weight_fn,
     problem's weight hook w = weight_fn(A, y, x) through
     `_weighted_system` (K1 under 'cuda'), else the operator
     hvp_fallback(v) + λHr∘v with the Jacobi diagonal λHr."""
-    if weight_fn is not None and As.ndim == 2:
-        return _weighted_system(method, As, x, weight_fn(As, ys, x), lhr)
+    if weight_fn is not None and prob.has_data and As.ndim == 2:
+        return _weighted_system(method, prob, As, x, weight_fn(As, ys, x),
+                                lhr)
     tiny = torch.finfo(x.dtype).tiny
     return (lambda v: hvp_fallback(v) + lhr * v,
             lambda v: v / torch.clamp_min(lhr, tiny))
@@ -891,7 +914,7 @@ def newton_step(method: ProxNSCORE, prob: Problem, reg_name: str, sm,
                             lam, gr, Hr_diag, cw)
 
     lhr = lam * Hr_diag
-    data_2d = As.ndim == 2
+    data_2d = prob.has_data and As.ndim == 2
     z_cache = None
     if solver == "cg" and prob.mglm is not None and data_2d:
         _, grad_vec, mv, M_inv = _mo_glm_system(method, prob, As, ys, x,
@@ -900,7 +923,7 @@ def newton_step(method: ProxNSCORE, prob: Problem, reg_name: str, sm,
     elif solver == "cg" and prob.glm is not None and data_2d:
         z_cache = amul(As, x)
         gq = atmul(As, prob.glm.gres(ys, z_cache)) + lgr
-        mv, M_inv = _weighted_system(method, As, x,
+        mv, M_inv = _weighted_system(method, prob, As, x,
                                      prob.glm.hvp_w(ys, z_cache), lhr)
     else:
         gq = prob.grad_f(As, ys, x) + lgr
@@ -973,6 +996,42 @@ def _ggn_dense_direction(solver, prob: Problem, As, ys, x, gr, Hr_diag,
     return -d
 
 
+def _curvature_stride(method, prob: Problem, As, x) -> int:
+    """The row stride of subsampled curvature, or 0 where it does not
+    act: ``curvature_rows`` K with 0 < K < m on an unsharded problem
+    (as in the JAX package, a no-op on a row shard). A subsample
+    thinner than 2·n rows warns once: its curvature is near singular."""
+    K = method.curvature_rows
+    m = As.shape[0]
+    if not (0 < K < m) or prob.mesh is not None:
+        return 0
+    if K < 2 * x.shape[-1]:
+        _warn_once(
+            ("curv-thin", (K, x.shape[-1])),
+            f"curvature_rows={K} < 2·n={2 * x.shape[-1]}: the "
+            "subsampled curvature is (near-)rank-deficient — expect CG to "
+            "struggle or the outer iteration to diverge. Use "
+            "curvature_rows >> n.")
+    return -(-m // K)
+
+
+def _subsampled_weights(method, prob: Problem, As_c, ys_c, x, m):
+    """The GGN weights on the subsample (``As_c`` its rows) and, under
+    'cuda', their Jacobi diagonal from K2s: a sample-normalized spec's
+    1/len(z) forms average over the subsample already; any other spec's
+    weights are scaled by m/m_sub."""
+    g = prob.glm
+    m_sub = As_c.shape[0]
+    if method.kernels == "cuda":
+        w, _, hd = glm_prep(As_c, ys_c, x, g)
+    else:
+        w, hd = ggn_weights(g, ys_c, amul(As_c, x))[1], None
+    if not g.sample_normalized:
+        w = w * (m / m_sub)
+        hd = None if hd is None else hd * (m / m_sub)
+    return w, hd
+
+
 def _ggn_cg_direction(method, prob: Problem, As, ys, x, gr, Hr_diag, lam,
                       d_prev=None, it=None, bnorm_prev=None, x_prev=None):
     """Matrix-free GGN-CG direction off the epoch cache: solve
@@ -983,36 +1042,55 @@ def _ggn_cg_direction(method, prob: Problem, As, ys, x, gr, Hr_diag, lam,
     ``use_fused_prep`` is False — at every shape: the JAX package's AUTO
     gate n ≥ 8192 was measured on a TPU v5e — and otherwise forms
     z = A·x and the spec's weights (`_weighted_system`); its bulk epochs
-    may run CG on the bfloat16 copy of A (`_cg_direction_solve`). An
+    may run CG on the bfloat16 copy of A (`_cg_direction_solve`). With
+    subsampled curvature (`_curvature_stride`) the RHS comes from all
+    rows and the operator from every stride-th row (`A[::stride]`,
+    copied each epoch; K1 on it under 'cuda'), never on the copy. An
     mglm goes through `_mo_glm_system` and, as in the JAX package, never
-    reads the copy. Returns (d, cg_iters, bnorm, z), z the linear
-    predictor when one was formed (the greedy trial reuses it), else
-    None."""
+    reads the copy. A problem without a spec applies J by jvp and vjp of
+    its ``out_fn`` (the ``ggn_w`` hook's weights through K1 where it has
+    one, else the Jacobi diagonal λHr). Returns (d, cg_iters, bnorm, z),
+    z the linear predictor when one was formed (the greedy trial reuses
+    it), else None."""
     z_cache = None
     mv_lp = None
     lhr = lam * Hr_diag
-    if prob.mglm is not None and As.ndim == 2:
+    data_2d = prob.has_data and As.ndim == 2
+    if prob.mglm is not None and data_2d:
         _, grad_vec, mv, M_inv = _mo_glm_system(method, prob, As, ys, x,
                                                 lhr)
         b = -(grad_vec + lam * gr)
-    elif prob.glm is not None and As.ndim == 2:
-        if 0 < method.curvature_rows < As.shape[0]:
-            raise NotImplementedError(
-                "subsampled curvature (curvature_rows) is not ported yet "
-                "(ROADMAP A7)")
-        if method.kernels == "cuda" and method.use_fused_prep is not False:
+    elif prob.glm is not None and data_2d:
+        stride = _curvature_stride(method, prob, As, x)
+        fused = method.kernels == "cuda" and method.use_fused_prep is not False
+        if fused:
             w, b_raw, hd_raw = glm_prep(As, ys, x, prob.glm)
         else:
             z_cache = amul(As, x)
             rw, w = ggn_weights(prob.glm, ys, z_cache)
             b_raw, hd_raw = atmul(As, rw), None
         b = -(b_raw + lam * gr)
-        mv, M_inv = _weighted_system(method, As, x, w, lhr, hd_raw)
-        mv_lp = _lp_matvec(method, prob, As, w, lhr)
+        if stride:
+            As_c = As[::stride].contiguous()
+            ys_c = ys[::stride].contiguous()
+            w_c, hd_c = _subsampled_weights(method, prob, As_c, ys_c, x,
+                                            As.shape[0])
+            mv, M_inv = _weighted_system(method, prob, As_c, x, w_c, lhr,
+                                         hd_c)
+        else:
+            mv, M_inv = _weighted_system(method, prob, As, x, w, lhr,
+                                         hd_raw)
+            mv_lp = _lp_matvec(method, prob, As, w, lhr)
     else:
-        raise NotImplementedError(
-            "the generic GGN-CG branch (jvp/vjp of out_fn, no GLM spec) is "
-            "not ported yet (ROADMAP A7)")
+        _, residual, q_diag = prob.ggn_residual_qdiag(As, ys, x)
+        # a fresh vjp a product: autograd runs a backward on the stream
+        # of its forward, so a CG iteration captured into a conditional
+        # body must make its own forward there
+        jt = lambda u: prob.vjp_out(As, x)[1](u)
+        b = -(jt(residual) + lam * gr)
+        mv, M_inv = _glm_cg_system(
+            method, prob, As, ys, x, lhr, prob.ggn_w,
+            lambda v: jt(q_diag * prob.jvp_out(As, x, v)))
     xp = x if x_prev is None else x_prev
     tol, bnorm = _forcing_tol(method, b, x, xp, bnorm_prev, it,
                               endgame=True)
@@ -1040,7 +1118,7 @@ def ggn_step(method: ProxGGNSCORE, prob: Problem, reg_name: str, sm,
     lgr = lam * gr
     Hr_diag = sm.hess_diag(x, cw)
     zeros = torch.zeros_like(x)
-    solver = _resolve_ggn_solver(method, prob, x)
+    solver = _resolve_ggn_solver(method, prob, x, As)
     if solver == "cg" and fcache is not None:
         return _cached_step(method, prob, reg_name, sm, As, ys, x, x_prev,
                             it, d_prev, bnorm_prev, fcache, gq_prev, mem,

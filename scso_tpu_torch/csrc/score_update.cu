@@ -95,8 +95,8 @@ __device__ __forceinline__ double apply(
 }
 
 template <typename T>
-__device__ __forceinline__ T safe_step(T eta, T ss, double Mg) {
-  return nan_min(ss / (T(1) + static_cast<T>(Mg) * eta), T(1));
+__device__ __forceinline__ T safe_step(T eta, T ss, T Mg) {
+  return nan_min(ss / (T(1) + Mg * eta), T(1));
 }
 
 // cluster form: block of rank b owns [b·chunk, min(n, (b+1)·chunk))
@@ -106,7 +106,8 @@ score_update_cluster(const T* __restrict__ x, const T* __restrict__ d,
                      const T* __restrict__ lgr, const T* __restrict__ hr,
                      const T* __restrict__ lb, const T* __restrict__ ub,
                      const T* __restrict__ lam_p, const T* __restrict__ ss_p,
-                     double Mg, int64_t reg, T* __restrict__ x_new,
+                     const T* __restrict__ Mg_p, int64_t reg,
+                     T* __restrict__ x_new,
                      T* __restrict__ stats, int64_t n, int64_t chunk) {
   __shared__ double red[32];
   // the blocks' partials of Σ lgr²/hr, then of Σ (x⁺ − x)², by rank
@@ -122,7 +123,7 @@ score_update_cluster(const T* __restrict__ x, const T* __restrict__ d,
   scso::cluster_reduce<1>(cl, acc, red, inbox[0]);
   const T eta = static_cast<T>(sqrt(acc[0]));
   const T lam = *lam_p, ss = *ss_p;
-  const T safe = safe_step(eta, ss, Mg);
+  const T safe = safe_step(eta, ss, *Mg_p);
   double pri2[1] = {apply(x, d, hr, lb, ub, lam, ss, safe, reg, x_new, i0,
                           i1)};
   scso::cluster_reduce<1>(cl, pri2, red, inbox[1]);
@@ -153,7 +154,8 @@ __global__ void __launch_bounds__(kThreads)
 score_apply(const T* __restrict__ x, const T* __restrict__ d,
             const T* __restrict__ hr, const T* __restrict__ lb,
             const T* __restrict__ ub, const T* __restrict__ lam_p,
-            const T* __restrict__ ss_p, double Mg, int64_t reg,
+            const T* __restrict__ ss_p, const T* __restrict__ Mg_p,
+            int64_t reg,
             const double* __restrict__ eta_part,
             double* __restrict__ pri_part, T* __restrict__ x_new,
             T* __restrict__ stats, int64_t n, int64_t chunk) {
@@ -164,7 +166,7 @@ score_apply(const T* __restrict__ x, const T* __restrict__ d,
     acc += eta_part[b];
   const T eta = static_cast<T>(sqrt(scso::block_sum(acc, red)));
   const T lam = *lam_p, ss = *ss_p;
-  const T safe = safe_step(eta, ss, Mg);
+  const T safe = safe_step(eta, ss, *Mg_p);
   const int64_t i0 = static_cast<int64_t>(blockIdx.x) * chunk;
   const double pri2 = scso::block_sum(
       apply(x, d, hr, lb, ub, lam, ss, safe, reg, x_new, i0,
@@ -192,7 +194,7 @@ score_pri(const double* __restrict__ pri_part, T* __restrict__ stats,
 template <typename T>
 int launch(const void* x_, const void* d_, const void* lgr_, const void* hr_,
            const void* lb_, const void* ub_, const void* lam_,
-           const void* ss_, double Mg, int64_t reg, void* x_new_,
+           const void* ss_, const void* Mg_, int64_t reg, void* x_new_,
            void* stats_, void* partials, int64_t n, int64_t blocks,
            int64_t chunk, int64_t grid, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
@@ -204,6 +206,7 @@ int launch(const void* x_, const void* d_, const void* lgr_, const void* hr_,
   const T* ub = static_cast<const T*>(ub_);
   const T* lam = static_cast<const T*>(lam_);
   const T* ss = static_cast<const T*>(ss_);
+  const T* Mg = static_cast<const T*>(Mg_);
   T* x_new = static_cast<T*>(x_new_);
   T* stats = static_cast<T*>(stats_);
   // the wrapper's slices must cover n
@@ -250,7 +253,7 @@ int cluster_fit(int64_t blocks, void* count) {
 #define SCSO_SCORE_UPDATE_ENTRY(NAME, FIT, T)                                \
   extern "C" int NAME(const void* x, const void* d, const void* lgr,        \
                       const void* hr, const void* lb, const void* ub,       \
-                      const void* lam, const void* ss, double Mg,           \
+                      const void* lam, const void* ss, const void* Mg,      \
                       int64_t reg, void* x_new, void* stats,                \
                       void* partials, int64_t n, int64_t blocks,            \
                       int64_t chunk, int64_t grid, void* stream) {          \

@@ -1,6 +1,6 @@
 """The ported model families.
 
-Port of five parts of `scso_tpu.models.losses`:
+Port of six parts of `scso_tpu.models.losses`:
   * least squares, f(A, y, x) = (1/(2m))·‖Ax − y‖², its gradient,
     Hessian, GGN hooks and :data:`LSQ_GLM` spec (the group-lasso path);
   * Poisson regression with the canonical log link,
@@ -15,9 +15,11 @@ Port of five parts of `scso_tpu.models.losses`:
     cross-entropy in ŷ, its residual and curvature, J of ŷ = σ(Ax));
   * multinomial (softmax) regression over the logits split Z = A·W,
     W = x.reshape(p, k), f = (1/m)·Σᵢ [logsumexp(Zᵢ) − yᵢ·Zᵢ], and its
-    :data:`MULTINOM_MGLM` spec (per-k: :func:`multinom_mglm`).
-The other families (the probability-split multinomial, QP, Rosenbrock)
-are not ported yet (ROADMAP A7).
+    :data:`MULTINOM_MGLM` spec (per-k: :func:`multinom_mglm`);
+  * the problems without data: the quadratic program
+    f(x) = ½xᵀQx + cᵀx (:func:`qp_f`, with Q and c bound by the caller)
+    and the Rosenbrock function.
+The probability-split multinomial family is not ported.
 
 ``softplus`` here is ``logaddexp(z, 0)``, the form `jax.nn.softplus`
 uses. `torch.nn.functional.softplus` switches to the identity above
@@ -55,6 +57,19 @@ def logistic_hess(A, y, x):
     s = torch.sigmoid(y * amul(A, x))
     A = widen(A, x.dtype)
     return (A.T * (s * (1.0 - s))) @ A / A.shape[0]
+
+
+def logistic_hvp(A, y, x, v):
+    """∇²f·v of :func:`logistic_f`, without forming ∇²f."""
+    s = torch.sigmoid(y * amul(A, x))
+    return atmul(A, s * (1.0 - s) * amul(A, v)) / A.shape[0]
+
+
+def logistic_hvp_w(A, y, x):
+    """The weights w of ∇²f·v = Aᵀ(w∘(A·v)) for :func:`logistic_f`:
+    σ(1−σ)/m."""
+    s = torch.sigmoid(y * amul(A, x))
+    return s * (1.0 - s) / A.shape[0]
 
 
 def logistic_loss_01(y, yhat):
@@ -318,3 +333,21 @@ def multinom_mglm(k: int) -> MOGLMSpec:
     """The multinomial spec for k classes (n_out fixes the
     x.reshape(n_features, k) layout)."""
     return replace(MULTINOM_MGLM, n_out=int(k))
+
+
+def qp_f(Q, c, x):
+    """½xᵀQx + cᵀx."""
+    return 0.5 * torch.dot(x, Q @ x) + torch.dot(c, x)
+
+
+def qp_grad(Q, c, x):
+    return 0.5 * (Q + Q.T) @ x + c
+
+
+def qp_hess(Q, c, x):
+    return 0.5 * (Q + Q.T)
+
+
+def rosenbrock(x):
+    """100·(x₁ − x₀²)² + (1 − x₀)²."""
+    return 100.0 * (x[1] - x[0] ** 2) ** 2 + (1.0 - x[0]) ** 2

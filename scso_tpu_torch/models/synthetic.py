@@ -1,11 +1,12 @@
 """Synthetic problem generators (numpy only).
 
 Copies of `scso_tpu.models.synthetic.make_sparse_logreg_data`,
-`make_group_lasso_problem`, `make_sparse_poisson_data` and
-`make_multinomial_data` that do not import the JAX package: the same
+`make_group_lasso_problem`, `make_sparse_poisson_data`,
+`make_multinomial_data` and `make_box_qp` that do not import the JAX package: the same
 numpy calls in the same order, so the same seed gives bit-identical
-arrays. The native (OpenMP) generator and the box QP are not ported yet
-(ROADMAP A12, A7).
+arrays; likewise `make_box_qp`. The native (OpenMP) generator is not
+ported: the JAX package's `scso_tpu._native` has no framework in it and
+can be called as it is.
 """
 
 from __future__ import annotations
@@ -118,3 +119,17 @@ def make_multinomial_data(m: int, p: int, k: int, seed: int = 1234,
     Y = np.eye(k, dtype=dtype)[labels]
     x0 = (0.01 * rng.standard_normal(p * k)).astype(dtype)
     return A, Y, x0, W.reshape(-1).astype(dtype)
+
+
+def make_box_qp(n: int, seed: int = 1234, dtype=np.float32):
+    """Random strongly convex box QP: Q = sym(randn) + n·I.
+
+    Returns (Q, c, x0) as numpy arrays of ``dtype``."""
+    rng = np.random.default_rng(seed)
+    Q = rng.standard_normal((n, n)).astype(dtype)
+    Q = np.tril(Q)
+    Q = Q + Q.T - np.diag(np.diag(Q))
+    Q = Q + n * np.eye(n, dtype=dtype)
+    c = np.ones((n,), dtype=dtype)
+    x0 = rng.standard_normal(n).astype(dtype)
+    return Q.astype(dtype), c, x0

@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = ("-shared",)
 
-_p, _i64, _f64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
+_p, _i64 = ctypes.c_void_p, ctypes.c_int64
 #: C entry points → argtypes; every function returns cudaGetLastError()
 SIGNATURES = {
     # A, w, v, partials, out, m, n, n_blocks (the most: the rows of
@@ -64,7 +64,7 @@ SIGNATURES = {
     "scso_two_loop": [_p] * 8 + [_i64] * 6 + [_p],
     # x, d, lgr, hr, lb, ub, lam, ss, Mg, reg, x_new, stats, partials
     # (grid form), n, then the UpdateForm (blocks, chunk, grid), stream
-    "scso_score_update": [_p] * 8 + [_f64, _i64, _p, _p, _p] + [_i64] * 4
+    "scso_score_update": [_p] * 9 + [_i64, _p, _p, _p] + [_i64] * 4
     + [_p],
     # cluster size, &count: how many such clusters the card holds at once
     "scso_two_loop_cluster_fit": [_i64, _p],

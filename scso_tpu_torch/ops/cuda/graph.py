@@ -239,7 +239,10 @@ _WARM: set = set()
 def _warm(index: int) -> None:
     """Make the library handles a capture's ops use (cuBLAS, cuBLASLt,
     cuSOLVER) before the first capture on card ``index``: made inside a
-    conditional's body, they break its capture."""
+    conditional's body, they break its capture. The autograd engine runs
+    a backward's CUDA ops on a thread of its own (a vjp of a user's
+    out_fn, the gradient of an f without grad_fx), which keeps handles
+    of its own: a backward through the same products makes them."""
     if index in _WARM:
         return
     with torch.cuda.device(index):
@@ -249,6 +252,9 @@ def _warm(index: int) -> None:
             a @ a[0]
             a @ a
             torch.linalg.solve_ex(a, a[0])
+            w = a.clone().requires_grad_(True)
+            (torch.dot(w[0], w[1]) + (w @ w[0]).sum()
+             + (w @ w).sum()).backward()
         torch.cuda.synchronize(index)
     _WARM.add(index)
 
@@ -278,7 +284,10 @@ def capture(fn, device: torch.device) -> Captured:
             # route what they allocate to the bodies' pool
             torch._C._cuda_beginAllocateToPool(index, bodies)
             try:
-                fn()
+                # a backward inside the capture (a vjp, the gradient of an
+                # f without grad_fx) runs on this thread, with its handles
+                with torch.autograd.set_multithreading_enabled(False):
+                    fn()
             finally:
                 torch._C._cuda_endAllocateToPool(index, bodies)
         if hasattr(graph, "instantiate"):

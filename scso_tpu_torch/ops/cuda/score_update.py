@@ -125,9 +125,11 @@ def score_update_torch(x, d, lgr, hr, lam, ss, Mg, reg_name: str,
 def score_update(x, d, lgr, hr, lam, ss, Mg, reg_name: str,
                  use_prox: bool = True, lb=None, ub=None) -> ScoreUpdate:
     """Damped-prox update — the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. ``lam`` and ``ss`` are 0-d tensors (or
-    floats, moved to the device), ``Mg`` a float; ``lb``/``ub`` (indbox
-    only) broadcast to (n,)."""
+    version for CPU tensors. ``lam``, ``ss`` and ``Mg`` are 0-d tensors
+    (or floats, moved to the device; a tensor M_g, from a smoother whose
+    μ is a tensor, is read by the kernel on the card, so that a captured
+    solve's μ can change between replays); ``lb``/``ub`` (indbox only)
+    broadcast to (n,)."""
     if launch.on_cpu(x, "score_update"):
         return score_update_torch(x, d, lgr, hr, lam, ss, Mg, reg_name,
                                   use_prox, lb, ub)
@@ -135,11 +137,15 @@ def score_update(x, d, lgr, hr, lam, ss, Mg, reg_name: str,
 
 
 def _scalar(s, dt, dev) -> torch.Tensor:
-    """``s`` as a 0-d tensor of ``dt`` on ``dev``, as it is if it is one."""
+    """``s`` as a 0-d tensor of ``dt`` on ``dev``, as it is if it is one;
+    a number by a fill on the device (no copy from the host, which a
+    capture refuses)."""
     if (isinstance(s, torch.Tensor) and s.dtype == dt and s.device == dev
             and s.dim() == 0):
         return s
-    return torch.as_tensor(s, dtype=dt, device=dev).reshape(())
+    if not isinstance(s, torch.Tensor):
+        return torch.full((), float(s), dtype=dt, device=dev)
+    return s.to(device=dev, dtype=dt).reshape(())
 
 
 def _launch(x, d, lgr, hr, lam, ss, Mg, reg_name: str, use_prox=True,
@@ -149,7 +155,7 @@ def _launch(x, d, lgr, hr, lam, ss, Mg, reg_name: str, use_prox=True,
     reg = _reg_kind(reg_name, use_prox)
     (n,) = x.shape
     dev, dt = x.device, x.dtype
-    lam, ss = _scalar(lam, dt, dev), _scalar(ss, dt, dev)
+    lam, ss, Mg = (_scalar(v, dt, dev) for v in (lam, ss, Mg))
     if reg == "indbox":
         if lb is None or ub is None:
             raise ValueError("indbox prox requires lb/ub (C_set)")
@@ -157,11 +163,11 @@ def _launch(x, d, lgr, hr, lam, ss, Mg, reg_name: str, use_prox=True,
             torch.as_tensor(b, dtype=dt, device=dev), (n,)).contiguous()
         lb, ub = full(lb), full(ub)
         launch.check_operands("score_update", dt, dev, x=x, d=d, lgr=lgr,
-                              hr=hr, lam=lam, ss=ss, lb=lb, ub=ub)
+                              hr=hr, lam=lam, ss=ss, Mg=Mg, lb=lb, ub=ub)
     else:
         lb = ub = None
         launch.check_operands("score_update", dt, dev, x=x, d=d, lgr=lgr,
-                              hr=hr, lam=lam, ss=ss)
+                              hr=hr, lam=lam, ss=ss, Mg=Mg)
     for arg, t in (("d", d), ("lgr", lgr), ("hr", hr)):
         if t.shape != (n,):
             raise ValueError(f"score_update: {arg} has shape "
@@ -178,7 +184,7 @@ def _launch(x, d, lgr, hr, lam, ss, Mg, reg_name: str, use_prox=True,
     rc = launch.call(
         dev, launch.entry("scso_score_update", dt), x.data_ptr(),
         d.data_ptr(), lgr.data_ptr(), hr.data_ptr(), ptr(lb), ptr(ub),
-        lam.data_ptr(), ss.data_ptr(), float(Mg), REG_CODES[reg],
+        lam.data_ptr(), ss.data_ptr(), Mg.data_ptr(), REG_CODES[reg],
         x_new.data_ptr(), stats.data_ptr(), ptr(partials), n, form.blocks,
         form.chunk, int(form.grid), launch.stream(dev))
     build.check(rc, "score_update")

@@ -18,6 +18,7 @@ float64 tensors, taken to x's device and dtype where they are used.
 
 from __future__ import annotations
 
+import abc
 import math
 from typing import Optional
 
@@ -72,20 +73,25 @@ def sanitize_bounds(lb, ub, n: Optional[int] = None):
     return a, b
 
 
-class SmootherBase:
-    """Common helpers; subclasses define val/grad/hess_diag."""
+class SmootherBase(abc.ABC):
+    """Common helpers; subclasses define val/grad/hess_diag. ``mu`` may
+    be a number or a 0-d tensor (a per-solve buffer of a captured solve:
+    `iterate_continuation` changes it between stages)."""
 
     Mh: float = 0.0
     nu: float = 2.0
 
+    @abc.abstractmethod
     def val(self, x, cw=None):
-        raise NotImplementedError
+        """g_μ(x), elementwise."""
 
+    @abc.abstractmethod
     def grad(self, x, cw=None):
-        raise NotImplementedError
+        """∇g_μ(x)."""
 
+    @abc.abstractmethod
     def hess_diag(self, x, cw=None):
-        raise NotImplementedError
+        """diag ∇²g_μ(x)."""
 
     def Mg(self, n: int):
         return get_Mg(self.Mh, self.nu, self.mu, n)
@@ -157,6 +163,11 @@ def _where(c, a, b, x):
     full = lambda v: v if isinstance(v, torch.Tensor) else torch.full_like(
         x, v)
     return torch.where(c, full(a), full(b))
+
+
+def _log(mu):
+    """log μ, of a number or a tensor."""
+    return torch.log(mu) if isinstance(mu, torch.Tensor) else math.log(mu)
 
 
 def _bounds(sm, x):
@@ -306,8 +317,8 @@ class LogExpSmootherIndBox(SmootherBase):
         dist_a = _where(x < a, a - x, 1.0, x)
         dist_b = _where(x > b, x - b, 1.0, x)
         barrier = _where(
-            x < a, mu * (math.log(mu) - torch.log(dist_a)),
-            _where(x > b, mu * (math.log(mu) - torch.log(dist_b)), 0.0, x),
+            x < a, mu * (_log(mu) - torch.log(dist_a)),
+            _where(x > b, mu * (_log(mu) - torch.log(dist_b)), 0.0, x),
             x)
         return quad + barrier
 

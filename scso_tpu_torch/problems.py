@@ -1,17 +1,22 @@
-"""Problem containers: minimize f(A, y, x) + λ·g(x) — the data flavour.
+"""Problem containers: minimize f(x) + λ·g(x).
 
-Port of `scso_tpu.problems`. A :class:`Problem` is a frozen dataclass of
-tensors that all live on one ``device`` in one ``dtype``; both are
-explicit fields, because PyTorch has no global x64 switch (the CPU tests
-pass ``torch.float64`` and ``device='cpu'``; the device defaults to the
-card). ∇f is the user's ``grad_fx``, else autograd through ``f``
-(``torch.func.grad``); ∇²f the user's ``hess_fx``, else
+Port of `scso_tpu.problems`, in its two flavours: a data problem
+f(A, y, x) over a data matrix (``make_problem(A, y, x0, f, lam)``, with
+an optional test set ``Atest``/``ytest``), and a problem without data,
+f(x) (``make_problem(x0, f, lam)``); ``make_problem()`` is the
+reference's empty :class:`ProblemLike`. A :class:`Problem` is a frozen
+dataclass of tensors that all live on one ``device`` in one ``dtype``;
+both are explicit fields, because PyTorch has no global x64 switch (the
+CPU tests pass ``torch.float64`` and ``device='cpu'``; the device
+defaults to the card). ∇f is the user's ``grad_fx``, else autograd
+through ``f`` (``torch.func.grad``); ∇²f the user's ``hess_fx``, else
 ``torch.func.hessian``; the Hessian-vector product forward-over-reverse.
 The dense GGN step reads (ŷ, J, residual, Q) from the user's ``jac_yx``,
 ``grad_fy`` and ``hess_fy``, else from autograd of ``out_fn`` and
-``loss_fn``. ``groups`` is the group structure of the sparse group
-lasso ('gl'). The generic ``f(x)`` flavour and test data are not
-ported yet (ROADMAP A7).
+``loss_fn``; the matrix-free one applies J by ``torch.func.jvp`` and
+``vjp`` of ``out_fn``. ``groups`` is the group structure of the sparse
+group lasso ('gl'); ``col_sumsq`` (:func:`with_col_sumsq`) diag(AᵀA)
+for the static Jacobi preconditioner.
 """
 
 from __future__ import annotations
@@ -107,8 +112,8 @@ class Problem:
 
     x0: torch.Tensor
     lam: torch.Tensor
-    A: torch.Tensor
-    y: torch.Tensor
+    A: Optional[torch.Tensor]
+    y: Optional[torch.Tensor]
     x_star: torch.Tensor
     f: Callable
     dtype: torch.dtype
@@ -141,27 +146,48 @@ class Problem:
     hess_fy_diag: Optional[Callable] = None
     hvp_w: Optional[Callable] = None
     ggn_w: Optional[Callable] = None
+    #: a test set, on the problem's device: each stats record also holds
+    #: f(Atest, ytest, x) (``Solution.fvaltest``)
+    Atest: Optional[torch.Tensor] = None
+    ytest: Optional[torch.Tensor] = None
+    #: diag(AᵀA), for the static Jacobi preconditioner
+    #: (``static_precond=True``; :func:`with_col_sumsq`)
+    col_sumsq: Optional[torch.Tensor] = None
+    name: Optional[str] = None
 
     def __post_init__(self):
         if self.m_total is None and self.A is not None:
             object.__setattr__(self, "m_total", int(self.A.shape[0]))
 
+    @property
+    def has_data(self) -> bool:
+        """True for the data flavour f(A, y, x), False for f(x)."""
+        return self.A is not None
+
+    @property
+    def has_test(self) -> bool:
+        return self.Atest is not None and self.ytest is not None
+
     def f_val(self, As, ys, x):
-        """f at x on the given batch."""
-        return self.f(As, ys, x)
+        """f at x on the given batch (f(x) without data)."""
+        if self.has_data:
+            return self.f(As, ys, x)
+        return self.f(x)
 
     def grad_f(self, As, ys, x):
         """∇f — the user's ``grad_fx``, else ``torch.func.grad`` through
         ``f``."""
         if self.grad_fx is not None:
-            return self.grad_fx(As, ys, x)
+            return (self.grad_fx(As, ys, x) if self.has_data
+                    else self.grad_fx(x))
         return torch.func.grad(lambda v: self.f_val(As, ys, v))(x)
 
     def hess_f(self, As, ys, x):
         """∇²f — the user's ``hess_fx``, else ``torch.func.hessian``
         through ``f``."""
         if self.hess_fx is not None:
-            return self.hess_fx(As, ys, x)
+            return (self.hess_fx(As, ys, x) if self.has_data
+                    else self.hess_fx(x))
         return torch.func.hessian(lambda v: self.f_val(As, ys, v))(x)
 
     def hvp_f(self, As, ys, x, v):
@@ -214,6 +240,15 @@ class Problem:
         else:
             raise ValueError("GGN requires hess_fy(_diag) or loss_fn")
         return yhat, residual, q_diag
+
+    def jvp_out(self, As, x, v):
+        """J·v, J the Jacobian of out_fn at x, without forming J."""
+        return torch.func.jvp(lambda u: self.out(As, u), (x,), (v,))[1]
+
+    def vjp_out(self, As, x):
+        """(ŷ, u ↦ Jᵀ·u) without forming J."""
+        yhat, vjp = torch.func.vjp(lambda u: self.out(As, u), x)
+        return yhat, lambda u: vjp(u)[0]
 
     def reg(self, reg_name: str, x):
         return reg_value(reg_name, x, lam=self.lam, lb=self.lb, ub=self.ub,
@@ -296,13 +331,41 @@ def _pad_groups(grp: Groups, pad: int) -> Groups:
         n_groups=grp.n_groups + 1, dtype=w.dtype)
 
 
-def make_problem(*args, L=None, sol=None, C_set=None, P=None, groups=None,
-                 glm=None,
+def with_col_sumsq(prob: Problem) -> Problem:
+    """``prob`` with diag(AᵀA) attached (one pass over A, made once) for
+    the static Jacobi preconditioner (``static_precond=True``): the
+    per-epoch diagonal Σᵢ wᵢAᵢⱼ² is then (Σw/m)·diag(AᵀA), O(m + n) an
+    epoch in place of a pass over A."""
+    if not prob.has_data:
+        raise ValueError("with_col_sumsq requires a data problem")
+    from scso_tpu_torch._src.struct import replace as dc_replace
+    from scso_tpu_torch.ops.dense import widen
+
+    A = widen(prob.A, prob.dtype)
+    return dc_replace(prob, col_sumsq=torch.einsum("ij,ij->j", A, A))
+
+
+class ProblemLike:
+    """The empty model of the reference's zero-argument ``Problem()``:
+    no state; it keeps that constructor's arity working."""
+
+    def __repr__(self):
+        return "ProblemLike()"
+
+
+def make_problem(*args, Atest=None, ytest=None, L=None, sol=None,
+                 C_set=None, P=None, groups=None, glm=None,
                  mglm=None, grad_fx=None, hess_fx=None, out_fn=None,
                  loss_fn=None, jac_yx=None, grad_fy=None, hess_fy=None,
-                 hess_fy_diag=None, hvp_w=None, ggn_w=None, dtype=None,
-                 device=None, pad_features=False, **unported) -> Problem:
-    """Build a data :class:`Problem`: ``make_problem(A, y, x0, f, lam)``.
+                 hess_fy_diag=None, hvp_w=None, ggn_w=None, name=None,
+                 dtype=None, device=None, pad_features=False):
+    """Build a :class:`Problem`, in the reference's call shapes:
+
+      * ``make_problem(A, y, x0, f, lam)`` — a data problem, f(A, y, x);
+        ``Atest``/``ytest`` an optional test set (padded with A);
+      * ``make_problem(x0, f, lam)`` — a problem without data, f(x)
+        (``grad_fx(x)``, ``hess_fx(x)``);
+      * ``make_problem()`` — the empty :class:`ProblemLike`.
 
     Arrays may be numpy arrays or tensors; they are converted to
     ``dtype`` (default: x0's floating type, else float32) on ``device``
@@ -321,15 +384,16 @@ def make_problem(*args, L=None, sol=None, C_set=None, P=None, groups=None,
     and under padding gets one zero-weight group of the padded
     coordinates.
     """
-    if unported:
-        raise NotImplementedError(
-            f"make_problem options {sorted(unported)} are not ported yet "
-            "(ROADMAP A7)")
-    if len(args) != 5:
-        raise NotImplementedError(
-            "only the data flavour make_problem(A, y, x0, f, lam) is "
-            "ported (ROADMAP A7)")
-    A, y, x0, f, lam = args
+    if len(args) == 0:
+        return ProblemLike()
+    if len(args) == 3:
+        x0, f, lam = args
+        A = y = None
+    elif len(args) == 5:
+        A, y, x0, f, lam = args
+    else:
+        raise TypeError("make_problem takes (), (x0, f, lam, ...) or "
+                        "(A, y, x0, f, lam, ...)")
     device = resolve_device(device)
     if dtype is None:
         dtype = torch.as_tensor(x0).dtype
@@ -342,6 +406,11 @@ def make_problem(*args, L=None, sol=None, C_set=None, P=None, groups=None,
         n = x0.shape[-1]
         pad = (-n) % 128
         if pad:
+            if A is None:
+                raise ValueError(
+                    "pad_features requires a data problem (A, y): only a "
+                    "zero-padded data matrix keeps the padded coordinates "
+                    "out of f; an f(x) would optimize over them")
             if C_set is not None:
                 raise ValueError(
                     "pad_features cannot be combined with box bounds "
@@ -367,11 +436,13 @@ def make_problem(*args, L=None, sol=None, C_set=None, P=None, groups=None,
                 out[..., :vv.shape[-1]] = vv
                 return out
 
-            x0, sol, A = zpad(x0), zpad(sol), zpad(A)
+            x0, sol, A, Atest = zpad(x0), zpad(sol), zpad(A), zpad(Atest)
 
     def to(v):
         # python scalars go through numpy (float64): a direct as_tensor
         # would round them to float32 first
+        if v is None:
+            return None
         if not isinstance(v, torch.Tensor):
             v = torch.as_tensor(np.asarray(v))
         return v.to(device=device, dtype=dtype).contiguous()
@@ -404,5 +475,8 @@ def make_problem(*args, L=None, sol=None, C_set=None, P=None, groups=None,
         hess_fy_diag=hess_fy_diag,
         hvp_w=hvp_w,
         ggn_w=ggn_w,
+        Atest=to(Atest),
+        ytest=to(ytest),
+        name=name,
     )
 

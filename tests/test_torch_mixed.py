@@ -330,16 +330,15 @@ def test_iterate_mixed_keeps_a_copy_and_casts_only_a(monkeypatch):
 
 
 def test_iterate_mixed_without_data_is_the_plain_iterate(monkeypatch):
-    bare = st.CompositeProblem(
-        x0=torch.zeros(3, dtype=torch.float64),
-        lam=torch.tensor(0.1, dtype=torch.float64), A=None, y=None,
-        x_star=torch.zeros(3, dtype=torch.float64), f=None,
-        dtype=torch.float64, device=torch.device("cpu"))
-    method, sm = st.ProxGGNSCORE(solver="cg"), st.PHuberSmootherL1L2(1.0)
-    # the port's iterate runs no problem without data yet: both raise
-    for fn in (st.iterate, st.iterate_mixed):
-        with pytest.raises(NotImplementedError, match="A7"):
-            fn(method, bare, "l1", sm, max_epoch=3, verbose=0)
+    bare = st.Problem(np.zeros(3), lambda x: torch.sum((x - 1.0) ** 2), 0.1,
+                      dtype=torch.float64, device="cpu")
+    assert not bare.has_data
+    method, sm = st.ProxNSCORE(), st.PHuberSmootherL1L2(1.0)
+    # a problem without data: iterate_mixed is the plain iterate
+    a, b = (fn(method, bare, "l1", sm, max_epoch=3, verbose=0, alpha=1.0)
+            for fn in (st.iterate, st.iterate_mixed))
+    assert a.epochs == b.epochs
+    assert torch.equal(a.x, b.x) and torch.equal(a.obj, b.obj)
     seen = []
     monkeypatch.setattr(it_mod, "iterate",
                         lambda *a, **kw: seen.append((a, kw)) or "plain")

@@ -388,15 +388,26 @@ def test_newton_step_from_a_jax_primed_cache():
 
 @pytest.mark.parametrize("what", ["sharded", "static_precond"])
 def test_unported_newton_parts_raise(what):
+    """A sharded Newton solve still raises (A11); the static Jacobi
+    preconditioner of a Newton-CG solve now runs, off the epoch cache,
+    as `scso_tpu`'s does."""
     from scso_tpu_torch.algorithms.iterate import _check_sharded
 
-    _, pt = _logreg(64, 32)
+    pj, pt = _logreg(64, 32)
     if what == "sharded":
         with pytest.raises(NotImplementedError, match="A11"):
             _check_sharded(st.ProxNSCORE(solver="cg"),
                            replace(pt, mesh=object()), "l1")
         return
-    with pytest.raises(NotImplementedError, match="A7"):
-        st.iterate(st.ProxNSCORE(solver="cg", static_precond=True,
-                                 epoch_cache=False), pt, "l1",
-                   st.PHuberSmootherL1L2(1.0), verbose=0, max_epoch=2)
+    kw = dict(solver="cg", static_precond=True, greedy_alpha=False)
+    pt = st.with_col_sumsq(pt)
+    assert not steps.epoch_cache_enabled(st.ProxNSCORE(**kw), pt, "l1",
+                                         True)
+    sj = scso.iterate(scso.ProxNSCORE(kernels="xla", **kw),
+                      scso.with_col_sumsq(pj), "l1",
+                      scso.PHuberSmootherL1L2(1.0), **KW)
+    s = st.iterate(st.ProxNSCORE(**kw), pt, "l1", st.PHuberSmootherL1L2(1.0),
+                   **KW)
+    assert s.epochs == sj.epochs
+    _close(s.obj.numpy(), sj.obj)
+    _close(s.x.numpy(), sj.x)

@@ -18,6 +18,8 @@ padded 384×200:
     copy).
 """
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -177,12 +179,27 @@ def test_kernel_resolution():
 @pytest.mark.parametrize("method,kw", [
     (st.ProxGGNSCORE(solver="cg"), {"resume_state": None}),
     (st.ProxGGNSCORE(solver="cg", curvature_rows=8), {}),
-    (st.ProxGGNSCORE(solver="cg"), {"slice_samples": True}),
-    (st.ProxGGNSCORE(solver="cg"), {"batch_size": 16}),
+    (st.ProxGGNSCORE(solver="cg"),
+     {"slice_samples": True, "shuffle_batch": False}),
+    (st.ProxGGNSCORE(solver="cg"), {"batch_size": 16,
+                                    "shuffle_batch": False}),
     (st.ProxGGNSCORE(solver="cg"), {"mode": "timed", "batch_size": 16}),
 ])
 def test_unported_parts_raise(method, kw):
-    _, pt = _problems(64, 32, False)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        st.iterate(method, pt, "l1", st.PHuberSmootherL1L2(1.0),
-                   verbose=0, max_epoch=2, **kw)
+    """The options that raised (ROADMAP A7) before the port had them now
+    run as scso_tpu's: the histories to 1e-10 (the fused mini-batches
+    unshuffled: the JAX package's fused mode draws with jax.random, its
+    timed mode and the port with numpy)."""
+    pj, pt = _problems(64, 32, False)
+    jm = scso.ProxGGNSCORE(solver="cg", kernels="xla",
+                           curvature_rows=method.curvature_rows)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # curvature_rows < 2·n warns
+        sj = scso.iterate(jm, pj, "l1", scso.PHuberSmootherL1L2(1.0),
+                          verbose=0, max_epoch=2, alpha=1.0, **kw)
+        s = st.iterate(method, pt, "l1", st.PHuberSmootherL1L2(1.0),
+                       verbose=0, max_epoch=2, alpha=1.0, **kw)
+    assert s.epochs == sj.epochs
+    np.testing.assert_allclose(s.obj.numpy(), np.asarray(sj.obj),
+                               rtol=1e-10)
+    np.testing.assert_allclose(s.x.numpy(), np.asarray(sj.x), atol=1e-10)

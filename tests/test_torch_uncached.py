@@ -25,6 +25,8 @@ The CUDA kernel itself is held against the plain version on the card by
 tests/test_torch_cuda.py and chip_smoke.py.
 """
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -190,12 +192,25 @@ def test_uncached_lp_copy_trajectory_matches(ss_type):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(curvature_rows=64), "A7"),
+    (dict(curvature_rows=256), "A7"),
     (dict(static_precond=True), "A7"),
 ])
 def test_unported_uncached_options_raise(kw, match):
-    _, pt = _logreg(128, 64)
-    with pytest.raises(NotImplementedError, match=match):
-        st.iterate(st.ProxGGNSCORE(solver="cg", epoch_cache=False, **kw),
-                   pt, "l1", st.PHuberSmootherL1L2(1.0), verbose=0,
-                   max_epoch=2)
+    """Subsampled curvature and the static preconditioner raised until
+    their item (``match``) was ported: now each uncached solve runs as
+    scso_tpu's, the histories to 1e-10."""
+    pj, pt = _logreg(512, 64)
+    if kw.get("static_precond"):
+        pj, pt = scso.with_col_sumsq(pj), st.with_col_sumsq(pt)
+    opts = dict(verbose=0, max_epoch=12, x_tol=1e-12, f_tol=1e-12,
+                alpha=1.0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # curvature_rows < 2·n warns
+        sj = scso.iterate(scso.ProxGGNSCORE(solver="cg", epoch_cache=False,
+                                            kernels="xla", **kw),
+                          pj, "l1", scso.PHuberSmootherL1L2(1.0), **opts)
+        s = st.iterate(st.ProxGGNSCORE(solver="cg", epoch_cache=False, **kw),
+                       pt, "l1", st.PHuberSmootherL1L2(1.0), **opts)
+    assert s.epochs == sj.epochs, match
+    _close(s.obj.numpy(), np.asarray(sj.obj), rtol=1e-10, atol=0)
+    _close(s.x.numpy(), np.asarray(sj.x), rtol=0, atol=1e-9)
