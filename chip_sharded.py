@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The row-sharded cached GGN-CG path over NCCL on every card of one host.
 
-    torchrun --nproc-per-node=4 chip_sharded.py
+    torchrun --nproc-per-node=4 chip_sharded.py [--sweep]
 
 One process per card (torchrun's RANK, LOCAL_RANK, WORLD_SIZE and
 rendezvous). Every rank builds chip_smoke.py's phase 3 problem
@@ -19,7 +19,27 @@ x bit for bit; K2 launched, and K1s as often as K1 with chunks 1 (the
 overlapped form launches neither). Times: the chains (host clock, the
 sum of the chained solves), and, CUDA events, median of 5 runs: K1 on the
 shard, K1s, and one all-reduce of n float32 values (the collectives
-COLLECTIVE_CALLS times a run on every rank). Rank 0 prints the card and
+COLLECTIVE_CALLS times a run on every rank).
+
+Then chip_smoke.py phase 20's λ sweep (4096 instances at 2048×128, the
+throughput plan) on each card alone, and with its batch axis over all
+ranks (`mesh=`, 4096/world instances a rank, one all_gather after the
+solve); ``--sweep`` runs this part alone. Required: every rank holds
+rank 0's result bit for bit; each rank's share of it is bit for bit the
+one-card sweep of that share alone (the same products); and
+SHARE_CHECKED instances spread over each rank's share lie within
+E2E_RTOL of the scalar fused solve at their λ, run on that rank's card
+to its own stop, wherever both converged (chip_smoke.py phase 20's
+check; an instance at the epoch cap in one run only is reported).
+Reported beside it: each instance's objective against the 4096-wide
+one-card sweep — the quantiles of the relative difference over the
+instances that converged in both, and how many lie beyond E2E_RTOL. In
+float32 that comparison depends on the batch width: the products of
+1024 and of 4096 instances round differently, and an instance whose
+x_tol test fires on a step that Armijo shrank stops at another point
+(chip_smoke.py phase 20 reports the same spread on one card, solving
+the four shares one by one). The seconds of both (host clock, the
+second call of each: the first captures). Rank 0 prints the card and
 power limit, then one JSON line; a rank still running EXIT_WAIT_S
 seconds later prints its stacks (faulthandler). Without CUDA it exits
 non-zero.
@@ -39,6 +59,8 @@ import chip_smoke as cs
 COLLECTIVE_CALLS = 20
 #: seconds after the JSON line past which every rank dumps its stacks
 EXIT_WAIT_S = 120
+#: instances of each rank's share of the sweep held against scalar solves
+SHARE_CHECKED = 4
 
 
 def main():
@@ -72,6 +94,9 @@ def main():
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60).stdout.strip())
+    if sys.argv[1:] == ["--sweep"]:
+        return finish({"world": world,
+                       "sweep": sweep_over_ranks(dev, say)}, mesh, say)
     prob = cs.build_problem(*cs.MAIN_SHAPE, dev, torch.float32)
     method = st.ProxGGNSCORE(**cs.F32_CG)
     best, x_opt, _ = cs.presolve(method, prob)
@@ -116,6 +141,7 @@ def main():
         if not (k1s_ok and lc["glm_prep_pair"] > 0):
             cs.fail(f"comm_overlap_chunks={chunks}: launches {lc}")
         out[f"overlap{chunks}"] = r
+    out["sweep"] = sweep_over_ranks(dev, say)
     gen = torch.Generator(device=dev).manual_seed(cs.SEED + mesh.rank)
     n = sp.A.shape[1]
     w = torch.rand((sp.A.shape[0],), generator=gen, device=dev) / sp.m_total
@@ -135,11 +161,106 @@ def main():
     }
     say(f"CUDA events, median of 5 runs of {COLLECTIVE_CALLS} calls "
         f"(K1 alone: as many as fill 20 ms), rank 0: {out['ms']}")
+    finish(out, mesh, say)
+
+
+def finish(out, mesh, say):
+    """The JSON line, then the group torn down (should a rank still wait
+    after the line, each rank prints where)."""
+    import torch.distributed as dist
+
     say(json.dumps(out))
-    # should a rank still wait after this, each rank prints where
     faulthandler.dump_traceback_later(EXIT_WAIT_S)
     dist.destroy_process_group()
     faulthandler.cancel_dump_traceback_later()
+
+
+def sweep_over_ranks(dev, say):
+    """Phase 20's throughput sweep on this card alone, then split over
+    the ranks (see the module docstring)."""
+    import time
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import scso_tpu_torch as st
+    from scso_tpu_torch.parallel import make_mesh, sweep
+
+    bmesh = make_mesh(axis_names=("batch",))
+    prob = cs.sweep_problem(dev)
+    lam = np.logspace(-3, -0.5, cs.SWEEP_B).astype(np.float32)
+    meth = st.ProxNSCORE(solver="cg", ss_type=3)
+    sm = st.PHuberSmootherL1L2(1.0)
+    run = lambda mesh, grid: sweep(
+        meth, prob, "l1", sm, lam_grid=grid, opts=st.Options(**cs.SWEEP_KW),
+        plan="throughput", mesh=mesh)
+    share = cs.SWEEP_B // bmesh.size
+    lo = bmesh.rank * share
+    secs = {}
+    res = {}
+    for name, mesh, grid in (("one_card", None, lam),
+                             ("ranks", bmesh, lam),
+                             ("share", None, lam[lo:lo + share])):
+        run(mesh, grid)  # the capture
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[name] = run(mesh, grid)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    r, one, own = res["ranks"], res["one_card"], res["share"]
+    fields = ("x", "obj", "epochs", "n_rec", "obj_hist")
+    flat = lambda res_, sl: torch.cat([getattr(res_, f)[sl].reshape(-1)
+                                       .double() for f in fields])
+    mine = flat(r, slice(None))
+    theirs = mine.clone()
+    dist.broadcast(theirs, 0, group=bmesh.group)
+    bad = torch.tensor([float(not torch.equal(mine, theirs)),
+                        float(not torch.equal(flat(r, slice(lo, lo + share)),
+                                              flat(own, slice(None))))],
+                       device=dev)
+    dist.all_reduce(bad, group=bmesh.group)
+    if float(bad[0]) != 0:
+        cs.fail("sweep over ranks: ranks hold different results")
+    if float(bad[1]) != 0:
+        cs.fail("sweep over ranks: a rank's share differs from the "
+                "one-card sweep of that share alone")
+    # instances spread over this rank's share against scalar fused solves
+    picks = np.linspace(0, share - 1, SHARE_CHECKED).round().astype(int)
+    checked, edge = cs.against_scalar(prob, lam, own, picks, meth, sm,
+                                      offset=lo)
+    rows = [None] * bmesh.size
+    dist.all_gather_object(rows, dict(checked=checked, edge=edge),
+                           group=bmesh.group)
+    checked = [row for got in rows for row in got["checked"]]
+    edge = [row for got in rows for row in got["edge"]]
+    far = [row for row in checked if not row["rel"] <= cs.E2E_RTOL]
+    if far or not checked:
+        cs.fail(f"sweep over ranks: of {len(checked)} instances converged "
+                f"in both, {len(far)} lie beyond {cs.E2E_RTOL} of their "
+                f"scalar solves: {json.dumps(far)}")
+    cap = cs.SWEEP_KW["max_epoch"]
+    rel = ((r.obj - one.obj).abs() / one.obj.abs()).double()
+    both = (r.epochs < cap) & (one.epochs < cap)
+    q = torch.quantile(rel[both], torch.tensor(
+        [0.5, 0.9, 0.99, 1.0], dtype=torch.float64, device=dev)).tolist()
+    out = dict(world=bmesh.size, instances=cs.SWEEP_B, per_rank=share,
+               seconds=secs["ranks"], one_card_seconds=secs["one_card"],
+               share_alone_seconds=secs["share"],
+               converged_frac=float((r.epochs < cap).float().mean()),
+               shares_bitwise=True,
+               vs_scalar=dict(checked=len(checked),
+                              max_rel=max(row["rel"] for row in checked),
+                              edge=edge),
+               vs_one_card=dict(
+                   converged_both=int(both.sum()),
+                   rel_obj_quantiles_50_90_99_100=q,
+                   beyond_e2e_rtol=int((rel[both] > cs.E2E_RTOL).sum()),
+                   exactly_equal=int((rel[both] == 0).sum()),
+                   epochs_equal_frac=float((r.epochs == one.epochs)
+                                           .float().mean())))
+    say(f"sweep over {bmesh.size} ranks: " + json.dumps(out))
+    return out
 
 
 if __name__ == "__main__":

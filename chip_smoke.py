@@ -240,6 +240,30 @@ timed chains replay it. Phases, each fatal on failure:
      the non-final stages,
      the captured homotopy the eager one bitwise; each stage's epochs,
      seconds and captures.
+ 20. the λ sweep of bench.py's family_sweep(big=True): 4096 instances of
+     the logistic01 problem at 2048×128 f32 (seed 7), λ = logspace(−3,
+     −0.5), ProxNSCORE(solver='cg', ss_type=3), max_epoch 60,
+     stats_every 4, x_tol 1e-6, as one batched solve (kernels='torch'
+     by design: every product of the batch one cuBLAS product, A read
+     once for all instances; no K1–K5 launch, the counters checked), one
+     captured graph replayed once a solve: the throughput plan, and the
+     quality plan followed by the x0_grid polish — seconds, solves/s,
+     the converged share, mean epochs, the capture's seconds and nodes,
+     and plan='auto''s pick (the same on a second call: the latency it
+     weighs is measured once a process) beside the rule's estimate of
+     a wave's epoch and the epoch the throughput plan took; eight
+     instances spread over the grid against the scalar fused solve at
+     their λ (the final objective within E2E_RTOL where both converged),
+     the eager form the captured one bit for bit, every result tensor on
+     the card; and, reported only, the spread of the objectives when the
+     same instances are solved 1024 at a time (float32 products of
+     another batch width round differently).
+ 21. federated_solve on examples/09_federated.py's problem (1024×32
+     f64, ProxNSCORE(solver='dense', ss_type=3), 8 clients, 8 rounds of
+     4 local epochs, f_tol 1e-8): each round's centralized objective
+     against the CPU's to 1e-9 (SMALL_RTOL), the local epochs equal,
+     one capture serving every round; rounds, objectives, seconds (the
+     capture included).
 
 The last two lines of standard output are one JSON object with each
 kernel's numbers, then ``{"ok": true, "device": {...}}`` (K1 with A in
@@ -3585,6 +3609,259 @@ def phase_continuation(prob_t, best):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 20 and 21: the instance-parallel layer (sweep, federated rounds)
+# ---------------------------------------------------------------------------
+
+SWEEP_SHAPE = (2048, 128)   # bench.py family_sweep(big=True)
+SWEEP_B = 4096
+SWEEP_KW = dict(max_epoch=60, verbose=0, stats_every=4, x_tol=1e-6)
+SWEEP_CHECKED = 8           # instances held against scalar solves
+FED_KW = dict(n_clients=8, comm_rounds=8, local_epochs=4, f_tol=1e-8)
+
+
+def sweep_problem(device):
+    import numpy as np
+    import torch
+
+    import scso_tpu_torch as st
+    from scso_tpu_torch.models import losses, synthetic
+
+    A, y, x0, _ = synthetic.make_sparse_logreg_data(
+        *SWEEP_SHAPE, density=0.1, n_active=16, seed=SEED,
+        dtype=np.float32, label01=True)
+    return st.Problem(A, y, x0, losses.logistic01_f, 0.01,
+                      grad_fx=losses.logistic01_grad,
+                      hvp_w=losses.logistic01_hvp_w,
+                      glm=losses.LOGISTIC01_GLM, dtype=torch.float32,
+                      device=device)
+
+
+def on_card(what, res):
+    bad = [f for f, v in vars(res).items()
+           if hasattr(v, "device") and v.device.type != "cuda"]
+    if bad:
+        fail(f"{what}: result tensors {bad} are not on the card")
+
+
+def sweep_summary(res, secs, captures):
+    from scso_tpu_torch.ops.cuda import graph
+
+    g = graph.last_graphs().get("solve")
+    B = res.batch_size
+    return dict(seconds=secs, solves_per_s=B / secs,
+                converged_frac=float((res.epochs < SWEEP_KW["max_epoch"])
+                                     .float().mean()),
+                mean_epochs=float(res.epochs.float().mean()),
+                max_epochs=int(res.epochs.max()), captures=captures,
+                capture_s=None if g is None else g.seconds,
+                nodes=None if g is None else g.nodes)
+
+
+def against_scalar(prob, lam, res, picks, meth, sm, offset=0):
+    """The instances ``picks`` of the sweep result ``res`` (whose first
+    instance is ``offset`` of the grid ``lam``) against the scalar fused
+    solve at their λ, run to its own stop: (rows where both converged,
+    rows at the epoch cap in one run only). A row's ``rel`` is the
+    relative difference of the final objectives."""
+    import torch
+
+    import scso_tpu_torch as st
+    from scso_tpu_torch._src.struct import replace
+
+    cap = SWEEP_KW["max_epoch"]
+    checked, edge = [], []
+    for i in picks:
+        p = replace(prob, lam=torch.tensor(float(lam[offset + i]),
+                                           dtype=torch.float32,
+                                           device=prob.device))
+        ref = st.iterate(meth, p, "l1", sm, **SWEEP_KW)
+        got, want = float(res.obj[i]), float(ref.obj[-1])
+        row = dict(i=int(offset + i), lam=float(lam[offset + i]),
+                   epochs=int(res.epochs[i]), scalar_epochs=ref.epochs,
+                   obj=got, scalar_obj=want, rel=abs(got - want) / abs(want))
+        if row["epochs"] < cap and ref.epochs < cap:
+            checked.append(row)
+        elif row["epochs"] < cap or ref.epochs < cap:
+            edge.append(row)   # at the epoch cap in one run only: reported
+    return checked, edge
+
+
+def phase_sweep():
+    """Phase 20 (see the module docstring): both plans timed on their
+    second call (the first captures), the checks, and the counters: no
+    K1–K5 launch in any sweep."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    import scso_tpu_torch as st
+    from scso_tpu_torch.ops.cuda import counters, graph
+    from scso_tpu_torch.parallel import sweep
+
+    swp = importlib.import_module("scso_tpu_torch.parallel.sweep")
+    prob = sweep_problem("cuda")
+    lam = np.logspace(-3, -0.5, SWEEP_B).astype(np.float32)
+    meth = st.ProxNSCORE(solver="cg", ss_type=3)
+    sm = st.PHuberSmootherL1L2(1.0)
+    opts = st.Options(**SWEEP_KW)
+    run_t = lambda capture=True: sweep(meth, prob, "l1", sm, lam_grid=lam,
+                                       opts=opts, plan="throughput",
+                                       _capture=capture)
+
+    def run_q():
+        w = sweep(meth, prob, "l1", sm, lam_grid=lam, opts=opts,
+                  plan="quality")
+        return w, sweep(meth, prob, "l1", sm, lam_grid=lam, opts=opts,
+                        x0_grid=w.x)
+
+    out = {}
+    counters.reset()
+    for name, run in (("throughput", run_t), ("quality", run_q)):
+        graph.reset_stats()
+        run()
+        first = graph.STATS["captures"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        again = graph.STATS["captures"] - first
+        if name == "quality":
+            waves, res = res
+            on_card("sweep (quality plan's waves)", waves)
+        on_card(f"sweep ({name} plan)", res)
+        out[name] = sweep_summary(res, secs, again)
+        out[name]["first_call_captures"] = first
+        if name == "quality":
+            out[name]["wave_mean_epochs"] = float(waves.epochs.float().mean())
+        else:
+            thr = res
+        log(f"  sweep, {name} plan: " + json.dumps(out[name]))
+        if again:
+            fail(f"sweep ({name}): {again} captures in the timed call")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager = run_t(False)
+    torch.cuda.synchronize()
+    eager_secs = time.perf_counter() - t0
+    launched = {k: v for k, v in counters.snapshot().items() if v}
+    if launched:
+        fail(f"sweep: kernels launched {launched} (the batched solve runs "
+             "kernels='torch' by design)")
+    same_bits("sweep: eager against captured (x, obj, epochs)",
+              [eager.x, eager.obj, eager.epochs],
+              [thr.x, thr.obj, thr.epochs])
+    # eight instances against the scalar fused solve at their λ
+    picks = np.linspace(0, SWEEP_B - 1, SWEEP_CHECKED).round().astype(int)
+    checked, edge = against_scalar(prob, lam, thr, picks, meth, sm)
+    for row in checked:
+        if not row["rel"] <= E2E_RTOL:
+            fail(f"sweep instance {row['i']}: objective {row['obj']} "
+                 f"against the scalar solve's {row['scalar_obj']} (rel "
+                 f"{row['rel']:.3e} > {E2E_RTOL})")
+    if not checked:
+        fail("sweep: no checked instance converged in both runs")
+    # reported, not gated: the same instances solved 1024 at a time (the
+    # share of a rank of four): in float32 the products of another batch
+    # width round differently, and an instance whose x_tol test fires on
+    # a step Armijo shrank stops at another point
+    share = SWEEP_B // 4
+    part = torch.cat([sweep(meth, prob, "l1", sm,
+                            lam_grid=lam[k * share:(k + 1) * share],
+                            opts=opts, plan="throughput").obj
+                      for k in range(4)])
+    cap = SWEEP_KW["max_epoch"]
+    rel = ((part - thr.obj).abs() / thr.obj.abs()).double()
+    conv = thr.epochs < cap
+    q = torch.quantile(rel[conv], torch.tensor(
+        [0.5, 0.9, 0.99, 1.0], dtype=torch.float64, device="cuda")).tolist()
+    out["width_spread"] = dict(
+        share=share, converged=int(conv.sum()),
+        rel_obj_quantiles_50_90_99_100=q,
+        beyond_e2e_rtol=int((rel[conv] > E2E_RTOL).sum()),
+        exactly_equal=int((rel[conv] == 0).sum()))
+    log(f"  sweep: the {SWEEP_B} instances solved {share} at a time, "
+        f"against the {SWEEP_B}-wide sweep: "
+        + json.dumps(out["width_spread"]))
+    # plan='auto': the latency it weighs is measured once a process, so
+    # the same call picks the same plan; beside it the rule's estimate
+    # of a wave's epoch and the epoch the throughput plan took (all
+    # 4096 instances, its seconds over its epochs)
+    latency = swp._dispatch_latency_s(prob.device)
+    auto = swp._resolve_plan("auto", prob, SWEEP_B, opts, 1)
+    if swp._resolve_plan("auto", prob, SWEEP_B, opts, 1) != auto:
+        fail("sweep: plan='auto' picks another plan on a second call")
+    wave = swp._wave_s(prob, SWEEP_B // swp._largest_wave_count(SWEEP_B))
+    out.update(checked=checked, edge=edge, launch_latency_s=latency,
+               auto_plan=dict(path_waves=auto[0], wave_max_epoch=auto[1],
+                              rule_wave_s=wave,
+                              rule_threshold_s=4.0 * latency,
+                              rule_epoch_s=wave / swp._PLAN_WARM_EPOCHS,
+                              measured_full_width_epoch_s=(
+                                  out["throughput"]["seconds"]
+                                  / out["throughput"]["max_epochs"])),
+               eager_seconds=eager_secs)
+    log(f"  sweep: {len(checked)} instances within {E2E_RTOL} of their "
+        f"scalar solves, {len(edge)} at the epoch cap in one run only "
+        f"{json.dumps(edge)}; plan='auto' picks {auto} at a measured "
+        f"launch latency of {latency * 1e6:.2f} us; no K1-K5 launch")
+    return out
+
+
+def phase_federated():
+    """Phase 21 (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    import scso_tpu_torch as st
+    from scso_tpu_torch.models import losses, synthetic
+    from scso_tpu_torch.ops.cuda import graph
+    from scso_tpu_torch.parallel import federated_solve
+
+    A, y, x0, _ = synthetic.make_sparse_logreg_data(
+        1024, 32, density=0.2, n_active=8, seed=3, dtype=np.float64)
+
+    def run(device):
+        prob = st.Problem(A, y, x0, losses.logistic_f, 1e-2,
+                          grad_fx=losses.logistic_grad,
+                          hess_fx=losses.logistic_hess, dtype=torch.float64,
+                          device=device)
+        return federated_solve(st.ProxNSCORE(solver="dense", ss_type=3),
+                               prob, "l1", st.PHuberSmootherL1L2(1.0),
+                               **FED_KW)
+
+    graph.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fed = run("cuda")   # its one capture included
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    captures = graph.STATS["captures"]
+    cpu = run("cpu")
+    # the per-round objectives and epochs are host values, read a round
+    for f in ("x", "client_x"):
+        if getattr(fed, f).device.type != "cuda":
+            fail(f"federated: {f} is not on the card")
+    if fed.rounds != cpu.rounds:
+        fail(f"federated: {fed.rounds} rounds on the card, {cpu.rounds} on "
+             "the CPU")
+    rel = float(((fed.obj - cpu.obj).abs() / cpu.obj.abs()).max())
+    if not rel <= SMALL_RTOL:
+        fail(f"federated: round objectives {rel:.3e} from the CPU's "
+             f"(> {SMALL_RTOL})")
+    if not torch.equal(fed.client_epochs, cpu.client_epochs):
+        fail("federated: local epochs differ from the CPU's")
+    if captures != 1:
+        fail(f"federated: {captures} captures (one graph serves every "
+             "round)")
+    out = dict(seconds=secs, captures=captures, rounds=fed.rounds,
+               obj=fed.obj.tolist(), max_rel_to_cpu=rel)
+    log("  federated: " + json.dumps(out))
+    return out
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "scso_tpu_torch")):
         fail("scso_tpu_torch not found beside chip_smoke.py: run it from "
@@ -3700,6 +3977,15 @@ def main():
     log("phase 19: mu/lambda continuation")
     cont = phase_continuation(prob_t, best)
     log(f"  phase 19: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    log("phase 20: the lambda sweep (bench.py family_sweep(big=True)) as one "
+        "batched solve")
+    swept = phase_sweep()
+    log(f"  phase 20: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    log("phase 21: federated rounds (examples/09_federated.py)")
+    fed = phase_federated()
+    log(f"  phase 21: {time.perf_counter() - t0:.1f} s")
     new_paths = [batches["launches"], resume["static_precond"]["launches"],
                  resume["curvature_rows"]["launches"]]
     new_paths += [v["launches"] for v in nodata.values()]
@@ -3748,6 +4034,9 @@ def main():
     log("new paths: " + json.dumps({"card": card, "mini_batches": batches,
                                     "no_data": nodata, "resume": resume,
                                     "continuation": cont}))
+    log("instance-parallel paths: " + json.dumps({"card": card,
+                                                  "sweep": swept,
+                                                  "federated": fed}))
     rows = []
     for k, (src, rep) in KERNELS.items():
         bound_ms, bound_by = bound(*work[k], k)

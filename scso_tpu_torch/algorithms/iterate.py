@@ -107,9 +107,14 @@ from scso_tpu_torch.problems import Problem
 @dataclasses.dataclass(frozen=True)
 class Options:
     """Per-solve configuration (the JAX package's Options).
-    ``local_max_iter`` and ``vmap_safe`` belong to the federated and
-    sweep paths, not ported (ROADMAP A11); ``comm_rounds`` is stored and
-    unused, as in the reference."""
+    ``local_max_iter`` makes a solve one epoch over the first that many
+    mini-batches (the reference's federated knob); ``vmap_safe`` is
+    accepted and changes nothing here: the JAX package's where-mask
+    stands in for a conditional that faults under vmap on a TPU, while
+    this driver's conditional node already leaves a finished solve's
+    carry as it is, and the batched solve (`batched`) masks its epochs
+    whatever the flag says; ``comm_rounds`` is stored and unused, as in
+    the reference."""
 
     max_epoch: int = 1000
     x_tol: float = 1e-10
@@ -225,6 +230,57 @@ def _stats(prob: Problem, reg_name: str, x, obj_star, x_tol, f_tol,
     return fval, obj, rel, objrel, raw_frel, fvaltest
 
 
+def _record(prob: Problem, reg_name: str, opts: Options, x, obj_star,
+            loss, pri_res):
+    """A stats record at x: the six values of `History` in its order
+    (fval, obj, rel, objrel, prires, fvaltest) and the raw relative gap.
+    ``loss`` is the epoch cache's, or None (`_stats`). The fused loop
+    and the batched solve (`batched`, under vmap) both write this."""
+    fval, obj, rel, objrel, raw_frel, ftst = _stats(
+        prob, reg_name, x, obj_star, opts.x_tol, opts.f_tol, loss)
+    return (fval, obj, rel, objrel, pri_res, ftst), raw_frel
+
+
+def _gap(prob: Problem, reg_name: str, x, loss, obj_star):
+    """The relative gap at x from the epoch cache's loss (O(n))."""
+    obj_now = loss + prob.reg(reg_name, x)
+    return torch.abs(obj_now - obj_star) / torch.abs(obj_star)
+
+
+def _stopped(x_new, x, raw_frel, pri_res, opts: Options):
+    """An epoch's stop test on its last step, x → x_new: the iterate
+    settled (relative to max(‖x‖, 1)), the gap within f_tol, or the
+    primal residual under x_tol."""
+    x_tol = opts.x_tol
+    return ((torch.linalg.vector_norm(x_new - x)
+             < x_tol * torch.clamp_min(torch.linalg.vector_norm(x), 1.0))
+            | (raw_frel <= opts.f_tol)
+            | (pri_res < x_tol))
+
+
+def _step_carry(method, step, prob: Problem, reg_name: str, sm,
+                opts: Options, As, ys, c, it, raw_frel, use_fcache: bool,
+                gq_cached=None):
+    """One step of a solve on the rows (As, ys) from the carry ``c`` (a
+    `Carry`, or one instance's state in the batched solve): (the
+    carry's new fields, the step's stop test). ``step`` is
+    ``make_step_fn(method)``; L-BFGS takes ``gq_cached``."""
+    if isinstance(method, ProxLQNSCORE):
+        out = lbfgs_step(method, prob, reg_name, sm, As, ys, c.x, c.x_prev,
+                         c.gq_prev, it, c.mem, gq_cached=gq_cached)
+    else:
+        out = step(method, prob, reg_name, sm, As, ys, c.x, c.x_prev, it,
+                   d_prev=c.d_prev, bnorm_prev=c.bnorm_prev,
+                   fcache=c.fcache if use_fcache else None,
+                   gq_prev=c.gq_prev, mem=c.mem)
+    conv = _stopped(out.x_new, c.x, raw_frel, out.pri_res_norm, opts)
+    return dict(
+        x=out.x_new, x_prev=c.x, gq=out.gq_new, gq_prev=out.gq, d_prev=out.d,
+        cg_total=c.cg_total + out.cg_iters, bnorm_prev=out.bnorm,
+        pri_res=out.pri_res_norm, mem=out.mem,
+        fcache=out.fcache if use_fcache else None), conv
+
+
 def _metric_values(prob: Problem, x, metric_fns):
     """The metrics at x as one tensor (n_metrics,) in x's dtype: each a
     torch function ``fn(prob, x)`` returning a 0-d tensor (in fused mode
@@ -294,7 +350,9 @@ def _make_batches(prob: Problem, opts: Options):
     """(full batches, batch size, rows of the partial last batch), or
     None for a full-batch solve: ``batch_size`` first, else one row a
     batch under ``slice_samples``; a batch size of m rows or more is the
-    full batch (the JAX package's `_make_batches`)."""
+    full batch (the JAX package's `_make_batches`). ``local_max_iter``
+    truncates an epoch's list of batches to its first that many, where
+    the partial batch counts as the last entry of the list."""
     if not prob.has_data:
         return None
     m = prob.A.shape[0]
@@ -306,6 +364,9 @@ def _make_batches(prob: Problem, opts: Options):
     if bs < 1:
         raise ValueError(f"batch_size must be positive, got {bs}")
     nb, rem = divmod(m, bs)
+    cap = opts.local_max_iter
+    if cap is not None and int(cap) > 0 and int(cap) <= nb:
+        nb, rem = int(cap), 0  # the partial batch is truncated away too
     return nb, bs, rem
 
 
@@ -467,13 +528,9 @@ def solve(method, prob: Problem, reg_name: str, sm, opts: Options,
         raise ValueError(f"mode must be 'fused' or 'timed', not "
                          f"{opts.mode!r}")
     if opts.local_max_iter is not None:
-        raise NotImplementedError(
-            "local_max_iter (the federated local rounds) is not ported yet "
-            "(ROADMAP A11)")
-    if opts.vmap_safe:
-        raise NotImplementedError(
-            "vmap_safe (the masked loop of a vmapped sweep) is not ported "
-            "yet (ROADMAP A11)")
+        # one local round: a single epoch over the truncated batch list
+        # (`_make_batches`), the JAX package's rule
+        opts = dataclasses.replace(opts, max_epoch=1)
     if len(metric_fns) != len(metric_names):
         raise ValueError("one name a metric")
     prob = _effective_L(prob, alpha)
@@ -847,11 +904,11 @@ class _Fused:
         """One stats record at the carry's iterate, written at n_rec;
         returns the raw relative gap."""
         c, h = self.carry, self.carry.hist
-        fval, obj, rel, objrel, raw_frel, ftst = _stats(
-            prob, self.reg_name, c.x, self.obj_star, self.opts.x_tol,
-            self.opts.f_tol, c.fcache.loss if self.use_fcache else None)
+        vals, raw_frel = _record(
+            prob, self.reg_name, self.opts, c.x, self.obj_star,
+            c.fcache.loss if self.use_fcache else None, c.pri_res)
         at = h.n_rec.reshape(1).long()
-        for buf, v in zip(h[:6], (fval, obj, rel, objrel, c.pri_res, ftst)):
+        for buf, v in zip(h[:6], vals):
             buf.index_copy_(0, at, v.reshape(1).to(buf.dtype))
         if self.metric_fns:
             mvals = _metric_values(prob, c.x, self.metric_fns)
@@ -863,28 +920,11 @@ class _Fused:
                  gq_cached=None):
         """One step on the rows (As, ys), into the carry; returns the
         stop test of the step."""
-        c, method = self.carry, self.method
-        if self.is_lbfgs:
-            out = lbfgs_step(method, prob, self.reg_name, self.sm, As, ys,
-                             c.x, c.x_prev, c.gq_prev, it, c.mem,
-                             gq_cached=gq_cached)
-        else:
-            out = self.step(method, prob, self.reg_name, self.sm, As, ys,
-                            c.x, c.x_prev, it, d_prev=c.d_prev,
-                            bnorm_prev=c.bnorm_prev,
-                            fcache=c.fcache if self.use_fcache else None,
-                            gq_prev=c.gq_prev, mem=c.mem)
-        x, x_tol = out.x_new, self.opts.x_tol
-        conv = ((torch.linalg.vector_norm(x - c.x)
-                 < x_tol * torch.clamp_min(torch.linalg.vector_norm(c.x),
-                                           1.0))
-                | (raw_frel <= self.opts.f_tol)
-                | (out.pri_res_norm < x_tol))
-        _assign(c, c._replace(
-            x=x, x_prev=c.x, gq=out.gq_new, gq_prev=out.gq, d_prev=out.d,
-            cg_total=c.cg_total + out.cg_iters, bnorm_prev=out.bnorm,
-            pri_res=out.pri_res_norm, mem=out.mem,
-            fcache=out.fcache if self.use_fcache else None))
+        c = self.carry
+        new, conv = _step_carry(self.method, self.step, prob, self.reg_name,
+                                self.sm, self.opts, As, ys, c, it, raw_frel,
+                                self.use_fcache, gq_cached)
+        _assign(c, c._replace(**new))
         return conv
 
     def step_epoch(self, prob: Problem, raw_frel) -> None:
@@ -918,12 +958,7 @@ class _Fused:
         if rem:
             device_if(~c.done, lambda: c.done.copy_(self._step_on(
                 prob, *b.gather_rest(prob, perm), it, raw_frel)))
-        x_tol = self.opts.x_tol
-        conv = ((torch.linalg.vector_norm(c.x - c.x_prev)
-                 < x_tol * torch.clamp_min(
-                     torch.linalg.vector_norm(c.x_prev), 1.0))
-                | (raw_frel <= self.opts.f_tol)
-                | (c.pri_res < x_tol))
+        conv = _stopped(c.x, c.x_prev, raw_frel, c.pri_res, self.opts)
         _assign(c, c._replace(frel=raw_frel, k=c.k + 1, done=conv))
 
     def gap_now(self, prob: Problem):
@@ -933,8 +968,7 @@ class _Fused:
         c = self.carry
         if not self.use_fcache:
             return c.frel
-        obj_now = c.fcache.loss + prob.reg(self.reg_name, c.x)
-        return torch.abs(obj_now - self.obj_star) / torch.abs(self.obj_star)
+        return _gap(prob, self.reg_name, c.x, c.fcache.loss, self.obj_star)
 
     def round(self, prob: Problem) -> None:
         """The loop's body, one replay: behind ``live``, a stats record
@@ -1109,6 +1143,11 @@ def _capacity(opts: Options, run: _Run) -> int:
     if run.resume is not None:
         need = max(need, int(_to_host(torch.as_tensor(
             run.resume.hist.n_rec))) + 1)
+    return _room(need)
+
+
+def _room(need: int) -> int:
+    """At least ``need`` records, a power of two from 16."""
     return max(16, 1 << (need - 1).bit_length())
 
 
@@ -1441,14 +1480,18 @@ def iterate(method, model: Problem, reg_name: str, h_mu, *,
     mode any host function (called at each record). ``batch_size``,
     ``slice_samples``, ``shuffle_batch`` and ``rng_seed`` select
     mini-batches; ``resume_state`` continues a previous
-    ``Solution.state``. ``local_max_iter`` and ``vmap_safe`` (the
-    federated and sweep paths) are not ported (ROADMAP A11).
+    ``Solution.state``. ``local_max_iter`` runs one epoch over that
+    many mini-batches (``max_epoch`` becomes 1); ``vmap_safe`` is
+    accepted for the reference's signature and changes nothing
+    (`Options`).
     ``method=None`` runs ProxLQNSCORE(), the reference's intended
     default. ``_capture=False`` (private) runs a CUDA problem's graph
     bodies eagerly: the reference form of a captured solve, for checks
     on the card."""
     if method is None:
         method = ProxLQNSCORE()
+    if local_max_iter is not None:
+        max_epoch = 1
     opts = Options(max_epoch=max_epoch, x_tol=x_tol, f_tol=f_tol,
                    stats_every=stats_every, batch_size=batch_size,
                    slice_samples=slice_samples, shuffle_batch=shuffle_batch,

@@ -114,7 +114,6 @@ from scso_tpu_torch.ops.linalg import (
     armijo_linesearch, cg_solve, inv_bb_step)
 from scso_tpu_torch.ops.prox import prox_step
 from scso_tpu_torch.ops.smoothers import get_Mg
-from scso_tpu_torch.parallel.sharding import all_reduce_sum
 from scso_tpu_torch.problems import Problem
 
 
@@ -618,6 +617,14 @@ def _prime_moglm(prob: Problem, x, As, ys) -> MOGLMCache:
     return MOGLMCache(Z=Z, grad_vec=grad_vec, hd_raw=hd, loss=loss)
 
 
+def _all_reduce_sum(mesh, *tensors):
+    """`parallel.sharding.all_reduce_sum`, imported where it is used: the
+    parallel package's batched solves import this module."""
+    from scso_tpu_torch.parallel.sharding import all_reduce_sum
+
+    return all_reduce_sum(mesh, *tensors)
+
+
 def prime_glm_cache(method, prob: Problem, x, As=None, ys=None):
     """Build the epoch cache at iterate x: for an mglm problem the three
     matrix products of `_prime_moglm` (MOGLMCache); for a GLM the K2
@@ -643,7 +650,7 @@ def prime_glm_cache(method, prob: Problem, x, As=None, ys=None):
     else:
         w, b, hd, loss = glm_prep_torch(As, ys, x, g, prob.m_total, flavour)
     if prob.mesh is not None:
-        b, hd, loss = all_reduce_sum(prob.mesh, b, hd, loss)
+        b, hd, loss = _all_reduce_sum(prob.mesh, b, hd, loss)
     return GLMCache(w, b, hd, loss * _loss_scale(g, prob.m_total))
 
 
@@ -770,7 +777,7 @@ def _greedy_update_cached(method, prob: Problem, reg_name, sm, As, ys,
     pp = pair(As, ys, x_trial, x_damped, g, prob.m_total,
               _cache_flavour(method))
     if prob.mesh is not None:
-        pp = pp._replace(**dict(zip(_SUMMED, all_reduce_sum(
+        pp = pp._replace(**dict(zip(_SUMMED, _all_reduce_sum(
             prob.mesh, *(getattr(pp, f) for f in _SUMMED)))))
     scale = _loss_scale(g, prob.m_total)
     loss_t = pp.loss_t * scale

@@ -75,7 +75,7 @@ from typing import NamedTuple
 import torch
 
 from scso_tpu_torch.ops.cuda import build, counters, launch
-from scso_tpu_torch.ops.dense import widen
+from scso_tpu_torch.ops.dense import sq_atmul, widen
 
 #: the spec kinds the one-pass and wide forms compute, in the order of
 #: their codes (``Kind`` in csrc/glm_prep.cuh)
@@ -200,8 +200,7 @@ def glm_prep_torch(A, y, x, glm, m_norm=None, flavour="ggn"):
     A = widen(A, x.dtype)
     z = A @ x
     rw, w = _weights(glm, y, z, m_norm, flavour)
-    return (w, A.T @ rw, torch.einsum("i,ij,ij->j", w, A, A),
-            torch.sum(glm.loss_sample(y, z)))
+    return (w, A.T @ rw, sq_atmul(A, w), torch.sum(glm.loss_sample(y, z)))
 
 
 def glm_prep_pair_torch(A, y, x_t, x_d, glm, m_norm=None,

@@ -20,6 +20,15 @@ cannot sit inside a conditional node): the same bodies then run eagerly,
 reading each predicate on the host. That form is chosen by its caller,
 never a fallback.
 
+Under ``torch.func.vmap`` (the batched solve, `algorithms.batched`) a
+predicate holds one bool an instance. There the helpers take the JAX
+package's vmap semantics: :func:`device_loop` runs while ANY instance
+is live (one loop on the device, its test the OR of the instances'
+predicates) and updates each instance's ``state`` under its
+own mask, ``torch.where(live, new, old)``; :func:`device_cond` runs both
+branches and selects. :func:`device_if` has no other branch to select
+and refuses a batched predicate.
+
 The conditional nodes are the repo's own (``csrc/graph.cu``: this
 PyTorch has no API for them): a one-thread kernel sets the node's
 handle from the predicate (for a WHILE node, again at the end of its
@@ -44,6 +53,7 @@ import time
 import weakref
 
 import torch
+import torch._C._functorch as _functorch
 
 from scso_tpu_torch.ops.cuda import build, counters
 
@@ -103,11 +113,30 @@ def _read(pred: torch.Tensor) -> bool:
     return bool(pred)
 
 
+def is_batched(t) -> bool:
+    """True for a tensor batched by ``torch.func.vmap``: one value an
+    instance of a batched solve."""
+    return isinstance(t, torch.Tensor) and _functorch.is_batchedtensor(t)
+
+
+def _any_live(pred: torch.Tensor) -> torch.Tensor:
+    """A 0-d bool tensor, outside the vmap level: whether the batched
+    ``pred`` holds for any instance."""
+    flat = _functorch.get_unwrapped(pred)
+    if is_batched(flat):
+        raise ValueError("device_loop: nested vmap levels are not supported")
+    return flat.any()
+
+
 def device_if(pred: torch.Tensor, body) -> None:
     """``body()`` where the 0-d bool tensor ``pred`` is true: a
     conditional node under capture, ``if bool(pred)`` in the plain and
     eager forms."""
     _check_pred(pred)
+    if is_batched(pred):
+        raise ValueError(
+            "device_if on a per-instance predicate: a batched solve has no "
+            "branch to select instead; use device_cond")
     if _plain(pred):
         if _read(pred):
             body()
@@ -154,6 +183,8 @@ def device_cond(pred: torch.Tensor, if_true, if_false):
     which ``if_true`` makes itself. Under capture: two conditionals, the
     second copying its outputs into the first's (the JAX package's
     `lax.cond`)."""
+    if is_batched(pred):
+        return _select(pred, if_true(), if_false())
     if _plain(pred):
         return if_true() if _read(pred) else if_false()
     out = []
@@ -167,12 +198,32 @@ def device_cond(pred: torch.Tensor, if_true, if_false):
     return out[0]
 
 
-def device_loop(live: torch.Tensor, count: int, body) -> None:
+def _select(pred, a, b):
+    """``torch.where(pred, ·, ·)`` over two equal structures of tensors
+    (a tensor, a tuple or a NamedTuple)."""
+    if isinstance(a, torch.Tensor):
+        return torch.where(pred, a, b)
+    items = [_select(pred, u, v) for u, v in zip(a, b)]
+    return type(a)(*items) if hasattr(a, "_fields") else type(a)(items)
+
+
+def device_loop(live: torch.Tensor, count: int, body,
+                state: tuple = ()) -> None:
     """``while live: body()``; ``body`` updates the 0-d bool ``live`` in
     place and sets it false within ``count`` runs (the plain and eager
     forms stop there in any case). Under capture: one WHILE node, its
-    body captured once."""
+    body captured once.
+
+    ``state`` names the tensors ``body`` updates in place. It is read
+    only where ``live`` is batched (`torch.func.vmap`): there the loop
+    runs while any instance is live, and after each run of ``body`` an
+    instance that was not live gets its ``state`` and its ``live`` back
+    as they were, so that each instance takes exactly the iterations of
+    its own loop. Every tensor of ``state`` must be batched too."""
     _check_pred(live)
+    if is_batched(live):
+        _batched_loop(live, count, body, state)
+        return
     if _plain(live):
         for _ in range(count):
             if not _read(live):
@@ -180,6 +231,28 @@ def device_loop(live: torch.Tensor, count: int, body) -> None:
             body()
         return
     _conditional(live, body, loop=True)
+
+
+def _batched_loop(live, count: int, body, state) -> None:
+    """`device_loop` on a batched ``live``: one loop on whether any
+    instance is live, each run masked per instance."""
+    for t in state:
+        if not is_batched(t):
+            raise ValueError(
+                "device_loop: under vmap every tensor of the loop's state "
+                "must be batched (make it with *_like of a batched one)")
+    going = _any_live(live)
+
+    def masked():
+        keep = live.clone()
+        old = [t.clone() for t in state]
+        body()
+        for t, o in zip(state, old):
+            t.copy_(torch.where(keep, t, o))
+        live.copy_(keep & live)
+        going.copy_(_any_live(live))
+
+    device_loop(going, count, masked)
 
 
 # ---------------------------------------------------------------------------

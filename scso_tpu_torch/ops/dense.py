@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from scso_tpu_torch.ops.cuda import counters
+from scso_tpu_torch.ops.cuda.graph import is_batched
 
 #: bytes of the upcast A a row block of a product on the card may hold
 BLOCK_BYTES = 256 * 1024 * 1024
@@ -72,10 +73,13 @@ def sq_atmul(A, w):
     """Σᵢ wᵢ·Aᵢⱼ², squared after the upcast: for w of shape (m,) the
     Jacobi diagonal (n,) of a GLM, for w of shape (m, k) the (n, k) one
     of a multi-output GLM (the JAX package's einsums "i,ij,ij->j" and
-    "ic,ij,ij->jc", which promote A before they square it)."""
+    "ic,ij,ij->jc", which promote A before they square it). Under vmap
+    (the batched solve) a GLM's diagonal is the product (A∘A)ᵀ·w, one
+    matrix product for all instances: the einsum would form w∘A∘A for
+    each instance."""
     if not _blocked(A):
         A = widen(A, w.dtype)
-        if w.ndim == 1:
+        if w.ndim == 1 and not is_batched(w):
             return torch.einsum("i,ij,ij->j", w, A, A)
         return torch.square(A).T @ w
     out = None

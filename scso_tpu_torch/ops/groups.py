@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from scso_tpu_torch._src.struct import frozen_dataclass
+from scso_tpu_torch.ops.cuda.graph import is_batched
 
 
 @frozen_dataclass
@@ -142,7 +143,14 @@ def make_contiguous_groups(n: int, group_size: int, weights=None, dtype=None,
 def segment_sum(groups: Groups, v: torch.Tensor) -> torch.Tensor:
     """float[n_groups] — the sum of v within each group, each group's
     elements added in a fixed order (deterministic on the card, and
-    without a host read there)."""
+    without a host read there). Under vmap (a batched solve), where
+    `segment_reduce` has no batching rule and would run once an
+    instance, the sums are one product with the groups' 0/1 membership
+    matrix (n × n_groups)."""
+    if is_batched(v) or is_batched(groups.segment_ids):
+        ids = torch.arange(groups.n_groups, device=v.device)
+        member = (groups.segment_ids[:, None] == ids[None, :]).to(v.dtype)
+        return v @ member
     if groups.order is not None:
         v = v[groups.order]
     return torch.segment_reduce(v, "sum", offsets=groups.offsets)

@@ -7,7 +7,11 @@ each is a `graph.device_loop`: its state lives in tensors updated in
 place, its iteration count is a 0-d int32 tensor and its test a 0-d bool
 tensor on the data's device, so that inside a captured CUDA graph the
 loop is one WHILE conditional node and reads nothing back to the host.
-On the CPU the same loop runs as a plain ``while``.
+On the CPU the same loop runs as a plain ``while``. Under
+``torch.func.vmap`` (the batched solve) each loop runs while any
+instance's test holds, each instance's state frozen once its own test
+fails (`graph.device_loop`'s ``state``): the loops' counters are made
+``*_like`` a batched tensor, so that they carry one value an instance.
 """
 
 from __future__ import annotations
@@ -56,7 +60,7 @@ def cg_solve(
         r = b - matvec(x0)
     p = M_inv(r).clone()
     rz = torch.dot(r, p)
-    k = torch.zeros((), dtype=torch.int32, device=b.device)
+    k = torch.zeros_like(rz, dtype=torch.int32)
     live = (torch.dot(r, r) > atol_sq) & (maxiter > 0)
 
     def iteration():
@@ -79,7 +83,7 @@ def cg_solve(
         k.add_(1)
         live.copy_((k < maxiter) & (torch.dot(r, r) > atol_sq))
 
-    device_loop(live, maxiter, iteration)
+    device_loop(live, maxiter, iteration, state=(x, r, p, rz, k))
     return CGResult(x=x, iters=k, res_norm_sq=torch.dot(r, r))
 
 
@@ -102,8 +106,8 @@ def armijo_linesearch(x, d, f: Callable, grad_f: Callable, *, rho=0.5,
     is one iteration of a `graph.device_loop`."""
     fx = f(x)
     slope = torch.dot(grad_f(x), d)
-    alpha = torch.ones((), dtype=x.dtype, device=x.device)
-    k = torch.zeros((), dtype=torch.int32, device=x.device)
+    alpha = torch.ones_like(slope)
+    k = torch.zeros_like(slope, dtype=torch.int32)
     worse = lambda: f(x + alpha * d) > fx + c * alpha * slope
     live = worse() & (max_backtracks > 0)
 
@@ -112,5 +116,5 @@ def armijo_linesearch(x, d, f: Callable, grad_f: Callable, *, rho=0.5,
         k.add_(1)
         live.copy_((k < max_backtracks) & worse())
 
-    device_loop(live, max_backtracks, backtrack)
+    device_loop(live, max_backtracks, backtrack, state=(alpha, k))
     return alpha

@@ -11,8 +11,9 @@ weight vector, `ops.groups`); the smoothers that are not group-lasso
 ones ignore it, as in the JAX package, whose documented divergences
 from the reference (module docstring there) are kept.
 
-``mu`` is a Python float (the JAX package traces it as a leaf for
-vmapped sweeps; sweeps are not ported yet, ROADMAP A11). Box bounds are
+``mu`` is a Python float, or a tensor: 0-d for a per-solve buffer, one
+value an instance under the batched solve of a μ path (`parallel.sweep`,
+where `torch.func.vmap` hands each instance its own). Box bounds are
 float64 tensors, taken to x's device and dtype where they are used.
 """
 
@@ -140,8 +141,8 @@ def phuber_hess(x, mu):
 class PHuberSmootherL1L2(SmootherBase):
     """Pseudo-Huber smoothing of the l1/l2 regularizer.
 
-    ``mu`` is a Python float (the JAX package traces it as a leaf for
-    vmapped sweeps; sweeps are not ported yet, ROADMAP A11)."""
+    ``mu`` is a Python float, or a tensor (a per-solve buffer; one value
+    an instance in a batched μ sweep, `parallel.sweep`)."""
 
     mu: float
     Mh: float = _PHUBER_MH

@@ -1,7 +1,11 @@
-"""Scale-out: row sharding over ``torch.distributed`` and sharded IO.
+"""Scale-out: row sharding over ``torch.distributed``, sharded IO, and
+instance-parallel solves.
 
-Port of `scso_tpu.parallel` for the row-sharded cached GGN-CG path.
-`sweep` and `federated` are not ported yet (ROADMAP A11)."""
+Port of `scso_tpu.parallel`: the row-sharded cached GGN-CG path
+(`sharding`, `dataio`), λ/μ regularization paths and problem fleets as
+one batched solve (`sweep`), and federated rounds over a fleet of
+clients (`federated`). Feature sharding, `replicate` and meshes of more
+than one axis are not ported (ROADMAP A11)."""
 
 from scso_tpu_torch.parallel.dataio import (
     load_problem_rows_sharded, load_rows_sharded, save_array,
@@ -9,6 +13,10 @@ from scso_tpu_torch.parallel.dataio import (
 from scso_tpu_torch.parallel.sharding import (
     Mesh, distributed_init, make_mesh, pad_rows, replicate, shard_problem,
     shard_problem_features)
+from scso_tpu_torch.parallel.sweep import (
+    SweepResult, solve_fleet, stack_problems, sweep)
+from scso_tpu_torch.parallel.federated import (
+    FederatedResult, federated_solve, split_clients)
 
 __all__ = [
     "Mesh",
@@ -18,6 +26,13 @@ __all__ = [
     "shard_problem",
     "shard_problem_features",
     "pad_rows",
+    "SweepResult",
+    "solve_fleet",
+    "stack_problems",
+    "sweep",
+    "FederatedResult",
+    "federated_solve",
+    "split_clients",
     "save_array",
     "load_rows_sharded",
     "save_problem_data",

@@ -16,7 +16,10 @@ the kernels match the CPU. The solve loop's captured form (``mode='fused'``
 on the card) is its eager form (``_capture=False``) bit for bit, for
 each method, with the same launch counts (counted on the card under
 replay), one capture serving chained solves; timed mode on the card
-matches the CPU. Without a CUDA device every test here skips.
+matches the CPU. The batched solve of a λ path (`parallel.sweep`) is
+one capture serving all its waves, its eager form bit for bit, launches
+none of the kernels, and matches the CPU in float64. Without a CUDA
+device every test here skips.
 This file imports neither jax nor scso_tpu, so it also runs on a GPU
 machine without them — there, skip tests/conftest.py (which configures
 jax):
@@ -1501,6 +1504,52 @@ def test_one_capture_serves_chained_solves(dev):
     assert torch.equal(s2.x, want.x) and torch.equal(s2.obj, want.obj)
     # the solution is the solve's own: the next replay leaves it alone
     assert not torch.equal(s1.x, s2.x)
+
+
+SWEPT = {
+    "newton_cg": lambda: st.ProxNSCORE(solver="cg", ss_type=3),
+    "ggn_cached": lambda: st.ProxGGNSCORE(solver="cg"),
+    "lbfgs": lambda: st.ProxLQNSCORE(),
+}
+
+
+@pytest.mark.parametrize("name", list(SWEPT))
+def test_batched_sweep_on_the_card(dev, name):
+    from scso_tpu_torch.ops.cuda import graph
+    from scso_tpu_torch.parallel import sweep
+
+    A, y, x0, _ = synthetic.make_sparse_logreg_data(
+        256, 32, density=0.1, n_active=16, seed=7, dtype=np.float64,
+        label01=True)
+    prob = lambda d: st.Problem(A, y, x0, losses.logistic01_f, 0.01,
+                                grad_fx=losses.logistic01_grad,
+                                hvp_w=losses.logistic01_hvp_w,
+                                glm=losses.LOGISTIC01_GLM,
+                                dtype=torch.float64, device=d)
+    lam = np.logspace(-3, -0.5, 8)
+    opts = st.Options(max_epoch=40, verbose=0, stats_every=4)
+    sm = st.PHuberSmootherL1L2(1.0)
+    run = lambda d, **kw: sweep(SWEPT[name](), prob(d), "l1", sm,
+                                lam_grid=lam, opts=opts, **kw)
+    graph.clear()
+    graph.reset_stats()
+    counters.reset()
+    cap = run(dev)
+    assert graph.STATS["captures"] == 1
+    # the waves' batch of 4 is another shape: one capture for both waves
+    waves = run(dev, path_waves=2, wave_max_epoch=10)
+    assert graph.STATS["captures"] == 2
+    assert not any(counters.snapshot().values())
+    eager = run(dev, _capture=False)
+    for f in ("x", "obj", "epochs", "n_rec", "obj_hist"):
+        assert torch.equal(getattr(cap, f), getattr(eager, f)), f
+    assert cap.x.device.type == "cuda"
+    cpu = run("cpu")
+    torch.testing.assert_close(cap.x.cpu(), cpu.x, rtol=0, atol=1e-9)
+    torch.testing.assert_close(cap.obj.cpu(), cpu.obj, rtol=1e-10, atol=0)
+    assert torch.equal(cap.epochs.cpu(), cpu.epochs)
+    cw = run("cpu", path_waves=2, wave_max_epoch=10)
+    torch.testing.assert_close(waves.x.cpu(), cw.x, rtol=0, atol=1e-9)
 
 
 def test_device_if_on_the_card_raises_outside_a_capture(dev):
