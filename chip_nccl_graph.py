@@ -9,8 +9,9 @@ captured in fused mode against timed mode.
     NCCL_GRAPH_MIXING_SUPPORT=0 torchrun --nproc-per-node=4 chip_nccl_graph.py
 
 One process per card. Fused mode on a row shard of more than one rank
-raises in the port (`iterate._check_capturable`); this script lifts
-that check for its own solve only. Each rank prints one line: each
+raises in the port where the process group was made without the
+variable (`iterate._check_capturable`); this script lifts that check for
+its own solve only, so that it probes either setting. Each rank prints one line: each
 capture's outcome (True: the replay gave the right sum; else the
 error), and the fused solve's epochs and whether its x and objective
 history equal timed mode's bit for bit.
@@ -75,7 +76,7 @@ def main():
         from scso_tpu_torch.algorithms import iterate as it
         from scso_tpu_torch.parallel import make_mesh, shard_problem
 
-        it._check_capturable = lambda prob: None
+        it._check_capturable = lambda prob, method=None: None
         sp = shard_problem(
             cs.build_problem(16384, 1000, dev, torch.float32), make_mesh())
         kw = dict(x_tol=1e-12, f_tol=1e-10, max_epoch=30, verbose=0,

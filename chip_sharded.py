@@ -1,25 +1,39 @@
 #!/usr/bin/env python3
-"""The row-sharded cached GGN-CG path over NCCL on every card of one host.
+"""Every single-instance method on a row shard over NCCL, captured, on
+every card of one host; the λ sweep over the ranks.
 
-    torchrun --nproc-per-node=4 chip_sharded.py [--sweep]
+    NCCL_GRAPH_MIXING_SUPPORT=0 torchrun --nproc-per-node=4 chip_sharded.py
+    torchrun --nproc-per-node=4 chip_sharded.py --refuse
+    NCCL_GRAPH_MIXING_SUPPORT=0 torchrun --nproc-per-node=4 chip_sharded.py --sweep
 
 One process per card (torchrun's RANK, LOCAL_RANK, WORLD_SIZE and
-rendezvous). Every rank builds chip_smoke.py's phase 3 problem
-(196608×10000 padded to 10112, seed 7, float32) on its own card, runs
-phase 3's presolve and unsharded timed chain there (the reference, the
-same on every rank), then the same chain on its row shard
-(`shard_problem` over all ranks: K1s, K2 on the shard, one packed
-all-reduce an epoch, K3), with comm_overlap_chunks 1 and 2, in timed
-mode, a row shard's public mode (the cached step, uncaptured: NCCL's
-collectives across ranks cannot sit inside a captured graph's
-conditional nodes). Required:
-each sharded chain reaches the 1e-6 gap with its final objective within
-chip_smoke.E2E_RTOL of the unsharded one, and every rank holds rank 0's
-x bit for bit; K2 launched, and K1s as often as K1 with chunks 1 (the
-overlapped form launches neither). Times: the chains (host clock, the
-sum of the chained solves), and, CUDA events, median of 5 runs: K1 on the
-shard, K1s, and one all-reduce of n float32 values (the collectives
-COLLECTIVE_CALLS times a run on every rank).
+rendezvous). A fused (captured) solve over several NCCL ranks puts the
+collectives inside the CUDA graph's conditional nodes, which NCCL allows
+only under NCCL_GRAPH_MIXING_SUPPORT=0 when the communicator is made:
+without it the script fails at once, and ``--refuse`` instead requires
+that a fused solve raise, naming the variable, before any collective.
+
+Every rank builds chip_smoke.py's phase 3 problem (196608×10000 padded
+to 10112, seed 7, float32) on its own card, runs phase 3's presolve
+there (the anchor x*), and then, for each path of `paths` — phase 3's
+cached GGN-CG chain, phase 7's uncached chain, phase 12's Newton-CG
+chain (greedy off), phase 5's multinomial chain (196608×1024×16, its own
+presolve), phase 6's L-BFGS (300 epochs), L-BFGS with the Armijo line
+search (60 epochs: an all-reduce a trial inside its WHILE node), phase
+16's mini-batches and phase 18's test set off the epoch cache — the
+path on the whole problem (the same on every rank: "one card"), then
+on its row shard over all ranks (`shard_problem`: 196608/world rows a
+rank) in fused mode. Required for each: the final objective within
+chip_smoke.E2E_RTOL of the one-card run's; every rank holding rank 0's
+x bit for bit; its kernels launched on the shard, K1s as often as K1;
+and one solve of it with a record every epoch in fused and in timed
+mode (uncaptured) on the shard: the same epochs, x and objective
+history, bit for bit. The cached chain also runs sharded in timed mode
+with comm_overlap_chunks 1 and 2 (the overlapped form launches neither
+K1 nor K1s). Times: each run's seconds (host clock, the sum of a
+chain's solves, after a warm-up run that captures), and, CUDA events,
+median of 5 runs: K1 on the shard, K1s, and one all-reduce of n float32
+values (the collectives COLLECTIVE_CALLS times a run on every rank).
 
 Then chip_smoke.py phase 20's λ sweep (4096 instances at 2048×128, the
 throughput plan) on each card alone, and with its batch axis over all
@@ -52,6 +66,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import chip_smoke as cs
 
@@ -61,6 +76,175 @@ COLLECTIVE_CALLS = 20
 EXIT_WAIT_S = 120
 #: instances of each rank's share of the sweep held against scalar solves
 SHARE_CHECKED = 4
+#: the L-BFGS run with the Armijo line search: epochs, and its step 1/L
+ARMIJO_EPOCHS = 60
+
+
+def paths(prob_t, best, mprob_t, mbest):
+    """name → (problem, run(method, problem, mode, every) → (Solution,
+    timed_chain's dict or None), method, the kernels it launches). A run
+    is a chain to the 1e-6 gap against its anchor, or one solve; with
+    ``every`` one solve with a record every epoch (the fused-vs-timed
+    check)."""
+    import scso_tpu_torch as st
+
+    sm = st.PHuberSmootherL1L2(1.0)
+
+    def chain(anchor):
+        def run(method, prob, mode, every):
+            if every:
+                return st.iterate(method, prob, "l1", sm, **dict(
+                    cs.CHUNK_KW, stats_every=1, mode=mode)), None
+            r = cs.timed_chain(method, prob, anchor, keep_x=True, mode=mode)
+            return r, r
+        return run
+
+    def one(kw):
+        def run(method, prob, mode, every):
+            kw_ = dict(kw, mode=mode, **({"stats_every": 1} if every
+                                         else {}))
+            return st.iterate(method, prob, "l1", sm, **kw_), None
+        return run
+
+    lbfgs_kw = dict(x_tol=0.0, f_tol=0.0, verbose=0, stats_every=4)
+    uncached = st.ProxGGNSCORE(**cs.F32_CG, epoch_cache=False)
+    return {
+        "cached": (prob_t, chain(best), st.ProxGGNSCORE(**cs.F32_CG),
+                   cs.LOGISTIC_KERNELS),
+        "uncached": (prob_t, chain(best), uncached, cs.UNCACHED_KERNELS),
+        "newton_cg": (prob_t, chain(best),
+                      st.ProxNSCORE(**cs.NEWTON_GREEDY_OFF),
+                      cs.NEWTON_KERNELS),
+        "multinomial": (mprob_t, chain(mbest), st.ProxGGNSCORE(**cs.F32_CG),
+                        cs.MGLM_KERNELS),
+        "lbfgs": (prob_t, one(dict(lbfgs_kw, max_epoch=cs.LBFGS_EPOCHS)),
+                  st.ProxLQNSCORE(m=10), cs.LBFGS_KERNELS),
+        "lbfgs_armijo": (prob_t, one(dict(lbfgs_kw, max_epoch=ARMIJO_EPOCHS,
+                                          alpha=1.0)),
+                         st.ProxLQNSCORE(m=10, ss_type=3), cs.LBFGS_KERNELS),
+        "mini_batches": (prob_t, one(cs.BATCH_KW),
+                         st.ProxGGNSCORE(**cs.F32_CG), cs.UNCACHED_KERNELS),
+        "test_set": (cs.test_set_problem(prob_t), one(cs.CHUNK_KW), uncached,
+                     cs.UNCACHED_KERNELS),
+    }
+
+
+def timed(run, method, prob, mode="fused", every=False):
+    """A warm-up ``run`` (it captures), then the timed one: (Solution or
+    chain dict, chain dict or None, seconds, launches)."""
+    import torch
+
+    from scso_tpu_torch.ops.cuda import counters
+
+    run(method, prob, mode, every)
+    torch.cuda.synchronize()
+    counters.reset()
+    t0 = time.perf_counter()
+    s, r = run(method, prob, mode, every)
+    torch.cuda.synchronize()
+    return s, r, time.perf_counter() - t0, counters.snapshot()
+
+
+def final(s, r):
+    """(final objective, x, epochs) of a run."""
+    if r is not None:
+        return r["obj"], r["x"], r["epochs"]
+    return float(s.obj[-1]), s.x, s.epochs
+
+
+def same_on_every_rank(x, mesh, dev):
+    """True when every rank holds rank 0's ``x`` bit for bit."""
+    import torch
+    import torch.distributed as dist
+
+    x0 = x.clone()
+    dist.broadcast(x0, 0, group=mesh.group)
+    bad = torch.tensor(float(not torch.equal(x, x0)), device=dev)
+    dist.all_reduce(bad, group=mesh.group)
+    return float(bad) == 0
+
+
+def run_paths(mesh, dev, say, prob_t, best, mprob_t, mbest):
+    """Each path on one card and on the shard (see the module
+    docstring); name → its numbers."""
+    import torch
+
+    from scso_tpu_torch.parallel import shard_problem
+
+    out = {}
+    for name, (prob, run, method, kernels) in paths(
+            prob_t, best, mprob_t, mbest).items():
+        s1, r1, sec1, _ = timed(run, method, prob)
+        obj1 = final(s1, r1)[0]
+        sp = shard_problem(prob, mesh)
+        s4, r4, sec4, lc = timed(run, method, sp)
+        obj4, x4, ep4 = final(s4, r4)
+        rel = abs(obj4 - obj1) / abs(obj1)
+        if not same_on_every_rank(x4, mesh, dev):
+            cs.fail(f"{name}: ranks hold different x")
+        if not rel <= cs.E2E_RTOL:
+            cs.fail(f"{name}: sharded objective {obj4:.9e} against one "
+                    f"card's {obj1:.9e} (rel {rel:.2e} > {cs.E2E_RTOL:g})")
+        cs.check_launches(lc, kernels + (
+            ("normal_matvec_sharded",) if "normal_matvec" in kernels
+            else ()), f"sharded {name}")
+        if lc["normal_matvec_sharded"] != lc["normal_matvec"]:
+            cs.fail(f"{name}: K1s launched {lc['normal_matvec_sharded']} "
+                    f"times, K1 {lc['normal_matvec']}")
+        fused, _ = run(method, sp, "fused", True)
+        slow, _ = run(method, sp, "timed", True)
+        if not (fused.epochs == slow.epochs and torch.equal(fused.x, slow.x)
+                and torch.equal(fused.obj, slow.obj)):
+            cs.fail(f"{name}: fused and timed mode differ on the shard "
+                    f"(epochs {fused.epochs} vs {slow.epochs}, x equal "
+                    f"{torch.equal(fused.x, slow.x)})")
+        say(f"{name}: {mesh.size} ranks fused {sec4:.4f} s, one card "
+            f"{sec1:.4f} s ({sec1 / sec4:.2f}x); {ep4} epochs, obj "
+            f"{obj4:.9e} (rel diff {rel:.2e}); x bitwise on every rank; "
+            f"fused = timed bit for bit ({fused.epochs} epochs, a record "
+            f"each); launches on rank 0 {lc}")
+        out[name] = dict(seconds=sec4, one_card_seconds=sec1, epochs=ep4,
+                         obj=obj4, rel=rel, launches=lc,
+                         fused_eq_timed_epochs=fused.epochs)
+        del sp
+        torch.cuda.empty_cache()
+    return out
+
+
+def refuse(mesh, dev, say):
+    """``--refuse`` (run without NCCL_GRAPH_MIXING_SUPPORT=0): a fused
+    solve on the shard must raise NotImplementedError naming the
+    variable, before any collective; timed mode runs."""
+    import torch
+    import torch.distributed as dist
+
+    import scso_tpu_torch as st
+    from scso_tpu_torch.parallel import shard_problem
+
+    if mesh.captures:
+        cs.fail("--refuse runs without NCCL_GRAPH_MIXING_SUPPORT=0")
+    sp = shard_problem(cs.build_problem(4096 * mesh.size, 500, dev,
+                                        torch.float32), mesh)
+    calls = []
+    real = dist.all_reduce
+    dist.all_reduce = lambda *a, **k: calls.append(a)
+    try:
+        st.iterate(st.ProxGGNSCORE(**cs.F32_CG), sp, "l1",
+                   st.PHuberSmootherL1L2(1.0), max_epoch=3, verbose=0)
+        cs.fail("a fused solve over NCCL ranks without "
+                "NCCL_GRAPH_MIXING_SUPPORT=0 did not raise")
+    except NotImplementedError as e:
+        if "NCCL_GRAPH_MIXING_SUPPORT" not in str(e) or calls:
+            cs.fail(f"the refusal {e!r} after {len(calls)} collectives")
+        msg = str(e)
+    finally:
+        dist.all_reduce = real
+    s = st.iterate(st.ProxGGNSCORE(**cs.F32_CG), sp, "l1",
+                   st.PHuberSmootherL1L2(1.0), max_epoch=3, verbose=0,
+                   mode="timed")
+    say(f"without the variable a fused solve raised before any "
+        f"collective: {msg!r}; timed mode ran {s.epochs} epochs")
+    return {"refused": msg, "timed_epochs": s.epochs}
 
 
 def main():
@@ -94,6 +278,11 @@ def main():
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60).stdout.strip())
+    if sys.argv[1:] == ["--refuse"]:
+        return finish({"world": world, **refuse(mesh, dev, say)}, mesh, say)
+    if not mesh.captures:
+        cs.fail("run under NCCL_GRAPH_MIXING_SUPPORT=0 (a fused solve over "
+                "NCCL ranks needs it; --refuse checks the run without it)")
     if sys.argv[1:] == ["--sweep"]:
         return finish({"world": world,
                        "sweep": sweep_over_ranks(dev, say)}, mesh, say)
@@ -101,14 +290,17 @@ def main():
     method = st.ProxGGNSCORE(**cs.F32_CG)
     best, x_opt, _ = cs.presolve(method, prob)
     prob_t = replace(prob, x_star=x_opt)
-    cs.solve_chunk(method, prob_t)  # warm-up
-    ref = cs.timed_chain(method, prob_t, best)
-    say(f"unsharded on each card: {ref['seconds']:.4f} s, {ref['epochs']} "
-        f"epochs, {ref['cg_iters']} CG iterations, obj {ref['obj']:.9e}")
+    del prob
+    mprob = cs.build_mglm_problem(*cs.MGLM_SHAPE, dev, torch.float32)
+    mbest, mx_opt, _ = cs.presolve(method, mprob)
+    mprob_t = replace(mprob, x_star=mx_opt)
+    del mprob
+    out = {"world": world, "rows_per_rank": prob_t.A.shape[0] // world}
+    out["paths"] = run_paths(mesh, dev, say, prob_t, best, mprob_t, mbest)
+    del mprob_t
     sp = shard_problem(prob_t, mesh)
-    del prob, prob_t
+    del prob_t
     torch.cuda.empty_cache()
-    out = {"world": world, "rows_per_rank": sp.A.shape[0], "unsharded": ref}
     for chunks in (1, 2):
         m_ = st.ProxGGNSCORE(**cs.F32_CG, comm_overlap_chunks=chunks)
         cs.solve_chunk(m_, sp, mode="timed")  # warm-up
@@ -117,16 +309,13 @@ def main():
         r["launches"] = counters.snapshot()
         x = r.pop("x")
         r.pop("objs")
-        x_rank0 = x.clone()
-        dist.broadcast(x_rank0, 0, group=mesh.group)
-        bad = torch.tensor(float(not torch.equal(x, x_rank0)), device=dev)
-        dist.all_reduce(bad, group=mesh.group)
+        ref = out["paths"]["cached"]
         rel = abs(r["obj"] - ref["obj"]) / abs(ref["obj"])
         say(f"{world} ranks, timed mode, comm_overlap_chunks={chunks}: "
-            f"{r['seconds']:.4f} s, {r['epochs']} epochs, obj "
-            f"{r['obj']:.9e} (rel diff {rel:.2e}), launches on rank 0 "
-            f"{r['launches']}")
-        if float(bad) != 0:
+            f"{r['seconds']:.4f} s (fused, chunks 1: {ref['seconds']:.4f} "
+            f"s), {r['epochs']} epochs, obj {r['obj']:.9e} (rel diff to "
+            f"fused {rel:.2e}), launches on rank 0 {r['launches']}")
+        if not same_on_every_rank(x, mesh, dev):
             cs.fail(f"comm_overlap_chunks={chunks}: ranks hold different x")
         if not (rel <= cs.E2E_RTOL and r["gap"] <= cs.GAP * 1.05):
             cs.fail(f"comm_overlap_chunks={chunks}: rel diff {rel:.2e}, "
@@ -140,7 +329,7 @@ def main():
                   lc["normal_matvec_sharded"] == lc["normal_matvec"] == 0)
         if not (k1s_ok and lc["glm_prep_pair"] > 0):
             cs.fail(f"comm_overlap_chunks={chunks}: launches {lc}")
-        out[f"overlap{chunks}"] = r
+        out[f"timed_overlap{chunks}"] = r
     out["sweep"] = sweep_over_ranks(dev, say)
     gen = torch.Generator(device=dev).manual_seed(cs.SEED + mesh.rank)
     n = sp.A.shape[1]

@@ -124,9 +124,13 @@ timed chains replay it. Phases, each fatal on failure:
      of this script load their rows with `load_problem_rows_sharded`
      and solve to the 1e-6 gap with comm_overlap_chunks 1 and 2; each
      final objective within E2E_RTOL of the parent's unsharded chain,
-     x bitwise equal on both ranks, and a small float64 two-rank solve
-     matching the CPU's plain unsharded solve (fused, a record every
-     epoch) to 1e-9. Its seconds are
+     x bitwise equal on both ranks, and the small float64 two-rank
+     solve of every method (`small_sharded_cases`: cached and uncached
+     GGN-CG, L-BFGS with BB and with Armijo, Newton-CG, dense Newton,
+     the dense dual and primal GGN systems, multinomial cached and
+     uncached, mini-batches, a test set off the cache) matching the
+     CPU's plain unsharded solve (fused, a record every epoch; fvaltest
+     too) to 1e-9, x bitwise equal on both ranks. Its seconds are
      not a scaling number.
   9. Phase 3's chain at the JAX bench's secondary shape, 524288×1024
      (seed 7, f32; where the JAX package's plain f32 tile sums stalled
@@ -264,6 +268,16 @@ timed chains replay it. Phases, each fatal on failure:
      against the CPU's to 1e-9 (SMALL_RTOL), the local epochs equal,
      one capture serving every round; rounds, objectives, seconds (the
      capture included).
+ 22. Every single-instance method on a row shard, captured: phase 5's
+     multinomial, phase 6's L-BFGS (300 epochs), phase 7's uncached
+     GGN-CG, phase 12's Newton-CG (greedy off), phase 16's mini-batches
+     and phase 18's test set with f(x) off the epoch cache, each one
+     solve at its phase's full shape on the problem sharded over phase
+     8(a)'s one-rank NCCL mesh, against its unsharded fused solve: the
+     same epochs, CG iterations, x and every history bit for bit, the
+     same kernel launches (K1s once for each K1), the all-reduces inside
+     the replayed graph (the host issues fewer than the capturing run;
+     more graph nodes than unsharded); seconds of each.
 
 The last two lines of standard output are one JSON object with each
 kernel's numbers, then ``{"ok": true, "device": {...}}`` (K1 with A in
@@ -3011,10 +3025,79 @@ def build_two_rank_problem(device):
     return prob, (A, y, x0)
 
 
+def small_test_problem(device):
+    """512x200 sparse logistic (features padded to 256) with a 128-row
+    test set from the same generator, float64."""
+    import numpy as np
+    import torch
+
+    import scso_tpu_torch as st
+    from scso_tpu_torch.models import losses, synthetic
+
+    A, y, x0, _ = synthetic.make_sparse_logreg_data(
+        512, 200, density=0.05, n_active=64, seed=SEED, dtype=np.float64,
+        label01=True)
+    At, yt, _, _ = synthetic.make_sparse_logreg_data(
+        128, 200, density=0.05, n_active=64, seed=SEED + 1,
+        dtype=np.float64, label01=True)
+    return st.Problem(A, y, x0, losses.logistic01_f, 0.01,
+                      grad_fx=losses.logistic01_grad,
+                      glm=losses.LOGISTIC01_GLM, Atest=At, ytest=yt,
+                      dtype=torch.float64, device=device, pad_features=True)
+
+
+def small_sharded_cases():
+    """Phase 8(b)'s small float64 solve of each method on a row shard:
+    name → (build(device) → problem, method, iterate kwargs). The two
+    gloo ranks solve them in timed mode (a record every epoch), the CPU
+    unsharded in fused mode with a record every epoch."""
+    import torch
+
+    import scso_tpu_torch as st
+
+    logreg = lambda lam: (lambda dev: build_problem(512, 200, dev,
+                                                    torch.float64, lam=lam))
+    mglm = lambda dev: build_mglm_problem(512, 64, 4, dev, torch.float64,
+                                          lam=1e-2)
+    ggn = lambda **k: st.ProxGGNSCORE(solver="cg", greedy_alpha=False, **k)
+    lbfgs_kw = dict(x_tol=0.0, f_tol=0.0, max_epoch=40, verbose=0)
+    return {
+        "cached": (logreg(0.01), ggn(), CHUNK_KW),
+        "lbfgs": (logreg(0.01), st.ProxLQNSCORE(), lbfgs_kw),
+        "lbfgs_armijo": (logreg(0.01), st.ProxLQNSCORE(ss_type=3),
+                         dict(lbfgs_kw, alpha=1.0)),
+        "uncached": (logreg(0.01), ggn(epoch_cache=False), CHUNK_KW),
+        "newton_cg": (logreg(0.1), st.ProxNSCORE(solver="cg",
+                                                 greedy_alpha=False),
+                      CHUNK_KW),
+        "newton_dense": (build_logreg_100x50, st.ProxNSCORE(),
+                         dict(CHUNK_KW, max_epoch=20)),
+        "ggn_dense_dual": (build_logreg_100x50,
+                           st.ProxGGNSCORE(solver="dense_dual"),
+                           dict(CHUNK_KW, max_epoch=20)),
+        "ggn_dense_primal": (build_logreg_100x50,
+                             st.ProxGGNSCORE(solver="dense_primal"),
+                             dict(CHUNK_KW, max_epoch=20)),
+        "mglm": (mglm, ggn(), CHUNK_KW),
+        "mglm_uncached": (mglm, ggn(epoch_cache=False), CHUNK_KW),
+        "batches": (logreg(0.01), st.ProxGGNSCORE(solver="cg"),
+                    dict(BATCH_KW, batch_size=96, rng_seed=3, alpha=None)),
+        "test_set": (small_test_problem, ggn(epoch_cache=False), CHUNK_KW),
+    }
+
+
+def small_iterate(method, prob, kw, **more):
+    import scso_tpu_torch as st
+
+    kw = {k: v for k, v in dict(kw, **more).items() if v is not None}
+    return st.iterate(method, prob, "l1", st.PHuberSmootherL1L2(1.0), **kw)
+
+
 def rank_worker(port, rank, workdir):
     """One of phase 8(b)'s two ranks (``--rank-worker``): load this
     rank's rows from ``workdir``, solve to the gap with
-    comm_overlap_chunks 1 and 2, then the small float64 solve; save."""
+    comm_overlap_chunks 1 and 2, then the small float64 solve of each
+    method (`small_sharded_cases`); save."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -3053,11 +3136,12 @@ def rank_worker(port, rank, workdir):
         out[f"x{chunks}"] = r.pop("x").cpu().numpy()
         r.pop("objs")
         out[f"chain{chunks}"] = json.dumps(r)
-    s = solve_chunk(st.ProxGGNSCORE(solver="cg", greedy_alpha=False),
-                    shard_problem(build_problem(512, 200, "cuda",
-                                                torch.float64), mesh),
-                    mode="timed")
-    out["small_obj"] = s.obj.numpy()
+    for name, (build, method, kw) in small_sharded_cases().items():
+        s = small_iterate(method, shard_problem(build("cuda"), mesh), kw,
+                          mode="timed")
+        out[f"small_{name}"] = s.obj.numpy()
+        out[f"small_{name}_x"] = s.x.cpu().numpy()
+        out[f"small_{name}_test"] = s.fvaltest.numpy()
     np.savez(os.path.join(workdir, f"rank{rank}.npz"), **out)
     dist.destroy_process_group()
 
@@ -3163,23 +3247,37 @@ def phase_sharded_two_ranks():
             f"diff to unsharded {rel:.2e}, tolerance {E2E_RTOL:g}), x "
             f"bitwise equal on both ranks, launches on rank 0 {lc}")
         res[f"two_ranks_overlap{chunks}"] = got
-    # a row shard's timed mode takes the cached step and records every
-    # epoch: the unsharded fused solve's records with stats_every = 1
-    s_cpu = st.iterate(st.ProxGGNSCORE(solver="cg", greedy_alpha=False),
-                       build_problem(512, 200, "cpu", torch.float64), "l1",
-                       st.PHuberSmootherL1L2(1.0),
-                       **dict(CHUNK_KW, stats_every=1))
-    small = [r["small_obj"] for r in ranks]
-    want = s_cpu.obj.numpy()
-    if not (np.array_equal(small[0], small[1])
-            and small[0].shape == want.shape):
-        fail("small f64 two-rank solve: the ranks' histories differ or "
-             "its epochs differ from the CPU's")
-    rel64 = float(np.max(np.abs(small[0] - want) / np.abs(want)))
-    if not rel64 <= SMALL_RTOL:
-        fail(f"small f64 two-rank solve: histories differ by {rel64:.2e}")
-    log(f"  small f64 two-rank 512x200: card vs CPU plain unsharded max rel "
-        f"objective diff {rel64:.2e} (tolerance {SMALL_RTOL:g})")
+    # a row shard's timed mode records every epoch (and takes the cached
+    # step where the cache acts): the unsharded fused solve's records
+    # with stats_every = 1
+    small = {}
+    for name, (build, method, kw) in small_sharded_cases().items():
+        s_cpu = small_iterate(method, build("cpu"), kw, stats_every=1)
+        got = [r[f"small_{name}"] for r in ranks]
+        want = s_cpu.obj.numpy()
+        if not (np.array_equal(got[0], got[1]) and np.array_equal(
+                ranks[0][f"small_{name}_x"], ranks[1][f"small_{name}_x"])
+                and got[0].shape == want.shape):
+            fail(f"small f64 two-rank {name} solve: the ranks' x or "
+                 f"histories differ, or its {len(got[0])} records are not "
+                 f"the CPU's {len(want)}")
+        rel64 = float(np.max(np.abs(got[0] - want) / np.abs(want)))
+        tests = ranks[0][f"small_{name}_test"]
+        if len(tests) or len(s_cpu.fvaltest):
+            ft = s_cpu.fvaltest.numpy()
+            if tests.shape != ft.shape:
+                fail(f"small f64 two-rank {name}: {len(tests)} fvaltest "
+                     f"records against the CPU's {len(ft)}")
+            rel64 = max(rel64, float(np.max(np.abs(tests - ft)
+                                            / np.abs(ft))))
+        if not (np.all(np.isfinite(got[0])) and rel64 <= SMALL_RTOL):
+            fail(f"small f64 two-rank {name} solve: histories differ by "
+                 f"{rel64:.2e}")
+        small[name] = rel64
+        log(f"  small f64 two-rank {name}: {len(want) - 1} epochs, card "
+            f"(gloo, timed) vs CPU plain unsharded max rel diff "
+            f"{rel64:.2e} (tolerance {SMALL_RTOL:g})")
+    res["small_f64_rel"] = small
     return res
 
 
@@ -3203,6 +3301,116 @@ def one_rank_nccl():
 
 
 # ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# phase 22: every single-instance method on a row shard, captured
+# ---------------------------------------------------------------------------
+
+
+def sharded_method_cases(prob_t, mprob_t):
+    """Phase 22's solves: name → (problem, solve(problem) → Solution, the
+    kernels it launches), each one solve of its phase's path at full
+    width: 5's multinomial, 6's L-BFGS (300 epochs), 7's uncached
+    GGN-CG, 12's Newton-CG (greedy off), 16's mini-batches and 18's test
+    set with f(x) off the epoch cache (the uncached method)."""
+    import scso_tpu_torch as st
+
+    sm = st.PHuberSmootherL1L2(1.0)
+    uncached = st.ProxGGNSCORE(**F32_CG, epoch_cache=False)
+    return {
+        "multinomial": (mprob_t, lambda p: solve_chunk(
+            st.ProxGGNSCORE(**F32_CG), p), MGLM_KERNELS),
+        "lbfgs": (prob_t, lambda p: solve_lbfgs(st.ProxLQNSCORE(m=10), p),
+                  LBFGS_KERNELS),
+        "uncached": (prob_t, lambda p: solve_chunk(uncached, p),
+                     UNCACHED_KERNELS),
+        "newton_cg": (prob_t, lambda p: solve_chunk(
+            st.ProxNSCORE(**NEWTON_GREEDY_OFF), p), NEWTON_KERNELS),
+        "mini_batches": (prob_t, lambda p: st.iterate(
+            st.ProxGGNSCORE(**F32_CG), p, "l1", sm, **BATCH_KW),
+            UNCACHED_KERNELS),
+        "test_set": (test_set_problem(prob_t),
+                     lambda p: solve_chunk(uncached, p), UNCACHED_KERNELS),
+    }
+
+
+def captured_run(solve, prob):
+    """``solve(prob)`` twice: a warm-up that captures, then a timed
+    replay. Returns (the timed Solution, its seconds, its launches, its
+    captures, the torch.distributed.all_reduce calls the host made in
+    the warm-up and in the timed run, the replayed graphs' nodes)."""
+    import torch
+    import torch.distributed as dist
+
+    from scso_tpu_torch.ops.cuda import counters, graph
+
+    calls = [0]
+    real = dist.all_reduce
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return real(*args, **kw)
+
+    dist.all_reduce = counted
+    try:
+        solve(prob)  # warm-up: the capture
+        warm_calls, calls[0] = calls[0], 0
+        counters.reset()
+        graph.reset_stats()
+        t0 = time.perf_counter()
+        s = solve(prob)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = counters.snapshot()
+    finally:
+        dist.all_reduce = real
+    nodes = sum(g.nodes for g in graph.last_graphs().values())
+    return (s, seconds, launches, graph.STATS["captures"], warm_calls,
+            calls[0], nodes)
+
+
+def phase_sharded_methods(mesh, prob_t, mprob_t):
+    """Phase 22: each method of `sharded_method_cases` on the problem
+    sharded over the one-rank NCCL mesh, captured (mode='fused'), against
+    its unsharded fused solve: the same epochs, CG iterations, x and
+    every history, bit for bit; the same kernel launches (K1s once for
+    each K1); the all-reduces inside the replayed graph (the host issues
+    only the priming's and the final record's: the warm-up, which
+    captures, issues more, and the sharded graph has more nodes)."""
+    from scso_tpu_torch.parallel import shard_problem
+
+    out, total = {}, None
+    for name, (prob, solve, kernels) in sharded_method_cases(
+            prob_t, mprob_t).items():
+        s0, sec0, lc0, cap0, _, _, nodes0 = captured_run(solve, prob)
+        s1, sec1, lc1, cap1, warm, calls, nodes1 = captured_run(
+            solve, shard_problem(prob, mesh))
+        same_solution(f"phase 22 {name}: sharded vs unsharded", s0, s1)
+        if s0.cg_info != s1.cg_info:
+            fail(f"phase 22 {name}: CG {s1.cg_info} sharded vs "
+                 f"{s0.cg_info} unsharded")
+        check_launches(lc0, kernels, f"phase 22 {name} unsharded")
+        want = dict(lc0, normal_matvec_sharded=lc0["normal_matvec"])
+        if lc1 != want:
+            fail(f"phase 22 {name}: sharded launches {lc1} != {want}")
+        if cap0 or cap1 or not (warm > calls and nodes1 > nodes0):
+            fail(f"phase 22 {name}: captures in the timed runs {cap0}, "
+                 f"{cap1}; all-reduces from the host {warm} (warm-up) and "
+                 f"{calls} (replay); graph nodes {nodes1} sharded, "
+                 f"{nodes0} unsharded")
+        log(f"  {name}: {s1.epochs} epochs, CG {s1.cg_info}, bitwise the "
+            f"unsharded solve; sharded {sec1:.4f} s, unsharded "
+            f"{sec0:.4f} s; all-reduces from the host: {warm} capturing, "
+            f"{calls} replaying; graph nodes {nodes1} (unsharded "
+            f"{nodes0}); launches {lc1}")
+        out[name] = dict(seconds=sec1, unsharded_seconds=sec0,
+                         epochs=s1.epochs, cg=(s1.cg_info or {}).get(
+                             "total_cg_iters", 0), launches=lc1,
+                         host_all_reduces=calls, nodes=nodes1)
+        total = lc1 if total is None else {k: total[k] + lc1[k]
+                                           for k in total}
+    return out, total
 
 
 # ---------------------------------------------------------------------------
@@ -3920,7 +4128,6 @@ def main():
     torch.cuda.empty_cache()
     log(" (b) two ranks on the one card over gloo")
     two = phase_sharded_two_ranks()
-    dist.destroy_process_group()
 
     log(f"phase 9: the cached GGN-CG path at {NARROW_SHAPE[0]}x"
         f"{NARROW_SHAPE[1]} (the JAX bench's secondary shape)")
@@ -3947,7 +4154,7 @@ def main():
         (prob_t, best, kern["obj"], ukern["obj"]),
         (nwprob_t, ekern["anchor_obj"], ekern["obj"]),
         (mprob_t, mbest, mkern["obj"]))
-    del nwprob_t, mprob_t
+    del nwprob_t
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     log("phase 14: the sparse-group-lasso path (least squares, 'gl') at "
@@ -3986,8 +4193,14 @@ def main():
     log("phase 21: federated rounds (examples/09_federated.py)")
     fed = phase_federated()
     log(f"  phase 21: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    log("phase 22: every single-instance method on a row shard over one "
+        "NCCL rank, captured, against its unsharded fused solve")
+    sharded22, s22launches = phase_sharded_methods(mesh, prob_t, mprob_t)
+    dist.destroy_process_group()
+    log(f"  phase 22: {time.perf_counter() - t0:.1f} s")
     new_paths = [batches["launches"], resume["static_precond"]["launches"],
-                 resume["curvature_rows"]["launches"]]
+                 resume["curvature_rows"]["launches"], s22launches]
     new_paths += [v["launches"] for v in nodata.values()]
     launches = {k: launches[k] + mlaunches[k] + llaunches[k] + ulaunches[k]
                 + slaunches[k] + nlaunches[k] + klaunches[k] + lplaunches[k]
@@ -4019,6 +4232,7 @@ def main():
                                                "torch": uplain}))
     log("sharded path: " + json.dumps({"card": card, "one_rank": skern,
                                        **two}))
+    log("sharded methods: " + json.dumps({"card": card, **sharded22}))
     log("secondary cached path: " + json.dumps({"card": card,
                                                 "kernels": nkern,
                                                 "torch": nplain}))

@@ -27,8 +27,8 @@ package's two modes, 'fused' (the default; on the card the solve is
 captured into a CUDA graph and replayed) and 'timed', with its
 mini-batches, metrics, test set and resume (``resume_state``;
 ``utils.save_state``/``load_state``); ``iterate_continuation`` anneals
-μ and λ. ``scso_tpu_torch.parallel`` row-shards the cached GGN-CG path
-over ranks, and solves λ/μ paths, problem fleets and federated rounds
+μ and λ. ``scso_tpu_torch.parallel`` row-shards any single solve over
+ranks (every method, captured over NCCL), and solves λ/μ paths, problem fleets and federated rounds
 as one batched solve (``sweep``, ``solve_fleet``, ``federated_solve``:
 the instances on a leading axis, on the card one captured graph). What
 the port leaves out raises NotImplementedError naming its ROADMAP item

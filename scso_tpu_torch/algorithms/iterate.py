@@ -35,9 +35,7 @@ JAX package's two modes (``Options.mode``):
     steps run without the epoch cache and full-batch L-BFGS carries its
     gradient. On a CUDA problem the step and the stats record are
     captured graphs too, replayed once an epoch (a mini-batch). On a
-    row-sharded problem timed mode is the public mode (see below): its
-    step is the cached GGN-CG step, the only one ported there, and it
-    runs uncaptured.
+    row-sharded problem they run uncaptured (see below).
 
 Mini-batches (``batch_size``, or ``slice_samples``: one row a batch;
 ``batch_size`` first) are the JAX package's `_make_batches`: ⌊m/bs⌋ full
@@ -66,17 +64,24 @@ resume loads it into the captured graph's buffers and replays that
 graph). `utils.checkpoint` saves and loads it.
 
 A row-sharded problem (`parallel.shard_problem`) is solved SPMD, one
-process per rank, on the cached GGN-CG path: ``obj_star`` and every
-stats record come from the all-reduced cache, and every test reads
-replicated values, so all ranks take the same CG iterations and epochs.
-Everything else raises on it before the first collective. Fused mode
-captures it on one NCCL rank only, and raises over a gloo group (gloo
-reduces CUDA tensors through the host) or over more than one NCCL rank
-(the collectives inside the graph's conditional nodes fail to
-instantiate). Timed mode runs it on any group: there the step and the
-stats record run uncaptured (`graph.eager`; the CG loop reads the card
-once an iteration), with the cached step and the cache's loss in each
-record, so that its epochs are those of the fused mode.
+process per rank, by every method and option of a single solve: each
+function of the rows is this rank's share summed over the ranks
+(`Problem.f_val` and its siblings, the steps' packed all_reduces), and
+every test reads replicated values, so all ranks take the same CG
+iterations, line-search trials and epochs. Mini-batches are the
+unsharded solve's (one permutation of all ranks' rows, drawn alike on
+every rank); each rank steps on its rows of a batch, zero-padded to
+min(batch size, its rows) so that the captured loop keeps its shapes
+(`_Batches`, `Problem.rows`). Fused mode captures it over NCCL: on one
+rank always, over more ranks where the communicator was made under
+NCCL_GRAPH_MIXING_SUPPORT=0 (`Mesh.captures`; the collectives then sit
+inside the graph's conditional nodes), and it raises over gloo (gloo
+reduces CUDA tensors through the host) or without that setting, before
+any collective (`_check_capturable`). Timed mode runs on any group,
+uncaptured (`graph.eager`; the CG loop reads the card once an
+iteration); where the epoch cache acts it takes the cached step and the
+cache's loss in each record, so that its epochs are those of the fused
+mode.
 """
 
 from __future__ import annotations
@@ -101,7 +106,7 @@ from scso_tpu_torch.algorithms.steps import (
 from scso_tpu_torch.ops.cuda import graph
 from scso_tpu_torch.ops.cuda.graph import device_if, device_loop
 from scso_tpu_torch.ops.lbfgs_core import LBFGSMemory, init_memory
-from scso_tpu_torch.problems import Problem
+from scso_tpu_torch.problems import Problem, RowSet
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,14 +208,10 @@ def _stats(prob: Problem, reg_name: str, x, obj_star, x_tol, f_tol,
            fval=None):
     """One record: (fval, obj, rel, objrel, raw_frel, fvaltest), all 0-d
     tensors. ``fval`` is the cached data loss when the epoch cache
-    carries one; None evaluates f(x), one pass over A (never on a row
-    shard, where it would be this rank's f alone). ``fvaltest`` is f on
-    the test set, zero without one."""
+    carries one; None evaluates f(x), one pass over A (on a row shard
+    this rank's share, summed over the ranks). ``fvaltest`` is f on the
+    test set (its rows of all ranks on a shard), zero without one."""
     if fval is None:
-        if prob.mesh is not None:
-            raise NotImplementedError(
-                "f(x) on a row-sharded problem off the epoch cache is not "
-                "ported yet (ROADMAP A11)")
         fval = prob.f_val(prob.A, prob.y, x)
     obj = fval + prob.reg(reg_name, x)
     x_star = prob.x_star
@@ -314,28 +315,19 @@ def _resolve_kernels(method, prob: Problem):
 
 def _check_sharded(method, prob: Problem, reg_name: str,
                    opts: Optional[Options] = None):
-    """A row-sharded problem runs the full-batch cached GGN-CG path only.
-    Anything else (ProxNSCORE, mini-batches and a test set included)
-    raises here, before the first collective: ranks that parted at a
-    collective would wait for each other forever."""
-    if prob.mesh is None:
+    """Every method and option of a single solve runs on a one-axis row
+    mesh. A mesh of more axes (the JAX package's ('batch', 'data')
+    layout) or rows sharded over another axis raise here, before the
+    first collective: ranks that parted at a collective would wait for
+    each other forever."""
+    mesh = prob.mesh
+    if mesh is None:
         return
-    what = None
-    if not isinstance(method, ProxGGNSCORE):
-        what = type(method).__name__
-    elif prob.mglm is not None:
-        what = "a multi-output (mglm) problem"
-    elif not epoch_cache_enabled(method, prob, reg_name, True):
-        what = ("the uncached GGN-CG path (ss_type 2 or 3, "
-                "epoch_cache=False, or a spec without loss_sample)")
-    elif opts is not None and _make_batches(prob, opts) is not None:
-        what = "a mini-batch solve"
-    elif prob.has_test:
-        what = "a test set (f on this rank's rows of it)"
-    if what is not None:
+    if len(mesh.axis_names) != 1 or prob.data_axis not in mesh.axis_names:
         raise NotImplementedError(
-            f"{what} on a row-sharded problem is not ported yet: only "
-            "the full-batch cached GGN-CG path runs sharded (ROADMAP A11)")
+            f"a solve on a mesh over axes {tuple(mesh.axis_names)} with "
+            f"rows on {prob.data_axis!r}: only one-axis row meshes are "
+            "ported (ROADMAP A11)")
 
 
 def _effective_L(prob: Problem, alpha):
@@ -355,7 +347,7 @@ def _make_batches(prob: Problem, opts: Options):
     the partial batch counts as the last entry of the list."""
     if not prob.has_data:
         return None
-    m = prob.A.shape[0]
+    m = prob.m_total  # all ranks' rows on a row shard
     bs = opts.batch_size
     if bs is None and opts.slice_samples:
         bs = 1
@@ -545,8 +537,9 @@ def _solve_impl(method, prob: Problem, reg_name: str, sm, opts: Options,
                 metric_fns=(), metric_names=(), rng_seed: int = 0,
                 resume_state=None, capture: bool = True) -> Solution:
     """The solve of a resolved method (`solve` after its checks). Timed
-    mode on a row shard runs uncaptured: its collectives cannot sit in a
-    captured graph's conditional nodes (`_check_capturable`)."""
+    mode on a row shard runs uncaptured: a gloo group, or NCCL without
+    NCCL_GRAPH_MIXING_SUPPORT=0, cannot put its collectives in a captured
+    graph's conditional nodes (`_check_capturable`)."""
     t0 = time.perf_counter()
     on_card = prob.device.type == "cuda"
     timed = opts.mode == "timed"
@@ -713,67 +706,166 @@ class _Batches:
     of the partial last batch; and, on the host, the generator of the
     permutations with its state after each epoch's draw (``snaps``), so
     that a solve's state holds the generator as its last epoch left it,
-    whatever was drawn ahead for replays past the end."""
+    whatever was drawn ahead for replays past the end.
+
+    On a row shard the permutation is of all ranks' rows, drawn alike on
+    every rank, so the batches are the unsharded solve's. A rank holds a
+    number of each batch's rows that varies from batch to batch, while a
+    captured loop needs fixed shapes: each rank's rows of a batch are
+    gathered in the permutation's order into a buffer of min(batch size,
+    its rows) rows — as many as it can ever own — and the rest is zero
+    rows. A zero row adds nothing to K1's product, the RHS Aᵀρ or the
+    diagonal Σ wA², but it does to a loss (ℓ(y, 0) = ln 2 for
+    logistic01): the step reads the pad count and a row mask
+    (`Problem.rows`), which take each pad row's share out of f and its
+    derivatives and zero it in the per-row forms (`Problem.share`,
+    `Problem.row_form`). The host works out each slot's local row
+    indices, mask and pad count as it draws the permutation (``fill``);
+    on one rank they are the permutation itself, with no pad."""
 
     def __init__(self, prob: Problem, batching, slots: int):
         nb, bs, rem = batching
         A, y, dev = prob.A, prob.y, prob.device
-        m = A.shape[0]
-        self.batching, self.m = batching, m
-        self.perm = torch.empty((slots, m), dtype=torch.int64, device=dev)
+        m = prob.m_total
+        self.batching, self.m, self.mesh = batching, m, prob.mesh
         self.bi = torch.zeros((), dtype=torch.int64, device=dev)
         self.blive = torch.zeros((), dtype=torch.bool, device=dev)
-        self.Ab = A.new_empty((bs,) + tuple(A.shape[1:]))
-        self.yb = y.new_empty((bs,) + tuple(y.shape[1:]))
-        self.Ar = A.new_empty((rem,) + tuple(A.shape[1:]))
-        self.yr = y.new_empty((rem,) + tuple(y.shape[1:]))
+        full, rest = bs, rem
+        if self.mesh is None:
+            self.perm = torch.empty((slots, m), dtype=torch.int64,
+                                    device=dev)
+        else:
+            m_r = A.shape[0]
+            self.lo, self.m_r = self.mesh.rank * m_r, m_r
+            full, rest = min(bs, m_r), min(rem, m_r)
+            index = lambda *shape: torch.zeros(shape, dtype=torch.int64,
+                                               device=dev)
+            keep = lambda *shape: torch.zeros(shape, dtype=torch.bool,
+                                              device=dev)
+            self.idx, self.keep, self.npad = (
+                index(slots, nb, full), keep(slots, nb, full),
+                index(slots, nb))
+            self.ridx, self.rkeep, self.rnpad = (
+                index(slots, rest), keep(slots, rest), index(slots))
+            mask = lambda r: torch.zeros((r,), dtype=prob.dtype, device=dev)
+            self.mb, self.pb = mask(full), index()
+            self.mr, self.pr = mask(rest), index()
+        self.Ab = A.new_empty((full,) + tuple(A.shape[1:]))
+        self.yb = y.new_empty((full,) + tuple(y.shape[1:]))
+        self.Ar = A.new_empty((rest,) + tuple(A.shape[1:]))
+        self.yr = y.new_empty((rest,) + tuple(y.shape[1:]))
         self.gen, self.snaps, self.k_host = None, {}, 0
+
+    @property
+    def slots(self) -> int:
+        return (self.perm if self.mesh is None else self.idx).shape[0]
 
     def start(self, rng: torch.Tensor, k0: int, shuffle: bool) -> None:
         self.gen = _rng_unpack(rng)
         self.snaps = {k0: rng.clone()}
         self.k_host, self.shuffle = k0, shuffle
         if not shuffle:
-            for slot in range(self.perm.shape[0]):
-                _copy_rows(self.perm[slot], np.arange(self.m))
+            self.fill(0, np.tile(np.arange(self.m), (self.slots, 1)))
+
+    def fill(self, lo: int, perms: np.ndarray) -> None:
+        """The permutations ``perms`` (one row an epoch) into the slots
+        from ``lo``; on a row shard this rank's rows of each batch."""
+        if self.mesh is None:
+            _copy_rows(self.perm[lo:lo + len(perms)], perms)
+            return
+        nb, bs, rem = self.batching
+        k = len(perms)
+
+        def local(rows, width):
+            # this rank's rows of each batch, in the permutation's order
+            # (a stable sort puts them first), then zero-row pads
+            own = (rows >= self.lo) & (rows < self.lo + self.m_r)
+            order = np.argsort(~own, axis=-1, kind="stable")[..., :width]
+            kept = np.take_along_axis(own, order, -1)
+            idx = np.where(kept, np.take_along_axis(rows, order, -1)
+                           - self.lo, 0)
+            return idx, kept, width - kept.sum(-1)
+
+        at = slice(lo, lo + k)
+        for dst, src in zip((self.idx, self.keep, self.npad), local(
+                perms[:, :nb * bs].reshape(k, nb, bs), self.idx.shape[-1])):
+            _copy_rows(dst[at], src)
+        if rem:
+            for dst, src in zip((self.ridx, self.rkeep, self.rnpad), local(
+                    perms[:, nb * bs:nb * bs + rem], self.ridx.shape[-1])):
+                _copy_rows(dst[at], src)
 
     def draw(self, upto: int) -> None:
         """The permutations of the epochs from ``k_host`` to ``upto``
         (exclusive), into their slots (one contiguous run of slots)."""
         if not self.shuffle or upto <= self.k_host:
             return
-        slots = self.perm.shape[0]
         perms = []
         for k in range(self.k_host, upto):
             perms.append(self.gen.permutation(self.m))
             self.snaps[k + 1] = _rng_pack(self.gen)
-        lo = self.k_host % slots
-        _copy_rows(self.perm[lo:lo + len(perms)], np.stack(perms))
+        self.fill(self.k_host % self.slots, np.stack(perms))
         self.k_host = upto
 
     def rng_at(self, k: int, initial: torch.Tensor) -> torch.Tensor:
         return self.snaps.get(k, initial).clone()
 
-    def rows(self, slot) -> torch.Tensor:
-        """The permutation of the epoch in ``slot`` (a 0-d tensor)."""
-        return self.perm.index_select(0, slot.reshape(1).long()).reshape(-1)
+    def rows(self, slot):
+        """The epoch in ``slot`` (an int, or a 0-d tensor on the data's
+        device): its permutation, or on a row shard this rank's rows of
+        its batches (indices, kept, pad counts; the partial batch's)."""
+        if isinstance(slot, int):
+            pick = lambda t: t[slot]
+        else:
+            at = slot.reshape(1).long()
+            pick = lambda t: t.index_select(0, at)[0]
+        if self.mesh is None:
+            return pick(self.perm)
+        return tuple(pick(t) for t in (self.idx, self.keep, self.npad,
+                                       self.ridx, self.rkeep, self.rnpad))
 
-    def gather_full(self, prob: Problem, perm: torch.Tensor):
-        """Batch ``bi`` of ``perm`` into (Ab, yb)."""
-        nb, bs, _ = self.batching
-        rows = perm[:nb * bs].view(nb, bs).index_select(
-            0, self.bi.reshape(1)).reshape(-1)
-        torch.index_select(prob.A, 0, rows, out=self.Ab)
-        torch.index_select(prob.y, 0, rows, out=self.yb)
-        return self.Ab, self.yb
+    def _gather(self, prob: Problem, rows, kept, npad, A, y, mask, pad,
+                total: int):
+        """This rank's rows ``rows`` of A and y into the buffers (A, y),
+        the pad rows zeroed: (the problem that reads them, A, y)."""
+        torch.index_select(prob.A, 0, rows, out=A)
+        torch.index_select(prob.y, 0, rows, out=y)
+        drop = ~kept
+        A.masked_fill_(drop.reshape((-1,) + (1,) * (A.ndim - 1)), 0)
+        y.masked_fill_(drop.reshape((-1,) + (1,) * (y.ndim - 1)), 0)
+        mask.copy_(kept)
+        pad.copy_(npad.reshape(()))
+        view = dc_replace(prob, rows=RowSet(A=A, y=y, total=total, pad=pad,
+                                            mask=mask))
+        return view, A, y
 
-    def gather_rest(self, prob: Problem, perm: torch.Tensor):
-        """The partial last batch of ``perm`` into (Ar, yr)."""
+    def gather_full(self, prob: Problem, epoch):
+        """Batch ``bi`` of ``epoch`` into (Ab, yb): (the problem its step
+        reads, Ab, yb)."""
         nb, bs, _ = self.batching
-        rows = perm[nb * bs:]
-        torch.index_select(prob.A, 0, rows, out=self.Ar)
-        torch.index_select(prob.y, 0, rows, out=self.yr)
-        return self.Ar, self.yr
+        b = self.bi.reshape(1)
+        if self.mesh is None:
+            rows = epoch[:nb * bs].view(nb, bs).index_select(0, b).reshape(-1)
+            torch.index_select(prob.A, 0, rows, out=self.Ab)
+            torch.index_select(prob.y, 0, rows, out=self.yb)
+            return prob, self.Ab, self.yb
+        idx, keep, npad = epoch[:3]
+        return self._gather(
+            prob, idx.index_select(0, b).reshape(-1),
+            keep.index_select(0, b).reshape(-1), npad.index_select(0, b),
+            self.Ab, self.yb, self.mb, self.pb, bs)
+
+    def gather_rest(self, prob: Problem, epoch):
+        """The partial last batch of ``epoch`` into (Ar, yr): (the
+        problem its step reads, Ar, yr)."""
+        nb, bs, rem = self.batching
+        if self.mesh is None:
+            rows = epoch[nb * bs:]
+            torch.index_select(prob.A, 0, rows, out=self.Ar)
+            torch.index_select(prob.y, 0, rows, out=self.yr)
+            return prob, self.Ar, self.yr
+        return self._gather(prob, *epoch[3:], self.Ar, self.yr, self.mr,
+                            self.pr, rem)
 
 
 class _Fused:
@@ -947,8 +1039,8 @@ class _Fused:
         perm = b.rows(torch.remainder(c.k, self.K))
 
         def batch():
-            As, ys = b.gather_full(prob, perm)
-            c.done.copy_(self._step_on(prob, As, ys, it, raw_frel))
+            c.done.copy_(self._step_on(*b.gather_full(prob, perm), it,
+                                       raw_frel))
             b.bi.add_(1)
             b.blive.copy_((b.bi < nb) & ~c.done)
 
@@ -957,7 +1049,7 @@ class _Fused:
         device_loop(b.blive, nb, batch)
         if rem:
             device_if(~c.done, lambda: c.done.copy_(self._step_on(
-                prob, *b.gather_rest(prob, perm), it, raw_frel)))
+                *b.gather_rest(prob, perm), it, raw_frel)))
         conv = _stopped(c.x, c.x_prev, raw_frel, c.pri_res, self.opts)
         _assign(c, c._replace(frel=raw_frel, k=c.k + 1, done=conv))
 
@@ -1076,25 +1168,53 @@ def _capture_key(kind: str, method, prob: Problem, reg_name: str, sm,
             tuple(graph.identity_key(fn, refs) for fn in metric_fns))
 
 
-def _check_capturable(prob: Problem) -> None:
+def _check_capturable(prob: Problem, method=None) -> None:
     """Raise before the first collective where a row-sharded solve cannot
-    be captured: a gloo group reduces CUDA tensors through the host,
-    which a capture refuses, and NCCL's collectives across two ranks or
-    more made their graph fail to instantiate inside its conditional
-    nodes (four H100s over NVLink). One NCCL rank captures. Timed mode
-    runs either uncaptured."""
-    if prob.mesh is None:
+    be captured. A gloo group reduces CUDA tensors through the host,
+    which a capture refuses. NCCL's collectives across two ranks or more
+    sit inside the graph's conditional nodes, which NCCL allows only when
+    the communicator was made under NCCL_GRAPH_MIXING_SUPPORT=0 (on four
+    H100s over NVLink the graph failed to instantiate without it;
+    `Mesh.captures` records the setting as it was then). The overlapped
+    K1s schedule (``comm_overlap_chunks > 1``) issues its all-reduces
+    asynchronously on NCCL's own stream, which is not taken into a
+    conditional node's capture. One NCCL rank always captures. Timed
+    mode runs all of these uncaptured."""
+    mesh = prob.mesh
+    if mesh is None:
         return
-    if dist.get_backend(prob.mesh.group) == "gloo":
+    if dist.get_backend(mesh.group) == "gloo":
         raise NotImplementedError(
             "a captured (mode='fused') solve on a row-sharded problem over "
             "gloo is not ported (ROADMAP A11): use mode='timed'")
-    if prob.mesh.size > 1:
+    if mesh.size > 1 and not mesh.captures:
         raise NotImplementedError(
             "a captured (mode='fused') solve on a problem row-sharded over "
-            "more than one rank is not ported (ROADMAP A11): NCCL's "
-            "collectives inside the graph's conditional nodes fail to "
-            "instantiate; use mode='timed'")
+            "more than one NCCL rank needs NCCL_GRAPH_MIXING_SUPPORT=0 in "
+            "the environment when the process group is made (ROADMAP A11): "
+            "NCCL's collectives inside the graph's conditional nodes fail "
+            "to instantiate without it; set it before distributed_init, or "
+            "use mode='timed'")
+    if (mesh.size > 1 and method is not None
+            and getattr(method, "comm_overlap_chunks", 1) > 1):
+        raise NotImplementedError(
+            "a captured (mode='fused') solve with comm_overlap_chunks > 1 "
+            "over more than one rank is not ported (ROADMAP A11): its "
+            "asynchronous all-reduces run on NCCL's own stream; use "
+            "comm_overlap_chunks=1 or mode='timed'")
+
+
+def _quiesce(prob: Problem) -> None:
+    """Wait for the card where a captured solve's NCCL collectives meet
+    uncaptured ones on the same communicator (a multi-rank row shard):
+    under NCCL_GRAPH_MIXING_SUPPORT=0 NCCL guarantees nothing while a
+    graph with collectives still runs and an eager collective is issued,
+    so every eager collective (a solve's priming and records, the next
+    solve, a timed solve) starts after the replays have ended, and every
+    capture after the eager collectives before it."""
+    mesh = prob.mesh
+    if mesh is not None and mesh.size > 1 and prob.device.type == "cuda":
+        torch.cuda.synchronize(prob.device)
 
 
 def _captured(kind: str, method, prob: Problem, reg_name: str, sm,
@@ -1107,7 +1227,8 @@ def _captured(kind: str, method, prob: Problem, reg_name: str, sm,
     records is captured again, with room for ``cap``. A body that
     cannot be captured (a function that reads the card from the host)
     raises."""
-    _check_capturable(prob)
+    _check_capturable(prob, method)
+    _quiesce(prob)
     refs = []
     key = _capture_key(kind, method, prob, reg_name, sm, opts,
                        run.metric_fns, refs)
@@ -1117,6 +1238,7 @@ def _captured(kind: str, method, prob: Problem, reg_name: str, sm,
         return entry
     buffers = _Buffers(prob, sm)
     loop, bodies = make(buffers, *buffers.static(prob, sm), cap)
+    _quiesce(prob)
     try:
         graphs = {name: graph.capture(fn, prob.device)
                   for name, fn in bodies.items()}
@@ -1162,8 +1284,10 @@ def _solve_captured(method, prob: Problem, reg_name: str, sm,
     entry = _captured("fused", method, prob, reg_name, sm, opts, run, make,
                       _capacity(opts, run))
     loop = entry.loop
+    _quiesce(prob)  # after the load's eager collectives
     _replays(loop.round_of(entry.graphs["round"].replay), loop.live,
              loop.max_rounds)
+    _quiesce(prob)  # before the final record's
     return loop.finish(prob, t0, run)
 
 
@@ -1190,8 +1314,9 @@ class _Timed:
     (:meth:`stats`) and one step (:meth:`step`; under mini-batches
     :meth:`batch_step` and :meth:`rest_step`) leave for the host to
     read. On a CUDA problem each is a captured graph, except on a row
-    shard: there the step is the cached GGN-CG step (the only sharded
-    step ported) and each record reads the cache's all-reduced loss."""
+    shard, where they run uncaptured, and where the epoch cache acts the
+    step is the cached one and each record reads the cache's all-reduced
+    loss, as in fused mode."""
 
     def __init__(self, method, reg_name: str, sm, opts: Options,
                  buffers: Optional[_Buffers] = None):
@@ -1211,9 +1336,10 @@ class _Timed:
         dt, dev = prob.dtype, prob.device
         self.batching = _make_batches(prob, self.opts)
         lam, cw = _lam_scalar(prob.lam), _cw(prob, self.reg_name)
-        # off the cache f(x) would be this rank's alone (`_check_sharded`
-        # kept only the cached path for a row shard)
-        self.cached = prob.mesh is not None
+        # a row shard takes the cached step where the cache acts, so that
+        # timed mode's epochs are the fused mode's there
+        self.cached = prob.mesh is not None and epoch_cache_enabled(
+            self.method, prob, self.reg_name, self.batching is None)
         if self.cached:
             obj_star = (prime_glm_cache(self.method, prob, prob.x_star).loss
                         + prob.reg(self.reg_name, prob.x_star))
@@ -1296,12 +1422,12 @@ class _Timed:
     def batch_step(self, prob: Problem) -> None:
         """The step on full batch ``bi`` of the epoch's permutation."""
         b = self.batches
-        self._step_on(prob, *b.gather_full(prob, b.perm[0]), False)
+        self._step_on(*b.gather_full(prob, b.rows(0)), False)
 
     def rest_step(self, prob: Problem) -> None:
         """The step on the partial last batch."""
         b = self.batches
-        self._step_on(prob, *b.gather_rest(prob, b.perm[0]), False)
+        self._step_on(*b.gather_rest(prob, b.rows(0)), False)
 
     def bodies(self, prob: Problem) -> dict:
         """{name: body} of what a solve of this loop runs."""
@@ -1405,9 +1531,9 @@ def _solve_timed(method, prob: Problem, reg_name: str, sm, opts: Options,
             steps = [runs["step"]]
         else:
             nb, bs, rem = loop.batching
-            m = prob.A.shape[0]
-            _copy_rows(b.perm[0], gen.permutation(m) if opts.shuffle_batch
-                       else np.arange(m))
+            m = prob.m_total
+            b.fill(0, (gen.permutation(m) if opts.shuffle_batch
+                       else np.arange(m))[None])
             steps = [runs["batch"]] * nb + ([runs["rest"]] if rem else [])
         iend = len(steps)
         for i, run_step in enumerate(steps, start=1):

@@ -48,10 +48,11 @@ class ProxNSCORE:
     cg_adaptive: bool = False
     #: greedy SCORE damping; None = AUTO (on for ss_type=1 and n >= 4096)
     greedy_alpha: Optional[bool] = None
-    #: row-sharded CG matvec schedule; kept for parity: a sharded Newton
-    #: solve is not ported yet (ROADMAP A11)
+    #: row-sharded CG matvec schedule (K1s): 1 = K1 then one all-reduce;
+    #: more = the overlapped column chunks (timed mode over several ranks)
     comm_overlap_chunks: int = 1
-    #: the static Jacobi preconditioner — not ported yet (ROADMAP A7)
+    #: the static Jacobi preconditioner (off the epoch cache; needs the
+    #: problem's col_sumsq, problems.with_col_sumsq)
     static_precond: bool = False
     #: epoch-fused greedy path; None = AUTO (steps.epoch_cache_enabled)
     epoch_cache: Optional[bool] = None
@@ -107,8 +108,10 @@ class ProxGGNSCORE:
     #: twice over; True skips the device, size and memory gates; False
     #: disables. An explicit cg_lp_tol > 0 always wins over AUTO
     auto_lp: Optional[bool] = None
-    #: the static Jacobi preconditioner and subsampled curvature — not
-    #: ported yet (ROADMAP A7); only the defaults are accepted
+    #: the static Jacobi preconditioner (off the epoch cache; needs the
+    #: problem's col_sumsq) and subsampled curvature (about that many
+    #: rows for the CG operator; a no-op on a row shard, as in the JAX
+    #: package)
     static_precond: bool = False
     curvature_rows: int = 0
     #: epoch-fused greedy path; None = AUTO (on when its requirements

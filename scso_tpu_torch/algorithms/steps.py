@@ -21,11 +21,20 @@ One epoch of the epoch-cache GGN-CG path (ss_type 1, full batch):
      greedy off, the priming pass at x⁺ (`_damped_update_cached`).
 
 On a row-sharded problem (`parallel.shard_problem`: A and y hold this
-rank's rows, every n-vector is replicated) the cached path runs
-rank-locally: CG's matvec is K1s (K1 plus an all_reduce), the prep is
-K2 on the shard normalized by ``prob.m_total`` plus one packed
-all_reduce of its sums, and K3 runs on the replicated vectors. Every
-other path raises on a sharded problem (`iterate.solve`, ROADMAP A11).
+rank's rows, every n-vector is replicated) every step runs
+rank-locally and every contraction over rows ends in a sum over the
+ranks (`Problem.row_sum`, one all_reduce, packed where several sums are
+ready together): CG's matvec is K1s (K1 plus an all_reduce) or K5 on
+the shard plus an all_reduce of its (p, k) result; the preps are K2,
+K2s or the mglm products on the shard, normalized by the rows of all
+ranks (``m_norm``, `Problem.row_form`), plus one packed all_reduce; f,
+∇f, ∇²f and ∇²f·v are this rank's share summed (`Problem.f_val` and
+its siblings, under the mean-over-rows contract `Problem` states); a
+dense Newton or primal GGN system is summed before every rank factors
+it, and a dense dual GGN system gathers every rank's rows of J
+(`parallel.sharding.gather_rows`). K3 and K4 run on the replicated
+vectors. A mini-batch on a shard is this rank's rows of the batch,
+zero-padded (`Problem.rows`).
 
 The uncached GGN-CG path (`_ggn_cg_direction`: ss_type 2 or 3,
 ``epoch_cache=False``, or a spec without ``loss_sample``) preps each
@@ -203,7 +212,7 @@ def _resolve_ggn_solver(method, prob: Problem, x, As=None) -> str:
     As = prob.A if As is None else As
     if not prob.has_data or As.ndim != 2:
         return "auto"
-    m = prob.m_total if As is prob.A else As.shape[0]
+    m = prob.rows_total(As)
     n = x.shape[-1]
     k = prob.mglm.n_out if prob.mglm is not None else 1
     if prob.mglm is not None:
@@ -319,6 +328,21 @@ def _trial_point(method, prob: Problem, reg_name, x, d, step_size, lam,
     return x + d
 
 
+def _loss_z_pair(prob: Problem, As, ys, loss_z, z_x, z_t):
+    """A spec's loss_z at two linear predictors of the rows ``As``
+    (their zero pad rows at z = 0); on a row shard each rank's share,
+    summed over the ranks in one all_reduce."""
+    if prob.mesh is None:
+        return loss_z(ys, z_x), loss_z(ys, z_t)
+    def share(z):
+        # `Problem.share` also evaluates at one zero (pad) row: z = 0 there
+        zero = lambda: z.new_zeros((1,) + tuple(z.shape[1:]))
+        return prob.share(As, ys,
+                          lambda a, b: loss_z(b, z if a is As else zero()))
+
+    return prob.row_sum(share(z_x), share(z_t))
+
+
 def _greedy_prox_update(method, prob: Problem, reg_name, sm, As, ys,
                         x, d, step_size, lam, lgr, Hr_diag, z=None):
     """Greedy SCORE damping off the epoch cache: trial the UNDAMPED prox
@@ -334,16 +358,18 @@ def _greedy_prox_update(method, prob: Problem, reg_name, sm, As, ys,
     data_2d = prob.has_data and As.ndim == 2
     if data_2d and prob.glm is not None and prob.glm.loss_z is not None:
         z_x = amul(As, x) if z is None else z
-        F_x = prob.glm.loss_z(ys, z_x) + prob.reg(reg_name, x)
-        F_t = (prob.glm.loss_z(ys, amul(As, x_trial))
-               + prob.reg(reg_name, x_trial))
+        lx, lt = _loss_z_pair(prob, As, ys, prob.glm.loss_z, z_x,
+                              amul(As, x_trial))
+        F_x = lx + prob.reg(reg_name, x)
+        F_t = lt + prob.reg(reg_name, x_trial)
     elif (data_2d and prob.mglm is not None
           and prob.mglm.loss_z is not None):
         k = int(prob.mglm.n_out)
         Zf = lambda v: amul(As, v.reshape(v.shape[-1] // k, k))
-        F_x = prob.mglm.loss_z(ys, Zf(x)) + prob.reg(reg_name, x)
-        F_t = prob.mglm.loss_z(ys, Zf(x_trial)) + prob.reg(reg_name,
-                                                           x_trial)
+        lx, lt = _loss_z_pair(prob, As, ys, prob.mglm.loss_z, Zf(x),
+                              Zf(x_trial))
+        F_x = lx + prob.reg(reg_name, x)
+        F_t = lt + prob.reg(reg_name, x_trial)
     else:
         F_x = prob.f_val(As, ys, x) + prob.reg(reg_name, x)
         F_t = prob.f_val(As, ys, x_trial) + prob.reg(reg_name, x_trial)
@@ -473,7 +499,8 @@ def _lp_engaged(method, prob: Problem, As, dtype) -> bool:
     which has no cg_lp_tol: as in the JAX package, its CG runs on A."""
     A_lp = prob.A_lp
     if (isinstance(method, ProxNSCORE) or method.cg_lp_tol <= 0.0
-            or A_lp is None or A_lp.shape != As.shape):
+            or A_lp is None or A_lp.shape != As.shape
+            or prob.rows_total(As) != prob.m_total):
         return False
     return not _lp_tol_refused(method, dtype)
 
@@ -585,35 +612,53 @@ def _mo_shapes(g, x):
     return k, pf
 
 
-def _moglm_pair_prep(As, ys, g, x_t, x_d):
+def _moglm_pair_prep(As, ys, g, x_t, x_d, prob: Problem = None):
     """Dual-candidate mglm prep: both candidates' Z, data gradient,
     Jacobi diagonal and loss from three A-reads (the per-candidate
     products batch into (m×p)·(p×2k) matmuls). Returns two
-    (Z, grad_vec, hd_raw, loss) tuples, losses normalized."""
+    (Z, grad_vec, hd_raw, loss) tuples, losses normalized. With ``prob``
+    a row shard's: normalized by the rows of all ranks, and the
+    gradients, diagonals and losses summed over the ranks in one
+    all_reduce (Z stays per-row)."""
     k, pf = _mo_shapes(g, x_t)
-    m = As.shape[0]
+    fix = (lambda v: v) if prob is None else prob.row_form(
+        As, g.sample_normalized)
+    total = As.shape[0] if prob is None else prob.rows_total(As)
     W2 = torch.cat([x_t.reshape(pf, k), x_d.reshape(pf, k)], dim=1)
     Z2 = amul(As, W2)                                # read 1
     Zt, Zd = Z2[:, :k].contiguous(), Z2[:, k:].contiguous()
-    R2 = torch.cat([g.gres(ys, Zt), g.gres(ys, Zd)], dim=1)
+    R2 = fix(torch.cat([g.gres(ys, Zt), g.gres(ys, Zd)], dim=1))
     G2 = atmul(As, R2)                               # read 2
-    Q2 = torch.cat([g.qdiag_w(ys, Zt), g.qdiag_w(ys, Zd)], dim=1)
+    Q2 = fix(torch.cat([g.qdiag_w(ys, Zt), g.qdiag_w(ys, Zd)], dim=1))
     H2 = sq_atmul(As, Q2)                            # read 3
-    scale = (1.0 / m) if g.sample_normalized else 1.0
-    lt = torch.sum(g.loss_sample(ys, Zt)) * scale
-    ld = torch.sum(g.loss_sample(ys, Zd)) * scale
+    scale = (1.0 / total) if g.sample_normalized else 1.0
+    lt = _mo_loss_sum(prob, As, g.loss_sample(ys, Zt)) * scale
+    ld = _mo_loss_sum(prob, As, g.loss_sample(ys, Zd)) * scale
+    if prob is not None:
+        G2, H2, lt, ld = prob.row_sum(G2, H2, lt, ld)
     return ((Zt, G2[:, :k].reshape(-1), H2[:, :k].reshape(-1), lt),
             (Zd, G2[:, k:].reshape(-1), H2[:, k:].reshape(-1), ld))
+
+
+def _mo_loss_sum(prob: Problem, As, samples):
+    """Σ of per-sample losses over the rows ``As``, a mini-batch's pad
+    rows left out (`Problem.rows`; ``prob`` None: unsharded)."""
+    rs = None if prob is None or prob.mesh is None else prob.rows
+    if rs is not None and As is rs.A:
+        samples = samples * rs.mask
+    return torch.sum(samples)
 
 
 def _prime_moglm(prob: Problem, x, As, ys) -> MOGLMCache:
     g = prob.mglm
     k, pf = _mo_shapes(g, x)
+    fix = prob.row_form(As, g.sample_normalized)
     Z = amul(As, x.reshape(pf, k))
-    grad_vec = atmul(As, g.gres(ys, Z)).reshape(-1)
-    hd = sq_atmul(As, g.qdiag_w(ys, Z)).reshape(-1)
-    scale = (1.0 / As.shape[0]) if g.sample_normalized else 1.0
-    loss = torch.sum(g.loss_sample(ys, Z)) * scale
+    grad_vec = atmul(As, fix(g.gres(ys, Z))).reshape(-1)
+    hd = sq_atmul(As, fix(g.qdiag_w(ys, Z))).reshape(-1)
+    scale = (1.0 / prob.rows_total(As)) if g.sample_normalized else 1.0
+    loss = _mo_loss_sum(prob, As, g.loss_sample(ys, Z)) * scale
+    grad_vec, hd, loss = prob.row_sum(grad_vec, hd, loss)
     return MOGLMCache(Z=Z, grad_vec=grad_vec, hd_raw=hd, loss=loss)
 
 
@@ -678,11 +723,16 @@ def _ggn_cg_from_cache(method, prob: Problem, As, x, gr, Hr_diag, lam,
     return res.x, res.iters, bnorm
 
 
-def _mo_curv_matvec(method, As, ys, Z, g, lhr, pf, k):
+def _mo_curv_matvec(method, prob: Problem, As, ys, Z, g, lhr, pf, k,
+                    m_norm=None):
     """The mglm curvature matvec v ↦ vec(Aᵀ·quad(y, Z, A·V)) + λHr∘v from
-    the cached Z — one K5 launch, or its plain version."""
+    the cached Z — one K5 launch, or its plain version, normalized by
+    ``m_norm`` rows (default: the rows ``As`` stands for), and on a row
+    shard followed by one all_reduce of its (p, k) result."""
     mv = mglm_matvec if method.kernels == "cuda" else mglm_matvec_torch
-    return lambda v: mv(As, ys, Z, v.reshape(pf, k), g).reshape(-1) + lhr * v
+    m_norm = prob.rows_total(As) if m_norm is None else m_norm
+    return lambda v: prob.row_sum(mv(As, ys, Z, v.reshape(pf, k), g,
+                                     m_norm))[0].reshape(-1) + lhr * v
 
 
 def _mo_lp_matvec(method, prob: Problem, As, ys, Z, g, lhr, pf, k):
@@ -695,7 +745,8 @@ def _mo_lp_matvec(method, prob: Problem, As, ys, Z, g, lhr, pf, k):
     same, and PyTorch multiplies no bfloat16 matrix by a wider one."""
     if not _lp_engaged(method, prob, As, Z.dtype):
         return None
-    return _mo_curv_matvec(method, prob.A_lp, ys, Z, g, lhr, pf, k)
+    return _mo_curv_matvec(method, prob, prob.A_lp, ys, Z, g, lhr, pf, k,
+                           prob.rows_total(As))
 
 
 def _mo_cg_from_cache(method, prob: Problem, As, ys, x, gr, Hr_diag, lam,
@@ -710,7 +761,7 @@ def _mo_cg_from_cache(method, prob: Problem, As, ys, x, gr, Hr_diag, lam,
     lhr = lam * Hr_diag
     b = -(cache.grad_vec + lam * gr)
     diag = torch.clamp_min(cache.hd_raw + lhr, torch.finfo(x.dtype).tiny)
-    mv = _mo_curv_matvec(method, As, ys, cache.Z, g, lhr, pf, k)
+    mv = _mo_curv_matvec(method, prob, As, ys, cache.Z, g, lhr, pf, k)
     xp = x if x_prev is None else x_prev
     tol, bnorm = _forcing_tol(method, b, x, xp, bnorm_prev, it,
                               endgame=True)
@@ -740,7 +791,7 @@ def _greedy_update_cached_mo(method, prob: Problem, reg_name, sm, As, ys,
         method, prob, reg_name, sm, x, d, step_size, lam, lgr, Hr_diag)
     x_trial = _trial_point(method, prob, reg_name, x, d, step_size, lam,
                            Hr_diag)
-    ct, cd = _moglm_pair_prep(As, ys, prob.mglm, x_trial, x_damped)
+    ct, cd = _moglm_pair_prep(As, ys, prob.mglm, x_trial, x_damped, prob)
     F_t = ct[3] + prob.reg(reg_name, x_trial)
     F_x = cache.loss + prob.reg(reg_name, x)
     accept = F_t < F_x
@@ -829,15 +880,19 @@ def _weighted_system(method, prob: Problem, As, x, w, lhr, hd_raw=None):
     the diagonal is (Σw/m)·diag(AᵀA) + λHr instead, O(m + n), where
     ``As`` holds all of A's rows (a subsample has other column sums):
     exact where w is uniform (least squares), the same CG operator and
-    fixed point otherwise."""
+    fixed point otherwise. On a row shard w is this rank's rows (already
+    normalized by the rows of all ranks), the matvec is K1s and the
+    diagonal's sums (given ``hd_raw`` is summed already) run over the
+    ranks."""
     tiny = torch.finfo(x.dtype).tiny
-    matvec = normal_matvec if method.kernels == "cuda" else normal_matvec_torch
+    matvec = _glm_matvec(method, prob)
     if (method.static_precond and prob.col_sumsq is not None
-            and As.shape[0] == prob.A.shape[0]):
-        hdiag = (torch.sum(w) / As.shape[0]) * prob.col_sumsq + lhr
+            and prob.rows_total(As) == prob.m_total):
+        wsum, = prob.row_sum(torch.sum(w))
+        hdiag = (wsum / prob.m_total) * prob.col_sumsq + lhr
     else:
         if hd_raw is None:
-            hd_raw = sq_atmul(As, w)
+            hd_raw, = prob.row_sum(sq_atmul(As, w))
         hdiag = hd_raw + lhr
     return (lambda v: matvec(As, w, v) + lhr * v,
             lambda v: v / torch.clamp_min(hdiag, tiny))
@@ -851,10 +906,13 @@ def _mo_glm_system(method, prob: Problem, As, ys, x, lhr):
     diagonal Σᵢ qdiag_wᵢ·Aᵢⱼ² + λHr."""
     g = prob.mglm
     k, pf = _mo_shapes(g, x)
+    fix = prob.row_form(As, g.sample_normalized)
     Z = amul(As, x.reshape(pf, k))
-    grad_vec = atmul(As, g.gres(ys, Z)).reshape(-1)
-    mv = _mo_curv_matvec(method, As, ys, Z, g, lhr, pf, k)
-    hdiag = sq_atmul(As, g.qdiag_w(ys, Z)).reshape(-1) + lhr
+    grad_vec, hd = prob.row_sum(
+        atmul(As, fix(g.gres(ys, Z))).reshape(-1),
+        sq_atmul(As, fix(g.qdiag_w(ys, Z))).reshape(-1))
+    mv = _mo_curv_matvec(method, prob, As, ys, Z, g, lhr, pf, k)
+    hdiag = hd + lhr
     tiny = torch.finfo(x.dtype).tiny
     return Z, grad_vec, mv, lambda v: v / torch.clamp_min(hdiag, tiny)
 
@@ -866,8 +924,8 @@ def _glm_cg_system(method, prob: Problem, As, ys, x, lhr, weight_fn,
     `_weighted_system` (K1 under 'cuda'), else the operator
     hvp_fallback(v) + λHr∘v with the Jacobi diagonal λHr."""
     if weight_fn is not None and prob.has_data and As.ndim == 2:
-        return _weighted_system(method, prob, As, x, weight_fn(As, ys, x),
-                                lhr)
+        return _weighted_system(method, prob, As, x, prob.row_form(As)(
+            weight_fn(As, ys, x)), lhr)
     tiny = torch.finfo(x.dtype).tiny
     return (lambda v: hvp_fallback(v) + lhr * v,
             lambda v: v / torch.clamp_min(lhr, tiny))
@@ -929,9 +987,11 @@ def newton_step(method: ProxNSCORE, prob: Problem, reg_name: str, sm,
         gq = grad_vec + lgr
     elif solver == "cg" and prob.glm is not None and data_2d:
         z_cache = amul(As, x)
-        gq = atmul(As, prob.glm.gres(ys, z_cache)) + lgr
+        fix = prob.row_form(As, prob.glm.sample_normalized)
+        gq = prob.row_sum(atmul(As, fix(prob.glm.gres(ys, z_cache))))[0]
+        gq = gq + lgr
         mv, M_inv = _weighted_system(method, prob, As, x,
-                                     prob.glm.hvp_w(ys, z_cache), lhr)
+                                     fix(prob.glm.hvp_w(ys, z_cache)), lhr)
     else:
         gq = prob.grad_f(As, ys, x) + lgr
         if solver == "cg":
@@ -979,18 +1039,45 @@ def _ggn_dense_direction(solver, prob: Problem, As, ys, x, gr, Hr_diag,
              d = H⁻¹ Jt (I + Q̃ JtᵀH⁻¹Jt)⁻¹ r̃, H = diag(Hr) — with no λ,
              the reference's quirk, which the JAX package reproduces;
       primal (else): d = (Jt Q̃ Jtᵀ + λ·diag(Hr))⁻¹ Jt r̃.
-    Returns −d."""
+    On a row shard (residual and Q this rank's share, `Problem.row_form`;
+    Q block-diagonal over the rows, as a loss that is a mean over rows
+    gives it) the primal system Jt Q̃ Jtᵀ and its right-hand side are
+    summed over the ranks (r̃'s 1 counted on rank 0 only), and the dual
+    one, which couples every row with every other, is built from every
+    rank's rows of J, the residual and Q (`gather_rows`); q is the rows
+    of all ranks times the outputs a row. Returns −d."""
     n = x.shape[-1]
     _, J, residual, Q = prob.ggn_pieces(As, ys, x)
     J2 = J.reshape(-1, n)
     q = J2.shape[0]
     dt, dev = x.dtype, x.device
+    residual = residual.reshape(-1)
+    Q = torch.as_tensor(Q).reshape(q, q)
+    q_all = q
+    one = 1.0
+    mesh = prob.mesh
+    if mesh is not None:
+        rows = As.shape[0]
+        fix = prob.row_form(As)
+        residual = fix(residual.reshape(rows, -1)).reshape(-1)
+        Q = fix(Q.reshape(rows, -1)).reshape(q, q)
+        q_all = prob.rows_total(As) * (q // max(rows, 1))
+        one = 1.0 if mesh.rank == 0 else 0.0
+    use_dual = ((q_all + 1 <= n) if solver == "auto"
+                else solver == "dense_dual")
+    if mesh is not None and use_dual:
+        from scso_tpu_torch.parallel.sharding import gather_rows
+
+        block = Q.new_zeros((q, mesh.size * q))
+        block[:, mesh.rank * q:(mesh.rank + 1) * q] = Q
+        J2, residual, Q = (gather_rows(mesh, J2),
+                           gather_rows(mesh, residual),
+                           gather_rows(mesh, block))
+        q, one = J2.shape[0], 1.0
     Jt = torch.cat([J2.T, (lam * gr)[:, None]], dim=1)
-    rt = torch.cat([residual.reshape(-1), torch.ones(1, dtype=dt,
-                                                     device=dev)])
+    rt = torch.cat([residual, torch.full((1,), one, dtype=dt, device=dev)])
     Qp = torch.zeros((q + 1, q + 1), dtype=dt, device=dev)
-    Qp[:q, :q] = torch.as_tensor(Q).reshape(q, q)
-    use_dual = (q + 1 <= n) if solver == "auto" else solver == "dense_dual"
+    Qp[:q, :q] = Q
     if use_dual:
         hinv = 1.0 / Hr_diag
         Amat = Qp @ (Jt.T @ (Jt * hinv[:, None]))
@@ -998,8 +1085,9 @@ def _ggn_dense_direction(solver, prob: Problem, As, ys, x, gr, Hr_diag,
             torch.eye(q + 1, dtype=dt, device=dev) + Amat, rt)[0]
         d = hinv * (Jt @ B)
     else:
-        M = (Jt @ Qp) @ Jt.T + lam * torch.diag(Hr_diag)
-        d = torch.linalg.solve_ex(M, Jt @ rt)[0]
+        M, rhs = prob.row_sum((Jt @ Qp) @ Jt.T, Jt @ rt)
+        M = M + lam * torch.diag(Hr_diag)
+        d = torch.linalg.solve_ex(M, rhs)[0]
     return -d
 
 
@@ -1071,11 +1159,15 @@ def _ggn_cg_direction(method, prob: Problem, As, ys, x, gr, Hr_diag, lam,
         stride = _curvature_stride(method, prob, As, x)
         fused = method.kernels == "cuda" and method.use_fused_prep is not False
         if fused:
-            w, b_raw, hd_raw = glm_prep(As, ys, x, prob.glm)
+            w, b_raw, hd_raw = glm_prep(As, ys, x, prob.glm,
+                                        prob.rows_total(As))
+            b_raw, hd_raw = prob.row_sum(b_raw, hd_raw)
         else:
             z_cache = amul(As, x)
-            rw, w = ggn_weights(prob.glm, ys, z_cache)
-            b_raw, hd_raw = atmul(As, rw), None
+            fix = prob.row_form(As, prob.glm.sample_normalized)
+            rw, w = (fix(v) for v in ggn_weights(prob.glm, ys, z_cache))
+            b_raw, = prob.row_sum(atmul(As, rw))
+            hd_raw = None
         b = -(b_raw + lam * gr)
         if stride:
             As_c = As[::stride].contiguous()
@@ -1090,10 +1182,13 @@ def _ggn_cg_direction(method, prob: Problem, As, ys, x, gr, Hr_diag, lam,
             mv_lp = _lp_matvec(method, prob, As, w, lhr)
     else:
         _, residual, q_diag = prob.ggn_residual_qdiag(As, ys, x)
+        fix = prob.row_form(As)
+        residual, q_diag = fix(residual), fix(q_diag)
         # a fresh vjp a product: autograd runs a backward on the stream
         # of its forward, so a CG iteration captured into a conditional
-        # body must make its own forward there
-        jt = lambda u: prob.vjp_out(As, x)[1](u)
+        # body must make its own forward there; on a row shard Jᵀu is
+        # summed over the ranks (J·v stays per-row)
+        jt = lambda u: prob.row_sum(prob.vjp_out(As, x)[1](u))[0]
         b = -(jt(residual) + lam * gr)
         mv, M_inv = _glm_cg_system(
             method, prob, As, ys, x, lhr, prob.ggn_w,

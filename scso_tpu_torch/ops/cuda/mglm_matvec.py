@@ -169,21 +169,33 @@ def covers(spec) -> bool:
     return spec.kind in KERNEL_KINDS and spec.sample_normalized
 
 
-def mglm_matvec_torch(A, y, Z, V, spec):
+def _norm_fix(spec, m, m_norm):
+    """A sample-normalized spec's 1/m (the rows handed over) rescaled to
+    1/m_norm: the JAX kernel's ``m_total`` (a row shard's rows of all
+    ranks, `Problem.m_total`). The identity where m_norm is m."""
+    if m_norm is None or int(m_norm) == m or not spec.sample_normalized:
+        return lambda out: out
+    return lambda out: out * (m / int(m_norm))
+
+
+def mglm_matvec_torch(A, y, Z, V, spec, m_norm=None):
     """Plain PyTorch Aᵀ·quad(y, Z, A·V): two matrix products, A read
-    twice. A bfloat16 A is first upcast to V's dtype (exact): an A-sized
-    temporary."""
+    twice, normalized by ``m_norm`` rows (default A's). A bfloat16 A is
+    first upcast to V's dtype (exact): an A-sized temporary."""
+    fix = _norm_fix(spec, A.shape[0], m_norm)
     A = widen(A, V.dtype)
-    return A.T @ spec.quad(y, Z, A @ V)
+    return fix(A.T @ spec.quad(y, Z, A @ V))
 
 
-def mglm_matvec(A, y, Z, V, spec):
+def mglm_matvec(A, y, Z, V, spec, m_norm=None):
     """Aᵀ·quad(y, Z, A·V) as (p, k) — the CUDA kernel for CUDA tensors,
     in the form :func:`mglm_grid` picks, the plain version for CPU
     tensors. A is in V's dtype (float32 or float64) or in bfloat16; the
-    result is in V's."""
+    result is in V's. The kernel divides the spec's curvature by the m
+    rows it reads; ``m_norm`` (a row shard's rows of all ranks) rescales
+    its (p, k) result by m/m_norm, as the plain version does."""
     if launch.on_cpu(A, "mglm_matvec"):
-        return mglm_matvec_torch(A, y, Z, V, spec)
+        return mglm_matvec_torch(A, y, Z, V, spec, m_norm)
     m, p = A.shape
     launch.check_operands("mglm_matvec", V.dtype, A.device, narrow=("A",),
                           A=A, y=y, Z=Z, V=V)
@@ -197,7 +209,7 @@ def mglm_matvec(A, y, Z, V, spec):
                          "there are no classes")
     grid = mglm_grid(m, p, k, V.dtype, launch.sm_count(A.device.index or 0),
                      covers(spec), A.dtype)
-    return _launch(A, y, Z, V, spec, grid)
+    return _norm_fix(spec, m, m_norm)(_launch(A, y, Z, V, spec, grid))
 
 
 def _launch(A, y, Z, V, spec, grid):

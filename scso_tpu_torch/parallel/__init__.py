@@ -1,8 +1,9 @@
 """Scale-out: row sharding over ``torch.distributed``, sharded IO, and
 instance-parallel solves.
 
-Port of `scso_tpu.parallel`: the row-sharded cached GGN-CG path
-(`sharding`, `dataio`), λ/μ regularization paths and problem fleets as
+Port of `scso_tpu.parallel`: row sharding, on which every method of a
+single solve runs (`sharding`, `dataio`), λ/μ regularization paths and
+problem fleets as
 one batched solve (`sweep`), and federated rounds over a fleet of
 clients (`federated`). Feature sharding, `replicate` and meshes of more
 than one axis are not ported (ROADMAP A11)."""

@@ -7,8 +7,8 @@ own row range (`load_problem_rows_sharded`), chunk by chunk, with
 ``np.fromfile`` at an offset, and moves each chunk to the problem's
 device before reading the next: host RSS stays at one chunk, whatever
 the size of A. The files are the JAX package's format, so either
-package reads what the other wrote. The test split (``Atest``/
-``ytest``) is not ported (ROADMAP A7).
+package reads what the other wrote, a test split (``Atest.npy``,
+``ytest.npy``, ``"has_test": true``) included.
 """
 
 from __future__ import annotations
@@ -107,17 +107,25 @@ def load_rows_sharded(path: str, mesh: Mesh, data_axis: str = "data", *,
     return out
 
 
-def save_problem_data(dirpath: str, A, y, *,
-                      chunk_rows: int = 1 << 16) -> None:
+def save_problem_data(dirpath: str, A, y, *, chunk_rows: int = 1 << 16,
+                      Atest=None, ytest=None) -> None:
     """Persist a data problem's arrays for sharded loading: ``A.npy``,
-    ``y.npy`` and a manifest. A and y are numpy arrays, memmaps or CPU
-    tensors."""
-    A, y = (a.numpy() if isinstance(a, torch.Tensor) else a for a in (A, y))
+    ``y.npy``, with ``Atest``/``ytest`` also ``Atest.npy`` and
+    ``ytest.npy``, and a manifest (``has_test``). The arrays are numpy
+    arrays, memmaps or CPU tensors."""
+    A, y, Atest, ytest = (a.numpy() if isinstance(a, torch.Tensor) else a
+                          for a in (A, y, Atest, ytest))
     os.makedirs(dirpath, exist_ok=True)
     save_array(os.path.join(dirpath, "A.npy"), A, chunk_rows=chunk_rows)
     save_array(os.path.join(dirpath, "y.npy"), y, chunk_rows=chunk_rows)
     manifest = dict(m=int(A.shape[0]), n=int(A.shape[-1]),
-                    dtype=str(np.dtype(A.dtype)), has_test=False)
+                    dtype=str(np.dtype(A.dtype)),
+                    has_test=Atest is not None)
+    if Atest is not None:
+        save_array(os.path.join(dirpath, "Atest.npy"), Atest,
+                   chunk_rows=chunk_rows)
+        save_array(os.path.join(dirpath, "ytest.npy"), ytest,
+                   chunk_rows=chunk_rows)
     with open(os.path.join(dirpath, "manifest.json"), "w") as fh:
         json.dump(manifest, fh)
 
@@ -129,12 +137,15 @@ def load_problem_rows_sharded(dirpath: str, x0, f, lam, mesh: Mesh,
     """A row-sharded :class:`Problem` straight from a
     :func:`save_problem_data` directory: the out-of-host-RAM equivalent
     of ``shard_problem(make_problem(A, y, ...), mesh)``. This rank's
-    rows of A and y go from disk to ``device`` (default: the card)
-    chunk by chunk; ``x0`` and everything else are built by every rank
-    from the same arguments (``problem_kw`` goes to `make_problem`:
-    ``glm``, ``grad_fx``, ``sol``, ``pad_features``, ...). The problem
-    records ``mesh``, ``data_axis`` and the file's row count as
-    ``m_total``."""
+    rows of A and y — and of the test split, where the manifest has one
+    (``has_test``) and ``problem_kw`` does not name ``Atest``, which is
+    then this rank's rows of a test set as well — go from disk to
+    ``device`` (default: the card) chunk by chunk; ``x0`` and
+    everything else are built by every rank from the same arguments
+    (``problem_kw`` goes to `make_problem`: ``glm``, ``grad_fx``,
+    ``sol``, ``pad_features``, ...). The problem records ``mesh``,
+    ``data_axis`` and the files' row counts as ``m_total`` and
+    ``mtest_total``."""
     with open(os.path.join(dirpath, "manifest.json")) as fh:
         manifest = json.load(fh)
     if dtype is None:
@@ -143,7 +154,12 @@ def load_problem_rows_sharded(dirpath: str, x0, f, lam, mesh: Mesh,
     load = lambda name: load_rows_sharded(
         os.path.join(dirpath, name), mesh, data_axis, dtype=dtype,
         device=device, chunk_bytes=chunk_bytes)
+    kw = dict(problem_kw)
+    if manifest.get("has_test") and "Atest" not in kw:
+        kw["Atest"], kw["ytest"] = load("Atest.npy"), load("ytest.npy")
     prob = make_problem(load("A.npy"), load("y.npy"), x0, f, lam,
-                        dtype=dtype, device=device, **problem_kw)
+                        dtype=dtype, device=device, **kw)
+    mtest = (int(prob.Atest.shape[0]) * mesh.shape[data_axis]
+             if prob.has_test else None)
     return dc_replace(prob, mesh=mesh, data_axis=data_axis,
-                      m_total=int(manifest["m"]))
+                      m_total=int(manifest["m"]), mtest_total=mtest)

@@ -20,9 +20,22 @@ NCCL refuses), and then a solve on the card cannot be captured (gloo
 reduces CUDA tensors through the host).
 
 Only ``all_reduce`` and ``broadcast`` are used: the two collectives gloo
-also runs on CUDA tensors. The cached GGN-CG path is ported; feature
-sharding, `replicate`, and everything else off that path raise
+also runs on CUDA tensors (a gather, where a dense dual system needs
+every rank's rows, is an ``all_reduce`` of a zero buffer holding each
+rank's block). Every single-instance method runs on a row shard: the
+GGN-CG paths (cached, uncached and the generic branch), Newton (CG and
+dense), L-BFGS, multinomial, f(x) off the cache, a test set and
+mini-batches; `Problem` gives the f-contract this rests on. Feature
+sharding, `replicate` and meshes of more than one axis raise
 ``NotImplementedError`` naming ROADMAP A11.
+
+A captured (``mode='fused'``) solve over more than one NCCL rank puts
+the collectives inside the CUDA graph's conditional nodes, which NCCL
+allows only with ``NCCL_GRAPH_MIXING_SUPPORT=0`` in the environment
+when the communicator is made: `distributed_init` (or `make_mesh`, for a
+group made elsewhere) records whether it was (``Mesh.captures``), and
+the solve reads that record, not the environment, which no longer acts
+once the communicator exists.
 """
 
 from __future__ import annotations
@@ -50,10 +63,23 @@ class Mesh:
     axis_names: tuple
     size: int
     rank: int
+    #: NCCL_GRAPH_MIXING_SUPPORT=0 was set when the group's communicator
+    #: was made: its collectives may sit inside a captured graph's
+    #: conditional nodes (a fused solve over several NCCL ranks)
+    captures: bool = False
 
     @property
     def shape(self) -> dict:
         return {self.axis_names[0]: self.size}
+
+
+#: whether each group made by `distributed_init` was made under
+#: NCCL_GRAPH_MIXING_SUPPORT=0 (the WORLD group under the key None)
+_MIXING_OFF: dict = {}
+
+
+def _mixing_off() -> bool:
+    return os.environ.get("NCCL_GRAPH_MIXING_SUPPORT") == "0"
 
 
 def distributed_init(backend: Optional[str] = None,
@@ -94,8 +120,12 @@ def distributed_init(backend: Optional[str] = None,
             if dev.index is None:
                 dev = torch.device("cuda", torch.cuda.current_device())
             torch.cuda.set_device(dev)
+            # NCCL reads the variable as it makes the communicator (made
+            # eagerly here, with device_id): record it now
+            _MIXING_OFF[None] = _mixing_off()
             dist.init_process_group("nccl", device_id=dev, **kw)
         else:
+            _MIXING_OFF.pop(None, None)
             dist.init_process_group(backend, **kw)
     except (RuntimeError, ValueError) as e:
         warnings.warn(
@@ -114,7 +144,9 @@ def make_mesh(shape=None, axis_names: Sequence[str] = ("data",),
     ``shape`` defaults to ``(size,)`` and must equal it: a rank outside
     the mesh would miss its collectives. Meshes of more than one axis
     (the JAX package's ('batch', 'data') fleets) are not ported (ROADMAP
-    A11)."""
+    A11). ``captures`` records whether the group's NCCL communicator was
+    made under NCCL_GRAPH_MIXING_SUPPORT=0: as `distributed_init` saw it
+    for the group it made, else the environment now."""
     if not dist.is_initialized():
         raise RuntimeError(
             "make_mesh needs a process group: call distributed_init() "
@@ -129,8 +161,10 @@ def make_mesh(shape=None, axis_names: Sequence[str] = ("data",),
     if shape[0] != size:
         raise ValueError(f"mesh shape {shape} needs {shape[0]} ranks; the "
                          f"group has {size}")
+    made_here = group is dist.group.WORLD and None in _MIXING_OFF
+    captures = _MIXING_OFF[None] if made_here else _mixing_off()
     return Mesh(group=group, axis_names=tuple(axis_names), size=size,
-                rank=dist.get_rank(group))
+                rank=dist.get_rank(group), captures=captures)
 
 
 def all_reduce_sum(mesh: Mesh, *tensors):
@@ -146,6 +180,18 @@ def all_reduce_sum(mesh: Mesh, *tensors):
     return out
 
 
+def gather_rows(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``t`` (the same shape on each), stacked in rank
+    order along the first axis, on every rank: ONE ``all_reduce`` of a
+    zero buffer that holds this rank's block at its offset (exact: the
+    other blocks add zeros)."""
+    r = t.shape[0]
+    buf = t.new_zeros((mesh.size * r,) + tuple(t.shape[1:]))
+    buf[mesh.rank * r:(mesh.rank + 1) * r] = t
+    dist.all_reduce(buf, group=mesh.group)
+    return buf
+
+
 def replicate(tree, mesh: Mesh):
     """Not needed by the port: every rank builds its replicated state
     (x0, λ, bounds, x*) from the same numpy arrays."""
@@ -156,16 +202,21 @@ def replicate(tree, mesh: Mesh):
 
 def shard_problem(prob: Problem, mesh: Mesh,
                   data_axis: str = "data") -> Problem:
-    """Keep this rank's rows ``[r·m/S, (r+1)·m/S)`` of A and y, and of
-    the low-precision copy ``A_lp`` when the problem has one.
+    """Keep this rank's rows ``[r·m/S, (r+1)·m/S)`` of A and y, of the
+    low-precision copy ``A_lp`` when the problem has one, and of the
+    test set ``Atest``/``ytest``.
 
-    Everything else (x0, λ, bounds, x*) stays as it is, replicated. The
-    problem records ``mesh``, ``data_axis`` and ``m_total = m``, the
-    normalization count of its 1/m losses. m must divide the axis size:
-    zero-row padding would silently change 1/m-normalized losses, so it
-    raises rather than guess — pad explicitly with :func:`pad_rows`.
-    One rank keeps A itself (no copy); more ranks copy their rows, so
-    the caller's full A can be freed."""
+    Everything else (x0, λ, bounds, x*, ``col_sumsq``) stays as it is,
+    replicated. The problem records ``mesh``, ``data_axis``, ``m_total
+    = m`` and ``mtest_total``, the normalization counts of its 1/m
+    losses; each function of the rows is then this rank's share, summed
+    over the ranks, under the contract that f and its hooks are MEANS
+    over the rows they are handed (`Problem`). m (and the test set's
+    row count) must divide the axis size: zero-row padding would
+    silently change 1/m-normalized losses, so it raises rather than
+    guess — pad explicitly with :func:`pad_rows`. One rank keeps A
+    itself (no copy); more ranks copy their rows, so the caller's full
+    A can be freed."""
     if prob.A is None or prob.y is None:
         raise ValueError("shard_problem requires a data problem (A, y)")
     if prob.mesh is not None:
@@ -175,18 +226,29 @@ def shard_problem(prob: Problem, mesh: Mesh,
                          f"{mesh.axis_names}")
     size = mesh.shape[data_axis]
     m = prob.A.shape[0]
-    if m % size != 0:
-        raise ValueError(
-            f"m={m} not divisible by {data_axis!r}={size}: zero-row "
-            "padding changes 1/m-normalized losses; pad the data (and its "
-            "normalization) explicitly with scso_tpu_torch.parallel.pad_rows")
-    lo, hi = mesh.rank * m // size, (mesh.rank + 1) * m // size
-    rows = (lambda a: a) if size == 1 else (lambda a: a[lo:hi].clone())
+    mt = prob.Atest.shape[0] if prob.has_test else 0
+    for what, rows in (("m", m), ("the test set's m", mt)):
+        if rows % size != 0:
+            raise ValueError(
+                f"{what}={rows} not divisible by {data_axis!r}={size}: "
+                "zero-row padding changes 1/m-normalized losses; pad the "
+                "data (and its normalization) explicitly with "
+                "scso_tpu_torch.parallel.pad_rows")
+
+    def rows(a):
+        if a is None or size == 1:
+            return a
+        lo, hi = mesh.rank * a.shape[0] // size, (
+            mesh.rank + 1) * a.shape[0] // size
+        return a[lo:hi].clone()
+
     # precision-adaptive CG composes with row sharding: each rank's CG
     # matvecs read its rows of the copy (K1s with A in bfloat16)
-    A_lp = None if prob.A_lp is None else rows(prob.A_lp)
-    return dc_replace(prob, A=rows(prob.A), y=rows(prob.y), A_lp=A_lp,
-                      mesh=mesh, data_axis=data_axis, m_total=m)
+    return dc_replace(prob, A=rows(prob.A), y=rows(prob.y),
+                      A_lp=rows(prob.A_lp), Atest=rows(prob.Atest),
+                      ytest=rows(prob.ytest), mesh=mesh,
+                      data_axis=data_axis, m_total=m,
+                      mtest_total=mt if prob.has_test else None)
 
 
 def shard_problem_features(prob: Problem, mesh: Mesh,

@@ -179,6 +179,10 @@ def _gather(mesh, res: SweepResult) -> SweepResult:
     B = res.x.shape[0]
     flat = torch.cat([p.reshape(B, -1).to(torch.float64) for p in parts],
                      dim=1)
+    if flat.device.type == "cuda":
+        # the batched solve's graph has ended before an eager collective
+        # (NCCL_GRAPH_MIXING_SUPPORT=0 leaves the two unordered otherwise)
+        torch.cuda.synchronize(flat.device)
     via_host = (flat.device.type == "cuda"
                 and dist.get_backend(mesh.group) == "gloo")
     send = flat.cpu() if via_host else flat.contiguous()

@@ -89,6 +89,20 @@ class MOGLMSpec:
     kind: Optional[str] = None
 
 
+class RowSet(NamedTuple):
+    """A mini-batch's rows on a row shard: this rank's rows of the batch
+    (``A``, ``y``), zero-padded at the end to a count fixed for the
+    solve, ``total`` the batch's rows over all ranks, ``pad`` the
+    number of pad rows (a 0-d int64 tensor) and ``mask`` 1 for a row of
+    the batch and 0 for a pad, in the problem's dtype."""
+
+    A: torch.Tensor
+    y: torch.Tensor
+    total: int
+    pad: torch.Tensor
+    mask: torch.Tensor
+
+
 @frozen_dataclass
 class Problem:
     """Composite convex problem over a data matrix: f(A, y, x) + λ·g(x).
@@ -98,10 +112,23 @@ class Problem:
     ``make_problem(pad_features=True)``: the unpadded feature count.
 
     ``mesh`` and ``data_axis`` are set by `parallel.shard_problem` (and
-    `parallel.load_problem_rows_sharded`): A and y then hold this rank's
-    rows only, and ``m_total`` is the row count of all ranks together —
-    the m of every 1/m loss normalization. Unsharded, ``m_total`` is
-    A's row count.
+    `parallel.load_problem_rows_sharded`): A and y (and Atest, ytest)
+    then hold this rank's rows only, and ``m_total`` (``mtest_total``)
+    is the row count of all ranks together — the m of every 1/m loss
+    normalization. Unsharded, ``m_total`` is A's row count.
+
+    On a row shard each function of the rows is this rank's share,
+    summed over the ranks (one ``all_reduce``). The port cannot see
+    inside ``f`` and its hooks, so it relies on the contract every loss
+    of both packages meets: f(A, y, x) is a MEAN over the rows of the A
+    it is handed (`scso_tpu.models.losses`), and so are ∇f, ∇²f and the
+    per-row hooks (``hvp_w``, ``ggn_w``, ``grad_fy``, ``hess_fy``,
+    ``hess_fy_diag``: each divides by the rows it sees). This rank's
+    share of f is then f(A_r, y_r, x)·(m_r/m_total), and a per-row form
+    is rescaled by the same factor (:meth:`row_form`). A mini-batch on a
+    shard (``rows``, set by the solve loop: `RowSet`) is padded with
+    zero rows; each pad row's share, f at one zero row, is taken back
+    out (:meth:`share`).
 
     ``A_lp`` is an optional low-precision copy of A (bfloat16, built by
     `algorithms.mixed.with_lp_copy` or by AUTO, `ProxGGNSCORE.auto_lp`)
@@ -154,10 +181,16 @@ class Problem:
     #: (``static_precond=True``; :func:`with_col_sumsq`)
     col_sumsq: Optional[torch.Tensor] = None
     name: Optional[str] = None
+    mtest_total: Optional[int] = None
+    #: the mini-batch a step of a row-sharded solve reads (`RowSet`)
+    rows: Optional[RowSet] = None
 
     def __post_init__(self):
         if self.m_total is None and self.A is not None:
             object.__setattr__(self, "m_total", int(self.A.shape[0]))
+        if self.mtest_total is None and self.Atest is not None:
+            object.__setattr__(self, "mtest_total",
+                               int(self.Atest.shape[0]))
 
     @property
     def has_data(self) -> bool:
@@ -168,33 +201,117 @@ class Problem:
     def has_test(self) -> bool:
         return self.Atest is not None and self.ytest is not None
 
+    # -- rows on a row shard -------------------------------------------
+
+    def _rowset(self, As):
+        """(rows over all ranks, the `RowSet` or None) of the rows
+        ``As``: A itself (or its copy A_lp), the test set, or the
+        mini-batch in ``rows``."""
+        if As is self.A or (self.A_lp is not None and As is self.A_lp):
+            return self.m_total, None
+        if self.rows is not None and As is self.rows.A:
+            return self.rows.total, self.rows
+        if self.Atest is not None and As is self.Atest:
+            return self.mtest_total, None
+        raise ValueError(
+            "rows of a row-sharded problem that are neither A, its test "
+            "set nor the solve loop's mini-batch (Problem.rows)")
+
+    def rows_total(self, As) -> int:
+        """The rows that ``As`` stands for: over all ranks on a row
+        shard, else its own."""
+        if self.mesh is None:
+            return self.m_total if As is self.A else int(As.shape[0])
+        return self._rowset(As)[0]
+
+    def row_sum(self, *tensors):
+        """Each tensor summed over the ranks of a row shard, in ONE
+        collective (`parallel.all_reduce_sum`); as they are unsharded."""
+        if self.mesh is None:
+            return tensors
+        from scso_tpu_torch.parallel.sharding import all_reduce_sum
+
+        return tuple(all_reduce_sum(self.mesh, *tensors))
+
+    def row_form(self, As, normalized: bool = True):
+        """v ↦ this rank's share of a per-row form v on the rows ``As``
+        (a residual, weight or Hessian row; rows first): v·(m_r/m_total)
+        where the form divides by the rows it sees (``normalized``, as
+        every hook and a sample-normalized spec's forms do), with a
+        mini-batch's pad rows set to 0. The identity unsharded, and
+        where the shard is the whole batch."""
+        if self.mesh is None:
+            return lambda v: v
+        total, rs = self._rowset(As)
+        scale = As.shape[0] / total if normalized else 1.0
+        if rs is None:
+            return (lambda v: v) if scale == 1.0 else (lambda v: v * scale)
+
+        def form(v):
+            v = v if scale == 1.0 else v * scale
+            return v * rs.mask.reshape((-1,) + (1,) * (v.ndim - 1))
+
+        return form
+
+    def share(self, As, ys, fn):
+        """This rank's share of a row mean ``fn(As, ys)`` over all ranks'
+        rows (before the sum over ranks): fn·(m_r/m_total), less a
+        mini-batch's pad rows, each fn at one zero row. ``fn`` may return
+        a 0-d tensor, a gradient or a Hessian."""
+        total, rs = self._rowset(As)
+        scale = As.shape[0] / total
+        out = fn(As, ys)
+        out = out if scale == 1.0 else out * scale
+        if rs is None:
+            return out
+        zero = fn(As.new_zeros((1,) + tuple(As.shape[1:])),
+                  ys.new_zeros((1,) + tuple(ys.shape[1:])))
+        return out - torch.where(rs.pad > 0,
+                                 zero * (rs.pad.to(zero.dtype) / total),
+                                 torch.zeros_like(zero))
+
+    def _local(self, As, ys, x, hook, autograd):
+        """The user's ``hook`` (of (A, y, x), or of x without data) at x,
+        else ``autograd(x)``: on a row shard this rank's share (summed
+        by the caller), else the whole value."""
+        if hook is None:
+            return autograd(x)
+        if not self.has_data:
+            return hook(x)
+        if self.mesh is None:
+            return hook(As, ys, x)
+        return self.share(As, ys, lambda a, b: hook(a, b, x))
+
+    def _f_share(self, As, ys, x):
+        return self._local(As, ys, x, self.f, None)
+
+    def _grad_share(self, As, ys, x):
+        return self._local(As, ys, x, self.grad_fx, torch.func.grad(
+            lambda v: self._f_share(As, ys, v)))
+
     def f_val(self, As, ys, x):
-        """f at x on the given batch (f(x) without data)."""
-        if self.has_data:
-            return self.f(As, ys, x)
-        return self.f(x)
+        """f at x on the given batch (f(x) without data); on a row shard
+        summed over the ranks."""
+        return self.row_sum(self._f_share(As, ys, x))[0]
 
     def grad_f(self, As, ys, x):
         """∇f — the user's ``grad_fx``, else ``torch.func.grad`` through
-        ``f``."""
-        if self.grad_fx is not None:
-            return (self.grad_fx(As, ys, x) if self.has_data
-                    else self.grad_fx(x))
-        return torch.func.grad(lambda v: self.f_val(As, ys, v))(x)
+        ``f``; on a row shard summed over the ranks."""
+        return self.row_sum(self._grad_share(As, ys, x))[0]
 
     def hess_f(self, As, ys, x):
         """∇²f — the user's ``hess_fx``, else ``torch.func.hessian``
-        through ``f``."""
-        if self.hess_fx is not None:
-            return (self.hess_fx(As, ys, x) if self.has_data
-                    else self.hess_fx(x))
-        return torch.func.hessian(lambda v: self.f_val(As, ys, v))(x)
+        through ``f``; on a row shard summed over the ranks (each rank
+        then factors the same matrix)."""
+        return self.row_sum(self._local(
+            As, ys, x, self.hess_fx, torch.func.hessian(
+                lambda v: self._f_share(As, ys, v))))[0]
 
     def hvp_f(self, As, ys, x, v):
         """∇²f(x)·v without forming ∇²f: forward-over-reverse, the jvp
-        of ∇f."""
-        return torch.func.jvp(lambda u: self.grad_f(As, ys, u), (x,),
-                              (v,))[1]
+        of ∇f (on a row shard of this rank's share, then summed)."""
+        return self.row_sum(torch.func.jvp(
+            lambda u: self._grad_share(As, ys, u), (x,), (v,))[1])[0]
 
     def out(self, As, x):
         if self.out_fn is None:
@@ -335,14 +452,16 @@ def with_col_sumsq(prob: Problem) -> Problem:
     """``prob`` with diag(AᵀA) attached (one pass over A, made once) for
     the static Jacobi preconditioner (``static_precond=True``): the
     per-epoch diagonal Σᵢ wᵢAᵢⱼ² is then (Σw/m)·diag(AᵀA), O(m + n) an
-    epoch in place of a pass over A."""
+    epoch in place of a pass over A. On a row shard the column sums are
+    summed over the ranks (one ``all_reduce``)."""
     if not prob.has_data:
         raise ValueError("with_col_sumsq requires a data problem")
     from scso_tpu_torch._src.struct import replace as dc_replace
     from scso_tpu_torch.ops.dense import widen
 
     A = widen(prob.A, prob.dtype)
-    return dc_replace(prob, col_sumsq=torch.einsum("ij,ij->j", A, A))
+    return dc_replace(prob, col_sumsq=prob.row_sum(
+        torch.einsum("ij,ij->j", A, A))[0])
 
 
 class ProblemLike:

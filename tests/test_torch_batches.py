@@ -19,8 +19,8 @@ the reference's per-batch stop test.
     ones within a few epochs;
   * ``slice_samples`` (one row a batch; ``batch_size`` first), the
     ``verbose > 2`` batch ticks of timed mode as the JAX package prints
-    them, AUTO's bfloat16 copy refused under batching, and a batched
-    solve on a row shard raising (ROADMAP A11).
+    them, AUTO's bfloat16 copy refused under batching, and a rank's
+    padded rows of each batch on a row shard.
 """
 
 import re
@@ -219,8 +219,29 @@ def test_auto_lp_refused_under_batches():
 
 
 def test_batches_on_a_row_shard_raise():
+    """Mini-batches on a row shard run now: the check passes on a
+    one-axis row mesh (their parity on 2 and 4 ranks:
+    tests/test_torch_sharded_methods.py), and each rank's rows of a
+    batch, padded, are gathered in the permutation's order."""
+    from scso_tpu_torch.parallel.sharding import Mesh
+
     _, pt = _problems(64, 16)
-    sharded = replace(pt, mesh=object())
-    with pytest.raises(NotImplementedError, match="A11"):
-        titerate._check_sharded(st.ProxGGNSCORE(solver="cg"), sharded, "l1",
-                                titerate.Options(batch_size=16))
+    mesh = Mesh(group=object(), axis_names=("data",), size=4, rank=1)
+    titerate._check_sharded(st.ProxGGNSCORE(solver="cg"),
+                            replace(pt, mesh=mesh), "l1",
+                            titerate.Options(batch_size=16))
+    rows = slice(16, 32)  # rank 1 of 4
+    sp = replace(pt, A=pt.A[rows], y=pt.y[rows], mesh=mesh, m_total=64)
+    b = titerate._Batches(sp, (4, 16, 0), 1)
+    perm = np.random.default_rng(0).permutation(64)
+    b.fill(0, perm[None])
+    epoch = b.rows(0)
+    for i in range(4):
+        b.bi.fill_(i)
+        view, Ab, yb = b.gather_full(sp, epoch)
+        own = [r for r in perm[16 * i:16 * (i + 1)] if 16 <= r < 32]
+        assert view.rows.total == 16 and int(view.rows.pad) == 16 - len(own)
+        assert torch.equal(Ab[:len(own)], pt.A[own])
+        assert torch.equal(Ab[len(own):], torch.zeros_like(Ab[len(own):]))
+        assert torch.equal(view.rows.mask,
+                           (torch.arange(16) < len(own)).double())

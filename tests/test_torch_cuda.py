@@ -937,6 +937,104 @@ def test_small_sharded_solve_on_one_rank(nccl_mesh):
 
 
 # ---------------------------------------------------------------------------
+# every method on a row shard: K5 and K2s on the shard, the captured
+# line search's all-reduce
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,p,k", [(512, 128, 8), (700, 256, 4),
+                                   (130, 128, 3), (1031, 77, 17),
+                                   (3001, 1024, 16), (517, 100, 200)])
+def test_k5_on_a_one_rank_shard(nccl_mesh, dtype, m, p, k):
+    """The sharded mglm curvature matvec (K5 normalized by the rows of
+    all ranks, then one all-reduce of its (p, k) result) on one rank is
+    the unsharded one bit for bit, one K5 launch each; K5 normalized by
+    another row count against its plain version."""
+    from scso_tpu_torch.algorithms import steps
+
+    A, y, Z, V = _mglm_inputs("cuda", dtype, m, p, k)
+    spec = losses.multinom_mglm(k)
+    prob = st.Problem(A, y, torch.zeros(p * k, dtype=dtype), losses.multinom_f,
+                      0.01, mglm=spec, dtype=dtype, device="cuda")
+    method = st.ProxGGNSCORE(solver="cg", kernels="cuda")
+    lhr = torch.rand(p * k, dtype=dtype, device="cuda")
+    v = V.reshape(-1)
+    outs, counts = [], []
+    for pr in (prob, shard_problem(prob, nccl_mesh)):
+        counters.reset()
+        outs.append(steps._mo_curv_matvec(method, pr, pr.A, pr.y, Z, spec,
+                                          lhr, p, k)(v))
+        counts.append(counters.snapshot())
+    assert torch.equal(outs[0], outs[1]) and counts[0] == counts[1]
+    assert counts[0]["mglm_matvec"] == 1
+    m_norm = 4 * m + 3  # as on one rank of four
+    _check_k5(mglm_matvec(A, y, Z, V, spec, m_norm),
+              mglm_matvec_torch(A, y, Z, V, spec, m_norm), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,n", [(660, 256), (947, 384), (5, 1001),
+                                 (999, 1001), (517, 7170)])
+def test_k2s_on_a_one_rank_shard(nccl_mesh, dtype, m, n):
+    """The uncached GGN-CG direction on one rank (K2s normalized by the
+    rows of all ranks and one packed all-reduce of its sums, K1s in CG)
+    is the unsharded one bit for bit, with the same K2s and K1 launches
+    and K1s once for each K1."""
+    from scso_tpu_torch.algorithms import steps
+    from scso_tpu_torch.ops.cuda import graph
+
+    gen = torch.Generator(device="cuda").manual_seed(m + 11 * n)
+    A = torch.randn((m, n), generator=gen, device="cuda", dtype=dtype) * 0.1
+    y = (torch.rand((m,), generator=gen, device="cuda") < 0.5).to(dtype)
+    x = torch.randn((n,), generator=gen, device="cuda", dtype=dtype) * 0.3
+    prob = st.Problem(A, y, x, losses.logistic01_f, 0.01,
+                      glm=LOGISTIC01_GLM, dtype=dtype, device="cuda")
+    method = st.ProxGGNSCORE(solver="cg", epoch_cache=False, cg_maxiter=30,
+                             kernels="cuda")
+    gr = torch.randn((n,), generator=gen, device="cuda", dtype=dtype)
+    hr = torch.rand((n,), generator=gen, device="cuda", dtype=dtype) + 0.5
+    lam = torch.tensor(0.01, dtype=dtype, device="cuda")
+    outs, counts = [], []
+    for pr in (prob, shard_problem(prob, nccl_mesh)):
+        counters.reset()
+        with graph.eager():  # CG's loop, read from the host
+            d, iters, _, _ = steps._ggn_cg_direction(
+                method, pr, pr.A, pr.y, x, gr, hr, lam, it=1)
+        outs.append((d, int(iters)))
+        counts.append(counters.snapshot())
+    assert torch.equal(outs[0][0], outs[1][0]) and outs[0][1] == outs[1][1]
+    assert counts[0]["glm_prep"] == counts[1]["glm_prep"] == 1
+    assert counts[1]["normal_matvec"] == counts[0]["normal_matvec"] > 0
+    assert counts[1]["normal_matvec_sharded"] == counts[1]["normal_matvec"]
+
+
+@pytest.mark.parametrize("stats_every", [1, 4])
+def test_captured_line_search_on_a_one_rank_shard(nccl_mesh, stats_every):
+    """L-BFGS with the Armijo line search on a one-rank NCCL shard,
+    captured: each trial's f is an all-reduce inside the line search's
+    WHILE node. Bit for bit the unsharded captured solve and, with a
+    record every epoch, the shard's timed mode (uncaptured)."""
+    from scso_tpu_torch.ops.cuda import graph
+
+    kw = dict(x_tol=0.0, f_tol=0.0, max_epoch=25, verbose=0, alpha=1.0,
+              stats_every=stats_every)
+    method = st.ProxLQNSCORE(ss_type=3)
+    sm = st.PHuberSmootherL1L2(1.0)
+    sp = shard_problem(_small_logreg("cuda"), nccl_mesh)
+    graph.reset_stats()
+    fused = st.iterate(method, sp, "l1", sm, **kw)
+    assert graph.STATS["captures"] > 0
+    one = st.iterate(method, _small_logreg("cuda"), "l1", sm, **kw)
+    assert fused.epochs == one.epochs == 25
+    assert torch.equal(fused.x, one.x) and torch.equal(fused.obj, one.obj)
+    if stats_every == 1:
+        timed = st.iterate(method, sp, "l1", sm, **dict(kw, mode="timed"))
+        assert torch.equal(fused.x, timed.x)
+        assert torch.equal(fused.obj, timed.obj)
+
+
+# ---------------------------------------------------------------------------
 # K2, K2s and K5 with A in bfloat16, and iterate_mixed
 # ---------------------------------------------------------------------------
 

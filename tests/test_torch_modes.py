@@ -306,19 +306,20 @@ def test_rounds_past_the_end_change_nothing(stats_every):
 
 
 @pytest.mark.parametrize("backend,size,raises", [
-    ("nccl", 1, False), ("nccl", 4, True), ("gloo", 1, True)])
+    ("nccl", 1, False), ("nccl", 4, False), ("gloo", 1, True)])
 def test_which_sharded_solves_capture(monkeypatch, backend, size, raises):
-    """A captured solve on a row shard: one NCCL rank captures; gloo (a
-    host round trip) and several NCCL ranks (collectives inside
-    conditional nodes) raise naming A11 and timed mode, before any
-    collective."""
+    """A captured solve on a row shard: NCCL ranks capture — several of
+    them where the mesh was made under NCCL_GRAPH_MIXING_SUPPORT=0
+    (``Mesh.captures``; without it they raise:
+    tests/test_torch_sharded_methods.py); gloo (a host round trip)
+    raises naming A11 and timed mode, before any collective."""
     from scso_tpu_torch._src.struct import replace
     from scso_tpu_torch.parallel.sharding import Mesh
 
     monkeypatch.setattr(titerate.dist, "get_backend", lambda group: backend)
     _, pt = _problems()
     prob = replace(pt, mesh=Mesh(group=object(), axis_names=("data",),
-                                 size=size, rank=0))
+                                 size=size, rank=0, captures=size > 1))
     if raises:
         with pytest.raises(NotImplementedError,
                            match=r"ROADMAP A11\).*mode='timed'"):

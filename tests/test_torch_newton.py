@@ -388,16 +388,24 @@ def test_newton_step_from_a_jax_primed_cache():
 
 @pytest.mark.parametrize("what", ["sharded", "static_precond"])
 def test_unported_newton_parts_raise(what):
-    """A sharded Newton solve still raises (A11); the static Jacobi
-    preconditioner of a Newton-CG solve now runs, off the epoch cache,
-    as `scso_tpu`'s does."""
+    """A sharded Newton solve runs now on a one-axis row mesh (its
+    parity on 2 and 4 ranks: tests/test_torch_sharded_methods.py); a
+    mesh of two axes still raises (A11). The static Jacobi
+    preconditioner of a Newton-CG solve runs, off the epoch cache, as
+    `scso_tpu`'s does."""
     from scso_tpu_torch.algorithms.iterate import _check_sharded
+    from scso_tpu_torch.parallel.sharding import Mesh
 
     pj, pt = _logreg(64, 32)
     if what == "sharded":
+        row = Mesh(group=object(), axis_names=("data",), size=2, rank=0)
+        _check_sharded(st.ProxNSCORE(solver="cg"), replace(pt, mesh=row),
+                       "l1")
+        grid = Mesh(group=object(), axis_names=("batch", "data"), size=2,
+                    rank=0)
         with pytest.raises(NotImplementedError, match="A11"):
             _check_sharded(st.ProxNSCORE(solver="cg"),
-                           replace(pt, mesh=object()), "l1")
+                           replace(pt, mesh=grid), "l1")
         return
     kw = dict(solver="cg", static_precond=True, greedy_alpha=False)
     pt = st.with_col_sumsq(pt)

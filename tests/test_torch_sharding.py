@@ -32,8 +32,9 @@ numpy problem row-sharded over conftest's 8-device CPU mesh. float64:
     bit for bit;
   * `shard_problem` taking this rank's rows of the copy with A's;
   * the validation of `shard_problem`, `pad_rows` and `make_mesh`, and
-    every combination off the sharded cached path raising before any
-    collective.
+    the paths that raised on a shard before every method was ported
+    there (L-BFGS, uncached, BB, multinomial, f(x) off the cache)
+    running on one rank as unsharded, bit for bit.
 """
 
 import os
@@ -463,6 +464,11 @@ def test_rows_round_trip_through_disk(one_rank, tmp_path):
 ], ids=["lbfgs", "uncached", "ss_type2", "mglm"])
 def test_unported_sharded_paths_raise_before_any_collective(
         one_rank, monkeypatch, method, problem):
+    """These paths raised on a row shard until every method was ported
+    there: each now runs, sums over the ranks (the one-rank group's
+    all_reduce, recorded here, is the identity) and gives the unsharded
+    solve bit for bit. tests/test_torch_sharded_methods.py holds them to
+    the JAX package on 2 and 4 ranks."""
     calls = []
     monkeypatch.setattr(dist, "all_reduce",
                         lambda *a, **k: calls.append(a))
@@ -474,14 +480,22 @@ def test_unported_sharded_paths_raise_before_any_collective(
         prob = st.Problem(A, Y, x0, losses.multinom_f, LAM,
                           mglm=losses.multinom_mglm(3), dtype=torch.float64,
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        st.iterate(method, shard_problem(prob, one_rank), "l1",
-                   st.PHuberSmootherL1L2(1.0), verbose=0, max_epoch=2)
-    assert calls == []
+    sm = st.PHuberSmootherL1L2(1.0)
+    got = st.iterate(method, shard_problem(prob, one_rank), "l1", sm,
+                     verbose=0, max_epoch=2)
+    assert calls
+    want = st.iterate(method, prob, "l1", sm, verbose=0, max_epoch=2)
+    assert got.epochs == want.epochs
+    assert torch.equal(got.x, want.x) and torch.equal(got.obj, want.obj)
 
 
 def test_sharded_stats_need_the_cached_loss(one_rank):
-    sp = shard_problem(_port_problem(TRAJ), one_rank)
-    with pytest.raises(NotImplementedError, match="A11"):
-        _stats(sp, "l1", sp.x0, torch.tensor(1.0, dtype=torch.float64),
-               1e-10, 1e-10)
+    """Off the epoch cache a record's f(x) on a row shard is this rank's
+    share summed over the ranks: on one rank the unsharded record."""
+    prob = _port_problem(TRAJ)
+    sp = shard_problem(prob, one_rank)
+    star = torch.tensor(1.0, dtype=torch.float64)
+    got = _stats(sp, "l1", sp.x0, star, 1e-10, 1e-10)
+    want = _stats(prob, "l1", prob.x0, star, 1e-10, 1e-10)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
