@@ -5,6 +5,7 @@ every card of one host; the λ sweep over the ranks.
     NCCL_GRAPH_MIXING_SUPPORT=0 torchrun --nproc-per-node=4 chip_sharded.py
     torchrun --nproc-per-node=4 chip_sharded.py --refuse
     NCCL_GRAPH_MIXING_SUPPORT=0 torchrun --nproc-per-node=4 chip_sharded.py --sweep
+    NCCL_GRAPH_MIXING_SUPPORT=0 torchrun --nproc-per-node=4 chip_sharded.py --mesh2d
 
 One process per card (torchrun's RANK, LOCAL_RANK, WORLD_SIZE and
 rendezvous). A fused (captured) solve over several NCCL ranks puts the
@@ -57,6 +58,22 @@ second call of each: the first captures). Rank 0 prints the card and
 power limit, then one JSON line; a rank still running EXIT_WAIT_S
 seconds later prints its stacks (faulthandler). Without CUDA it exits
 non-zero.
+
+``--mesh2d`` (four ranks) runs meshes of two axes instead, all fused
+(captured over NCCL) on chip_smoke.py phase 3's problem and anchor:
+phase 23's 16-λ sweep (the throughput plan, max_epoch 60, cached
+GGN-CG) on one card, on a 2×2 ('batch', 'data') mesh (the problem's
+rows over 'data', the instances over 'batch') and on a ('data',) mesh
+of four; phase 3's cached chain on one card, feature-sharded on a
+('model',) mesh of four and on a 2×2 ('data', 'model') mesh (the
+products route: K3 alone launches); and the sweep with plan='auto' on
+the 2×2 mesh, whose ranks must resolve one plan. Required: every rank
+holds its group's x bit for bit (the sweeps gather over 'batch', so
+there every rank the whole result); objectives within E2E_RTOL of the
+one-card runs wherever both converged; and, for the chains, one solve
+with a record every epoch in fused and in timed mode (uncaptured) bit
+for bit. The seconds of each (host clock, after a warm-up run that
+captures).
 """
 
 from __future__ import annotations
@@ -213,7 +230,7 @@ def run_paths(mesh, dev, say, prob_t, best, mprob_t, mbest):
 
 def refuse(mesh, dev, say):
     """``--refuse`` (run without NCCL_GRAPH_MIXING_SUPPORT=0): a fused
-    solve on the shard must raise NotImplementedError naming the
+    solve on the shard must raise RuntimeError naming the
     variable, before any collective; timed mode runs."""
     import torch
     import torch.distributed as dist
@@ -233,7 +250,7 @@ def refuse(mesh, dev, say):
                    st.PHuberSmootherL1L2(1.0), max_epoch=3, verbose=0)
         cs.fail("a fused solve over NCCL ranks without "
                 "NCCL_GRAPH_MIXING_SUPPORT=0 did not raise")
-    except NotImplementedError as e:
+    except RuntimeError as e:
         if "NCCL_GRAPH_MIXING_SUPPORT" not in str(e) or calls:
             cs.fail(f"the refusal {e!r} after {len(calls)} collectives")
         msg = str(e)
@@ -246,6 +263,146 @@ def refuse(mesh, dev, say):
         f"collective: {msg!r}; timed mode ran {s.epochs} epochs")
     return {"refused": msg, "timed_epochs": s.epochs}
 
+
+
+def mesh2d(world, dev, say):
+    """``--mesh2d`` (see the module docstring): name → its numbers."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import scso_tpu_torch as st
+    from scso_tpu_torch._src.struct import replace
+    from scso_tpu_torch.ops.cuda import counters
+    from scso_tpu_torch.parallel import (
+        make_mesh, shard_problem, shard_problem_features, sweep)
+
+    swp = __import__("importlib").import_module(
+        "scso_tpu_torch.parallel.sweep")
+    if world != 4:
+        cs.fail(f"--mesh2d needs four ranks, not {world}")
+    meshes = {"batch_data": make_mesh((2, 2), ("batch", "data")),
+              "data": make_mesh((4,), ("data",)),
+              "model": make_mesh((4,), ("model",)),
+              "data_model": make_mesh((2, 2), ("data", "model"))}
+    if not all(m.captures for m in meshes.values()):
+        cs.fail("a mesh's communicators were made without "
+                "NCCL_GRAPH_MIXING_SUPPORT=0")
+    prob = cs.build_problem(*cs.MAIN_SHAPE, dev, torch.float32)
+    meth = st.ProxGGNSCORE(**cs.F32_CG)
+    best, x_opt, _ = cs.presolve(meth, prob)
+    prob_t = replace(prob, x_star=x_opt)
+    del prob
+    sm = st.PHuberSmootherL1L2(1.0)
+    lam = cs.mesh2d_lams()
+    opts = st.Options(**cs.MESH2D_KW)
+    cap = cs.MESH2D_KW["max_epoch"]
+    out = {}
+
+    def run_sweep(prob, mesh, plan="throughput"):
+        go = lambda: sweep(meth, prob, "l1", sm, lam_grid=lam, opts=opts,
+                           plan=plan, mesh=mesh)
+        go()  # the capture
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = go()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    cs.free_graphs()  # the presolve's captures
+    one, one_s = run_sweep(prob_t, None)
+    cs.free_graphs()
+    out["sweep_one_card"] = dict(seconds=one_s, epochs=one.epochs.tolist())
+    say(f"sweep, one card: {one_s:.4f} s, epochs {one.epochs.tolist()}")
+    for name, bmesh in (("batch_data", meshes["batch_data"]),
+                        ("data", None)):
+        sp = shard_problem(prob_t, meshes[name])
+        r, secs = run_sweep(sp, bmesh)
+        flat = torch.cat([r.x.reshape(-1), r.obj, r.epochs.float()])
+        if not same_on_every_rank(flat, meshes[name], dev):
+            cs.fail(f"sweep on {name}: ranks hold different results")
+        both = (r.epochs < cap) & (one.epochs < cap)
+        rel = ((r.obj - one.obj).abs() / one.obj.abs()).double()
+        worst = float(rel[both].max()) if bool(both.any()) else None
+        if not bool(both.any()) or worst > cs.E2E_RTOL:
+            cs.fail(f"sweep on {name}: objectives {worst} from one card's "
+                    f"(converged in both: {int(both.sum())})")
+        out[f"sweep_{name}"] = dict(
+            seconds=secs, one_card_seconds=one_s,
+            converged_both=int(both.sum()), max_rel=worst,
+            epochs_equal=int((r.epochs == one.epochs).sum()))
+        say(f"sweep on {name}: {secs:.4f} s (one card {one_s:.4f} s); "
+            + json.dumps(out[f"sweep_{name}"]))
+        del sp
+        cs.free_graphs()
+    # plan='auto' over the four ranks: one plan, agreed
+    sp = shard_problem(prob_t, meshes["batch_data"])
+    plans = [None] * world
+    dist.all_gather_object(plans, swp._resolve_plan(
+        "auto", sp, len(lam), opts, 2, meshes["batch_data"]))
+    if len(set(map(tuple, plans))) != 1:
+        cs.fail(f"plan='auto': the ranks resolved {plans}")
+    r, secs = run_sweep(sp, meshes["batch_data"], plan="auto")
+    if not same_on_every_rank(torch.cat([r.x.reshape(-1), r.obj]),
+                              meshes["batch_data"], dev):
+        cs.fail("plan='auto': ranks hold different results")
+    out["sweep_auto"] = dict(seconds=secs, plan=list(plans[0]),
+                             latency_s=swp._dispatch_latency_s(dev),
+                             agreed_latency_s=swp._agreed_latency_s(
+                                 sp, meshes["batch_data"]))
+    say("plan='auto' on ('batch', 'data') 2x2: " + json.dumps(
+        out["sweep_auto"]))
+    del sp, r
+    cs.free_graphs()
+
+    # phase 3's cached chain: one card, then feature-sharded
+    def chain(prob):
+        cs.solve_chunk(meth, prob)  # warm-up: the capture
+        torch.cuda.synchronize()
+        counters.reset()
+        r = cs.timed_chain(meth, prob, best, keep_x=True)
+        r["launches"] = counters.snapshot()
+        r.pop("objs")
+        r.pop("first_info")
+        return r
+
+    c1 = chain(prob_t)
+    x1 = c1.pop("x")
+    out["chain_one_card"] = c1
+    say(f"cached chain, one card: {c1['seconds']:.4f} s, {c1['epochs']} "
+        f"epochs, obj {c1['obj']:.9e}")
+    del x1
+    for name in ("model", "data_model"):
+        mesh = meshes[name]
+        base = shard_problem(prob_t, mesh) if "data" in name else prob_t
+        cp = shard_problem_features(base, mesh)
+        r = chain(cp)
+        x = r.pop("x")
+        if not same_on_every_rank(x, mesh, dev):
+            cs.fail(f"chain on {name}: ranks hold different x")
+        rel = abs(r["obj"] - c1["obj"]) / abs(c1["obj"])
+        if not (rel <= cs.E2E_RTOL and r["gap"] <= cs.GAP * 1.05):
+            cs.fail(f"chain on {name}: obj rel {rel:.2e} to one card, gap "
+                    f"{r['gap']:.3e}")
+        cs.check_launches(r["launches"], ("score_update",),
+                          f"feature-sharded ({name})")
+        kw = dict(cs.CHUNK_KW, stats_every=1)
+        fused = st.iterate(meth, cp, "l1", sm, **kw)
+        slow = st.iterate(meth, cp, "l1", sm, **dict(kw, mode="timed"))
+        if not (fused.epochs == slow.epochs and torch.equal(fused.x, slow.x)
+                and torch.equal(fused.obj, slow.obj)):
+            cs.fail(f"chain on {name}: fused and timed mode differ")
+        out[f"chain_{name}"] = dict(r, rel=rel,
+                                    one_card_seconds=c1["seconds"],
+                                    fused_eq_timed_epochs=fused.epochs)
+        say(f"cached chain on {name}: {r['seconds']:.4f} s (one card "
+            f"{c1['seconds']:.4f} s), {r['epochs']} epochs, {r['cg_iters']} "
+            f"CG iterations, obj {r['obj']:.9e} (rel {rel:.2e}); x bitwise "
+            f"on every rank; fused = timed bit for bit ({fused.epochs} "
+            f"epochs); launches on rank 0 {r['launches']}")
+        del cp, base
+        cs.free_graphs()
+    return out
 
 def main():
     sys.path.insert(0, cs.ROOT)
@@ -286,6 +443,11 @@ def main():
     if sys.argv[1:] == ["--sweep"]:
         return finish({"world": world,
                        "sweep": sweep_over_ranks(dev, say)}, mesh, say)
+    if sys.argv[1:] == ["--mesh2d"]:
+        t0 = time.perf_counter()
+        out = {"world": world, **mesh2d(world, dev, say)}
+        out["seconds"] = time.perf_counter() - t0
+        return finish(out, mesh, say)
     prob = cs.build_problem(*cs.MAIN_SHAPE, dev, torch.float32)
     method = st.ProxGGNSCORE(**cs.F32_CG)
     best, x_opt, _ = cs.presolve(method, prob)

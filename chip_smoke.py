@@ -278,6 +278,24 @@ timed chains replay it. Phases, each fatal on failure:
      same kernel launches (K1s once for each K1), the all-reduces inside
      the replayed graph (the host issues fewer than the capturing run;
      more graph nodes than unsharded); seconds of each.
+ 23. Meshes of two axes. (a) On phase 8(a)'s one NCCL rank: a 16-λ
+     sweep (np.logspace(-3, -1, 16), the throughput plan, max_epoch 60,
+     cached GGN-CG) of phase 3's problem row-sharded on a 1×1
+     ('batch', 'data') mesh against the same sweep on no mesh, bit for
+     bit (x, objectives, epochs); and phase 3's cached chain on the
+     problem feature-sharded on a 1×1 ('data', 'model') mesh under
+     phase 3's protocol: its final objective within E2E_RTOL of phase
+     3's, its launches (the column shard takes the products route: K3
+     alone launches) and seconds. (b) Four gloo ranks on the one card
+     (``--mesh-worker``; gloo cannot be captured, so the sweeps run
+     their bodies eagerly on the card and the solves in timed mode):
+     float64 sweeps (throughput, two path waves, a fleet, federated
+     rounds, mini-batches) on a 2×2 ('batch', 'data') mesh and
+     feature-sharded solves (cached and uncached GGN-CG, Newton-CG,
+     L-BFGS, multinomial, a test set) on a 2×2 ('data', 'model') mesh,
+     each within 1e-9 (SMALL_RTOL) of the same on the CPU unsharded,
+     every rank holding the same results bit for bit. The whole run's
+     seconds are printed at its end.
 
 The last two lines of standard output are one JSON object with each
 kernel's numbers, then ``{"ok": true, "device": {...}}`` (K1 with A in
@@ -4070,6 +4088,269 @@ def phase_federated():
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# phase 23: meshes of two axes
+# ---------------------------------------------------------------------------
+
+MESH2D_LAMS = (1e-3, 1e-1, 16)  # np.logspace's (start, stop, num), exponents
+MESH2D_KW = dict(max_epoch=60, verbose=0, stats_every=4, x_tol=1e-6)
+MESH_WORKERS = 4
+
+
+def mesh2d_lams():
+    import numpy as np
+
+    lo, hi, num = MESH2D_LAMS
+    return np.logspace(np.log10(lo), np.log10(hi), num).astype(np.float32)
+
+
+def small_mesh_cases():
+    """Phase 23(b)'s float64 cases: name → (kind, build(device) →
+    problem, method, kwargs). ``sweep`` cases run on a 2×2 ('batch',
+    'data') mesh, ``cols`` cases on a 2×2 ('data', 'model') one."""
+    import torch
+
+    import scso_tpu_torch as st
+
+    logreg = lambda lam: (lambda dev: build_problem(512, 200, dev,
+                                                    torch.float64, lam=lam))
+    mglm = lambda dev: build_mglm_problem(512, 64, 4, dev, torch.float64,
+                                          lam=1e-2)
+    ggn = lambda **k: st.ProxGGNSCORE(solver="cg", greedy_alpha=False, **k)
+    kw = dict(CHUNK_KW, max_epoch=20, stats_every=1)
+    return {
+        "sweep": ("sweep", logreg(0.01), ggn(), dict(plan="throughput")),
+        "waves": ("sweep", logreg(0.01), ggn(), dict(path_waves=2)),
+        # batches of 512 rows of 128 features: well conditioned, so that
+        # float64 parity holds (thinner ones amplify last-ulp differences)
+        "sweep_batches": ("sweep", lambda dev: build_problem(
+            2048, 96, dev, torch.float64, lam=0.05), ggn(),
+            dict(plan="throughput", batch_size=512)),
+        "fleet": ("fleet", logreg(0.01), ggn(), {}),
+        # λ = 0.1: each client's 128 rows of 256 features at 0.01 turn a
+        # one-ulp change of A into 2e-10 of x in three rounds
+        "federated": ("federated", logreg(0.1), ggn(), {}),
+        "cached": ("cols", logreg(0.01), ggn(), kw),
+        "uncached": ("cols", logreg(0.01), ggn(epoch_cache=False), kw),
+        "newton_cg": ("cols", logreg(0.1), st.ProxNSCORE(
+            solver="cg", greedy_alpha=False), kw),
+        "lbfgs": ("cols", logreg(0.01), st.ProxLQNSCORE(),
+                  dict(x_tol=0.0, f_tol=0.0, max_epoch=40, verbose=0)),
+        "mglm": ("cols", mglm, ggn(), kw),
+        "test_set": ("cols", small_test_problem, ggn(epoch_cache=False),
+                     kw),
+    }
+
+
+def small_mesh_run(kind, build, method, kw, device, mesh=None):
+    """One case of `small_mesh_cases` on ``device``: unsharded without
+    ``mesh``, else on it (gloo: the batched solves' bodies eagerly, the
+    single solves in timed mode). Returns {field: numpy array}."""
+    import numpy as np
+
+    import scso_tpu_torch as st
+    from scso_tpu_torch.parallel import (
+        federated_solve, shard_problem, shard_problem_features,
+        solve_fleet, stack_problems, sweep)
+
+    sm = st.PHuberSmootherL1L2(1.0)
+    prob = build(device)
+    # from 1e-2: at 1e-3 this problem turns a one-ulp change of A into
+    # 1e-6 of x within 20 epochs (measured on the CPU)
+    lam = np.logspace(-2, -1, 8)
+    eager = dict(_capture=False) if mesh is not None else {}
+    rows = (lambda p: shard_problem(p, mesh)) if mesh is not None else (
+        lambda p: p)
+    bmesh = mesh
+    if kind == "sweep":
+        kw = dict(kw)
+        bs = kw.pop("batch_size", None)
+        opts = st.Options(max_epoch=20, verbose=0, batch_size=bs)
+        r = sweep(method, rows(prob), "l1", sm, lam_grid=lam, opts=opts,
+                  mesh=bmesh, rng_seed=3, **kw, **eager)
+        return dict(x=r.x, obj=r.obj, epochs=r.epochs)
+    if kind == "fleet":
+        from scso_tpu_torch._src.struct import replace
+
+        probs = [rows(replace(prob, lam=prob.lam * s))
+                 for s in (1.0, 2.0, 4.0, 8.0)]
+        r = solve_fleet(method, stack_problems(probs), "l1", sm,
+                        opts=st.Options(max_epoch=30, verbose=0),
+                        mesh=bmesh, **eager)
+        return dict(x=r.x, obj=r.obj, epochs=r.epochs)
+    if kind == "federated":
+        r = federated_solve(method, rows(prob), "l1", sm, n_clients=4,
+                            comm_rounds=3, local_epochs=4, mesh=bmesh,
+                            **eager)
+        return dict(x=r.x, obj=r.obj, epochs=r.client_epochs)
+    if mesh is not None:
+        prob = shard_problem_features(rows(prob), mesh)
+    s = st.iterate(method, prob, "l1", sm,
+                   **dict(kw, mode="timed" if mesh is not None else "fused"))
+    return dict(x=s.x, obj=s.obj, fvaltest=s.fvaltest,
+                epochs=np.asarray(s.epochs))
+
+
+def mesh_worker(port, rank, workdir):
+    """One of phase 23(b)'s four ranks (``--mesh-worker``): every case of
+    `small_mesh_cases` on a 2×2 gloo mesh on the card; save."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from scso_tpu_torch.parallel import distributed_init, make_mesh
+
+    rank = int(rank)
+    torch.set_num_threads(1)
+    if distributed_init("gloo", init_method=f"tcp://localhost:{port}",
+                        world_size=MESH_WORKERS, rank=rank) != MESH_WORKERS:
+        fail(f"rank {rank}: the {MESH_WORKERS}-rank gloo group did not form")
+    meshes = {"batch": make_mesh((2, 2), ("batch", "data")),
+              "model": make_mesh((2, 2), ("data", "model"))}
+    out = {}
+    for name, (kind, build, method, kw) in small_mesh_cases().items():
+        mesh = meshes["model" if kind == "cols" else "batch"]
+        for f, v in small_mesh_run(kind, build, method, kw, "cuda",
+                                   mesh).items():
+            out[f"{name}.{f}"] = torch.as_tensor(v).cpu().numpy()
+    np.savez(os.path.join(workdir, f"rank{rank}.npz"), **out)
+    dist.destroy_process_group()
+
+
+def free_graphs() -> float:
+    """Drop every cached capture and return its memory to the card; the
+    GB still allocated."""
+    import gc
+
+    import torch
+
+    from scso_tpu_torch.ops.cuda import graph
+
+    graph.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 1e9
+
+
+def phase_mesh2d(prob_t, best, kern):
+    """Phase 23 (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    import scso_tpu_torch as st
+    from scso_tpu_torch.ops.cuda import counters
+    from scso_tpu_torch.parallel import (
+        make_mesh, shard_problem, shard_problem_features, sweep)
+
+    out = {}
+    lam = mesh2d_lams()
+    meth = st.ProxGGNSCORE(**F32_CG)
+    sm = st.PHuberSmootherL1L2(1.0)
+    opts = st.Options(**MESH2D_KW)
+    bd = make_mesh((1, 1), ("batch", "data"))
+    runs, secs = {}, {}
+    log(f"  card memory before: {free_graphs():.2f} GB allocated once the "
+        "earlier phases' captures are dropped")
+    for name, prob, mesh in (("no_mesh", prob_t, None),
+                             ("batch_data", shard_problem(prob_t, bd), bd)):
+        run = lambda: sweep(meth, prob, "l1", sm, lam_grid=lam, opts=opts,
+                            plan="throughput", mesh=mesh)
+        run()  # the capture
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[name] = run()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        free_graphs()  # a capture at this width holds A-sized temporaries
+    a, b = runs["no_mesh"], runs["batch_data"]
+    same_bits("phase 23 sweep: 1x1 ('batch', 'data') against no mesh "
+              "(x, obj, epochs)", [b.x, b.obj, b.epochs],
+              [a.x, a.obj, a.epochs])
+    out["sweep"] = dict(instances=len(lam), seconds=secs["batch_data"],
+                        no_mesh_seconds=secs["no_mesh"],
+                        epochs=b.epochs.tolist(),
+                        obj=b.obj.tolist())
+    log("  sweep on a 1x1 ('batch', 'data') mesh: bitwise the sweep on no "
+        "mesh; " + json.dumps(out["sweep"]))
+    free_graphs()
+    dm = make_mesh((1, 1), ("data", "model"))
+    cp = shard_problem_features(shard_problem(prob_t, dm), dm)
+    solve_chunk(meth, cp)  # warm-up: the capture
+    counters.reset()
+    ch = timed_chain(meth, cp, best)
+    launches = counters.snapshot()
+    rel = abs(ch["obj"] - kern["obj"]) / abs(kern["obj"])
+    log(f"  cached chain on a 1x1 ('data', 'model') mesh (the products "
+        f"route): {ch['seconds']:.4f} s (phase 3: {kern['seconds']:.4f} "
+        f"s), {ch['epochs']} epochs, {ch['cg_iters']} CG iterations, obj "
+        f"{ch['obj']:.9e} (rel to phase 3 {rel:.2e}), gap "
+        f"{ch['gap']:.3e}, launches {launches}")
+    if not (rel <= E2E_RTOL and ch["gap"] <= GAP * 1.05):
+        fail(f"phase 23 column shard: obj rel {rel:.2e} to phase 3, gap "
+             f"{ch['gap']:.3e}")
+    check_launches(launches, ("score_update",), "column-sharded cached")
+    ch.pop("first_info")
+    out["cols_chain"] = dict(ch, rel_to_phase3=rel, launches=launches)
+
+    # (b) four gloo ranks on the one card against the CPU
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        port = free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-worker",
+             str(port), str(r), work], cwd=ROOT)
+            for r in range(MESH_WORKERS)]
+        # the CPU's references while the ranks run
+        refs = {name: {f: torch.as_tensor(v).cpu().numpy() for f, v in
+                       small_mesh_run(kind, build, method, kw,
+                                      "cpu").items()}
+                for name, (kind, build, method, kw)
+                in small_mesh_cases().items()}
+        wait_all(procs, 600)
+        codes = [p.returncode for p in procs]
+        if any(codes):
+            fail(f"phase 23(b): the mesh workers exited with {codes}")
+        got = [dict(np.load(os.path.join(work, f"rank{r}.npz")))
+               for r in range(MESH_WORKERS)]
+    worst, bad = 0.0, []
+    for name, ref in refs.items():
+        for f, want in ref.items():
+            for r in range(MESH_WORKERS):
+                if not np.array_equal(got[r][f"{name}.{f}"],
+                                      got[0][f"{name}.{f}"]):
+                    bad.append(f"{name}.{f}: rank {r} differs from rank 0")
+            have = got[0][f"{name}.{f}"]
+            if f == "epochs":
+                if not np.array_equal(have, want):
+                    bad.append(f"{name}: epochs {have.tolist()} on the "
+                               f"mesh, {want.tolist()} on the CPU")
+                continue
+            if have.shape != want.shape or not np.all(np.isfinite(have)):
+                bad.append(f"{name}.{f}: shape {have.shape} against "
+                           f"{want.shape}, or not finite")
+                continue
+            d = float(np.max(np.abs(have - want) / np.maximum(
+                1.0, np.abs(want)))) if want.size else 0.0
+            worst = max(worst, d)
+            log(f"  23(b) {name}.{f}: {d:.3e} from the CPU")
+            if not d <= SMALL_RTOL:
+                bad.append(f"{name}.{f}: {d:.3e} from the CPU "
+                           f"(> {SMALL_RTOL})")
+    if bad:
+        fail("phase 23(b): " + "; ".join(bad))
+    out["four_gloo_ranks"] = dict(cases=len(small_mesh_cases()),
+                                  max_rel_to_cpu=worst,
+                                  seconds=time.perf_counter() - t0)
+    log(f"  four gloo ranks on the card, 2x2 meshes: "
+        f"{len(small_mesh_cases())} cases within {worst:.2e} of the CPU "
+        f"(<= {SMALL_RTOL}), every rank bitwise alike "
+        f"({out['four_gloo_ranks']['seconds']:.1f} s)")
+    return out, launches
+
+T_START = time.perf_counter()
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "scso_tpu_torch")):
         fail("scso_tpu_torch not found beside chip_smoke.py: run it from "
@@ -4084,6 +4365,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:2] == ["--rank-worker"]:
         return rank_worker(*sys.argv[2:])
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        return mesh_worker(*sys.argv[2:])
     import torch.distributed as dist
 
     import scso_tpu_torch as st
@@ -4197,10 +4480,16 @@ def main():
     log("phase 22: every single-instance method on a row shard over one "
         "NCCL rank, captured, against its unsharded fused solve")
     sharded22, s22launches = phase_sharded_methods(mesh, prob_t, mprob_t)
-    dist.destroy_process_group()
     log(f"  phase 22: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    log("phase 23: meshes of two axes: a sweep on ('batch', 'data'), the "
+        "cached chain on ('data', 'model'), four gloo ranks on 2x2 meshes")
+    mesh23, m23launches = phase_mesh2d(prob_t, best, kern)
+    dist.destroy_process_group()
+    log(f"  phase 23: {time.perf_counter() - t0:.1f} s")
     new_paths = [batches["launches"], resume["static_precond"]["launches"],
-                 resume["curvature_rows"]["launches"], s22launches]
+                 resume["curvature_rows"]["launches"], s22launches,
+                 m23launches]
     new_paths += [v["launches"] for v in nodata.values()]
     launches = {k: launches[k] + mlaunches[k] + llaunches[k] + ulaunches[k]
                 + slaunches[k] + nlaunches[k] + klaunches[k] + lplaunches[k]
@@ -4251,6 +4540,8 @@ def main():
     log("instance-parallel paths: " + json.dumps({"card": card,
                                                   "sweep": swept,
                                                   "federated": fed}))
+    log("meshes of two axes: " + json.dumps({"card": card, **mesh23}))
+    log(f"whole run: {time.perf_counter() - T_START:.1f} s")
     rows = []
     for k, (src, rep) in KERNELS.items():
         bound_ms, bound_by = bound(*work[k], k)

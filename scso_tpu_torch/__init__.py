@@ -27,12 +27,15 @@ package's two modes, 'fused' (the default; on the card the solve is
 captured into a CUDA graph and replayed) and 'timed', with its
 mini-batches, metrics, test set and resume (``resume_state``;
 ``utils.save_state``/``load_state``); ``iterate_continuation`` anneals
-μ and λ. ``scso_tpu_torch.parallel`` row-shards any single solve over
-ranks (every method, captured over NCCL), and solves λ/μ paths, problem fleets and federated rounds
-as one batched solve (``sweep``, ``solve_fleet``, ``federated_solve``:
-the instances on a leading axis, on the card one captured graph). What
-the port leaves out raises NotImplementedError naming its ROADMAP item
-(A11: scale-out; A12: the remaining utilities).
+μ and λ. ``scso_tpu_torch.parallel`` shards any single solve over the
+ranks of a mesh of one or two axes, by rows, by features or both (every
+method, captured over NCCL), and solves λ/μ paths, problem fleets and
+federated rounds as one batched solve (``sweep``, ``solve_fleet``,
+``federated_solve``: the instances on a leading axis, also split over a
+batch axis of row-sharded problems; on the card one captured graph).
+What the port leaves out raises NotImplementedError naming its ROADMAP
+item (A11: a captured solve over gloo, or with overlapped chunks over
+several ranks; A12: the remaining utilities).
 """
 
 from __future__ import annotations

@@ -46,8 +46,21 @@ solve, `lax.while_loop`s included. Here:
     round of a federated solve replay one capture. ``capture=False``
     runs the same bodies eagerly (`graph.eager`).
 
-What the batched form does not cover raises ``NotImplementedError``
-naming ROADMAP A11 before any work (:func:`check`).
+  * A row-sharded problem (rows on the mesh's data axis; the JAX
+    package's ('batch', 'data') layout) runs the same code: its row sums
+    (`Problem.row_sum`, K1s) reduce the whole (B, ...) batch in ONE
+    collective over the data axis (`ops.collective.group_sum`'s vmap
+    rule), so the captured graph holds one collective a sum whatever B
+    is. Every instance's values are replicated over the data axis, so
+    the ranks of a data group iterate in step.
+  * Mini-batches (``batch_size``, ``slice_samples``): one seed for every
+    instance (the JAX package's vmapped solve takes one ``rng_seed``), so
+    every instance steps on the same rows and one gather of them serves
+    the whole batch (`iterate._Batches`, and on a row shard its layout:
+    a rank's rows of each batch, padded to min(bs, m_r)). Every epoch's
+    permutation is drawn on the host before the solve. An epoch's
+    batches run while any instance is live in it, each instance frozen
+    from its own batch stop test on, as its scalar solve freezes.
 """
 
 from __future__ import annotations
@@ -57,18 +70,20 @@ import math
 from contextlib import nullcontext
 from typing import Any, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from scso_tpu_torch._src.struct import replace as dc_replace
 from scso_tpu_torch.algorithms.iterate import (
-    History, Options, _NO_RUN, _assign, _captured, _clone_tree, _gap,
-    _leaves, _make_batches, _record, _room, _step_carry)
+    History, Options, _NO_RUN, _Batches, _assign, _captured, _clone_tree,
+    _gap, _leaves, _make_batches, _quiesce, _record, _rng_pack, _room,
+    _step_carry, _stopped)
 from scso_tpu_torch.algorithms.methods import (
     ProxGGNSCORE, ProxLQNSCORE, ProxNSCORE)
 from scso_tpu_torch.algorithms.steps import (
     _cw, _lam_scalar, epoch_cache_enabled, make_step_fn, prime_glm_cache)
 from scso_tpu_torch.ops.cuda import graph
-from scso_tpu_torch.ops.cuda.graph import device_loop
+from scso_tpu_torch.ops.cuda.graph import device_if, device_loop
 from scso_tpu_torch.ops.lbfgs_core import LBFGSMemory, init_memory
 from scso_tpu_torch.problems import Problem
 
@@ -176,20 +191,23 @@ def take(obj, names, lo: int, hi: int):
     return rebuild(obj, map_leaves(leaves(obj, names), lambda t: t[lo:hi]))
 
 
-def check(method, proto: Problem, opts: Options) -> None:
-    """Refuse, before any work, what the batched form does not cover.
-    ``proto`` is one instance's problem."""
+def check(method, proto: Problem, opts: Options, spec: BatchSpec) -> None:
+    """Refuse, before any work and alike on every rank, what the batched
+    form cannot take. ``proto`` is one instance's problem."""
     if not isinstance(method, (ProxNSCORE, ProxGGNSCORE, ProxLQNSCORE)):
         raise TypeError(f"unknown method {method!r}")
-    what = None
-    if proto.mesh is not None:
-        what = "a row-sharded problem"
-    elif _make_batches(proto, opts) is not None:
-        what = "mini-batches (batch_size, slice_samples)"
-    if what is not None:
-        raise NotImplementedError(
-            f"a batched solve (sweep, solve_fleet, federated_solve) of "
-            f"{what} is not ported yet (ROADMAP A11)")
+    if proto.mesh is not None and proto.data_axis not in \
+            proto.mesh.axis_names:
+        raise ValueError(f"the problem's rows are on axis "
+                         f"{proto.data_axis!r}, which is not in its mesh's "
+                         f"{tuple(proto.mesh.axis_names)}")
+    if (_make_batches(proto, opts) is not None and "A" in spec.prob
+            and proto.mesh is not None):
+        raise ValueError(
+            "mini-batches in a fleet of row-sharded problems, each with its "
+            "own A: every instance's batch would need rows of its own A on "
+            "every rank; run the fleet on full batches, or row-shard one "
+            "shared A and sweep it")
 
 
 def _bcast(mask: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -213,9 +231,13 @@ class _Loop:
         self.K = max(opts.stats_every, 1)
         self.is_lbfgs = isinstance(method, ProxLQNSCORE)
         self.step_fn = make_step_fn(method)
-        self.use_fcache = epoch_cache_enabled(method, proto, reg_name, True)
+        self.batching = _make_batches(proto, opts)
+        self.use_fcache = epoch_cache_enabled(method, proto, reg_name,
+                                              self.batching is None)
+        self.stacked = "A" in spec.prob
         self.state = self.hist = self.obj_star = None
         self.max_epoch = self.going = None
+        self.batches = self.ep = self.bact = None
         self.max_rounds = 0
 
     # -- per instance, under vmap ------------------------------------------
@@ -241,7 +263,7 @@ class _Loop:
         else:
             obj_star = p.obj(reg_name, p.x_star)
         x0 = p.x0
-        if self.is_lbfgs:
+        if self.is_lbfgs and self.batching is None:
             gq0 = (p.grad_f(p.A, p.y, x0)
                    + _lam_scalar(p.lam) * s.grad(x0, _cw(p, reg_name)))
         else:
@@ -271,13 +293,28 @@ class _Loop:
             new["fcache"] = ()
         return State(**new, frel=raw_frel, k=c.k + 1, done=conv)
 
+    def _batch_step(self, p: Problem, s, c: State, raw_frel, As, ys):
+        """One mini-batch step of one instance on the rows (As, ys): the
+        carry's new fields and the batch's stop test as ``done``
+        (`iterate._Fused._step_batches`)."""
+        new, conv = _step_carry(
+            self.method, self.step_fn, p, self.reg_name, s, self.opts, As,
+            ys, c, c.k + 1, raw_frel, False)
+        new["fcache"] = ()
+        return State(**new, frel=c.frel, k=c.k, done=conv)
+
+    def _epoch_test(self, p: Problem, s, x, x_prev, raw_frel, pri_res):
+        return _stopped(x, x_prev, raw_frel, pri_res, self.opts)
+
     # -- the loop, batched ---------------------------------------------------
 
     def load(self, prob: Problem, sm, run=None,
-             max_epoch: Optional[int] = None) -> None:
+             max_epoch: Optional[int] = None, rng_seed: int = 0) -> None:
         """Start a solve of the batched ``prob`` with smoother ``sm``,
         eagerly: the buffers filled, each instance's epoch cache primed
-        at its x0 and its ``obj_star``, the state and histories reset."""
+        at its x0 and its ``obj_star``, the state and histories reset,
+        and with mini-batches every epoch's permutation drawn from
+        ``rng_seed``."""
         if self.buffers is not None:
             self.buffers.fill(prob, sm)
         max_epoch = self.opts.max_epoch if max_epoch is None else max_epoch
@@ -316,6 +353,26 @@ class _Loop:
         self.max_epoch.fill_(max_epoch)
         self.going.copy_(self.live().any())
         self.max_rounds = math.ceil(max_epoch / self.K) + 1
+        if self.batching is not None:
+            self._load_batches(prob, rng_seed)
+
+    def _load_batches(self, prob: Problem, rng_seed: int) -> None:
+        """The permutations of every epoch the loop can take, drawn on
+        the host from ``rng_seed`` (each epoch the next draw, as in the
+        scalar solve) and copied to the card before the solve."""
+        dev = prob.device
+        slots = self.cap - 1
+        if self.batches is None:
+            make = _StackedBatches if self.stacked else _Batches
+            self.batches = make(prob, self.batching, slots)
+            self.ep = torch.zeros((), dtype=torch.int64, device=dev)
+            self.bact = torch.zeros((prob.x0.shape[0],), dtype=torch.bool,
+                                    device=dev)
+        b = self.batches
+        b.start(_rng_pack(np.random.default_rng(rng_seed)), 0,
+                self.opts.shuffle_batch)
+        b.draw(slots)
+        self.ep.zero_()
 
     def live(self) -> torch.Tensor:
         st = self.state
@@ -339,16 +396,64 @@ class _Loop:
         h.n_rec.add_(live.to(torch.int32))
         return raw
 
-    def epoch(self, prob: Problem, sm, live: torch.Tensor, raw) -> None:
-        """One epoch of every instance, kept where ``live``."""
-        new = self._vmap(self._step, prob, sm, self.state, raw)
-        # every value before the first copy: vmap may hand back a buffer
-        # itself (x_prev is the old x)
+    def _keep(self, new: State, where: torch.Tensor) -> None:
+        """The state's tensors set to ``new``'s where ``where``: every
+        value before the first copy, since vmap may hand back a buffer
+        itself (x_prev is the old x)."""
         olds = _leaves(self.state)
-        vals = [torch.where(_bcast(live, t), v, t)
+        vals = [torch.where(_bcast(where, t), v, t)
                 for t, v in zip(olds, _leaves(new))]
         for t, v in zip(olds, vals):
             t.copy_(v)
+
+    def _batch(self, view: Problem, As, ys, sm, raw) -> None:
+        """One mini-batch step of every instance still active in its
+        epoch (``bact``), which it leaves where its stop test fires."""
+        if self.stacked:
+            new = self._vmap(self._batch_step, view, sm, self.state, raw,
+                             As, ys)
+        else:
+            new = self._vmap(lambda p, s, c, r: self._batch_step(
+                p, s, c, r, As, ys), view, sm, self.state, raw)
+        act = self.bact.clone()
+        self._keep(new, act)
+        self.bact.copy_(act & ~new.done)
+
+    def epoch_batches(self, prob: Problem, sm, live: torch.Tensor,
+                      raw) -> None:
+        """One epoch of mini-batches of every instance live in it: the
+        full batches as one loop on the device while any instance is
+        active, then the partial last batch, then each instance's stop
+        test on its last step (`iterate._Fused._step_batches`)."""
+        b, st = self.batches, self.state
+        nb, _, rem = self.batching
+        perm = b.rows(torch.clamp_max(self.ep, b.slots - 1))
+
+        def batch():
+            self._batch(*b.gather_full(prob, perm), sm=sm, raw=raw)
+            b.bi.add_(1)
+            b.blive.copy_((b.bi < nb) & self.bact.any())
+
+        self.bact.copy_(live)
+        b.bi.zero_()
+        b.blive.copy_(self.bact.any())
+        device_loop(b.blive, nb, batch)
+        if rem:
+            device_if(self.bact.any(), lambda: self._batch(
+                *b.gather_rest(prob, perm), sm=sm, raw=raw))
+        conv = self._vmap(self._epoch_test, prob, sm, st.x, st.x_prev, raw,
+                          st.pri_res)
+        st.frel.copy_(torch.where(live, raw, st.frel))
+        st.k.copy_(torch.where(live, st.k + 1, st.k))
+        st.done.copy_(torch.where(live, conv, st.done))
+        self.ep.add_(1)
+
+    def epoch(self, prob: Problem, sm, live: torch.Tensor, raw) -> None:
+        """One epoch of every instance, kept where ``live``."""
+        if self.batching is not None:
+            self.epoch_batches(prob, sm, live, raw)
+            return
+        self._keep(self._vmap(self._step, prob, sm, self.state, raw), live)
 
     def gap(self, prob: Problem, sm) -> torch.Tensor:
         """The gap of each instance between stats records: exact from
@@ -397,7 +502,8 @@ class _Loop:
 
 def solve(method, prob: Problem, reg_name: str, sm, opts: Options,
           spec: BatchSpec, *, width: Optional[int] = None,
-          room: Optional[int] = None, capture: bool = True) -> SweepResult:
+          room: Optional[int] = None, capture: bool = True,
+          rng_seed: int = 0) -> SweepResult:
     """Solve the B instances of ``prob`` and ``sm`` (their fields in
     ``spec`` batched on axis 0, ``prob.x0`` (B, n)) with ``opts``.
 
@@ -405,10 +511,11 @@ def solve(method, prob: Problem, reg_name: str, sm, opts: Options,
     ``opts.max_epoch + 1``) and ``room`` the records a capture makes
     room for (default ``width``): the waves of a path pass the largest
     budget of the path, so that every wave replays one capture.
-    ``capture=False`` runs the bodies eagerly on the card."""
+    ``capture=False`` runs the bodies eagerly on the card. ``rng_seed``
+    seeds the mini-batches' permutations."""
     method = dc_replace(method, kernels="torch")
     proto = instance(prob, spec.prob, 0)
-    check(method, proto, opts)
+    check(method, proto, opts, spec)
     if opts.local_max_iter is not None:
         opts = dataclasses.replace(opts, max_epoch=1)
     width = opts.max_epoch + 1 if width is None else width
@@ -418,15 +525,57 @@ def solve(method, prob: Problem, reg_name: str, sm, opts: Options,
     if on_card and capture:
         def make(buffers, static, static_sm, cap_):
             loop = _Loop(method, reg_name, opts, spec, proto, cap_, buffers)
-            loop.load(prob, sm)
+            loop.load(prob, sm, rng_seed=rng_seed)
             return loop, {"solve": lambda: loop.solve(static, static_sm)}
 
         entry = _captured(("batched", spec), method, prob, reg_name, sm,
                           opts, _NO_RUN, make, cap)
+        if entry.loop.batching is not None:
+            entry.loop._load_batches(prob, rng_seed)
+        # a row shard's collectives: the load's eager ones end before the
+        # graph's start, and the graph's before the final record's
+        _quiesce(prob)
         entry.graphs["solve"].replay()
+        _quiesce(prob)
         return entry.loop.finish(prob, sm, width)
     with graph.eager() if on_card else nullcontext():
         loop = _Loop(method, reg_name, opts, spec, proto, cap)
-        loop.load(prob, sm)
+        loop.load(prob, sm, rng_seed=rng_seed)
         loop.solve(prob, sm)
         return loop.finish(prob, sm, width)
+
+
+class _StackedBatches(_Batches):
+    """`iterate._Batches` for a fleet whose instances stack their own A
+    and y (B, m, ...): the same permutations, each batch's rows gathered
+    from every instance's A at once (along axis 1)."""
+
+    def __init__(self, prob: Problem, batching, slots: int):
+        nb, bs, rem = batching
+        A, y = prob.A, prob.y
+        B, m = A.shape[0], A.shape[1]
+        self.batching, self.m, self.mesh = batching, m, None
+        dev = prob.device
+        self.bi = torch.zeros((), dtype=torch.int64, device=dev)
+        self.blive = torch.zeros((), dtype=torch.bool, device=dev)
+        self.perm = torch.empty((slots, m), dtype=torch.int64, device=dev)
+        self.Ab = A.new_empty((B, bs) + tuple(A.shape[2:]))
+        self.yb = y.new_empty((B, bs) + tuple(y.shape[2:]))
+        self.Ar = A.new_empty((B, rem) + tuple(A.shape[2:]))
+        self.yr = y.new_empty((B, rem) + tuple(y.shape[2:]))
+        self.gen, self.snaps, self.k_host = None, {}, 0
+
+    def gather_full(self, prob: Problem, epoch):
+        nb, bs, _ = self.batching
+        rows = epoch[:nb * bs].view(nb, bs).index_select(
+            0, self.bi.reshape(1)).reshape(-1)
+        torch.index_select(prob.A, 1, rows, out=self.Ab)
+        torch.index_select(prob.y, 1, rows, out=self.yb)
+        return prob, self.Ab, self.yb
+
+    def gather_rest(self, prob: Problem, epoch):
+        nb, bs, _ = self.batching
+        rows = epoch[nb * bs:]
+        torch.index_select(prob.A, 1, rows, out=self.Ar)
+        torch.index_select(prob.y, 1, rows, out=self.yr)
+        return prob, self.Ar, self.yr

@@ -81,7 +81,13 @@ any collective (`_check_capturable`). Timed mode runs on any group,
 uncaptured (`graph.eager`; the CG loop reads the card once an
 iteration); where the epoch cache acts it takes the cached step and the
 cache's loss in each record, so that its epochs are those of the fused
-mode.
+mode. A mesh may have more axes (the rows on its data axis), and the
+problem may be feature-sharded (`parallel.shard_problem_features`,
+alone or with a row shard on a ('data', 'model') mesh): every method
+and option runs there too (mini-batches gather this rank's columns of
+each batch's rows); what a capture refuses, and timed mode's uncaptured
+run, follow the problem's mesh (`Problem.comm_mesh`) whichever axis it
+shards.
 """
 
 from __future__ import annotations
@@ -105,6 +111,7 @@ from scso_tpu_torch.algorithms.steps import (
     epoch_cache_enabled, lbfgs_step, make_step_fn, prime_glm_cache)
 from scso_tpu_torch.ops.cuda import graph
 from scso_tpu_torch.ops.cuda.graph import device_if, device_loop
+from scso_tpu_torch.ops.dense import is_colshard
 from scso_tpu_torch.ops.lbfgs_core import LBFGSMemory, init_memory
 from scso_tpu_torch.problems import Problem, RowSet
 
@@ -302,7 +309,9 @@ def _metric_values(prob: Problem, x, metric_fns):
 
 def _resolve_kernels(method, prob: Problem):
     """'auto' → 'cuda' for a problem on a CUDA device, 'torch' otherwise.
-    'cuda' on a problem that is not on a CUDA device raises."""
+    'cuda' on a problem that is not on a CUDA device raises. On a column
+    shard 'cuda' launches K3 and K4; the steps take the products route
+    in place of K1, K1s, K2, K2s and K5 there (`steps._kernel`)."""
     on_cuda = prob.device.type == "cuda"
     if method.kernels == "auto":
         return dc_replace(method, kernels="cuda" if on_cuda else "torch")
@@ -315,19 +324,20 @@ def _resolve_kernels(method, prob: Problem):
 
 def _check_sharded(method, prob: Problem, reg_name: str,
                    opts: Optional[Options] = None):
-    """Every method and option of a single solve runs on a one-axis row
-    mesh. A mesh of more axes (the JAX package's ('batch', 'data')
-    layout) or rows sharded over another axis raise here, before the
-    first collective: ranks that parted at a collective would wait for
-    each other forever."""
+    """Every method and option of a single solve runs on a row shard (a
+    mesh of any axes, the rows on ``data_axis``), on a column shard and
+    on both (a 2-D ('data', 'model') mesh). What does not fit raises
+    here, the same on every rank, before the first collective: ranks
+    that parted at a collective would wait for each other forever."""
     mesh = prob.mesh
-    if mesh is None:
-        return
-    if len(mesh.axis_names) != 1 or prob.data_axis not in mesh.axis_names:
-        raise NotImplementedError(
-            f"a solve on a mesh over axes {tuple(mesh.axis_names)} with "
-            f"rows on {prob.data_axis!r}: only one-axis row meshes are "
-            "ported (ROADMAP A11)")
+    if mesh is not None and prob.data_axis not in mesh.axis_names:
+        raise ValueError(f"the problem's rows are on axis "
+                         f"{prob.data_axis!r}, which is not in the mesh's "
+                         f"{tuple(mesh.axis_names)}")
+    if is_colshard(prob.A) and mesh is not None and prob.A.mesh is not mesh:
+        raise ValueError("a problem's rows and columns shard over one "
+                         "mesh (shard_problem, then shard_problem_features "
+                         "on the same mesh)")
 
 
 def _effective_L(prob: Problem, alpha):
@@ -476,6 +486,8 @@ def _auto_lp(method, prob: Problem, reg_name: str = "l1",
         return method, prob
     if prob.A is None or prob.A.ndim != 2 or prob.A_lp is not None:
         return method, prob
+    if is_colshard(prob.A):
+        return method, prob  # no copy on a column shard, as in the JAX package
     if ((prob.glm is None and prob.mglm is None)
             or prob.x0.dtype != torch.float32):
         return method, prob
@@ -543,7 +555,7 @@ def _solve_impl(method, prob: Problem, reg_name: str, sm, opts: Options,
     t0 = time.perf_counter()
     on_card = prob.device.type == "cuda"
     timed = opts.mode == "timed"
-    if timed and prob.mesh is not None:
+    if timed and prob.comm_mesh is not None:
         capture = False
     run = _Run(metric_fns, metric_names, rng_seed, resume_state)
     eager = graph.eager() if on_card and not capture else nullcontext()
@@ -699,6 +711,14 @@ def _resumed_cache(method, prob: Problem, x, saved):
     return prime_glm_cache(method, prob, x)
 
 
+def _take(A, rows, out) -> None:
+    """The rows ``rows`` of A into the buffer ``out`` (of a column
+    shard, its block's)."""
+    if is_colshard(A):
+        A, out = A.block, out.block
+    torch.index_select(A, 0, rows, out=out)
+
+
 class _Batches:
     """The buffers of a mini-batch solve on the data's device: the rows'
     permutation of each epoch of a round (``perm``, one row a slot,
@@ -736,7 +756,8 @@ class _Batches:
                                     device=dev)
         else:
             m_r = A.shape[0]
-            self.lo, self.m_r = self.mesh.rank * m_r, m_r
+            self.lo = self.mesh.axis_rank(prob.data_axis) * m_r
+            self.m_r = m_r
             full, rest = min(bs, m_r), min(rem, m_r)
             index = lambda *shape: torch.zeros(shape, dtype=torch.int64,
                                                device=dev)
@@ -750,9 +771,14 @@ class _Batches:
             mask = lambda r: torch.zeros((r,), dtype=prob.dtype, device=dev)
             self.mb, self.pb = mask(full), index()
             self.mr, self.pr = mask(rest), index()
-        self.Ab = A.new_empty((full,) + tuple(A.shape[1:]))
+        if is_colshard(A):
+            # a column shard's batch: the rows of this rank's columns
+            self.Ab = A.with_block(A.block.new_empty((full, A.width)))
+            self.Ar = A.with_block(A.block.new_empty((rest, A.width)))
+        else:
+            self.Ab = A.new_empty((full,) + tuple(A.shape[1:]))
+            self.Ar = A.new_empty((rest,) + tuple(A.shape[1:]))
         self.yb = y.new_empty((full,) + tuple(y.shape[1:]))
-        self.Ar = A.new_empty((rest,) + tuple(A.shape[1:]))
         self.yr = y.new_empty((rest,) + tuple(y.shape[1:]))
         self.gen, self.snaps, self.k_host = None, {}, 0
 
@@ -828,10 +854,11 @@ class _Batches:
                 total: int):
         """This rank's rows ``rows`` of A and y into the buffers (A, y),
         the pad rows zeroed: (the problem that reads them, A, y)."""
-        torch.index_select(prob.A, 0, rows, out=A)
+        _take(prob.A, rows, A)
         torch.index_select(prob.y, 0, rows, out=y)
         drop = ~kept
-        A.masked_fill_(drop.reshape((-1,) + (1,) * (A.ndim - 1)), 0)
+        blk = A.block if is_colshard(A) else A
+        blk.masked_fill_(drop.reshape((-1,) + (1,) * (blk.ndim - 1)), 0)
         y.masked_fill_(drop.reshape((-1,) + (1,) * (y.ndim - 1)), 0)
         mask.copy_(kept)
         pad.copy_(npad.reshape(()))
@@ -846,7 +873,7 @@ class _Batches:
         b = self.bi.reshape(1)
         if self.mesh is None:
             rows = epoch[:nb * bs].view(nb, bs).index_select(0, b).reshape(-1)
-            torch.index_select(prob.A, 0, rows, out=self.Ab)
+            _take(prob.A, rows, self.Ab)
             torch.index_select(prob.y, 0, rows, out=self.yb)
             return prob, self.Ab, self.yb
         idx, keep, npad = epoch[:3]
@@ -861,7 +888,7 @@ class _Batches:
         nb, bs, rem = self.batching
         if self.mesh is None:
             rows = epoch[nb * bs:]
-            torch.index_select(prob.A, 0, rows, out=self.Ar)
+            _take(prob.A, rows, self.Ar)
             torch.index_select(prob.y, 0, rows, out=self.yr)
             return prob, self.Ar, self.yr
         return self._gather(prob, *epoch[3:], self.Ar, self.yr, self.mr,
@@ -1169,8 +1196,8 @@ def _capture_key(kind: str, method, prob: Problem, reg_name: str, sm,
 
 
 def _check_capturable(prob: Problem, method=None) -> None:
-    """Raise before the first collective where a row-sharded solve cannot
-    be captured. A gloo group reduces CUDA tensors through the host,
+    """Raise before the first collective where a sharded solve cannot be
+    captured. A gloo group reduces CUDA tensors through the host,
     which a capture refuses. NCCL's collectives across two ranks or more
     sit inside the graph's conditional nodes, which NCCL allows only when
     the communicator was made under NCCL_GRAPH_MIXING_SUPPORT=0 (on four
@@ -1180,7 +1207,7 @@ def _check_capturable(prob: Problem, method=None) -> None:
     asynchronously on NCCL's own stream, which is not taken into a
     conditional node's capture. One NCCL rank always captures. Timed
     mode runs all of these uncaptured."""
-    mesh = prob.mesh
+    mesh = prob.comm_mesh
     if mesh is None:
         return
     if dist.get_backend(mesh.group) == "gloo":
@@ -1188,10 +1215,10 @@ def _check_capturable(prob: Problem, method=None) -> None:
             "a captured (mode='fused') solve on a row-sharded problem over "
             "gloo is not ported (ROADMAP A11): use mode='timed'")
     if mesh.size > 1 and not mesh.captures:
-        raise NotImplementedError(
-            "a captured (mode='fused') solve on a problem row-sharded over "
+        raise RuntimeError(
+            "a captured (mode='fused') solve on a problem sharded over "
             "more than one NCCL rank needs NCCL_GRAPH_MIXING_SUPPORT=0 in "
-            "the environment when the process group is made (ROADMAP A11): "
+            "the environment when the mesh's process groups are made: "
             "NCCL's collectives inside the graph's conditional nodes fail "
             "to instantiate without it; set it before distributed_init, or "
             "use mode='timed'")
@@ -1212,7 +1239,7 @@ def _quiesce(prob: Problem) -> None:
     so every eager collective (a solve's priming and records, the next
     solve, a timed solve) starts after the replays have ended, and every
     capture after the eager collectives before it."""
-    mesh = prob.mesh
+    mesh = prob.comm_mesh
     if mesh is not None and mesh.size > 1 and prob.device.type == "cuda":
         torch.cuda.synchronize(prob.device)
 
@@ -1338,7 +1365,7 @@ class _Timed:
         lam, cw = _lam_scalar(prob.lam), _cw(prob, self.reg_name)
         # a row shard takes the cached step where the cache acts, so that
         # timed mode's epochs are the fused mode's there
-        self.cached = prob.mesh is not None and epoch_cache_enabled(
+        self.cached = prob.comm_mesh is not None and epoch_cache_enabled(
             self.method, prob, self.reg_name, self.batching is None)
         if self.cached:
             obj_star = (prime_glm_cache(self.method, prob, prob.x_star).loss

@@ -34,7 +34,16 @@ dense Newton or primal GGN system is summed before every rank factors
 it, and a dense dual GGN system gathers every rank's rows of J
 (`parallel.sharding.gather_rows`). K3 and K4 run on the replicated
 vectors. A mini-batch on a shard is this rank's rows of the batch,
-zero-padded (`Problem.rows`).
+zero-padded (`Problem.rows`). The sums run over the mesh's data axis
+(a mesh of more axes: `Problem.row_sum`).
+
+On a column shard (`parallel.shard_problem_features`: A an
+`ops.dense.ColShard` of this rank's columns, x replicated) the kernels
+that fuse a row's dot with its scatter (K1, K1s, K2, K2s, K5) cannot
+take a partial dot: the steps take their plain versions, whose products
+(`ops.dense`) sum A·v and gather Aᵀu over the model axis (`_kernel`),
+as the JAX package's column-sharded solve takes XLA products. K3 and K4
+still launch, on the replicated vectors.
 
 The uncached GGN-CG path (`_ggn_cg_direction`: ss_type 2 or 3,
 ``epoch_cache=False``, or a spec without ``loss_sample``) preps each
@@ -117,7 +126,7 @@ from scso_tpu_torch.ops.cuda.mglm_matvec import (
 from scso_tpu_torch.ops.cuda.score_update import (
     score_update, score_update_torch)
 from scso_tpu_torch.ops.cuda.two_loop import two_loop, two_loop_torch
-from scso_tpu_torch.ops.dense import amul, atmul, sq_atmul
+from scso_tpu_torch.ops.dense import amul, atmul, is_colshard, sq_atmul
 from scso_tpu_torch.ops.lbfgs_core import LBFGSMemory, update_memory
 from scso_tpu_torch.ops.linalg import (
     armijo_linesearch, cg_solve, inv_bb_step)
@@ -505,12 +514,21 @@ def _lp_engaged(method, prob: Problem, As, dtype) -> bool:
     return not _lp_tol_refused(method, dtype)
 
 
+def _kernel(method, As) -> bool:
+    """Whether the step launches the kernels that fuse a row's dot with
+    its scatter (K1, K1s, K2, K2s, K5) on the rows ``As``: under 'cuda',
+    and not on a column shard, whose partial dots they cannot take (it
+    takes their products route, `ops.dense`, as the JAX package's
+    column-sharded solve does; K3 and K4 still launch there)."""
+    return method.kernels == "cuda" and not is_colshard(As)
+
+
 def _glm_matvec(method, prob: Problem):
     """(A, w, v) ↦ Aᵀ(w∘(A·v)) for the GLM CG operator: K1 under 'cuda'
     (for A in w's dtype or in bfloat16), K1s on a row-sharded problem
     (``method.comm_overlap_chunks`` picks its schedule), or their plain
-    versions."""
-    cuda = method.kernels == "cuda"
+    versions (a column shard's, `_kernel`)."""
+    cuda = _kernel(method, prob.A)
     if prob.mesh is None:
         return normal_matvec if cuda else normal_matvec_torch
     return functools.partial(
@@ -662,14 +680,6 @@ def _prime_moglm(prob: Problem, x, As, ys) -> MOGLMCache:
     return MOGLMCache(Z=Z, grad_vec=grad_vec, hd_raw=hd, loss=loss)
 
 
-def _all_reduce_sum(mesh, *tensors):
-    """`parallel.sharding.all_reduce_sum`, imported where it is used: the
-    parallel package's batched solves import this module."""
-    from scso_tpu_torch.parallel.sharding import all_reduce_sum
-
-    return all_reduce_sum(mesh, *tensors)
-
-
 def prime_glm_cache(method, prob: Problem, x, As=None, ys=None):
     """Build the epoch cache at iterate x: for an mglm problem the three
     matrix products of `_prime_moglm` (MOGLMCache); for a GLM the K2
@@ -689,13 +699,12 @@ def prime_glm_cache(method, prob: Problem, x, As=None, ys=None):
         return _prime_moglm(prob, x, As, ys)
     g = prob.glm
     flavour = _cache_flavour(method)
-    if method.kernels == "cuda":
+    if _kernel(method, As):
         pp = glm_prep_pair(As, ys, x, x, g, prob.m_total, flavour)
         w, b, hd, loss = pp.w_t, pp.b_t, pp.hd_t, pp.loss_t
     else:
         w, b, hd, loss = glm_prep_torch(As, ys, x, g, prob.m_total, flavour)
-    if prob.mesh is not None:
-        b, hd, loss = _all_reduce_sum(prob.mesh, b, hd, loss)
+    b, hd, loss = prob.row_sum(b, hd, loss)
     return GLMCache(w, b, hd, loss * _loss_scale(g, prob.m_total))
 
 
@@ -729,7 +738,7 @@ def _mo_curv_matvec(method, prob: Problem, As, ys, Z, g, lhr, pf, k,
     the cached Z — one K5 launch, or its plain version, normalized by
     ``m_norm`` rows (default: the rows ``As`` stands for), and on a row
     shard followed by one all_reduce of its (p, k) result."""
-    mv = mglm_matvec if method.kernels == "cuda" else mglm_matvec_torch
+    mv = mglm_matvec if _kernel(method, As) else mglm_matvec_torch
     m_norm = prob.rows_total(As) if m_norm is None else m_norm
     return lambda v: prob.row_sum(mv(As, ys, Z, v.reshape(pf, k), g,
                                      m_norm))[0].reshape(-1) + lhr * v
@@ -824,12 +833,12 @@ def _greedy_update_cached(method, prob: Problem, reg_name, sm, As, ys,
     x_trial = _trial_point(method, prob, reg_name, x, d, step_size, lam,
                            Hr_diag)
     g = prob.glm
-    pair = glm_prep_pair if method.kernels == "cuda" else glm_prep_pair_torch
+    pair = glm_prep_pair if _kernel(method, As) else glm_prep_pair_torch
     pp = pair(As, ys, x_trial, x_damped, g, prob.m_total,
               _cache_flavour(method))
     if prob.mesh is not None:
-        pp = pp._replace(**dict(zip(_SUMMED, _all_reduce_sum(
-            prob.mesh, *(getattr(pp, f) for f in _SUMMED)))))
+        pp = pp._replace(**dict(zip(_SUMMED, prob.row_sum(
+            *(getattr(pp, f) for f in _SUMMED)))))
     scale = _loss_scale(g, prob.m_total)
     loss_t = pp.loss_t * scale
     loss_d = pp.loss_d * scale
@@ -1062,17 +1071,19 @@ def _ggn_dense_direction(solver, prob: Problem, As, ys, x, gr, Hr_diag,
         residual = fix(residual.reshape(rows, -1)).reshape(-1)
         Q = fix(Q.reshape(rows, -1)).reshape(q, q)
         q_all = prob.rows_total(As) * (q // max(rows, 1))
-        one = 1.0 if mesh.rank == 0 else 0.0
+        ax = prob.data_axis
+        one = 1.0 if mesh.axis_rank(ax) == 0 else 0.0
     use_dual = ((q_all + 1 <= n) if solver == "auto"
                 else solver == "dense_dual")
     if mesh is not None and use_dual:
         from scso_tpu_torch.parallel.sharding import gather_rows
 
-        block = Q.new_zeros((q, mesh.size * q))
-        block[:, mesh.rank * q:(mesh.rank + 1) * q] = Q
-        J2, residual, Q = (gather_rows(mesh, J2),
-                           gather_rows(mesh, residual),
-                           gather_rows(mesh, block))
+        rank, size = mesh.axis_rank(ax), mesh.axis_size(ax)
+        block = Q.new_zeros((q, size * q))
+        block[:, rank * q:(rank + 1) * q] = Q
+        J2, residual, Q = (gather_rows(mesh, J2, ax),
+                           gather_rows(mesh, residual, ax),
+                           gather_rows(mesh, block, ax))
         q, one = J2.shape[0], 1.0
     Jt = torch.cat([J2.T, (lam * gr)[:, None]], dim=1)
     rt = torch.cat([residual, torch.full((1,), one, dtype=dt, device=dev)])
@@ -1117,7 +1128,7 @@ def _subsampled_weights(method, prob: Problem, As_c, ys_c, x, m):
     weights are scaled by m/m_sub."""
     g = prob.glm
     m_sub = As_c.shape[0]
-    if method.kernels == "cuda":
+    if _kernel(method, As_c):
         w, _, hd = glm_prep(As_c, ys_c, x, g)
     else:
         w, hd = ggn_weights(g, ys_c, amul(As_c, x))[1], None
@@ -1157,7 +1168,7 @@ def _ggn_cg_direction(method, prob: Problem, As, ys, x, gr, Hr_diag, lam,
         b = -(grad_vec + lam * gr)
     elif prob.glm is not None and data_2d:
         stride = _curvature_stride(method, prob, As, x)
-        fused = method.kernels == "cuda" and method.use_fused_prep is not False
+        fused = _kernel(method, As) and method.use_fused_prep is not False
         if fused:
             w, b_raw, hd_raw = glm_prep(As, ys, x, prob.glm,
                                         prob.rows_total(As))

@@ -27,7 +27,10 @@ uses. `torch.nn.functional.softplus` switches to the identity above
 
 A may be stored in bfloat16 with x in float32 or float64 (the coarse
 phase of `iterate_mixed`): its products go through `ops.dense`, which
-upcasts A's values exactly, as JAX promotes them.
+upcasts A's values exactly, as JAX promotes them. Every function here
+reaches A only through `ops.dense` (the dense Hessians through its Gram
+product, the Jacobians through ``widen``), so each also runs on a
+column-sharded A (`parallel.shard_problem_features`).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from __future__ import annotations
 import torch
 
 from scso_tpu_torch._src.struct import replace
-from scso_tpu_torch.ops.dense import amul, atmul, widen
+from scso_tpu_torch.ops.dense import amul, atmul, gram, widen
 from scso_tpu_torch.problems import GLMSpec, MOGLMSpec
 
 
@@ -55,8 +58,7 @@ def logistic_grad(A, y, x):
 
 def logistic_hess(A, y, x):
     s = torch.sigmoid(y * amul(A, x))
-    A = widen(A, x.dtype)
-    return (A.T * (s * (1.0 - s))) @ A / A.shape[0]
+    return gram(A, s * (1.0 - s)) / A.shape[0]
 
 
 def logistic_hvp(A, y, x, v):
@@ -108,8 +110,7 @@ def logistic01_grad(A, y, x):
 
 def logistic01_hess(A, y, x):
     s = torch.sigmoid(amul(A, x))
-    A = widen(A, x.dtype)
-    return (A.T * (s * (1.0 - s))) @ A / A.shape[0]
+    return gram(A, s * (1.0 - s)) / A.shape[0]
 
 
 def logistic01_hvp_w(A, y, x):
@@ -166,8 +167,7 @@ def lsq_grad(A, y, x):
 
 
 def lsq_hess(A, y, x):
-    A = widen(A, x.dtype)
-    return A.T @ A / A.shape[0]
+    return gram(widen(A, x.dtype)) / A.shape[0]
 
 
 def linear_out(A, x):
@@ -230,8 +230,7 @@ def poisson_grad(A, y, x):
 
 def poisson_hess(A, y, x):
     w = torch.exp(amul(A, x))
-    A = widen(A, x.dtype)
-    return (A.T * w) @ A / A.shape[0]
+    return gram(A, w) / A.shape[0]
 
 
 def poisson_hvp_w(A, y, x):

@@ -75,7 +75,7 @@ from typing import NamedTuple
 import torch
 
 from scso_tpu_torch.ops.cuda import build, counters, launch
-from scso_tpu_torch.ops.dense import sq_atmul, widen
+from scso_tpu_torch.ops.dense import amul, atmul, is_colshard, sq_atmul, widen
 
 #: the spec kinds the one-pass and wide forms compute, in the order of
 #: their codes (``Kind`` in csrc/glm_prep.cuh)
@@ -196,7 +196,13 @@ def glm_prep_torch(A, y, x, glm, m_norm=None, flavour="ggn"):
     ``Σᵢ wᵢAᵢⱼ²`` materialises an A-sized temporary (w·A, then the
     contraction with A): about 8 GB at the full 196608×10112 float32
     width. The CUDA kernel needs none. A bfloat16 A is first upcast to
-    x's dtype (exact): another A-sized temporary."""
+    x's dtype (exact): another A-sized temporary. On a column shard
+    (`ops.dense.ColShard`) the products of `ops.dense`."""
+    if is_colshard(A):
+        z = amul(A, x)
+        rw, w = _weights(glm, y, z, m_norm, flavour)
+        return (w, atmul(A, rw), sq_atmul(A, w),
+                torch.sum(glm.loss_sample(y, z)))
     A = widen(A, x.dtype)
     z = A @ x
     rw, w = _weights(glm, y, z, m_norm, flavour)

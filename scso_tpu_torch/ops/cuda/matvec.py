@@ -33,7 +33,8 @@ import torch
 import torch.distributed as dist
 
 from scso_tpu_torch.ops.cuda import build, counters, launch
-from scso_tpu_torch.ops.dense import widen
+from scso_tpu_torch.ops.collective import group_sum
+from scso_tpu_torch.ops.dense import amul, atmul, is_colshard, widen
 
 # dynamic shared memory a block may use: Hopper's 227 KB less headroom
 # for the kernel's static buffers
@@ -50,7 +51,11 @@ def normal_matvec_torch(A, w, v):
     """Plain PyTorch Aᵀ(w ∘ (A v)): two matrix-vector products, A read
     twice. A bfloat16 A is first upcast to w's dtype (exact; PyTorch
     multiplies no bfloat16 matrix by a float32 or float64 vector): an
-    A-sized temporary in w's dtype."""
+    A-sized temporary in w's dtype. On a column shard (`ops.dense.
+    ColShard`) the two products of `ops.dense`, each with its collective
+    over the model axis."""
+    if is_colshard(A):
+        return atmul(A, w * amul(A, v))
     A = widen(A, w.dtype)
     return A.T @ (w * (A @ v))
 
@@ -127,23 +132,24 @@ def normal_matvec(A, w, v):
     return out
 
 
-def _sharded(matvec, A, w, v, mesh, overlap_chunks):
-    """The K1s schedule over ``mesh.group``. ``overlap_chunks <= 1``:
-    ``matvec`` on the local rows, then one all_reduce. Otherwise the
-    JAX package's overlapped form: u = w∘(A·v) once (a matrix product,
-    as there), then Aᵀu in c = min(overlap_chunks, max(1, n // 128))
-    column chunks, each chunk's all_reduce issued as soon as its product
-    is done (async), so chunk i's collective overlaps chunk i+1's
-    product; every handle is waited on before the concatenation, which
-    orders the reads after the collectives on the compute stream. The
-    local shard is then read twice: it pays only where the collective
-    dominates. A bfloat16 A is upcast to w's dtype for its products
-    (a temporary of the shard's size): the overlapped form never runs
-    K1."""
-    if overlap_chunks <= 1:
-        out = matvec(A, w, v)
-        dist.all_reduce(out, group=mesh.group)
-        return out
+def _sharded(matvec, A, w, v, mesh, overlap_chunks, data_axis="data"):
+    """The K1s schedule over the group of ``mesh``'s axis ``data_axis``.
+    ``overlap_chunks <= 1``: ``matvec`` on the local rows, then one
+    all_reduce (under ``torch.func.vmap``, the batched solve, one
+    all_reduce of every instance's result: `ops.collective.group_sum`).
+    Otherwise the JAX package's overlapped form: u = w∘(A·v) once (a
+    matrix product, as there), then Aᵀu in c = min(overlap_chunks,
+    max(1, n // 128)) column chunks, each chunk's all_reduce issued as
+    soon as its product is done (async), so chunk i's collective
+    overlaps chunk i+1's product; every handle is waited on before the
+    concatenation, which orders the reads after the collectives on the
+    compute stream. The local shard is then read twice: it pays only
+    where the collective dominates. A bfloat16 A is upcast to w's dtype
+    for its products (a temporary of the shard's size): the overlapped
+    form never runs K1."""
+    group = mesh.axis_group(data_axis)
+    if overlap_chunks <= 1 or is_colshard(A):
+        return group_sum(matvec(A, w, v), group, inplace=True)
     A = widen(A, w.dtype)
     n = A.shape[1]
     c = min(overlap_chunks, max(1, n // 128))
@@ -152,7 +158,7 @@ def _sharded(matvec, A, w, v, mesh, overlap_chunks):
     outs, works = [], []
     for i in range(c):
         part = A[:, i * h:(i + 1) * h].T @ u
-        works.append(dist.all_reduce(part, group=mesh.group, async_op=True))
+        works.append(dist.all_reduce(part, group=group, async_op=True))
         outs.append(part)
     for work in works:
         work.wait()
@@ -170,7 +176,8 @@ def normal_matvec_sharded_torch(A, w, v, mesh, data_axis="data",
     """Plain K1s: the same schedule with :func:`normal_matvec_torch`,
     on any device (the solver's 'torch' path)."""
     _check_axis(mesh, data_axis)
-    return _sharded(normal_matvec_torch, A, w, v, mesh, overlap_chunks)
+    return _sharded(normal_matvec_torch, A, w, v, mesh, overlap_chunks,
+                    data_axis)
 
 
 def normal_matvec_sharded(A, w, v, mesh, data_axis="data",
@@ -188,7 +195,7 @@ def normal_matvec_sharded(A, w, v, mesh, data_axis="data",
         return normal_matvec_sharded_torch(A, w, v, mesh, data_axis,
                                            overlap_chunks)
     _check_axis(mesh, data_axis)
-    out = _sharded(normal_matvec, A, w, v, mesh, overlap_chunks)
+    out = _sharded(normal_matvec, A, w, v, mesh, overlap_chunks, data_axis)
     if overlap_chunks <= 1:
         counters.bump("normal_matvec_sharded")
     return out

@@ -37,7 +37,7 @@ from typing import NamedTuple
 import torch
 
 from scso_tpu_torch.ops.cuda import build, counters, launch
-from scso_tpu_torch.ops.dense import widen
+from scso_tpu_torch.ops.dense import amul, atmul, is_colshard, widen
 
 KERNEL_KINDS = ("multinomial",)
 #: the tensor-core form's limits: its (p × k) accumulators in the
@@ -181,8 +181,11 @@ def _norm_fix(spec, m, m_norm):
 def mglm_matvec_torch(A, y, Z, V, spec, m_norm=None):
     """Plain PyTorch Aᵀ·quad(y, Z, A·V): two matrix products, A read
     twice, normalized by ``m_norm`` rows (default A's). A bfloat16 A is
-    first upcast to V's dtype (exact): an A-sized temporary."""
+    first upcast to V's dtype (exact): an A-sized temporary. On a column
+    shard (`ops.dense.ColShard`) the products of `ops.dense`."""
     fix = _norm_fix(spec, A.shape[0], m_norm)
+    if is_colshard(A):
+        return fix(atmul(A, spec.quad(y, Z, amul(A, V))))
     A = widen(A, V.dtype)
     return fix(A.T @ spec.quad(y, Z, A @ V))
 

@@ -1,12 +1,12 @@
 """Scale-out: row sharding over ``torch.distributed``, sharded IO, and
 instance-parallel solves.
 
-Port of `scso_tpu.parallel`: row sharding, on which every method of a
-single solve runs (`sharding`, `dataio`), λ/μ regularization paths and
-problem fleets as
-one batched solve (`sweep`), and federated rounds over a fleet of
-clients (`federated`). Feature sharding, `replicate` and meshes of more
-than one axis are not ported (ROADMAP A11)."""
+Port of `scso_tpu.parallel`: meshes of any axes, row sharding and
+feature sharding, on which every method of a single solve runs
+(`sharding`, `dataio`), `replicate`, λ/μ regularization paths and
+problem fleets as one batched solve, also of row-sharded problems on a
+('batch', 'data') mesh (`sweep`), and federated rounds over a fleet of
+clients (`federated`)."""
 
 from scso_tpu_torch.parallel.dataio import (
     load_problem_rows_sharded, load_rows_sharded, save_array,

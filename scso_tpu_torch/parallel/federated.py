@@ -11,7 +11,9 @@ package:
     batched solve (`sweep.solve_fleet`: A stacked, each product one
     bmm; on the card one captured graph, the same one every round,
     x0 its buffer), warm-started from the global iterate — with a mesh
-    the clients are split over the ranks of its batch axis;
+    the clients are split over the ranks of its batch axis, and on a
+    row-sharded problem each rank solves the clients whose rows it
+    holds;
   * the round ends with weighted model averaging (FedAvg; uniform
     weights by default).
 
@@ -107,6 +109,23 @@ def _rep_fields(obj, C: int):
         batched.leaves(obj, names), lambda t: _rep(t, C)))
 
 
+def _gather_clients(prob: Problem, res):
+    """Every data rank's clients' results (x, epochs), in client order,
+    on every rank: one gather over the problem's data axis of the fields
+    packed exactly into float64, after the fleet's graph has ended."""
+    from scso_tpu_torch.parallel.sharding import gather_rows
+
+    if res.x.device.type == "cuda":
+        torch.cuda.synchronize(res.x.device)
+    n = res.x.shape[-1]
+    packed = torch.cat([res.x.to(torch.float64),
+                        res.epochs.to(torch.float64)[:, None]], dim=1)
+    full = gather_rows(prob.mesh, packed, prob.data_axis)
+    return dataclasses.replace(
+        res, x=full[:, :n].to(res.x.dtype),
+        epochs=full[:, n].to(res.epochs.dtype))
+
+
 def _stack_smoother(sm, C: int, dt, dev):
     """The smoother with μ and its tensors repeated per client."""
     mu = torch.as_tensor(sm.mu, dtype=dt, device=dev)
@@ -126,7 +145,14 @@ def federated_solve(method, prob: Problem, reg_name: str, sm, *,
         this SCORE solver locally.
       prob: the CENTRALIZED data problem; rows are split evenly across
         ``n_clients`` (:func:`split_clients`). A problem row-sharded over
-        more than one rank holds only this rank's rows and is refused.
+        D ranks of its data axis keeps its clients where their rows are:
+        client i's rows [i·m/C, (i+1)·m/C) lie on one rank (C must be a
+        multiple of D), each rank solves its C/D clients as a fleet
+        (split further over ``mesh``'s ``batch_axis`` when given: the
+        ('batch', 'data') layout), one gather over the data axis gives
+        every rank every client's iterate, and the centralized
+        objective sums over the rows' ranks: the clients, rounds and
+        averages of the unsharded solve.
       comm_rounds: communication rounds (the reference's stored-unused
         ``Options.comm_rounds``, made real).
       local_epochs: local epochs a round for each client.
@@ -139,16 +165,16 @@ def federated_solve(method, prob: Problem, reg_name: str, sm, *,
     Returns a :class:`FederatedResult` with per-round centralized
     objectives, computed on the full data.
     """
-    if prob.mesh is not None and prob.mesh.size > 1:
-        raise NotImplementedError(
-            "federated_solve on a problem row-sharded over more than one "
-            "rank (each rank holds only its rows) is not ported "
-            "(ROADMAP A11): pass the whole problem, and split the clients "
-            "over the ranks with mesh=")
     dt, dev = prob.dtype, prob.device
     C = n_clients
-    clients = split_clients(prob, C)
-    sms = _stack_smoother(sm, C, dt, dev)
+    D = 1 if prob.mesh is None else prob.mesh.axis_size(prob.data_axis)
+    if C % D != 0:
+        raise ValueError(
+            f"n_clients={C} must be a multiple of the {D} ranks of the "
+            f"problem's data axis {prob.data_axis!r}: each client's rows "
+            "stay on the rank that holds them")
+    clients = split_clients(prob, C // D)
+    sms = _stack_smoother(sm, C // D, dt, dev)
     if weights is None:
         w = torch.full((C,), 1.0 / C, dtype=dt, device=dev)
     else:
@@ -172,9 +198,11 @@ def federated_solve(method, prob: Problem, reg_name: str, sm, *,
     # per client): the best round's average is returned, not the last
     best_obj, best_x = float("inf"), x_global
     for _ in range(comm_rounds):
-        cl = dc_replace(clients, x0=x_global.expand(C, -1))
+        cl = dc_replace(clients, x0=x_global.expand(C // D, -1))
         res = solve_fleet(method, cl, reg_name, sms, opts=ropts, mesh=mesh,
                           batch_axis=batch_axis, _capture=_capture)
+        if D > 1:
+            res = _gather_clients(prob, res)
         x_global = torch.tensordot(w, res.x, dims=1)
         obj = float(prob.obj(reg_name, x_global))
         objs.append(obj)

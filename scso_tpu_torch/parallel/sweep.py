@@ -11,9 +11,14 @@ CUDA graph, replayed once a solve and cached per static configuration
 polish replay one capture).
 
 With ``mesh`` the instance axis is split over the ranks of the mesh's
-``batch_axis``: each rank solves its contiguous B/world instances on its
-own card, and one ``all_gather`` after the solve, outside any capture,
-gives every rank the whole result.
+``batch_axis``: each rank solves its contiguous share of the instances
+on its own card, and one ``all_gather`` over that axis after the solve,
+outside any capture, gives every rank the whole result. The problem may
+be row-sharded over the mesh's 'data' axis (the JAX package's
+('batch', 'data') layout) or over a ('data',) mesh of its own: its row
+sums then run inside the batched solve over the data axis only, one
+collective for the whole batch. ``plan='auto'`` decides once for the
+mesh (`_agreed_latency_s`).
 """
 
 from __future__ import annotations
@@ -97,8 +102,34 @@ def _largest_wave_count(B: int, cap: int = 16, ndev: int = 1) -> int:
     return 0
 
 
+def _agreed_latency_s(prob: Problem, mesh) -> float:
+    """The launch latency the plan rule reads: this rank's measured one
+    (`_dispatch_latency_s`), and on a mesh of several ranks the largest
+    over them (one all_reduce MAX over the whole mesh, the sweep's or
+    else the problem's), so that every rank decides from the same input
+    and runs the same plan. Each rank measures its own latency, once a
+    process, and the H100 sits near the rule's threshold: ranks that
+    decided alone ran different numbers of waves, whose gathers then no
+    longer matched. The max and not rank 0's value: no rank is special,
+    and the slowest rank's launches bound a wave of them all, since
+    every wave ends in a collective. A 2-D mesh agrees over all its
+    ranks, not one axis: a ('batch', 'data') mesh's data groups sum over
+    ranks of different batch lines."""
+    lat = _dispatch_latency_s(prob.device)
+    mesh = mesh if mesh is not None else prob.comm_mesh
+    if mesh is None or mesh.size <= 1:
+        return lat
+    dev = prob.device if dist.get_backend(mesh.group) == "nccl" else "cpu"
+    t = torch.tensor([lat], dtype=torch.float64, device=dev)
+    if t.device.type == "cuda":
+        # a captured solve's collectives have ended before an eager one
+        torch.cuda.synchronize(t.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group)
+    return float(t[0])
+
+
 def _resolve_plan(plan: str, prob: Problem, B: int, opts: Options,
-                  ndev: int) -> tuple:
+                  ndev: int, mesh=None) -> tuple:
     """(path_waves, wave_max_epoch) for a named execution plan.
 
     Waves buy fewer epochs per instance but pay one launch of the solve
@@ -107,9 +138,10 @@ def _resolve_plan(plan: str, prob: Problem, B: int, opts: Options,
     t_epoch, t_epoch = max(PASSES x bytes(A) / BW — with A shared, an
     epoch reads A the same times whatever the batch — and PASSES x
     2·m·n·Bw / FLOPS), and waves are taken iff that exceeds 4x the
-    measured latency (launch overhead < 25% a wave). 'quality' always
-    waves (W = largest divisor of B in [2, 16], warm cap max_epoch/4);
-    'throughput' never."""
+    latency, agreed over the ranks of ``mesh`` (`_agreed_latency_s`;
+    launch overhead < 25% a wave). 'quality' always waves (W = largest
+    divisor of B in [2, 16], warm cap max_epoch/4); 'throughput'
+    never."""
     if plan == "throughput":
         return 0, None
     W = _largest_wave_count(B, ndev=ndev)
@@ -123,15 +155,17 @@ def _resolve_plan(plan: str, prob: Problem, B: int, opts: Options,
     # plan == 'auto'
     if prob.A is None:
         return 0, None  # data-less problems: per-epoch work unknown; cold
-    if _wave_s(prob, B // W) > 4.0 * _dispatch_latency_s(prob.device):
+    if _wave_s(prob, B // W) > 4.0 * _agreed_latency_s(prob, mesh):
         return W, cap
     return 0, None
 
 
 def _wave_s(prob: Problem, Bw: int) -> float:
     """The plan rule's estimate of one warm wave of ``Bw`` instances
-    (seconds): WARM_EPOCHS x t_epoch (`_resolve_plan`)."""
-    m, n = prob.A.shape[-2], prob.A.shape[-1]
+    (seconds): WARM_EPOCHS x t_epoch (`_resolve_plan`), from A's global
+    shape, as the JAX package's rule reads it: on a row shard all ranks'
+    rows (``m_total``), on a column shard all columns."""
+    m, n = prob.m_total, prob.A.shape[-1]
     itemsize = prob.A.element_size()
     dev = "cuda" if prob.device.type == "cuda" else "cpu"
     t_epoch = max(
@@ -153,10 +187,7 @@ def _plan_warn(msg):
 def _axis_size(mesh, batch_axis: str) -> int:
     if mesh is None:
         return 1
-    if batch_axis not in mesh.axis_names:
-        raise ValueError(f"axis {batch_axis!r} is not in the mesh's "
-                         f"{mesh.axis_names}")
-    return mesh.shape[batch_axis]
+    return mesh.axis_size(batch_axis)
 
 
 def _grid(g, B, dt, dev, like) -> torch.Tensor:
@@ -171,9 +202,10 @@ def _grid(g, B, dt, dev, like) -> torch.Tensor:
     return torch.as_tensor(np.asarray(g), dtype=dt, device=dev)
 
 
-def _gather(mesh, res: SweepResult) -> SweepResult:
-    """Every rank's instances, in rank order, on every rank: one
-    all_gather of the fields packed exactly into float64."""
+def _gather(mesh, res: SweepResult, batch_axis: str) -> SweepResult:
+    """Every rank's instances, in rank order along ``batch_axis``, on
+    every rank: one all_gather over that axis's group of the fields
+    packed exactly into float64."""
     fields = [f.name for f in dataclasses.fields(SweepResult)]
     parts = [getattr(res, f) for f in fields]
     B = res.x.shape[0]
@@ -183,11 +215,13 @@ def _gather(mesh, res: SweepResult) -> SweepResult:
         # the batched solve's graph has ended before an eager collective
         # (NCCL_GRAPH_MIXING_SUPPORT=0 leaves the two unordered otherwise)
         torch.cuda.synchronize(flat.device)
+    group = mesh.axis_group(batch_axis)
     via_host = (flat.device.type == "cuda"
-                and dist.get_backend(mesh.group) == "gloo")
+                and dist.get_backend(group) == "gloo")
     send = flat.cpu() if via_host else flat.contiguous()
-    got = [torch.empty_like(send) for _ in range(mesh.size)]
-    dist.all_gather(got, send, group=mesh.group)
+    got = [torch.empty_like(send)
+           for _ in range(mesh.axis_size(batch_axis))]
+    dist.all_gather(got, send, group=group)
     full = torch.cat(got).to(flat.device)
     out, lo = {}, 0
     for f, p in zip(fields, parts):
@@ -200,10 +234,12 @@ def _gather(mesh, res: SweepResult) -> SweepResult:
 
 def _solve(method, prob: Problem, reg_name: str, sm, opts: Options,
            spec: BatchSpec, mesh, batch_axis: str, capture: bool,
-           **kw) -> SweepResult:
+           rng_seed: int = 0, **kw) -> SweepResult:
     """One batched solve of the instances of ``prob``/``sm``; with a
-    mesh each rank solves its contiguous share and the results are
-    gathered."""
+    mesh each rank of its ``batch_axis`` solves its contiguous share and
+    the results are gathered over that axis. A row-sharded problem
+    (its rows on another axis of the mesh, or on a mesh of its own)
+    sums its rows over its data axis inside the solve."""
     B = prob.x0.shape[0]
     size = _axis_size(mesh, batch_axis)
     if size > 1:
@@ -211,12 +247,13 @@ def _solve(method, prob: Problem, reg_name: str, sm, opts: Options,
             raise ValueError(
                 f"batch size {B} must be divisible by mesh axis "
                 f"'{batch_axis}' size {size}")
-        lo, hi = mesh.rank * B // size, (mesh.rank + 1) * B // size
+        r = mesh.axis_rank(batch_axis)
+        lo, hi = r * B // size, (r + 1) * B // size
         prob = batched.take(prob, spec.prob, lo, hi)
         sm = batched.take(sm, spec.sm, lo, hi)
     res = batched.solve(method, prob, reg_name, sm, opts, spec,
-                        capture=capture, **kw)
-    return _gather(mesh, res) if size > 1 else res
+                        capture=capture, rng_seed=rng_seed, **kw)
+    return _gather(mesh, res, batch_axis) if size > 1 else res
 
 
 def _star_is_zero(prob: Problem) -> bool:
@@ -240,8 +277,14 @@ def sweep(method, prob: Problem, reg_name: str, sm, *,
         result with one wide solve, ``sweep(..., x0_grid=warm.x)``. Not
         combinable with ``path_waves``.
       mesh / batch_axis: split the instance axis over the ranks of this
-        mesh axis (B must divide their number).
-      rng_seed: kept for parity (the batched solve takes full batches).
+        mesh axis (B must divide their number). ``prob`` may be
+        row-sharded over another axis of the same mesh (the JAX
+        package's ('batch', 'data') layout), or over a mesh of its own
+        with ``mesh=None`` (a ('data',) mesh: the batch is not split).
+      rng_seed: the seed of the mini-batches' permutations
+        (``opts.batch_size``, ``slice_samples``): one seed for every
+        instance, as the JAX package's vmapped solve takes it, so that
+        every instance sees the same batches.
       path_waves: 0 solves all B instances at once, each from
         ``prob.x0``. W ≥ 2: glmnet-style pathwise warm starts — the grid
         sorted descending (by λ, or by μ without a lam_grid), split into
@@ -285,7 +328,7 @@ def sweep(method, prob: Problem, reg_name: str, sm, *,
             raise ValueError("wave_max_epoch is chosen by the plan; pass "
                              "path_waves= to control it by hand")
         path_waves, wave_max_epoch = _resolve_plan(
-            plan, prob, B, opts, _axis_size(mesh, batch_axis))
+            plan, prob, B, opts, _axis_size(mesh, batch_axis), mesh)
 
     if path_waves >= 2:
         if x0_grid is not None:
@@ -293,7 +336,7 @@ def sweep(method, prob: Problem, reg_name: str, sm, *,
                              "(waves manage their own warm starts)")
         return _sweep_path(method, prob, reg_name, sm, opts, lam_grid,
                            mu_grid, had_lam, int(path_waves), mesh,
-                           batch_axis, wave_max_epoch, _capture)
+                           batch_axis, wave_max_epoch, _capture, rng_seed)
     if wave_max_epoch is not None:
         raise ValueError("wave_max_epoch requires path_waves >= 2")
 
@@ -311,12 +354,12 @@ def sweep(method, prob: Problem, reg_name: str, sm, *,
         x0_grid = prob.x0.expand((B,) + n_shape).clone()
     bprob = dc_replace(prob, lam=lam_grid, x0=x0_grid)
     return _solve(method, bprob, reg_name, dc_replace(sm, mu=mu_grid),
-                  opts, _SWEEP, mesh, batch_axis, _capture)
+                  opts, _SWEEP, mesh, batch_axis, _capture, rng_seed)
 
 
 def _sweep_path(method, prob, reg_name, sm, opts, lam_grid, mu_grid,
                 sort_by_lam, W, mesh, batch_axis, wave_max_epoch,
-                capture) -> SweepResult:
+                capture, rng_seed=0) -> SweepResult:
     """Pathwise warm-started sweep: W sequential waves of B/W instances,
     sorted by descending λ (or μ), wave w's instance j started from wave
     w−1's instance j. Every wave replays one capture."""
@@ -352,7 +395,7 @@ def _sweep_path(method, prob, reg_name, sm, opts, lam_grid, mu_grid,
         res = _solve(method, dc_replace(prob, lam=lam_w[w], x0=x0),
                      reg_name, dc_replace(sm, mu=mu_w[w]),
                      opts if w == 0 else warm, _SWEEP, mesh, batch_axis,
-                     capture, width=width)
+                     capture, rng_seed, width=width)
         parts.append(res)
         x0 = res.x
     inv = torch.from_numpy(np.argsort(order, kind="stable")).to(idx.device)
@@ -398,7 +441,10 @@ def solve_fleet(method, probs: Problem, reg_name: str, sms, *,
     build them with :func:`stack_problems`). ``sms`` is the stacked
     smoothers, or one smoother for every instance. With a mesh the
     instances are split over the ranks of ``batch_axis``. A stacked A
-    makes each product of the batch one batched product (bmm)."""
+    makes each product of the batch one batched product (bmm). The
+    instances may be row-sharded over a data axis (stacked row shards
+    of one mesh); ``rng_seed`` seeds the mini-batches, as in
+    :func:`sweep`."""
     opts = opts or Options()
     B = probs.x0.shape[0]
     spec = _fleet_spec(probs, sms)
@@ -409,4 +455,4 @@ def solve_fleet(method, probs: Problem, reg_name: str, sms, *,
         spec = spec._replace(sm=("mu",))
     sms = dc_replace(sms, mu=mu)
     return _solve(method, probs, reg_name, sms, opts, spec, mesh,
-                  batch_axis, _capture)
+                  batch_axis, _capture, rng_seed)

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from scso_tpu_torch._src.struct import frozen_dataclass
+from scso_tpu_torch.ops.dense import is_colshard
 from scso_tpu_torch.ops.groups import Groups, make_groups
 from scso_tpu_torch.ops.regularizers import reg_value
 
@@ -130,6 +131,16 @@ class Problem:
     zero rows; each pad row's share, f at one zero row, is taken back
     out (:meth:`share`).
 
+    On a column shard (`parallel.shard_problem_features`) A and Atest
+    are `ops.dense.ColShard` blocks of this rank's columns (of its rows,
+    on a 2-D ('data', 'model') mesh, where ``mesh`` is that mesh). The
+    contract there: f and its hooks reach A only through `ops.dense`
+    (``amul``, ``atmul``, ``sq_atmul``, ``gram``, ``widen``) and read
+    ``A.shape`` (this rank's rows, all columns), as every loss of
+    `models.losses` does; autograd through f (without ``grad_fx`` or
+    ``hess_fx``) runs through those products' collectives. Any other
+    use of A raises the same ValueError on every rank at the same point.
+
     ``A_lp`` is an optional low-precision copy of A (bfloat16, built by
     `algorithms.mixed.with_lp_copy` or by AUTO, `ProxGGNSCORE.auto_lp`)
     for precision-adaptive CG: epochs whose CG forcing tolerance is at
@@ -224,14 +235,25 @@ class Problem:
             return self.m_total if As is self.A else int(As.shape[0])
         return self._rowset(As)[0]
 
+    @property
+    def comm_mesh(self):
+        """The mesh whose collectives a solve of this problem runs: the
+        row shard's, else a column shard's (`ops.dense.ColShard`), else
+        None."""
+        if self.mesh is not None:
+            return self.mesh
+        return getattr(self.A, "mesh", None) if is_colshard(self.A) else None
+
     def row_sum(self, *tensors):
-        """Each tensor summed over the ranks of a row shard, in ONE
-        collective (`parallel.all_reduce_sum`); as they are unsharded."""
+        """Each tensor summed over the ranks of a row shard (its mesh's
+        axis ``data_axis``), in ONE collective
+        (`parallel.all_reduce_sum`); as they are unsharded."""
         if self.mesh is None:
             return tensors
         from scso_tpu_torch.parallel.sharding import all_reduce_sum
 
-        return tuple(all_reduce_sum(self.mesh, *tensors))
+        return tuple(all_reduce_sum(self.mesh, *tensors,
+                                    axis=self.data_axis))
 
     def row_form(self, As, normalized: bool = True):
         """v ↦ this rank's share of a per-row form v on the rows ``As``
@@ -264,8 +286,10 @@ class Problem:
         out = out if scale == 1.0 else out * scale
         if rs is None:
             return out
-        zero = fn(As.new_zeros((1,) + tuple(As.shape[1:])),
-                  ys.new_zeros((1,) + tuple(ys.shape[1:])))
+        zero_row = (As.with_block(As.block.new_zeros((1, As.width)))
+                    if is_colshard(As)
+                    else As.new_zeros((1,) + tuple(As.shape[1:])))
+        zero = fn(zero_row, ys.new_zeros((1,) + tuple(ys.shape[1:])))
         return out - torch.where(rs.pad > 0,
                                  zero * (rs.pad.to(zero.dtype) / total),
                                  torch.zeros_like(zero))
@@ -453,15 +477,21 @@ def with_col_sumsq(prob: Problem) -> Problem:
     the static Jacobi preconditioner (``static_precond=True``): the
     per-epoch diagonal Σᵢ wᵢAᵢⱼ² is then (Σw/m)·diag(AᵀA), O(m + n) an
     epoch in place of a pass over A. On a row shard the column sums are
-    summed over the ranks (one ``all_reduce``)."""
+    summed over the ranks (one ``all_reduce``); on a column shard each
+    rank's columns are gathered (`ops.dense.sq_atmul`)."""
     if not prob.has_data:
         raise ValueError("with_col_sumsq requires a data problem")
     from scso_tpu_torch._src.struct import replace as dc_replace
-    from scso_tpu_torch.ops.dense import widen
+    from scso_tpu_torch.ops.dense import sq_atmul, widen
 
-    A = widen(prob.A, prob.dtype)
-    return dc_replace(prob, col_sumsq=prob.row_sum(
-        torch.einsum("ij,ij->j", A, A))[0])
+    if is_colshard(prob.A):
+        ones = torch.ones((prob.A.shape[0],), dtype=prob.dtype,
+                          device=prob.device)
+        sums = sq_atmul(prob.A, ones)
+    else:
+        A = widen(prob.A, prob.dtype)
+        sums = torch.einsum("ij,ij->j", A, A)
+    return dc_replace(prob, col_sumsq=prob.row_sum(sums)[0])
 
 
 class ProblemLike:

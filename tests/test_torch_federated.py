@@ -160,24 +160,30 @@ def one_rank():
 def test_sharded_input_and_batch_mesh(one_rank):
     """A row-sharded input's mesh is dropped (the local solves are
     local), and a one-rank batch mesh over the clients gives the same
-    bits; a problem sharded over more ranks (this rank holds only its
-    rows) is refused."""
+    bits, as does a problem row-sharded on a 1×1 ('batch', 'data') mesh
+    with its clients over 'batch'; over more data ranks each rank keeps
+    the clients whose rows it holds (their parity on 4 ranks:
+    tests/test_torch_mesh2d_batch.py), so the clients must be a multiple
+    of the data ranks."""
     kw = dict(n_clients=8, comm_rounds=2, local_epochs=4)
     plain = federated_solve(METH(st), _prob(st), "l1", SM(st), **kw)
     sharded = federated_solve(
         METH(st), shard_problem(_prob(st), make_mesh()), "l1", SM(st), **kw)
     on_mesh = federated_solve(METH(st), _prob(st), "l1", SM(st),
                               mesh=make_mesh(axis_names=("batch",)), **kw)
-    for f in (sharded, on_mesh):
+    grid = make_mesh((1, 1), ("batch", "data"))
+    on_grid = federated_solve(METH(st), shard_problem(_prob(st), grid), "l1",
+                              SM(st), mesh=grid, **kw)
+    for f in (sharded, on_mesh, on_grid):
         assert torch.equal(f.x, plain.x)
         assert torch.equal(f.obj, plain.obj)
         assert torch.equal(f.client_epochs, plain.client_epochs)
     cl = split_clients(shard_problem(_prob(st), make_mesh()), 8)
     assert cl.mesh is None and cl.m_total == 64
     two = Mesh(group=None, axis_names=("data",), size=2, rank=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    with pytest.raises(ValueError, match="multiple of the 2 ranks"):
         federated_solve(METH(st), replace(_prob(st), mesh=two), "l1",
-                        SM(st), **kw)
+                        SM(st), **dict(kw, n_clients=7))
 
 
 def test_split_clients_shapes_and_refusals():

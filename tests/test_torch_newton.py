@@ -388,9 +388,10 @@ def test_newton_step_from_a_jax_primed_cache():
 
 @pytest.mark.parametrize("what", ["sharded", "static_precond"])
 def test_unported_newton_parts_raise(what):
-    """A sharded Newton solve runs now on a one-axis row mesh (its
-    parity on 2 and 4 ranks: tests/test_torch_sharded_methods.py); a
-    mesh of two axes still raises (A11). The static Jacobi
+    """A sharded Newton solve runs on a one-axis row mesh (its parity on
+    2 and 4 ranks: tests/test_torch_sharded_methods.py) and on a mesh of
+    two axes with its rows on 'data' (tests/test_torch_mesh2d_*.py);
+    rows on an axis the mesh lacks raise. The static Jacobi
     preconditioner of a Newton-CG solve runs, off the epoch cache, as
     `scso_tpu`'s does."""
     from scso_tpu_torch.algorithms.iterate import _check_sharded
@@ -402,10 +403,13 @@ def test_unported_newton_parts_raise(what):
         _check_sharded(st.ProxNSCORE(solver="cg"), replace(pt, mesh=row),
                        "l1")
         grid = Mesh(group=object(), axis_names=("batch", "data"), size=2,
-                    rank=0)
-        with pytest.raises(NotImplementedError, match="A11"):
+                    rank=0, sizes=(2, 1), coords=(0, 0),
+                    groups=(object(), object()))
+        _check_sharded(st.ProxNSCORE(solver="cg"), replace(pt, mesh=grid),
+                       "l1")
+        with pytest.raises(ValueError, match="not in the mesh"):
             _check_sharded(st.ProxNSCORE(solver="cg"),
-                           replace(pt, mesh=grid), "l1")
+                           replace(pt, mesh=grid, data_axis="model"), "l1")
         return
     kw = dict(solver="cg", static_precond=True, greedy_alpha=False)
     pt = st.with_col_sumsq(pt)

@@ -421,16 +421,26 @@ def test_pad_rows(as_tensor):
 
 
 def test_mesh_and_init_validation(one_rank, monkeypatch):
+    """One-axis and two-axis meshes, `replicate` and feature sharding on
+    the one-rank group (their parity on 2 and 4 ranks:
+    tests/test_torch_mesh2d_*.py)."""
     assert one_rank.shape == {"data": 1} and one_rank.rank == 0
-    with pytest.raises(NotImplementedError, match="A11"):
-        make_mesh((1, 1), ("batch", "data"))
+    grid = make_mesh((1, 1), ("batch", "data"))
+    assert grid.shape == {"batch": 1, "data": 1} and grid.coords == (0, 0)
+    assert grid.axis_size("data") == 1 and grid.axis_rank("batch") == 0
+    assert len(grid.groups) == 2
     with pytest.raises(ValueError, match="2 ranks"):
         make_mesh((2,))
-    for fn in (lambda: replicate(None, one_rank),
-               lambda: shard_problem_features(_port_problem(TRAJ),
-                                              one_rank)):
-        with pytest.raises(NotImplementedError, match="A11"):
-            fn()
+    with pytest.raises(ValueError, match="names"):
+        make_mesh((1, 1), ("data",))
+    tree = {"a": torch.arange(3.0), "b": (2, torch.ones(2))}
+    got = replicate(tree, grid)
+    assert torch.equal(got["a"], tree["a"]) and got["b"][0] == 2
+    assert replicate(None, one_rank) is None
+    cols = shard_problem_features(_port_problem(TRAJ),
+                                  make_mesh((1,), ("model",)))
+    assert tuple(cols.A.shape) == tuple(_port_problem(TRAJ).A.shape)
+    assert cols.A_lp is None and cols.comm_mesh is not None
     assert distributed_init("gloo") == 1  # the group exists: a no-op
 
 

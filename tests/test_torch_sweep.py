@@ -475,10 +475,12 @@ def test_validation_errors():
     with pytest.raises(ValueError, match="chosen by the plan"):
         sweep(st.ProxNSCORE(), p, "l1", sm, lam_grid=grid, plan="quality",
               wave_max_epoch=5)
-    # what the batched form does not cover raises naming ROADMAP A11
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        sweep(st.ProxNSCORE(), p, "l1", sm, lam_grid=grid,
-              opts=st.Options(batch_size=8, verbose=0))
+    # mini-batches run inside the batched solve (their parity with the
+    # scalar solves: tests/test_torch_mesh2d_batch.py)
+    res = sweep(st.ProxNSCORE(), p, "l1", sm, lam_grid=grid,
+                opts=st.Options(batch_size=8, max_epoch=3, verbose=0))
+    assert tuple(res.x.shape) == (len(grid), 8)
+    assert bool(torch.all(res.epochs <= 3))
 
 
 def _free_port() -> int:
