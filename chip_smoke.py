@@ -294,8 +294,30 @@ timed chains replay it. Phases, each fatal on failure:
      feature-sharded solves (cached and uncached GGN-CG, Newton-CG,
      L-BFGS, multinomial, a test set) on a 2×2 ('data', 'model') mesh,
      each within 1e-9 (SMALL_RTOL) of the same on the CPU unsharded,
-     every rank holding the same results bit for bit. The whole run's
-     seconds are printed at its end.
+     every rank holding the same results bit for bit.
+ 24. The utilities (after dropping the earlier captures, as phase 23).
+     (d) The native generator (`scso_tpu_torch._native`, g++ at first
+     use; it must load) at MAIN_SHAPE with seed SEED + 1, its seconds
+     against numpy's for the same call. (a) `make_serving_fn` on phase
+     3's problem and options (the chain's solve: CHUNK_KW, L = 1):
+     call 1 serves phase 3's data and captures, giving `iterate`'s bits
+     on it; call 2 serves (d)'s fresh data with no new capture and gives
+     `iterate`'s bits on a problem built from that data (padded as
+     make_problem pads it); `load_solver(export_solver(...))` serves it
+     again with the same bits (one capture). Each call's seconds and
+     K1/K2/K3 launches. (c) `sanitize(nans=True)`: a small float32
+     cached solve completes with the fused solve's bits, its K1, K2 and
+     K3 outputs checked; a loss that returns NaN raises
+     FloatingPointError naming the op. (e) Each example of
+     examples/torch once on the card (its seconds), in this process:
+     after phase 12's dense solves, example 04's dense solve must still
+     capture (C14). (b) Last, since a
+     process that has run the profiler replays graphs slower:
+     `profile_solve` of phase 3's solve (timed mode, eager): its Chrome
+     trace holds K1, K2s and K3 by name exactly as often as their
+     launch counters say (timed mode runs GGN-CG off the epoch cache,
+     as in the JAX package: K2s, not K2), and `device_memory_stats()`.
+     The whole run's seconds are printed at its end.
 
 The last two lines of standard output are one JSON object with each
 kernel's numbers, then ``{"ok": true, "device": {...}}`` (K1 with A in
@@ -4348,6 +4370,285 @@ def phase_mesh2d(prob_t, best, kern):
         f"({out['four_gloo_ranks']['seconds']:.1f} s)")
     return out, launches
 
+# ---------------------------------------------------------------------------
+# phase 24: profiling, sanitize, serving and export, the native generator,
+# the examples
+# ---------------------------------------------------------------------------
+
+#: the kernel-name fragments that mark one launch of each kernel in a
+#: trace (chip_profile.py's GROUPS hold all of each kernel's names): K1's
+#: partial sums, K2's and K2s's finalize (every form ends with it), and
+#: K3's cluster kernel or its grid form's apply
+TRACE_MARKS = {"normal_matvec": ("normal_matvec_partial",),
+               "glm_prep": ("glm_finalize",),
+               "score_update": ("score_update_cluster", "score_apply")}
+SANITIZE_SHAPE = (4096, 500)
+
+
+def launches_of(fn, total):
+    """(fn(), seconds, the launches it made: counters reset before);
+    the launches are added to ``total`` too."""
+    import torch
+
+    from scso_tpu_torch.ops.cuda import counters
+
+    counters.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    lc = counters.snapshot()
+    for k, c in lc.items():
+        total[k] += c
+    return out, secs, lc
+
+
+def trace_counts(trace_dir):
+    """Kernel launches in the Chrome trace under ``trace_dir``, by
+    TRACE_MARKS' kernel."""
+    import glob
+
+    paths = glob.glob(os.path.join(trace_dir, "trace_*.json"))
+    if len(paths) != 1:
+        fail(f"profile_solve wrote {len(paths)} traces, expected one")
+    with open(paths[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {k: sum(any(m in n for m in marks) for n in names)
+            for k, marks in TRACE_MARKS.items()}, len(names)
+
+
+def phase_native():
+    """Phase 24(d): the fresh data of 24(a), made by the native
+    generator, and its seconds against numpy's."""
+    import numpy as np
+
+    from scso_tpu_torch import _native
+    from scso_tpu_torch.models import synthetic
+
+    if not _native.available():
+        fail("the native generator did not build or load (g++ -fopenmp)")
+    kw = dict(density=0.05, n_active=64, seed=SEED + 1, dtype=np.float32,
+              label01=True)
+    t0 = time.perf_counter()
+    data = synthetic.make_sparse_logreg_data(*MAIN_SHAPE, backend="native",
+                                             **kw)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = synthetic.make_sparse_logreg_data(*MAIN_SHAPE, **kw)
+    numpy_s = time.perf_counter() - t0
+    del ref
+    if not all(np.isfinite(a).all() for a in data):
+        fail("the native generator made non-finite data")
+    out = dict(native_s=native_s, numpy_s=numpy_s, threads=_native.threads())
+    log(f"  native generator {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]}: "
+        f"{native_s:.3f} s ({out['threads']} OpenMP threads), numpy "
+        f"{numpy_s:.3f} s")
+    return data, out
+
+
+def same_served(what, got, sol):
+    """Fail unless a served (x, epochs, obj) is ``sol``'s bit for bit."""
+    import torch
+
+    x, k, obj = got
+    if int(k) != sol.epochs or not torch.equal(x, sol.x) \
+            or float(obj) != float(sol.obj[-1]):
+        fail(f"{what}: served epochs {int(k)}, obj {float(obj)!r} against "
+             f"iterate's {sol.epochs}, {float(sol.obj[-1])!r}, or x differs")
+
+
+def phase_serving(prob_t, data, total):
+    """Phase 24(a) (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    import scso_tpu_torch as st
+    from scso_tpu_torch._src.struct import replace
+    from scso_tpu_torch.models import losses
+    from scso_tpu_torch.ops.cuda import graph
+    from scso_tpu_torch.utils import (
+        export_solver, load_solver, make_serving_fn)
+
+    meth, sm = st.ProxGGNSCORE(**F32_CG), st.PHuberSmootherL1L2(1.0)
+    kw = dict(CHUNK_KW)
+    alpha = kw.pop("alpha")
+    opts = st.Options(**kw)
+    tpl = replace(prob_t, L=torch.full((), 1.0 / alpha, dtype=prob_t.dtype,
+                                       device=prob_t.device))
+    out = {}
+
+    def call(name, serve, args, ref):
+        graph.reset_stats()
+        got, secs, lc = launches_of(lambda: serve(*args), total)
+        same_served(f"phase 24(a) {name}", got, ref)
+        check_launches(lc, LOGISTIC_KERNELS, f"phase 24(a) {name}")
+        out[name] = dict(seconds=secs, epochs=ref.epochs,
+                         captures=graph.STATS["captures"],
+                         capture_s=graph.STATS["capture_s"],
+                         launches={k: lc[k] for k in LOGISTIC_KERNELS})
+        log(f"  {name}: {secs:.4f} s, {ref.epochs} epochs, "
+            f"{graph.STATS['captures']} captures "
+            f"({graph.STATS['capture_s']:.3f} s), launches "
+            f"{out[name]['launches']}")
+
+    serve = make_serving_fn(meth, tpl, "l1", sm, opts)
+    ref1 = solve_chunk(meth, prob_t)
+    call("served call 1 (phase 3's data)", serve,
+         (prob_t.A, prob_t.y, prob_t.x0), ref1)
+    A2, y2, x02, _ = data
+    fresh = st.Problem(A2, y2, x02, losses.logistic01_f, prob_t.lam,
+                       grad_fx=losses.logistic01_grad,
+                       glm=losses.LOGISTIC01_GLM,
+                       sol=prob_t.x_star[: prob_t.n_true].cpu().numpy(),
+                       dtype=torch.float32, device="cuda", pad_features=True)
+    ref2 = solve_chunk(meth, fresh)
+    call("served call 2 (fresh data)", serve, (A2, y2, x02), ref2)
+    if out["served call 2 (fresh data)"]["captures"]:
+        fail("phase 24(a): the second served call captured anew")
+    blob = export_solver(meth, tpl, "l1", sm, opts)
+    call("loaded artifact (fresh data)", load_solver(blob, "cuda"),
+         (A2, y2, x02),
+         ref2)
+    out["artifact_bytes"] = len(blob)
+    out["fresh_obj"] = float(ref2.obj[-1])
+    del serve, fresh
+    if not np.isfinite(out["fresh_obj"]):
+        fail("phase 24(a): non-finite objective on the fresh data")
+    return out
+
+
+def phase_sanitize(total):
+    """Phase 24(c) (see the module docstring)."""
+    import torch
+
+    import scso_tpu_torch as st
+    from scso_tpu_torch._src.struct import replace
+    from scso_tpu_torch.models import losses
+    from scso_tpu_torch.utils import sanitize
+
+    prob = build_problem(*SANITIZE_SHAPE, "cuda", torch.float32)
+    meth, sm = st.ProxGGNSCORE(**F32_CG), st.PHuberSmootherL1L2(1.0)
+    ref = solve_chunk(meth, prob)
+    with sanitize(nans=True):
+        s, secs, lc = launches_of(lambda: solve_chunk(meth, prob), total)
+    if s.epochs != ref.epochs or not torch.equal(s.x, ref.x):
+        fail("phase 24(c): the sanitized solve differs from the fused one")
+    check_launches(lc, LOGISTIC_KERNELS, "phase 24(c) sanitized")
+
+    def nan_f(A, y, x):
+        return torch.log(losses.logistic01_f(A, y, x) - 10.0)
+
+    bad = replace(prob, f=nan_f)
+    try:
+        with sanitize(nans=True):
+            st.iterate(st.ProxLQNSCORE(), bad, "l1", sm, max_epoch=5,
+                       verbose=0)
+    except FloatingPointError as e:
+        raised = str(e)
+    else:
+        fail("phase 24(c): a NaN loss did not raise under sanitize")
+    if "log" not in raised:
+        fail(f"phase 24(c): the error does not name the op: {raised}")
+    log(f"  sanitized {SANITIZE_SHAPE[0]}x{SANITIZE_SHAPE[1]} cached solve: "
+        f"{secs:.3f} s, {s.epochs} epochs, fused bits, launches "
+        f"{ {k: lc[k] for k in LOGISTIC_KERNELS} }; NaN loss: {raised!r}")
+    return dict(seconds=secs, epochs=s.epochs, raised=raised,
+                launches={k: lc[k] for k in LOGISTIC_KERNELS})
+
+
+def phase_examples(total):
+    """Phase 24(e): each example of examples/torch once on the card, in
+    this process, after the earlier phases (phase 12's dense solves made
+    example 04's capture fail before C14's repair)."""
+    import importlib.util
+
+    import torch
+
+    out = {}
+    for path in sorted(os.listdir(os.path.join(ROOT, "examples", "torch"))):
+        if not path[:2].isdigit():
+            continue
+        spec = importlib.util.spec_from_file_location(
+            f"torch_example_{path[:-3]}",
+            os.path.join(ROOT, "examples", "torch", path))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        res, secs, lc = launches_of(lambda: mod.main(device="cuda"),
+                                    total)
+        # a Solution's objective history (its first record may be +inf:
+        # the box QP's x0 lies outside the box), or a sweep's objectives
+        obj = torch.as_tensor(res.obj)
+        final = obj if res.x.dim() == 2 else obj[-1:]
+        if res.x.device.type != "cuda" or not bool(
+                torch.isfinite(final).all()):
+            fail(f"phase 24(e) {path}: not on the card, or non-finite")
+        out[path[:-3]] = dict(seconds=secs, obj=float(obj[-1]),
+                              launches={k: c for k, c in lc.items() if c})
+        log(f"  example {path}: {secs:.2f} s, final objective "
+            f"{float(obj[-1]):.8g}, launches {out[path[:-3]]['launches']}")
+    return out
+
+
+def phase_profile(prob_t, total):
+    """Phase 24(b) (see the module docstring)."""
+    import torch
+
+    import scso_tpu_torch as st
+    from scso_tpu_torch.utils import device_memory_stats, profile_solve
+
+    meth = st.ProxGGNSCORE(**F32_CG)
+    with tempfile.TemporaryDirectory() as d:
+        (sol, prof), secs, lc = launches_of(lambda: profile_solve(
+            meth, prob_t, "l1", st.PHuberSmootherL1L2(1.0), trace_dir=d,
+            **CHUNK_KW), total)
+        counts, kernels = trace_counts(d)
+    want = {"normal_matvec": lc["normal_matvec"],
+            "glm_prep": lc["glm_prep"] + lc["glm_prep_pair"],
+            "score_update": lc["score_update"]}
+    if counts != want or not all(want.values()):
+        fail(f"phase 24(b): the trace shows {counts} launches, the counters "
+             f"{want}")
+    check_launches(lc, UNCACHED_KERNELS, "phase 24(b) profile_solve")
+    ref = solve_chunk(meth, prob_t, mode="timed")
+    if sol.epochs != ref.epochs or not torch.equal(sol.x, ref.x):
+        fail("phase 24(b): profile_solve differs from the timed solve")
+    mem = device_memory_stats(prob_t.device)
+    log(f"  profile_solve: {secs:.3f} s, {prof['epochs']} epochs, mean "
+        f"epoch {prof['mean_epoch_s']:.4f} s; the trace's {kernels} kernels "
+        f"hold K1, K2s, K3 as {counts} (the counters' launches); "
+        f"device_memory_stats {mem}")
+    return dict(seconds=secs, epochs=prof["epochs"],
+                mean_epoch_s=prof["mean_epoch_s"], trace=counts,
+                trace_kernels=kernels, memory=mem,
+                memory_before=prof["memory_before"],
+                memory_after=prof["memory_after"])
+
+
+def phase_utilities(prob_t):
+    """Phase 24: (d), (a), (c), (e), then (b) (see the module
+    docstring); and the launches of all its solves."""
+    from scso_tpu_torch.ops.cuda import counters
+
+    total = dict.fromkeys(counters.KERNEL_LAUNCHES, 0)
+    out = {"gb_after_free": free_graphs()}
+    log(" (d) the native generator")
+    data, out["native"] = phase_native()
+    log(" (a) make_serving_fn, export_solver and load_solver")
+    out["serving"] = phase_serving(prob_t, data, total)
+    del data
+    free_graphs()
+    log(" (c) sanitize")
+    out["sanitize"] = phase_sanitize(total)
+    log(" (e) the examples")
+    out["examples"] = phase_examples(total)
+    free_graphs()
+    log(" (b) profile_solve (last: the profiler slows later replays)")
+    out["profile"] = phase_profile(prob_t, total)
+    return out, total
+
+
 T_START = time.perf_counter()
 
 
@@ -4487,9 +4788,14 @@ def main():
     mesh23, m23launches = phase_mesh2d(prob_t, best, kern)
     dist.destroy_process_group()
     log(f"  phase 23: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    log("phase 24: the native generator, serving and export, sanitize, the "
+        "examples and profile_solve")
+    utils24, u24launches = phase_utilities(prob_t)
+    log(f"  phase 24: {time.perf_counter() - t0:.1f} s")
     new_paths = [batches["launches"], resume["static_precond"]["launches"],
                  resume["curvature_rows"]["launches"], s22launches,
-                 m23launches]
+                 m23launches, u24launches]
     new_paths += [v["launches"] for v in nodata.values()]
     launches = {k: launches[k] + mlaunches[k] + llaunches[k] + ulaunches[k]
                 + slaunches[k] + nlaunches[k] + klaunches[k] + lplaunches[k]
@@ -4541,6 +4847,7 @@ def main():
                                                   "sweep": swept,
                                                   "federated": fed}))
     log("meshes of two axes: " + json.dumps({"card": card, **mesh23}))
+    log("utilities: " + json.dumps({"card": card, **utils24}))
     log(f"whole run: {time.perf_counter() - T_START:.1f} s")
     rows = []
     for k, (src, rep) in KERNELS.items():

@@ -63,6 +63,8 @@ from scso_tpu_torch.problems import (
 from scso_tpu_torch.problems import Problem as CompositeProblem
 from scso_tpu_torch.problems import make_problem
 
+__version__ = "0.5.0"
+
 # the reference's constructor call shapes, as in the JAX package
 Problem = make_problem
 

@@ -82,6 +82,7 @@ from scso_tpu_torch.algorithms.methods import (
     ProxGGNSCORE, ProxLQNSCORE, ProxNSCORE)
 from scso_tpu_torch.algorithms.steps import (
     _cw, _lam_scalar, epoch_cache_enabled, make_step_fn, prime_glm_cache)
+from scso_tpu_torch.ops import nancheck
 from scso_tpu_torch.ops.cuda import graph
 from scso_tpu_torch.ops.cuda.graph import device_if, device_loop
 from scso_tpu_torch.ops.lbfgs_core import LBFGSMemory, init_memory
@@ -511,7 +512,8 @@ def solve(method, prob: Problem, reg_name: str, sm, opts: Options,
     ``opts.max_epoch + 1``) and ``room`` the records a capture makes
     room for (default ``width``): the waves of a path pass the largest
     budget of the path, so that every wave replays one capture.
-    ``capture=False`` runs the bodies eagerly on the card. ``rng_seed``
+    ``capture=False`` (and `utils.debug.sanitize`) runs the bodies
+    eagerly on the card. ``rng_seed``
     seeds the mini-batches' permutations."""
     method = dc_replace(method, kernels="torch")
     proto = instance(prob, spec.prob, 0)
@@ -522,7 +524,7 @@ def solve(method, prob: Problem, reg_name: str, sm, opts: Options,
     # a power of two: one capture serves the waves of smaller budgets
     cap = _room(max(width if room is None else room, opts.max_epoch + 1))
     on_card = prob.device.type == "cuda"
-    if on_card and capture:
+    if on_card and capture and not nancheck.uncaptured():
         def make(buffers, static, static_sm, cap_):
             loop = _Loop(method, reg_name, opts, spec, proto, cap_, buffers)
             loop.load(prob, sm, rng_seed=rng_seed)

@@ -112,6 +112,7 @@ from scso_tpu_torch.algorithms.steps import (
 from scso_tpu_torch.ops.cuda import graph
 from scso_tpu_torch.ops.cuda.graph import device_if, device_loop
 from scso_tpu_torch.ops.dense import is_colshard
+from scso_tpu_torch.ops import nancheck
 from scso_tpu_torch.ops.lbfgs_core import LBFGSMemory, init_memory
 from scso_tpu_torch.problems import Problem, RowSet
 
@@ -551,11 +552,12 @@ def _solve_impl(method, prob: Problem, reg_name: str, sm, opts: Options,
     """The solve of a resolved method (`solve` after its checks). Timed
     mode on a row shard runs uncaptured: a gloo group, or NCCL without
     NCCL_GRAPH_MIXING_SUPPORT=0, cannot put its collectives in a captured
-    graph's conditional nodes (`_check_capturable`)."""
+    graph's conditional nodes (`_check_capturable`). Under
+    `utils.debug.sanitize` every solve runs uncaptured."""
     t0 = time.perf_counter()
     on_card = prob.device.type == "cuda"
     timed = opts.mode == "timed"
-    if timed and prob.comm_mesh is not None:
+    if (timed and prob.comm_mesh is not None) or nancheck.uncaptured():
         capture = False
     run = _Run(metric_fns, metric_names, rng_seed, resume_state)
     eager = graph.eager() if on_card and not capture else nullcontext()

@@ -129,7 +129,7 @@ from scso_tpu_torch.ops.cuda.two_loop import two_loop, two_loop_torch
 from scso_tpu_torch.ops.dense import amul, atmul, is_colshard, sq_atmul
 from scso_tpu_torch.ops.lbfgs_core import LBFGSMemory, update_memory
 from scso_tpu_torch.ops.linalg import (
-    armijo_linesearch, cg_solve, inv_bb_step)
+    armijo_linesearch, cg_solve, dense_solve, inv_bb_step)
 from scso_tpu_torch.ops.prox import prox_step
 from scso_tpu_torch.ops.smoothers import get_Mg
 from scso_tpu_torch.problems import Problem
@@ -1012,9 +1012,7 @@ def newton_step(method: ProxNSCORE, prob: Problem, reg_name: str, sm,
     bnorm = torch.zeros((), dtype=x.dtype, device=x.device)
     if solver == "dense":
         H = prob.hess_f(As, ys, x)
-        # solve_ex: a singular system gives NaN on the card, as in the JAX
-        # package, where solve would read its status on the host
-        d = -torch.linalg.solve_ex(H + lam * torch.diag(Hr_diag), gq)[0]
+        d = -dense_solve(H + lam * torch.diag(Hr_diag), gq)
     elif solver == "cg":
         xp = x if x_prev is None else x_prev
         tol, bnorm = _forcing_tol(method, gq, x, xp, bnorm_prev, it,
@@ -1092,13 +1090,12 @@ def _ggn_dense_direction(solver, prob: Problem, As, ys, x, gr, Hr_diag,
     if use_dual:
         hinv = 1.0 / Hr_diag
         Amat = Qp @ (Jt.T @ (Jt * hinv[:, None]))
-        B = torch.linalg.solve_ex(
-            torch.eye(q + 1, dtype=dt, device=dev) + Amat, rt)[0]
+        B = dense_solve(torch.eye(q + 1, dtype=dt, device=dev) + Amat, rt)
         d = hinv * (Jt @ B)
     else:
         M, rhs = prob.row_sum((Jt @ Qp) @ Jt.T, Jt @ rt)
         M = M + lam * torch.diag(Hr_diag)
-        d = torch.linalg.solve_ex(M, rhs)[0]
+        d = dense_solve(M, rhs)
     return -d
 
 

@@ -285,6 +285,17 @@ POISSON_GLM = GLMSpec(
 )
 
 
+def softmax_out(A, x):
+    """ŷ (m, k): softmax rows of A·W with W = x.reshape(A.shape[1], -1)
+    (the dense GGN branches' out_fn of a multinomial problem)."""
+    return torch.softmax(amul(A, x.reshape(A.shape[1], -1)), dim=-1)
+
+
+def xent_loss(y, yhat):
+    """−(1/m)·Σ y⊙log ŷ with one-hot y (m, k)."""
+    return -torch.sum(y * torch.log(yhat + 1e-12)) / y.shape[0]
+
+
 def multinom_f(A, y, x):
     """Softmax cross-entropy in x, in the logsumexp form."""
     z = amul(A, x.reshape(A.shape[1], -1))

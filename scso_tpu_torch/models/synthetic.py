@@ -1,12 +1,12 @@
-"""Synthetic problem generators (numpy only).
+"""Synthetic problem generators.
 
 Copies of `scso_tpu.models.synthetic.make_sparse_logreg_data`,
 `make_group_lasso_problem`, `make_sparse_poisson_data`,
-`make_multinomial_data` and `make_box_qp` that do not import the JAX package: the same
-numpy calls in the same order, so the same seed gives bit-identical
-arrays; likewise `make_box_qp`. The native (OpenMP) generator is not
-ported: the JAX package's `scso_tpu._native` has no framework in it and
-can be called as it is.
+`make_multinomial_data` and `make_box_qp` that do not import the JAX
+package: the same numpy calls in the same order, so the same seed gives
+bit-identical arrays. ``make_sparse_logreg_data(backend='native')`` runs
+the port's copy of the JAX package's OpenMP generator
+(`scso_tpu_torch._native`): the same C++ and seed, the same stream.
 """
 
 from __future__ import annotations
@@ -18,15 +18,30 @@ from scso_tpu_torch.ops.groups import make_contiguous_groups
 
 def make_sparse_logreg_data(m: int, n: int, density: float = 0.01,
                             n_active: int = None, seed: int = 1234,
-                            dtype=np.float32, label01: bool = False):
+                            dtype=np.float32, label01: bool = False,
+                            backend: str = "numpy"):
     """Random sparse-design logistic regression data.
 
     A ~ sprandn(m, n, density) densified, labels from a Bernoulli at a
     ground-truth x (zeros unless ``n_active``). ``label01=True`` gives
     0/1 labels (the coding the GGN pieces are derived for), else ±1.
 
+    ``backend='native'`` runs the OpenMP C++ generator
+    (`scso_tpu_torch._native`, built on first use): another stream than
+    numpy's (about density·n entries a row, Irwin–Hall normals), the
+    JAX package's native stream for the same seed; for large data, not
+    for oracle tests. Without a toolchain it falls back to numpy.
+
     Returns (A, y, x0, x_true) as numpy arrays of ``dtype``.
     """
+    if backend == "native":
+        from scso_tpu_torch import _native
+
+        out = _native.sparse_logreg(m, n, density, n_active or 0, seed,
+                                    label01)
+        if out is not None:
+            return tuple(a if a.dtype == dtype else a.astype(dtype)
+                         for a in out)
     rng = np.random.default_rng(seed)
     A = np.zeros((m, n), dtype=dtype)
     nnz = max(1, int(density * m * n))

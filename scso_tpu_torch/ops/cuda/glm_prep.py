@@ -74,6 +74,7 @@ from typing import NamedTuple
 
 import torch
 
+from scso_tpu_torch.ops import nancheck
 from scso_tpu_torch.ops.cuda import build, counters, launch
 from scso_tpu_torch.ops.dense import amul, atmul, is_colshard, sq_atmul, widen
 
@@ -545,6 +546,7 @@ def _single(A, y, x, glm, m_norm, grid):
     del buf
     for c in counts:
         counters.bump(c)
+    nancheck.check("glm_prep", (w, b, hd), (A, y, x))
     return w, b, hd
 
 
@@ -597,4 +599,5 @@ def _pair(A, y, x_t, x_d, glm, m_norm, flavour, grid) -> PairPrep:
     del buf
     for c in counts:
         counters.bump(c)
+    nancheck.check(name, out, (A, y, x_t, x_d))
     return PairPrep(w_t, w_d, b_t, b_d, hd_t, hd_d, loss_t, loss_d)

@@ -325,6 +325,7 @@ def _warm(index: int) -> None:
             a @ a[0]
             a @ a
             torch.linalg.solve_ex(a, a[0])
+            torch.linalg.solve_triangular(a, a, upper=True)
             w = a.clone().requires_grad_(True)
             (torch.dot(w[0], w[1]) + (w @ w[0]).sum()
              + (w @ w).sum()).backward()

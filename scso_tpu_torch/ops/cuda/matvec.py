@@ -32,6 +32,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from scso_tpu_torch.ops import nancheck
 from scso_tpu_torch.ops.cuda import build, counters, launch
 from scso_tpu_torch.ops.collective import group_sum
 from scso_tpu_torch.ops.dense import amul, atmul, is_colshard, widen
@@ -129,6 +130,7 @@ def normal_matvec(A, w, v):
     counters.bump("normal_matvec")
     if narrow:
         counters.bump("normal_matvec_bf16")
+    nancheck.check("normal_matvec", out, (A, w, v))
     return out
 
 
@@ -198,4 +200,5 @@ def normal_matvec_sharded(A, w, v, mesh, data_axis="data",
     out = _sharded(normal_matvec, A, w, v, mesh, overlap_chunks, data_axis)
     if overlap_chunks <= 1:
         counters.bump("normal_matvec_sharded")
+    nancheck.check("normal_matvec_sharded", out, (A, w, v))
     return out

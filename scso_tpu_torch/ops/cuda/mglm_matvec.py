@@ -36,6 +36,7 @@ from typing import NamedTuple
 
 import torch
 
+from scso_tpu_torch.ops import nancheck
 from scso_tpu_torch.ops.cuda import build, counters, launch
 from scso_tpu_torch.ops.dense import amul, atmul, is_colshard, widen
 
@@ -248,4 +249,5 @@ def _launch(A, y, Z, V, spec, grid):
     counters.bump("mglm_matvec")
     if narrow:
         counters.bump("mglm_matvec_bf16")
+    nancheck.check("mglm_matvec", out, (A, y, Z, V))
     return out

@@ -23,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from scso_tpu_torch.ops import nancheck
 from scso_tpu_torch.ops.cuda import build, counters, launch
 
 REG_CODES = {"l1": 0, "l2": 1, "indbox": 2, "none": 3}
@@ -189,4 +190,6 @@ def _launch(x, d, lgr, hr, lam, ss, Mg, reg_name: str, use_prox=True,
         form.chunk, int(form.grid), launch.stream(dev))
     build.check(rc, "score_update")
     counters.bump("score_update")
+    nancheck.check("score_update", (x_new, stats),
+                   (x, d, lgr, hr, lb, ub, lam, ss, Mg))
     return ScoreUpdate(x_new, *stats.unbind())

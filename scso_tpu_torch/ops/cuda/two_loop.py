@@ -25,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from scso_tpu_torch.ops import nancheck
 from scso_tpu_torch.ops.cuda import build, counters, launch
 from scso_tpu_torch.ops.lbfgs_core import LBFGSMemory
 from scso_tpu_torch.ops.lbfgs_core import two_loop as two_loop_torch
@@ -127,4 +128,5 @@ def _launch(mem: LBFGSMemory, grad: torch.Tensor,
         n, plan.blocks, plan.chunk, flags, plan.smem, launch.stream(dev))
     build.check(rc, "two_loop")
     counters.bump("two_loop")
+    nancheck.check("two_loop", out, (mem.S, mem.Y, grad, mem.H0))
     return out

@@ -22,6 +22,35 @@ import torch
 
 from scso_tpu_torch.ops.cuda.graph import device_loop
 
+def dense_solve(M: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x with M·x = b (b a vector or a matrix), by LU with partial
+    pivoting. A singular M gives NaN or inf, not an error: the JAX
+    package's ``solve`` has no status to read either. On the CPU
+    ``torch.linalg.solve_ex``; on the card `_lu_triangular`."""
+    if M.device.type != "cuda":
+        return torch.linalg.solve_ex(M, b)[0]
+    return _lu_triangular(M, b)
+
+
+def _lu_triangular(M: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The LU solve as its factors (getrf) and two triangular solves
+    (trsm). ``solve_ex`` runs cuSOLVER's getrs, whose triangular solves
+    allocate stream-ordered memory once a dense solve has been captured
+    at a graph's top level; inside a conditional body CUDA refuses such
+    an allocation when the graph is instantiated (ROADMAP C14). The two
+    compute the same solve and may differ in the last bits."""
+    LU, piv, _ = torch.linalg.lu_factor_ex(M)
+    P, L, U = torch.lu_unpack(LU, piv)
+    vec = b.dim() == M.dim() - 1
+    B = b.unsqueeze(-1) if vec else b
+    # Pᵀ·B as a gather of B's rows: M = P·L·U
+    perm = P.argmax(dim=-2).unsqueeze(-1).expand(B.shape)
+    y = torch.linalg.solve_triangular(L, torch.gather(B, -2, perm),
+                                      upper=False, unitriangular=True)
+    x = torch.linalg.solve_triangular(U, y, upper=True)
+    return x.squeeze(-1) if vec else x
+
+
 class CGResult(NamedTuple):
     x: torch.Tensor
     iters: torch.Tensor      # 0-d int32, on b's device

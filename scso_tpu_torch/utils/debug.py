@@ -1,12 +1,51 @@
-"""Failure recovery (port of `scso_tpu.utils.debug.solve_with_recovery`).
-
-The JAX package's numeric sanitizers (``sanitize``: jax_debug_nans) are
-not ported (ROADMAP A12).
-"""
+"""Numeric sanitizers and failure recovery (port of
+`scso_tpu.utils.debug`): ``sanitize`` and ``solve_with_recovery``."""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+from scso_tpu_torch.ops import nancheck
+
+
+@contextlib.contextmanager
+def sanitize(nans: bool = True, disable_jit: bool = False):
+    """Run solves under the port's numeric sanitizers; both settings are
+    restored on exit, also when nested (an inner ``sanitize`` sets its
+    own for its extent).
+
+    ``disable_jit=True`` runs every solve in its eager form
+    (``iterate(..., _capture=False)``: the captured CUDA graphs' bodies
+    op by op, each loop predicate read on the host; `graph.eager`), the
+    port's counterpart of running op by op. It gives the captured
+    solve's bits.
+
+    ``nans=True`` raises FloatingPointError, naming the operation, at
+    the first NaN that a computation produces: a NaN in an op's outputs
+    where none of its inputs held one. It checks every ATen op (a
+    ``TorchDispatchMode``) and every output of the CUDA kernels K1–K5,
+    whose ctypes launches bypass the dispatcher (each wrapper checks its
+    outputs). A check reads the card from the host, which a capture
+    refuses, so ``nans=True`` runs every solve in the eager form too.
+
+    Where the port departs from the reference: the solve carries
+    deliberate NaN sentinels (``bnorm_prev`` and ``pri_res`` of the
+    fresh carry, the ``prires`` history's fill, the CG forcing
+    reference until it is set). They are made with a NaN fill and
+    passed on, never produced, so a healthy solve completes here;
+    under the JAX package's ``sanitize(nans=True)`` (jax_debug_nans)
+    the same sentinels make a healthy GGN-CG solve raise
+    FloatingPointError. A loss that really returns NaN raises in both
+    (`ops.nancheck`)."""
+    old = dict(nancheck.SETTINGS)
+    nancheck.SETTINGS.update(nans=bool(nans), disable_jit=bool(disable_jit))
+    try:
+        with nancheck.NanCheck() if nans else contextlib.nullcontext():
+            yield
+    finally:
+        nancheck.SETTINGS.update(old)
 
 
 def solve_with_recovery(method, model, reg_name, h_mu, *, chunk_epochs=50,

@@ -35,7 +35,6 @@ objective histories 1e-9 relative. Every kernel's rerun is bitwise
 equal. TF32 is off for the plain versions' matrix products.
 """
 
-import socket
 
 import numpy as np
 import pytest
@@ -62,6 +61,8 @@ from scso_tpu_torch.ops.cuda.score_update import (
     score_update, score_update_torch)
 from scso_tpu_torch.ops.cuda.two_loop import two_loop, two_loop_torch
 from scso_tpu_torch.parallel import distributed_init, make_mesh, shard_problem
+
+from _torch_ranks import file_init
 
 pytestmark = pytest.mark.cuda
 
@@ -835,12 +836,9 @@ def test_uncovered_moglm_kind_runs_the_split_matvec(dev, kernels):
 
 
 @pytest.fixture
-def nccl_mesh(dev):
-    """A one-rank NCCL group on the card (a TCP store on localhost)."""
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    assert distributed_init(init_method=f"tcp://localhost:{port}",
+def nccl_mesh(dev, tmp_path):
+    """A one-rank NCCL group on the card (a file rendezvous)."""
+    assert distributed_init(init_method=file_init(tmp_path),
                             world_size=1, rank=0) == 1
     assert dist.is_initialized() and dist.get_backend() == "nccl"
     yield make_mesh()
@@ -1729,3 +1727,32 @@ def test_group_sums_capture_with_skewed_groups(dev, dtype):
     assert torch.equal(out, st.ops.groups.segment_sum(g, v))
     _check(out.cpu(), st.ops.groups.segment_sum(
         st.make_groups(seg, dtype=dtype), v.cpu()), dtype)
+
+
+def test_dense_solve_captures_after_a_timed_dense_solve(dev):
+    """C14: a dense solve captured in timed mode (at a graph's top
+    level) left cuSOLVER's getrs allocating stream-ordered memory, which
+    a later fused capture (the solve inside a conditional body) refused
+    at instantiate. Dense solves on the card take the LU factors and two
+    triangular solves (`linalg._lu_triangular`): the fused solve now
+    captures, and replays to its eager form's bits."""
+    A, y, x0, _ = synthetic.make_sparse_logreg_data(
+        100, 50, density=0.3, n_active=8, seed=1234, dtype=np.float64,
+        label01=True)
+    prob = st.Problem(A, y, x0, losses.logistic01_f, 0.1,
+                      grad_fx=losses.logistic01_grad,
+                      hess_fx=losses.logistic01_hess, dtype=torch.float64,
+                      device=dev)
+    sm = st.PHuberSmootherL1L2(1.0)
+    kw = dict(verbose=0, max_epoch=30)
+    st.iterate(st.ProxNSCORE(solver="dense"), prob, "l1", sm, mode="timed",
+               **kw)
+    Q, c, q0 = synthetic.make_box_qp(10, seed=1234, dtype=np.float64)
+    qp = st.Problem(Q, c, q0, losses.qp_f, 1e-4, grad_fx=losses.qp_grad,
+                    hess_fx=losses.qp_hess, C_set=[-1.0, 1.0],
+                    dtype=torch.float64, device=dev)
+    box = st.PHuberSmootherIndBox(-1.0, 1.0, 0.6)
+    fused = st.iterate(st.ProxNSCORE(), qp, "indbox", box, alpha=0.8, **kw)
+    eager = st.iterate(st.ProxNSCORE(), qp, "indbox", box, alpha=0.8,
+                       _capture=False, **kw)
+    assert fused.epochs == eager.epochs and torch.equal(fused.x, eager.x)

@@ -13,7 +13,6 @@ solve of the loaded problem records the JAX package's ``fvaltest`` to
 
 import json
 import os
-import socket
 
 import jax
 import numpy as np
@@ -31,19 +30,15 @@ from scso_tpu_torch.models import losses
 from scso_tpu_torch.parallel import (
     distributed_init, load_problem_rows_sharded, make_mesh, save_problem_data)
 
+from _torch_ranks import file_init
+
 LAM = 1e-2
 KW = dict(max_epoch=5, verbose=0)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 @pytest.fixture
-def one_rank():
-    distributed_init("gloo", init_method=f"tcp://localhost:{_free_port()}",
+def one_rank(tmp_path):
+    distributed_init("gloo", init_method=file_init(tmp_path),
                      world_size=1, rank=0)
     yield make_mesh()
     dist.destroy_process_group()

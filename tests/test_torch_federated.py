@@ -20,7 +20,6 @@
 """
 
 import functools
-import socket
 
 import numpy as np
 import pytest
@@ -37,6 +36,8 @@ from scso_tpu_torch.models import losses
 from scso_tpu_torch.parallel import (
     Mesh, distributed_init, federated_solve, make_mesh, shard_problem,
     split_clients)
+
+from _torch_ranks import file_init
 
 torch.set_num_threads(1)
 
@@ -143,15 +144,9 @@ def test_group_lasso_matches_jax():
     assert float(fed.obj.min()) < float(fed.obj[0]) + 1e-12
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 @pytest.fixture
-def one_rank():
-    distributed_init("gloo", init_method=f"tcp://localhost:{_free_port()}",
+def one_rank(tmp_path):
+    distributed_init("gloo", init_method=file_init(tmp_path),
                      world_size=1, rank=0)
     yield
     dist.destroy_process_group()

@@ -28,9 +28,6 @@ chose different plans and their gathers no longer matched (gloo:
 """
 
 import importlib
-import os
-import socket
-import subprocess
 import sys
 import tempfile
 
@@ -46,7 +43,6 @@ from scso_tpu_torch.parallel import (
     distributed_init, federated_solve, make_mesh, replicate, shard_problem,
     solve_fleet, stack_problems, sweep)
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LAM8 = np.logspace(-3, -1, 8)
 BATCH_LAMS = np.array([0.02, 0.05, 0.1, 0.2])
 BATCH_KW = dict(max_epoch=6, x_tol=1e-12, f_tol=1e-12, verbose=0,
@@ -106,8 +102,10 @@ BATCH_METHODS = {
 #: mesh is the problem's)
 MESHES = {"grid": ((2, 2), ("batch", "data"), True),
           "data4": ((4,), ("data",), False)}
-#: the worker runs: four ranks (the meshes), two (C11)
-WORLDS = (4, 2)
+#: the worker runs: four ranks, a launch for each of their meshes, and
+#: two (C11)
+PARTS4 = (*MESHES, "one4")
+JOBS = tuple((4, part) for part in PARTS4) + (2,)
 
 
 def _save(res, key, r, fields=("x", "obj", "epochs")):
@@ -115,14 +113,15 @@ def _save(res, key, r, fields=("x", "obj", "epochs")):
         res[f"{key}.{f}"] = torch.as_tensor(getattr(r, f)).numpy()
 
 
-def _four(res, rank):
-    """The four-rank run."""
+def _four(res, rank, part):
+    """The four-rank run on the mesh ``part`` (of MESHES, or 'one4')."""
     sm = lambda: st.PHuberSmootherL1L2(1.0)
     dt = torch.float64
-    one4 = make_mesh((1, 4), ("batch", "data"))
     for mname, (shape, names, _) in dict(
             MESHES, one4=((1, 4), ("batch", "data"), True)).items():
-        mesh = one4 if mname == "one4" else make_mesh(shape, names)
+        if mname != part:
+            continue
+        mesh = make_mesh(shape, names)
         res[f"{mname}.coords"] = np.array(mesh.coords)
         for ax in names:
             t = torch.tensor([float(rank)])
@@ -180,14 +179,19 @@ def _two(res, rank):
     _save(res, "c11", r)
 
 
-def _rank_main(port, rank, world, workdir):
+def _rank_main(init, rank, world, workdir, part=None):
+    from _torch_ranks import result_path
+
     torch.set_num_threads(1)
     rank, world = int(rank), int(world)
-    assert distributed_init("gloo", init_method=f"tcp://localhost:{port}",
+    assert distributed_init("gloo", init_method=init,
                             world_size=world, rank=rank) == world
     res = {}
-    (_four if world == 4 else _two)(res, rank)
-    np.savez(os.path.join(workdir, f"rank{rank}_of{world}.npz"), **res)
+    if world == 4:
+        _four(res, rank, part)
+    else:
+        _two(res, rank)
+    np.savez(result_path(workdir, rank, world, part), **res)
     dist.destroy_process_group()
 
 
@@ -196,6 +200,7 @@ if __name__ == "__main__":  # a worker rank (PYTHONPATH is the repo)
     sys.exit(0)
 
 import scso_tpu as scso  # noqa: E402  (the worker ranks above need neither)
+from _torch_ranks import launch, saved  # noqa: E402
 from scso_tpu.models import losses as jlosses  # noqa: E402
 from scso_tpu.parallel import federated_solve as jfederated  # noqa: E402
 from scso_tpu.parallel import make_mesh as jmake_mesh  # noqa: E402
@@ -205,45 +210,11 @@ from scso_tpu.parallel import stack_problems as jstack  # noqa: E402
 from scso_tpu.parallel import sweep as jsweep  # noqa: E402
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def _launch(worlds, workdir, timeout=300):
-    """Run each world's worker ranks of this file, all at once; their
-    saved results, by world."""
-    env = dict(os.environ, PYTHONPATH=ROOT)
-    procs = {}
-    for world in worlds:
-        port = _free_port()
-        procs[world] = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), str(port), str(r),
-             str(world), workdir], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True, cwd=ROOT, env=env)
-            for r in range(world)]
-    outs = {}
-    try:
-        for world, ps in procs.items():
-            outs[world] = [p.communicate(timeout=timeout)[0] for p in ps]
-    finally:
-        for ps in procs.values():
-            for p in ps:
-                if p.poll() is None:
-                    p.kill()
-    for world, ps in procs.items():
-        for r, (p, out) in enumerate(zip(ps, outs[world])):
-            assert p.returncode == 0, f"rank {r} of {world} failed:\n{out}"
-    return {world: [dict(np.load(os.path.join(
-        workdir, f"rank{r}_of{world}.npz"))) for r in range(world)]
-        for world in worlds}
-
-
 @pytest.fixture(scope="module")
 def ranks():
     with tempfile.TemporaryDirectory() as workdir:
-        yield _launch(WORLDS, workdir)
+        launch(__file__, JOBS, workdir)
+        yield {4: saved(workdir, 4, PARTS4), 2: saved(workdir, 2)}
 
 
 def _every_rank_alike(got, prefix):

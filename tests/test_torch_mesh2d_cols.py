@@ -27,9 +27,6 @@ laid out ('data', 'model') (2, 4), its products through XLA. Held to:
     ValueError on every rank, naming the contract.
 """
 
-import os
-import socket
-import subprocess
 import sys
 import tempfile
 
@@ -45,7 +42,6 @@ from scso_tpu_torch.parallel import (
     distributed_init, make_mesh, shard_problem, shard_problem_features,
     sweep)
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KW = dict(x_tol=1e-12, f_tol=1e-10, max_epoch=30, verbose=0, alpha=1.0)
 GGN = dict(solver="cg", greedy_alpha=False)
 
@@ -116,27 +112,42 @@ MESHES = {2: {"model2": ((2,), ("model",), False)},
           4: {"model4": ((4,), ("model",), False),
               "data_model": ((2, 2), ("data", "model"), True)}}
 WORLDS = tuple(MESHES)
+#: the worker launches: each world's ranks once for each half of the
+#: cases on each of its meshes (a launch's time follows the load on the
+#: machine: keep each well inside its timeout)
+PARTS = {world: tuple(f"{mesh}.{half}" for mesh in MESHES[world]
+                      for half in (0, 1)) for world in WORLDS}
+JOBS = tuple((world, part) for world in WORLDS for part in PARTS[world])
 
 
 def _bad_f(A, y, x):
     return torch.mean(torch.log1p(torch.exp(-y * (A @ x))))
 
 
-def _rank_main(port, rank, world, workdir):
-    """One rank: every case on each mesh of its world; save."""
+def _rank_main(init, rank, world, workdir, part):
+    """One rank: the half ``part`` ('<mesh>.<0 or 1>') of the cases on
+    that mesh of its world; save."""
+    from _torch_ranks import result_path
+
     torch.set_num_threads(1)
     rank, world = int(rank), int(world)
-    assert distributed_init("gloo", init_method=f"tcp://localhost:{port}",
+    assert distributed_init("gloo", init_method=init,
                             world_size=world, rank=rank) == world
     sm = lambda: st.PHuberSmootherL1L2(1.0)
     res = {}
+    mesh_name, half = part.rsplit(".", 1)
+    half = int(half)
     for mname, (shape, names, rows) in MESHES[world].items():
+        if mname != mesh_name:
+            continue
         mesh = make_mesh(shape, names)
         place = lambda p: shard_problem_features(
             shard_problem(p, mesh) if rows else p, mesh)
         probs = {k: place(p) for k, p in problems(
             st, losses, torch.float64, device="cpu").items()}
-        for name, (pk, cls, fields, kw, _) in CASES.items():
+        for i, (name, (pk, cls, fields, kw, _)) in enumerate(CASES.items()):
+            if i % 2 != half:
+                continue
             method = getattr(st, cls)(**fields)
             runs = {"": "fused", ".timed": "timed"} if name in TIMED else {
                 "": "fused"}
@@ -149,11 +160,13 @@ def _rank_main(port, rank, world, workdir):
                 res[f"{key}.fvaltest"] = s.fvaltest.numpy()
                 res[f"{key}.epochs"] = s.epochs
                 res[f"{key}.cg"] = (s.cg_info or {}).get("total_cg_iters", 0)
-        sw = sweep(st.ProxGGNSCORE(solver="cg"), probs["glm"], "l1", sm(),
-                   lam_grid=SWEEP_LAMS, opts=st.Options(max_epoch=40,
-                                                         verbose=0))
-        res[f"{mname}.sweep.x"] = sw.x.numpy()
-        res[f"{mname}.sweep.epochs"] = sw.epochs.numpy()
+        if half == 1:
+            sw = sweep(st.ProxGGNSCORE(solver="cg"), probs["glm"], "l1",
+                       sm(), lam_grid=SWEEP_LAMS,
+                       opts=st.Options(max_epoch=40, verbose=0))
+            res[f"{mname}.sweep.x"] = sw.x.numpy()
+            res[f"{mname}.sweep.epochs"] = sw.epochs.numpy()
+            continue
         bad = replace(probs["hooks"], f=_bad_f, grad_fx=None)
         try:
             st.iterate(st.ProxLQNSCORE(), bad, "l1", sm(), max_epoch=2,
@@ -165,7 +178,7 @@ def _rank_main(port, rank, world, workdir):
         t = torch.ones(1)
         dist.all_reduce(t)
         res[f"{mname}.after"] = t.numpy()
-    np.savez(os.path.join(workdir, f"rank{rank}_of{world}.npz"), **res)
+    np.savez(result_path(workdir, rank, world, part), **res)
     dist.destroy_process_group()
 
 
@@ -174,6 +187,7 @@ if __name__ == "__main__":  # a worker rank (PYTHONPATH is the repo)
     sys.exit(0)
 
 import scso_tpu as scso  # noqa: E402  (the worker ranks above need neither)
+from _torch_ranks import launch, saved  # noqa: E402
 from scso_tpu.models import losses as jlosses  # noqa: E402
 from scso_tpu.parallel import make_mesh as jmake_mesh  # noqa: E402
 from scso_tpu.parallel import shard_problem as jshard_problem  # noqa: E402
@@ -181,45 +195,12 @@ from scso_tpu.parallel import (  # noqa: E402
     shard_problem_features as jshard_features)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def _launch(worlds, workdir, timeout=300):
-    """Run each world's worker ranks of this file, all at once; their
-    saved results, by world."""
-    env = dict(os.environ, PYTHONPATH=ROOT)
-    procs = {}
-    for world in worlds:
-        port = _free_port()
-        procs[world] = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), str(port), str(r),
-             str(world), workdir], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True, cwd=ROOT, env=env)
-            for r in range(world)]
-    outs = {}
-    try:
-        for world, ps in procs.items():
-            outs[world] = [p.communicate(timeout=timeout)[0] for p in ps]
-    finally:
-        for ps in procs.values():
-            for p in ps:
-                if p.poll() is None:
-                    p.kill()
-    for world, ps in procs.items():
-        for r, (p, out) in enumerate(zip(ps, outs[world])):
-            assert p.returncode == 0, f"rank {r} of {world} failed:\n{out}"
-    return {world: [dict(np.load(os.path.join(
-        workdir, f"rank{r}_of{world}.npz"))) for r in range(world)]
-        for world in worlds}
-
-
 @pytest.fixture(scope="module")
 def ranks():
     with tempfile.TemporaryDirectory() as workdir:
-        yield _launch(WORLDS, workdir)
+        launch(__file__, JOBS, workdir)
+        yield {world: saved(workdir, world, PARTS[world])
+               for world in WORLDS}
 
 
 _JAX = {}

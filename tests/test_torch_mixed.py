@@ -41,7 +41,6 @@ tests/test_torch_cuda.py and chip_smoke.py.
 """
 
 import functools
-import socket
 
 import numpy as np
 import pytest
@@ -71,6 +70,8 @@ from scso_tpu_torch.ops.cuda.mglm_matvec import (
     mglm_grid, mglm_matvec_torch, tc_blocks_per_sm, tc_geometry,
     tc_smem_bytes)
 from scso_tpu_torch.parallel import distributed_init, make_mesh, shard_problem
+
+from _torch_ranks import file_init
 
 torch.set_num_threads(1)
 
@@ -347,16 +348,10 @@ def test_iterate_mixed_without_data_is_the_plain_iterate(monkeypatch):
     assert seen == [((method, bare, "l1", sm), dict(max_epoch=3))]
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 @pytest.fixture
-def one_rank():
+def one_rank(tmp_path):
     """A one-rank gloo group in this process, and its mesh."""
-    distributed_init("gloo", init_method=f"tcp://localhost:{_free_port()}",
+    distributed_init("gloo", init_method=file_init(tmp_path),
                      world_size=1, rank=0)
     yield make_mesh()
     dist.destroy_process_group()

@@ -32,9 +32,6 @@ NCCL_GRAPH_MIXING_SUPPORT=0), and the per-row shares that the sharded
 steps rest on.
 """
 
-import os
-import socket
-import subprocess
 import sys
 import tempfile
 
@@ -47,7 +44,6 @@ import scso_tpu_torch as st
 from scso_tpu_torch.models import losses, synthetic
 from scso_tpu_torch.parallel import distributed_init, make_mesh, shard_problem
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (m, n, density, n_active, seed, λ) of each GLM problem
 TRAJ = (512, 256, 0.05, 8, 7, 1e-2)      # test_torch_sharding.py's
 NEWTON = (512, 64, 0.2, 8, 11, 0.1)      # damped Newton needs λ ≥ 0.1
@@ -181,44 +177,52 @@ TIMED = ("batches_ggn", "batches_newton", "batches_lbfgs", "uncached",
          "lbfgs", "mglm_uncached")
 
 
-def _port_solves(mesh):
-    """Every solve of a worker rank: name → Solution."""
+def _port_solves(mesh, half):
+    """The solves of a worker rank in half ``half`` (0 or 1) of the
+    cases: name → Solution."""
     sm = lambda: st.PHuberSmootherL1L2(1.0)
     probs = problems(st, losses, torch.float64, device="cpu")
     sharded = {k: shard_problem(p, mesh) for k, p in probs.items()}
     out = {}
-    for name, (pk, cls, fields, kw, _) in CASES.items():
+    for i, (name, (pk, cls, fields, kw, _)) in enumerate(CASES.items()):
+        if i % 2 != half:
+            continue
         method = getattr(st, cls)(**fields)
         kw = {k: v for k, v in kw.items() if v is not None}
         out[name] = st.iterate(method, sharded[pk], "l1", sm(), **kw)
         if name in TIMED:
             out[name + ".timed"] = st.iterate(
                 method, sharded[pk], "l1", sm(), **dict(kw, mode="timed"))
-    mixed = st.ProxGGNSCORE(solver="cg", greedy_alpha=False)
-    out["mixed"] = st.iterate_mixed(mixed, sharded["traj"], "l1", sm(),
-                                    **KW)
-    out["continuation"] = st.iterate_continuation(
-        st.ProxGGNSCORE(solver="cg", greedy_alpha=False), sharded["traj"],
-        "l1", sm(), mu_schedule=[4.0, 2.0], stage_epochs=4, max_epoch=30,
-        verbose=0, x_tol=1e-12, f_tol=1e-10)
+    ggn = st.ProxGGNSCORE(solver="cg", greedy_alpha=False)
+    if half == 0:
+        out["mixed"] = st.iterate_mixed(ggn, sharded["traj"], "l1", sm(),
+                                        **KW)
+    else:
+        out["continuation"] = st.iterate_continuation(
+            ggn, sharded["traj"], "l1", sm(), mu_schedule=[4.0, 2.0],
+            stage_epochs=4, max_epoch=30, verbose=0, x_tol=1e-12,
+            f_tol=1e-10)
     return out
 
 
-def _rank_main(port, rank, world, workdir):
-    """One rank of a multi-rank run: join the gloo group, solve, save."""
+def _rank_main(init, rank, world, workdir, part):
+    """One rank of a multi-rank run: join the gloo group, solve its half
+    ``part`` of the cases, save."""
+    from _torch_ranks import result_path
+
     torch.set_num_threads(1)
     rank, world = int(rank), int(world)
-    n = distributed_init("gloo", init_method=f"tcp://localhost:{port}",
+    n = distributed_init("gloo", init_method=init,
                          world_size=world, rank=rank)
     assert n == world
     res = {}
-    for name, s in _port_solves(make_mesh()).items():
+    for name, s in _port_solves(make_mesh(), int(part)).items():
         res[f"{name}.x"] = s.x.numpy()
         res[f"{name}.obj"] = s.obj.numpy()
         res[f"{name}.fvaltest"] = s.fvaltest.numpy()
         res[f"{name}.epochs"] = s.epochs
         res[f"{name}.cg"] = (s.cg_info or {}).get("total_cg_iters", 0)
-    np.savez(os.path.join(workdir, f"rank{rank}_of{world}.npz"), **res)
+    np.savez(result_path(workdir, rank, world, part), **res)
     dist.destroy_process_group()
 
 
@@ -227,6 +231,7 @@ if __name__ == "__main__":  # a worker rank (PYTHONPATH is the repo)
     sys.exit(0)
 
 import scso_tpu as scso  # noqa: E402  (the worker ranks above need neither)
+from _torch_ranks import file_init, launch, saved  # noqa: E402
 from scso_tpu.models import losses as jlosses  # noqa: E402
 from scso_tpu.parallel import make_mesh as jmake_mesh  # noqa: E402
 from scso_tpu.parallel import shard_problem as jshard_problem  # noqa: E402
@@ -238,39 +243,14 @@ from scso_tpu_torch.problems import RowSet  # noqa: E402
 torch.set_num_threads(1)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def _launch(world, workdir, timeout=300):
-    """Run ``world`` worker ranks of this file; their saved results."""
-    port = _free_port()
-    env = dict(os.environ, PYTHONPATH=ROOT)
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), str(port), str(r),
-         str(world), workdir], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True, cwd=ROOT, env=env)
-        for r in range(world)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=timeout)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} of {world} failed:\n{out}"
-    return [dict(np.load(os.path.join(workdir, f"rank{r}_of{world}.npz")))
-            for r in range(world)]
-
-
 @pytest.fixture(scope="module")
 def ranks():
     with tempfile.TemporaryDirectory() as workdir:
-        yield {world: _launch(world, workdir) for world in (2, 4)}
+        # each world's ranks once for each half of the cases (a launch's
+        # time follows the load on the machine)
+        launch(__file__, [(w, h) for w in (2, 4) for h in ("0", "1")],
+               workdir)
+        yield {w: saved(workdir, w, ("0", "1")) for w in (2, 4)}
 
 
 _JAX = {}
@@ -401,7 +381,8 @@ def test_overlapped_chunks_over_ranks_stay_timed(monkeypatch):
 
 @pytest.mark.parametrize("value,captures", [("0", True), ("1", False),
                                             (None, False)])
-def test_make_mesh_records_the_mixing_setting(monkeypatch, value, captures):
+def test_make_mesh_records_the_mixing_setting(monkeypatch, tmp_path, value,
+                                               captures):
     """A group made by `distributed_init` over gloo records nothing, so
     `make_mesh` reads the variable when it makes the mesh; an NCCL group
     made by `distributed_init` keeps what the variable was then."""
@@ -409,7 +390,7 @@ def test_make_mesh_records_the_mixing_setting(monkeypatch, value, captures):
         monkeypatch.delenv("NCCL_GRAPH_MIXING_SUPPORT", raising=False)
     else:
         monkeypatch.setenv("NCCL_GRAPH_MIXING_SUPPORT", value)
-    distributed_init("gloo", init_method=f"tcp://localhost:{_free_port()}",
+    distributed_init("gloo", init_method=file_init(tmp_path),
                      world_size=1, rank=0)
     try:
         assert make_mesh().captures is captures

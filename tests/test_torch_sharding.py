@@ -38,8 +38,6 @@ numpy problem row-sharded over conftest's 8-device CPU mesh. float64:
 """
 
 import os
-import socket
-import subprocess
 import sys
 import tempfile
 
@@ -55,7 +53,6 @@ from scso_tpu_torch.parallel import (
     distributed_init, load_problem_rows_sharded, make_mesh, pad_rows,
     replicate, save_problem_data, shard_problem, shard_problem_features)
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LAM = 1e-2
 # (m, n, density, n_active, seed): test_torch_slice.py's parity problem
 # and test_parallel.py's comm-overlap problem, with their solve options
@@ -119,11 +116,11 @@ def _solves(mesh, workdir):
     return out
 
 
-def _rank_main(port, rank, world, workdir):
+def _rank_main(init, rank, world, workdir):
     """One rank of a multi-rank run: join the gloo group, solve, save."""
     torch.set_num_threads(1)
     rank, world = int(rank), int(world)
-    n = distributed_init("gloo", init_method=f"tcp://localhost:{port}",
+    n = distributed_init("gloo", init_method=init,
                          world_size=world, rank=rank)
     assert n == world
     res = {}
@@ -158,38 +155,10 @@ from scso_tpu_torch.ops.cuda.matvec import (  # noqa: E402
     normal_matvec_sharded)
 
 from _dist_launch import make_data  # noqa: E402
+from _torch_ranks import file_init, launch, saved  # noqa: E402
 
 torch.set_num_threads(1)
 _t = lambda a: torch.tensor(np.asarray(a, dtype=np.float64))
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def _launch(world, workdir, timeout=120):
-    """Run ``world`` worker ranks of this file; their saved results."""
-    port = _free_port()
-    env = dict(os.environ, PYTHONPATH=ROOT)
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), str(port), str(r),
-         str(world), workdir], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True, cwd=ROOT, env=env)
-        for r in range(world)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=timeout)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} of {world} failed:\n{out}"
-    return [dict(np.load(os.path.join(workdir, f"rank{r}_of{world}.npz")))
-            for r in range(world)]
 
 
 @pytest.fixture(scope="module")
@@ -203,12 +172,14 @@ def dist_data():
 
 @pytest.fixture(scope="module")
 def two_ranks(dist_data):
-    return _launch(2, dist_data[0])
+    launch(__file__, (2,), dist_data[0], timeout=120)
+    return saved(dist_data[0], 2)
 
 
 @pytest.fixture(scope="module")
 def four_ranks(dist_data):
-    return _launch(4, dist_data[0])
+    launch(__file__, (4,), dist_data[0], timeout=120)
+    return saved(dist_data[0], 4)
 
 
 def _jax_problem(spec, lp=False):
@@ -228,9 +199,9 @@ def _jax_solve(spec, greedy, kw, lp=False, **method_kw):
 
 
 @pytest.fixture
-def one_rank():
+def one_rank(tmp_path):
     """A one-rank gloo group in this process, and its mesh."""
-    distributed_init("gloo", init_method=f"tcp://localhost:{_free_port()}",
+    distributed_init("gloo", init_method=file_init(tmp_path),
                      world_size=1, rank=0)
     yield make_mesh()
     dist.destroy_process_group()

@@ -21,8 +21,6 @@ JAX validation errors, and two gloo ranks splitting the batch axis
 import functools
 import importlib
 import os
-import socket
-import subprocess
 import sys
 import tempfile
 
@@ -58,12 +56,12 @@ def _port_logreg(m=32, n=8, seed=0):
                       device="cpu")
 
 
-def _rank_main(port, rank, world, out):
+def _rank_main(init, rank, world, out):
     """One rank of the batch axis: the 8-point path over ``world``
     gloo ranks, saved."""
     torch.set_num_threads(1)
     rank, world = int(rank), int(world)
-    n = distributed_init("gloo", init_method=f"tcp://localhost:{port}",
+    n = distributed_init("gloo", init_method=init,
                          world_size=world, rank=rank)
     assert n == world
     mesh = make_mesh(axis_names=("batch",))
@@ -74,9 +72,10 @@ def _rank_main(port, rank, world, out):
                   st.PHuberSmootherL1L2(1.0), lam_grid=LAM8,
                   opts=st.Options(max_epoch=100, verbose=0), mesh=mesh,
                   path_waves=2)
-    np.savez(os.path.join(out, f"rank{rank}.npz"), x=res.x.numpy(),
-             obj=res.obj.numpy(), epochs=res.epochs.numpy(),
-             wx=waves.x.numpy(), wepochs=waves.epochs.numpy())
+    np.savez(os.path.join(out, f"rank{rank}_of{world}.npz"),
+             x=res.x.numpy(), obj=res.obj.numpy(),
+             epochs=res.epochs.numpy(), wx=waves.x.numpy(),
+             wepochs=waves.epochs.numpy())
     dist.destroy_process_group()
 
 
@@ -89,6 +88,7 @@ from scso_tpu.models import losses as jlosses  # noqa: E402
 from scso_tpu.parallel import solve_fleet as jsolve_fleet  # noqa: E402
 from scso_tpu.parallel import stack_problems as jstack  # noqa: E402
 from scso_tpu.parallel import sweep as jsweep  # noqa: E402
+from _torch_ranks import launch, saved  # noqa: E402
 
 SWEEP = importlib.import_module("scso_tpu_torch.parallel.sweep")
 
@@ -483,37 +483,14 @@ def test_validation_errors():
     assert bool(torch.all(res.epochs <= 3))
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def test_two_gloo_ranks_split_the_batch_axis():
     """Each of two ranks solves its 4 instances; the gathered result is
     every rank's, bit for bit, and the one-process result (x to 1e-12,
     epochs equal), for a cold sweep and for two waves."""
     world = 2
     with tempfile.TemporaryDirectory() as out:
-        port = _free_port()
-        env = dict(os.environ, PYTHONPATH=ROOT)
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), str(port), str(r),
-             str(world), out], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True, cwd=ROOT, env=env)
-            for r in range(world)]
-        logs = []
-        try:
-            for p in procs:
-                logs.append(p.communicate(timeout=120)[0])
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-        for r, (p, log) in enumerate(zip(procs, logs)):
-            assert p.returncode == 0, f"rank {r} failed:\n{log}"
-        ranks = [dict(np.load(os.path.join(out, f"rank{r}.npz")))
-                 for r in range(world)]
+        launch(__file__, (world,), out, timeout=120)
+        ranks = saved(out, world)
     for r in ranks[1:]:
         for k in ranks[0]:
             assert np.array_equal(r[k], ranks[0][k]), k
