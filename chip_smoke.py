@@ -303,9 +303,8 @@ timed chains replay it. Phases, each fatal on failure:
      call 1 serves phase 3's data and captures, giving `iterate`'s bits
      on it; call 2 serves (d)'s fresh data with no new capture and gives
      `iterate`'s bits on a problem built from that data (padded as
-     make_problem pads it); `load_solver(export_solver(...))` serves it
-     again with the same bits (one capture). Each call's seconds and
-     K1/K2/K3 launches. (c) `sanitize(nans=True)`: a small float32
+     make_problem pads it). Each call's seconds and K1/K2/K3 launches
+     (the exported artifact is phase 25's). (c) `sanitize(nans=True)`: a small float32
      cached solve completes with the fused solve's bits, its K1, K2 and
      K3 outputs checked; a loss that returns NaN raises
      FloatingPointError naming the op. (e) Each example of
@@ -317,6 +316,37 @@ timed chains replay it. Phases, each fatal on failure:
      trace holds K1, K2s and K3 by name exactly as often as their
      launch counters say (timed mode runs GGN-CG off the epoch cache,
      as in the JAX package: K2s, not K2), and `device_memory_stats()`.
+ 25. The exported solver and a fused solve over gloo (after dropping
+     the earlier captures). (a) `export_solver` of phase 3's solve (its
+     problem and options, cached GGN-CG at full width): a
+     ``torch.export`` program whose loops are ``while_loop`` and
+     ``cond`` and whose K1–K5 are the custom ops ``torch.ops.scso.*``,
+     loaded in this process (`load_solver`) and run twice on phase 3's
+     data: `iterate`'s epochs and x (bit for bit, else within
+     EXPORT_RTOL, reported); the seconds of the export, the load and
+     each solve, the artifact's bytes, beside phase 24's served call;
+     then once on 24(a)'s fresh data (the padding, diag(AᵀA) and the
+     epoch cache at x0 derived from it): `iterate`'s bits on that data.
+     The op library is built in a thread from phase 1 on
+     (`start_ops_build`); its seconds, and those phase 25 waited.
+     (b) A profiler trace of the loaded solve holds K1, K2 and K3 by
+     name as often as `iterate`'s counters launched them. (c) A process
+     that imports torch and numpy alone (no PYTHONPATH, run from a
+     directory that holds nothing of the repo) loads 4096×500 artifacts
+     of the cached GGN-CG and the L-BFGS solve (K4), each with the op
+     library it carries, solves, and gives this process's bits; it
+     fails if scso_tpu_torch was imported. (d) Each custom op (K1 with A
+     in float32, float64 and bfloat16; K2 in both flavours and K2s for
+     logistic01, lsq, poisson and the split form; K3; K4; K5 in its
+     tensor-core, two-pass and split forms and with A in bfloat16)
+     against its plain version (phase 2's tolerances) and against the
+     ctypes launch of the same kernel: the same bits; and the host time
+     a call of K3 and of K4 takes through each route. (e) Phase 22's
+     uncached solve on phase 3's problem sharded over a one-rank gloo
+     group (a ``file://`` rendezvous), fused: gloo reduces CUDA tensors
+     through the host, so the fused program runs uncaptured, with no
+     capture, and gives phase 22's one-NCCL-rank bits, K1s, K1, K2s and
+     K3 launched.
      The whole run's seconds are printed at its end.
 
 The last two lines of standard output are one JSON object with each
@@ -344,6 +374,7 @@ split TF32 to float32 accuracy; float64 rtol 1e-12 and atol
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import shutil
@@ -353,6 +384,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zipfile
 import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -535,6 +567,8 @@ def fail(msg: str):
 
 
 def log(msg: str):
+    if msg.startswith("phase "):
+        msg += f" [{time.perf_counter() - T_START:.1f} s into the run]"
     print(msg, flush=True)
 
 
@@ -3100,16 +3134,19 @@ def small_sharded_cases():
     mglm = lambda dev: build_mglm_problem(512, 64, 4, dev, torch.float64,
                                           lam=1e-2)
     ggn = lambda **k: st.ProxGGNSCORE(solver="cg", greedy_alpha=False, **k)
-    lbfgs_kw = dict(x_tol=0.0, f_tol=0.0, max_epoch=40, verbose=0)
+    # 20 epochs a solve (60 and 40 before phase 25 took its share of the
+    # run's time): the two gloo ranks' time is their collectives'
+    lbfgs_kw = dict(x_tol=0.0, f_tol=0.0, max_epoch=20, verbose=0)
+    short = dict(CHUNK_KW, max_epoch=20)
     return {
-        "cached": (logreg(0.01), ggn(), CHUNK_KW),
+        "cached": (logreg(0.01), ggn(), short),
         "lbfgs": (logreg(0.01), st.ProxLQNSCORE(), lbfgs_kw),
         "lbfgs_armijo": (logreg(0.01), st.ProxLQNSCORE(ss_type=3),
                          dict(lbfgs_kw, alpha=1.0)),
-        "uncached": (logreg(0.01), ggn(epoch_cache=False), CHUNK_KW),
+        "uncached": (logreg(0.01), ggn(epoch_cache=False), short),
         "newton_cg": (logreg(0.1), st.ProxNSCORE(solver="cg",
                                                  greedy_alpha=False),
-                      CHUNK_KW),
+                      short),
         "newton_dense": (build_logreg_100x50, st.ProxNSCORE(),
                          dict(CHUNK_KW, max_epoch=20)),
         "ggn_dense_dual": (build_logreg_100x50,
@@ -3118,11 +3155,11 @@ def small_sharded_cases():
         "ggn_dense_primal": (build_logreg_100x50,
                              st.ProxGGNSCORE(solver="dense_primal"),
                              dict(CHUNK_KW, max_epoch=20)),
-        "mglm": (mglm, ggn(), CHUNK_KW),
-        "mglm_uncached": (mglm, ggn(epoch_cache=False), CHUNK_KW),
+        "mglm": (mglm, ggn(), short),
+        "mglm_uncached": (mglm, ggn(epoch_cache=False), short),
         "batches": (logreg(0.01), st.ProxGGNSCORE(solver="cg"),
                     dict(BATCH_KW, batch_size=96, rng_seed=3, alpha=None)),
-        "test_set": (small_test_problem, ggn(epoch_cache=False), CHUNK_KW),
+        "test_set": (small_test_problem, ggn(epoch_cache=False), short),
     }
 
 
@@ -3420,7 +3457,7 @@ def phase_sharded_methods(mesh, prob_t, mprob_t):
     captures, issues more, and the sharded graph has more nodes)."""
     from scso_tpu_torch.parallel import shard_problem
 
-    out, total = {}, None
+    out, total, sols = {}, None, {}
     for name, (prob, solve, kernels) in sharded_method_cases(
             prob_t, mprob_t).items():
         s0, sec0, lc0, cap0, _, _, nodes0 = captured_run(solve, prob)
@@ -3450,7 +3487,8 @@ def phase_sharded_methods(mesh, prob_t, mprob_t):
                          host_all_reduces=calls, nodes=nodes1)
         total = lc1 if total is None else {k: total[k] + lc1[k]
                                            for k in total}
-    return out, total
+        sols[name] = s1
+    return out, total, sols
 
 
 # ---------------------------------------------------------------------------
@@ -4140,7 +4178,9 @@ def small_mesh_cases():
     mglm = lambda dev: build_mglm_problem(512, 64, 4, dev, torch.float64,
                                           lam=1e-2)
     ggn = lambda **k: st.ProxGGNSCORE(solver="cg", greedy_alpha=False, **k)
-    kw = dict(CHUNK_KW, max_epoch=20, stats_every=1)
+    # 12 epochs a single solve, 12 a sweep, 20 a fleet (20, 20 and 30
+    # before phase 25 took its share of the run's time)
+    kw = dict(CHUNK_KW, max_epoch=12, stats_every=1)
     return {
         "sweep": ("sweep", logreg(0.01), ggn(), dict(plan="throughput")),
         "waves": ("sweep", logreg(0.01), ggn(), dict(path_waves=2)),
@@ -4158,7 +4198,7 @@ def small_mesh_cases():
         "newton_cg": ("cols", logreg(0.1), st.ProxNSCORE(
             solver="cg", greedy_alpha=False), kw),
         "lbfgs": ("cols", logreg(0.01), st.ProxLQNSCORE(),
-                  dict(x_tol=0.0, f_tol=0.0, max_epoch=40, verbose=0)),
+                  dict(x_tol=0.0, f_tol=0.0, max_epoch=12, verbose=0)),
         "mglm": ("cols", mglm, ggn(), kw),
         "test_set": ("cols", small_test_problem, ggn(epoch_cache=False),
                      kw),
@@ -4188,7 +4228,7 @@ def small_mesh_run(kind, build, method, kw, device, mesh=None):
     if kind == "sweep":
         kw = dict(kw)
         bs = kw.pop("batch_size", None)
-        opts = st.Options(max_epoch=20, verbose=0, batch_size=bs)
+        opts = st.Options(max_epoch=12, verbose=0, batch_size=bs)
         r = sweep(method, rows(prob), "l1", sm, lam_grid=lam, opts=opts,
                   mesh=bmesh, rng_seed=3, **kw, **eager)
         return dict(x=r.x, obj=r.obj, epochs=r.epochs)
@@ -4198,7 +4238,7 @@ def small_mesh_run(kind, build, method, kw, device, mesh=None):
         probs = [rows(replace(prob, lam=prob.lam * s))
                  for s in (1.0, 2.0, 4.0, 8.0)]
         r = solve_fleet(method, stack_problems(probs), "l1", sm,
-                        opts=st.Options(max_epoch=30, verbose=0),
+                        opts=st.Options(max_epoch=20, verbose=0),
                         mesh=bmesh, **eager)
         return dict(x=r.x, obj=r.obj, epochs=r.epochs)
     if kind == "federated":
@@ -4459,6 +4499,22 @@ def same_served(what, got, sol):
              f"iterate's {sol.epochs}, {float(sol.obj[-1])!r}, or x differs")
 
 
+def chain_template(prob_t):
+    """(phase 3's problem with the chain's L = 1/alpha, the chain's
+    Options): what serving and export bake in of phase 3's solve."""
+    import torch
+
+    import scso_tpu_torch as st
+    from scso_tpu_torch._src.struct import replace
+
+    kw = dict(CHUNK_KW)
+    alpha = kw.pop("alpha")
+    return (replace(prob_t, L=torch.full((), 1.0 / alpha,
+                                         dtype=prob_t.dtype,
+                                         device=prob_t.device)),
+            st.Options(**kw))
+
+
 def phase_serving(prob_t, data, total):
     """Phase 24(a) (see the module docstring)."""
     import numpy as np
@@ -4468,15 +4524,10 @@ def phase_serving(prob_t, data, total):
     from scso_tpu_torch._src.struct import replace
     from scso_tpu_torch.models import losses
     from scso_tpu_torch.ops.cuda import graph
-    from scso_tpu_torch.utils import (
-        export_solver, load_solver, make_serving_fn)
+    from scso_tpu_torch.utils import make_serving_fn
 
     meth, sm = st.ProxGGNSCORE(**F32_CG), st.PHuberSmootherL1L2(1.0)
-    kw = dict(CHUNK_KW)
-    alpha = kw.pop("alpha")
-    opts = st.Options(**kw)
-    tpl = replace(prob_t, L=torch.full((), 1.0 / alpha, dtype=prob_t.dtype,
-                                       device=prob_t.device))
+    tpl, opts = chain_template(prob_t)
     out = {}
 
     def call(name, serve, args, ref):
@@ -4507,16 +4558,11 @@ def phase_serving(prob_t, data, total):
     call("served call 2 (fresh data)", serve, (A2, y2, x02), ref2)
     if out["served call 2 (fresh data)"]["captures"]:
         fail("phase 24(a): the second served call captured anew")
-    blob = export_solver(meth, tpl, "l1", sm, opts)
-    call("loaded artifact (fresh data)", load_solver(blob, "cuda"),
-         (A2, y2, x02),
-         ref2)
-    out["artifact_bytes"] = len(blob)
     out["fresh_obj"] = float(ref2.obj[-1])
     del serve, fresh
     if not np.isfinite(out["fresh_obj"]):
         fail("phase 24(a): non-finite objective on the fresh data")
-    return out
+    return out, (A2, y2, x02, ref2)
 
 
 def phase_sanitize(total):
@@ -4628,7 +4674,9 @@ def phase_profile(prob_t, total):
 
 def phase_utilities(prob_t):
     """Phase 24: (d), (a), (c), (e), then (b) (see the module
-    docstring); and the launches of all its solves."""
+    docstring); the launches of all its solves; and 24(a)'s fresh data
+    with ``iterate``'s solution on it (A, y, x0, solution), for phase
+    25(a)."""
     from scso_tpu_torch.ops.cuda import counters
 
     total = dict.fromkeys(counters.KERNEL_LAUNCHES, 0)
@@ -4636,7 +4684,7 @@ def phase_utilities(prob_t):
     log(" (d) the native generator")
     data, out["native"] = phase_native()
     log(" (a) make_serving_fn, export_solver and load_solver")
-    out["serving"] = phase_serving(prob_t, data, total)
+    out["serving"], fresh = phase_serving(prob_t, data, total)
     del data
     free_graphs()
     log(" (c) sanitize")
@@ -4646,7 +4694,393 @@ def phase_utilities(prob_t):
     free_graphs()
     log(" (b) profile_solve (last: the profiler slows later replays)")
     out["profile"] = phase_profile(prob_t, total)
-    return out, total
+    return out, total, fresh
+
+
+# ---------------------------------------------------------------------------
+# phase 25: the exported solver, and a fused solve over gloo
+# ---------------------------------------------------------------------------
+
+EXPORT_SMALL_SHAPE = (4096, 500)   # phase 25(c)'s artifacts
+OP_SHAPE = (4096, 1000)            # phase 25(d): K1, K2, K2s
+OP_MGLM = [(4096, 128, 8, "float32"), (1031, 77, 3, "float64")]
+OP_N = 10112                       # phase 25(d): K3 and K4 (m = 10)
+EXPORT_RTOL = 1e-6   # x of the loaded program where export rewrote an op
+
+#: the torch-only loader of phase 25(c), run in a process of its own
+LOADER = r"""
+import base64, io, json, os, sys, tempfile, zipfile
+import numpy as np
+import torch
+
+out = {}
+for name in sys.argv[1:]:
+    blob = open(name + ".pt2", "rb").read()
+    with zipfile.ZipFile(io.BytesIO(blob)) as z:
+        lib = [n for n in z.namelist() if n.endswith("extra/scso_ops.so.b64")]
+        if lib and not hasattr(torch.ops.scso, "normal_matvec"):
+            path = os.path.join(tempfile.mkdtemp(), "libscso_ops.so")
+            with open(path, "wb") as f:
+                f.write(base64.b64decode(z.read(lib[0])))
+            torch.ops.load_library(path)
+    serve = torch.export.load(io.BytesIO(blob)).module()
+    data = np.load(name + "_data.npz")
+    args = [torch.from_numpy(data[v]).cuda() for v in ("A", "y", "x0")]
+    x, k, obj = serve(*args)
+    np.save(name + "_x.npy", x.cpu().numpy())
+    out[name] = [int(k), float(obj)]
+leaked = [m for m in sys.modules if m.startswith("scso_tpu")]
+assert not leaked, leaked
+print(json.dumps(out))
+"""
+
+
+def op_checks(gen):
+    """Phase 25(d): each custom op (``torch.ops.scso.*``, the wrappers
+    under ``launch.via_ops``) against its plain version, with the
+    tolerances of phase 2, and against the ctypes launch of the same
+    kernel in the same form: the same bits. {op: max abs err}."""
+    import torch
+
+    from scso_tpu_torch.models.losses import (
+        LOGISTIC01_GLM, LSQ_GLM, POISSON_GLM, multinom_mglm)
+    from scso_tpu_torch.ops.cuda import glm_prep as k2
+    from scso_tpu_torch.ops.cuda import launch
+    from scso_tpu_torch.ops.cuda import mglm_matvec as k5
+    from scso_tpu_torch.ops.cuda import score_update as k3
+    from scso_tpu_torch.ops.cuda import two_loop as k4
+    from scso_tpu_torch.ops.cuda.matvec import (
+        normal_matvec, normal_matvec_torch)
+
+    errs = {}
+
+    def check(name, run, plain, tol):
+        got = run()
+        with launch.via_ops():
+            op = run()
+        got, op = ([t] if isinstance(t, torch.Tensor) else list(t)
+                   for t in (got, op))
+        for i, (u, v) in enumerate(zip(got, op)):
+            if not torch.equal(u, v):
+                fail(f"phase 25(d) {name}: the op's output {i} differs "
+                     "from the ctypes launch's")
+        want = plain()
+        want = [want] if isinstance(want, torch.Tensor) else list(want)
+        err = max(compare(f"phase 25(d) {name}", u, w, tol)
+                  for u, w in zip(op, want))
+        errs[name] = max(errs.get(name, 0.0), err)
+
+    m, n = OP_SHAPE
+    for dn in ("float32", "float64"):
+        dt = getattr(torch, dn)
+        r = lambda *s: torch.randn(s, generator=gen, device="cuda",
+                                   dtype=dt)
+        A, v = r(m, n), r(n)
+        w = torch.rand((m,), generator=gen, device="cuda", dtype=dt)
+        y = (torch.rand((m,), generator=gen, device="cuda") < 0.5).to(dt)
+        xt, xd = r(n) * 0.05, r(n) * 0.05
+        A_lp = A.to(torch.bfloat16)
+        check("normal_matvec", lambda: normal_matvec(A, w, v),
+              lambda: normal_matvec_torch(A, w, v), dn)
+        check("normal_matvec_bf16", lambda: normal_matvec(A_lp, w, v),
+              lambda: normal_matvec_torch(A_lp, w, v), dn)
+        for glm, tag in ((LOGISTIC01_GLM, ""), (LSQ_GLM, "_lsq"),
+                         (POISSON_GLM, "_poisson"),
+                         (least_squares_glm(), "_split")):
+            yy = y if glm is not LSQ_GLM else r(m)
+            for flavour, name in (("ggn", "glm_prep_pair"),
+                                  ("newton", "glm_prep_pair_newton")):
+                check(name + tag, lambda: k2.glm_prep_pair(
+                    A, yy, xt, xd, glm, flavour=flavour),
+                    lambda: k2.glm_prep_pair_torch(A, yy, xt, xd, glm,
+                                                   flavour=flavour), dn)
+            check("glm_prep" + tag, lambda: k2.glm_prep(A, yy, xt, glm),
+                  lambda: k2.glm_prep_torch(A, yy, xt, glm)[:3], dn)
+        check("glm_prep_pair_bf16", lambda: k2.glm_prep_pair(
+            A_lp, y, xt, xd, LOGISTIC01_GLM),
+            lambda: k2.glm_prep_pair_torch(A_lp, y, xt, xd,
+                                           LOGISTIC01_GLM), dn)
+        check("glm_prep_bf16", lambda: k2.glm_prep(A_lp, y, xt,
+                                                   LOGISTIC01_GLM),
+              lambda: k2.glm_prep_torch(A_lp, y, xt, LOGISTIC01_GLM)[:3],
+              dn)
+        for reg in ("l1", "indbox"):
+            args = score_update_inputs(OP_N, reg, dt, gen)
+            check("score_update", lambda: k3.score_update(*args),
+                  lambda: k3.score_update_torch(*args), dn)
+        mem, g = two_loop_inputs(OP_N, 10, 7, dt, gen)
+        check("two_loop", lambda: k4.two_loop(mem, g),
+              lambda: k4.two_loop_torch(mem, g), dn)
+    for mm, p, k, dn in OP_MGLM:
+        dt = getattr(torch, dn)
+        A, y, Z, V = mglm_inputs(mm, p, k, dt, gen)
+        tol = "k5" if dn == "float32" else dn
+        for spec in (multinom_mglm(k), squared_moglm(k)):
+            check("mglm_matvec", lambda: k5.mglm_matvec(A, y, Z, V, spec),
+                  lambda: k5.mglm_matvec_torch(A, y, Z, V, spec), tol)
+        if dn == "float32":
+            A_lp = A.to(torch.bfloat16)
+            check("mglm_matvec_bf16", lambda: k5.mglm_matvec(
+                A_lp, y, Z, V, multinom_mglm(k)),
+                lambda: k5.mglm_matvec_torch(A_lp, y, Z, V,
+                                             multinom_mglm(k)), tol)
+    return errs
+
+
+def route_host_times(gen):
+    """Phase 25(d): the host time a call of K3 (l1) and of K4 takes,
+    float32 at n = OP_N, through the ctypes launch and through its custom
+    op (`launch.via_ops`), `host_ms` measured ctypes, op, op, ctypes:
+    {kernel: {route: [ms, ms]}}."""
+    import contextlib
+
+    import torch
+
+    from scso_tpu_torch.ops.cuda import launch
+    from scso_tpu_torch.ops.cuda import score_update as k3
+    from scso_tpu_torch.ops.cuda import two_loop as k4
+
+    args = score_update_inputs(OP_N, "l1", torch.float32, gen)
+    mem, g = two_loop_inputs(OP_N, 10, 7, torch.float32, gen)
+    fns = {"score_update": lambda: k3.score_update(*args),
+           "two_loop": lambda: k4.two_loop(mem, g)}
+    out = {}
+    for name, fn in fns.items():
+        out[name] = {"ctypes": [], "op": []}
+        for route in ("ctypes", "op", "op", "ctypes"):
+            with (launch.via_ops() if route == "op"
+                  else contextlib.nullcontext()):
+                out[name][route].append(host_ms(fn))
+    return out
+
+
+def loaded_solve(serve, args, reps=2):
+    """(the loaded program's (x, epochs, obj) on the data ``args`` (A,
+    y, x0), the seconds of each of ``reps`` calls)."""
+    import torch
+
+    secs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = serve(*args)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return got, secs
+
+
+def same_as_iterate(what, got, sol):
+    """The loaded program's (x, epochs, obj) against ``iterate``'s: the
+    same epochs, and x and the objective bit for bit, else within
+    EXPORT_RTOL (reported). Returns the largest relative difference."""
+    import torch
+
+    x, k, obj = got
+    if int(k) != sol.epochs:
+        fail(f"{what}: {int(k)} epochs, iterate's {sol.epochs}")
+    if torch.equal(x, sol.x) and float(obj) == float(sol.obj[-1]):
+        return 0.0
+    rel = float((x - sol.x).abs().max() / sol.x.abs().max().clamp_min(1e-30))
+    if not rel <= EXPORT_RTOL:
+        fail(f"{what}: x differs from iterate's by {rel:.3e} relative")
+    log(f"  {what}: x within {rel:.3e} of iterate's (not bitwise)")
+    return rel
+
+
+def phase_export(prob_t, serve_s, fresh, sols22, ops_build, total):
+    """Phase 25 (see the module docstring)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    import scso_tpu_torch as st
+    from scso_tpu_torch.ops.cuda import build, graph
+    from scso_tpu_torch.parallel import (
+        distributed_init, make_mesh, shard_problem)
+    from scso_tpu_torch.utils import export_solver, load_solver
+
+    out = {"gb_after_free": free_graphs()}
+    meth, sm = st.ProxGGNSCORE(**F32_CG), st.PHuberSmootherL1L2(1.0)
+    tpl, opts = chain_template(prob_t)
+    t0 = time.perf_counter()
+    build.load_ops()  # built in the background since phase 1
+    ops_wait = time.perf_counter() - t0
+    log(f"  the op library: built in {ops_build.get('seconds', 0.0):.2f} s "
+        f"beside phases 2-24, {ops_wait:.2f} s waited for it here")
+    log(" (a) export phase 3's solve, load it, solve")
+    ref, _, lc = launches_of(lambda: solve_chunk(meth, prob_t), total)
+    want = {"normal_matvec": lc["normal_matvec"],
+            "glm_prep": lc["glm_prep"] + lc["glm_prep_pair"],
+            "score_update": lc["score_update"]}
+    t0 = time.perf_counter()
+    blob = export_solver(meth, tpl, "l1", sm, opts)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve = load_solver(blob, "cuda")
+    load_s = time.perf_counter() - t0
+    got, secs = loaded_solve(serve, (prob_t.A, prob_t.y, prob_t.x0))
+    rel = same_as_iterate("phase 25(a) the loaded program", got, ref)
+    # the data of 24(a)'s second served call: what the program derives
+    # from its data (the padding, diag(AᵀA), the epoch cache at x0) comes
+    # from the call's
+    A2, y2, x02, ref2 = fresh
+    got2, secs2 = loaded_solve(serve, (A2, y2, x02), reps=1)
+    same_served("phase 25(a) the loaded program on fresh data", got2, ref2)
+    del got2
+    with zipfile.ZipFile(io.BytesIO(blob)) as z:
+        parts = {i.filename: i.file_size for i in z.infolist()}
+    lib = sum(v for k, v in parts.items() if k.endswith("scso_ops.so.b64"))
+    out["main"] = dict(export_s=export_s, artifact_bytes=len(blob),
+                       ops_library_b64_bytes=lib,
+                       program_json_bytes=sum(
+                           v for k, v in parts.items()
+                           if k.endswith("model.json")),
+                       load_s=load_s, solve_s=secs, served_s=serve_s,
+                       epochs=ref.epochs, rel_x=rel, launches=want,
+                       fresh_solve_s=secs2[0], fresh_epochs=ref2.epochs,
+                       ops_build_s=ops_build.get("seconds"),
+                       ops_wait_s=ops_wait)
+    log(f"  export {export_s:.2f} s, {len(blob)} bytes ({lib} of them the "
+        f"op library in base64), load {load_s:.2f} s,"
+        f" loaded solve {secs} s ({ref.epochs} epochs; iterate's bits: "
+        f"{rel == 0.0}) against phase 24's served call {serve_s:.4f} s; "
+        f"on 24(a)'s fresh data {secs2[0]:.4f} s, {ref2.epochs} epochs, "
+        "iterate's bits")
+    log(" (b) a profiler trace of the loaded solve")
+    with tempfile.TemporaryDirectory() as d:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            # a kernel ahead of the solve's: one trace of this session,
+            # the process's second (after 24(b)'s), held K2 20 times
+            # against the counters' 21, the loaded solve giving
+            # iterate's x and epochs
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+            serve(prob_t.A, prob_t.y, prob_t.x0)
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(os.path.join(d, "trace_loaded.json"))
+        counts, kernels = trace_counts(d)
+    if counts != want or not all(want.values()):
+        fail(f"phase 25(b): the loaded solve's trace shows {counts}, "
+             f"iterate's counters {want}")
+    out["main"]["trace"], out["main"]["trace_kernels"] = counts, kernels
+    log(f"  the trace's {kernels} kernels hold K1, K2, K3 as {counts}: "
+        "iterate's counters")
+    del serve, blob, got
+    log(" (c) a process with torch and numpy alone loads 4096x500 "
+        "artifacts (cached GGN-CG; L-BFGS, K4) with their op library")
+    small = build_problem(*EXPORT_SMALL_SHAPE, "cuda", torch.float32)
+    cases = {"cached": (meth, LOGISTIC_KERNELS),
+             "lbfgs": (st.ProxLQNSCORE(m=10), LBFGS_KERNELS)}
+    sopts = st.Options(max_epoch=60, verbose=0)
+    with tempfile.TemporaryDirectory() as d:
+        here = {}
+        for name, (method, kernels) in cases.items():
+            sol, _, slc = launches_of(lambda: st.iterate(
+                method, small, "l1", sm, max_epoch=60, verbose=0), total)
+            check_launches(slc, kernels, f"phase 25(c) {name} iterate")
+            blob = export_solver(method, small, "l1", sm, sopts)
+            if name == "lbfgs" and b"scso.two_loop" not in blob:
+                with zipfile.ZipFile(io.BytesIO(blob)) as z:
+                    text = b"".join(z.read(f) for f in z.namelist()
+                                    if f.endswith(".json"))
+                if b"two_loop" not in text:
+                    fail("phase 25(c): the L-BFGS program holds no K4 op")
+            got, _ = loaded_solve(load_solver(blob, "cuda"),
+                                  (small.A, small.y, small.x0), reps=1)
+            same_as_iterate(f"phase 25(c) {name}", got, sol)
+            here[name] = got
+            with open(os.path.join(d, name + ".pt2"), "wb") as f:
+                f.write(blob)
+            np.savez(os.path.join(d, name + "_data.npz"),
+                     A=small.A.cpu().numpy(), y=small.y.cpu().numpy(),
+                     x0=small.x0.cpu().numpy())
+        with open(os.path.join(d, "loader.py"), "w") as f:
+            f.write(LOADER)
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "loader.py", *cases], cwd=d,
+                             env=env, capture_output=True, text=True,
+                             timeout=600)
+        sub_s = time.perf_counter() - t0
+        if run.returncode != 0:
+            fail(f"phase 25(c): the torch-only loader failed:\n"
+                 f"{run.stderr[-4000:]}")
+        res = json.loads(run.stdout.strip().splitlines()[-1])
+        for name, (x, k, obj) in here.items():
+            xs = torch.from_numpy(np.load(os.path.join(d, name + "_x.npy")))
+            if (res[name] != [int(k), float(obj)]
+                    or not torch.equal(xs, x.cpu())):
+                fail(f"phase 25(c) {name}: the torch-only process gave "
+                     f"{res[name]} against {[int(k), float(obj)]}, or x "
+                     "differs")
+    out["subprocess"] = dict(seconds=sub_s, solves=res)
+    log(f"  the torch-only process: {sub_s:.2f} s, {res}, this process's "
+        "bits; scso_tpu_torch never imported there")
+    del small
+    log(" (d) each custom op against its plain version and its ctypes "
+        "launch")
+    build.load_ops()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    out["ops"] = op_checks(gen)
+    log(f"  custom ops, max abs err against the plain versions "
+        f"(the ctypes launches' bits): {out['ops']}")
+    out["route_host_ms"] = route_host_times(gen)
+    log(f"  host ms a call, float32 n={OP_N}, ctypes against the op "
+        f"(measured ctypes, op, op, ctypes): {out['route_host_ms']}")
+    log(" (e) a fused solve over a one-rank gloo group on the card")
+    with tempfile.TemporaryDirectory() as d:
+        size = distributed_init("gloo", init_method=f"file://{d}/rdv",
+                                world_size=1, rank=0)
+        if size != 1 or dist.get_backend() != "gloo":
+            fail("phase 25(e): the one-rank gloo group did not form")
+        want_sol = sols22["uncached"]
+        uncached = st.ProxGGNSCORE(**F32_CG, epoch_cache=False)
+        graph.reset_stats()
+        s, secs, glc = launches_of(lambda: solve_chunk(
+            uncached, shard_problem(prob_t, make_mesh())), total)
+        dist.destroy_process_group()
+    same_solution("phase 25(e) fused over gloo vs phase 22's one NCCL "
+                  "rank", want_sol, s)
+    if graph.STATS["captures"]:
+        fail("phase 25(e): the fused solve over gloo captured")
+    check_launches(glc, UNCACHED_KERNELS + ("normal_matvec_sharded",),
+                   "phase 25(e) gloo")
+    out["gloo"] = dict(seconds=secs, epochs=s.epochs,
+                       host_reads=graph.STATS["host_reads"],
+                       launches={k: glc[k] for k in UNCACHED_KERNELS})
+    log(f"  uncached GGN-CG over gloo, uncaptured: {secs:.3f} s, "
+        f"{s.epochs} epochs, {graph.STATS['host_reads']} host reads, "
+        f"phase 22's one-NCCL-rank bits; launches {out['gloo']['launches']}")
+    return out
+
+
+def start_ops_build() -> dict:
+    """Build the op library (phase 25) in a thread while the phases
+    before it run, on the host's spare cores; phase 25's `build.load_ops`
+    waits for it, and raises with the compilers' output if it failed.
+    Joined at exit, so that no compiler outlives the script. {'seconds':
+    the build's, once done}."""
+    import atexit
+    import threading
+
+    from scso_tpu_torch.ops.cuda import build
+
+    out = {}
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            build.build_ops()
+        except Exception:  # raised again in phase 25, with the output
+            return
+        out["seconds"] = time.perf_counter() - t0
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    atexit.register(t.join)
+    return out
 
 
 T_START = time.perf_counter()
@@ -4686,6 +5120,7 @@ def main():
     build.load()
     log(f"  kernels built in {res.seconds:.2f} s -> {res.path} "
         "(nvcc's report: build.log beside it)")
+    ops_build = start_ops_build()
 
     mesh = one_rank_nccl()
     log("phase 2: kernels against their plain versions")
@@ -4780,7 +5215,8 @@ def main():
     t0 = time.perf_counter()
     log("phase 22: every single-instance method on a row shard over one "
         "NCCL rank, captured, against its unsharded fused solve")
-    sharded22, s22launches = phase_sharded_methods(mesh, prob_t, mprob_t)
+    sharded22, s22launches, sols22 = phase_sharded_methods(mesh, prob_t,
+                                                           mprob_t)
     log(f"  phase 22: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     log("phase 23: meshes of two axes: a sweep on ('batch', 'data'), the "
@@ -4791,11 +5227,22 @@ def main():
     t0 = time.perf_counter()
     log("phase 24: the native generator, serving and export, sanitize, the "
         "examples and profile_solve")
-    utils24, u24launches = phase_utilities(prob_t)
+    utils24, u24launches, fresh24 = phase_utilities(prob_t)
     log(f"  phase 24: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    log("phase 25: the exported solver (torch.export, K1-K5 as custom ops) "
+        "and a fused solve over gloo")
+    from scso_tpu_torch.ops.cuda import counters
+
+    u25launches = dict.fromkeys(counters.KERNEL_LAUNCHES, 0)
+    export25 = phase_export(
+        prob_t, utils24["serving"]["served call 1 (phase 3's data)"][
+            "seconds"], fresh24, sols22, ops_build, u25launches)
+    del fresh24
+    log(f"  phase 25: {time.perf_counter() - t0:.1f} s")
     new_paths = [batches["launches"], resume["static_precond"]["launches"],
                  resume["curvature_rows"]["launches"], s22launches,
-                 m23launches, u24launches]
+                 m23launches, u24launches, u25launches]
     new_paths += [v["launches"] for v in nodata.values()]
     launches = {k: launches[k] + mlaunches[k] + llaunches[k] + ulaunches[k]
                 + slaunches[k] + nlaunches[k] + klaunches[k] + lplaunches[k]
@@ -4848,6 +5295,7 @@ def main():
                                                   "federated": fed}))
     log("meshes of two axes: " + json.dumps({"card": card, **mesh23}))
     log("utilities: " + json.dumps({"card": card, **utils24}))
+    log("exported solver: " + json.dumps({"card": card, **export25}))
     log(f"whole run: {time.perf_counter() - T_START:.1f} s")
     rows = []
     for k, (src, rep) in KERNELS.items():

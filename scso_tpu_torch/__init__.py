@@ -33,9 +33,11 @@ method, captured over NCCL), and solves λ/μ paths, problem fleets and
 federated rounds as one batched solve (``sweep``, ``solve_fleet``,
 ``federated_solve``: the instances on a leading axis, also split over a
 batch axis of row-sharded problems; on the card one captured graph).
-What the port leaves out raises NotImplementedError naming its ROADMAP
-item (A11: a captured solve over gloo, or with overlapped chunks over
-several ranks; A12: the remaining utilities).
+``utils.export_solver`` writes the whole fused solve as a
+``torch.export`` program that loads with torch alone (K1–K5 as custom
+ops, their library in the artifact). What the port leaves out raises
+NotImplementedError naming its ROADMAP item (A12: serving and exporting
+a sharded problem).
 """
 
 from __future__ import annotations

@@ -75,9 +75,11 @@ min(batch size, its rows) so that the captured loop keeps its shapes
 (`_Batches`, `Problem.rows`). Fused mode captures it over NCCL: on one
 rank always, over more ranks where the communicator was made under
 NCCL_GRAPH_MIXING_SUPPORT=0 (`Mesh.captures`; the collectives then sit
-inside the graph's conditional nodes), and it raises over gloo (gloo
-reduces CUDA tensors through the host) or without that setting, before
-any collective (`_check_capturable`). Timed mode runs on any group,
+inside the graph's conditional nodes), and it raises without that
+setting, or with the overlapped K1s schedule over more than one rank,
+before any collective (`_check_capturable`); over gloo, which reduces
+CUDA tensors through the host, it runs the same program uncaptured
+(`_uncaptured`). Timed mode runs on any group,
 uncaptured (`graph.eager`; the CG loop reads the card once an
 iteration); where the epoch cache acts it takes the cached step and the
 cache's loss in each record, so that its epochs are those of the fused
@@ -552,12 +554,14 @@ def _solve_impl(method, prob: Problem, reg_name: str, sm, opts: Options,
     """The solve of a resolved method (`solve` after its checks). Timed
     mode on a row shard runs uncaptured: a gloo group, or NCCL without
     NCCL_GRAPH_MIXING_SUPPORT=0, cannot put its collectives in a captured
-    graph's conditional nodes (`_check_capturable`). Under
-    `utils.debug.sanitize` every solve runs uncaptured."""
+    graph's conditional nodes (`_check_capturable`). So does the fused
+    mode over gloo on the card (`_uncaptured`), and every solve under
+    `utils.debug.sanitize`."""
     t0 = time.perf_counter()
     on_card = prob.device.type == "cuda"
     timed = opts.mode == "timed"
-    if (timed and prob.comm_mesh is not None) or nancheck.uncaptured():
+    if ((timed and prob.comm_mesh is not None) or nancheck.uncaptured()
+            or _uncaptured(prob)):
         capture = False
     run = _Run(metric_fns, metric_names, rng_seed, resume_state)
     eager = graph.eager() if on_card and not capture else nullcontext()
@@ -574,6 +578,36 @@ def _solve_impl(method, prob: Problem, reg_name: str, sm, opts: Options,
         _replays(loop.round_of(lambda: loop.round(prob)), loop.live,
                  loop.max_rounds)
         return loop.finish(prob, t0, run)
+
+
+def solve_program(method, prob: Problem, reg_name: str, sm, opts: Options):
+    """The fused solve of a resolved method as one program, for
+    ``torch.export`` (`utils.deploy.export_solver`, under
+    `graph.export_trace`): the loop of :class:`_Fused` that a captured
+    solve replays, its rounds one ``while_loop`` on ``live`` whose carry
+    is the loop's state (the iterate, the epoch count, the histories, the
+    epoch cache, the L-BFGS memory), then the final record. Returns the
+    JAX package's serving triple (x sliced to ``n_true``, the epochs, the
+    final objective). Mini-batches are drawn on the host (`_Batches`),
+    which a program cannot hold: a solve with them raises ValueError."""
+    if _make_batches(prob, opts) is not None:
+        raise ValueError(
+            "an exported solve runs full batches: the port draws each "
+            "epoch's permutation of the rows on the host")
+    loop = _Fused(method, reg_name, sm, opts)
+    loop.load(prob, sm)
+    live = loop.live()
+
+    def rounds():
+        loop.round(prob)
+        live.copy_(loop.live())
+
+    device_loop(live, loop.max_rounds, rounds, state=loop.state())
+    loop.record(prob)
+    c, h = loop.carry, loop.hist
+    obj = h.obj.index_select(0, (h.n_rec.long() - 1).reshape(1))
+    x = c.x if prob.n_true is None else c.x[..., : prob.n_true]
+    return x.clone(), c.k.clone(), obj.reshape(())
 
 
 class _Run(NamedTuple):
@@ -667,10 +701,17 @@ def _clone_tree(tree):
 def _assign(dst, src) -> None:
     """Copy the tensors of ``src`` into the buffers ``dst`` (the same
     structure). A tensor that is its own buffer stays; one that shares
-    storage with any buffer is cloned before the first copy."""
+    storage with any buffer is cloned before the first copy (under
+    export, whose traced tensors have no storage to compare, every one
+    is)."""
     dsts, srcs = _leaves(dst), _leaves(src)
     if len(dsts) != len(srcs):
         raise ValueError("the carry changed its structure")
+    if graph.exporting():
+        pairs = [(d, s.clone()) for d, s in zip(dsts, srcs) if s is not d]
+        for d, s in pairs:
+            d.copy_(s)
+        return
     ptrs = {d.untyped_storage().data_ptr() for d in dsts}
     pairs = [(d, s.clone() if s.untyped_storage().data_ptr() in ptrs
               else s) for d, s in zip(dsts, srcs) if s is not d]
@@ -1021,6 +1062,20 @@ class _Fused:
         c = self.carry
         return ~c.done & (c.k < self.max_epoch)
 
+    def state(self) -> tuple:
+        """The tensors a round writes: the carry's (but the generator's
+        state, which only the host advances) and, with mini-batches,
+        the batch loop's."""
+        out = tuple(_leaves(self.carry._replace(rng=None)))
+        b = self.batches
+        if b is not None:
+            bufs = (b.Ab, b.yb, b.Ar, b.yr) + tuple(
+                getattr(b, f, None) for f in ("mb", "pb", "mr", "pr"))
+            out += (b.bi, b.blive) + tuple(
+                t.block if is_colshard(t) else t for t in bufs
+                if t is not None)
+        return out
+
     def record(self, prob: Problem) -> torch.Tensor:
         """One stats record at the carry's iterate, written at n_rec;
         returns the raw relative gap."""
@@ -1075,10 +1130,12 @@ class _Fused:
 
         b.bi.zero_()
         b.blive.copy_(~c.done)
-        device_loop(b.blive, nb, batch)
+        state = self.state()
+        device_loop(b.blive, nb, batch,
+                    state=tuple(t for t in state if t is not b.blive))
         if rem:
             device_if(~c.done, lambda: c.done.copy_(self._step_on(
-                *b.gather_rest(prob, perm), it, raw_frel)))
+                *b.gather_rest(prob, perm), it, raw_frel)), state)
         conv = _stopped(c.x, c.x_prev, raw_frel, c.pri_res, self.opts)
         _assign(c, c._replace(frel=raw_frel, k=c.k + 1, done=conv))
 
@@ -1101,21 +1158,22 @@ class _Fused:
         package's resume does)."""
         K = self.K
         c = self.carry
+        state = self.state()
 
         def body():
             if K <= 1:
                 self.step_epoch(prob, self.record(prob))
                 return
             device_if(torch.remainder(c.k, K) == 0,
-                      lambda: c.frel.copy_(self.record(prob)))
+                      lambda: c.frel.copy_(self.record(prob)), state)
             for j in range(K):
                 live = self.live()
                 if j:
                     live = live & (torch.remainder(c.k, K) != 0)
                 device_if(live, lambda: self.step_epoch(
-                    prob, self.gap_now(prob)))
+                    prob, self.gap_now(prob)), state)
 
-        device_if(self.live(), body)
+        device_if(self.live(), body, state)
 
     def round_of(self, replay):
         """``replay`` (a run of :meth:`round`) with the permutations of
@@ -1197,25 +1255,36 @@ def _capture_key(kind: str, method, prob: Problem, reg_name: str, sm,
             tuple(graph.identity_key(fn, refs) for fn in metric_fns))
 
 
+def _uncaptured(prob: Problem) -> bool:
+    """True where a fused solve of a sharded problem on the card runs its
+    program uncaptured (`graph.eager`: the same bodies, the kernels
+    launched one by one, a host read a predicate): over gloo, whose
+    collectives reduce CUDA tensors through the host, which a capture
+    cannot hold."""
+    mesh = prob.comm_mesh
+    if mesh is None or prob.device.type != "cuda":
+        return False
+    return dist.get_backend(mesh.group) == "gloo"
+
+
 def _check_capturable(prob: Problem, method=None) -> None:
-    """Raise before the first collective where a sharded solve cannot be
-    captured. A gloo group reduces CUDA tensors through the host,
-    which a capture refuses. NCCL's collectives across two ranks or more
-    sit inside the graph's conditional nodes, which NCCL allows only when
-    the communicator was made under NCCL_GRAPH_MIXING_SUPPORT=0 (on four
+    """Raise before the first collective where a sharded solve over NCCL
+    cannot be captured: NCCL's collectives across two ranks or more sit
+    inside the graph's conditional nodes, which NCCL allows only when the
+    communicator was made under NCCL_GRAPH_MIXING_SUPPORT=0 (on four
     H100s over NVLink the graph failed to instantiate without it;
     `Mesh.captures` records the setting as it was then). The overlapped
-    K1s schedule (``comm_overlap_chunks > 1``) issues its all-reduces
-    asynchronously on NCCL's own stream, which is not taken into a
-    conditional node's capture. One NCCL rank always captures. Timed
-    mode runs all of these uncaptured."""
+    K1s schedule (``comm_overlap_chunks > 1``) over more than one rank
+    is refused: no capture on four H100s held its chunks' all-reduces
+    (from a side stream forked inside a conditional body the ranks
+    crashed; on the capturing stream they did not finish in 400 s;
+    asynchronously they aborted), and run uncaptured the ranks waited in
+    the group's teardown (ROADMAP C15). One NCCL rank always captures. A
+    gloo group never gets here (:func:`_uncaptured`). Timed mode runs
+    uncaptured on any group."""
     mesh = prob.comm_mesh
     if mesh is None:
         return
-    if dist.get_backend(mesh.group) == "gloo":
-        raise NotImplementedError(
-            "a captured (mode='fused') solve on a row-sharded problem over "
-            "gloo is not ported (ROADMAP A11): use mode='timed'")
     if mesh.size > 1 and not mesh.captures:
         raise RuntimeError(
             "a captured (mode='fused') solve on a problem sharded over "
@@ -1229,8 +1298,8 @@ def _check_capturable(prob: Problem, method=None) -> None:
         raise NotImplementedError(
             "a captured (mode='fused') solve with comm_overlap_chunks > 1 "
             "over more than one rank is not ported (ROADMAP A11): its "
-            "asynchronous all-reduces run on NCCL's own stream; use "
-            "comm_overlap_chunks=1 or mode='timed'")
+            "chunks' all-reduces did not capture; use comm_overlap_chunks=1 "
+            "or mode='timed'")
 
 
 def _quiesce(prob: Problem) -> None:

@@ -2,14 +2,22 @@
 
 All kernels live in ``scso_tpu_torch/csrc/*.cu``. On first use they are
 compiled by ``nvcc`` for Hopper (``sm_90a``), one nvcc process for each
-source, all started together, and linked into ONE shared library with a
-plain C interface, loaded through ``ctypes``: without PyTorch's headers
-the build takes seconds, not minutes. The library goes into
-``scso_tpu_torch/_build/<hash>/`` (listed in ``.gitignore``), keyed by a
-hash of the sources and flags, so an edited source rebuilds and an
-unchanged one is reused. A failed build raises with nvcc's output.
+source, all started together, and linked into a shared library with a
+plain C interface, loaded through ``ctypes`` (:func:`load`): the
+solver's launches. The objects stay beside the library. The op library
+(:func:`build_ops`, :func:`load_ops`) is built apart, on first use:
+``g++`` compiles ``csrc/ops.cpp`` against PyTorch's headers and it is
+linked with those objects into K1–K5 as the custom ops
+``torch.ops.scso.*`` that an exported program holds (`utils.deploy`),
+loadable with ``torch.ops.load_library`` by any process that has
+torch. A solve that never exports needs neither g++ nor PyTorch's
+headers. Both go into ``scso_tpu_torch/_build/<hash>/`` (listed in
+``.gitignore``), keyed by a hash of the sources, flags and PyTorch
+version, so an edited source rebuilds and an unchanged one is reused. A
+failed build raises with the compilers' output. :func:`build_meta`
+compiles the ops' schemas and Meta functions alone (no CUDA needed),
+for the CPU tests.
 """
-
 from __future__ import annotations
 
 import ctypes
@@ -18,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -26,6 +35,10 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 LIB_NAME = "libscso_kernels.so"
+OPS_LIB_NAME = "libscso_ops.so"
+OPS_SOURCE = CSRC / "ops.cpp"
+#: g++ flags of the op library's source
+CXX_FLAGS = ("-std=c++17", "-O2", "-fPIC", "-w")
 #: compile flags, one source to one object
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -83,6 +96,32 @@ def sources() -> list:
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
+def torch_flags(linker: str = "nvcc") -> tuple:
+    """(compile flags, link flags) of a source that includes PyTorch's
+    headers and of a library that ``linker`` ('nvcc' or 'g++') links
+    against PyTorch's libraries."""
+    import torch
+
+    root = Path(torch.__file__).resolve().parent
+    abi = int(torch._C._GLIBCXX_USE_CXX11_ABI)
+    lib = root / "lib"
+    return ((f"-D_GLIBCXX_USE_CXX11_ABI={abi}", "-I", str(root / "include"),
+             "-I", str(root / "include" / "torch" / "csrc" / "api" /
+                       "include")),
+            ("-L", str(lib), "-lc10", "-ltorch_cpu")
+            + (("-Xlinker", f"-rpath,{lib}") if linker == "nvcc"
+               else (f"-Wl,-rpath,{lib}",)))
+
+
+def find_cxx() -> str:
+    for c in (os.environ.get("CXX"), shutil.which("g++"),
+              shutil.which("c++")):
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("g++ not found (set CXX): the op library is built "
+                       "from source on first use")
+
+
 def find_nvcc() -> str:
     cands = []
     if os.environ.get("CUDA_HOME"):
@@ -96,13 +135,15 @@ def find_nvcc() -> str:
         "kernels are built from source on first use")
 
 
-def _source_hash(nvcc: str) -> str:
+def _source_hash(*tools: str) -> str:
+    import torch
+
     h = hashlib.sha256()
     for f in sources():
         h.update(f.name.encode())
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    h.update(nvcc.encode())
+    h.update(" ".join(tools + (torch.__version__,)).encode())
     return h.hexdigest()[:16]
 
 
@@ -119,38 +160,128 @@ def _run_all(cmds) -> list:
     return out
 
 
+def _objects(out_dir: Path) -> list:
+    """(source, object) of every kernel source; the objects are kept
+    beside the kernel library for the op library's link."""
+    return [(cu, out_dir / f"{cu.stem}.o") for cu in sorted(CSRC.glob("*.cu"))]
+
+
 def build() -> BuildResult:
-    """Compile csrc/*.cu into the hash-keyed library (reused if built)."""
+    """Compile csrc/*.cu into the hash-keyed kernel library (reused if
+    built)."""
     nvcc = find_nvcc()
     out_dir = BUILD_ROOT / _source_hash(nvcc)
     lib = out_dir / LIB_NAME
-    if lib.is_file():
+    objs = _objects(out_dir)
+    if lib.is_file() and all(o.is_file() for _, o in objs):
         return BuildResult(lib, 0.0, "")
     out_dir.mkdir(parents=True, exist_ok=True)
     tag = str(os.getpid())
-    objs = [(cu, out_dir / f".{cu.stem}.{tag}.o")
-            for cu in sorted(CSRC.glob("*.cu"))]
+    tmps = [out_dir / f".{cu.stem}.{tag}.o" for cu, _ in objs]
     tmp = out_dir / f".{LIB_NAME}.{tag}"
     t0 = time.perf_counter()
     try:
-        runs = _run_all([nvcc, *NVCC_FLAGS, "-c", "-I", str(CSRC), "-o",
-                         str(o), str(cu)] for cu, o in objs)
+        runs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-I", str(CSRC), "-o",
+                          str(t), str(cu)] for (cu, _), t in zip(objs, tmps)])
         ok = all(rc == 0 for _, rc, _ in runs)
         if ok:
             runs += _run_all([[nvcc, *LINK_FLAGS, "-o", str(tmp),
-                               *(str(o) for _, o in objs)]])
+                               *map(str, tmps)]])
             ok = runs[-1][1] == 0
+        if ok:
+            for t, (_, o) in zip(tmps, objs):
+                os.replace(t, o)
     finally:
-        for _, o in objs:
-            o.unlink(missing_ok=True)
+        for t in tmps:
+            t.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
     log = "".join(f"$ {' '.join(cmd)}\n{out}" for cmd, _, out in runs)
     if not ok:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed:\n{log}")
+        raise RuntimeError(f"the kernel build failed:\n{log}")
     (out_dir / "build.log").write_text(log)
     os.replace(tmp, lib)
     return BuildResult(lib, seconds, log)
+
+
+_OPS_LOCK = threading.Lock()
+
+
+def build_ops() -> Path:
+    """The op library: csrc/ops.cpp compiled by g++ against PyTorch's
+    headers and linked with the kernel objects of :func:`build` into
+    ``<build>/ops-<hash>/libscso_ops.so`` (reused if built). Safe to call
+    from a thread while the solver runs (one build at a time)."""
+    import torch
+
+    with _OPS_LOCK:
+        kernels = build().path.parent
+        cxx, nvcc = find_cxx(), find_nvcc()
+        h = hashlib.sha256(OPS_SOURCE.read_bytes())
+        h.update(" ".join(CXX_FLAGS + (cxx, torch.__version__)).encode())
+        out_dir = kernels / f"ops-{h.hexdigest()[:16]}"
+        lib = out_dir / OPS_LIB_NAME
+        if lib.is_file():
+            return lib
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tag = str(os.getpid())
+        obj = out_dir / f".ops.{tag}.o"
+        tmp = out_dir / f".{OPS_LIB_NAME}.{tag}"
+        cflags, lflags = torch_flags()
+        try:
+            runs = _run_all([[cxx, *CXX_FLAGS, *cflags, "-c", "-o", str(obj),
+                              str(OPS_SOURCE)]])
+            if runs[-1][1] == 0:
+                runs += _run_all([[nvcc, *LINK_FLAGS, "-o", str(tmp),
+                                   str(obj), *(str(o) for _, o in
+                                               _objects(kernels)),
+                                   *lflags]])
+        finally:
+            obj.unlink(missing_ok=True)
+        if runs[-1][1] != 0:
+            tmp.unlink(missing_ok=True)
+            log = "".join(f"$ {' '.join(cmd)}\n{out}" for cmd, _, out in runs)
+            raise RuntimeError(f"the op library's build failed:\n{log}")
+        os.replace(tmp, lib)
+        return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_ops() -> Path:
+    """Build if needed and load the op library once a process
+    (``torch.ops.scso.*``); returns its path."""
+    import torch
+
+    path = build_ops()
+    torch.ops.load_library(str(path))
+    return path
+
+
+@functools.lru_cache(maxsize=None)
+def build_meta() -> Path:
+    """The ops' schemas and Meta functions alone (``-DSCSO_OPS_META_ONLY``:
+    no kernel, no CUDA), built with g++ into ``_build/meta-<hash>/`` and
+    loaded: what the CPU tests check of the op library."""
+    import torch
+
+    cxx = find_cxx()
+    h = hashlib.sha256(OPS_SOURCE.read_bytes())
+    h.update(" ".join(CXX_FLAGS + (cxx, torch.__version__)).encode())
+    out_dir = BUILD_ROOT / f"meta-{h.hexdigest()[:16]}"
+    lib = out_dir / "libscso_ops_meta.so"
+    if not lib.is_file():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tmp = out_dir / f".{lib.name}.{os.getpid()}"
+        cflags, lflags = torch_flags("g++")
+        cmd = [cxx, *CXX_FLAGS, "-shared", "-DSCSO_OPS_META_ONLY", *cflags,
+               "-o", str(tmp), str(OPS_SOURCE), *lflags]
+        (_, rc, out), = _run_all([cmd])
+        if rc != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"g++ failed:\n$ {' '.join(cmd)}\n{out}")
+        os.replace(tmp, lib)
+    torch.ops.load_library(str(lib))
+    return lib
 
 
 @functools.lru_cache(maxsize=None)

@@ -526,6 +526,8 @@ def _single(A, y, x, glm, m_norm, grid):
     """K2s on checked CUDA operands in ``grid``'s form and geometry."""
     m, n = A.shape
     dev, dt = A.device, x.dtype
+    if launch.use_ops():
+        return _single_op(A, y, x, glm, m_norm, grid)
     base, counts = _base("glm_prep", A, glm)
     w, b, hd = torch.empty(m + 2 * n, dtype=dt, device=dev).split([m, n, n])
     # ``buf`` holds the scratch the pointers address until the launches
@@ -572,6 +574,8 @@ def _pair(A, y, x_t, x_d, glm, m_norm, flavour, grid) -> PairPrep:
     :func:`cluster_grid` of A's shape runs; chip_ab.py's sweep)."""
     m, n = A.shape
     dev, dt = A.device, x_t.dtype
+    if launch.use_ops():
+        return _pair_op(A, y, x_t, x_d, glm, m_norm, flavour, grid)
     out = torch.empty(2 * m + 4 * n + 2, dtype=dt, device=dev)
     w_t, w_d, b_t, b_d, hd_t, hd_d = out[:-2].split([m, m, n, n, n, n])
     loss_t, loss_d = out[-2], out[-1]
@@ -601,3 +605,39 @@ def _pair(A, y, x_t, x_d, glm, m_norm, flavour, grid) -> PairPrep:
         counters.bump(c)
     nancheck.check(name, out, (A, y, x_t, x_d))
     return PairPrep(w_t, w_d, b_t, b_d, hd_t, hd_d, loss_t, loss_d)
+
+
+_FORMS = ("one_pass", "cluster", "wide", "split")
+
+
+def _grid_list(grid) -> list:
+    """A PrepGrid as the custom ops take it: the form's code first."""
+    return [_FORMS.index(grid.form), *grid[1:]]
+
+
+def _single_op(A, y, x, glm, m_norm, grid):
+    """:func:`_single` through the custom op ``scso::glm_prep``."""
+    g = _grid_list(grid)
+    op = lambda rw, w, phase: torch.ops.scso.glm_prep(
+        A, y, x, rw, w, m_norm, _kind_code(glm), g, phase)
+    if grid.form != "split":
+        return op(None, None, 0)[:3]
+    rho, w = _weights(glm, y, op(None, None, 1)[3][0], m_norm)  # z
+    _, b, hd, _ = op(rho.reshape(1, -1), w, 2)
+    return w, b, hd
+
+
+def _pair_op(A, y, x_t, x_d, glm, m_norm, flavour, grid) -> PairPrep:
+    """:func:`_pair` through the custom op ``scso::glm_prep_pair``."""
+    g = _grid_list(grid)
+    op = lambda rw, w_t, w_d, phase: torch.ops.scso.glm_prep_pair(
+        A, y, x_t, x_d, rw, w_t, w_d, m_norm, _kind_code(glm),
+        int(flavour == "newton"), g, phase)
+    if grid.form != "split":
+        return PairPrep(*op(None, None, None, 0)[:8])
+    z = op(None, None, None, 1)[8]
+    loss_t, loss_d = (torch.sum(glm.loss_sample(y, zi)) for zi in z)
+    (rho_t, w_t), (rho_d, w_d) = (_weights(glm, y, zi, m_norm, flavour)
+                                  for zi in z)
+    out = op(torch.stack([rho_t, rho_d]), w_t, w_d, 2)
+    return PairPrep(w_t, w_d, *out[2:6], loss_t, loss_d)

@@ -41,6 +41,21 @@ its own temporaries unwritten. Every graph captures into one memory pool
 a card, and every body into a second one (the allocator routes the
 side streams there while a capture runs); no tensor of either stays
 referenced past its capture, so all graphs share their temporaries.
+
+While a solve is traced by ``torch.export`` (:func:`exporting`,
+`utils.deploy.export_solver`) the same calls become the matching
+higher-order ops, so that the program holds the JAX package's loops:
+:func:`device_loop` a ``while_loop`` whose carry is ``live`` and the
+loop's ``state``, :func:`device_if` a ``cond`` whose outputs are its
+``state``, :func:`device_cond` a ``cond`` of its branches' outputs. The
+bodies stay the in-place bodies the captured and eager forms run: each
+traced body runs on clones of the carried tensors, and a torch function
+mode (`_Remap`) hands it those clones, and the loop's inputs for every
+other tensor it reads, wherever it names the tensors of the enclosing
+trace (the tensors reachable from its closure, `_reachable`, become the
+op's additional inputs). So ``state`` must name every tensor that a body
+writes and that outlives it: the op refuses a body that writes any
+other of its inputs.
 """
 
 from __future__ import annotations
@@ -48,12 +63,16 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import threading
 import time
+import types
 import weakref
 
 import torch
 import torch._C._functorch as _functorch
+from torch.overrides import TorchFunctionMode
+from torch.utils import _pytree as pytree
 
 from scso_tpu_torch.ops.cuda import build, counters
 
@@ -128,11 +147,15 @@ def _any_live(pred: torch.Tensor) -> torch.Tensor:
     return flat.any()
 
 
-def device_if(pred: torch.Tensor, body) -> None:
+def device_if(pred: torch.Tensor, body, state: tuple = ()) -> None:
     """``body()`` where the 0-d bool tensor ``pred`` is true: a
     conditional node under capture, ``if bool(pred)`` in the plain and
-    eager forms."""
+    eager forms. ``state`` names the tensors ``body`` writes; it is read
+    only under export, where it is the ``cond``'s output."""
     _check_pred(pred)
+    if exporting():
+        _export_if(pred, body, tuple(state))
+        return
     if is_batched(pred):
         raise ValueError(
             "device_if on a per-instance predicate: a batched solve has no "
@@ -185,6 +208,8 @@ def device_cond(pred: torch.Tensor, if_true, if_false):
     `lax.cond`)."""
     if is_batched(pred):
         return _select(pred, if_true(), if_false())
+    if exporting():
+        return _export_cond(pred, if_true, if_false)
     if _plain(pred):
         return if_true() if _read(pred) else if_false()
     out = []
@@ -219,8 +244,13 @@ def device_loop(live: torch.Tensor, count: int, body,
     runs while any instance is live, and after each run of ``body`` an
     instance that was not live gets its ``state`` and its ``live`` back
     as they were, so that each instance takes exactly the iterations of
-    its own loop. Every tensor of ``state`` must be batched too."""
+    its own loop. Every tensor of ``state`` must be batched too. Under
+    export it is the ``while_loop``'s carry beside ``live``: every tensor
+    the body writes and that outlives it."""
     _check_pred(live)
+    if exporting():
+        _export_loop(live, body, tuple(state))
+        return
     if is_batched(live):
         _batched_loop(live, count, body, state)
         return
@@ -256,6 +286,176 @@ def _batched_loop(live, count: int, body, state) -> None:
 
 
 # ---------------------------------------------------------------------------
+# export
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def export_trace():
+    """While a solve is traced by ``torch.export``: the loops become
+    higher-order ops (see the module's note). Private to
+    `utils.deploy`."""
+    prev = getattr(_state, "export", False)
+    _state.export = True
+    try:
+        yield
+    finally:
+        _state.export = prev
+
+
+def exporting() -> bool:
+    return getattr(_state, "export", False)
+
+
+def _reachable(obj, out: list, seen: set) -> None:
+    """Append to ``out`` every tensor that ``obj`` reaches through
+    closures, bound methods, partials, default arguments, containers,
+    dataclasses and the objects of this package, once each."""
+    if id(obj) in seen:
+        return
+    seen.add(id(obj))
+    if isinstance(obj, torch.Tensor):
+        out.append(obj)
+        return
+    if obj is None or isinstance(obj, (bool, int, float, str, type,
+                                       torch.dtype, torch.device)):
+        return
+    if isinstance(obj, functools.partial):
+        for sub in (obj.func, obj.args, obj.keywords):
+            _reachable(sub, out, seen)
+        return
+    if isinstance(obj, types.MethodType):
+        _reachable(obj.__self__, out, seen)
+        _reachable(obj.__func__, out, seen)
+        return
+    if isinstance(obj, types.FunctionType):
+        for cell in obj.__closure__ or ():
+            try:
+                _reachable(cell.cell_contents, out, seen)
+            except ValueError:  # an empty cell
+                pass
+        for sub in (obj.__defaults__, obj.__kwdefaults__):
+            _reachable(sub, out, seen)
+        return
+    if isinstance(obj, (tuple, list, set, frozenset)):
+        for v in obj:
+            _reachable(v, out, seen)
+        return
+    if isinstance(obj, dict):
+        for v in obj.values():
+            _reachable(v, out, seen)
+        return
+    if dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            _reachable(getattr(obj, f.name), out, seen)
+        return
+    if type(obj).__module__.startswith("scso_tpu_torch") and hasattr(
+            obj, "__dict__"):
+        _reachable(vars(obj), out, seen)
+
+
+class _Remap(TorchFunctionMode):
+    """Hands a traced body the tensors of its own trace: every tensor
+    argument whose identity is in ``table`` is replaced by its entry."""
+
+    def __init__(self, table: dict):
+        super().__init__()
+        self.table = table
+
+    def __torch_function__(self, func, types_, args=(), kwargs=None):
+        swap = lambda t: (self.table.get(id(t), t)
+                          if isinstance(t, torch.Tensor) else t)
+        args, kwargs = pytree.tree_map(swap, (args, kwargs or {}))
+        return func(*args, **kwargs)
+
+
+_TABLES: list = []
+
+
+def _here(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the innermost traced body sees it."""
+    return _TABLES[-1].get(id(t), t) if _TABLES else t
+
+
+def _inputs(fns, carried: tuple) -> list:
+    """The tensors the bodies ``fns`` may read besides ``carried``."""
+    found, seen = [], {id(t) for t in carried}
+    for fn in fns:
+        _reachable(fn, found, seen)
+    return found
+
+
+def _traced(fn, outer: tuple, values: tuple):
+    """Run ``fn`` with each tensor of ``outer`` seen as the matching one
+    of ``values``."""
+    table = {id(o): v for o, v in zip(outer, values)}
+    _TABLES.append(table)
+    try:
+        with _Remap(table):
+            return fn()
+    finally:
+        _TABLES.pop()
+
+
+def _export_loop(live, body, state: tuple) -> None:
+    from torch._higher_order_ops.while_loop import while_loop_op
+
+    carried = (live,) + state
+    extra = tuple(_inputs((body,), carried))
+    n = len(carried)
+
+    def body_fn(*vals):
+        mine = tuple(v.clone() for v in vals[:n])
+        _traced(body, carried + extra, mine + tuple(vals[n:]))
+        return mine
+
+    out = while_loop_op(lambda *vals: vals[0].clone(), body_fn,
+                        tuple(_here(t) for t in carried),
+                        tuple(_here(t) for t in extra))
+    for t, v in zip(carried, out):
+        t.copy_(v)
+
+
+def _export_if(pred, body, state: tuple) -> None:
+    from torch._higher_order_ops.cond import cond_op
+
+    extra = tuple(_inputs((body,), state))
+    n = len(state)
+
+    def taken(*vals):
+        mine = tuple(v.clone() for v in vals[:n])
+        _traced(body, state + extra, mine + tuple(vals[n:]))
+        return mine
+
+    def skipped(*vals):
+        return tuple(v.clone() for v in vals[:n])
+
+    out = cond_op(_here(pred), taken, skipped,
+                  tuple(_here(t) for t in state + extra))
+    for t, v in zip(state, out):
+        t.copy_(v)
+
+
+def _export_cond(pred, if_true, if_false):
+    from torch._higher_order_ops.cond import cond_op
+
+    extra = tuple(_inputs((if_true, if_false), ()))
+    shape = []
+
+    def branch(fn):
+        def run(*vals):
+            out = _traced(fn, extra, vals)
+            leaves, spec = pytree.tree_flatten(out)
+            shape[:] = [spec]
+            return tuple(t.clone() for t in leaves)
+        return run
+
+    out = cond_op(_here(pred), branch(if_true), branch(if_false),
+                  tuple(_here(t) for t in extra))
+    return pytree.tree_unflatten(list(out), shape[0])
+
+
+# ---------------------------------------------------------------------------
 # capture
 # ---------------------------------------------------------------------------
 
@@ -277,6 +477,7 @@ def _side_stream(index: int, depth: int):
     if (index, depth) not in _STREAMS:
         _STREAMS[index, depth] = torch.cuda.Stream(index)
     return _STREAMS[index, depth]
+
 
 
 class Captured:

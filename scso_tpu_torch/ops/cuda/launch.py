@@ -1,17 +1,44 @@
 """What every CUDA wrapper does before a launch: route by device, check
 the operands, and find the entry point, the stream, the SM count and the
-largest thread-block cluster a kernel can launch."""
+largest thread-block cluster a kernel can launch.
+
+A wrapper launches its kernel through ``ctypes`` (the solver's route,
+counted) or, inside :func:`via_ops`, through its custom op
+``torch.ops.scso.*`` (`build.load_ops`): what a ``torch.export`` trace
+records (`utils.deploy`), and what chip_smoke.py holds against the
+ctypes launch. The op route counts no launch: under export nothing is
+launched, and the checks' launches are not the solve's."""
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import threading
 
 import torch
 
 from scso_tpu_torch.ops.cuda import build
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_route = threading.local()
+
+
+@contextlib.contextmanager
+def via_ops():
+    """CUDA wrappers call their custom ops (loading the op library)
+    instead of the ctypes entry points."""
+    build.load_ops()
+    prev = getattr(_route, "ops", False)
+    _route.ops = True
+    try:
+        yield
+    finally:
+        _route.ops = prev
+
+
+def use_ops() -> bool:
+    return getattr(_route, "ops", False)
 
 
 def on_cpu(t: torch.Tensor, name: str) -> bool:

@@ -119,6 +119,8 @@ def normal_matvec(A, w, v):
     sms = launch.sm_count(A.device.index or 0)
     rows = _ROWS_PER_STEP[narrow] * groups
     nblk = max(1, min(sms * per_sm, -(-m // rows)))
+    if launch.use_ops():
+        return torch.ops.scso.normal_matvec(A, w, v, nblk, int(wide), groups)
     partials = torch.empty((nblk, n), dtype=dt, device=A.device)
     base = "scso_normal_matvec_bf16" if narrow else "scso_normal_matvec"
     with torch.cuda.device(A.device):

@@ -222,6 +222,8 @@ def _launch(A, y, Z, V, spec, grid):
     (m, p), k = A.shape, V.shape[1]
     dev, dt = A.device, V.dtype
     narrow = A.dtype == torch.bfloat16
+    if launch.use_ops():
+        return _op(A, y, Z, V, spec, grid)
     partials = torch.empty((grid.blocks, p * k), dtype=dt, device=dev)
     out = torch.empty((p, k), dtype=dt, device=dev)
 
@@ -251,3 +253,17 @@ def _launch(A, y, Z, V, spec, grid):
         counters.bump("mglm_matvec_bf16")
     nancheck.check("mglm_matvec", out, (A, y, Z, V))
     return out
+
+
+def _op(A, y, Z, V, spec, grid):
+    """:func:`_launch` through the custom op ``scso::mglm_matvec``."""
+    op = lambda v, qu, form: torch.ops.scso.mglm_matvec(
+        A, Z, v, qu, grid.blocks, grid.rows_per_block, FORM_CODES[form])
+    if grid.form == "tensor":
+        return op(V, None, "tensor")[0]
+    vt = V.t().contiguous()  # the row pass reads V transposed
+    if grid.form == "two_pass":
+        return op(vt, None, "two_pass")[0]
+    qu = op(vt, None, "split_rows")[1]  # U = A·V
+    qu = spec.quad(y, Z, qu).to(V.dtype).contiguous()
+    return op(vt, qu, "split_cols")[0]

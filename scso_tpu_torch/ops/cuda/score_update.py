@@ -176,6 +176,11 @@ def _launch(x, d, lgr, hr, lam, ss, Mg, reg_name: str, use_prox=True,
     if form is None:
         form = update_form(n, launch.max_cluster("scso_score_update", dt,
                                                  dev.index))
+    if launch.use_ops():
+        x_new, stats = torch.ops.scso.score_update(
+            x, d, lgr, hr, lb, ub, lam, ss, Mg, REG_CODES[reg], form.blocks,
+            form.chunk, int(form.grid))
+        return ScoreUpdate(x_new, *stats.unbind())
     x_new = torch.empty_like(x)
     stats = torch.empty((3,), dtype=dt, device=dev)
     # grid form: the blocks' partials of Σ lgr²/hr and ‖x⁺ − x‖²

@@ -115,11 +115,15 @@ def _launch(mem: LBFGSMemory, grad: torch.Tensor,
     if plan is None:
         plan = two_loop_plan(n, m, grad.element_size(), launch.max_cluster(
             "scso_two_loop", dt, dev.index))
+    flags = (_ALPHA_IN_SMEM * plan.alpha_smem + _Q_IN_SMEM * plan.q_smem
+             + _RESIDENT * plan.resident)
+    if launch.use_ops():
+        return torch.ops.scso.two_loop(mem.S, mem.Y, grad, mem.pos,
+                                       mem.count, mem.H0, plan.blocks,
+                                       plan.chunk, flags, plan.smem)
     out = torch.empty_like(grad)
     scratch = (None if plan.alpha_smem else
                torch.empty(plan.blocks * 2 * m, dtype=dt, device=dev))
-    flags = (_ALPHA_IN_SMEM * plan.alpha_smem + _Q_IN_SMEM * plan.q_smem
-             + _RESIDENT * plan.resident)
     rc = launch.call(
         dev, launch.entry("scso_two_loop", dt), mem.S.data_ptr(),
         mem.Y.data_ptr(), grad.data_ptr(), mem.pos.data_ptr(),

@@ -47,7 +47,10 @@ def two_loop(mem: LBFGSMemory, grad: torch.Tensor) -> torch.Tensor:
     """d = −H·grad via the standard two-loop recursion: the first loop
     newest → oldest accumulating α_i, then r = H0·q, the second loop
     oldest → newest adding s_i(α_i − β_i). Slots k ≥ count are masked to
-    no-ops (q and r keep their bits); ρ = 0 where yᵀs = 0."""
+    no-ops (q and r keep their bits); ρ = 0 where yᵀs = 0. The updates
+    q − α·y and r + s·(α − β) are fused multiply-adds (``addcmul``): XLA
+    contracts them so in the JAX package's two-loop, and L-BFGS carries
+    a one-ulp difference of the direction into the whole run."""
     m = mem.S.shape[0]
     q = grad
     saved = []
@@ -60,12 +63,12 @@ def two_loop(mem: LBFGSMemory, grad: torch.Tensor) -> torch.Tensor:
                                                      torch.ones_like(ys), ys),
                           torch.zeros_like(ys))
         alpha = rho * torch.dot(s, q)
-        q = torch.where(valid, q - alpha * y, q)
+        q = torch.where(valid, torch.addcmul(q, alpha, y, value=-1), q)
         saved.append((alpha, rho, s, y, valid))
     r = mem.H0 * q
     for alpha, rho, s, y, valid in reversed(saved):
         beta = rho * torch.dot(y, r)
-        r = torch.where(valid, r + s * (alpha - beta), r)
+        r = torch.where(valid, torch.addcmul(r, s, alpha - beta), r)
     return -r
 
 

@@ -44,8 +44,10 @@ allows only with ``NCCL_GRAPH_MIXING_SUPPORT=0`` in the environment
 when the communicator is made: `distributed_init` (and `make_mesh`, for
 the axis groups it makes) records whether it was (``Mesh.captures``),
 and the solve reads that record, not the environment, which no longer
-acts once the communicator exists. Over gloo a captured solve raises
-(ROADMAP A11), as does ``comm_overlap_chunks > 1`` over several ranks.
+acts once the communicator exists. Over gloo a fused solve on the card
+runs the same program uncaptured (`iterate._uncaptured`), and so does a
+fused solve with the overlapped K1s schedule (``comm_overlap_chunks >
+1``).
 """
 
 from __future__ import annotations

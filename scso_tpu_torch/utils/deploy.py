@@ -16,57 +16,79 @@ the feature padding, a bfloat16 copy of A (``with_lp_copy``, or AUTO's,
 epoch cache primed at x0 (each solve primes it), so a served solve
 gives the bits of ``iterate`` on a problem built from the same data.
 
-``export_solver`` writes a declarative artifact and ``load_solver``
-rebuilds the serving function from it. How this differs from the JAX
-package's artifact: that one is StableHLO of the whole solve
-(``jax.export``), which runs in any JAX process without scso_tpu and
-without retracing. This one needs ``scso_tpu_torch`` at serve time and
-captures once after loading: PyTorch has no serialized form for a CUDA
-graph with conditional nodes, nor for the port's ctypes kernel launches.
-The artifact is an in-memory zip of ``spec.json`` (the format and
-package versions; the method's, smoother's and options' classes and
-fields; ``reg_name``; the template problem's fields but its data; the
-shapes and dtypes of A, y and x0) and ``arrays.npz`` (the template's
-tensors: λ, x*, the bounds, the groups, a test set). Functions (f, its
-derivative hooks, the GLM spec) are stored by their names in
-`scso_tpu_torch.models.losses`, and only names there are accepted: a
-user-written callable makes ``export_solver`` raise ValueError naming
-the field. Nothing is pickled, so loading an artifact runs no stored
-code. A self-contained artifact would need ``torch.export`` of a
-functional form of the solve's loops and K1–K5 registered as custom
-ops (ROADMAP A12).
+``export_solver`` writes the JAX package's counterpart of its
+StableHLO artifact: a ``torch.export`` program of the whole fused solve,
+``serve(A, y, x0) -> (x, epochs, final_objective)`` for the template's
+shapes and dtypes, with the method, regularizer, smoother, options and
+every tensor of the problem but its data baked in. The solve's loops are
+the program's higher-order ops (``while_loop``, ``cond``:
+`ops.cuda.graph`'s export forms of the loops a captured solve runs as
+conditional nodes), and what the problem derives from its data (AUTO's
+or ``with_lp_copy``'s bfloat16 copy of A, diag(AᵀA), the epoch cache
+primed at x0) is derived again inside the program from the call's A, y
+and x0. Functions are traced, so a callable the user wrote exports as
+the losses of `scso_tpu_torch.models.losses` do, with its derivative
+hooks (``grad_fx``, and ``hess_fx`` for a dense Newton step):
+``torch.func``'s derivatives of f do not trace under ``torch.export``
+(torch 2.11 to 2.13). On the card the
+program holds K1–K5 as the custom ops ``torch.ops.scso.*``
+(``csrc/ops.cpp``), and the artifact carries their library, built from
+this checkout's sources (`ops.cuda.build`), base64-encoded as its extra
+file ``scso_ops.so.b64``; a CPU artifact holds ATen ops alone. Data
+comes at the template's padded width (``load_solver``'s callable also
+pads an unpadded one) and x goes out at ``n_true`` columns.
+
+Loading needs torch alone, not scso_tpu_torch (``load_solver`` does the
+same)::
+
+    import base64, io, os, tempfile, zipfile, torch
+
+    blob = open("solver.pt2", "rb").read()
+    with zipfile.ZipFile(io.BytesIO(blob)) as z:      # card artifacts:
+        lib = [n for n in z.namelist()                # the op library
+               if n.endswith("extra/scso_ops.so.b64")]
+        if lib:
+            path = os.path.join(tempfile.mkdtemp(), "libscso_ops.so")
+            with open(path, "wb") as f:
+                f.write(base64.b64decode(z.read(lib[0])))
+            torch.ops.load_library(path)
+    serve = torch.export.load(io.BytesIO(blob)).module()
+    x, epochs, obj = serve(A, y, x0)
+
+The loaded program runs each ``while_loop`` and ``cond`` from Python,
+reading its predicate on the host (PyTorch runs higher-order ops
+eagerly), so it is slower than ``make_serving_fn``'s replay of the
+captured solve, the fast path inside a process. A sharded problem is
+neither served nor exported (ROADMAP A12), nor is a mini-batch solve
+exported (its permutations are drawn on the host).
 """
 
 from __future__ import annotations
 
-import dataclasses
-import inspect
+import base64
+import contextlib
+import hashlib
 import io
 import json
+import os
 import zipfile
 from typing import Optional
 
-import numpy as np
 import torch
 
 from scso_tpu_torch._src.struct import replace as dc_replace
-from scso_tpu_torch.algorithms import methods as _methods
 from scso_tpu_torch.algorithms.iterate import (
-    Options, _auto_lp, _resolve_kernels, solve)
-from scso_tpu_torch.models import losses as _losses
-from scso_tpu_torch.ops import smoothers as _smoothers
-from scso_tpu_torch.ops.groups import Groups
-from scso_tpu_torch.problems import (
-    GLMSpec, MOGLMSpec, Problem, resolve_device, with_col_sumsq)
+    Options, _auto_lp, _make_batches, _resolve_kernels, solve,
+    solve_program)
+from scso_tpu_torch.ops.cuda import build, graph, launch
+from scso_tpu_torch.problems import Problem, with_col_sumsq
 
+#: the artifact's extra files: what it was exported for, and (card
+#: artifacts) the op library, base64-encoded
+META_FILE = "scso_solver.json"
+OPS_FILE = "scso_ops.so.b64"
 FORMAT = "scso_tpu_torch.solver"
-FORMAT_VERSION = 1
-
-#: the problem's fields an artifact does not store: the data (its shapes
-#: and dtypes are stored), what is derived from it (flags are stored),
-#: and what is set per device or per run
-_DATA_FIELDS = ("x0", "A", "y", "A_lp", "col_sumsq", "device", "mesh",
-                "m_total", "mtest_total", "rows")
+FORMAT_VERSION = 2
 
 
 def _template(prob: Problem) -> Problem:
@@ -147,203 +169,134 @@ def make_serving_fn(method, prob: Problem, reg_name: str, sm,
 # the artifact
 # ---------------------------------------------------------------------------
 
-_CLASSES = {cls.__name__: cls for cls in (
-    _methods.ProxNSCORE, _methods.ProxGGNSCORE, _methods.ProxLQNSCORE,
-    _smoothers.NoSmooth, _smoothers.PHuberSmootherL1L2,
-    _smoothers.OsBaSmootherL1L2, _smoothers.PHuberSmootherIndBox,
-    _smoothers.ExponentialSmootherIndBox, _smoothers.LogExpSmootherIndBox,
-    _smoothers.PHuberSmootherGL, _smoothers.OsBaSmootherGL, Options,
-    Groups)}
+
+class _Program(torch.nn.Module):
+    """``serve(A, y, x0)`` of the template problem, as ``torch.export``
+    traces it: the data's derived tensors made again from the call's,
+    then `iterate.solve_program`."""
+
+    def __init__(self, method, tpl: Problem, reg_name: str, sm,
+                 opts: Options):
+        super().__init__()
+        self.method, self.tpl, self.reg_name = method, tpl, reg_name
+        self.sm, self.opts = sm, opts
+
+    def forward(self, A, y, x0):
+        tpl = self.tpl
+        prob = dc_replace(
+            tpl, A=A, y=y, x0=x0, col_sumsq=None,
+            A_lp=None if tpl.A_lp is None else A.to(torch.bfloat16))
+        if tpl.col_sumsq is not None:
+            prob = with_col_sumsq(prob)
+        return solve_program(self.method, prob, self.reg_name, self.sm,
+                             self.opts)
 
 
-def _loss_names() -> dict:
-    """{id: name} of the functions defined in `models.losses`."""
-    return {id(v): k for k, v in vars(_losses).items()
-            if inspect.isfunction(v) and v.__module__ == _losses.__name__}
-
-
-def _spec_name(spec) -> Optional[str]:
-    """The name in `models.losses` of a spec of ``spec``'s class whose
-    functions are ``spec``'s, field by field (its other fields may
-    differ: n_out)."""
-    def same(a, b):
-        return all(
-            getattr(a, f.name) is getattr(b, f.name)
-            for f in dataclasses.fields(a)
-            if callable(getattr(a, f.name)) or callable(getattr(b, f.name)))
-
-    for name, v in vars(_losses).items():
-        if type(v) is type(spec) and same(v, spec):
-            return name
-    return None
-
-
-class _Encoder:
-    """JSON of a value, its tensors set aside in ``arrays``."""
-
-    def __init__(self, device: torch.device):
-        self.arrays: dict = {}
-        self.device = device
-        self.fns = _loss_names()
-
-    def __call__(self, value, field: str):
-        if value is None or isinstance(value, (bool, int, float, str)):
-            return value
-        if isinstance(value, torch.Tensor):
-            key = f"a{len(self.arrays)}"
-            self.arrays[key] = value.detach().cpu().numpy()
-            return {"tensor": key,
-                    "on_device": value.device.type == self.device.type}
-        if isinstance(value, torch.dtype):
-            return {"dtype": str(value).removeprefix("torch.")}
-        if isinstance(value, (GLMSpec, MOGLMSpec)):
-            name = _spec_name(value)
-            if name is None:
-                raise ValueError(
-                    f"export_solver: {field} is a {type(value).__name__} "
-                    "whose functions are not a spec of "
-                    "scso_tpu_torch.models.losses; only those are stored")
-            return {"spec": name, "fields": {
-                f.name: self(getattr(value, f.name), f"{field}.{f.name}")
-                for f in dataclasses.fields(value)
-                if not callable(getattr(value, f.name))}}
-        if callable(value):
-            name = self.fns.get(id(value))
-            if name is None:
-                raise ValueError(
-                    f"export_solver: {field} is {value!r}, not a function "
-                    "of scso_tpu_torch.models.losses; an artifact stores "
-                    "functions by those names only")
-            return {"fn": name}
-        if _CLASSES.get(type(value).__name__) is type(value):
-            return self.dataclass(value, field)
-        raise ValueError(f"export_solver: {field} is a {type(value)}, "
-                         "which an artifact cannot store")
-
-    def dataclass(self, obj, field: str) -> dict:
-        return {"class": type(obj).__name__, "fields": {
-            f.name: self(getattr(obj, f.name), f"{field}.{f.name}")
-            for f in dataclasses.fields(obj)}}
-
-
-class _Decoder:
-    def __init__(self, arrays, device: torch.device):
-        self.arrays, self.device = arrays, device
-
-    def __call__(self, value):
-        if not isinstance(value, dict):
-            return value
-        if "tensor" in value:
-            t = torch.from_numpy(np.array(self.arrays[value["tensor"]]))
-            return t.to(self.device) if value["on_device"] else t
-        if "dtype" in value:
-            dt = getattr(torch, value["dtype"])
-            if not isinstance(dt, torch.dtype):
-                raise ValueError(f"load_solver: unknown dtype {value}")
-            return dt
-        if "spec" in value:
-            spec = getattr(_losses, value["spec"], None)
-            if not isinstance(spec, (GLMSpec, MOGLMSpec)):
-                raise ValueError(f"load_solver: no spec {value['spec']!r} "
-                                 "in scso_tpu_torch.models.losses")
-            return dc_replace(spec, **{k: self(v) for k, v in
-                                       value["fields"].items()})
-        if "fn" in value:
-            fn = getattr(_losses, value["fn"], None)
-            if not (inspect.isfunction(fn)
-                    and fn.__module__ == _losses.__name__):
-                raise ValueError(f"load_solver: no function {value['fn']!r} "
-                                 "in scso_tpu_torch.models.losses")
-            return fn
-        if "class" in value:
-            return self.dataclass(value)
-        raise ValueError(f"load_solver: cannot read {value!r}")
-
-    def dataclass(self, value):
-        cls = _CLASSES.get(value["class"])
-        if cls is None:
-            raise ValueError(f"load_solver: unknown class {value['class']!r}")
-        return cls(**{k: self(v) for k, v in value["fields"].items()})
-
-
-def _shape(t: torch.Tensor) -> dict:
-    return {"shape": list(t.shape), "dtype": str(t.dtype).removeprefix(
-        "torch.")}
+def _export_program(method, prob: Problem, reg_name: str, sm,
+                    opts: Optional[Options] = None):
+    """The ``torch.export.ExportedProgram`` of the serving function for
+    ``prob``'s shapes (what :func:`export_solver` saves)."""
+    if not prob.has_data:
+        raise ValueError("export_solver requires a data problem (A, y)")
+    if prob.mesh is not None:
+        raise NotImplementedError(
+            "exporting a sharded problem is not ported (ROADMAP A12): "
+            "export the unsharded problem")
+    opts = opts or Options(verbose=0)
+    if _make_batches(prob, opts) is not None:
+        raise ValueError(
+            "an exported solve runs full batches: the port draws each "
+            "epoch's permutation of the rows on the host")
+    method = _resolve_kernels(method, prob)
+    method, tpl = _auto_lp(method, prob, reg_name, opts)
+    program = _Program(method, tpl, reg_name, sm, opts)
+    ops = (launch.via_ops() if prob.device.type == "cuda"
+           else contextlib.nullcontext())
+    with graph.export_trace(), ops:
+        ep = torch.export.export(program, (prob.A, prob.y, prob.x0),
+                                 strict=False)
+    ep.example_inputs = None  # the template's data stays out of the file
+    return ep
 
 
 def export_solver(method, prob: Problem, reg_name: str, sm,
                   opts: Optional[Options] = None) -> bytes:
     """The artifact of the serving function for ``prob``'s shapes (see
-    the module docstring): bytes to keep wherever artifacts live, to
-    rebuild with :func:`load_solver`. Raises ValueError for a problem
-    without data, or for a function that is not one of
-    `scso_tpu_torch.models.losses` (naming the field)."""
+    the module's note): bytes to keep wherever artifacts live, to load
+    with :func:`load_solver` or with torch alone. Raises ValueError for
+    a problem without data or a mini-batch solve, NotImplementedError for
+    a sharded problem."""
     import scso_tpu_torch
 
-    if not prob.has_data:
-        raise ValueError("export_solver requires a data problem (A, y)")
-    if prob.mesh is not None:
-        raise NotImplementedError(
-            "exporting a sharded problem is not ported (ROADMAP A12)")
-    opts = opts or Options(verbose=0)
-    enc = _Encoder(prob.device)
-    problem = {f.name: enc(getattr(prob, f.name), f"prob.{f.name}")
-               for f in dataclasses.fields(prob)
-               if f.name not in _DATA_FIELDS}
-    spec = {
-        "format": FORMAT, "format_version": FORMAT_VERSION,
-        "package_version": scso_tpu_torch.__version__,
-        "method": enc.dataclass(method, "method"),
-        "smoother": enc.dataclass(sm, "sm"),
-        "options": enc.dataclass(opts, "opts"),
-        "reg_name": reg_name,
-        "problem": problem,
-        "data": {"A": _shape(prob.A), "y": _shape(prob.y),
-                 "x0": _shape(prob.x0),
-                 "A_lp": None if prob.A_lp is None else _shape(prob.A_lp),
-                 "col_sumsq": prob.col_sumsq is not None},
-    }
-    arrays = io.BytesIO()
-    np.savez(arrays, **enc.arrays)
+    ep = _export_program(method, prob, reg_name, sm, opts)
+    n = prob.A.shape[-1]
+    meta = {"format": FORMAT, "format_version": FORMAT_VERSION,
+            "package_version": scso_tpu_torch.__version__,
+            "torch_version": torch.__version__,
+            "device": prob.device.type, "n": n,
+            "n_true": n if prob.n_true is None else prob.n_true}
+    extra = {META_FILE: json.dumps(meta)}
+    if prob.device.type == "cuda":
+        extra[OPS_FILE] = base64.b64encode(
+            build.load_ops().read_bytes()).decode("ascii")
     out = io.BytesIO()
-    with zipfile.ZipFile(out, "w", zipfile.ZIP_DEFLATED) as z:
-        z.writestr("spec.json", json.dumps(spec, indent=1))
-        z.writestr("arrays.npz", arrays.getvalue())
+    torch.export.save(ep, out, extra_files=extra)
     return out.getvalue()
 
 
-def load_solver(blob: bytes, device=None):
-    """Rebuild an :func:`export_solver` artifact into a serving function
-    ``(A, y, x0) -> (x, epochs, obj)`` on ``device`` (default: the
-    card), which captures on its first call. No stored code runs: the
-    classes, specs and functions are looked up by name in the port."""
-    dev = resolve_device(device)
+def _extra(blob: bytes, name: str) -> Optional[bytes]:
     with zipfile.ZipFile(io.BytesIO(blob)) as z:
-        spec = json.loads(z.read("spec.json"))
-        with np.load(io.BytesIO(z.read("arrays.npz")),
-                     allow_pickle=False) as npz:
-            arrays = {k: npz[k] for k in npz.files}
-    if (spec.get("format") != FORMAT
-            or spec.get("format_version") != FORMAT_VERSION):
+        found = [f for f in z.namelist() if f.endswith("extra/" + name)]
+        return z.read(found[0]) if found else None
+
+
+def _load_ops(encoded: bytes) -> None:
+    """The op library of a card artifact, unless this process has the
+    ops already (this checkout's, `build.load_ops`): written under
+    ``_build/loaded/``, named by a hash of its bytes, and loaded."""
+    if hasattr(torch.ops.scso, "normal_matvec"):
+        return
+    lib = base64.b64decode(encoded)
+    path = (build.BUILD_ROOT / "loaded"
+            / f"libscso_ops_{hashlib.sha256(lib).hexdigest()[:16]}.so")
+    if not path.is_file():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}")
+        tmp.write_bytes(lib)
+        os.replace(tmp, path)
+    torch.ops.load_library(str(path))
+
+
+def load_solver(blob: bytes, device=None):
+    """Load an :func:`export_solver` artifact into the callable
+    ``(A, y, x0) -> (x, epochs, obj)`` on the device it was exported for
+    (``device``, if given, must be that one; default the artifact's): the
+    op library it carries is loaded first where the program holds the
+    ops. Data comes as tensors or arrays, at the padded width or at
+    ``n_true`` columns (then padded with zeros). Raises ValueError for
+    bytes that are not such an artifact."""
+    raw = _extra(blob, META_FILE)
+    meta = json.loads(raw) if raw else {}
+    if (meta.get("format") != FORMAT
+            or meta.get("format_version") != FORMAT_VERSION):
         raise ValueError(
             f"load_solver: not a {FORMAT} artifact of version "
-            f"{FORMAT_VERSION} (format {spec.get('format')!r}, version "
-            f"{spec.get('format_version')!r})")
-    dec = _Decoder(arrays, dev)
-    data = spec["data"]
+            f"{FORMAT_VERSION} (format {meta.get('format')!r}, version "
+            f"{meta.get('format_version')!r})")
+    dev = torch.device(meta["device"] if device is None else device)
+    if dev.type != meta["device"]:
+        raise ValueError(f"load_solver: the artifact was exported for "
+                         f"{meta['device']}, not {dev}")
+    if dev.type == "cuda":
+        _load_ops(_extra(blob, OPS_FILE))
+    program = torch.export.load(io.BytesIO(blob)).module()
+    n, n_true = meta["n"], meta["n_true"]
 
-    def zeros(d):
-        return torch.zeros(d["shape"], dtype=getattr(torch, d["dtype"]),
-                           device=dev)
+    def serve(A, y, x0):
+        A, y, x0 = (torch.as_tensor(t).to(dev) for t in (A, y, x0))
+        if n_true != n and A.shape[-1] == n_true:
+            pad = lambda t: torch.nn.functional.pad(t, (0, n - n_true))
+            A, x0 = pad(A), pad(x0)
+        return program(A.contiguous(), y.contiguous(), x0.contiguous())
 
-    fields = {k: dec(v) for k, v in spec["problem"].items()}
-    tpl = Problem(
-        x0=zeros(data["x0"]), A=zeros(data["A"]), y=zeros(data["y"]),
-        A_lp=None if data["A_lp"] is None else zeros(data["A_lp"]),
-        col_sumsq=(torch.zeros(data["A"]["shape"][-1],
-                               dtype=fields["dtype"], device=dev)
-                   if data["col_sumsq"] else None),
-        device=dev, **fields)
-    return _serving_fn(dec.dataclass(spec["method"]), tpl, spec["reg_name"],
-                       dec.dataclass(spec["smoother"]),
-                       dec.dataclass(spec["options"]))
+    return serve

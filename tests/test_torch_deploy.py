@@ -1,13 +1,11 @@
 """Serving and export (`scso_tpu_torch.utils.deploy`) against the JAX
-package's artifact (tests/test_deploy.py's cases), float64 on the CPU.
+package's artifact (tests/test_deploy.py's cases), float64 on the CPU
+(tests/test_torch_export.py holds the exported program's other
+cases).
 
 The port's round trip equals its own ``iterate`` bit for bit, and the
 JAX artifact's ``serve`` to 1e-12 (absolute on x, relative on the
 objective); fresh data through the artifact equals a fresh solve."""
-
-import json
-import zipfile
-import io
 
 import numpy as np
 import pytest
@@ -104,6 +102,37 @@ def test_fresh_data_through_artifact():
     assert float(o2) == float(ref2.obj[-1])
 
 
+@pytest.mark.parametrize("static_precond", [False, True])
+def test_fresh_data_through_a_cached_ggn_artifact(static_precond):
+    """Same-shape fresh data through a cached GGN-CG artifact: the epoch
+    cache is primed at the call's x0 and, with ``static_precond``,
+    diag(AᵀA) is the call's A's (``with_col_sumsq``); the call gives the
+    bits of ``iterate`` on a problem built from that data."""
+    from scso_tpu_torch.problems import with_col_sumsq
+
+    method = st.ProxGGNSCORE(solver="cg", static_precond=static_precond)
+    attach = with_col_sumsq if static_precond else (lambda p: p)
+    tpl = attach(_glm(st, losses))
+    serve = load_solver(export_solver(method, tpl, "l1", SM(st)),
+                        device="cpu")
+    A2, y2, x02, _ = synthetic.make_sparse_logreg_data(
+        128, 16, density=0.3, n_active=4, seed=11, dtype=np.float64,
+        label01=True)
+    x02 = x02 + 0.01  # the cache primed away from the template's x0
+    x2, k2, o2 = serve(A2, y2, x02)
+    fresh = attach(st.Problem(A2, y2, x02, losses.logistic01_f, 1e-2,
+                              grad_fx=losses.logistic01_grad,
+                              glm=losses.LOGISTIC01_GLM,
+                              dtype=torch.float64, device="cpu"))
+    ref = st.iterate(method, fresh, "l1", SM(st), verbose=0)
+    assert ref.epochs > 1
+    assert torch.equal(x2, ref.x) and int(k2) == ref.epochs
+    assert float(o2) == float(ref.obj[-1])
+    stale = st.iterate(method, attach(_glm(st, losses)), "l1", SM(st),
+                       verbose=0)
+    assert not torch.equal(x2, stale.x)
+
+
 def test_serving_fn_serves_the_template_and_fresh_data():
     """make_serving_fn itself: the template's solve, then fresh data,
     and the template problem's own tensors are never written."""
@@ -160,39 +189,3 @@ def test_requires_data_problem():
         export_solver(METHODS["newton_dense"](st), p, "l1", SM(st))
     with pytest.raises(ValueError, match="data problem"):
         make_serving_fn(METHODS["newton_dense"](st), p, "l1", SM(st))
-
-
-def test_a_user_callable_is_refused_by_name():
-    def my_loss(A, y, x):
-        return losses.logistic_f(A, y, x)
-
-    prob = st.Problem(*_data()[:3], my_loss, 1e-2,
-                      grad_fx=losses.logistic_grad, dtype=torch.float64,
-                      device="cpu")
-    with pytest.raises(ValueError, match=r"prob\.f .*my_loss"):
-        export_solver(METHODS["newton_dense"](st), prob, "l1", SM(st))
-
-
-def test_the_artifact_is_declarative():
-    """A zip of spec.json and arrays.npz, nothing pickled: functions and
-    specs by their names in scso_tpu_torch.models.losses."""
-    prob = _glm(st, losses)
-    blob = export_solver(METHODS["ggn_cg"](st), prob, "l1", SM(st))
-    with zipfile.ZipFile(io.BytesIO(blob)) as z:
-        assert sorted(z.namelist()) == ["arrays.npz", "spec.json"]
-        spec = json.loads(z.read("spec.json"))
-        np.load(io.BytesIO(z.read("arrays.npz")), allow_pickle=False)
-    assert spec["format_version"] == 1
-    assert spec["package_version"] == st.__version__
-    assert spec["method"]["class"] == "ProxGGNSCORE"
-    assert spec["problem"]["f"] == {"fn": "logistic01_f"}
-    assert spec["problem"]["glm"]["spec"] == "LOGISTIC01_GLM"
-    assert spec["data"]["A"] == {"shape": [128, 16], "dtype": "float64"}
-    bad = io.BytesIO()
-    with zipfile.ZipFile(io.BytesIO(blob)) as z, \
-            zipfile.ZipFile(bad, "w") as out:
-        spec["problem"]["f"] = {"fn": "os"}
-        out.writestr("spec.json", json.dumps(spec))
-        out.writestr("arrays.npz", z.read("arrays.npz"))
-    with pytest.raises(ValueError, match="no function 'os'"):
-        load_solver(bad.getvalue(), device="cpu")

@@ -308,11 +308,13 @@ def test_rounds_past_the_end_change_nothing(stats_every):
 @pytest.mark.parametrize("backend,size,raises", [
     ("nccl", 1, False), ("nccl", 4, False), ("gloo", 1, True)])
 def test_which_sharded_solves_capture(monkeypatch, backend, size, raises):
-    """A captured solve on a row shard: NCCL ranks capture — several of
+    """A fused solve on a row shard: NCCL ranks capture — several of
     them where the mesh was made under NCCL_GRAPH_MIXING_SUPPORT=0
     (``Mesh.captures``; without it they raise:
-    tests/test_torch_sharded_methods.py); gloo (a host round trip)
-    raises naming A11 and timed mode, before any collective."""
+    tests/test_torch_sharded_methods.py); over gloo (a host round trip)
+    nothing raises any more: on the card the fused program runs
+    uncaptured (``_uncaptured``), on the CPU as every CPU solve.
+    ``raises`` marks the case that raised (naming A11) before."""
     from scso_tpu_torch._src.struct import replace
     from scso_tpu_torch.parallel.sharding import Mesh
 
@@ -320,9 +322,7 @@ def test_which_sharded_solves_capture(monkeypatch, backend, size, raises):
     _, pt = _problems()
     prob = replace(pt, mesh=Mesh(group=object(), axis_names=("data",),
                                  size=size, rank=0, captures=size > 1))
-    if raises:
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP A11\).*mode='timed'"):
-            titerate._check_capturable(prob)
-    else:
-        titerate._check_capturable(prob)
+    titerate._check_capturable(prob)
+    on_card = replace(prob, device=torch.device("cuda", 0))
+    assert titerate._uncaptured(on_card) == raises
+    assert not titerate._uncaptured(prob)

@@ -175,3 +175,28 @@ class TestCG:
                               maxiter=3)
         assert res.iters == 3
         assert float(res.res_norm_sq) > 0
+
+
+@pytest.mark.parametrize("value,scalar", [(-1, "b"), (1, "c")])
+def test_addcmul_rounds_once(value, scalar):
+    """`lbfgs_core.two_loop` writes its updates q − α·y and r + s·(α − β)
+    as ``torch.addcmul`` so that each rounds once, as the fused
+    multiply-adds of the JAX package's compiled two-loop do: in float64
+    on the CPU, addcmul(a, b, c, value=±1), with the 0-d factor where
+    two_loop has it, is a + value·b·c rounded once from the exact value
+    (Fraction arithmetic), on values where rounding b·c first gives
+    other bits."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(0)
+    a, v = rng.standard_normal(4096), rng.standard_normal(4096)
+    for s in rng.standard_normal(8):
+        b, c = (s, v) if scalar == "b" else (v, s)
+        got = torch.addcmul(torch.from_numpy(a), torch.tensor(b),
+                            torch.tensor(c), value=value).numpy()
+        bb, cc = np.broadcast_arrays(b, c)
+        exact = np.array([float(Fraction(x) + value * Fraction(y)
+                                * Fraction(z))
+                          for x, y, z in zip(a, bb, cc)])
+        assert np.any(a + value * (bb * cc) != exact)
+        np.testing.assert_array_equal(got, exact)

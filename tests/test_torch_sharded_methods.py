@@ -353,30 +353,46 @@ def test_which_meshes_a_fused_solve_captures(monkeypatch, backend, size,
     NCCL_GRAPH_MIXING_SUPPORT=0 (``Mesh.captures``) and raise naming the
     variable and timed mode without it (a RuntimeError: a setting to
     make, not a part of the port left out); one NCCL rank always
-    captures; gloo never (A11)."""
+    captures. Over gloo a fused solve on the card runs its program
+    uncaptured (``_uncaptured``: gloo reduces CUDA tensors through the
+    host) and nothing raises; on the CPU it runs as every CPU solve."""
     monkeypatch.setattr(titerate.dist, "get_backend", lambda group: backend)
     prob = problems(st, losses, torch.float64, device="cpu")["traj"]
     mesh = sharding.Mesh(group=object(), axis_names=("data",), size=size,
                          rank=0, captures=captures)
     prob = replace(prob, mesh=mesh)
-    if raises is None:
+    on_card = replace(prob, device=torch.device("cuda", 0))
+    method = st.ProxGGNSCORE(solver="cg")
+    assert titerate._uncaptured(on_card) == (backend == "gloo")
+    assert not titerate._uncaptured(prob)
+    if raises in (None, "gloo"):
         titerate._check_capturable(prob, st.ProxGGNSCORE(solver="cg"))
         return
-    kind, tag = ((NotImplementedError, "ROADMAP A11") if raises == "gloo"
-                 else (RuntimeError, raises))
-    with pytest.raises(kind, match=tag) as e:
+    with pytest.raises(RuntimeError, match=raises) as e:
         titerate._check_capturable(prob, st.ProxGGNSCORE(solver="cg"))
-    assert raises in str(e.value) and "mode='timed'" in str(e.value)
+    assert "mode='timed'" in str(e.value)
 
 
 def test_overlapped_chunks_over_ranks_stay_timed(monkeypatch):
+    """``comm_overlap_chunks > 1`` over four NCCL ranks stays in timed
+    mode: a fused solve raises naming A11 and timed mode before any
+    collective (no capture held the chunks' all-reduces), one chunk
+    captures, and one rank captures any number of chunks."""
     monkeypatch.setattr(titerate.dist, "get_backend", lambda group: "nccl")
     prob = replace(problems(st, losses, torch.float64, device="cpu")["traj"],
                    mesh=sharding.Mesh(group=object(), axis_names=("data",),
                                       size=4, rank=0, captures=True))
-    with pytest.raises(NotImplementedError, match="A11"):
-        titerate._check_capturable(
-            prob, st.ProxGGNSCORE(solver="cg", comm_overlap_chunks=2))
+    overlapped = st.ProxGGNSCORE(solver="cg", comm_overlap_chunks=2)
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP A11\).*mode='timed'"):
+        titerate._check_capturable(prob, overlapped)
+    titerate._check_capturable(prob, st.ProxGGNSCORE(solver="cg"))
+    one = replace(prob, mesh=sharding.Mesh(
+        group=object(), axis_names=("data",), size=1, rank=0,
+        captures=False))
+    titerate._check_capturable(one, overlapped)
+    on_card = replace(prob, device=torch.device("cuda", 0))
+    assert not titerate._uncaptured(on_card)
 
 
 @pytest.mark.parametrize("value,captures", [("0", True), ("1", False),
