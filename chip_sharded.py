@@ -6,6 +6,7 @@ every card of one host; the λ sweep over the ranks.
     torchrun --nproc-per-node=4 chip_sharded.py --refuse
     NCCL_GRAPH_MIXING_SUPPORT=0 torchrun --nproc-per-node=4 chip_sharded.py --sweep
     NCCL_GRAPH_MIXING_SUPPORT=0 torchrun --nproc-per-node=4 chip_sharded.py --mesh2d
+    NCCL_GRAPH_MIXING_SUPPORT=0 torchrun --nproc-per-node=4 chip_sharded.py --overlap
 
 One process per card (torchrun's RANK, LOCAL_RANK, WORLD_SIZE and
 rendezvous). A fused (captured) solve over several NCCL ranks puts the
@@ -31,8 +32,22 @@ and one solve of it with a record every epoch in fused and in timed
 mode (uncaptured) on the shard: the same epochs, x and objective
 history, bit for bit. The cached chain also runs sharded in timed mode
 with comm_overlap_chunks 1 and 2 (the overlapped form launches neither
-K1 nor K1s). Times: each run's seconds (host clock, the sum of a
-chain's solves, after a warm-up run that captures), and, CUDA events,
+K1 nor K1s), and fused with comm_overlap_chunks 2 (the chunks'
+all-reduces captured in order inside the CG loop's WHILE node): the
+same chain as timed chunks 2 (epochs and final objective), x the same on
+every rank, K2 and K3 launched but neither K1 nor K1s, and one solve
+with a record every epoch fused = timed bit for bit. Then phase 3's
+solve served and exported on the shard (`serving`): `make_serving_fn`
+called three times on every rank with its rows (the shard's data, which
+captures; a fresh shard, this rank's rows in reverse order with flipped
+labels, with no new capture; the shard's data again), each giving the
+sharded fused solve's bits; `export_solver` on rank 0 (its op library
+built in a thread there from the start), the artifact's bytes
+broadcast, loaded on every rank (`load_solver`, which checks the
+groups) and run on the shard's data twice and on the fresh shard once,
+with the same bits. Times: each run's seconds (host clock, the sum of a
+chain's solves, after a warm-up run that captures), the served calls',
+the export's, the load's and the loaded solves', and, CUDA events,
 median of 5 runs: K1 on the shard, K1s, and one all-reduce of n float32
 values (the collectives COLLECTIVE_CALLS times a run on every rank).
 
@@ -55,9 +70,15 @@ x_tol test fires on a step that Armijo shrank stops at another point
 (chip_smoke.py phase 20 reports the same spread on one card, solving
 the four shares one by one). The seconds of both (host clock, the
 second call of each: the first captures). Rank 0 prints the card and
-power limit, then one JSON line; a rank still running EXIT_WAIT_S
+power limit, then one JSON line, and every rank tears its groups down
+with `parallel.distributed_shutdown`, which drops the cached captures
+first: NCCL's teardown waits for every graph that holds a collective of
+the communicator (ROADMAP C15). A rank still running EXIT_WAIT_S
 seconds later prints its stacks (faulthandler). Without CUDA it exits
 non-zero.
+
+``--overlap`` runs the cached path and the comm_overlap_chunks chains
+alone (timed chunks 1 and 2, fused chunks 2), with the same checks.
 
 ``--mesh2d`` (four ranks) runs meshes of two axes instead, all fused
 (captured over NCCL) on chip_smoke.py phase 3's problem and anchor:
@@ -181,9 +202,9 @@ def same_on_every_rank(x, mesh, dev):
     return float(bad) == 0
 
 
-def run_paths(mesh, dev, say, prob_t, best, mprob_t, mbest):
+def run_paths(mesh, dev, say, prob_t, best, mprob_t, mbest, names=None):
     """Each path on one card and on the shard (see the module
-    docstring); name → its numbers."""
+    docstring), or those in ``names``; name → its numbers."""
     import torch
 
     from scso_tpu_torch.parallel import shard_problem
@@ -191,6 +212,8 @@ def run_paths(mesh, dev, say, prob_t, best, mprob_t, mbest):
     out = {}
     for name, (prob, run, method, kernels) in paths(
             prob_t, best, mprob_t, mbest).items():
+        if names is not None and name not in names:
+            continue
         s1, r1, sec1, _ = timed(run, method, prob)
         obj1 = final(s1, r1)[0]
         sp = shard_problem(prob, mesh)
@@ -448,17 +471,28 @@ def main():
         out = {"world": world, **mesh2d(world, dev, say)}
         out["seconds"] = time.perf_counter() - t0
         return finish(out, mesh, say)
+    overlap = sys.argv[1:] == ["--overlap"]
+    if rank0 and not overlap:
+        # the op library of `sharded_serving`'s export, built beside the
+        # paths on the host's spare cores (after the kernels' nvcc build)
+        from scso_tpu_torch.ops.cuda import build
+
+        build.load()
+        cs.start_ops_build()
     prob = cs.build_problem(*cs.MAIN_SHAPE, dev, torch.float32)
     method = st.ProxGGNSCORE(**cs.F32_CG)
     best, x_opt, _ = cs.presolve(method, prob)
     prob_t = replace(prob, x_star=x_opt)
     del prob
-    mprob = cs.build_mglm_problem(*cs.MGLM_SHAPE, dev, torch.float32)
-    mbest, mx_opt, _ = cs.presolve(method, mprob)
-    mprob_t = replace(mprob, x_star=mx_opt)
-    del mprob
+    mprob_t = mbest = None
+    if not overlap:
+        mprob = cs.build_mglm_problem(*cs.MGLM_SHAPE, dev, torch.float32)
+        mbest, mx_opt, _ = cs.presolve(method, mprob)
+        mprob_t = replace(mprob, x_star=mx_opt)
+        del mprob
     out = {"world": world, "rows_per_rank": prob_t.A.shape[0] // world}
-    out["paths"] = run_paths(mesh, dev, say, prob_t, best, mprob_t, mbest)
+    out["paths"] = run_paths(mesh, dev, say, prob_t, best, mprob_t, mbest,
+                             names=("cached",) if overlap else None)
     del mprob_t
     sp = shard_problem(prob_t, mesh)
     del prob_t
@@ -492,6 +526,10 @@ def main():
         if not (k1s_ok and lc["glm_prep_pair"] > 0):
             cs.fail(f"comm_overlap_chunks={chunks}: launches {lc}")
         out[f"timed_overlap{chunks}"] = r
+    out["fused_overlap2"] = fused_overlap(mesh, dev, say, sp, best, out)
+    if overlap:
+        return finish(out, mesh, say)
+    out["serving"] = sharded_serving(mesh, dev, say, sp)
     out["sweep"] = sweep_over_ranks(dev, say)
     gen = torch.Generator(device=dev).manual_seed(cs.SEED + mesh.rank)
     n = sp.A.shape[1]
@@ -515,14 +553,126 @@ def main():
     finish(out, mesh, say)
 
 
-def finish(out, mesh, say):
-    """The JSON line, then the group torn down (should a rank still wait
-    after the line, each rank prints where)."""
+def fused_overlap(mesh, dev, say, sp, best, out):
+    """Phase 3's chain fused with comm_overlap_chunks 2 on the shard
+    (see the module docstring): its numbers."""
+    import torch
+
+    import scso_tpu_torch as st
+    from scso_tpu_torch.ops.cuda import counters
+
+    m2 = st.ProxGGNSCORE(**cs.F32_CG, comm_overlap_chunks=2)
+    cs.solve_chunk(m2, sp)  # warm-up: the capture
+    torch.cuda.synchronize()
+    counters.reset()
+    r = cs.timed_chain(m2, sp, best, keep_x=True)
+    lc = r["launches"] = counters.snapshot()
+    x = r.pop("x")
+    r.pop("objs")
+    timed = out["timed_overlap2"]
+    if not same_on_every_rank(x, mesh, dev):
+        cs.fail("fused comm_overlap_chunks=2: ranks hold different x")
+    if (r["epochs"], r["obj"]) != (timed["epochs"], timed["obj"]):
+        cs.fail(f"fused comm_overlap_chunks=2: {r['epochs']} epochs, obj "
+                f"{r['obj']!r} against timed chunks 2's {timed['epochs']}, "
+                f"{timed['obj']!r}")
+    if not (lc["normal_matvec"] == lc["normal_matvec_sharded"] == 0
+            and lc["glm_prep_pair"] > 0 and lc["score_update"] > 0):
+        cs.fail(f"fused comm_overlap_chunks=2: launches {lc}")
+    kw = dict(cs.CHUNK_KW, stats_every=1)
+    sm = st.PHuberSmootherL1L2(1.0)
+    fused = st.iterate(m2, sp, "l1", sm, **kw)
+    slow = st.iterate(m2, sp, "l1", sm, **dict(kw, mode="timed"))
+    if not (fused.epochs == slow.epochs and torch.equal(fused.x, slow.x)
+            and torch.equal(fused.obj, slow.obj)):
+        cs.fail("fused comm_overlap_chunks=2: fused and timed mode differ "
+                f"(epochs {fused.epochs} vs {slow.epochs})")
+    r["fused_eq_timed_epochs"] = fused.epochs
+    say(f"{mesh.size} ranks, fused, comm_overlap_chunks=2: "
+        f"{r['seconds']:.4f} s (fused chunks 1 "
+        f"{out['paths']['cached']['seconds']:.4f} s, timed chunks 2 "
+        f"{timed['seconds']:.4f} s), {r['epochs']} epochs, timed chunks "
+        f"2's chain; x bitwise on every rank; fused = timed bit for bit "
+        f"({fused.epochs} epochs, a record each); launches on rank 0 {lc}")
+    return r
+
+
+def sharded_serving(mesh, dev, say, sp):
+    """Phase 3's solve served and exported on the shard (see the module
+    docstring): its numbers."""
+    import torch
     import torch.distributed as dist
+
+    import scso_tpu_torch as st
+    from scso_tpu_torch._src.struct import replace
+    from scso_tpu_torch.ops.cuda import counters, graph
+    from scso_tpu_torch.utils import (
+        export_solver, load_solver, make_serving_fn)
+
+    meth, sm = st.ProxGGNSCORE(**cs.F32_CG), st.PHuberSmootherL1L2(1.0)
+    tpl, opts = cs.chain_template(sp)
+    fresh = replace(sp, A=sp.A.flip(0), y=(1 - sp.y).flip(0))
+    data = {"shard": sp, "fresh": fresh}
+    refs = {name: cs.solve_chunk(meth, p) for name, p in data.items()}
+    serve = make_serving_fn(meth, tpl, "l1", sm, opts)
+    out = {}
+    for i, name in enumerate(("shard", "fresh", "shard")):
+        p = data[name]
+        graph.reset_stats()
+        counters.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = serve(p.A, p.y, p.x0)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        cs.same_served(f"served call {i + 1} ({name})", got, refs[name])
+        lc = counters.snapshot()
+        cs.check_launches(lc, cs.SHARDED_KERNELS,
+                          f"served call {i + 1} ({name})")
+        if i and graph.STATS["captures"]:
+            cs.fail(f"served call {i + 1} captured anew")
+        out[f"call{i + 1}_{name}"] = dict(
+            seconds=secs, epochs=refs[name].epochs,
+            captures=graph.STATS["captures"],
+            launches={k: lc[k] for k in cs.SHARDED_KERNELS})
+    say(f"served on {mesh.size} ranks, the sharded fused solve's bits: "
+        + json.dumps(out))
+    del serve
+    cs.free_graphs()
+    t0 = time.perf_counter()
+    blob = [export_solver(meth, tpl, "l1", sm, opts)
+            if mesh.rank == 0 else None]
+    out["export_s"] = time.perf_counter() - t0
+    dist.broadcast_object_list(blob, 0)
+    blob = blob[0]
+    t0 = time.perf_counter()
+    loaded = load_solver(blob)
+    out["load_s"] = time.perf_counter() - t0
+    out["artifact_bytes"] = len(blob)
+    for name, reps in (("shard", 2), ("fresh", 1)):
+        p = data[name]
+        got, secs = cs.loaded_solve(loaded, (p.A, p.y, p.x0), reps=reps)
+        cs.same_served(f"the loaded sharded program ({name})", got,
+                       refs[name])
+        out[f"loaded_{name}_s"] = secs
+    say(f"exported on rank 0 in {out['export_s']:.2f} s ({len(blob)} "
+        f"bytes), loaded on every rank in {out['load_s']:.2f} s (rank 0), "
+        f"loaded solves {out['loaded_shard_s']} s (fresh "
+        f"{out['loaded_fresh_s']} s), the sharded fused solve's bits")
+    del loaded, blob, fresh, tpl
+    cs.free_graphs()
+    return out
+
+
+def finish(out, mesh, say):
+    """The JSON line, then the groups torn down after the cached captures
+    are dropped (should a rank still wait after the line, each rank
+    prints where)."""
+    from scso_tpu_torch.parallel import distributed_shutdown
 
     say(json.dumps(out))
     faulthandler.dump_traceback_later(EXIT_WAIT_S)
-    dist.destroy_process_group()
+    distributed_shutdown()
     faulthandler.cancel_dump_traceback_later()
 
 

@@ -347,6 +347,29 @@ timed chains replay it. Phases, each fatal on failure:
      through the host, so the fused program runs uncaptured, with no
      capture, and gives phase 22's one-NCCL-rank bits, K1s, K1, K2s and
      K3 launched.
+ 26. A row shard served and exported, and a mini-batch solve exported,
+     over a one-rank NCCL group (a 1×1 mesh, a ``file://``
+     rendezvous). (a) `make_serving_fn` on phase 3's problem sharded
+     over the mesh, with the chain's options: call 1 on phase 3's data
+     gives the bits of 24(a)'s served and 25(a)'s loaded unsharded
+     solve, call 2 on 24(a)'s fresh data those of its unsharded solve,
+     with no new capture; K1s, K1, K2 and K3 launched. (b)
+     `export_solver` of the same row shard: the program holds the sum
+     over the ranks as a functional collective
+     (``_c10d_functional.all_reduce``); loaded on the rank, its solve of
+     phase 3's data gives the same bits; and a profiler trace of the
+     same artifact's solve of the same data, loaded in a process of its
+     own (``--trace-worker``, started before the export: it builds its
+     data meanwhile), holds K1, K2 and K3 by kernel name as often as
+     (a)'s first call launched them. (This process's third profiler
+     session lost about 6 of ~5290 kernel events, a K2 among them, in
+     both of two runs; a fresh process lost none in six sessions,
+     chip_trace_probe.py.) (c) A mini-batch solve (cached GGN-CG, batch
+     size MINIBATCH_EXPORT[0], MINIBATCH_EXPORT[1] epochs, unsharded) of
+     a 4096×500 problem exported and loaded: the loaded program draws
+     the permutations on the host and gives `iterate`'s bits. The
+     seconds of each call, export and load. The group is torn down with
+     `parallel.distributed_shutdown` (ROADMAP C15).
      The whole run's seconds are printed at its end.
 
 The last two lines of standard output are one JSON object with each
@@ -4892,7 +4915,6 @@ def phase_export(prob_t, serve_s, fresh, sols22, ops_build, total):
     import numpy as np
     import torch
     import torch.distributed as dist
-    from torch.profiler import ProfilerActivity, profile
 
     import scso_tpu_torch as st
     from scso_tpu_torch.ops.cuda import build, graph
@@ -4948,25 +4970,14 @@ def phase_export(prob_t, serve_s, fresh, sols22, ops_build, total):
         f"on 24(a)'s fresh data {secs2[0]:.4f} s, {ref2.epochs} epochs, "
         "iterate's bits")
     log(" (b) a profiler trace of the loaded solve")
-    with tempfile.TemporaryDirectory() as d:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            # a kernel ahead of the solve's: one trace of this session,
-            # the process's second (after 24(b)'s), held K2 20 times
-            # against the counters' 21, the loaded solve giving
-            # iterate's x and epochs
-            torch.ones(1, device="cuda").add_(1)
-            torch.cuda.synchronize()
-            serve(prob_t.A, prob_t.y, prob_t.x0)
-            torch.cuda.synchronize()
-        prof.export_chrome_trace(os.path.join(d, "trace_loaded.json"))
-        counts, kernels = trace_counts(d)
+    counts, kernels = loaded_trace(serve, (prob_t.A, prob_t.y, prob_t.x0))
     if counts != want or not all(want.values()):
         fail(f"phase 25(b): the loaded solve's trace shows {counts}, "
              f"iterate's counters {want}")
     out["main"]["trace"], out["main"]["trace_kernels"] = counts, kernels
     log(f"  the trace's {kernels} kernels hold K1, K2, K3 as {counts}: "
         "iterate's counters")
+    keep = {"ref": ref, "loaded": got}
     del serve, blob, got
     log(" (c) a process with torch and numpy alone loads 4096x500 "
         "artifacts (cached GGN-CG; L-BFGS, K4) with their op library")
@@ -4982,10 +4993,7 @@ def phase_export(prob_t, serve_s, fresh, sols22, ops_build, total):
             check_launches(slc, kernels, f"phase 25(c) {name} iterate")
             blob = export_solver(method, small, "l1", sm, sopts)
             if name == "lbfgs" and b"scso.two_loop" not in blob:
-                with zipfile.ZipFile(io.BytesIO(blob)) as z:
-                    text = b"".join(z.read(f) for f in z.namelist()
-                                    if f.endswith(".json"))
-                if b"two_loop" not in text:
+                if b"two_loop" not in b"".join(_program_json(blob)):
                     fail("phase 25(c): the L-BFGS program holds no K4 op")
             got, _ = loaded_solve(load_solver(blob, "cuda"),
                                   (small.A, small.y, small.x0), reps=1)
@@ -5053,7 +5061,222 @@ def phase_export(prob_t, serve_s, fresh, sols22, ops_build, total):
     log(f"  uncached GGN-CG over gloo, uncaptured: {secs:.3f} s, "
         f"{s.epochs} epochs, {graph.STATS['host_reads']} host reads, "
         f"phase 22's one-NCCL-rank bits; launches {out['gloo']['launches']}")
+    return out, keep
+
+
+# ---------------------------------------------------------------------------
+# phase 26: a row shard served and exported, a mini-batch solve exported
+# ---------------------------------------------------------------------------
+
+#: phase 26(c): the batch size and epochs of the exported mini-batch solve
+MINIBATCH_EXPORT = (1024, 20)
+
+
+def phase_sharded_deploy(prob_t, keep25, fresh, total):
+    """Phase 26 (see the module docstring)."""
+    import torch
+
+    import scso_tpu_torch as st
+    from scso_tpu_torch.ops.cuda import graph
+    from scso_tpu_torch.parallel import (
+        distributed_init, distributed_shutdown, make_mesh, shard_problem)
+    from scso_tpu_torch.utils import (
+        export_solver, load_solver, make_serving_fn)
+
+    out = {"gb_after_free": free_graphs()}
+    meth, sm = st.ProxGGNSCORE(**F32_CG), st.PHuberSmootherL1L2(1.0)
+    tpl, opts = chain_template(prob_t)
+    ref, loaded25 = keep25["ref"], keep25["loaded"]
+    A2, y2, x02, ref2 = fresh
+    with tempfile.TemporaryDirectory() as d:
+        if distributed_init(init_method=f"file://{d}/rdv", world_size=1,
+                            rank=0) != 1:
+            fail("phase 26: the one-rank NCCL group did not form")
+        mesh = make_mesh()
+        sp = shard_problem(tpl, mesh)
+        log(" (a) make_serving_fn on the row shard")
+        serve = make_serving_fn(meth, sp, "l1", sm, opts)
+        for name, args, want in (
+                ("call 1 (phase 3's data)", (prob_t.A, prob_t.y, prob_t.x0),
+                 ref),
+                ("call 2 (fresh data)", (A2, y2, x02), ref2)):
+            graph.reset_stats()
+            got, secs, lc = launches_of(lambda: serve(*args), total)
+            same_served(f"phase 26(a) {name}", got, want)
+            check_launches(lc, SHARDED_KERNELS, f"phase 26(a) {name}")
+            out[f"served {name}"] = dict(
+                seconds=secs, epochs=want.epochs,
+                captures=graph.STATS["captures"],
+                launches={k: lc[k] for k in SHARDED_KERNELS})
+            log(f"  {name}: {secs:.4f} s, {want.epochs} epochs, "
+                f"{graph.STATS['captures']} captures, the unsharded "
+                f"solve's bits; launches {out[f'served {name}']['launches']}")
+        if out["served call 2 (fresh data)"]["captures"]:
+            fail("phase 26(a): the second served call captured anew")
+        x25, k25, obj25 = loaded25
+        if not (torch.equal(x25, ref.x) and int(k25) == ref.epochs):
+            fail("phase 26(a): 25(a)'s loaded solve is not iterate's")
+        del serve
+        free_graphs()
+        log(" (b) export_solver of the row shard, loaded on the rank")
+        artifact = os.path.join(d, "shard.pt2")
+        with open(os.path.join(d, "trace.out"), "w") as o, \
+                open(os.path.join(d, "trace.err"), "w") as e:
+            tracer = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--trace-worker",
+                 artifact, d], cwd=ROOT, stdout=o, stderr=e)
+        try:
+            traced, export_s, blob, load_s, got, secs = traced_export(
+                tracer, artifact, d, lambda: export_solver(
+                    meth, sp, "l1", sm, opts), prob_t, ref)
+        finally:
+            if tracer.poll() is None:
+                tracer.kill()
+                tracer.wait()
+        lc = out["served call 1 (phase 3's data)"]["launches"]
+        want = {"normal_matvec": lc["normal_matvec"],
+                "glm_prep": lc["glm_prep_pair"],
+                "score_update": lc["score_update"]}
+        counts, kernels = traced["trace"], traced["kernels"]
+        if counts != want or not all(want.values()):
+            fail(f"phase 26(b): the loaded sharded solve's trace shows "
+                 f"{counts}, the served call's counters {want}")
+        out["export"] = dict(export_s=export_s, artifact_bytes=len(blob),
+                             load_s=load_s, solve_s=secs[0], trace=counts,
+                             trace_kernels=kernels,
+                             trace_worker_s=traced["seconds"])
+        log(f"  export {export_s:.2f} s, {len(blob)} bytes, load "
+            f"{load_s:.2f} s, loaded solve {secs[0]:.4f} s, the unsharded "
+            f"solve's bits; in a process of its own "
+            f"({traced['seconds']:.1f} s) its trace's {kernels} kernels "
+            f"hold K1, K2, K3 as {counts}: the served sharded call's "
+            "counters")
+        del blob, sp, got
+        distributed_shutdown()
+    log(" (c) a mini-batch solve exported and loaded")
+    small = build_problem(*EXPORT_SMALL_SHAPE, "cuda", torch.float32)
+    bs, epochs = MINIBATCH_EXPORT
+    sol, secs_it, blc = launches_of(lambda: st.iterate(
+        meth, small, "l1", sm, batch_size=bs, max_epoch=epochs, verbose=0),
+        total)
+    check_launches(blc, UNCACHED_KERNELS, "phase 26(c) mini-batches")
+    t0 = time.perf_counter()
+    blob = export_solver(meth, small, "l1", sm,
+                         st.Options(batch_size=bs, max_epoch=epochs,
+                                    verbose=0))
+    export_s = time.perf_counter() - t0
+    got, secs = loaded_solve(load_solver(blob, "cuda"),
+                             (small.A, small.y, small.x0), reps=1)
+    same_served("phase 26(c) the loaded mini-batch program", got, sol)
+    out["mini_batches"] = dict(export_s=export_s, solve_s=secs[0],
+                               iterate_s=secs_it, epochs=sol.epochs,
+                               artifact_bytes=len(blob),
+                               launches={k: blc[k] for k in UNCACHED_KERNELS})
+    log(f"  batch size {bs}, {sol.epochs} epochs: export {export_s:.2f} s, "
+        f"loaded solve {secs[0]:.4f} s against iterate's {secs_it:.4f} s, "
+        "iterate's bits")
     return out
+
+
+def traced_export(tracer, artifact, d, export, prob_t, ref):
+    """Phase 26(b): ``export()`` (timed), the artifact written where the
+    trace worker ``tracer`` waits for it, loaded here and solved on
+    phase 3's data with ``ref``'s bits; then the worker's reading.
+    (worker's {"trace", "kernels", "seconds"}, export seconds, artifact,
+    load seconds, the loaded (x, epochs, obj), its seconds)."""
+    from scso_tpu_torch.utils import load_solver
+
+    t0 = time.perf_counter()
+    blob = export()
+    export_s = time.perf_counter() - t0
+    with open(artifact + ".part", "wb") as f:
+        f.write(blob)
+    os.replace(artifact + ".part", artifact)
+    if b"all_reduce" not in b"".join(_program_json(blob)):
+        fail("phase 26(b): the sharded program holds no all_reduce")
+    t0 = time.perf_counter()
+    loaded = load_solver(blob, "cuda")
+    load_s = time.perf_counter() - t0
+    got, secs = loaded_solve(loaded, (prob_t.A, prob_t.y, prob_t.x0),
+                             reps=1)
+    same_served("phase 26(b) the loaded sharded program", got, ref)
+    del loaded
+    try:
+        tracer.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        fail("phase 26(b): the trace worker did not end in 600 s")
+    with open(os.path.join(d, "trace.err")) as f:
+        err = f.read()
+    if tracer.returncode != 0:
+        fail(f"phase 26(b): the trace worker exited with "
+             f"{tracer.returncode}:\n{err[-4000:]}")
+    with open(os.path.join(d, "trace.out")) as f:
+        traced = json.loads(f.read().strip().splitlines()[-1])
+    return traced, export_s, blob, load_s, got, secs
+
+
+def _program_json(blob):
+    """The JSON files of a saved ``torch.export`` program."""
+    with zipfile.ZipFile(io.BytesIO(blob)) as z:
+        return [z.read(f) for f in z.namelist() if f.endswith(".json")]
+
+
+def loaded_trace(serve, args):
+    """(K1/K2/K3 launches by name in a profiler trace of one call of the
+    loaded program, the trace's kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with tempfile.TemporaryDirectory() as d:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            # a kernel ahead of the solve's: one trace of phase 25(b)'s
+            # session, the process's second (after 24(b)'s), held K2 20
+            # times against the counters' 21, the loaded solve giving
+            # iterate's x and epochs
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+            serve(*args)
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(os.path.join(d, "trace_loaded.json"))
+        return trace_counts(d)
+
+
+def trace_worker(artifact, workdir):
+    """Phase 26(b)'s trace, in a process of its own (``--trace-worker``):
+    phase 3's data built again (the same seed), a one-rank NCCL group
+    and mesh made as phase 26 makes them (so the artifact's group names
+    match), then, once the artifact at ``artifact`` exists, it is
+    loaded, solved once, and a profiler trace of a second solve is
+    counted (`loaded_trace`). Prints {"trace", "kernels", "seconds"}."""
+    import torch
+
+    from scso_tpu_torch.parallel import (
+        distributed_init, distributed_shutdown, make_mesh)
+    from scso_tpu_torch.utils import load_solver
+
+    t0 = time.perf_counter()
+    prob = build_problem(*MAIN_SHAPE, "cuda", torch.float32)
+    args = (prob.A, prob.y, prob.x0)
+    if distributed_init(init_method=f"file://{workdir}/rdv_trace",
+                        world_size=1, rank=0) != 1:
+        fail("trace worker: the one-rank NCCL group did not form")
+    try:
+        make_mesh()
+        while not os.path.exists(artifact):
+            if time.perf_counter() - t0 > 540:
+                fail(f"trace worker: no artifact at {artifact}")
+            time.sleep(0.1)
+        with open(artifact, "rb") as f:
+            loaded = load_solver(f.read(), "cuda")
+        loaded(*args)
+        torch.cuda.synchronize()
+        counts, kernels = loaded_trace(loaded, args)
+        del loaded
+    finally:
+        distributed_shutdown()
+    print(json.dumps({"trace": counts, "kernels": kernels,
+                      "seconds": time.perf_counter() - t0}), flush=True)
 
 
 def start_ops_build() -> dict:
@@ -5102,6 +5325,8 @@ def main():
         return rank_worker(*sys.argv[2:])
     if sys.argv[1:2] == ["--mesh-worker"]:
         return mesh_worker(*sys.argv[2:])
+    if sys.argv[1:2] == ["--trace-worker"]:
+        return trace_worker(*sys.argv[2:])
     import torch.distributed as dist
 
     import scso_tpu_torch as st
@@ -5235,14 +5460,20 @@ def main():
     from scso_tpu_torch.ops.cuda import counters
 
     u25launches = dict.fromkeys(counters.KERNEL_LAUNCHES, 0)
-    export25 = phase_export(
+    export25, keep25 = phase_export(
         prob_t, utils24["serving"]["served call 1 (phase 3's data)"][
             "seconds"], fresh24, sols22, ops_build, u25launches)
-    del fresh24
     log(f"  phase 25: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    log("phase 26: a row shard served and exported over one NCCL rank, a "
+        "mini-batch solve exported")
+    u26launches = dict.fromkeys(counters.KERNEL_LAUNCHES, 0)
+    deploy26 = phase_sharded_deploy(prob_t, keep25, fresh24, u26launches)
+    del fresh24, keep25
+    log(f"  phase 26: {time.perf_counter() - t0:.1f} s")
     new_paths = [batches["launches"], resume["static_precond"]["launches"],
                  resume["curvature_rows"]["launches"], s22launches,
-                 m23launches, u24launches, u25launches]
+                 m23launches, u24launches, u25launches, u26launches]
     new_paths += [v["launches"] for v in nodata.values()]
     launches = {k: launches[k] + mlaunches[k] + llaunches[k] + ulaunches[k]
                 + slaunches[k] + nlaunches[k] + klaunches[k] + lplaunches[k]
@@ -5296,6 +5527,8 @@ def main():
     log("meshes of two axes: " + json.dumps({"card": card, **mesh23}))
     log("utilities: " + json.dumps({"card": card, **utils24}))
     log("exported solver: " + json.dumps({"card": card, **export25}))
+    log("sharded serving and export: " + json.dumps({"card": card,
+                                                     **deploy26}))
     log(f"whole run: {time.perf_counter() - T_START:.1f} s")
     rows = []
     for k, (src, rep) in KERNELS.items():

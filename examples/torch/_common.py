@@ -17,10 +17,11 @@ def ranks(device: torch.device):
     torchrun's (started with ``torchrun --nproc-per-node=N``), else a
     group of this process alone (a file rendezvous in a temporary
     directory). NCCL on the card, gloo on the CPU; a group made here is
-    destroyed at the end. Under NCCL the captured solves of a problem
+    torn down at the end, after the cached captures are dropped
+    (`distributed_shutdown`). Under NCCL the captured solves of a problem
     sharded over several ranks need NCCL_GRAPH_MIXING_SUPPORT=0 when the
     group is made, so it is set unless the environment sets it."""
-    from scso_tpu_torch.parallel import distributed_init
+    from scso_tpu_torch.parallel import distributed_init, distributed_shutdown
 
     if dist.is_initialized():
         yield
@@ -37,4 +38,4 @@ def ranks(device: torch.device):
         try:
             yield
         finally:
-            dist.destroy_process_group()
+            distributed_shutdown()

@@ -76,10 +76,9 @@ min(batch size, its rows) so that the captured loop keeps its shapes
 rank always, over more ranks where the communicator was made under
 NCCL_GRAPH_MIXING_SUPPORT=0 (`Mesh.captures`; the collectives then sit
 inside the graph's conditional nodes), and it raises without that
-setting, or with the overlapped K1s schedule over more than one rank,
-before any collective (`_check_capturable`); over gloo, which reduces
-CUDA tensors through the host, it runs the same program uncaptured
-(`_uncaptured`). Timed mode runs on any group,
+setting before any collective (`_check_capturable`); over gloo, which
+reduces CUDA tensors through the host, it runs the same program
+uncaptured (`_uncaptured`). Timed mode runs on any group,
 uncaptured (`graph.eager`; the CG loop reads the card once an
 iteration); where the epoch cache acts it takes the cached step and the
 cache's loss in each record, so that its epochs are those of the fused
@@ -580,7 +579,8 @@ def _solve_impl(method, prob: Problem, reg_name: str, sm, opts: Options,
         return loop.finish(prob, t0, run)
 
 
-def solve_program(method, prob: Problem, reg_name: str, sm, opts: Options):
+def solve_program(method, prob: Problem, reg_name: str, sm, opts: Options,
+                  perms: Optional[torch.Tensor] = None):
     """The fused solve of a resolved method as one program, for
     ``torch.export`` (`utils.deploy.export_solver`, under
     `graph.export_trace`): the loop of :class:`_Fused` that a captured
@@ -588,14 +588,16 @@ def solve_program(method, prob: Problem, reg_name: str, sm, opts: Options):
     is the loop's state (the iterate, the epoch count, the histories, the
     epoch cache, the L-BFGS memory), then the final record. Returns the
     JAX package's serving triple (x sliced to ``n_true``, the epochs, the
-    final objective). Mini-batches are drawn on the host (`_Batches`),
-    which a program cannot hold: a solve with them raises ValueError."""
-    if _make_batches(prob, opts) is not None:
+    final objective). A program cannot draw on the host: a mini-batch
+    solve reads epoch k's permutation of the rows from row k of
+    ``perms`` ((max_epoch, m) int64, drawn as `_Batches` draws them,
+    `utils.deploy.permutations`), and raises ValueError without it."""
+    if (_make_batches(prob, opts) is None) != (perms is None):
         raise ValueError(
-            "an exported solve runs full batches: the port draws each "
-            "epoch's permutation of the rows on the host")
+            "solve_program: a mini-batch solve takes each epoch's "
+            "permutation of the rows (perms), a full-batch solve none")
     loop = _Fused(method, reg_name, sm, opts)
-    loop.load(prob, sm)
+    loop.load(prob, sm, perms=perms)
     live = loop.live()
 
     def rounds():
@@ -791,6 +793,7 @@ class _Batches:
         A, y, dev = prob.A, prob.y, prob.device
         m = prob.m_total
         self.batching, self.m, self.mesh = batching, m, prob.mesh
+        self.by_epoch = False
         self.bi = torch.zeros((), dtype=torch.int64, device=dev)
         self.blive = torch.zeros((), dtype=torch.bool, device=dev)
         full, rest = bs, rem
@@ -828,6 +831,11 @@ class _Batches:
     @property
     def slots(self) -> int:
         return (self.perm if self.mesh is None else self.idx).shape[0]
+
+    def given(self, perms: torch.Tensor) -> None:
+        """Every epoch's permutation given, epoch k's in row k (an
+        exported program's input): nothing is drawn on the host."""
+        self.perm, self.by_epoch = perms, True
 
     def start(self, rng: torch.Tensor, k0: int, shuffle: bool) -> None:
         self.gen = _rng_unpack(rng)
@@ -967,11 +975,13 @@ class _Fused:
         return self.carry.hist
 
     def load(self, prob: Problem, sm, run: Optional[_Run] = None,
-             max_epoch: Optional[int] = None) -> None:
+             max_epoch: Optional[int] = None,
+             perms: Optional[torch.Tensor] = None) -> None:
         """Start a solve of ``prob`` with smoother ``sm``, eagerly: their
         per-solve tensors into the buffers, the epoch cache primed at x0,
         ``obj_star``, and the carry and histories reset, or loaded from
-        ``run.resume`` (made on the first call)."""
+        ``run.resume`` (made on the first call). ``perms``: every epoch's
+        permutation of the rows, given (`solve_program`)."""
         run = _NO_RUN if run is None else run
         if self.buffers is not None:
             self.buffers.fill(prob, sm)
@@ -1007,7 +1017,11 @@ class _Fused:
         if self.batching is not None:
             if self.batches is None:
                 self.batches = _Batches(prob, self.batching, self.K)
-            self.batches.start(self.carry.rng, k0, self.opts.shuffle_batch)
+            if perms is not None:
+                self.batches.given(perms)
+            else:
+                self.batches.start(self.carry.rng, k0,
+                                   self.opts.shuffle_batch)
 
     def _fresh(self, prob: Problem, sm, rng_seed: int) -> Carry:
         dt, dev = prob.dtype, prob.device
@@ -1120,7 +1134,7 @@ class _Fused:
         stop test on the last step taken (the JAX package's scan)."""
         c, b = self.carry, self.batches
         nb, _, rem = self.batching
-        perm = b.rows(torch.remainder(c.k, self.K))
+        perm = b.rows(c.k if b.by_epoch else torch.remainder(c.k, self.K))
 
         def batch():
             c.done.copy_(self._step_on(*b.gather_full(prob, perm), it,
@@ -1267,21 +1281,18 @@ def _uncaptured(prob: Problem) -> bool:
     return dist.get_backend(mesh.group) == "gloo"
 
 
-def _check_capturable(prob: Problem, method=None) -> None:
+def _check_capturable(prob: Problem) -> None:
     """Raise before the first collective where a sharded solve over NCCL
     cannot be captured: NCCL's collectives across two ranks or more sit
     inside the graph's conditional nodes, which NCCL allows only when the
     communicator was made under NCCL_GRAPH_MIXING_SUPPORT=0 (on four
     H100s over NVLink the graph failed to instantiate without it;
-    `Mesh.captures` records the setting as it was then). The overlapped
-    K1s schedule (``comm_overlap_chunks > 1``) over more than one rank
-    is refused: no capture on four H100s held its chunks' all-reduces
-    (from a side stream forked inside a conditional body the ranks
-    crashed; on the capturing stream they did not finish in 400 s;
-    asynchronously they aborted), and run uncaptured the ranks waited in
-    the group's teardown (ROADMAP C15). One NCCL rank always captures. A
-    gloo group never gets here (:func:`_uncaptured`). Timed mode runs
-    uncaptured on any group."""
+    `Mesh.captures` records the setting as it was then). One NCCL rank
+    always captures, and so does the overlapped K1s schedule
+    (``comm_overlap_chunks > 1``: its chunks' all-reduces in order on
+    the capturing stream, `ops.cuda.matvec._sharded`). A gloo group
+    never gets here (:func:`_uncaptured`). Timed mode runs uncaptured on
+    any group."""
     mesh = prob.comm_mesh
     if mesh is None:
         return
@@ -1293,13 +1304,6 @@ def _check_capturable(prob: Problem, method=None) -> None:
             "NCCL's collectives inside the graph's conditional nodes fail "
             "to instantiate without it; set it before distributed_init, or "
             "use mode='timed'")
-    if (mesh.size > 1 and method is not None
-            and getattr(method, "comm_overlap_chunks", 1) > 1):
-        raise NotImplementedError(
-            "a captured (mode='fused') solve with comm_overlap_chunks > 1 "
-            "over more than one rank is not ported (ROADMAP A11): its "
-            "chunks' all-reduces did not capture; use comm_overlap_chunks=1 "
-            "or mode='timed'")
 
 
 def _quiesce(prob: Problem) -> None:
@@ -1325,7 +1329,7 @@ def _captured(kind: str, method, prob: Problem, reg_name: str, sm,
     records is captured again, with room for ``cap``. A body that
     cannot be captured (a function that reads the card from the host)
     raises."""
-    _check_capturable(prob, method)
+    _check_capturable(prob)
     _quiesce(prob)
     refs = []
     key = _capture_key(kind, method, prob, reg_name, sm, opts,

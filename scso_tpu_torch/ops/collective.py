@@ -29,6 +29,16 @@ same bits. Under a transform, a sum keeps the layout of each tensor it
 is given (a packed sum copies its results back into clones of them), so
 that a batched solve of a row shard of one rank computes the bits of
 the unsharded batched solve.
+
+Every sum of a solve goes through :func:`sum_in_place`. While a solve is
+traced by ``torch.export`` (`ops.cuda.graph.exporting`,
+`utils.deploy.export_solver`) it is the functional collective
+(``torch.distributed._functional_collectives.all_reduce``: the ops
+``_c10d_functional.all_reduce`` and ``wait_tensor``, which name the
+group by its ``group_name``) copied into the tensor: the program then
+holds the sums, and loads on every rank of a group of the same name. A
+gather or a slice over more than one rank is refused there: it would
+bake the exporting rank's offset into the program.
 """
 
 from __future__ import annotations
@@ -37,9 +47,30 @@ import torch
 import torch.distributed as dist
 from torch._C import _functorch
 
+from scso_tpu_torch.ops.cuda.graph import exporting
+
 
 def _wrapped(t: torch.Tensor) -> bool:
     return _functorch.is_functorch_wrapped_tensor(t)
+
+
+def sum_in_place(t: torch.Tensor, group) -> None:
+    """``t`` summed over ``group``, in place: ``dist.all_reduce``, or the
+    functional collective while a solve is exported (see the module)."""
+    if exporting():
+        from torch.distributed import _functional_collectives as funcol
+
+        t.copy_(funcol.all_reduce(t, "sum", group))
+        return
+    dist.all_reduce(t, group=group)
+
+
+def _per_rank(what: str, size: int) -> None:
+    if exporting() and size > 1:
+        raise NotImplementedError(
+            f"exporting a solve that takes a {what} over {size} ranks is not "
+            "ported (ROADMAP A12): the program would hold the exporting "
+            "rank's block; export a row shard, or serve this problem")
 
 
 def _flat(t: torch.Tensor) -> torch.Tensor:
@@ -55,10 +86,10 @@ def _sum_into(group, ts):
     outs = [t.clone() for t in ts]
     flats = [_flat(o) for o in outs]
     if len(flats) == 1:
-        dist.all_reduce(flats[0], group=group)
+        sum_in_place(flats[0], group)
         return outs
     buf = torch.cat(flats)
-    dist.all_reduce(buf, group=group)
+    sum_in_place(buf, group)
     lo = 0
     for f in flats:
         f.copy_(buf[lo:lo + f.numel()])
@@ -106,7 +137,7 @@ class _GroupGather(torch.autograd.Function):
         shape[dim] = w * size
         buf = t.new_zeros(shape)
         buf.narrow(dim, rank * w, w).copy_(t)
-        dist.all_reduce(buf, group=group)
+        sum_in_place(buf, group)
         return buf
 
     @staticmethod
@@ -173,6 +204,7 @@ def group_slice(v: torch.Tensor, group, rank: int, size: int,
                 dim: int = 0) -> torch.Tensor:
     """This rank's block of the replicated ``v`` along ``dim`` (see
     `_GroupSlice`): a view where no transform differentiates it."""
+    _per_rank("slice", size)
     if _wrapped(v) or v.requires_grad:
         return _GroupSlice.apply(v, group, rank, size, dim)
     return _GroupSlice.forward(v, group, rank, size, dim)
@@ -185,7 +217,7 @@ def group_sum(t: torch.Tensor, group, inplace: bool = False) -> torch.Tensor:
     if _wrapped(t):
         return _GroupSum.apply(group, t)[0]
     if inplace:
-        dist.all_reduce(t, group=group)
+        sum_in_place(t, group)
         return t
     return _sum_into(group, (t,))[0]
 
@@ -198,7 +230,7 @@ def group_sum_many(group, *ts):
     if any(_wrapped(t) for t in ts):
         return list(_GroupSum.apply(group, *ts))
     buf = torch.cat([t.reshape(-1) for t in ts])
-    dist.all_reduce(buf, group=group)
+    sum_in_place(buf, group)
     out, lo = [], 0
     for t in ts:
         out.append(buf[lo:lo + t.numel()].view(t.shape))
@@ -211,6 +243,7 @@ def group_gather(t: torch.Tensor, group, rank: int, size: int,
     """Every rank's ``t`` along ``dim``, in rank order, on every rank
     (see the module); ``rank`` and ``size`` are this rank's and the
     group's."""
+    _per_rank("gather", size)
     if _wrapped(t):
         return _GroupGather.apply(t, group, rank, size, dim)
     return _GroupGather.forward(t, group, rank, size, dim)

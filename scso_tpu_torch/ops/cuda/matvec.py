@@ -30,11 +30,10 @@ counts as ``normal_matvec_bf16`` as well as ``normal_matvec``.
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 
 from scso_tpu_torch.ops import nancheck
 from scso_tpu_torch.ops.cuda import build, counters, launch
-from scso_tpu_torch.ops.collective import group_sum
+from scso_tpu_torch.ops.collective import group_sum, sum_in_place
 from scso_tpu_torch.ops.dense import amul, atmul, is_colshard, widen
 
 # dynamic shared memory a block may use: Hopper's 227 KB less headroom
@@ -143,14 +142,14 @@ def _sharded(matvec, A, w, v, mesh, overlap_chunks, data_axis="data"):
     all_reduce of every instance's result: `ops.collective.group_sum`).
     Otherwise the JAX package's overlapped form: u = w∘(A·v) once (a
     matrix product, as there), then Aᵀu in c = min(overlap_chunks,
-    max(1, n // 128)) column chunks, each chunk's all_reduce issued as
-    soon as its product is done (async), so chunk i's collective
-    overlaps chunk i+1's product; every handle is waited on before the
-    concatenation, which orders the reads after the collectives on the
-    compute stream. The local shard is then read twice: it pays only
-    where the collective dominates. A bfloat16 A is upcast to w's dtype
-    for its products (a temporary of the shard's size): the overlapped
-    form never runs K1."""
+    max(1, n // 128)) column chunks, each chunk's sum issued as soon as
+    its product is done, in order, on the current stream
+    (`ops.collective.sum_in_place`: so the same program runs timed,
+    uncaptured, captured into a fused solve's graph over NCCL ranks, and
+    exported). The chunking alone sets the bits. The local shard is read
+    twice: it pays only where the collective dominates. A bfloat16 A is
+    upcast to w's dtype for its products (a temporary of the shard's
+    size): the overlapped form never runs K1."""
     group = mesh.axis_group(data_axis)
     if overlap_chunks <= 1 or is_colshard(A):
         return group_sum(matvec(A, w, v), group, inplace=True)
@@ -159,13 +158,11 @@ def _sharded(matvec, A, w, v, mesh, overlap_chunks, data_axis="data"):
     c = min(overlap_chunks, max(1, n // 128))
     h = -(-n // c)
     u = w * (A @ v)
-    outs, works = [], []
+    outs = []
     for i in range(c):
         part = A[:, i * h:(i + 1) * h].T @ u
-        works.append(dist.all_reduce(part, group=group, async_op=True))
+        sum_in_place(part, group)
         outs.append(part)
-    for work in works:
-        work.wait()
     return torch.cat(outs)
 
 

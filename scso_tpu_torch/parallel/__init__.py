@@ -12,8 +12,8 @@ from scso_tpu_torch.parallel.dataio import (
     load_problem_rows_sharded, load_rows_sharded, save_array,
     save_problem_data)
 from scso_tpu_torch.parallel.sharding import (
-    Mesh, distributed_init, make_mesh, pad_rows, replicate, shard_problem,
-    shard_problem_features)
+    Mesh, distributed_init, distributed_shutdown, make_mesh, pad_rows,
+    replicate, shard_problem, shard_problem_features)
 from scso_tpu_torch.parallel.sweep import (
     SweepResult, solve_fleet, stack_problems, sweep)
 from scso_tpu_torch.parallel.federated import (
@@ -22,6 +22,7 @@ from scso_tpu_torch.parallel.federated import (
 __all__ = [
     "Mesh",
     "distributed_init",
+    "distributed_shutdown",
     "make_mesh",
     "replicate",
     "shard_problem",

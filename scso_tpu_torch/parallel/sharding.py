@@ -26,7 +26,9 @@ runs rank-locally, SPMD, one process per rank:
 So every decision (the CG residual test, the greedy accept, the
 stopping test, on the card or on the host) reads replicated values, and
 the ranks stay in step. On the card the backend is NCCL, whose
-collectives a captured solve records into its CUDA graph; gloo only
+collectives a captured solve records into its CUDA graph (so the
+process's groups are torn down with `distributed_shutdown`, which drops
+those graphs first: ROADMAP C15); gloo only
 when the caller names it (the CPU, or several ranks on one card, which
 NCCL refuses), and then a solve on the card cannot be captured (gloo
 reduces CUDA tensors through the host).
@@ -45,14 +47,13 @@ when the communicator is made: `distributed_init` (and `make_mesh`, for
 the axis groups it makes) records whether it was (``Mesh.captures``),
 and the solve reads that record, not the environment, which no longer
 acts once the communicator exists. Over gloo a fused solve on the card
-runs the same program uncaptured (`iterate._uncaptured`), and so does a
-fused solve with the overlapped K1s schedule (``comm_overlap_chunks >
-1``).
+runs the same program uncaptured (`iterate._uncaptured`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import os
 import warnings
 from typing import Any, Optional, Sequence
@@ -63,6 +64,7 @@ import torch.distributed as dist
 
 from scso_tpu_torch._src.struct import replace as dc_replace
 from scso_tpu_torch.ops.collective import group_gather, group_sum_many
+from scso_tpu_torch.ops.cuda import graph
 from scso_tpu_torch.ops.dense import ColShard
 from scso_tpu_torch.problems import Problem
 
@@ -146,7 +148,10 @@ def distributed_init(backend: Optional[str] = None,
     ``init_method`` the rendezvous reads ``torchrun``'s environment
     (``env://``). Nothing tells a program of a cluster, so without
     torchrun pass ``init_method='tcp://host:port'``, ``world_size`` and
-    ``rank``. A no-op when the group already exists.
+    ``rank``. A no-op when the group already exists. Tear the group
+    down with `distributed_shutdown`, not ``dist.destroy_process_group``
+    alone: over NCCL ranks that one waits for ever while a captured solve
+    is cached (ROADMAP C15).
 
     A failed init does not raise: it warns and returns 1, and the
     process goes on without a group — but never silently: a multi-rank
@@ -255,6 +260,28 @@ def make_mesh(shape=None, axis_names: Sequence[str] = ("data",),
     return Mesh(group=group, axis_names=axis_names, size=size, rank=rank,
                 captures=captures, sizes=shape, coords=coords,
                 groups=tuple(groups))
+
+
+def distributed_shutdown() -> None:
+    """Tear down every process group of this process (the counterpart of
+    `distributed_init`), after dropping every cached captured solve
+    (`ops.cuda.graph.clear`) and waiting for the card.
+
+    NCCL's teardown of a communicator waits until every CUDA graph that
+    holds one of its collectives is destroyed, and the port keeps a
+    captured solve's graph, cached, as long as its problem lives: a
+    ``dist.destroy_process_group()`` while a captured solve of a row
+    shard over NCCL ranks was still cached waited for ever (ROADMAP C15).
+    Graphs held elsewhere (`graph.last_graphs`) must be dropped too. A
+    no-op without a group."""
+    if not dist.is_initialized():
+        return
+    graph.clear()
+    gc.collect()
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    dist.destroy_process_group()
+    _MIXING_OFF.clear()
 
 
 def all_reduce_sum(mesh: Mesh, *tensors, axis: Optional[str] = None):

@@ -58,9 +58,35 @@ same)::
 The loaded program runs each ``while_loop`` and ``cond`` from Python,
 reading its predicate on the host (PyTorch runs higher-order ops
 eagerly), so it is slower than ``make_serving_fn``'s replay of the
-captured solve, the fast path inside a process. A sharded problem is
-neither served nor exported (ROADMAP A12), nor is a mini-batch solve
-exported (its permutations are drawn on the host).
+captured solve, the fast path inside a process.
+
+A mini-batch solve's program takes each epoch's permutation of the rows
+as data, a ``(max_epoch, m)`` int64 tensor: the loaded callable keeps
+the signature ``(A, y, x0)`` and draws them on the host as ``iterate``
+does, ``np.random.default_rng(seed).permutation(m)`` once an epoch (the
+seed in the metadata, ``iterate``'s default 0; ``np.arange(m)`` every
+epoch without shuffling), so a loader needs numpy alone for them.
+
+A sharded problem is served on every rank of its mesh, SPMD: each rank
+calls the closure with its own rows (the template's row and column
+blocks) and the replicated x0, and gets the replicated x. A problem
+row-sharded over its mesh's data axis also exports: the program holds
+the sums over the ranks as functional collectives
+(``_c10d_functional.all_reduce``, `ops.collective.sum_in_place`), which
+name their process group by its ``group_name``, the order in which the
+process's groups were made ("0" the default group, then "1", "2", …
+for each ``new_group``). The artifact records the world size, the
+mesh's shape and axis names and its groups' names and ranks; every rank
+of a group of that size loads the same bytes and runs them on its own
+rows, and ``load_solver`` raises ValueError where the process's groups
+do not match (it never solves one rank's rows alone). A torch-only
+process makes matching groups as `parallel.make_mesh` does: the
+default group, then for a mesh of several axes one ``new_group`` an
+axis line, axis by axis, lines in rank-major order. A column shard
+(``shard_problem_features``) is served but not exported (ROADMAP A12):
+its gathers place this rank's block at the rank's offset, which the
+program would hold as a constant; nor is a mini-batch solve of a row
+shard (each rank's rows of a batch are worked out on the host).
 """
 
 from __future__ import annotations
@@ -74,13 +100,16 @@ import os
 import zipfile
 from typing import Optional
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from scso_tpu_torch._src.struct import replace as dc_replace
 from scso_tpu_torch.algorithms.iterate import (
     Options, _auto_lp, _make_batches, _resolve_kernels, solve,
     solve_program)
 from scso_tpu_torch.ops.cuda import build, graph, launch
+from scso_tpu_torch.ops.dense import is_colshard
 from scso_tpu_torch.problems import Problem, with_col_sumsq
 
 #: the artifact's extra files: what it was exported for, and (card
@@ -88,22 +117,39 @@ from scso_tpu_torch.problems import Problem, with_col_sumsq
 META_FILE = "scso_solver.json"
 OPS_FILE = "scso_ops.so.b64"
 FORMAT = "scso_tpu_torch.solver"
-FORMAT_VERSION = 2
+FORMAT_VERSION = 3
+
+
+def _block(t):
+    """A tensor, or a column shard's block of it."""
+    return t.block if is_colshard(t) else t
 
 
 def _template(prob: Problem) -> Problem:
     """``prob`` on static data tensors of its own (A, y, x0 and what is
-    derived from A), which each call of the serving function fills."""
-    like = lambda t: None if t is None else torch.zeros_like(t)
+    derived from A; a column shard's blocks), which each call of the
+    serving function fills. The mesh and the row counts over all ranks
+    (``m_total``, ``mtest_total``) stay the problem's."""
+    def like(t):
+        if t is None:
+            return None
+        if is_colshard(t):
+            return t.with_block(torch.zeros_like(t.block))
+        return torch.zeros_like(t)
+
     return dc_replace(prob, A=like(prob.A), y=like(prob.y),
                       x0=like(prob.x0), A_lp=like(prob.A_lp),
                       col_sumsq=like(prob.col_sumsq))
 
 
-def _fill(dst: torch.Tensor, src, n_true: Optional[int], name: str):
+def _fill(dst, src, n_true: Optional[int], name: str):
     """Copy ``src`` into the static ``dst``: at dst's width, or at the
-    unpadded ``n_true`` columns, the padded ones set to 0."""
-    src = torch.as_tensor(src)
+    unpadded ``n_true`` columns, the padded ones set to 0. A column
+    shard takes this rank's block (or a column shard of it) at the
+    block's shape."""
+    if is_colshard(dst):
+        dst, n_true = dst.block, None
+    src = torch.as_tensor(_block(src))
     if tuple(src.shape) == tuple(dst.shape):
         dst.copy_(src)
         return
@@ -132,7 +178,7 @@ def _serving_fn(method, tpl: Problem, reg_name: str, sm, opts: Options):
         _fill(tpl.y, y, None, "y")
         _fill(tpl.x0, x0, tpl.n_true, "x0")
         if tpl.A_lp is not None:
-            tpl.A_lp.copy_(tpl.A)
+            _block(tpl.A_lp).copy_(_block(tpl.A))
         if tpl.col_sumsq is not None:
             tpl.col_sumsq.copy_(with_col_sumsq(plain).col_sumsq)
         sol = solve(method, tpl, reg_name, sm, opts)
@@ -154,13 +200,16 @@ def make_serving_fn(method, prob: Problem, reg_name: str, sm,
     on any device are accepted. ``x`` is sliced back to ``n_true`` as
     in ``Solution.x``; ``epochs`` is the solve's epoch count (a 0-d
     int32 tensor, as the JAX package's carry holds it) and ``obj`` the
-    final objective."""
+    final objective.
+
+    A sharded problem (a row shard, a column shard, or both on a mesh of
+    two axes) is served SPMD: every rank of its mesh makes the closure
+    and calls it together with its own rows (its blocks, at the
+    template's shapes) and the replicated x0; each call replays the
+    solve captured over NCCL (runs it uncaptured over gloo), as
+    ``iterate`` does, and returns the replicated x."""
     if not prob.has_data:
         raise ValueError("export_solver requires a data problem (A, y)")
-    if prob.mesh is not None:
-        raise NotImplementedError(
-            "serving a sharded problem is not ported (ROADMAP A12): serve "
-            "the unsharded problem")
     return _serving_fn(method, _template(prob), reg_name, sm,
                        opts or Options(verbose=0))
 
@@ -173,7 +222,8 @@ def make_serving_fn(method, prob: Problem, reg_name: str, sm,
 class _Program(torch.nn.Module):
     """``serve(A, y, x0)`` of the template problem, as ``torch.export``
     traces it: the data's derived tensors made again from the call's,
-    then `iterate.solve_program`."""
+    then `iterate.solve_program` (a mini-batch solve also takes each
+    epoch's permutation of the rows, ``perms``)."""
 
     def __init__(self, method, tpl: Problem, reg_name: str, sm,
                  opts: Options):
@@ -181,7 +231,7 @@ class _Program(torch.nn.Module):
         self.method, self.tpl, self.reg_name = method, tpl, reg_name
         self.sm, self.opts = sm, opts
 
-    def forward(self, A, y, x0):
+    def forward(self, A, y, x0, *perms):
         tpl = self.tpl
         prob = dc_replace(
             tpl, A=A, y=y, x0=x0, col_sumsq=None,
@@ -189,7 +239,7 @@ class _Program(torch.nn.Module):
         if tpl.col_sumsq is not None:
             prob = with_col_sumsq(prob)
         return solve_program(self.method, prob, self.reg_name, self.sm,
-                             self.opts)
+                             self.opts, *perms)
 
 
 def _export_program(method, prob: Problem, reg_name: str, sm,
@@ -198,25 +248,81 @@ def _export_program(method, prob: Problem, reg_name: str, sm,
     ``prob``'s shapes (what :func:`export_solver` saves)."""
     if not prob.has_data:
         raise ValueError("export_solver requires a data problem (A, y)")
-    if prob.mesh is not None:
-        raise NotImplementedError(
-            "exporting a sharded problem is not ported (ROADMAP A12): "
-            "export the unsharded problem")
     opts = opts or Options(verbose=0)
-    if _make_batches(prob, opts) is not None:
-        raise ValueError(
-            "an exported solve runs full batches: the port draws each "
-            "epoch's permutation of the rows on the host")
+    batches = _make_batches(prob, opts) is not None
+    if is_colshard(prob.A):
+        raise NotImplementedError(
+            "exporting a column-sharded problem is not ported "
+            "(ROADMAP A12): its gathers place this rank's block at the "
+            "rank's offset, which the program would hold; serve it "
+            "(make_serving_fn), or export a row shard")
+    if batches and prob.mesh is not None:
+        raise NotImplementedError(
+            "exporting a mini-batch solve of a sharded problem is not "
+            "ported (ROADMAP A12): each rank's rows of a batch are worked "
+            "out on the host; serve it (make_serving_fn)")
     method = _resolve_kernels(method, prob)
     method, tpl = _auto_lp(method, prob, reg_name, opts)
     program = _Program(method, tpl, reg_name, sm, opts)
+    args = (prob.A, prob.y, prob.x0)
+    if batches:
+        args += (torch.zeros((opts.max_epoch, prob.m_total),
+                             dtype=torch.int64, device=prob.device),)
     ops = (launch.via_ops() if prob.device.type == "cuda"
            else contextlib.nullcontext())
     with graph.export_trace(), ops:
-        ep = torch.export.export(program, (prob.A, prob.y, prob.x0),
-                                 strict=False)
+        ep = torch.export.export(program, args, strict=False)
     ep.example_inputs = None  # the template's data stays out of the file
     return ep
+
+
+def _groups_meta(mesh) -> dict:
+    """What a loading process's groups must match: the world size, the
+    mesh's shape and axis names, and the name and ranks of the mesh's
+    group and of each axis group (those the program's collectives
+    name)."""
+    named = lambda g: {"name": g.group_name,
+                       "ranks": dist.get_process_group_ranks(g)}
+    return {"world_size": dist.get_world_size(),
+            "mesh_shape": list(mesh.sizes),
+            "axis_names": list(mesh.axis_names),
+            "group": named(mesh.group),
+            "axis_groups": [named(g) for g in mesh.groups]}
+
+
+def _check_groups(want: dict) -> None:
+    """Raise ValueError unless this process's groups are those the
+    artifact was exported over (`_groups_meta`)."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    shape = "×".join(map(str, want["mesh_shape"]))
+    if not dist.is_initialized():
+        raise ValueError(
+            f"load_solver: the artifact solves a problem sharded over a "
+            f"{shape} mesh {tuple(want['axis_names'])} of "
+            f"{want['world_size']} ranks; this process has no process "
+            "group (it would solve one rank's rows alone): join the group "
+            "and make the mesh first")
+    if dist.get_world_size() != want["world_size"]:
+        raise ValueError(
+            f"load_solver: the artifact was exported over "
+            f"{want['world_size']} ranks; this process's group has "
+            f"{dist.get_world_size()}")
+    for g in [want["group"]] + want["axis_groups"]:
+        try:
+            ranks = dist.get_process_group_ranks(
+                _resolve_process_group(g["name"]))
+        except (RuntimeError, ValueError, KeyError):
+            ranks = None
+        if ranks != g["ranks"]:
+            raise ValueError(
+                f"load_solver: the artifact's collectives run over the "
+                f"process group named {g['name']!r} of ranks {g['ranks']}; "
+                f"in this process that name holds "
+                f"{'no group' if ranks is None else ranks}. Make the "
+                f"groups in the exporting process's order (the {shape} "
+                f"mesh {tuple(want['axis_names'])}, as make_mesh makes "
+                "it)")
 
 
 def export_solver(method, prob: Problem, reg_name: str, sm,
@@ -224,17 +330,26 @@ def export_solver(method, prob: Problem, reg_name: str, sm,
     """The artifact of the serving function for ``prob``'s shapes (see
     the module's note): bytes to keep wherever artifacts live, to load
     with :func:`load_solver` or with torch alone. Raises ValueError for
-    a problem without data or a mini-batch solve, NotImplementedError for
-    a sharded problem."""
+    a problem without data, NotImplementedError naming ROADMAP A12 for a
+    column shard or a mini-batch solve of a sharded problem. A row
+    shard is exported by any rank of its mesh (all ranks make the same
+    program)."""
     import scso_tpu_torch
 
+    opts = opts or Options(verbose=0)
     ep = _export_program(method, prob, reg_name, sm, opts)
     n = prob.A.shape[-1]
     meta = {"format": FORMAT, "format_version": FORMAT_VERSION,
             "package_version": scso_tpu_torch.__version__,
             "torch_version": torch.__version__,
-            "device": prob.device.type, "n": n,
-            "n_true": n if prob.n_true is None else prob.n_true}
+            "device": prob.device.type, "exported_on": str(prob.device),
+            "n": n, "n_true": n if prob.n_true is None else prob.n_true,
+            "sharded": (None if prob.mesh is None
+                        else _groups_meta(prob.mesh)),
+            "batches": None}
+    if _make_batches(prob, opts) is not None:
+        meta["batches"] = {"max_epoch": opts.max_epoch, "m": prob.m_total,
+                           "shuffle": opts.shuffle_batch, "rng_seed": 0}
     extra = {META_FILE: json.dumps(meta)}
     if prob.device.type == "cuda":
         extra[OPS_FILE] = base64.b64encode(
@@ -267,14 +382,33 @@ def _load_ops(encoded: bytes) -> None:
     torch.ops.load_library(str(path))
 
 
+def permutations(batches: dict) -> np.ndarray:
+    """Each epoch's permutation of the rows of a mini-batch artifact's
+    solve (its metadata's ``batches``), drawn as ``iterate`` draws them:
+    one ``permutation(m)`` an epoch from ``np.random.default_rng(seed)``,
+    or ``arange(m)`` every epoch without shuffling."""
+    m, epochs = batches["m"], batches["max_epoch"]
+    if not batches["shuffle"]:
+        return np.tile(np.arange(m), (epochs, 1))
+    gen = np.random.default_rng(batches["rng_seed"])
+    return np.stack([gen.permutation(m) for _ in range(epochs)])
+
+
 def load_solver(blob: bytes, device=None):
     """Load an :func:`export_solver` artifact into the callable
     ``(A, y, x0) -> (x, epochs, obj)`` on the device it was exported for
     (``device``, if given, must be that one; default the artifact's): the
     op library it carries is loaded first where the program holds the
     ops. Data comes as tensors or arrays, at the padded width or at
-    ``n_true`` columns (then padded with zeros). Raises ValueError for
-    bytes that are not such an artifact."""
+    ``n_true`` columns (then padded with zeros). A mini-batch solve's
+    permutations are drawn here (:func:`permutations`). A row shard's
+    artifact loads on every rank of a group like the exporting one, each
+    calling it with its own rows on its own card: the program, exported
+    on one card, is moved to this one (``device``, default the current
+    CUDA device; `torch.export.passes.move_to_device_pass`). Raises
+    ValueError for bytes that are not such an artifact, and for a
+    sharded one where this process's groups differ from the exporting
+    process's."""
     raw = _extra(blob, META_FILE)
     meta = json.loads(raw) if raw else {}
     if (meta.get("format") != FORMAT
@@ -287,16 +421,31 @@ def load_solver(blob: bytes, device=None):
     if dev.type != meta["device"]:
         raise ValueError(f"load_solver: the artifact was exported for "
                          f"{meta['device']}, not {dev}")
+    if meta["sharded"] is not None:
+        _check_groups(meta["sharded"])
     if dev.type == "cuda":
-        _load_ops(_extra(blob, OPS_FILE))
-    program = torch.export.load(io.BytesIO(blob)).module()
+        _load_ops(_extra(blob, OPS_FILE))  # before the program names them
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    ep = torch.export.load(io.BytesIO(blob))
+    if dev.type == "cuda" and str(dev) != meta["exported_on"]:
+        from torch.export.passes import move_to_device_pass
+
+        # the program's own tensors (constants, and the ones it makes)
+        # name the exporting card: on another rank's card they move
+        ep = move_to_device_pass(ep, {meta["exported_on"]: str(dev)})
+    program = ep.module()
     n, n_true = meta["n"], meta["n_true"]
+    extra = ()
+    if meta["batches"] is not None:
+        extra = (torch.from_numpy(permutations(meta["batches"])).to(dev),)
 
     def serve(A, y, x0):
         A, y, x0 = (torch.as_tensor(t).to(dev) for t in (A, y, x0))
         if n_true != n and A.shape[-1] == n_true:
             pad = lambda t: torch.nn.functional.pad(t, (0, n - n_true))
             A, x0 = pad(A), pad(x0)
-        return program(A.contiguous(), y.contiguous(), x0.contiguous())
+        return program(A.contiguous(), y.contiguous(), x0.contiguous(),
+                       *extra)
 
     return serve

@@ -934,6 +934,42 @@ def test_small_sharded_solve_on_one_rank(nccl_mesh):
                                rtol=1e-9)
 
 
+def test_shutdown_drops_a_captured_chunked_solve(dev, tmp_path):
+    """A fused solve of a one-rank NCCL shard with comm_overlap_chunks 2
+    (two column chunks at n = 256, each chunk's all-reduce captured in
+    order) is captured, launches K2 and K3 but neither K1 nor K1s, and
+    equals its timed solve bit for bit; `parallel.distributed_shutdown`
+    then drops its cached graph before the group's teardown (ROADMAP
+    C15: NCCL's teardown waits for the graphs that hold a collective of
+    the communicator)."""
+    from scso_tpu_torch.ops.cuda import graph
+    from scso_tpu_torch.parallel import distributed_shutdown
+
+    assert distributed_init(init_method=file_init(tmp_path),
+                            world_size=1, rank=0) == 1
+    try:
+        sp = shard_problem(_small_logreg("cuda"), make_mesh())
+        method = st.ProxGGNSCORE(solver="cg", greedy_alpha=False,
+                                 comm_overlap_chunks=2)
+        kw = dict(x_tol=1e-12, f_tol=1e-10, max_epoch=40, verbose=0,
+                  stats_every=1, alpha=1.0)
+        sm = st.PHuberSmootherL1L2(1.0)
+        graph.reset_stats()
+        counters.reset()
+        fused = st.iterate(method, sp, "l1", sm, **kw)
+        got = counters.snapshot()
+        assert graph.STATS["captures"] > 0 and graph._CACHE
+        assert got["normal_matvec"] == got["normal_matvec_sharded"] == 0
+        assert got["glm_prep_pair"] > 0 and got["score_update"] > 0
+        timed = st.iterate(method, sp, "l1", sm, **dict(kw, mode="timed"))
+        assert fused.epochs == timed.epochs
+        assert torch.equal(fused.x, timed.x)
+        assert torch.equal(fused.obj, timed.obj)
+    finally:
+        distributed_shutdown()
+    assert not dist.is_initialized() and not graph._CACHE
+
+
 # ---------------------------------------------------------------------------
 # every method on a row shard: K5 and K2s on the shard, the captured
 # line search's all-reduce

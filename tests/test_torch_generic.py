@@ -217,10 +217,11 @@ def _raises_named(path):
 
 
 def test_every_unported_raise_names_a11_or_a12():
-    """What the port leaves out is serving and exporting a sharded
-    problem (A12) and a captured solve with overlapped chunks over more
-    than one rank (A11): the two NotImplementedErrors of utils/deploy.py
-    name A12, the one of algorithms/iterate.py names A11."""
+    """What the port leaves out is exporting a column shard or a
+    mini-batch solve of a sharded problem, and a gather or slice over
+    ranks inside an exported program (A12): the two NotImplementedErrors
+    of utils/deploy.py and the one of ops/collective.py name A12. A11
+    has no refusal left (algorithms/iterate.py raises none)."""
     pkg = os.path.join(ROOT, "scso_tpu_torch")
     found = []
     for dirpath, _, files in os.walk(pkg):
@@ -230,14 +231,14 @@ def test_every_unported_raise_names_a11_or_a12():
                 found += [(path, line, text)
                           for line, text in _raises_named(path)]
     where = {os.path.join("utils", "deploy.py"): "ROADMAP A12",
-             os.path.join("algorithms", "iterate.py"): "ROADMAP A11"}
+             os.path.join("ops", "collective.py"): "ROADMAP A12"}
     bad = [(p, line) for p, line, text in found
            if not any(p.endswith(f) and tag in text
                       for f, tag in where.items())]
     assert not bad, bad
-    deploy, iterate = where
+    deploy, collective = where
     assert sorted(os.path.relpath(p, pkg) for p, _, _ in found) == sorted(
-        [deploy, deploy, iterate])
+        [deploy, deploy, collective])
 
 
 def test_exports_of_the_jax_surface():

@@ -366,33 +366,35 @@ def test_which_meshes_a_fused_solve_captures(monkeypatch, backend, size,
     assert titerate._uncaptured(on_card) == (backend == "gloo")
     assert not titerate._uncaptured(prob)
     if raises in (None, "gloo"):
-        titerate._check_capturable(prob, st.ProxGGNSCORE(solver="cg"))
+        titerate._check_capturable(prob)
         return
     with pytest.raises(RuntimeError, match=raises) as e:
-        titerate._check_capturable(prob, st.ProxGGNSCORE(solver="cg"))
+        titerate._check_capturable(prob)
     assert "mode='timed'" in str(e.value)
 
 
-def test_overlapped_chunks_over_ranks_stay_timed(monkeypatch):
-    """``comm_overlap_chunks > 1`` over four NCCL ranks stays in timed
-    mode: a fused solve raises naming A11 and timed mode before any
-    collective (no capture held the chunks' all-reduces), one chunk
-    captures, and one rank captures any number of chunks."""
+def test_overlapped_chunks_over_ranks_capture(monkeypatch):
+    """``comm_overlap_chunks > 1`` over four NCCL ranks captures like one
+    chunk: `_check_capturable` admits it where the group was made under
+    NCCL_GRAPH_MIXING_SUPPORT=0 (the chunks' all-reduces in order on the
+    capturing stream), refuses it, naming the variable, where it was
+    not, and one rank captures any number of chunks."""
     monkeypatch.setattr(titerate.dist, "get_backend", lambda group: "nccl")
     prob = replace(problems(st, losses, torch.float64, device="cpu")["traj"],
                    mesh=sharding.Mesh(group=object(), axis_names=("data",),
                                       size=4, rank=0, captures=True))
-    overlapped = st.ProxGGNSCORE(solver="cg", comm_overlap_chunks=2)
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP A11\).*mode='timed'"):
-        titerate._check_capturable(prob, overlapped)
-    titerate._check_capturable(prob, st.ProxGGNSCORE(solver="cg"))
+    titerate._check_capturable(prob)
+    on_card = replace(prob, device=torch.device("cuda", 0))
+    assert not titerate._uncaptured(on_card)
+    without = replace(prob, mesh=sharding.Mesh(
+        group=object(), axis_names=("data",), size=4, rank=0,
+        captures=False))
+    with pytest.raises(RuntimeError, match="NCCL_GRAPH_MIXING_SUPPORT=0"):
+        titerate._check_capturable(without)
     one = replace(prob, mesh=sharding.Mesh(
         group=object(), axis_names=("data",), size=1, rank=0,
         captures=False))
-    titerate._check_capturable(one, overlapped)
-    on_card = replace(prob, device=torch.device("cuda", 0))
-    assert not titerate._uncaptured(on_card)
+    titerate._check_capturable(one)
 
 
 @pytest.mark.parametrize("value,captures", [("0", True), ("1", False),
